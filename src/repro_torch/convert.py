@@ -1,0 +1,34 @@
+"""Parameter conversion from the JAX package's pytrees (as numpy arrays).
+
+The JAX ResNet is a nested dict/list of arrays; the port's ``ResNet``
+names each parameter by its path in that tree (``blocks.3.conv1.w``), with
+the same layouts (OIHW convs, (d_in, d_out) classifier).  Takes numpy
+arrays, e.g. ``jax.tree.map(np.asarray, init_cnn(key, cfg))``, so this
+module needs no JAX.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["resnet_params_from_jax"]
+
+
+def _flatten(tree, prefix: str, out: dict[str, np.ndarray]) -> None:
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    elif isinstance(tree, Sequence) and not isinstance(tree, (str, bytes)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}{i}.", out)
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+
+
+def resnet_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for a JAX ResNet pytree of numpy arrays."""
+    flat: dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in flat.items()}

@@ -1,0 +1,50 @@
+"""The port's kernels: CUDA C++ for Hopper (``csrc/``), their wrappers and
+plain PyTorch versions, and the im2col conv/matmul built on them.
+
+Importing this package builds nothing; the CUDA library is built by
+``nvcc`` at the first launch on a CUDA tensor (:mod:`.build`).
+"""
+from . import mls_matmul as _mls_matmul_mod
+from . import mls_quantize as _mls_quantize_mod
+from .lowbit_conv import (
+    LowbitConvFused,
+    LowbitMatmulQD,
+    conv_pads,
+    lowbit_conv_fused,
+    lowbit_matmul_qd,
+    qd_gemm,
+)
+from .mls_matmul import mls_matmul, sg_shapes
+from .mls_quantize import mls_quantize, rounding_bytes
+from .ref import decode_frac_int, mls_matmul_ref, quantize_ref
+
+__all__ = [
+    "LowbitConvFused",
+    "LowbitMatmulQD",
+    "conv_pads",
+    "decode_frac_int",
+    "launch_counts",
+    "lowbit_conv_fused",
+    "lowbit_matmul_qd",
+    "mls_matmul",
+    "mls_matmul_ref",
+    "mls_quantize",
+    "qd_gemm",
+    "quantize_ref",
+    "reset_launch_counts",
+    "rounding_bytes",
+    "sg_shapes",
+]
+
+_COUNTERS = (_mls_quantize_mod.LAUNCHES, _mls_matmul_mod.LAUNCHES)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of every CUDA kernel since the last reset, by C entry point."""
+    return {k: v for counter in _COUNTERS for k, v in counter.items()}
+
+
+def reset_launch_counts() -> None:
+    for counter in _COUNTERS:
+        for k in counter:
+            counter[k] = 0

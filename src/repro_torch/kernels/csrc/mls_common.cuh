@@ -1,0 +1,109 @@
+// Bit-level MLS math shared by the quantize (mls_quantize.cu) and GEMM
+// (mls_matmul.cu) kernels: paper Alg. 2 and the code decoding of Eq. 7.
+//
+// Every function here reproduces the plain PyTorch version
+// (src/repro_torch/core/quantize.py, kernels/ref.py) bit for bit.  The
+// build passes -fmad=false, so no a*b+c is contracted into an FMA; the
+// float divisions are IEEE (no fast math); powers of two are built from
+// the exponent bits, never from exp2f.
+#pragma once
+
+#include <cstdint>
+
+namespace mls {
+
+// Format constants of one <E,M> element format and its <Eg,Mg> group-scale
+// format, passed by value to every kernel.
+struct Fmt {
+  int e;        // element exponent bits
+  int m;        // element mantissa bits
+  int e_min;    // 1 - 2^E (0 for E == 0)
+  int gs_m;     // group-scale mantissa bits
+  int gs_emin;  // max(gs e_min, -120)
+};
+
+constexpr int kZeroExp = -(1 << 30);  // exponent of zero / fp32 subnormals
+
+// Exact float 2^e for any int e (subnormal results included).
+__device__ __forceinline__ float pow2(int e) {
+  if (e >= -126) return __int_as_float((min(e, 128) + 127) << 23);
+  if (e >= -149) return __int_as_float(1 << (e + 149));
+  return 0.0f;
+}
+
+// Exponent of a non-negative float: x = frac * 2^e, frac in [1, 2).
+__device__ __forceinline__ int exponent_of(float x) {
+  const int raw = (__float_as_int(x) >> 23) & 0xFF;
+  return raw == 0 ? kZeroExp : raw - 127;
+}
+
+// Fraction of a non-negative float (0 for zero / subnormals).
+__device__ __forceinline__ float fraction_of(float x) {
+  const int bits = __float_as_int(x);
+  if (((bits >> 23) & 0xFF) == 0) return 0.0f;
+  return __int_as_float((bits & 0x7FFFFF) | (127 << 23));
+}
+
+// Ceil-rounded <Eg,Mg> group scale of a ratio s_gf in [0, 1] (Alg. 2 l.4-8).
+__device__ __forceinline__ float group_scale(float s_gf, const Fmt f) {
+  int e = exponent_of(s_gf);
+  float frac = fraction_of(s_gf);
+  if (e < f.gs_emin) frac = 1.0f;
+  e = max(f.gs_emin, min(e, 0));
+  int man = (int)ceilf(__fmul_rn(__fsub_rn(frac, 1.0f), (float)(1 << f.gs_m)));
+  if (man >= (1 << f.gs_m)) {
+    man = 0;
+    e = max(f.gs_emin, min(e + 1, 0));
+  }
+  const float mant = __fadd_rn(1.0f, __fmul_rn((float)man, pow2(-f.gs_m)));
+  return __fmul_rn(mant, pow2(e));
+}
+
+// Packed sign|exp|man code of one element given its scale denominator
+// s_t * s_g (Alg. 2 l.9-16).  r_u8 is the stochastic-rounding byte:
+// r = (r_u8 + 0.5)/256 - 0.5.
+__device__ __forceinline__ uint8_t element_code(float x, uint8_t r_u8,
+                                                float denom, const Fmt f) {
+  const float absx = fabsf(x);
+  const int sign_bit = x < 0.0f ? 1 : 0;
+  const float x_f = denom > 0.0f ? __fdiv_rn(absx, denom) : 0.0f;
+  const float r =
+      __fsub_rn(__fdiv_rn(__fadd_rn((float)r_u8, 0.5f), 256.0f), 0.5f);
+  if (f.e == 0) {
+    // fixed point: uniform grid man/2^M over [0, 1); the code is q itself
+    const float step = pow2(-f.m);
+    float q = floorf(__fadd_rn(__fadd_rn(__fdiv_rn(x_f, step), r), 0.5f));
+    q = fminf(fmaxf(q, 0.0f), (float)((1 << f.m) - 1));
+    return (uint8_t)((sign_bit << f.m) | (int)q);
+  }
+  const int e_eff = max(f.e_min, min(exponent_of(x_f), -1));
+  const float step = pow2(e_eff - f.m);
+  float q = floorf(__fadd_rn(__fadd_rn(__fdiv_rn(x_f, step), r), 0.5f));
+  const float qmax =
+      e_eff == -1 ? (float)((2 << f.m) - 1) : (float)(2 << f.m);
+  q = fminf(fmaxf(q, 0.0f), qmax);
+  const float xbar = __fmul_rn(q, step);
+  const int e2 = exponent_of(xbar);
+  int man, exp_stored;
+  if (e2 >= f.e_min) {
+    man = (int)rintf(
+        __fmul_rn(__fsub_rn(fraction_of(xbar), 1.0f), (float)(1 << f.m)));
+    exp_stored = -e2;
+  } else {
+    man = (int)rintf(__fmul_rn(xbar, pow2(f.m - f.e_min)));
+    exp_stored = 0;
+  }
+  return (uint8_t)((sign_bit << (f.e + f.m)) | (exp_stored << f.m) | man);
+}
+
+// Signed integer fraction F of a code: |value| = |F| * 2^(e_min - M).
+__host__ __device__ __forceinline__ int decode_frac(int c, int e, int m) {
+  const int man = c & ((1 << m) - 1);
+  const int exp = (c >> m) & ((1 << e) - 1);
+  const int sign_bit = (c >> (e + m)) & 1;
+  const int top = (1 << e) - 1;
+  const int f = exp == 0 ? man : ((1 << m) + man) << (top - exp);
+  return sign_bit ? -f : f;
+}
+
+}  // namespace mls

@@ -1,0 +1,242 @@
+"""Quantized-domain low-bit convolution and matmul over im2col.
+
+The training hot path of paper Alg. 1 on the real quantized-domain
+pipeline (:func:`mls_quantize` -> :func:`mls_matmul`).  All three training
+convolutions are MLS GEMMs over the im2col layout:
+
+    forward : Z  = Cols(qA) @ qW            (Alg. 1 l.4)
+    wgrad   : G  = Cols(qA)^T @ qE          (Alg. 1 l.13)
+    dgrad   : dA = col2im(qE @ qW^T), STE   (Alg. 1 l.15-16)
+
+Each GEMM quantizes its operands dynamically with scaling groups of
+``k_block`` elements along its own contraction axis (the matmul analogue of
+the paper's (n, c) grouping), so the three GEMMs use three group layouts of
+the same logical operands.  Stochastic rounding draws GEMM operand ``idx``
+(0-5) from its own stream, ``rounding_generator(key, cfg, idx)``.
+
+Padding follows JAX's rule, which pads "SAME" asymmetrically at stride 2
+(lo 0, hi 1 on ResNet-20's 3x3/stride-2 convs): :func:`conv_pads` resolves
+it and ``F.pad`` applies it, since ``F.unfold`` pads only symmetrically.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.formats import EMFormat
+from repro_torch.core.lowbit import QuantConfig, rounding_generator
+
+from .mls_matmul import mls_matmul
+from .mls_quantize import mls_quantize, rounding_bytes
+
+__all__ = [
+    "LowbitConvFused",
+    "LowbitMatmulQD",
+    "conv_pads",
+    "lowbit_conv_fused",
+    "lowbit_matmul_qd",
+    "qd_gemm",
+]
+
+Pads = tuple[tuple[int, int], tuple[int, int]]
+
+
+def conv_pads(hw: tuple[int, int], ksize: tuple[int, int], stride: tuple[int, int],
+              padding) -> Pads:
+    """``((ph_lo, ph_hi), (pw_lo, pw_hi))`` of "SAME"/"VALID" or explicit
+    pairs, by the rule of ``lax.padtype_to_pads``: "SAME" gives
+    ``out = ceil(in / stride)`` with the odd pad at the high end."""
+    if isinstance(padding, str):
+        if padding == "VALID":
+            return (0, 0), (0, 0)
+        if padding != "SAME":
+            raise ValueError(f"unknown padding {padding!r}")
+        pads = []
+        for d, k, s in zip(hw, ksize, stride):
+            total = max((math.ceil(d / s) - 1) * s + k - d, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    (a, b), (c, d) = padding
+    return (int(a), int(b)), (int(c), int(d))
+
+
+# ---------------------------------------------------------------------------
+# Core quantized-domain GEMM
+# ---------------------------------------------------------------------------
+def qd_gemm(
+    x2d: torch.Tensor,
+    w2d: torch.Tensor,
+    gen_x: torch.Generator | None,
+    gen_w: torch.Generator | None,
+    *,
+    fmt: EMFormat,
+    gs_fmt: EMFormat,
+    k_block: int,
+    grouping: str,
+) -> torch.Tensor:
+    """Quantize ``x (M, K)`` / ``w (K, N)`` dynamically and contract.
+
+    K is zero-padded to a multiple of ``k_block`` (exact: padded codes are
+    0, and zeros never raise a group maximum); ragged M/N need no padding,
+    the GEMM kernel masks them.  The weight is quantized transposed, so its
+    groups run along K, and its codes/scales are handed over as transposed
+    views: exactly the GEMM-side compact layout for every grouping.
+    """
+    M, K = x2d.shape
+    if w2d.shape[0] != K:
+        raise ValueError(f"contraction mismatch {tuple(x2d.shape)} @ {tuple(w2d.shape)}")
+    pk = (-K) % k_block
+    xp = F.pad(x2d.float(), (0, pk)).contiguous()
+    wt = F.pad(w2d.float().t(), (0, pk)).contiguous()  # (N, K + pk)
+    xc, xsg, xst = mls_quantize(xp, fmt, k_block, gs_fmt,
+                                rounding_bytes(xp.shape, gen_x, xp.device), grouping)
+    wc, wsgT, wst = mls_quantize(wt, fmt, k_block, gs_fmt,
+                                 rounding_bytes(wt.shape, gen_w, wt.device), grouping)
+    return mls_matmul(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, k_block, grouping)
+
+
+def _gemm_kwargs(cfg: QuantConfig) -> dict:
+    return dict(fmt=cfg.fmt, gs_fmt=cfg.gs_fmt, k_block=cfg.k_block, grouping=cfg.grouping)
+
+
+# ---------------------------------------------------------------------------
+# im2col layout
+# ---------------------------------------------------------------------------
+def _im2col(x: torch.Tensor, ksize: tuple[int, int], stride: tuple[int, int], pads: Pads):
+    """NCHW -> (N*OH*OW, C*kh*kw) patch matrix (+ output spatial dims).
+
+    Feature order is (c, kh, kw), matching ``w.reshape(O, C*kh*kw)`` of an
+    OIHW weight, so conv == cols @ w_mat.T.
+    """
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = pads
+    xp = F.pad(x.float(), (pw_lo, pw_hi, ph_lo, ph_hi))
+    n, ckk = x.shape[0], x.shape[1] * ksize[0] * ksize[1]
+    oh = (xp.shape[2] - ksize[0]) // stride[0] + 1
+    ow = (xp.shape[3] - ksize[1]) // stride[1] + 1
+    cols = F.unfold(xp, ksize, stride=stride)  # (N, C*kh*kw, OH*OW)
+    return cols.transpose(1, 2).reshape(n * oh * ow, ckk), (n, oh, ow)
+
+
+def _col2im(dcols: torch.Tensor, x_shape, ksize, stride, pads: Pads, out_hw) -> torch.Tensor:
+    """Exact transpose of :func:`_im2col`: scatter-add of the patch
+    cotangents.
+
+    The taps are added one after another in reverse order, (kh-1, kw-1)
+    first: the order in which XLA's transposed patch convolution sums a
+    3x3 window on the CPU, so the JAX package's gradients are reproduced
+    bit for bit on the 3x3 and 1x1 convs of ResNet.  (``F.fold`` sums in
+    another order.)
+    """
+    n, oh, ow = out_hw
+    _, c, h, w = x_shape
+    kh, kw = ksize
+    sh, sw = stride
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = pads
+    d = dcols.reshape(n, oh, ow, c, kh, kw).permute(0, 3, 4, 5, 1, 2)
+    out = dcols.new_zeros((n, c, h + ph_lo + ph_hi, w + pw_lo + pw_hi))
+    for i in reversed(range(kh)):
+        for j in reversed(range(kw)):
+            out[:, :, i : i + sh * (oh - 1) + 1 : sh, j : j + sw * (ow - 1) + 1 : sw] += d[:, :, i, j]
+    return out[:, :, ph_lo : ph_lo + h, pw_lo : pw_lo + w]
+
+
+# ---------------------------------------------------------------------------
+# Fused conv: forward and backward pipelines
+# ---------------------------------------------------------------------------
+def _conv_fwd_impl(x, w, key, stride, padding, cfg: QuantConfig):
+    o, _, kh, kw = w.shape
+    pads = conv_pads(x.shape[2:], (kh, kw), stride, padding)
+    cols, (n, oh, ow) = _im2col(x, (kh, kw), stride, pads)
+    wmat = w.reshape(o, -1).t()  # (C*kh*kw, O)
+    y2d = qd_gemm(
+        cols, wmat,
+        rounding_generator(key, cfg, 0, x.device), rounding_generator(key, cfg, 1, x.device),
+        **_gemm_kwargs(cfg),
+    )
+    return y2d.reshape(n, oh, ow, o).permute(0, 3, 1, 2)
+
+
+def _conv_bwd_impl(x, w, g, key, stride, padding, cfg: QuantConfig):
+    o, _, kh, kw = w.shape
+    pads = conv_pads(x.shape[2:], (kh, kw), stride, padding)
+    cols, (n, oh, ow) = _im2col(x, (kh, kw), stride, pads)
+    e2d = g.permute(0, 2, 3, 1).reshape(-1, o).float()
+    gen = [rounding_generator(key, cfg, i, x.device) for i in range(2, 6)]
+    kwargs = _gemm_kwargs(cfg)
+    # G = Cols(qA)^T @ qE: contraction over the N*OH*OW patches (Alg. 1 l.13)
+    dwmat = qd_gemm(cols.t(), e2d, gen[0], gen[1], **kwargs)  # (C*kh*kw, O)
+    dw = dwmat.t().reshape(w.shape)
+    # dA = qE @ qW^T: contraction over output channels, then col2im + STE
+    dcols = qd_gemm(e2d, w.reshape(o, -1).float(), gen[2], gen[3], **kwargs)
+    dx = _col2im(dcols, x.shape, (kh, kw), stride, pads, (n, oh, ow))
+    return dx, dw
+
+
+class LowbitConvFused(torch.autograd.Function):
+    """NCHW conv whose three training GEMMs run in the MLS quantized domain
+    (paper Alg. 1 on real arithmetic).  Each backward GEMM re-quantizes its
+    operands from float in its own contraction-aligned group layout (STE)."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, stride, padding, cfg):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (key, stride, padding, cfg)
+        return _conv_fwd_impl(x, w, key, stride, padding, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _conv_bwd_impl(x, w, g, *ctx.conf)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None
+
+
+def lowbit_conv_fused(x, w, key, stride, padding, cfg: QuantConfig) -> torch.Tensor:
+    """``x`` (N, C, H, W), ``w`` (O, C, kh, kw), ``stride`` a 2-tuple,
+    ``padding`` "SAME"/"VALID" or explicit pairs -> fp32 (N, O, OH, OW).
+    ``key`` seeds stochastic rounding (``None``: deterministic)."""
+    return LowbitConvFused.apply(x, w, key, tuple(stride), padding, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Fused matmul with the same three-GEMM quantized-domain training semantics
+# ---------------------------------------------------------------------------
+def _mm_fwd_impl(x, w, key, cfg: QuantConfig):
+    y2d = qd_gemm(
+        x.reshape(-1, x.shape[-1]), w.float(),
+        rounding_generator(key, cfg, 0, x.device), rounding_generator(key, cfg, 1, x.device),
+        **_gemm_kwargs(cfg),
+    )
+    return y2d.reshape(*x.shape[:-1], w.shape[1])
+
+
+def _mm_bwd_impl(x, w, g, key, cfg: QuantConfig):
+    x2d = x.reshape(-1, x.shape[-1]).float()
+    e2d = g.reshape(-1, g.shape[-1]).float()
+    gen = [rounding_generator(key, cfg, i, x.device) for i in range(2, 6)]
+    kwargs = _gemm_kwargs(cfg)
+    dx2d = qd_gemm(e2d, w.float().t(), gen[0], gen[1], **kwargs)  # dX = qE @ qW^T
+    dw = qd_gemm(x2d.t(), e2d, gen[2], gen[3], **kwargs)  # dW = qX^T @ qE
+    return dx2d.reshape(x.shape), dw
+
+
+class LowbitMatmulQD(torch.autograd.Function):
+    """``x (..., K) @ w (K, N)`` with all three training GEMMs in the MLS
+    quantized domain: the linear-layer analogue of :class:`LowbitConvFused`."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, cfg):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (key, cfg)
+        return _mm_fwd_impl(x, w, key, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _mm_bwd_impl(x, w, g, *ctx.conf)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
+
+
+def lowbit_matmul_qd(x, w, key, cfg: QuantConfig) -> torch.Tensor:
+    return LowbitMatmulQD.apply(x, w, key, cfg)

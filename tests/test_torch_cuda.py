@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one: a CUDA kernel has no CPU mode.  On a machine with a GPU and without
+JAX, run them with
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Small, ragged shapes that the main path's shapes in ``chip_smoke.py`` do
+not reach: M and N off the 64-wide GEMM tile, groups wider than a warp's
+limit, the E=0 format.  Tolerance 0: the kernels reproduce the plain
+versions bit for bit.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import EMFormat, QuantConfig  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    launch_counts,
+    lowbit_conv_fused,
+    mls_matmul,
+    mls_quantize,
+    reset_launch_counts,
+)
+
+pytestmark = pytest.mark.cuda
+
+GROUPINGS = ["nc", "c", "n", "none"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _operand(seed, m, k):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((m, k)) * rng.uniform(0.2, 3.0, (m, 1))).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(rng.integers(0, 256, (m, k), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("fmt", [(2, 4), (2, 1), (0, 4)])
+@pytest.mark.parametrize("grouping", GROUPINGS)
+@pytest.mark.parametrize("shape", [(37, 96), (5, 2048)])
+def test_quantize_kernel_matches_plain(cuda, fmt, grouping, shape):
+    x, r = _operand(0, *shape)
+    want = mls_quantize(x, EMFormat(*fmt), 32, r_u8=r, grouping=grouping)
+    before = sum(launch_counts().values())
+    got = mls_quantize(x.to(cuda), EMFormat(*fmt), 32, r_u8=r.to(cuda), grouping=grouping)
+    torch.cuda.synchronize()
+    assert sum(launch_counts().values()) == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("grouping", GROUPINGS)
+@pytest.mark.parametrize("mkn", [(37, 96, 29), (70, 512, 130)])
+def test_matmul_kernel_matches_plain(cuda, grouping, mkn):
+    m, k, n = mkn
+    fmt = EMFormat(2, 4)
+    x, rx = _operand(1, m, k)
+    wt, rw = _operand(2, n, k)
+    xc, xsg, xst = mls_quantize(x, fmt, 32, r_u8=rx, grouping=grouping)
+    wc, wsgT, wst = mls_quantize(wt, fmt, 32, r_u8=rw, grouping=grouping)
+    args = (xc, xsg, xst, wc.t(), wsgT.t(), wst)
+    want = mls_matmul(*args, fmt, 32, grouping)
+    got = mls_matmul(*(a.to(cuda) for a in args), fmt, 32, grouping)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", [(2, 5, 9, 7, 3, (1, 1), "SAME"),
+                                  (2, 4, 8, 6, 3, (2, 2), "SAME"),
+                                  (1, 3, 8, 4, 1, (2, 2), "SAME")])
+def test_conv_on_the_card_matches_cpu(cuda, case):
+    n, c, hw, o, k, stride, pad = case
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((n, c, hw, hw)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((o, c, k, k)) * 0.2).astype(np.float32))
+    cfg = QuantConfig(fmt=EMFormat(2, 4), k_block=32, stochastic=False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev).detach().requires_grad_()
+        wd = w.to(dev).detach().requires_grad_()
+        y = lowbit_conv_fused(xd, wd, None, stride, pad, cfg)
+        g = torch.linspace(-1, 1, y.numel()).reshape(y.shape).to(dev)
+        (y * g).sum().backward()
+        out[dev] = [t.detach().cpu() for t in (y, xd.grad, wd.grad)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+
+
+def test_conv_counts_six_quantize_and_three_gemm_launches(cuda):
+    x = torch.randn(2, 4, 8, 8, device=cuda, requires_grad=True)
+    w = torch.randn(6, 4, 3, 3, device=cuda, requires_grad=True)
+    cfg = QuantConfig(fmt=EMFormat(2, 4), k_block=32, stochastic=True)
+    reset_launch_counts()
+    lowbit_conv_fused(x, w, 5, (1, 1), "SAME", cfg).sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts() == {"mls_quantize_rows": 6, "mls_quantize_given_sg": 0,
+                               "mls_matmul": 3}
