@@ -5,26 +5,40 @@
 Phases (any failure makes the script exit non-zero, with no result line):
   1. device   - require CUDA; print nvidia-smi's name and power limit.
   2. build    - build the CUDA kernels from src/repro_torch/kernels/csrc.
-  3. kernels  - run every kernel at the ResNet-20 main path's shapes on the
+  3. kernels  - run every kernel at the ResNet-20 main paths' shapes on the
                 card and hold it bit-identical (tolerance 0) to its plain
                 PyTorch version on the same inputs; time both with CUDA
-                events (median of 20 after warm-up).
+                events (median of 20 after warm-up).  The implicit conv
+                (K4) runs at its stage-1, stage-2 (stride 2) and stage-3
+                convs, four groupings, <2,4> and <2,1>, and is timed beside
+                the im2col route of the same conv.
   4. train    - the main path: 5 SGD steps of ResNet-20 at full width
                 (CIFAR 32x32, batch 128, <2,4>, k_block 128, grouping "nc",
                 stochastic rounding) through repro_torch.train; losses must
                 be finite and every step must launch the quantize kernel
                 120 times and the GEMM kernel 60 times (20 quantized convs x
-                6 operands / x 3 GEMMs).  Then 2 steps with grouping "c"
-                (paper Table IV), the path of the given-scale kernel.
-  5. trace    - 3 more main-path steps under torch.profiler: device time
-                by kernel and the device's idle share of the step.
+                6 operands / x 3 GEMMs), and K4 never (no conv is legal
+                for it at k_block 128).  Then 2 steps with grouping "c"
+                (paper Table IV), the path of the given-scale kernel.  Then
+                the implicit path: 5 steps at k_block 144 (cb = 16 channels
+                x 3x3 taps), where the 18 3x3 convs run their forward
+                through K4; then 2 steps of it with grouping "none" and
+                nearest rounding (K4's given-scale prologue and the weight
+                gradient that reuses the forward codes).  Each path's
+                launches per step must equal what the dispatch gives for
+                its 20 convs (expected_launches).
+  5. trace    - 3 more steps of the main path and of the implicit path
+                under torch.profiler: device time by kernel and the
+                device's idle share of the step.
   6. agree    - a small ResNet-20 train step on the card (kernels) agrees
-                with the same step on the CPU (plain versions).
+                with the same step on the CPU (plain versions), at k_block
+                32 (im2col) and at k_block 36 (every 3x3 conv implicit).
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -38,11 +52,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 BATCH, HW, K_BLOCK = 128, 32, 128
+K_BLOCK_IMPLICIT = 144  # 16 channels x 3x3 taps: legal for K4 on all 18 3x3 convs
 TRAIN_STEPS = 5
 # the shape each kernel is reported at on the {"kernels": ...} line (all
 # timed shapes are in chiprun_out/chip_smoke.json)
 REPORTED_SHAPE = {"mls_quantize_rows": "stage1_fwd_cols", "mls_quantize_given_sg": "stage1_fwd_cols",
-                  "mls_matmul": "stage1_wgrad"}
+                  "mls_matmul": "stage1_wgrad", "implicit_conv": "stage1_conv"}
 KERNELS = {
     "mls_quantize_rows": ("src/repro_torch/kernels/csrc/mls_quantize.cu",
                           "src/repro/kernels/mls_quantize.py:107"),
@@ -50,6 +65,14 @@ KERNELS = {
                               "src/repro/kernels/mls_quantize.py:123"),
     "mls_matmul": ("src/repro_torch/kernels/csrc/mls_matmul.cu",
                    "src/repro/kernels/mls_matmul.py:104"),
+    "implicit_conv": ("src/repro_torch/kernels/csrc/implicit_conv.cu",
+                      "src/repro/kernels/implicit_conv.py:403"),
+}
+# K4's shapes on the implicit path: (x shape, w shape, stride)
+CONV_SHAPES = {
+    "stage1_conv": ((BATCH, 16, 32, 32), (16, 16, 3, 3), (1, 1)),
+    "stage2_conv_s2": ((BATCH, 16, 32, 32), (32, 16, 3, 3), (2, 2)),
+    "stage3_conv": ((BATCH, 64, 8, 8), (64, 64, 3, 3), (1, 1)),
 }
 
 
@@ -74,6 +97,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, name: str, iters: int = 10) -> float:
+    """Mean device time per call of ``fn`` spent in kernels whose name
+    contains ``name`` (torch.profiler), without the wrapper's other work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and name in e.name)
+    return total / 1e3 / iters
 
 
 def max_abs_err(a, b) -> float:
@@ -164,6 +205,7 @@ def phase_kernels(results: dict) -> list[dict]:
                     ops=2 * M * N * K, max_abs_err=err,
                     shape=f"{sname} ({M}x{K}x{N}) {grouping} <2,4>")
         del x, wt
+    checks += implicit_conv_checks(gen, timed)
     results["kernel_checks"] = checks
     rows = []
     for (kernel, *_), t in timed.items():
@@ -173,9 +215,10 @@ def phase_kernels(results: dict) -> list[dict]:
                          bound_ms=max(bound_bytes, bound_ops),
                          bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                          max_abs_err=t["max_abs_err"]))
+        rows[-1].update({k: t[k] for k in ("im2col_ms", "kernel_ms") if k in t})
         print(json.dumps({"timing": rows[-1]}))
     results["kernel_times"] = rows
-    bad = [c for c in checks if not c["identical"]]
+    bad = [c for c in checks if not c["identical"] or not c.get("equals_im2col", True)]
     for c in checks:
         print(json.dumps(c))
     if bad:
@@ -183,44 +226,162 @@ def phase_kernels(results: dict) -> list[dict]:
     return rows
 
 
-def phase_train(results: dict) -> dict[str, int]:
-    """The main path, then the given-scale path; returns launches per kernel."""
-    from repro_torch.core import FMT_IMAGENET, QuantConfig
+def implicit_conv_checks(gen, timed: dict) -> list[dict]:
+    """K4 against its plain version at the implicit path's conv shapes, four
+    groupings, <2,4> and <2,1>, stochastic rounding bytes; the "nc" <2,4>
+    case is timed beside the im2col route of the same conv (pad, unfold,
+    K1 on the patches and on the weight, K3)."""
+    import torch
+
+    from repro_torch.core import FMT_CIFAR, FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import (conv_geometry, implicit_conv_forward, implicit_conv_ref,
+                                     mls_matmul, mls_quantize)
+    from repro_torch.kernels.ref import im2col
+
+    def im2col_route(x, w, r_x, r_w, geom, fmt, grouping):
+        cols, _ = im2col(x, (geom.kh, geom.kw), (geom.sh, geom.sw), geom.pads)
+        xc, xsg, xst = mls_quantize(cols, fmt, K_BLOCK_IMPLICIT, GS_FMT_DEFAULT, r_x, grouping)
+        wc, wsgT, wst = mls_quantize(w.reshape(geom.o, -1), fmt, K_BLOCK_IMPLICIT,
+                                     GS_FMT_DEFAULT, r_w, grouping)
+        return mls_matmul(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, K_BLOCK_IMPLICIT, grouping)
+
+    checks = []
+    for sname, (xs, ws, stride) in CONV_SHAPES.items():
+        geom = conv_geometry(xs, ws, stride, "SAME")
+        x = torch.randn(xs, generator=gen, device="cuda")
+        w = torch.randn(ws, generator=gen, device="cuda") * math.sqrt(2.0 / geom.k0)
+        r_x = torch.randint(0, 256, (geom.m0, geom.k0), generator=gen, dtype=torch.uint8,
+                            device="cuda")
+        r_w = torch.randint(0, 256, (geom.o, geom.k0), generator=gen, dtype=torch.uint8,
+                            device="cuda")
+        for fmt in (FMT_IMAGENET, FMT_CIFAR):
+            for grouping in ("nc", "c", "n", "none"):
+                kw = dict(fmt=fmt, gs_fmt=GS_FMT_DEFAULT, k_block=K_BLOCK_IMPLICIT,
+                          grouping=grouping)
+                got = implicit_conv_forward(x, w, r_x, r_w, stride, "SAME", **kw)
+                want = implicit_conv_ref(x, w, r_x, r_w, stride, geom.pads, **kw)
+                via_im2col = im2col_route(x, w, r_x, r_w, geom, fmt, grouping)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                y2d = got.permute(0, 2, 3, 1).reshape(geom.m0, geom.o)
+                checks.append(dict(kernel="implicit_conv", shape=sname, fmt=str(fmt),
+                                   grouping=grouping, identical=torch.equal(got, want),
+                                   max_abs_err=err, equals_im2col=torch.equal(y2d, via_im2col),
+                                   finite=bool(torch.isfinite(got).all())))
+                if fmt is FMT_IMAGENET and grouping == "nc":
+                    timed[("implicit_conv", sname, str(fmt), grouping)] = dict(
+                        ms=cuda_ms(lambda: implicit_conv_forward(x, w, r_x, r_w, stride, "SAME",
+                                                                 **kw)),
+                        plain_ms=cuda_ms(lambda: implicit_conv_ref(x, w, r_x, r_w, stride,
+                                                                   geom.pads, **kw)),
+                        im2col_ms=cuda_ms(lambda: im2col_route(x, w, r_x, r_w, geom, fmt,
+                                                               grouping)),
+                        kernel_ms=kernel_ms(lambda: implicit_conv_forward(
+                            x, w, r_x, r_w, stride, "SAME", **kw), "implicit_conv_kernel"),
+                        # x, w, both rounding-byte tensors read once, fp32 output written once
+                        bytes=4 * x.numel() + 4 * w.numel() + r_x.numel() + r_w.numel()
+                        + 4 * geom.m0 * geom.o,
+                        ops=2 * geom.m0 * geom.k0 * geom.o, max_abs_err=err,
+                        shape=f"{sname} x{xs} w{ws} s{stride[0]} {grouping} {fmt}")
+        del x, r_x
+    return checks
+
+
+def conv_list(width: float, hw: int, batch: int) -> list[tuple]:
+    """(x shape, w shape, stride) of ResNet-20's 20 quantized convs."""
+    from repro_torch.models.cnn import CNNConfig, ResNet
+
+    model = ResNet(CNNConfig("resnet20", width_mult=width, in_hw=hw))
+    convs = []
+    for blk in model.blocks:
+        s, c_in = blk.stride, blk.conv1.w.shape[1]
+        convs.append(((batch, c_in, hw, hw), tuple(blk.conv1.w.shape), (s, s)))
+        if hasattr(blk, "proj"):
+            convs.append(((batch, c_in, hw, hw), tuple(blk.proj.w.shape), (s, s)))
+        hw = -(-hw // s)
+        convs.append(((batch, blk.conv2.w.shape[1], hw, hw), tuple(blk.conv2.w.shape), (1, 1)))
+    return convs
+
+
+def expected_launches(qcfg, convs) -> dict[str, int]:
+    """Kernel launches of one training step, from the dispatch of each conv:
+    forward implicit (K4 + the weight's quantizer) or im2col (2 quantizes
+    + K3); weight gradient with code reuse (grouping "none", nearest,
+    implicit: a given-scale code pass, the error's quantizer, K3) or without
+    (2 quantizes + K3); data gradient (2 quantizes + K3)."""
+    from repro_torch.kernels import conv_geometry, resolve_conv_impl
+
+    q = "mls_quantize_rows" if qcfg.grouping in ("nc", "n") else "mls_quantize_given_sg"
+    n = collections.Counter()
+    for xs, ws, stride in convs:
+        impl = resolve_conv_impl(conv_geometry(xs, ws, stride, "SAME"), qcfg)
+        if impl == "implicit":
+            n.update({"implicit_conv": 1, q: 1})
+        else:
+            n.update({q: 2, "mls_matmul": 1})
+        if qcfg.grouping == "none" and not qcfg.stochastic and impl == "implicit":
+            n.update({"mls_quantize_given_sg": 2, "mls_matmul": 1})
+        else:
+            n.update({q: 2, "mls_matmul": 1})
+        n.update({q: 2, "mls_matmul": 1})
+    return {k: n[k] for k in KERNELS}
+
+
+def run_path(results: dict, key: str, qcfg, steps: int) -> dict[str, int]:
+    """Train ``steps`` full-width steps with ``qcfg``, counts set to 0 just
+    before and read just after; every step must launch what the dispatch
+    says and give a finite loss.  Returns the path's launches."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.train.loop import train_variant
 
-    qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK, grouping="nc", stochastic=True)
+    want = expected_launches(qcfg, conv_list(1.0, HW, BATCH))
     reset_launch_counts()
-    res = train_variant("mls<2,4>", qcfg, TRAIN_STEPS, width=1.0, hw=HW, batch=BATCH,
-                        device="cuda")
-    main_counts = launch_counts()
-    results["train"] = dict(losses=res.losses, accs=res.accs, step_s=res.step_s,
-                            launches_per_step=res.launches, launches=main_counts)
-    step_ms = statistics.median(res.step_s[1:]) * 1e3
-    print(f"train: losses {res.losses} median step after step 1 {step_ms:.3f} ms "
-          f"launches {main_counts}")
+    res = train_variant(key, qcfg, steps, width=1.0, hw=HW, batch=BATCH, device="cuda")
+    counts = launch_counts()
+    step_ms = statistics.median(res.step_s[1:]) * 1e3 if steps > 1 else None
+    results[key] = dict(losses=res.losses, accs=res.accs, step_s=res.step_s,
+                        median_step_ms=step_ms, launches_per_step=res.launches,
+                        expected_per_step=want, launches=counts)
+    print(f"{key}: losses {res.losses} median step after step 1 {step_ms} ms "
+          f"launches {counts}, expected per step {want}")
     if not all(math.isfinite(v) for v in res.losses):
-        raise AssertionError(f"non-finite loss: {res.losses}")
+        raise AssertionError(f"{key}: non-finite loss: {res.losses}")
     for i, per in enumerate(res.launches):
-        if per["mls_quantize_rows"] != 120 or per["mls_matmul"] != 60:
-            raise AssertionError(f"step {i}: launches {per}, expected 120 quantize and 60 GEMM")
+        if per != want:
+            raise AssertionError(f"{key} step {i}: launches {per}, expected {want}")
+    return counts
 
+
+def phase_train(results: dict) -> dict[str, int]:
+    """The main path, the given-scale path, the implicit path and its
+    grouping-"none" pass; returns each kernel's launches on its path."""
+    from repro_torch.core import FMT_IMAGENET, QuantConfig
+
+    qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK, grouping="nc", stochastic=True)
+    main = run_path(results, "train", qcfg, TRAIN_STEPS)
+    if expected_launches(qcfg, conv_list(1.0, HW, BATCH)) != {
+            "mls_quantize_rows": 120, "mls_quantize_given_sg": 0, "mls_matmul": 60,
+            "implicit_conv": 0}:
+        raise AssertionError("the k_block-128 path no longer takes 120 quantize and 60 GEMM "
+                             "launches per step on im2col alone")
     # paper Table IV grouping "c": the given-scale quantize kernel's path
     qc = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK, grouping="c", stochastic=True)
-    reset_launch_counts()
-    res_c = train_variant("mls<2,4> c", qc, 2, width=1.0, hw=HW, batch=BATCH, device="cuda")
-    c_counts = launch_counts()
-    results["train_grouping_c"] = dict(losses=res_c.losses, launches=c_counts)
-    print(f"train grouping c: losses {res_c.losses} launches {c_counts}")
-    if not all(math.isfinite(v) for v in res_c.losses) or c_counts["mls_quantize_given_sg"] != 240:
-        raise AssertionError(f"grouping c path: losses {res_c.losses} launches {c_counts}")
-    return {**main_counts, "mls_quantize_given_sg": c_counts["mls_quantize_given_sg"]}
+    c_counts = run_path(results, "train_grouping_c", qc, 2)
+    # the implicit path: K4 on the 18 3x3 convs
+    qi = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK_IMPLICIT, grouping="nc", stochastic=True)
+    i_counts = run_path(results, "train_implicit", qi, TRAIN_STEPS)
+    qn = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK_IMPLICIT, grouping="none",
+                     stochastic=False)
+    run_path(results, "train_implicit_none", qn, 2)
+    return {**main, "mls_quantize_given_sg": c_counts["mls_quantize_given_sg"],
+            "implicit_conv": i_counts["implicit_conv"]}
 
 
 def phase_trace(results: dict) -> None:
-    """Where a main-path step's time goes: 3 more steps under
-    torch.profiler; device time by kernel, the port's kernels against the
-    rest, and the device's idle share of the host-clock step time."""
+    """Where a step's time goes, on the main path and on the implicit path:
+    3 more steps of each under torch.profiler; device time by kernel, the
+    port's kernels against the rest, and the device's idle share of the
+    host-clock step time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -228,74 +389,87 @@ def phase_trace(results: dict) -> None:
     from repro_torch.core import FMT_IMAGENET, QuantConfig
     from repro_torch.train.loop import train_variant
 
-    qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK, grouping="nc", stochastic=True)
-    steps = 3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = train_variant("traced", qcfg, steps, width=1.0, hw=HW, batch=BATCH,
-                            device="cuda", log=lambda *_: None)
-        torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     ours = ("quantize_groups_warp", "quantize_groups_block", "quantize_given_sg",
-            "mls_matmul_kernel")
-    ours_ms = sum(v for k, v in by_name.items() if any(o in k for o in ours))
-    device_ms = sum(by_name.values())
-    host_ms = sum(res.step_s) * 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    trace = dict(steps=steps, host_ms_per_step=host_ms / steps,
-                 device_ms_per_step=device_ms / steps,
-                 port_kernels_ms_per_step=ours_ms / steps,
-                 other_device_ms_per_step=(device_ms - ours_ms) / steps,
-                 device_idle_share=1.0 - device_ms / host_ms if host_ms else None,
-                 top_kernels_ms_per_step=[(k[:90], v / steps) for k, v in top])
-    results["trace"] = trace
-    print(json.dumps({"trace": trace}))
-    if device_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
+            "mls_matmul_kernel", "implicit_conv_kernel")
+    steps = 3
+    for key, k_block in (("trace", K_BLOCK), ("trace_implicit", K_BLOCK_IMPLICIT)):
+        qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=k_block, grouping="nc", stochastic=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = train_variant("traced", qcfg, steps, width=1.0, hw=HW, batch=BATCH,
+                                device="cuda", log=lambda *_: None)
+            torch.cuda.synchronize()
+        by_name: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        ours_ms = sum(v for k, v in by_name.items() if any(o in k for o in ours))
+        device_ms = sum(by_name.values())
+        host_ms = sum(res.step_s) * 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        trace = dict(k_block=k_block, steps=steps, host_ms_per_step=host_ms / steps,
+                     device_ms_per_step=device_ms / steps,
+                     port_kernels_ms_per_step=ours_ms / steps,
+                     other_device_ms_per_step=(device_ms - ours_ms) / steps,
+                     device_idle_share=1.0 - device_ms / host_ms if host_ms else None,
+                     top_kernels_ms_per_step=[(k[:90], v / steps) for k, v in top])
+        results[key] = trace
+        print(json.dumps({key: trace}))
+        if device_ms <= 0:
+            raise AssertionError("the profiler recorded no device time")
 
 
 def phase_agree(results: dict) -> None:
-    """One small train step on the card agrees with the CPU's plain run."""
+    """One small train step on the card agrees with the CPU's plain run, on
+    im2col (k_block 32) and with every 3x3 conv implicit (k_block 36)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.core import FMT_IMAGENET, QuantConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.cnn import CNNConfig, init_resnet
 
     cfg = CNNConfig("resnet20", width_mult=0.25, in_hw=8)
-    qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=32, stochastic=False)
     gen = torch.Generator().manual_seed(1)
     x, y = torch.randn((4, 3, 8, 8), generator=gen), torch.randint(0, 10, (4,), generator=gen)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        model = init_resnet(cfg, seed=3, device=dev)
-        logits = model(x.to(dev), qcfg)
-        loss = F.cross_entropy(logits, y.to(dev))
-        loss.backward()
-        out[dev] = (float(loss.detach()), logits.detach().cpu(),
-                    {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
-    (l_cpu, z_cpu, g_cpu), (l_gpu, z_gpu, g_gpu) = out["cpu"], out["cuda"]
-    cos, grad_rel = 1.0, 0.0
-    for n in g_cpu:
-        a, b = g_gpu[n].flatten().double(), g_cpu[n].flatten().double()
-        cos = min(cos, float(a @ b / (a.norm() * b.norm())))
-        grad_rel = max(grad_rel, float((a - b).norm() / b.norm()))
-    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    z_err = max_abs_err(z_cpu, z_gpu)
-    results["agree"] = dict(loss_cpu=l_cpu, loss_gpu=l_gpu, loss_rel=rel, min_grad_cos=cos,
-                            max_grad_rel=grad_rel, logits_max_abs=z_err)
-    print(f"agree: {results['agree']}")
-    # tolerance: the quantized convs are bit-exact, but the stem conv, BN
-    # and the classifier reduce in another order on the card, so the last
-    # bits differ (seen: loss equal, logits within 7.2e-7, fp32 gradient
-    # cosine above 1 - 1.2e-7); each limit is far below what a wrong
-    # kernel or a flipped code gives
-    if not (rel <= 1e-5 and z_err <= 1e-5 and cos >= 1 - 1e-5 and grad_rel <= 1e-4
-            and torch.isfinite(z_gpu).all()):
-        raise AssertionError(f"card and CPU disagree: {results['agree']}")
+    disagree = []
+    for k_block in (32, 36):
+        qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=k_block, stochastic=False)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = init_resnet(cfg, seed=3, device=dev)
+            reset_launch_counts()
+            logits = model(x.to(dev), qcfg)
+            loss = F.cross_entropy(logits, y.to(dev))
+            loss.backward()
+            out[dev] = (float(loss.detach()), logits.detach().cpu(),
+                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                        launch_counts())
+        (l_cpu, z_cpu, g_cpu, _), (l_gpu, z_gpu, g_gpu, counts) = out["cpu"], out["cuda"]
+        cos, grad_rel = 1.0, 0.0
+        for n in g_cpu:
+            a, b = g_gpu[n].flatten().double(), g_cpu[n].flatten().double()
+            cos = min(cos, float(a @ b / (a.norm() * b.norm())))
+            grad_rel = max(grad_rel, float((a - b).norm() / b.norm()))
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        z_err = max_abs_err(z_cpu, z_gpu)
+        key = "agree" if k_block == 32 else "agree_implicit"
+        results[key] = dict(k_block=k_block, loss_cpu=l_cpu, loss_gpu=l_gpu, loss_rel=rel,
+                            min_grad_cos=cos, max_grad_rel=grad_rel, logits_max_abs=z_err,
+                            card_launches=counts)
+        print(f"{key}: {results[key]}")
+        # tolerance: the quantized convs are bit-exact, but the stem conv, BN
+        # and the classifier reduce in another order on the card, so the last
+        # bits differ (seen: loss equal, logits within 7.2e-7, fp32 gradient
+        # cosine above 1 - 1.2e-7); each limit is far below what a wrong
+        # kernel or a flipped code gives
+        if not (rel <= 1e-5 and z_err <= 1e-5 and cos >= 1 - 1e-5 and grad_rel <= 1e-4
+                and torch.isfinite(z_gpu).all()):
+            disagree.append(key)
+        if (counts["implicit_conv"] > 0) != (k_block == 36):
+            disagree.append(f"{key}: launches {counts}")
+    if disagree:
+        raise AssertionError(f"card and CPU disagree: {disagree}")
 
 
 def main() -> int:
@@ -363,7 +537,8 @@ def main() -> int:
         kernels.append(dict(name=r["name"], route="cuda", source=source, replaces=replaces,
                             launches=launches.get(r["name"], 0), max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=None, shape=r["shape"]))
+                            bound_by=r["bound_by"], library_ms=None, shape=r["shape"],
+                            **{k: r[k] for k in ("im2col_ms", "kernel_ms") if k in r}))
     missing = [k for k in KERNELS if not any(r["name"] == k for r in kernels)]
     if missing or any(launches.get(k, 0) == 0 for k in KERNELS):
         fail(f"kernels not timed or not launched by their path: {missing} {launches}")

@@ -33,8 +33,9 @@ class QuantConfig:
     # MLS quantized domain (mls_quantize -> mls_matmul over im2col).
     # "fake_quant" (quantize-dequantize + float conv) is not ported yet.
     backend: str = "quantized"
-    # Forward-conv lowering: "auto" and "im2col" both mean im2col.  The
-    # choice never changes numerics; "implicit" needs a kernel not ported.
+    # Forward-conv lowering: "im2col", "implicit" (the implicit-GEMM kernel;
+    # needs k_block = cb*kh*kw with cb | C) or "auto" (implicit where legal,
+    # else im2col).  The choice never changes numerics.
     conv_impl: str = "auto"
 
     def __post_init__(self):
@@ -52,14 +53,9 @@ class QuantConfig:
                 f"QuantConfig.grouping must be one of 'nc'/'c'/'n'/'none', "
                 f"got {self.grouping!r}"
             )
-        if self.conv_impl == "implicit":
-            raise NotImplementedError(
-                "QuantConfig.conv_impl='implicit' needs the implicit-GEMM conv "
-                "kernel, not ported yet (ROADMAP.md queue 2, K4)"
-            )
-        if self.conv_impl not in ("auto", "im2col"):
+        if self.conv_impl not in ("auto", "im2col", "implicit"):
             raise ValueError(
-                f"QuantConfig.conv_impl must be 'auto' or 'im2col', "
+                f"QuantConfig.conv_impl must be 'auto', 'im2col' or 'implicit', "
                 f"got {self.conv_impl!r}"
             )
         # A scaling group sums k_block products of product_bits-wide

@@ -44,6 +44,11 @@ _SIGNATURES = {
     # xst, wst, unit, out, M, N, K, k_block, e, m, stream
     "mls_matmul": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
                    _P, _P, ctypes.c_float, _P, _I, _I, _I, _I, _I, _I, _P],
+    # xp, r_u8, xst, xsg, sxsg_m, sxsg_g, wc, swk, swn, wsg, swsg_g, swsg_n,
+    # wst, unit, out, n, c, hp, wp, o, kh, kw, sh, sw, k_block,
+    # e, m, e_min, gs_m, gs_emin, stream
+    "implicit_conv": [_P, _P, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
+                      _P, ctypes.c_float, _P, *[_I] * 10, *[_I] * 5, _P],
     "mls_error_string": [_I],
 }
 

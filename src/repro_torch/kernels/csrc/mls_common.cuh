@@ -1,5 +1,6 @@
-// Bit-level MLS math shared by the quantize (mls_quantize.cu) and GEMM
-// (mls_matmul.cu) kernels: paper Alg. 2 and the code decoding of Eq. 7.
+// Bit-level MLS math shared by the quantize (mls_quantize.cu), GEMM
+// (mls_matmul.cu) and implicit-conv (implicit_conv.cu) kernels: paper
+// Alg. 2, the code decoding of Eq. 7 and the group combine of Eq. 8.
 //
 // Every function here reproduces the plain PyTorch version
 // (src/repro_torch/core/quantize.py, kernels/ref.py) bit for bit.  The
@@ -104,6 +105,21 @@ __host__ __device__ __forceinline__ int decode_frac(int c, int e, int m) {
   const int top = (1 << e) - 1;
   const int f = exp == 0 ? man : ((1 << m) + man) << (top - exp);
   return sign_bit ? -f : f;
+}
+
+// One group's term of the fp32 sum (Eq. 8), taken in k order:
+// acc + p * (s_g^x * s_g^w), one rounding for each product and the sum.
+// p is a group's exact int32 dot (|p| < 2^24, so the conversion is exact).
+__device__ __forceinline__ float group_combine(float acc, int p, float sx,
+                                               float sw) {
+  return __fadd_rn(acc, __fmul_rn((float)p, __fmul_rn(sx, sw)));
+}
+
+// The output scale applied once after the last group:
+// (s_t^x * s_t^w) * 2^(2(e_min - M)).
+__device__ __forceinline__ float tensor_scale(float xst, float wst,
+                                              float unit) {
+  return __fmul_rn(__fmul_rn(xst, wst), unit);
 }
 
 }  // namespace mls

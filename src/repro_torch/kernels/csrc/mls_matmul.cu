@@ -103,12 +103,11 @@ __global__ void __launch_bounds__(kThreads) mls_matmul_kernel(
       for (int j = 0; j < 4; ++j) {
         const int gn = col0 + tx + 16 * j;
         const float sw = gn < N ? wsg[g * swsg_g + gn * swsg_n] : 0.0f;
-        const float sp = __fmul_rn(sx, sw);
-        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn((float)p[i][j], sp));
+        acc[i][j] = mls::group_combine(acc[i][j], p[i][j], sx, sw);
       }
     }
   }
-  const float st = __fmul_rn(__fmul_rn(*xst, *wst), unit);
+  const float st = mls::tensor_scale(*xst, *wst, unit);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gr = row0 + ty + 16 * i;

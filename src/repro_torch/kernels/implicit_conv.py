@@ -1,0 +1,362 @@
+"""Implicit-GEMM forward conv with the quantization fused in (K4), and the
+choice between it and im2col.
+
+The im2col lowering (:mod:`.lowbit_conv`) writes an fp32 patch matrix,
+every input element ``kh*kw`` times, before the quantize kernel reads it.
+:func:`implicit_conv_forward` computes the same function without it: on a
+CUDA tensor one kernel (``csrc/implicit_conv.cu``, the TPU's
+``implicit_conv.py`` ``_implicit_kernel``) walks the padded NCHW input
+directly, quantizes each patch tile in the GEMM prologue (paper Alg. 2)
+and contracts it with the weight codes in the quantized domain (Eq. 6-8).
+
+The virtual GEMM is im2col's ``(M0 = N*OH*OW, K0 = C*kh*kw) @ (K0, O)``,
+rows in (n, oh, ow) order and features in (c, kh, kw) order.  Scaling
+groups must be whole channels' taps, ``k_block = cb*kh*kw`` with
+``cb | C`` (:func:`implicit_compatible`); then the codes, scales and
+rounding bytes are exactly those of the im2col pipeline, so the choice of
+lowering never changes the numbers (stochastic rounding included: both
+draw ``r_u8`` of shape (M0, K0) from the same stream).  Outside the kernel,
+in PyTorch, are the padding, the tensor scale and the compact group scales
+of "c", "n" and "none" (window maxima, no patch matrix) and the weight's
+quantization (K1/K2, as in ``qd_gemm``).  On a CPU tensor the wrapper runs
+the plain version, :func:`repro_torch.kernels.ref.implicit_conv_ref`.
+
+:func:`resolve_conv_impl` picks the lowering: ``REPRO_CONV_IMPL`` env >
+``QuantConfig.conv_impl`` > implicit whenever legal.  The JAX package
+consults its tuned-block cache between the last two; the port has no
+autotuner yet, and the JAX seed cache's one conv entry picks "implicit"
+too, so the decisions agree.  The kernel sizes its own tiles: there are no
+block options.
+
+:func:`covered_tensor_scale`, :func:`elementwise_codes` and
+:func:`patches_u8` serve the weight gradient's reuse of the forward codes
+under grouping "none" (:mod:`.lowbit_conv`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.formats import GS_FMT_DEFAULT, EMFormat, accumulation_bits
+from repro_torch.core.lowbit import GROUPINGS
+from repro_torch.core.quantize import quantize_group_scale
+
+from . import build
+from .mls_matmul import _strides
+from .mls_quantize import _fmt_args, mls_quantize, quantize_given_scales, rounding_bytes
+from .ref import Pads, implicit_conv_ref
+
+__all__ = [
+    "CONV_IMPLS",
+    "CONV_IMPL_ENV_VAR",
+    "LAUNCHES",
+    "ConvGeom",
+    "conv_geometry",
+    "conv_pads",
+    "covered_tensor_scale",
+    "elementwise_codes",
+    "implicit_compatible",
+    "implicit_conv_forward",
+    "patches_u8",
+    "resolve_conv_impl",
+]
+
+# Launches of the CUDA kernel, counted where the kernel is launched.
+LAUNCHES = {"implicit_conv": 0}
+
+CONV_IMPL_ENV_VAR = "REPRO_CONV_IMPL"
+CONV_IMPLS = ("auto", "im2col", "implicit")
+
+
+# ---------------------------------------------------------------------------
+# Geometry
+# ---------------------------------------------------------------------------
+def conv_pads(hw: tuple[int, int], ksize: tuple[int, int], stride: tuple[int, int],
+              padding) -> Pads:
+    """``((ph_lo, ph_hi), (pw_lo, pw_hi))`` of "SAME"/"VALID" or explicit
+    pairs, by the rule of ``lax.padtype_to_pads``: "SAME" gives
+    ``out = ceil(in / stride)`` with the odd pad at the high end."""
+    if isinstance(padding, str):
+        if padding == "VALID":
+            return (0, 0), (0, 0)
+        if padding != "SAME":
+            raise ValueError(f"unknown padding {padding!r}")
+        pads = []
+        for d, k, s in zip(hw, ksize, stride):
+            total = max((math.ceil(d / s) - 1) * s + k - d, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    (a, b), (c, d) = padding
+    return (int(a), int(b)), (int(c), int(d))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvGeom:
+    """NCHW conv geometry with explicit padding."""
+
+    n: int
+    c: int
+    h: int
+    w: int
+    o: int
+    kh: int
+    kw: int
+    sh: int
+    sw: int
+    ph_lo: int
+    ph_hi: int
+    pw_lo: int
+    pw_hi: int
+
+    @property
+    def hp(self) -> int:
+        return self.h + self.ph_lo + self.ph_hi
+
+    @property
+    def wp(self) -> int:
+        return self.w + self.pw_lo + self.pw_hi
+
+    @property
+    def oh(self) -> int:
+        return (self.hp - self.kh) // self.sh + 1
+
+    @property
+    def ow(self) -> int:
+        return (self.wp - self.kw) // self.sw + 1
+
+    @property
+    def kk(self) -> int:
+        return self.kh * self.kw
+
+    @property
+    def m0(self) -> int:
+        return self.n * self.oh * self.ow
+
+    @property
+    def k0(self) -> int:
+        return self.c * self.kk
+
+    @property
+    def pads(self) -> Pads:
+        return (self.ph_lo, self.ph_hi), (self.pw_lo, self.pw_hi)
+
+
+def conv_geometry(x_shape, w_shape, stride, padding) -> ConvGeom:
+    """``(x (N, C, H, W), w (O, C, kh, kw), stride, padding)`` ->
+    :class:`ConvGeom`, with "SAME"/"VALID" resolved by :func:`conv_pads`."""
+    n, c, h, w = (int(d) for d in x_shape)
+    o, c2, kh, kw = (int(d) for d in w_shape)
+    if c != c2:
+        raise ValueError(f"input channels differ: x {tuple(x_shape)}, w {tuple(w_shape)}")
+    sh, sw = (int(s) for s in stride)
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = conv_pads((h, w), (kh, kw), (sh, sw), padding)
+    return ConvGeom(n, c, h, w, o, kh, kw, sh, sw, ph_lo, ph_hi, pw_lo, pw_hi)
+
+
+def implicit_compatible(geom: ConvGeom, k_block: int) -> tuple[bool, str]:
+    """Can the implicit layout realize ``k_block``-wide scaling groups?
+
+    Groups must be whole channels' taps: ``k_block = cb * kh * kw`` with
+    ``cb | C``.  Returns ``(ok, reason)``; the reason names the nearest
+    legal k_block when not.
+    """
+    kk = geom.kk
+    if geom.oh < 1 or geom.ow < 1:
+        return False, "empty output window"
+    if k_block % kk:
+        legal = _nearest_conv_k_block(geom, k_block)
+        return False, (f"k_block={k_block} is not a multiple of kh*kw={kk} "
+                       f"(nearest legal: {legal})")
+    cb = k_block // kk
+    if cb < 1 or geom.c % cb:
+        legal = _nearest_conv_k_block(geom, k_block)
+        return False, (f"k_block={k_block} needs cb={cb} whole channels per group but "
+                       f"cb does not divide C={geom.c} (nearest legal: {legal})")
+    return True, ""
+
+
+def _nearest_conv_k_block(geom: ConvGeom, k_block: int) -> int:
+    """Largest legal conv k_block (= cb*kh*kw, cb | C) not above k_block."""
+    best = geom.kk
+    for cb in range(1, geom.c + 1):
+        if geom.c % cb == 0 and cb * geom.kk <= max(k_block, geom.kk):
+            best = cb * geom.kk
+    return best
+
+
+def resolve_conv_impl(geom: ConvGeom, cfg) -> str:
+    """``"im2col"`` or ``"implicit"`` for this conv.
+
+    Precedence: ``REPRO_CONV_IMPL`` env (A/B runs) > ``cfg.conv_impl`` >
+    implicit whenever :func:`implicit_compatible`.  An explicit
+    ``"implicit"`` on an illegal ``k_block`` raises: the choice never
+    changes the scaling groups.
+    """
+    env = os.environ.get(CONV_IMPL_ENV_VAR, "").strip().lower()
+    if env and env not in CONV_IMPLS:
+        raise ValueError(f"{CONV_IMPL_ENV_VAR}={env!r}: expected one of {CONV_IMPLS}")
+    choice = env or cfg.conv_impl
+    if choice == "im2col":
+        return "im2col"
+    ok, reason = implicit_compatible(geom, cfg.k_block)
+    if choice == "implicit" and not ok:
+        raise ValueError(f"conv_impl='implicit' is not legal for this conv: {reason}")
+    return "implicit" if ok else "im2col"
+
+
+# ---------------------------------------------------------------------------
+# Scales, computed from window maxima of the padded input (no patch matrix)
+# ---------------------------------------------------------------------------
+def _pad(x: torch.Tensor, geom: ConvGeom) -> torch.Tensor:
+    return F.pad(x.float(), (geom.pw_lo, geom.pw_hi, geom.ph_lo, geom.ph_hi)).contiguous()
+
+
+def _covered_abs_max(xp: torch.Tensor, geom: ConvGeom) -> torch.Tensor:
+    """Abs-max of each conv window, (N, C, OH, OW).  Only pixels a patch
+    covers count (VALID or a stride can leave a tail out), so its max is
+    ``max|im2col(x)|``."""
+    return F.max_pool2d(xp.abs(), (geom.kh, geom.kw), (geom.sh, geom.sw))
+
+
+def _tap_abs_max(xp: torch.Tensor, geom: ConvGeom) -> torch.Tensor:
+    """Abs-max of each feature over all patches, (C*kh*kw,) in (c, kh, kw)
+    order: ``max|im2col(x)|`` along the patch axis."""
+    a = xp.abs()
+    cols = [a[:, :, i : i + 1 + geom.sh * (geom.oh - 1) : geom.sh,
+              j : j + 1 + geom.sw * (geom.ow - 1) : geom.sw].amax(dim=(0, 2, 3))
+            for i in range(geom.kh) for j in range(geom.kw)]
+    return torch.stack(cols, dim=1).reshape(-1)
+
+
+def _implicit_x_scales(xp: torch.Tensor, geom: ConvGeom, gs_fmt: EMFormat, kb: int,
+                       grouping: str) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``(s_t, compact s_g)`` of the activation, equal to what the im2col
+    pipeline's quantizer computes from the patches.  ``s_g`` is ``None``
+    for "nc" (the kernel makes those scales), (M0, 1) for "n", (1, K0/kb)
+    for "c" and ones (1, 1) for "none"."""
+    if grouping in ("c", "none"):
+        feat = _tap_abs_max(xp, geom)
+        s_t = feat.amax()
+    else:
+        win = _covered_abs_max(xp, geom)
+        s_t = win.amax()
+    s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
+    if grouping == "nc":
+        return s_t, None
+    if grouping == "n":
+        s_r = win.amax(dim=1).reshape(geom.m0, 1)  # per patch
+    elif grouping == "c":
+        s_r = feat.reshape(geom.k0 // kb, kb).amax(dim=1)[None, :]
+    else:
+        return s_t, torch.ones((1, 1), dtype=torch.float32, device=xp.device)
+    return s_t, quantize_group_scale(s_r / s_t, gs_fmt)[0]
+
+
+def covered_tensor_scale(x: torch.Tensor, geom: ConvGeom) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(s_t, x_padded)``: the forward tensor scale, the abs-max over the
+    pixels some patch covers."""
+    xp = _pad(x, geom)
+    s_t = _covered_abs_max(xp, geom).amax()
+    return torch.where(s_t > 0, s_t, torch.ones_like(s_t)), xp
+
+
+# ---------------------------------------------------------------------------
+# The fused forward conv
+# ---------------------------------------------------------------------------
+def _check_bytes(r: torch.Tensor | None, shape: tuple[int, int], device) -> torch.Tensor:
+    if r is None:
+        return rounding_bytes(shape, None, device)
+    if (tuple(r.shape) != shape or r.dtype != torch.uint8 or r.device != device
+            or not r.is_contiguous()):
+        raise ValueError(f"rounding bytes must be a contiguous uint8 {shape} tensor on "
+                         f"{device}, got {r.dtype} {tuple(r.shape)} on {r.device}")
+    return r
+
+
+def implicit_conv_forward(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    r_x: torch.Tensor | None,
+    r_w: torch.Tensor | None,
+    stride,
+    padding,
+    *,
+    fmt: EMFormat,
+    gs_fmt: EMFormat = GS_FMT_DEFAULT,
+    k_block: int,
+    grouping: str = "nc",
+) -> torch.Tensor:
+    """Quantized-domain forward conv as one implicit GEMM: ``x``
+    (N, C, H, W), ``w`` (O, C, kh, kw) -> fp32 (N, O, OH, OW).
+
+    ``r_x`` (N*OH*OW, C*kh*kw) and ``r_w`` (O, C*kh*kw) are the uint8
+    rounding bytes of the patches and of the weight (``None``: the constant
+    127, round to nearest), the shapes the im2col path draws.  ``k_block``
+    must pass :func:`implicit_compatible`.
+    """
+    if grouping not in GROUPINGS:
+        raise ValueError(f"unknown grouping {grouping!r}; expected one of {GROUPINGS}")
+    geom = conv_geometry(x.shape, w.shape, stride, padding)
+    ok, reason = implicit_compatible(geom, k_block)
+    if not ok:
+        raise ValueError(f"implicit_conv_forward: {reason}")
+    if accumulation_bits(fmt, k_block) >= 24:
+        raise ValueError(f"k_block={k_block} products of {fmt} values overflow the "
+                         f"exact fp32 range of a group sum")
+    if w.device != x.device:
+        raise ValueError("x and w must share one device")
+    r_x = _check_bytes(r_x, (geom.m0, geom.k0), x.device)
+    r_w = _check_bytes(r_w, (geom.o, geom.k0), x.device)
+    if x.device.type == "cpu":
+        return implicit_conv_ref(x, w, r_x, r_w, (geom.sh, geom.sw), geom.pads, fmt=fmt,
+                                 gs_fmt=gs_fmt, k_block=k_block, grouping=grouping)
+    if x.device.type != "cuda":
+        raise ValueError(f"implicit_conv_forward runs on cuda or cpu tensors, not {x.device}")
+
+    xp = _pad(x, geom)
+    s_t, x_sg = _implicit_x_scales(xp, geom, gs_fmt, k_block, grouping)
+    # the weight side is qd_gemm's: (O, K0) quantized along K0
+    wc, wsgT, wst = mls_quantize(w.reshape(geom.o, -1).float().contiguous(), fmt, k_block,
+                                 gs_fmt, r_w, grouping)
+    wcT, wsg = wc.t(), wsgT.t()
+    xsg_args = (None, 0, 0) if x_sg is None else (x_sg.data_ptr(), *_strides(x_sg))
+    out = torch.empty((geom.m0, geom.o), dtype=torch.float32, device=x.device)
+    build.check(build.library().implicit_conv(
+        xp.data_ptr(), r_x.data_ptr(), s_t.data_ptr(), *xsg_args,
+        wcT.data_ptr(), *_strides(wcT), wsg.data_ptr(), *_strides(wsg), wst.data_ptr(),
+        2.0 ** (2 * (fmt.e_min - fmt.m)), out.data_ptr(),
+        geom.n, geom.c, geom.hp, geom.wp, geom.o, geom.kh, geom.kw, geom.sh, geom.sw,
+        k_block, *_fmt_args(fmt, gs_fmt), torch.cuda.current_stream(x.device).cuda_stream),
+        "implicit_conv")
+    LAUNCHES["implicit_conv"] += 1
+    return out.reshape(geom.n, geom.oh, geom.ow, geom.o).permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Forward-code reuse for the weight-gradient GEMM (grouping "none")
+# ---------------------------------------------------------------------------
+def elementwise_codes(v: torch.Tensor, s_t: torch.Tensor, fmt: EMFormat) -> torch.Tensor:
+    """uint8 codes of ``v`` against the tensor scale ``s_t`` alone, rounded
+    to nearest: the grouping-"none" quantizer, whose codes commute with the
+    patch gather.  On CUDA this is the given-scale kernel with ``s_g = 1``
+    and the given ``s_t`` (which may differ from ``max|v|``)."""
+    v2 = v.float().reshape(-1, v.shape[-1]).contiguous()
+    ones = torch.ones((1, 1), dtype=torch.float32, device=v.device)
+    codes = quantize_given_scales(v2, fmt, s_t, ones, v2.shape[1],
+                                  rounding_bytes(v2.shape, None, v.device))
+    return codes.reshape(v.shape)
+
+
+def patches_u8(xq: torch.Tensor, geom: ConvGeom) -> torch.Tensor:
+    """The im2col gather on uint8 codes: padded (N, C, Hp, Wp) ->
+    (N*OH*OW, C*kh*kw) in (c, kh, kw) feature order, one byte per element
+    (``F.unfold`` takes no integers)."""
+    taps = [xq[:, :, i : i + 1 + geom.sh * (geom.oh - 1) : geom.sh,
+               j : j + 1 + geom.sw * (geom.ow - 1) : geom.sw]
+            for i in range(geom.kh) for j in range(geom.kw)]  # (N, C, OH, OW) each
+    g = torch.stack(taps, dim=2)  # (N, C, KK, OH, OW)
+    return g.permute(0, 3, 4, 1, 2).reshape(geom.m0, geom.k0)

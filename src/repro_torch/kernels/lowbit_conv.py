@@ -1,4 +1,4 @@
-"""Quantized-domain low-bit convolution and matmul over im2col.
+"""Quantized-domain low-bit convolution and matmul.
 
 The training hot path of paper Alg. 1 on the real quantized-domain
 pipeline (:func:`mls_quantize` -> :func:`mls_matmul`).  All three training
@@ -14,13 +14,22 @@ the paper's (n, c) grouping), so the three GEMMs use three group layouts of
 the same logical operands.  Stochastic rounding draws GEMM operand ``idx``
 (0-5) from its own stream, ``rounding_generator(key, cfg, idx)``.
 
+The forward conv has two lowerings that compute the same numbers:
+"im2col" (patch matrix, then quantize and GEMM; any ``k_block``) and
+"implicit" (:mod:`.implicit_conv`: one kernel that gathers and quantizes
+the patches in its GEMM prologue; ``k_block = cb*kh*kw`` with ``cb | C``),
+chosen by :func:`~.implicit_conv.resolve_conv_impl`.  On the implicit path
+with grouping "none" and deterministic rounding, the weight gradient
+reuses the forward codes: tensor-wise quantization commutes with the patch
+gather, so the input is coded once and its codes gathered as bytes instead
+of quantizing the fp32 patch matrix again (:func:`_qd_gemm_precoded_x`).
+
 Padding follows JAX's rule, which pads "SAME" asymmetrically at stride 2
-(lo 0, hi 1 on ResNet-20's 3x3/stride-2 convs): :func:`conv_pads` resolves
-it and ``F.pad`` applies it, since ``F.unfold`` pads only symmetrically.
+(lo 0, hi 1 on ResNet-20's 3x3/stride-2 convs): ``implicit_conv.conv_pads``
+resolves it and ``F.pad`` applies it, since ``F.unfold`` pads only
+symmetrically.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
@@ -28,38 +37,25 @@ import torch.nn.functional as F
 from repro_torch.core.formats import EMFormat
 from repro_torch.core.lowbit import QuantConfig, rounding_generator
 
+from .implicit_conv import (
+    conv_geometry,
+    covered_tensor_scale,
+    elementwise_codes,
+    implicit_conv_forward,
+    patches_u8,
+    resolve_conv_impl,
+)
 from .mls_matmul import mls_matmul
 from .mls_quantize import mls_quantize, rounding_bytes
+from .ref import Pads, im2col
 
 __all__ = [
     "LowbitConvFused",
     "LowbitMatmulQD",
-    "conv_pads",
     "lowbit_conv_fused",
     "lowbit_matmul_qd",
     "qd_gemm",
 ]
-
-Pads = tuple[tuple[int, int], tuple[int, int]]
-
-
-def conv_pads(hw: tuple[int, int], ksize: tuple[int, int], stride: tuple[int, int],
-              padding) -> Pads:
-    """``((ph_lo, ph_hi), (pw_lo, pw_hi))`` of "SAME"/"VALID" or explicit
-    pairs, by the rule of ``lax.padtype_to_pads``: "SAME" gives
-    ``out = ceil(in / stride)`` with the odd pad at the high end."""
-    if isinstance(padding, str):
-        if padding == "VALID":
-            return (0, 0), (0, 0)
-        if padding != "SAME":
-            raise ValueError(f"unknown padding {padding!r}")
-        pads = []
-        for d, k, s in zip(hw, ksize, stride):
-            total = max((math.ceil(d / s) - 1) * s + k - d, 0)
-            pads.append((total // 2, total - total // 2))
-        return tuple(pads)
-    (a, b), (c, d) = padding
-    return (int(a), int(b)), (int(c), int(d))
 
 
 # ---------------------------------------------------------------------------
@@ -102,25 +98,10 @@ def _gemm_kwargs(cfg: QuantConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# im2col layout
+# col2im: the transpose of the patch gather
 # ---------------------------------------------------------------------------
-def _im2col(x: torch.Tensor, ksize: tuple[int, int], stride: tuple[int, int], pads: Pads):
-    """NCHW -> (N*OH*OW, C*kh*kw) patch matrix (+ output spatial dims).
-
-    Feature order is (c, kh, kw), matching ``w.reshape(O, C*kh*kw)`` of an
-    OIHW weight, so conv == cols @ w_mat.T.
-    """
-    (ph_lo, ph_hi), (pw_lo, pw_hi) = pads
-    xp = F.pad(x.float(), (pw_lo, pw_hi, ph_lo, ph_hi))
-    n, ckk = x.shape[0], x.shape[1] * ksize[0] * ksize[1]
-    oh = (xp.shape[2] - ksize[0]) // stride[0] + 1
-    ow = (xp.shape[3] - ksize[1]) // stride[1] + 1
-    cols = F.unfold(xp, ksize, stride=stride)  # (N, C*kh*kw, OH*OW)
-    return cols.transpose(1, 2).reshape(n * oh * ow, ckk), (n, oh, ow)
-
-
 def _col2im(dcols: torch.Tensor, x_shape, ksize, stride, pads: Pads, out_hw) -> torch.Tensor:
-    """Exact transpose of :func:`_im2col`: scatter-add of the patch
+    """Exact transpose of :func:`~.ref.im2col`: scatter-add of the patch
     cotangents.
 
     The taps are added one after another in reverse order, (kh-1, kw-1)
@@ -146,31 +127,69 @@ def _col2im(dcols: torch.Tensor, x_shape, ksize, stride, pads: Pads, out_hw) -> 
 # Fused conv: forward and backward pipelines
 # ---------------------------------------------------------------------------
 def _conv_fwd_impl(x, w, key, stride, padding, cfg: QuantConfig):
-    o, _, kh, kw = w.shape
-    pads = conv_pads(x.shape[2:], (kh, kw), stride, padding)
-    cols, (n, oh, ow) = _im2col(x, (kh, kw), stride, pads)
-    wmat = w.reshape(o, -1).t()  # (C*kh*kw, O)
-    y2d = qd_gemm(
-        cols, wmat,
-        rounding_generator(key, cfg, 0, x.device), rounding_generator(key, cfg, 1, x.device),
-        **_gemm_kwargs(cfg),
-    )
-    return y2d.reshape(n, oh, ow, o).permute(0, 3, 1, 2)
+    geom = conv_geometry(x.shape, w.shape, stride, padding)
+    gen_x = rounding_generator(key, cfg, 0, x.device)
+    gen_w = rounding_generator(key, cfg, 1, x.device)
+    if resolve_conv_impl(geom, cfg) == "implicit":
+        # the im2col path's rounding streams and shapes: same numbers
+        return implicit_conv_forward(
+            x, w, rounding_bytes((geom.m0, geom.k0), gen_x, x.device),
+            rounding_bytes((geom.o, geom.k0), gen_w, x.device), stride, padding,
+            **_gemm_kwargs(cfg))
+    cols, (n, oh, ow) = im2col(x, (geom.kh, geom.kw), stride, geom.pads)
+    wmat = w.reshape(geom.o, -1).t()  # (C*kh*kw, O)
+    y2d = qd_gemm(cols, wmat, gen_x, gen_w, **_gemm_kwargs(cfg))
+    return y2d.reshape(n, oh, ow, geom.o).permute(0, 3, 1, 2)
+
+
+def _qd_gemm_precoded_x(
+    xc: torch.Tensor,
+    x_st: torch.Tensor,
+    w2d: torch.Tensor,
+    gen_w: torch.Generator | None,
+    *,
+    fmt: EMFormat,
+    gs_fmt: EMFormat,
+    k_block: int,
+) -> torch.Tensor:
+    """:func:`qd_gemm` with ``x`` already coded: uint8 ``xc`` (M, K) against
+    the tensor scale ``x_st`` alone (grouping "none", group scale 1).  The
+    padding, the weight's quantization and the GEMM are ``qd_gemm``'s, so
+    the result is bit-identical to quantizing the fp32 operand again with
+    grouping "none" and rounding to nearest."""
+    K = xc.shape[1]
+    if w2d.shape[0] != K:
+        raise ValueError(f"contraction mismatch {tuple(xc.shape)} @ {tuple(w2d.shape)}")
+    pk = (-K) % k_block
+    xcp = F.pad(xc, (0, pk))  # zero codes decode to 0: exact
+    wt = F.pad(w2d.float().t(), (0, pk)).contiguous()  # (N, K + pk)
+    wc, wsgT, wst = mls_quantize(wt, fmt, k_block, gs_fmt,
+                                 rounding_bytes(wt.shape, gen_w, wt.device), "none")
+    ones = torch.ones((1, 1), dtype=torch.float32, device=xc.device)
+    return mls_matmul(xcp, ones, x_st, wc.t(), wsgT.t(), wst, fmt, k_block, "none")
 
 
 def _conv_bwd_impl(x, w, g, key, stride, padding, cfg: QuantConfig):
-    o, _, kh, kw = w.shape
-    pads = conv_pads(x.shape[2:], (kh, kw), stride, padding)
-    cols, (n, oh, ow) = _im2col(x, (kh, kw), stride, pads)
-    e2d = g.permute(0, 2, 3, 1).reshape(-1, o).float()
+    geom = conv_geometry(x.shape, w.shape, stride, padding)
+    ksize = (geom.kh, geom.kw)
+    e2d = g.permute(0, 2, 3, 1).reshape(-1, geom.o).float()
     gen = [rounding_generator(key, cfg, i, x.device) for i in range(2, 6)]
     kwargs = _gemm_kwargs(cfg)
     # G = Cols(qA)^T @ qE: contraction over the N*OH*OW patches (Alg. 1 l.13)
-    dwmat = qd_gemm(cols.t(), e2d, gen[0], gen[1], **kwargs)  # (C*kh*kw, O)
+    if cfg.grouping == "none" and gen[0] is None and resolve_conv_impl(geom, cfg) == "implicit":
+        # reuse the forward's codes: code the padded input once against the
+        # covered tensor scale and gather the codes as bytes
+        s_t, xp = covered_tensor_scale(x, geom)
+        cols_t = patches_u8(elementwise_codes(xp, s_t, cfg.fmt), geom).t()
+        dwmat = _qd_gemm_precoded_x(cols_t, s_t, e2d, gen[1], fmt=cfg.fmt,
+                                    gs_fmt=cfg.gs_fmt, k_block=cfg.k_block)
+    else:
+        cols, _ = im2col(x, ksize, stride, geom.pads)
+        dwmat = qd_gemm(cols.t(), e2d, gen[0], gen[1], **kwargs)  # (C*kh*kw, O)
     dw = dwmat.t().reshape(w.shape)
     # dA = qE @ qW^T: contraction over output channels, then col2im + STE
-    dcols = qd_gemm(e2d, w.reshape(o, -1).float(), gen[2], gen[3], **kwargs)
-    dx = _col2im(dcols, x.shape, (kh, kw), stride, pads, (n, oh, ow))
+    dcols = qd_gemm(e2d, w.reshape(geom.o, -1).float(), gen[2], gen[3], **kwargs)
+    dx = _col2im(dcols, x.shape, ksize, stride, geom.pads, (geom.n, geom.oh, geom.ow))
     return dx, dw
 
 

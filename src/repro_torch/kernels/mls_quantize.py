@@ -6,7 +6,9 @@ tensor scale.  On a CUDA tensor it launches the kernels of
 ``csrc/mls_quantize.cu``: the row-group kernel (groupings "nc", "n"; the
 TPU's ``_kernel_rowwise``) or the given-scale kernel ("c", "none"; the
 TPU's ``_kernel_given_sg``).  On a CPU tensor it runs the plain version,
-:func:`repro_torch.kernels.ref.quantize_ref`.
+:func:`repro_torch.kernels.ref.quantize_ref`.  :func:`quantize_given_scales`
+is the given-scale kernel's own wrapper, for callers that bring their
+scales (the implicit conv's code reuse).
 """
 from __future__ import annotations
 
@@ -17,9 +19,9 @@ from repro_torch.core.lowbit import GROUPINGS
 from repro_torch.core.quantize import quantize_group_scale
 
 from . import build
-from .ref import quantize_ref
+from .ref import element_codes_ref, quantize_ref
 
-__all__ = ["LAUNCHES", "mls_quantize", "rounding_bytes"]
+__all__ = ["LAUNCHES", "mls_quantize", "quantize_given_scales", "rounding_bytes"]
 
 # Launches of each CUDA kernel, counted where the kernel is launched.
 LAUNCHES = {"mls_quantize_rows": 0, "mls_quantize_given_sg": 0}
@@ -79,18 +81,16 @@ def mls_quantize(
     if x.device.type != "cuda":
         raise ValueError(f"mls_quantize runs on cuda or cpu tensors, not {x.device}")
 
-    lib = build.library()
     s_t = torch.amax(x.abs())
     s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
-    codes = torch.empty((M, K), dtype=torch.uint8, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    fa = _fmt_args(fmt, gs_fmt)
     if grouping in ("nc", "n"):
         width = k_block if grouping == "nc" else K
+        codes = torch.empty((M, K), dtype=torch.uint8, device=x.device)
         s_g = torch.empty((M, K // width), dtype=torch.float32, device=x.device)
-        build.check(lib.mls_quantize_rows(
+        build.check(build.library().mls_quantize_rows(
             x.data_ptr(), r_u8.data_ptr(), s_t.data_ptr(), codes.data_ptr(),
-            s_g.data_ptr(), M, K, width, *fa, stream), "mls_quantize_rows")
+            s_g.data_ptr(), M, K, width, *_fmt_args(fmt, gs_fmt),
+            torch.cuda.current_stream(x.device).cuda_stream), "mls_quantize_rows")
         LAUNCHES["mls_quantize_rows"] += 1
         return codes, s_g, s_t
     # "c" / "none": compact scales computed ahead (the "c" group max crosses
@@ -100,9 +100,45 @@ def mls_quantize(
         s_g = quantize_group_scale(s_r / s_t, gs_fmt)[0].reshape(1, -1).contiguous()
     else:
         s_g = torch.ones((1, 1), dtype=torch.float32, device=x.device)
-    build.check(lib.mls_quantize_given_sg(
+    return quantize_given_scales(x, fmt, s_t, s_g, k_block, r_u8), s_g, s_t
+
+
+def quantize_given_scales(
+    x: torch.Tensor,
+    fmt: EMFormat,
+    s_t: torch.Tensor,
+    s_g: torch.Tensor,
+    k_block: int,
+    r_u8: torch.Tensor,
+) -> torch.Tensor:
+    """uint8 codes of a contiguous float32 ``(M, K)`` operand against the
+    given tensor scale ``s_t`` (a scalar) and compact group scales ``s_g``:
+    (1, K/k_block), one per ``k_block`` columns ("c"), or (1, 1) ("none").
+    ``r_u8`` (M, K) uint8 is the rounding source.  On CUDA this is the
+    given-scale kernel; on the CPU its plain version."""
+    M, K = x.shape
+    if s_t.numel() != 1:
+        raise ValueError("the tensor scale must be a scalar")
+    if K % k_block or tuple(s_g.shape) not in ((1, 1), (1, K // k_block)):
+        raise ValueError(f"group scales {tuple(s_g.shape)} do not fit K={K}, "
+                         f"k_block={k_block}")
+    if x.device.type == "cpu":
+        per_col = s_g.repeat_interleave(k_block, dim=1) if s_g.numel() > 1 else s_g
+        return element_codes_ref(x, r_u8, s_t * per_col, fmt)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_given_scales runs on cuda or cpu tensors, not {x.device}")
+    if (x.dtype != torch.float32 or not x.is_contiguous() or r_u8.shape != x.shape
+            or r_u8.dtype != torch.uint8 or not r_u8.is_contiguous()):
+        raise ValueError("quantize_given_scales takes a contiguous float32 x and a "
+                         "contiguous uint8 r_u8 of its shape")
+    if any(t.device != x.device or t.dtype != torch.float32 for t in (s_t, s_g)):
+        raise ValueError("scales must be float32 tensors on x's device")
+    s_t, s_g = s_t.contiguous(), s_g.contiguous()
+    codes = torch.empty((M, K), dtype=torch.uint8, device=x.device)
+    build.check(build.library().mls_quantize_given_sg(
         x.data_ptr(), r_u8.data_ptr(), s_t.data_ptr(), s_g.data_ptr(),
-        codes.data_ptr(), M, K, k_block, 1 if grouping == "c" else 0, *fa, stream),
+        codes.data_ptr(), M, K, k_block, 0 if s_g.numel() == 1 else 1,
+        *_fmt_args(fmt, GS_FMT_DEFAULT), torch.cuda.current_stream(x.device).cuda_stream),
         "mls_quantize_given_sg")
     LAUNCHES["mls_quantize_given_sg"] += 1
-    return codes, s_g, s_t
+    return codes

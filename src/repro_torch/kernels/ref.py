@@ -4,11 +4,14 @@ They compute the kernels' *quantized-domain* semantics exactly (integer
 fractions, group scales, tensor scale factored out), so a kernel is held
 bit-identical to them, and they are held bit-identical to the JAX package's
 references in the CPU tests.  The kernel wrappers run them for tensors on
-the CPU; ``chip_smoke.py`` runs them on the card as the comparison.
+the CPU; ``chip_smoke.py`` runs them on the card as the comparison.  The
+implicit conv's plain version is the im2col pipeline it fuses:
+:func:`im2col`, then :func:`quantize_ref` and :func:`mls_matmul_ref`.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.formats import EMFormat, GS_FMT_DEFAULT
 from repro_torch.core.quantize import (
@@ -21,10 +24,15 @@ from repro_torch.core.quantize import (
 
 __all__ = [
     "decode_frac_int",
+    "element_codes_ref",
     "grouping_spec",
+    "im2col",
+    "implicit_conv_ref",
     "mls_matmul_ref",
     "quantize_ref",
 ]
+
+Pads = tuple[tuple[int, int], tuple[int, int]]
 
 
 def grouping_spec(grouping: str, k_block: int) -> GroupSpec:
@@ -60,22 +68,32 @@ def quantize_ref(
         raise ValueError(f"quantize_ref takes a 2-D operand, got {tuple(x.shape)}")
     if grouping in ("nc", "c") and x.shape[1] % k_block:
         raise ValueError(f"K={x.shape[1]} is not a multiple of k_block={k_block}")
-    # rounding bytes -> U(-1/2, 1/2) offsets (r + 0.5)/256 - 0.5, exact in fp32
-    r = (r_u8.to(torch.float32) + 0.5) / 256.0 - 0.5 if r_u8 is not None else None
     spec = grouping_spec(grouping, k_block)
     xf32 = x.to(torch.float32)
-    absx = xf32.abs()
-    s_r = group_reduce_max(absx, spec)
+    s_r = group_reduce_max(xf32.abs(), spec)
     s_t = torch.amax(s_r)
     s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
     s_g, _, _ = quantize_group_scale(s_r / s_t, gs_fmt)
     denom = s_t * broadcast_groups(s_g, spec, x.shape)
+    return element_codes_ref(xf32, r_u8, denom, fmt), s_g, s_t
+
+
+def element_codes_ref(
+    x: torch.Tensor, r_u8: torch.Tensor | None, denom: torch.Tensor, fmt: EMFormat
+) -> torch.Tensor:
+    """Packed ``sign|exp|man`` uint8 codes of float32 ``x`` given its scale
+    denominator ``s_t * s_g`` (broadcast against ``x``): paper Alg. 2
+    l.9-16, the element step of every quantizer.  ``r_u8`` is the rounding
+    source (``None``: round to nearest)."""
+    # rounding bytes -> U(-1/2, 1/2) offsets (r + 0.5)/256 - 0.5, exact in fp32
+    r = (r_u8.to(torch.float32) + 0.5) / 256.0 - 0.5 if r_u8 is not None else None
+    absx = x.abs()
     safe = torch.where(denom > 0, denom, torch.ones_like(denom))
     x_f = torch.where(denom > 0, absx / safe, torch.zeros_like(absx))
     _, exp_x, man_x = quantize_elements(x_f, fmt, r)
-    sign_bit = (xf32 < 0).to(torch.int32)
+    sign_bit = (x < 0).to(torch.int32)
     codes = (sign_bit << (fmt.e + fmt.m)) | (exp_x << fmt.m) | man_x
-    return codes.to(torch.uint8), s_g, s_t
+    return codes.to(torch.uint8)
 
 
 def decode_frac_int(codes: torch.Tensor, fmt: EMFormat) -> torch.Tensor:
@@ -133,3 +151,51 @@ def mls_matmul_ref(
         acc = acc + p * sp
     unit = 2.0 ** (2 * (fmt.e_min - fmt.m))
     return acc * ((x_st * w_st) * unit)
+
+
+def im2col(x: torch.Tensor, ksize: tuple[int, int], stride: tuple[int, int], pads: Pads):
+    """NCHW -> (N*OH*OW, C*kh*kw) patch matrix (+ output spatial dims).
+
+    Feature order is (c, kh, kw), matching ``w.reshape(O, C*kh*kw)`` of an
+    OIHW weight, so conv == cols @ w_mat.T.  ``pads`` are explicit
+    ``((ph_lo, ph_hi), (pw_lo, pw_hi))``, applied with ``F.pad`` since
+    ``F.unfold`` pads only symmetrically.
+    """
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = pads
+    xp = F.pad(x.float(), (pw_lo, pw_hi, ph_lo, ph_hi))
+    n, ckk = x.shape[0], x.shape[1] * ksize[0] * ksize[1]
+    oh = (xp.shape[2] - ksize[0]) // stride[0] + 1
+    ow = (xp.shape[3] - ksize[1]) // stride[1] + 1
+    cols = F.unfold(xp, ksize, stride=stride)  # (N, C*kh*kw, OH*OW)
+    return cols.transpose(1, 2).reshape(n * oh * ow, ckk), (n, oh, ow)
+
+
+def implicit_conv_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    r_x: torch.Tensor,
+    r_w: torch.Tensor,
+    stride: tuple[int, int],
+    pads: Pads,
+    *,
+    fmt: EMFormat,
+    gs_fmt: EMFormat = GS_FMT_DEFAULT,
+    k_block: int,
+    grouping: str = "nc",
+) -> torch.Tensor:
+    """The implicit conv's function, computed the im2col way: fp32 NCHW
+    ``x`` (N, C, H, W) and OIHW ``w`` -> fp32 (N, O, OH, OW).
+
+    The patches ``im2col(x)`` (M0, K0) are quantized with rounding bytes
+    ``r_x`` (M0, K0), the weight ``w.reshape(O, K0)`` with ``r_w``
+    (O, K0), both in ``k_block``-wide groups of ``grouping``, and the codes
+    are contracted by :func:`mls_matmul_ref`.  ``K0`` must be a multiple of
+    ``k_block``.
+    """
+    o = w.shape[0]
+    cols, (n, oh, ow) = im2col(x, tuple(w.shape[2:]), stride, pads)
+    wt = w.reshape(o, -1).float()
+    xc, xsg, xst = quantize_ref(cols, fmt, k_block, gs_fmt, r_x, grouping)
+    wc, wsgT, wst = quantize_ref(wt, fmt, k_block, gs_fmt, r_w, grouping)
+    y2d = mls_matmul_ref(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, k_block)
+    return y2d.reshape(n, oh, ow, o).permute(0, 3, 1, 2)

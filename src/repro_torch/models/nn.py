@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lowbit import QuantConfig
-from repro_torch.kernels.lowbit_conv import conv_pads, lowbit_conv_fused, lowbit_matmul_qd
+from repro_torch.kernels.implicit_conv import conv_pads
+from repro_torch.kernels.lowbit_conv import lowbit_conv_fused, lowbit_matmul_qd
 
 __all__ = ["batchnorm", "conv2d", "ew_add", "linear"]
 

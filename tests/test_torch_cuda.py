@@ -8,8 +8,10 @@ JAX, run them with
 
 Small, ragged shapes that the main path's shapes in ``chip_smoke.py`` do
 not reach: M and N off the 64-wide GEMM tile, groups wider than a warp's
-limit, the E=0 format.  Tolerance 0: the kernels reproduce the plain
-versions bit for bit.
+limit, the E=0 format, and for the implicit conv k-blocks off the 32-wide
+chunk, several k-blocks, two output-channel tiles, stride 2 with SAME
+(asymmetric) and VALID (uncovered tail) padding, and a 1x1 conv.
+Tolerance 0: the kernels reproduce the plain versions bit for bit.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import EMFormat, QuantConfig  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
+    implicit_conv_forward,
     launch_counts,
     lowbit_conv_fused,
     mls_matmul,
@@ -104,4 +107,73 @@ def test_conv_counts_six_quantize_and_three_gemm_launches(cuda):
     lowbit_conv_fused(x, w, 5, (1, 1), "SAME", cfg).sum().backward()
     torch.cuda.synchronize()
     assert launch_counts() == {"mls_quantize_rows": 6, "mls_quantize_given_sg": 0,
-                               "mls_matmul": 3}
+                               "mls_matmul": 3, "implicit_conv": 0}
+
+
+# (x shape, w shape, stride, padding, k_block)
+IMPLICIT_CASES = [
+    ((2, 5, 9, 9), (70, 5, 3, 3), (1, 1), "SAME", 9),
+    ((3, 8, 12, 12), (6, 8, 3, 3), (2, 2), "VALID", 36),
+    ((2, 4, 8, 8), (6, 4, 3, 3), (2, 2), "SAME", 18),
+    ((1, 3, 8, 8), (4, 3, 1, 1), (2, 2), "SAME", 3),
+]
+
+
+@pytest.mark.parametrize("fmt", [(2, 4), (2, 1), (0, 4)])
+@pytest.mark.parametrize("grouping", GROUPINGS)
+@pytest.mark.parametrize("case", IMPLICIT_CASES, ids=["ragged", "valid", "s2", "1x1"])
+def test_implicit_conv_kernel_matches_plain(cuda, case, grouping, fmt):
+    xs, ws, stride, pad, kb = case
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(xs).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal(ws) * 0.2).astype(np.float32))
+    oh = ow = (xs[2] - 1) // stride[0] + 1 if pad == "SAME" else (xs[2] - ws[2]) // stride[0] + 1
+    k0 = xs[1] * ws[2] * ws[3]
+    r_x = torch.from_numpy(rng.integers(0, 256, (xs[0] * oh * ow, k0), dtype=np.uint8))
+    r_w = torch.from_numpy(rng.integers(0, 256, (ws[0], k0), dtype=np.uint8))
+    kw = dict(fmt=EMFormat(*fmt), k_block=kb, grouping=grouping)
+    want = implicit_conv_forward(x, w, r_x, r_w, stride, pad, **kw)
+    before = launch_counts()["implicit_conv"]
+    got = implicit_conv_forward(x.to(cuda), w.to(cuda), r_x.to(cuda), r_w.to(cuda), stride,
+                                pad, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["implicit_conv"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("grouping,stochastic", [("nc", True), ("c", True), ("n", True),
+                                                 ("none", True), ("none", False)])
+def test_implicit_conv_on_the_card_equals_im2col(cuda, grouping, stochastic):
+    """Forward and both gradients; grouping "none" with nearest rounding
+    takes the code-reuse weight gradient."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 10, 10)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((12, 8, 3, 3)) * 0.2).astype(np.float32)).to(cuda)
+    out = {}
+    for impl in ("im2col", "implicit"):
+        cfg = QuantConfig(fmt=EMFormat(2, 4), k_block=36, grouping=grouping,
+                          stochastic=stochastic, conv_impl=impl)
+        xd, wd = x.detach().requires_grad_(), w.detach().requires_grad_()
+        y = lowbit_conv_fused(xd, wd, 9, (2, 2), "SAME", cfg)
+        g = torch.linspace(-1, 1, y.numel(), device=cuda).reshape(y.shape)
+        (y * g).sum().backward()
+        out[impl] = [t.detach().cpu() for t in (y, xd.grad, wd.grad)]
+    for a, b in zip(out["im2col"], out["implicit"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("grouping,stochastic,want", [
+    ("nc", True, {"mls_quantize_rows": 5, "mls_quantize_given_sg": 0, "mls_matmul": 2}),
+    ("none", False, {"mls_quantize_rows": 0, "mls_quantize_given_sg": 5, "mls_matmul": 2}),
+])
+def test_implicit_conv_launch_counts(cuda, grouping, stochastic, want):
+    """Forward: K4 and the weight's quantizer.  Backward: two GEMMs of
+    two quantizes each, or with code reuse ("none", nearest) one code pass,
+    the error's quantizer and the GEMM for the weight gradient."""
+    x = torch.randn(2, 4, 8, 8, device=cuda, requires_grad=True)
+    w = torch.randn(6, 4, 3, 3, device=cuda, requires_grad=True)
+    cfg = QuantConfig(fmt=EMFormat(2, 4), k_block=36, grouping=grouping, stochastic=stochastic)
+    reset_launch_counts()
+    lowbit_conv_fused(x, w, 5, (1, 1), "SAME", cfg).sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts() == {**want, "implicit_conv": 1}

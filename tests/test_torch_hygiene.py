@@ -72,8 +72,9 @@ def test_quantized_config_refusals():
 
     with pytest.raises(NotImplementedError, match="queue 1"):
         QuantConfig(backend="fake_quant")
-    with pytest.raises(NotImplementedError, match="K4"):
-        QuantConfig(conv_impl="implicit")
+    assert QuantConfig(conv_impl="implicit").conv_impl == "implicit"
+    with pytest.raises(ValueError, match="conv_impl"):
+        QuantConfig(conv_impl="winograd")
     with pytest.raises(ValueError, match=">= 24"):
         QuantConfig(fmt=EMFormat(3, 4), k_block=128)
     with pytest.raises(ValueError):
@@ -91,7 +92,7 @@ def test_kernel_build_is_lazy_and_exact():
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags
     assert {p.name for p in build.CSRC.iterdir()} >= {
-        "mls_common.cuh", "mls_quantize.cu", "mls_matmul.cu"}
+        "mls_common.cuh", "mls_quantize.cu", "mls_matmul.cu", "implicit_conv.cu"}
     assert build.library_path().name.startswith("libmls_kernels_")
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
         with pytest.raises(RuntimeError, match="nvcc not found"):

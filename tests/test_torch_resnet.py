@@ -16,7 +16,9 @@ results differ in their last bits.  The inputs are fixed and both runs are
 deterministic, so each limit sits about 20-100x above what these inputs
 give: loss equal to 7e-8 relative, logits within 5e-7, every gradient
 cosine above 1 - 3e-13 and every relative error below 1.3e-6.  A real bug
-in BN (eps, variance form) or in one leaf's gradient exceeds them.
+in BN (eps, variance form) or in one leaf's gradient exceeds them.  The
+same limits hold at k_block 36, where the port's 18 3x3 convs take the
+implicit-GEMM forward and the JAX step stays on im2col.
 """
 import pytest
 
@@ -37,10 +39,14 @@ from repro.optim.optimizers import step_decay_schedule as jstep_decay  # noqa: E
 from repro_torch.convert import resnet_params_from_jax  # noqa: E402
 from repro_torch.core import EMFormat, QuantConfig  # noqa: E402
 from repro_torch.data.synthetic import CifarIterator, class_pattern  # noqa: E402
+from repro_torch.kernels import conv_geometry, resolve_conv_impl  # noqa: E402
 from repro_torch.models.cnn import CNNConfig, ResNet, init_resnet  # noqa: E402
 from repro_torch.optim.optimizers import sgdm, step_decay_schedule  # noqa: E402
 
 WIDTH, HW, BATCH, K_BLOCK = 0.25, 8, 2, 32
+# k_block 36 = 4 channels x 3x3 taps: every 3x3 conv (C = 4, 8, 16) takes
+# the implicit-GEMM forward ("auto"), the 1x1 projections stay on im2col
+K_BLOCK_IMPLICIT = 36
 
 
 @pytest.fixture(scope="module")
@@ -70,14 +76,19 @@ def test_converter_covers_the_jax_tree_one_to_one(jax_params):
     assert len(convs) == 20
 
 
-@pytest.mark.parametrize("fmt", [(2, 4), (2, 1)])
-def test_train_step_matches_jax(jax_params, monkeypatch, fmt):
+@pytest.mark.parametrize("fmt,k_block", [
+    pytest.param((2, 4), K_BLOCK, id="fmt0"),
+    pytest.param((2, 1), K_BLOCK, id="fmt1"),
+    pytest.param((2, 4), K_BLOCK_IMPLICIT, id="fmt0-implicit"),
+    pytest.param((2, 1), K_BLOCK_IMPLICIT, id="fmt1-implicit"),
+])
+def test_train_step_matches_jax(jax_params, monkeypatch, fmt, k_block):
     monkeypatch.setattr(jlowbit_conv, "PALLAS_BACKEND", jlowbit_conv.REF_BACKEND)
     rng = np.random.default_rng(0)
     x = rng.standard_normal((BATCH, 3, HW, HW)).astype(np.float32)
     labels = np.array([3, 7])
     jcfg = JCNNConfig("resnet20", width_mult=WIDTH, in_hw=HW)
-    jq = JQuantConfig(fmt=jformats.EMFormat(*fmt), k_block=K_BLOCK, stochastic=False,
+    jq = JQuantConfig(fmt=jformats.EMFormat(*fmt), k_block=k_block, stochastic=False,
                       backend="pallas", conv_impl="im2col")
 
     def loss_fn(p):
@@ -89,7 +100,9 @@ def test_train_step_matches_jax(jax_params, monkeypatch, fmt):
         jax.tree.map(jnp.asarray, jax_params))
 
     model = _model(jax_params)
-    qcfg = QuantConfig(fmt=EMFormat(*fmt), k_block=K_BLOCK, stochastic=False)
+    qcfg = QuantConfig(fmt=EMFormat(*fmt), k_block=k_block, stochastic=False)
+    impls = {resolve_conv_impl(conv_geometry(*c), qcfg) for c in _quantized_convs()}
+    assert impls == ({"im2col", "implicit"} if k_block == K_BLOCK_IMPLICIT else {"im2col"})
     logits = model(torch.from_numpy(x), qcfg, None)
     loss = torch.nn.functional.cross_entropy(logits, torch.from_numpy(labels))
     loss.backward()
@@ -103,6 +116,21 @@ def test_train_step_matches_jax(jax_params, monkeypatch, fmt):
         assert cos >= 1 - 1e-6, (name, cos)
         rel = float((a - b).norm() / b.norm())
         assert rel <= 1e-4, (name, rel)
+
+
+def _quantized_convs():
+    """(x shape, w shape, stride, padding) of the 20 quantized convs."""
+    cfg = CNNConfig("resnet20", width_mult=WIDTH, in_hw=HW)
+    model, hw, out = ResNet(cfg), HW, []
+    for blk in model.blocks:
+        c_in, c_out, s = blk.conv1.w.shape[1], blk.conv1.w.shape[0], blk.stride
+        out.append(((BATCH, c_in, hw, hw), tuple(blk.conv1.w.shape), (s, s), "SAME"))
+        if hasattr(blk, "proj"):
+            out.append(((BATCH, c_in, hw, hw), tuple(blk.proj.w.shape), (s, s), "SAME"))
+        hw = -(-hw // s)
+        out.append(((BATCH, c_out, hw, hw), tuple(blk.conv2.w.shape), (1, 1), "SAME"))
+    assert len(out) == 20
+    return out
 
 
 def test_sgdm_matches_jax_update():
