@@ -33,8 +33,21 @@ Phases (any failure makes the script exit non-zero, with no result line):
   6. agree    - a small ResNet-20 train step on the card (kernels) agrees
                 with the same step on the CPU (plain versions), at k_block
                 32 (im2col) and at k_block 36 (every 3x3 conv implicit).
+  7. audit    - the verifier's planted-overlap control K5 against its plain
+                version: the blocks no program writes stay NaN, each element
+                of a twice-written block is bit-identical to one of its two
+                writers' ordered fp32 sums (the race picks which), and the
+                store probe counts [2, 0, 2, 0] by block column, the table
+                the verifier derives from K5's launch spec; timed.  Then
+                `python -m repro_torch.analysis.audit --graph train
+                --kernels --gate` at full width (one step at k_block 128,
+                one at 144): it must pass, with quantized fraction >= 0.99
+                on both paths and every recorded launch spec of K1-K4
+                proven; and each of the four --sabotage modes must fail the
+                gate naming its violation (overlap_write runs K5 once).
 The line before the last is {"kernels": [...]}, the last line
-{"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
+{"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
+and the audit reports to chiprun_out/AUDIT_torch_*.json.
 """
 from __future__ import annotations
 
@@ -51,13 +64,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BATCH, HW, K_BLOCK = 128, 32, 128
 K_BLOCK_IMPLICIT = 144  # 16 channels x 3x3 taps: legal for K4 on all 18 3x3 convs
 TRAIN_STEPS = 5
 # the shape each kernel is reported at on the {"kernels": ...} line (all
 # timed shapes are in chiprun_out/chip_smoke.json)
 REPORTED_SHAPE = {"mls_quantize_rows": "stage1_fwd_cols", "mls_quantize_given_sg": "stage1_fwd_cols",
-                  "mls_matmul": "stage1_wgrad", "implicit_conv": "stage1_conv"}
+                  "mls_matmul": "stage1_wgrad", "implicit_conv": "stage1_conv",
+                  "sabotage_overlap": "x (8, 16)"}
 KERNELS = {
     "mls_quantize_rows": ("src/repro_torch/kernels/csrc/mls_quantize.cu",
                           "src/repro/kernels/mls_quantize.py:107"),
@@ -67,6 +82,8 @@ KERNELS = {
                    "src/repro/kernels/mls_matmul.py:104"),
     "implicit_conv": ("src/repro_torch/kernels/csrc/implicit_conv.cu",
                       "src/repro/kernels/implicit_conv.py:403"),
+    "sabotage_overlap": ("src/repro_torch/kernels/csrc/sabotage_overlap.cu",
+                         "src/repro/analysis/kernel_verify.py:730"),
 }
 # K4's shapes on the implicit path: (x shape, w shape, stride)
 CONV_SHAPES = {
@@ -361,7 +378,7 @@ def phase_train(results: dict) -> dict[str, int]:
     main = run_path(results, "train", qcfg, TRAIN_STEPS)
     if expected_launches(qcfg, conv_list(1.0, HW, BATCH)) != {
             "mls_quantize_rows": 120, "mls_quantize_given_sg": 0, "mls_matmul": 60,
-            "implicit_conv": 0}:
+            "implicit_conv": 0, "sabotage_overlap": 0}:
         raise AssertionError("the k_block-128 path no longer takes 120 quantize and 60 GEMM "
                              "launches per step on im2col alone")
     # paper Table IV grouping "c": the given-scale quantize kernel's path
@@ -472,6 +489,139 @@ def phase_agree(results: dict) -> None:
         raise AssertionError(f"card and CPU disagree: {disagree}")
 
 
+def k5_checks() -> dict:
+    """K5 on the card against its plain version on the same inputs, timed.
+    Launches made here are comparisons: they do not count for the path."""
+    import torch
+
+    from repro_torch.analysis.kernel_verify import writers_per_block
+    from repro_torch.kernels.ref import sabotage_overlap_ref, sabotage_overlap_tiles
+    from repro_torch.kernels.sabotage import launch_spec, sabotage_overlap_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((8, 16), generator=gen, device="cuda")
+    w = torch.randn((16, 32), generator=gen, device="cuda")
+    probe = torch.zeros((8, 32), dtype=torch.int32, device="cuda")
+    got = sabotage_overlap_matmul(x, w, probe)
+    tiles = sabotage_overlap_tiles(x, w)
+    _, writes = sabotage_overlap_ref(x, w)
+    torch.cuda.synchronize()
+    writers = writers_per_block(launch_spec(8, 16, 32, "cuda"), "outputs[0]")[0].tolist()
+    stores = [sorted(set(probe[:, 8 * c : 8 * c + 8].flatten().tolist())) for c in range(4)]
+    nan_gaps, from_writer, err, last_writer = True, True, 0.0, 0
+    for c in range(4):
+        block = got[:, 8 * c : 8 * c + 8]
+        if writers[c] == 0:
+            nan_gaps &= bool(torch.isnan(block).all())
+            continue
+        first, last = tiles[(0, c)], tiles[(0, c + 1)]
+        bits = block.view(torch.int32)
+        is_last = bits == last.view(torch.int32)
+        from_writer &= bool((is_last | (bits == first.view(torch.int32))).all())
+        last_writer += int(is_last.sum())
+        err = max(err, float(torch.minimum((block - first).abs(), (block - last).abs()).max()))
+    ok = (writers == [2, 0, 2, 0] and stores == [[w_] for w_ in writers] and nan_gaps
+          and from_writer and torch.equal(probe, writes))
+    out = dict(writers_per_block=writers, probe_by_block_column=stores, nan_gaps=nan_gaps,
+               each_element_from_a_writer=from_writer,
+               elements_from_the_last_writer=last_writer, max_abs_err=err, identical=ok,
+               ms=cuda_ms(lambda: sabotage_overlap_matmul(x, w)),
+               kernel_ms=kernel_ms(lambda: sabotage_overlap_matmul(x, w),
+                                   "sabotage_overlap_kernel"),
+               plain_ms=cuda_ms(lambda: sabotage_overlap_ref(x, w)),
+               bytes=4 * (x.numel() + w.numel() + got.numel()), ops=2 * 8 * 32 * 16)
+    print(json.dumps({"k5": out}))
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain version: {out}")
+    return out
+
+
+def phase_audit(results: dict) -> tuple[dict, int]:
+    """K5 checked; the clean audit at full width; the four sabotage modes.
+    Returns K5's timing row and its launches in the overlap_write run."""
+    from repro_torch.analysis import audit
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    k5 = k5_checks()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    t = time.perf_counter()
+    path = out_dir / "AUDIT_torch_report.json"
+    rc = audit.main(["--graph", "train", "--kernels", "--gate", "--out", str(path)])
+    seconds = time.perf_counter() - t
+    report = json.loads(path.read_text())
+    graphs = report["graphs"]
+    recorded = {name: report["kernels"]["kernels"][name] for name in graphs}
+    # the fp32 MACs of a full-width step: the stem conv (forward, weight
+    # gradient) and the classifier (forward, two gradients); a classifier
+    # that missed the backward, which runs on autograd's device thread,
+    # would count fewer
+    fp = 2 * BATCH * 16 * HW * HW * 3 * 9 + 3 * BATCH * 64 * 10
+    summary = dict(rc=rc, seconds=seconds, gate_pass=report["gate"]["pass"],
+                   quantized_fraction={n: g["coverage"]["quantized_fraction"]
+                                       for n, g in graphs.items()},
+                   full_precision_macs={n: g["coverage"]["full_precision_macs"]
+                                        for n, g in graphs.items()},
+                   launches_per_step={n: g["launches"] for n, g in graphs.items()},
+                   distinct_specs=report["kernels"]["distinct_launch_specs"],
+                   recorded_specs={n: r["num_launch_specs"] for n, r in recorded.items()},
+                   recorded_kernels={n: sorted({c["kernel"].split(" ")[1].split("[")[0]
+                                                for c in r["calls"]})
+                                     for n, r in recorded.items()})
+    print(json.dumps({"audit": summary}))
+    bad = []
+    if rc != 0 or not report["gate"]["pass"]:
+        bad.append(f"clean audit failed: {report['gate']['failures']}")
+    if set(graphs) != {"train:resnet20", "train:resnet20@kb144"}:
+        bad.append(f"graphs {sorted(graphs)}")
+    if any(f < 0.99 for f in summary["quantized_fraction"].values()):
+        bad.append(f"quantized fraction {summary['quantized_fraction']}")
+    if any(v != fp for v in summary["full_precision_macs"].values()):
+        bad.append(f"fp32 MACs {summary['full_precision_macs']}, expected {fp}")
+    want = {"train:resnet20": ["mls_matmul", "mls_quantize_rows"],
+            "train:resnet20@kb144": ["implicit_conv", "mls_matmul", "mls_quantize_rows"]}
+    if summary["recorded_kernels"] != want:
+        bad.append(f"recorded kernels {summary['recorded_kernels']}")
+    sabotage = {}
+    k5_launches = 0
+    for mode, graph, named in (
+            ("overlap_write", "none", ("overlap violation at outputs[0]",
+                                       "gap violation at outputs[0]")),
+            ("deep_k", "none", ("overflow violation",)),
+            ("drop_halo", "none", ("oob violation at window_grid",)),
+            ("fp32_gemm", "train", ("train:resnet20: quantized fraction",
+                                    "train:resnet20@kb144: quantized fraction"))):
+        path = out_dir / f"AUDIT_torch_{mode}.json"
+        args = ["--graph", graph, "--gate", "--sabotage", mode, "--out", str(path)]
+        if graph == "none":
+            args.append("--kernels")
+        reset_launch_counts()  # overlap_write: K5's launches in this run
+        rc = audit.main(args)
+        if mode == "overlap_write":
+            k5_launches = launch_counts()["sabotage_overlap"]
+        failures = json.loads(path.read_text())["gate"]["failures"]
+        named_ok = all(any(n in f for f in failures) for n in named)
+        sabotage[mode] = dict(rc=rc, named=named_ok, failures=failures[:4])
+        if rc != 1 or not named_ok:
+            bad.append(f"sabotage {mode}: rc {rc}, failures {failures}")
+    summary["sabotage"] = sabotage
+    summary["k5_launches_under_overlap_write"] = k5_launches
+    results["audit"] = summary
+    results["k5"] = k5
+    print(json.dumps({"sabotage": sabotage}))
+    if k5_launches != 1:
+        bad.append(f"overlap_write launched K5 {k5_launches} times, expected 1")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    bound_bytes = k5["bytes"] / HBM_BYTES_PER_S * 1e3
+    bound_ops = k5["ops"] / FP32_OPS_PER_S * 1e3
+    row = dict(name="sabotage_overlap", shape="x (8, 16) @ w (16, 32)", ms=k5["ms"],
+               plain_ms=k5["plain_ms"], bound_ms=max(bound_bytes, bound_ops),
+               bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+               max_abs_err=k5["max_abs_err"], kernel_ms=k5["kernel_ms"])
+    return row, k5_launches
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -509,7 +659,8 @@ def main() -> int:
 
     rows, launches = [], {}
     for name, phase in (("kernels", phase_kernels), ("train", phase_train),
-                        ("trace", phase_trace), ("agree", phase_agree)):
+                        ("trace", phase_trace), ("agree", phase_agree),
+                        ("audit", phase_audit)):
         t = time.perf_counter()
         try:
             out = phase(results)
@@ -517,6 +668,9 @@ def main() -> int:
                 rows = out
             elif name == "train":
                 launches = out
+            elif name == "audit":
+                rows.append(out[0])
+                launches["sabotage_overlap"] = out[1]
         except Exception:
             traceback.print_exc()
             failures.append(name)

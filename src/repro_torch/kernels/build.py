@@ -49,7 +49,14 @@ _SIGNATURES = {
     # e, m, e_min, gs_m, gs_emin, stream
     "implicit_conv": [_P, _P, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
                       _P, ctypes.c_float, _P, *[_I] * 10, *[_I] * 5, _P],
+    # x, w, out, probe (or NULL), M, K, N, stream
+    "sabotage_overlap": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mls_error_string": [_I],
+    # each source's tile constants: out, n -> how many it has
+    "mls_quantize_constants": [_P, _I],
+    "mls_matmul_constants": [_P, _I],
+    "implicit_conv_constants": [_P, _I],
+    "sabotage_overlap_constants": [_P, _I],
 }
 
 _lock = threading.Lock()

@@ -194,6 +194,14 @@ __global__ void __launch_bounds__(kThreads) implicit_conv_kernel(
 
 }  // namespace
 
+// The tile constants, in the order kBM, kBN, kKC, kThreads, for the launch
+// descriptors (kernels/implicit_conv.py launch_spec) to read from the binary.
+extern "C" int implicit_conv_constants(int* out, int n) {
+  const int c[] = {kBM, kBN, kKC, kThreads};
+  for (int i = 0; i < n && i < 4; ++i) out[i] = c[i];
+  return 4;
+}
+
 // xp: the padded input (n, c, hp, wp), fp32, contiguous.  r: the rounding
 // bytes (M0, K0).  xsg: the compact activation group scales with element
 // strides (0 along a broadcast axis), or NULL for grouping "nc".  wc, wsg:

@@ -121,6 +121,14 @@ __global__ void __launch_bounds__(kThreads) mls_matmul_kernel(
 
 }  // namespace
 
+// The tile constants, in the order kBM, kBN, kKC, kThreads, for the launch
+// descriptors (kernels/mls_matmul.py launch_spec) to read from the binary.
+extern "C" int mls_matmul_constants(int* out, int n) {
+  const int c[] = {kBM, kBN, kKC, kThreads};
+  for (int i = 0; i < n && i < 4; ++i) out[i] = c[i];
+  return 4;
+}
+
 extern "C" int mls_matmul(const uint8_t* xc, long long sxm, long long sxk,
                           const float* xsg, long long sxsg_m, long long sxsg_g,
                           const uint8_t* wc, long long swk, long long swn,

@@ -116,6 +116,16 @@ mls::Fmt make_fmt(int e, int m, int e_min, int gs_m, int gs_emin) {
 }  // namespace
 
 constexpr int kWarpGroupMax = 1024;  // wider groups take a block each
+constexpr int kGivenMaxBlocks = 132 * 32;  // the given-scale pass strides beyond
+
+// The launch constants, in the order kThreads, kWarpGroupMax,
+// kGivenMaxBlocks, for the launch descriptors (kernels/mls_quantize.py
+// launch_spec_rows / launch_spec_given_sg) to read from the binary.
+extern "C" int mls_quantize_constants(int* out, int n) {
+  const int c[] = {kThreads, kWarpGroupMax, kGivenMaxBlocks};
+  for (int i = 0; i < n && i < 3; ++i) out[i] = c[i];
+  return 3;
+}
 
 extern "C" const char* mls_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -153,7 +163,7 @@ extern "C" int mls_quantize_given_sg(const float* x, const uint8_t* r,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
     long long blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond that
+    if (blocks > kGivenMaxBlocks) blocks = kGivenMaxBlocks;
     quantize_given_sg<<<(unsigned)blocks, kThreads, 0, s>>>(
         x, r, s_t, s_g, codes, M, K, k_block, sg_stride, f);
   }

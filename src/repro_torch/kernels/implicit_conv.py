@@ -30,7 +30,8 @@ block options.
 
 :func:`covered_tensor_scale`, :func:`elementwise_codes` and
 :func:`patches_u8` serve the weight gradient's reuse of the forward codes
-under grouping "none" (:mod:`.lowbit_conv`).
+under grouping "none" (:mod:`.lowbit_conv`).  :func:`launch_spec`
+describes the kernel's launches for the static verifier.
 """
 from __future__ import annotations
 
@@ -41,12 +42,14 @@ import os
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.intervals import Accumulation
 from repro_torch.core.formats import GS_FMT_DEFAULT, EMFormat, accumulation_bits
 from repro_torch.core.lowbit import GROUPINGS
 from repro_torch.core.quantize import quantize_group_scale
 
-from . import build
-from .mls_matmul import _strides
+from . import build, launch
+from .launch import LaunchSpec, Operand, Window
+from .mls_matmul import _sg_operand, _strides, sg_shapes
 from .mls_quantize import _fmt_args, mls_quantize, quantize_given_scales, rounding_bytes
 from .ref import Pads, implicit_conv_ref
 
@@ -54,6 +57,7 @@ __all__ = [
     "CONV_IMPLS",
     "CONV_IMPL_ENV_VAR",
     "LAUNCHES",
+    "TILE",
     "ConvGeom",
     "conv_geometry",
     "conv_pads",
@@ -61,12 +65,16 @@ __all__ = [
     "elementwise_codes",
     "implicit_compatible",
     "implicit_conv_forward",
+    "launch_spec",
     "patches_u8",
     "resolve_conv_impl",
 ]
 
 # Launches of the CUDA kernel, counted where the kernel is launched.
 LAUNCHES = {"implicit_conv": 0}
+
+# csrc/implicit_conv.cu's tile constants (implicit_conv_constants)
+TILE = {"kBM": 64, "kBN": 64, "kKC": 32, "kThreads": 256}
 
 CONV_IMPL_ENV_VAR = "REPRO_CONV_IMPL"
 CONV_IMPLS = ("auto", "im2col", "implicit")
@@ -312,8 +320,10 @@ def implicit_conv_forward(
     r_x = _check_bytes(r_x, (geom.m0, geom.k0), x.device)
     r_w = _check_bytes(r_w, (geom.o, geom.k0), x.device)
     if x.device.type == "cpu":
-        return implicit_conv_ref(x, w, r_x, r_w, (geom.sh, geom.sw), geom.pads, fmt=fmt,
-                                 gs_fmt=gs_fmt, k_block=k_block, grouping=grouping)
+        launch.record("implicit_conv", "cpu", geom, k_block, grouping, fmt)
+        with launch.plain_version():
+            return implicit_conv_ref(x, w, r_x, r_w, (geom.sh, geom.sw), geom.pads, fmt=fmt,
+                                     gs_fmt=gs_fmt, k_block=k_block, grouping=grouping)
     if x.device.type != "cuda":
         raise ValueError(f"implicit_conv_forward runs on cuda or cpu tensors, not {x.device}")
 
@@ -333,7 +343,37 @@ def implicit_conv_forward(
         k_block, *_fmt_args(fmt, gs_fmt), torch.cuda.current_stream(x.device).cuda_stream),
         "implicit_conv")
     LAUNCHES["implicit_conv"] += 1
+    launch.record("implicit_conv", "cuda", geom, k_block, grouping, fmt)
     return out.reshape(geom.n, geom.oh, geom.ow, geom.o).permute(0, 3, 1, 2)
+
+
+def launch_spec(geom: ConvGeom, k_block: int, grouping: str, fmt: EMFormat,
+                device_type: str = "cpu") -> LaunchSpec:
+    """K4 on one conv: one block per ``kBM x kBN`` tile of the virtual
+    (M0, O) output, walking the ``K0 / k_block`` scaling groups in order.
+    Its patch rows are gathered from the padded input, which the
+    :class:`~.launch.Window` describes for ``prove_window_grid``; the
+    rounding bytes, the compact scales of "c", "n" and "none", the weight
+    codes and the output are tiled as in K3."""
+    t = launch.tile_constants("implicit_conv_constants", TILE, device_type)
+    bm, bn = t["kBM"], t["kBN"]
+    m0, k0, o, nkb = geom.m0, geom.k0, geom.o, geom.k0 // k_block
+    xs, ws = sg_shapes(grouping, m0, o, nkb)
+    operands = [Operand("args[1]", "r_u8", (m0, k0), (bm, k_block), lambda i, j, g: (i, g),
+                        masked=True)]
+    if grouping != "nc":  # "nc" scales are made in the kernel
+        operands.append(_sg_operand("args[3]", grouping, xs, True, bm))
+    operands += [Operand("args[4]", "w_codes", (k0, o), (k_block, bn), lambda i, j, g: (g, j),
+                         masked=True),
+                 _sg_operand("args[5]", grouping, ws, False, bn),
+                 Operand("outputs[0]", "out", (m0, o), (bm, bn), lambda i, j, g: (i, j),
+                         output=True, masked=True)]
+    return LaunchSpec(
+        kernel="implicit_conv",
+        grid=(("tile_m", -(-m0 // bm)), ("tile_n", -(-o // bn)), ("group", nkb)),
+        sequential=1, operands=tuple(operands),
+        accumulations=(Accumulation("dot", k_block, fmt.max_fraction),),
+        window=Window(geom, k_block, bm), macs=m0 * k0 * o)
 
 
 # ---------------------------------------------------------------------------

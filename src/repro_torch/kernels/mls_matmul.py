@@ -5,22 +5,28 @@ dot per ``k_block``-wide scaling group, scaled by ``s_g^x ⊗ s_g^w`` and
 accumulated in fp32 in k order, then multiplied once by the tensor scales.
 On a CUDA tensor it launches ``csrc/mls_matmul.cu`` (the TPU's
 ``mls_matmul.py`` ``_kernel``); on a CPU tensor it runs the plain version,
-:func:`repro_torch.kernels.ref.mls_matmul_ref`.
+:func:`repro_torch.kernels.ref.mls_matmul_ref`.  :func:`launch_spec`
+describes its launches for the static verifier.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.intervals import Accumulation
 from repro_torch.core.formats import EMFormat, accumulation_bits
 from repro_torch.core.lowbit import GROUPINGS
 
-from . import build
+from . import build, launch
+from .launch import LaunchSpec, Operand
 from .ref import mls_matmul_ref
 
-__all__ = ["LAUNCHES", "mls_matmul", "sg_shapes"]
+__all__ = ["LAUNCHES", "TILE", "launch_spec", "mls_matmul", "sg_shapes"]
 
 # Launches of the CUDA kernel, counted where the kernel is launched.
 LAUNCHES = {"mls_matmul": 0}
+
+# csrc/mls_matmul.cu's tile constants (mls_matmul_constants)
+TILE = {"kBM": 64, "kBN": 64, "kKC": 32, "kThreads": 256}
 
 
 def sg_shapes(
@@ -93,8 +99,10 @@ def mls_matmul(
     if any(t.device != x_codes.device for t in tensors):
         raise ValueError("mls_matmul operands must share one device")
     if x_codes.device.type == "cpu":
-        return mls_matmul_ref(x_codes, x_sg, x_st.reshape(()), w_codes, w_sg,
-                              w_st.reshape(()), fmt, k_block)
+        launch.record("mls_matmul", "cpu", M, N, K, k_block, grouping, fmt)
+        with launch.plain_version():
+            return mls_matmul_ref(x_codes, x_sg, x_st.reshape(()), w_codes, w_sg,
+                                  w_st.reshape(()), fmt, k_block)
     if x_codes.device.type != "cuda":
         raise ValueError(f"mls_matmul runs on cuda or cpu tensors, not {x_codes.device}")
 
@@ -110,4 +118,48 @@ def mls_matmul(
         fmt.e, fmt.m, torch.cuda.current_stream(x_codes.device).cuda_stream),
         "mls_matmul")
     LAUNCHES["mls_matmul"] += 1
+    launch.record("mls_matmul", "cuda", M, N, K, k_block, grouping, fmt)
     return out
+
+
+def _sg_operand(name: str, grouping: str, shape: tuple[int, int], x_side: bool,
+                tile: int) -> Operand:
+    """A compact group-scale operand: the x side is read at (row tile, group),
+    the weight side at (group, column tile), in the grouping's layout
+    (:func:`sg_shapes`); a size-1 axis is broadcast."""
+    rows, cols = shape
+    if x_side:
+        blk = (tile if rows > 1 else 1, 1)
+
+        def index(i, j, g):
+            return (i if rows > 1 else 0, g if cols > 1 else 0)
+    else:
+        blk = (1, tile if cols > 1 else 1)
+
+        def index(i, j, g):
+            return (g if rows > 1 else 0, j if cols > 1 else 0)
+    return Operand(name, "x_sg" if x_side else "w_sg", shape, blk, index, masked=True)
+
+
+def launch_spec(M: int, N: int, K: int, k_block: int, grouping: str, fmt: EMFormat,
+                device_type: str = "cpu") -> LaunchSpec:
+    """K3 on codes x (M, K) @ w (K, N): one block per ``kBM x kBN`` output
+    tile, walking the ``K / k_block`` scaling groups in order; each group is
+    an exact int32 dot of ``k_block`` products of decoded fractions."""
+    t = launch.tile_constants("mls_matmul_constants", TILE, device_type)
+    bm, bn = t["kBM"], t["kBN"]
+    xs, ws = sg_shapes(grouping, M, N, K // k_block)
+    return LaunchSpec(
+        kernel="mls_matmul",
+        grid=(("tile_m", -(-M // bm)), ("tile_n", -(-N // bn)), ("group", K // k_block)),
+        sequential=1,
+        operands=(Operand("args[0]", "x_codes", (M, K), (bm, k_block),
+                          lambda i, j, g: (i, g), masked=True),
+                  _sg_operand("args[1]", grouping, xs, True, bm),
+                  Operand("args[2]", "w_codes", (K, N), (k_block, bn),
+                          lambda i, j, g: (g, j), masked=True),
+                  _sg_operand("args[3]", grouping, ws, False, bn),
+                  Operand("outputs[0]", "out", (M, N), (bm, bn), lambda i, j, g: (i, j),
+                          output=True, masked=True)),
+        accumulations=(Accumulation("dot", k_block, fmt.max_fraction),),
+        macs=M * N * K)

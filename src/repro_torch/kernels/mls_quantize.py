@@ -8,23 +8,39 @@ TPU's ``_kernel_rowwise``) or the given-scale kernel ("c", "none"; the
 TPU's ``_kernel_given_sg``).  On a CPU tensor it runs the plain version,
 :func:`repro_torch.kernels.ref.quantize_ref`.  :func:`quantize_given_scales`
 is the given-scale kernel's own wrapper, for callers that bring their
-scales (the implicit conv's code reuse).
+scales (the implicit conv's code reuse).  :func:`launch_spec_rows` and
+:func:`launch_spec_given_sg` describe the two kernels' launches for the
+static verifier.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.formats import EMFormat, GS_FMT_DEFAULT
 from repro_torch.core.lowbit import GROUPINGS
 from repro_torch.core.quantize import quantize_group_scale
 
-from . import build
+from . import build, launch
+from .launch import LaunchSpec, Operand
 from .ref import element_codes_ref, quantize_ref
 
-__all__ = ["LAUNCHES", "mls_quantize", "quantize_given_scales", "rounding_bytes"]
+__all__ = [
+    "LAUNCHES",
+    "TILE",
+    "launch_spec_given_sg",
+    "launch_spec_rows",
+    "mls_quantize",
+    "quantize_launch",
+    "quantize_given_scales",
+    "rounding_bytes",
+]
 
 # Launches of each CUDA kernel, counted where the kernel is launched.
 LAUNCHES = {"mls_quantize_rows": 0, "mls_quantize_given_sg": 0}
+
+# csrc/mls_quantize.cu's launch constants (mls_quantize_constants)
+TILE = {"kThreads": 256, "kWarpGroupMax": 1024, "kGivenMaxBlocks": 132 * 32}
 
 _DETERMINISTIC_BYTE = 127  # r = -1/512: the TPU kernel's nearest rounding
 
@@ -77,7 +93,10 @@ def mls_quantize(
             or not r_u8.is_contiguous()):
         raise ValueError("r_u8 must be a contiguous uint8 tensor of x's shape and device")
     if x.device.type == "cpu":
-        return quantize_ref(x, fmt, k_block, gs_fmt, r_u8, grouping)
+        kernel, args = quantize_launch(M, K, k_block, grouping)  # what the card would run
+        launch.record(kernel, "cpu", *args)
+        with launch.plain_version():
+            return quantize_ref(x, fmt, k_block, gs_fmt, r_u8, grouping)
     if x.device.type != "cuda":
         raise ValueError(f"mls_quantize runs on cuda or cpu tensors, not {x.device}")
 
@@ -92,6 +111,7 @@ def mls_quantize(
             s_g.data_ptr(), M, K, width, *_fmt_args(fmt, gs_fmt),
             torch.cuda.current_stream(x.device).cuda_stream), "mls_quantize_rows")
         LAUNCHES["mls_quantize_rows"] += 1
+        launch.record("mls_quantize_rows", "cuda", M, K, width)
         return codes, s_g, s_t
     # "c" / "none": compact scales computed ahead (the "c" group max crosses
     # all rows), with the same exact group-scale math
@@ -122,9 +142,12 @@ def quantize_given_scales(
     if K % k_block or tuple(s_g.shape) not in ((1, 1), (1, K // k_block)):
         raise ValueError(f"group scales {tuple(s_g.shape)} do not fit K={K}, "
                          f"k_block={k_block}")
+    sg_stride = 0 if s_g.numel() == 1 else 1
     if x.device.type == "cpu":
+        launch.record("mls_quantize_given_sg", "cpu", M, K, k_block, sg_stride)
         per_col = s_g.repeat_interleave(k_block, dim=1) if s_g.numel() > 1 else s_g
-        return element_codes_ref(x, r_u8, s_t * per_col, fmt)
+        with launch.plain_version():
+            return element_codes_ref(x, r_u8, s_t * per_col, fmt)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_given_scales runs on cuda or cpu tensors, not {x.device}")
     if (x.dtype != torch.float32 or not x.is_contiguous() or r_u8.shape != x.shape
@@ -137,8 +160,88 @@ def quantize_given_scales(
     codes = torch.empty((M, K), dtype=torch.uint8, device=x.device)
     build.check(build.library().mls_quantize_given_sg(
         x.data_ptr(), r_u8.data_ptr(), s_t.data_ptr(), s_g.data_ptr(),
-        codes.data_ptr(), M, K, k_block, 0 if s_g.numel() == 1 else 1,
+        codes.data_ptr(), M, K, k_block, sg_stride,
         *_fmt_args(fmt, GS_FMT_DEFAULT), torch.cuda.current_stream(x.device).cuda_stream),
         "mls_quantize_given_sg")
     LAUNCHES["mls_quantize_given_sg"] += 1
+    launch.record("mls_quantize_given_sg", "cuda", M, K, k_block, sg_stride)
     return codes
+
+
+# ---------------------------------------------------------------------------
+# Launch descriptors
+# ---------------------------------------------------------------------------
+def quantize_launch(M: int, K: int, k_block: int, grouping: str) -> tuple[str, tuple]:
+    """The kernel :func:`mls_quantize` launches on an (M, K) operand and its
+    launch arguments (those of :func:`launch_spec_rows` /
+    :func:`launch_spec_given_sg`)."""
+    if grouping in ("nc", "n"):
+        return "mls_quantize_rows", (M, K, k_block if grouping == "nc" else K)
+    return "mls_quantize_given_sg", (M, K, k_block, int(grouping == "c" and K > k_block))
+
+
+def launch_spec_rows(M: int, K: int, group_width: int, device_type: str = "cpu") -> LaunchSpec:
+    """The row-group kernel (K1) on an (M, K) operand in ``group_width``-wide
+    groups: a warp per group up to ``kWarpGroupMax``, else a block per
+    group (``mls_quantize_rows``).  Program ``gid`` codes row ``gid // ng``,
+    group ``gid % ng`` and writes its group scale."""
+    t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
+    ng = K // group_width
+    groups = M * ng
+    if group_width <= t["kWarpGroupMax"]:
+        warps = t["kThreads"] // 32
+        grid = (("block", -(-groups // warps)), ("warp", warps))
+
+        def gid(b, w):
+            return b * warps + w
+    else:
+        grid = (("block", groups),)
+
+        def gid(b):
+            return b
+
+    def group(*c):
+        g = gid(*c)
+        return g // ng, g % ng
+
+    blk = (1, group_width)
+    return LaunchSpec(
+        kernel="mls_quantize_rows", grid=grid, sequential=0,
+        operands=(Operand("args[0]", "x", (M, K), blk, group),
+                  Operand("args[1]", "r_u8", (M, K), blk, group),
+                  Operand("outputs[0]", "codes", (M, K), blk, group, output=True),
+                  Operand("outputs[1]", "s_g", (M, ng), (1, 1), group, output=True)),
+        active=lambda *c: gid(*c) < groups)
+
+
+def launch_spec_given_sg(M: int, K: int, k_block: int, sg_stride: int,
+                         device_type: str = "cpu") -> LaunchSpec:
+    """The given-scale kernel (K2): a grid-stride pass over the M*K elements
+    in row-major order.  Block ``b`` at stride step ``s`` codes the
+    ``kThreads`` elements of chunk ``s * blocks + b``; each element reads
+    its compact group scale ``(col // k_block) * sg_stride``."""
+    t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
+    n, threads = M * K, t["kThreads"]
+    chunks = -(-n // threads)
+    blocks = min(chunks, t["kGivenMaxBlocks"])
+    strides = -(-chunks // blocks) if blocks else 0
+
+    def chunk(b, s):
+        return (s * blocks + b,)
+
+    def scale(b, s):  # the largest scale index a chunk reads
+        first = (s * blocks + b) * threads
+        last = np.minimum(first + threads, n) - 1
+        col = np.where(last // K > first // K, K - 1, last % K)
+        return (0, (col // k_block) * sg_stride)
+
+    blk = (threads,)
+    return LaunchSpec(
+        kernel="mls_quantize_given_sg", grid=(("block", blocks), ("stride", strides)),
+        sequential=1,
+        operands=(Operand("args[0]", "x", (n,), blk, chunk, masked=True),
+                  Operand("args[1]", "r_u8", (n,), blk, chunk, masked=True),
+                  Operand("args[3]", "s_g", (1, K // k_block if sg_stride else 1), (1, 1),
+                          scale),
+                  Operand("outputs[0]", "codes", (n,), blk, chunk, output=True, masked=True)),
+        active=lambda b, s: s * blocks + b < chunks)

@@ -7,6 +7,7 @@ references in the CPU tests.  The kernel wrappers run them for tensors on
 the CPU; ``chip_smoke.py`` runs them on the card as the comparison.  The
 implicit conv's plain version is the im2col pipeline it fuses:
 :func:`im2col`, then :func:`quantize_ref` and :func:`mls_matmul_ref`.
+The verifier's planted-overlap control (K5) has :func:`sabotage_overlap_ref`.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ __all__ = [
     "implicit_conv_ref",
     "mls_matmul_ref",
     "quantize_ref",
+    "sabotage_overlap_ref",
+    "sabotage_overlap_tiles",
 ]
 
 Pads = tuple[tuple[int, int], tuple[int, int]]
@@ -199,3 +202,40 @@ def implicit_conv_ref(
     wc, wsgT, wst = quantize_ref(wt, fmt, k_block, gs_fmt, r_w, grouping)
     y2d = mls_matmul_ref(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, k_block)
     return y2d.reshape(n, oh, ow, o).permute(0, 3, 1, 2)
+
+
+def sabotage_overlap_tiles(x: torch.Tensor, w: torch.Tensor) -> dict[tuple[int, int], torch.Tensor]:
+    """The tile each program of K5 computes: ``(i, j) -> x[8i:8i+8] @
+    w[:, 8j:8j+8]`` in fp32, each 8-deep k-tile's products summed in order
+    and the k-tiles' partials added in order (``acc = 0 + p0``, then
+    ``acc + p1``), one rounding per product and per sum, as the kernel
+    does."""
+    bm = bn = bk = 8
+    tiles = {}
+    for i in range(x.shape[0] // bm):
+        for j in range(w.shape[1] // bn):
+            xt, wt = x[i * bm : (i + 1) * bm], w[:, j * bn : (j + 1) * bn]
+            acc = torch.zeros((bm, bn), dtype=torch.float32, device=x.device)
+            for k in range(x.shape[1] // bk):
+                p = torch.zeros_like(acc)
+                for kk in range(k * bk, (k + 1) * bk):
+                    p = p + xt[:, kk : kk + 1] * wt[kk : kk + 1, :]
+                acc = acc + p
+            tiles[(i, j)] = acc
+    return tiles
+
+
+def sabotage_overlap_ref(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's function as the TPU's sequential grid runs it: programs in grid
+    order, program (i, j) storing its tile at block (i, j - j % 2), the
+    last writer winning; unwritten blocks keep NaN.  Returns ``(out, writes)``
+    with ``writes`` (int32, out's shape) the number of stores to each
+    element."""
+    out = torch.full((x.shape[0], w.shape[1]), float("nan"), dtype=torch.float32,
+                     device=x.device)
+    writes = torch.zeros(out.shape, dtype=torch.int32, device=x.device)
+    for (i, j), tile in sabotage_overlap_tiles(x, w).items():
+        at = (slice(i * 8, (i + 1) * 8), slice((j - j % 2) * 8, (j - j % 2 + 1) * 8))
+        out[at] = tile
+        writes[at] += 1
+    return out, writes

@@ -24,9 +24,10 @@ from repro_torch.models.cnn import CNNConfig, init_resnet
 from repro_torch.optim.optimizers import set_lr, sgdm, step_decay_schedule
 from repro_torch.runtime import resolve_device
 
-__all__ = ["TrainResult", "main", "train_variant"]
+__all__ = ["DEFAULT_FMTS", "TrainResult", "main", "parse_fmt", "preset", "train_variant"]
 
 _ROUNDING_SEED = 7  # as examples/train_cifar_lowbit.py: fold_in(key(7), step)
+DEFAULT_FMTS = ("2,4", "2,1")  # the paper's <2,4> and <2,1>, beside fp32
 
 
 @dataclasses.dataclass
@@ -80,9 +81,16 @@ def train_variant(
     return res
 
 
-def _parse_fmt(s: str) -> EMFormat:
+def parse_fmt(s: str) -> EMFormat:
+    """``"E,M"`` -> :class:`EMFormat`."""
     e, m = (int(v) for v in s.split(","))
     return EMFormat(e, m)
+
+
+def preset(fmt: EMFormat) -> QuantConfig:
+    """The trainer's quantized variant: the paper's setting, k_block 128,
+    grouping "nc", stochastic rounding."""
+    return QuantConfig(fmt=fmt)
 
 
 def main(argv: list[str] | None = None) -> dict[str, TrainResult]:
@@ -91,16 +99,15 @@ def main(argv: list[str] | None = None) -> dict[str, TrainResult]:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--hw", type=int, default=32)
     ap.add_argument("--width", type=float, default=1.0)
-    ap.add_argument("--fmt", nargs="+", default=["2,4", "2,1"],
+    ap.add_argument("--fmt", nargs="+", default=list(DEFAULT_FMTS),
                     help="quantized <E,M> formats to train beside fp32, as E,M")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     variants: list[tuple[str, QuantConfig | None]] = [("fp32", None)]
     for s in args.fmt:
-        fmt = _parse_fmt(s)
-        # the paper's setting: k_block 128, grouping "nc", stochastic rounding
-        variants.append((f"mls{fmt}", QuantConfig(fmt=fmt)))
+        fmt = parse_fmt(s)
+        variants.append((f"mls{fmt}", preset(fmt)))
     results = {}
     for name, qcfg in variants:
         print(f"== training {name} ==")

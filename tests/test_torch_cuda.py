@@ -6,6 +6,12 @@ JAX, run them with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
+Besides: the planted-overlap control K5 against its plain version (NaN
+gaps, each written element bit-identical to one of its two racing
+writers, a store probe of 2 per element where two programs write), the
+built library's tile constants against the launch descriptors' copies,
+and the launch specs of one full-width ResNet-20 step verifying clean.
+
 Small, ragged shapes that the main path's shapes in ``chip_smoke.py`` do
 not reach: M and N off the 64-wide GEMM tile, groups wider than a warp's
 limit, the E=0 format, and for the implicit conv k-blocks off the 32-wide
@@ -13,20 +19,29 @@ chunk, several k-blocks, two output-channel tiles, stride 2 with SAME
 (asymmetric) and VALID (uncovered tail) padding, and a 1x1 conv.
 Tolerance 0: the kernels reproduce the plain versions bit for bit.
 """
+import importlib
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.analysis.graphs import cifar_train_graph  # noqa: E402
+from repro_torch.analysis.kernel_verify import verify_specs, writers_per_block  # noqa: E402
 from repro_torch.core import EMFormat, QuantConfig  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     implicit_conv_forward,
+    launch,
     launch_counts,
     lowbit_conv_fused,
     mls_matmul,
     mls_quantize,
+    recorded_specs,
     reset_launch_counts,
 )
+from repro_torch.kernels.ref import sabotage_overlap_tiles  # noqa: E402
+from repro_torch.kernels.sabotage import launch_spec as k5_spec  # noqa: E402
+from repro_torch.kernels.sabotage import sabotage_overlap_matmul  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -107,7 +122,7 @@ def test_conv_counts_six_quantize_and_three_gemm_launches(cuda):
     lowbit_conv_fused(x, w, 5, (1, 1), "SAME", cfg).sum().backward()
     torch.cuda.synchronize()
     assert launch_counts() == {"mls_quantize_rows": 6, "mls_quantize_given_sg": 0,
-                               "mls_matmul": 3, "implicit_conv": 0}
+                               "mls_matmul": 3, "implicit_conv": 0, "sabotage_overlap": 0}
 
 
 # (x shape, w shape, stride, padding, k_block)
@@ -176,4 +191,52 @@ def test_implicit_conv_launch_counts(cuda, grouping, stochastic, want):
     reset_launch_counts()
     lowbit_conv_fused(x, w, 5, (1, 1), "SAME", cfg).sum().backward()
     torch.cuda.synchronize()
-    assert launch_counts() == {**want, "implicit_conv": 1}
+    assert launch_counts() == {**want, "implicit_conv": 1, "sabotage_overlap": 0}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sabotage_overlap_kernel_matches_plain(cuda, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((16, 32)).astype(np.float32)).to(cuda)
+    probe = torch.zeros((8, 32), dtype=torch.int32, device=cuda)
+    before = launch_counts()["sabotage_overlap"]
+    out = sabotage_overlap_matmul(x, w, probe)
+    torch.cuda.synchronize()
+    assert launch_counts()["sabotage_overlap"] == before + 1
+    tiles = sabotage_overlap_tiles(x, w)
+    writers = writers_per_block(k5_spec(8, 16, 32, "cuda"), "outputs[0]")[0].tolist()
+    assert writers == [2, 0, 2, 0]
+    for c in range(4):
+        block, stores = out[:, 8 * c : 8 * c + 8], probe[:, 8 * c : 8 * c + 8]
+        assert (stores == writers[c]).all()
+        if writers[c] == 0:
+            assert torch.isnan(block).all()
+            continue
+        bits = block.view(torch.int32)
+        either = (bits == tiles[(0, c)].view(torch.int32)) | \
+            (bits == tiles[(0, c + 1)].view(torch.int32))
+        assert either.all()
+
+
+@pytest.mark.parametrize("module,query", [
+    ("mls_quantize", "mls_quantize_constants"), ("mls_matmul", "mls_matmul_constants"),
+    ("implicit_conv", "implicit_conv_constants"), ("sabotage", "sabotage_overlap_constants")])
+def test_library_tile_constants_equal_the_descriptors(cuda, module, query):
+    tile = importlib.import_module(f"repro_torch.kernels.{module}").TILE
+    assert launch.tile_constants(query, tile, "cuda") == tile
+
+
+@pytest.mark.parametrize("k_block,kernels", [
+    (128, {"mls_quantize_rows", "mls_matmul"}),
+    (144, {"mls_quantize_rows", "mls_matmul", "implicit_conv"})])
+def test_full_width_step_launch_specs_verify_clean(cuda, k_block, kernels):
+    graph = cifar_train_graph(k_block, device=cuda)
+    cov, records = graph.run()
+    specs = recorded_specs(records)
+    assert {s.kernel for s, _ in specs} == kernels
+    assert {key[1] for key in records} == {"cuda"}  # recorded on the card
+    report = verify_specs(graph.name, specs)
+    assert report.ok, report.violations
+    assert report.max_integer_bits == (21 if k_block == 128 else 22)
+    assert cov.quantized_fraction >= 0.99

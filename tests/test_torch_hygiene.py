@@ -41,7 +41,9 @@ def _env():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.kernels, repro_torch.models.cnn, "
-            "repro_torch.train.loop, repro_torch.convert; "
+            "repro_torch.train.loop, repro_torch.convert, repro_torch.kernels.registry, "
+            "repro_torch.kernels.sabotage, repro_torch.analysis.audit, "
+            "repro_torch.analysis.kernel_verify, repro_torch.analysis.graphs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(), timeout=120)
@@ -92,7 +94,8 @@ def test_kernel_build_is_lazy_and_exact():
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags
     assert {p.name for p in build.CSRC.iterdir()} >= {
-        "mls_common.cuh", "mls_quantize.cu", "mls_matmul.cu", "implicit_conv.cu"}
+        "mls_common.cuh", "mls_quantize.cu", "mls_matmul.cu", "implicit_conv.cu",
+        "sabotage_overlap.cu"}
     assert build.library_path().name.startswith("libmls_kernels_")
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
         with pytest.raises(RuntimeError, match="nvcc not found"):
