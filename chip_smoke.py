@@ -8,7 +8,14 @@ Phases (any failure makes the script exit non-zero, with no result line):
   3. kernels  - run every kernel at the ResNet-20 main paths' shapes on the
                 card and hold it bit-identical (tolerance 0) to its plain
                 PyTorch version on the same inputs; time both with CUDA
-                events (median of 20 after warm-up).  The implicit conv
+                events (median of 20 after warm-up), and the kernels alone
+                with torch.profiler.  K1 at the stage-1 forward and
+                weight-gradient operands, four groupings, <2,4> and <2,1>.
+                K3 at the weight gradients of all three stages, the
+                stage-1 and stage-3 forwards, the stage-3 data gradient, a
+                ragged shape and k_block 144, four groupings, on the plan
+                matmul_plan picks and on the other variant (walk / ordered
+                split); <3,1> on the int32 body.  The implicit conv
                 (K4) runs at its stage-1, stage-2 (stride 2) and stage-3
                 convs, four groupings, <2,4> and <2,1>, and is timed beside
                 the im2col route of the same conv.
@@ -71,8 +78,14 @@ TRAIN_STEPS = 5
 # the shape each kernel is reported at on the {"kernels": ...} line (all
 # timed shapes are in chiprun_out/chip_smoke.json)
 REPORTED_SHAPE = {"mls_quantize_rows": "stage1_fwd_cols", "mls_quantize_given_sg": "stage1_fwd_cols",
-                  "mls_matmul": "stage1_wgrad", "implicit_conv": "stage1_conv",
+                  "mls_matmul": "stage1_wgrad ", "implicit_conv": "stage1_conv",
                   "sabotage_overlap": "x (8, 16)"}
+# device kernels (profiler names) of each C entry point
+DEVICE_KERNELS = {"mls_quantize_rows": ("quantize_amax", "quantize_groups_warp",
+                                        "quantize_groups_block"),
+                  "mls_quantize_given_sg": ("quantize_given_sg",),
+                  "mls_matmul": ("mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum"),
+                  "implicit_conv": ("implicit_conv_kernel",)}
 KERNELS = {
     "mls_quantize_rows": ("src/repro_torch/kernels/csrc/mls_quantize.cu",
                           "src/repro/kernels/mls_quantize.py:107"),
@@ -116,9 +129,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, name: str, iters: int = 10) -> float:
+def kernel_ms(fn, name, iters: int = 10) -> float:
     """Mean device time per call of ``fn`` spent in kernels whose name
-    contains ``name`` (torch.profiler), without the wrapper's other work."""
+    contains ``name`` (or one of a tuple of names; torch.profiler), without
+    the wrapper's other work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -129,8 +143,9 @@ def kernel_ms(fn, name: str, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    names = (name,) if isinstance(name, str) else name
     total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and name in e.name)
+                if e.device_type == DeviceType.CUDA and any(n in e.name for n in names))
     return total / 1e3 / iters
 
 
@@ -153,9 +168,9 @@ def phase_kernels(results: dict) -> list[dict]:
     import torch
 
     from repro_torch.core import FMT_CIFAR, FMT_IMAGENET, GS_FMT_DEFAULT
-    from repro_torch.kernels import mls_matmul, mls_quantize, rounding_bytes
-    from repro_torch.kernels.mls_matmul import sg_shapes
-    from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
+
+    from repro_torch.kernels import mls_quantize, rounding_bytes
+    from repro_torch.kernels.ref import quantize_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_hw = BATCH * HW * HW
@@ -183,45 +198,15 @@ def phase_kernels(results: dict) -> list[dict]:
                     timed[key] = dict(
                         ms=cuda_ms(lambda: mls_quantize(x, fmt, K_BLOCK, GS_FMT_DEFAULT, r,
                                                         grouping)),
+                        kernel_ms=kernel_ms(lambda: mls_quantize(x, fmt, K_BLOCK, GS_FMT_DEFAULT,
+                                                                 r, grouping),
+                                            DEVICE_KERNELS[kernel]),
                         plain_ms=cuda_ms(lambda: quantize_ref(x, fmt, K_BLOCK, GS_FMT_DEFAULT,
                                                               r, grouping), iters=20),
                         bytes=M * K * 6 + n_sg * 4 + 4, ops=0, max_abs_err=err,
                         shape=f"{sname} ({M}, {K}) {grouping} {fmt}")
         del x, r
-    # GEMMs: stage-1 forward (cols @ wmat), stage-1 wgrad (cols.T @ e2d),
-    # stage-3 dgrad (e2d @ wmat); (M, K real, K padded, N)
-    g_shapes = {
-        "stage1_fwd": (n_hw, 144, 256, 16),
-        "stage1_wgrad": (144, n_hw, n_hw, 16),
-        "stage3_dgrad": (BATCH * 8 * 8, 64, 128, 576),
-    }
-    for sname, (M, real, K, N) in g_shapes.items():
-        x = quantize_operand(M, real, K, gen)
-        wt = quantize_operand(N, real, K, gen)  # the weight, quantized as (N, K)
-        for grouping in ("nc", "c", "n", "none"):
-            xc, xsg, xst = quantize_ref(x, FMT_IMAGENET, K_BLOCK, GS_FMT_DEFAULT,
-                                        rounding_bytes(x.shape, gen, x.device), grouping)
-            wc, wsgT, wst = quantize_ref(wt, FMT_IMAGENET, K_BLOCK, GS_FMT_DEFAULT,
-                                         rounding_bytes(wt.shape, gen, wt.device), grouping)
-            args = (xc, xsg, xst, wc.t(), wsgT.t(), wst, FMT_IMAGENET, K_BLOCK)
-            got = mls_matmul(*args, grouping)
-            want = mls_matmul_ref(*args)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, want)
-            checks.append(dict(kernel="mls_matmul", shape=sname, fmt="<2,4>",
-                               grouping=grouping, identical=torch.equal(got, want),
-                               max_abs_err=err, finite=bool(torch.isfinite(got).all())))
-            if grouping == "nc":
-                xs_shape, ws_shape = sg_shapes(grouping, M, N, K // K_BLOCK)
-                timed[("mls_matmul", sname, "<2,4>", grouping)] = dict(
-                    ms=cuda_ms(lambda: mls_matmul(*args, grouping)),
-                    plain_ms=cuda_ms(lambda: mls_matmul_ref(*args),
-                                     iters=20, warmup=1),
-                    bytes=M * K + K * N + 4 * (math.prod(xs_shape) + math.prod(ws_shape))
-                    + 4 * M * N + 8,
-                    ops=2 * M * N * K, max_abs_err=err,
-                    shape=f"{sname} ({M}x{K}x{N}) {grouping} <2,4>")
-        del x, wt
+    checks += matmul_checks(gen, timed)
     checks += implicit_conv_checks(gen, timed)
     results["kernel_checks"] = checks
     rows = []
@@ -232,7 +217,8 @@ def phase_kernels(results: dict) -> list[dict]:
                          bound_ms=max(bound_bytes, bound_ops),
                          bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                          max_abs_err=t["max_abs_err"]))
-        rows[-1].update({k: t[k] for k in ("im2col_ms", "kernel_ms") if k in t})
+        rows[-1].update({k: t[k] for k in ("im2col_ms", "kernel_ms", "plan", "other_plan",
+                                           "other_ms", "other_kernel_ms") if k in t})
         print(json.dumps({"timing": rows[-1]}))
     results["kernel_times"] = rows
     bad = [c for c in checks if not c["identical"] or not c.get("equals_im2col", True)]
@@ -241,6 +227,88 @@ def phase_kernels(results: dict) -> list[dict]:
     if bad:
         raise AssertionError(f"{len(bad)} kernel results differ from their plain versions")
     return rows
+
+
+# K3's shapes: (M, K real, K padded, N, k_block) -- forward (cols @ wmat),
+# weight gradient (cols.T @ e2d), data gradient (e2d @ wmat.T) of
+# full-width ResNet-20 at batch 128, K padded as qd_gemm pads it
+GEMM_SHAPES = {
+    "stage1_fwd": (BATCH * HW * HW, 144, 256, 16, K_BLOCK),
+    "stage1_wgrad": (144, BATCH * HW * HW, BATCH * HW * HW, 16, K_BLOCK),
+    "stage2_wgrad": (288, BATCH * 16 * 16, BATCH * 16 * 16, 32, K_BLOCK),
+    "stage3_wgrad": (576, BATCH * 8 * 8, BATCH * 8 * 8, 64, K_BLOCK),
+    "stage3_fwd": (BATCH * 8 * 8, 576, 640, 64, K_BLOCK),
+    "stage3_dgrad": (BATCH * 8 * 8, 64, 128, 576, K_BLOCK),
+    "ragged": (4099, 300, 384, 37, K_BLOCK),
+    "kb144_stage1_wgrad": (144, BATCH * HW * HW, 131184, 16, K_BLOCK_IMPLICIT),
+    "kb144_stage1_dgrad": (BATCH * HW * HW, 16, 144, 144, K_BLOCK_IMPLICIT),
+}
+FMT_INT32 = (3, 1)  # fractions up to 192: K3's int32 body
+
+
+def matmul_checks(gen, timed: dict) -> list[dict]:
+    """K3 against mls_matmul_ref at GEMM_SHAPES: four groupings at <2,4>
+    on the plan matmul_plan picks and on the other variant; <3,1> (the
+    int32 body) with grouping "nc" on both variants where k_block 128
+    allows it.  The "nc" <2,4> call of each shape is timed on both plans,
+    <3,1> at the stage-1 weight gradient."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT, EMFormat
+    from repro_torch.kernels import mls_matmul, rounding_bytes
+    from repro_torch.kernels.mls_matmul import matmul_plan, sg_shapes
+    from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
+
+    checks = []
+    for sname, (M, real, K, N, kb) in GEMM_SHAPES.items():
+        x = quantize_operand(M, real, K, gen)
+        wt = quantize_operand(N, real, K, gen)  # the weight, quantized as (N, K)
+        cases = [(FMT_IMAGENET, g) for g in ("nc", "c", "n", "none")]
+        if kb == K_BLOCK:
+            cases.append((EMFormat(*FMT_INT32), "nc"))
+        for fmt, grouping in cases:
+            xc, xsg, xst = quantize_ref(x, fmt, kb, GS_FMT_DEFAULT,
+                                        rounding_bytes(x.shape, gen, x.device), grouping)
+            wc, wsgT, wst = quantize_ref(wt, fmt, kb, GS_FMT_DEFAULT,
+                                         rounding_bytes(wt.shape, gen, wt.device), grouping)
+            args = (xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, kb)
+            want = mls_matmul_ref(*args)
+            plan = matmul_plan(M, N, K, kb, fmt)
+            plans = [plan]
+            if K // kb > 1:
+                plans.append(dataclasses.replace(
+                    plan, variant="walk" if plan.variant == "split" else "split"))
+            for p in plans:
+                got = mls_matmul(*args, grouping, plan=p)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                checks.append(dict(kernel="mls_matmul", shape=sname, fmt=str(fmt),
+                                   grouping=grouping, k_block=kb, plan=dataclasses.asdict(p),
+                                   chosen=p == plan, identical=torch.equal(got, want),
+                                   max_abs_err=err, finite=bool(torch.isfinite(got).all())))
+            timed_case = (fmt is FMT_IMAGENET and grouping == "nc") or \
+                (fmt.max_fraction > 127 and sname == "stage1_wgrad")
+            if not timed_case:
+                continue
+            xs_shape, ws_shape = sg_shapes(grouping, M, N, K // kb)
+            run = lambda p: lambda: mls_matmul(*args, grouping, plan=p)  # noqa: E731
+            row = dict(
+                ms=cuda_ms(run(plan)), kernel_ms=kernel_ms(run(plan), DEVICE_KERNELS["mls_matmul"]),
+                plain_ms=cuda_ms(lambda: mls_matmul_ref(*args), iters=20, warmup=1),
+                bytes=M * K + K * N + 4 * (math.prod(xs_shape) + math.prod(ws_shape))
+                + 4 * M * N + 8,
+                ops=2 * M * N * K, max_abs_err=err, plan=dataclasses.asdict(plan),
+                shape=f"{'int32_' if fmt.max_fraction > 127 else ''}{sname} "
+                      f"({M}x{K}x{N}) kb{kb} {grouping} {fmt}")
+            if len(plans) > 1:
+                row.update(other_plan=plans[1].variant, other_ms=cuda_ms(run(plans[1])),
+                           other_kernel_ms=kernel_ms(run(plans[1]),
+                                                     DEVICE_KERNELS["mls_matmul"]))
+            timed[("mls_matmul", sname, str(fmt), grouping)] = row
+        del x, wt
+    return checks
 
 
 def implicit_conv_checks(gen, timed: dict) -> list[dict]:
@@ -406,8 +474,7 @@ def phase_trace(results: dict) -> None:
     from repro_torch.core import FMT_IMAGENET, QuantConfig
     from repro_torch.train.loop import train_variant
 
-    ours = ("quantize_groups_warp", "quantize_groups_block", "quantize_given_sg",
-            "mls_matmul_kernel", "implicit_conv_kernel")
+    ours = tuple(n for names in DEVICE_KERNELS.values() for n in names)
     steps = 3
     for key, k_block in (("trace", K_BLOCK), ("trace_implicit", K_BLOCK_IMPLICIT)):
         qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=k_block, grouping="nc", stochastic=True)
@@ -421,12 +488,15 @@ def phase_trace(results: dict) -> None:
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         ours_ms = sum(v for k, v in by_name.items() if any(o in k for o in ours))
+        by_entry = {entry: sum(v for k, v in by_name.items() if any(o in k for o in names))
+                    / steps for entry, names in DEVICE_KERNELS.items()}
         device_ms = sum(by_name.values())
         host_ms = sum(res.step_s) * 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         trace = dict(k_block=k_block, steps=steps, host_ms_per_step=host_ms / steps,
                      device_ms_per_step=device_ms / steps,
                      port_kernels_ms_per_step=ours_ms / steps,
+                     kernels_ms_per_step_by_entry=by_entry,
                      other_device_ms_per_step=(device_ms - ours_ms) / steps,
                      device_idle_share=1.0 - device_ms / host_ms if host_ms else None,
                      top_kernels_ms_per_step=[(k[:90], v / steps) for k, v in top])
@@ -578,10 +648,26 @@ def phase_audit(results: dict) -> tuple[dict, int]:
         bad.append(f"quantized fraction {summary['quantized_fraction']}")
     if any(v != fp for v in summary["full_precision_macs"].values()):
         bad.append(f"fp32 MACs {summary['full_precision_macs']}, expected {fp}")
-    want = {"train:resnet20": ["mls_matmul", "mls_quantize_rows"],
-            "train:resnet20@kb144": ["implicit_conv", "mls_matmul", "mls_quantize_rows"]}
+    k1_k3 = ["mls_matmul_sum", "mls_matmul_terms", "mls_matmul_walk", "quantize_amax",
+             "quantize_groups_warp"]
+    want = {"train:resnet20": k1_k3,
+            "train:resnet20@kb144": sorted(k1_k3 + ["implicit_conv"])}
     if summary["recorded_kernels"] != want:
         bad.append(f"recorded kernels {summary['recorded_kernels']}")
+    # exactly the closed form of tests/test_torch_analysis.py: K3's MACs are
+    # counted once per call, whatever its plan launches
+    if summary["quantized_fraction"] != {"train:resnet20": 0.996968,
+                                         "train:resnet20@kb144": 0.997035}:
+        bad.append(f"quantized fraction {summary['quantized_fraction']} is not the closed form")
+    # the stage-1 weight gradient's term phase: a parallel grid over the card
+    stage1 = [c for c in recorded["train:resnet20"]["calls"]
+              if "mls_matmul_terms[" in c["kernel"]
+              and c["grid"] == [["tile_m", 3], ["tile_n", 1], ["group", BATCH * HW * HW // K_BLOCK]]]
+    summary["stage1_wgrad_term_programs"] = [math.prod(n for _, n in c["grid"]) for c in stage1]
+    if not stage1 or not all(c["ok"] and math.prod(n for _, n in c["grid"]) >= 132
+                             for c in stage1):
+        bad.append(f"stage-1 weight gradient term phase not recorded as a proven grid of >= 132 "
+                   f"programs: {stage1}")
     sabotage = {}
     k5_launches = 0
     for mode, graph, named in (

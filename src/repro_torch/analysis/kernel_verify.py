@@ -181,11 +181,19 @@ def _block_indices(spec: LaunchSpec, op: Operand, coords) -> tuple[np.ndarray, n
 def _writers(spec: LaunchSpec, op: Operand, idx: np.ndarray, valid: np.ndarray):
     """Per output block, the number of distinct conflicting writers, and the
     dependent axes: a writer is a grid point's projection on the parallel
-    axes and on the axes the index map depends on."""
+    axes and on the axes the index map depends on (between neighbouring
+    programs that both write: one that does nothing depends on nothing)."""
     shape = spec.shape
     grid_idx = idx.reshape(*shape, idx.shape[1])
-    deps = [d for d in range(len(shape))
-            if shape[d] > 1 and np.any(np.diff(grid_idx, axis=d) != 0)]
+    grid_valid = valid.reshape(shape)
+
+    def depends(d: int) -> bool:
+        moved = np.any(np.diff(grid_idx, axis=d) != 0, axis=-1)
+        both = np.take(grid_valid, range(shape[d] - 1), axis=d) & \
+            np.take(grid_valid, range(1, shape[d]), axis=d)
+        return bool(np.any(moved & both))
+
+    deps = [d for d in range(len(shape)) if shape[d] > 1 and depends(d)]
     n_parallel = len(shape) - spec.sequential
     conflict = sorted(set(deps) | set(range(n_parallel)))
     nblocks = tuple(-(-s // b) for s, b in zip(op.shape, op.block))
@@ -410,11 +418,15 @@ def _unpack_qcfg(qcfg) -> tuple[EMFormat, int, EMFormat]:
     return fmt, int(k_block), GS_FMT_DEFAULT
 
 
-def _quantize_spec(M: int, K: int, k_block: int, grouping: str, device: str) -> LaunchSpec:
-    """The quantizer launch ``mls_quantize`` makes on an (M, K) operand."""
+def _quantize_specs(M: int, K: int, k_block: int, grouping: str,
+                    device: str) -> list[tuple[LaunchSpec, int]]:
+    """The quantizer launches ``mls_quantize`` makes on an (M, K) operand."""
     kernel, args = quantize_launch(M, K, k_block, grouping)
-    ((spec, _),) = recorded_specs(collections.Counter({(kernel, device, *args): 1}))
-    return spec
+    return recorded_specs(collections.Counter({(kernel, device, *args): 1}))
+
+
+def _once(specs) -> list[tuple[LaunchSpec, int]]:
+    return [(s, 1) for s in specs]
 
 
 def verify_candidate(shape: tuple[int, int, int], qcfg, grouping: str | None = None,
@@ -428,9 +440,9 @@ def verify_candidate(shape: tuple[int, int, int], qcfg, grouping: str | None = N
     if grouping is None:
         grouping = qcfg.grouping if isinstance(qcfg, QuantConfig) else "nc"
     kp = -(-K // k_block) * k_block
-    specs = [(_quantize_spec(M, kp, k_block, grouping, device), 1),
-             (_quantize_spec(N, kp, k_block, grouping, device), 1),
-             (matmul_spec(M, N, kp, k_block, grouping, fmt, device), 1)]
+    specs = (_quantize_specs(M, kp, k_block, grouping, device)
+             + _quantize_specs(N, kp, k_block, grouping, device)
+             + _once(matmul_spec(M, N, kp, k_block, grouping, fmt, device_type=device)))
     return verify_specs(f"candidate_{M}x{K}x{N}_{fmt}_kb{k_block}_{grouping}", specs)
 
 
@@ -445,7 +457,7 @@ def verify_quantize_candidate(shape: tuple[int, int], fmt: EMFormat, k_block: in
             kernel=name, grid=(), coverage={}, accumulations=[], max_integer_bits=0,
             warnings=[], exhaustive=True, violations=[Violation(
                 "divisibility", "args[0]", f"K={K} is not a multiple of k_block={k_block}")])])
-    return verify_specs(name, [(_quantize_spec(M, K, k_block, grouping, device), 1)])
+    return verify_specs(name, _quantize_specs(M, K, k_block, grouping, device))
 
 
 def verify_implicit_conv_candidate(geom, fmt: EMFormat, k_block: int, grouping: str = "nc",
@@ -459,8 +471,8 @@ def verify_implicit_conv_candidate(geom, fmt: EMFormat, k_block: int, grouping: 
     if not ok:
         return KernelReport(name, [_window_report(
             name, [Violation("divisibility", "window_grid", reason)], {})])
-    specs = [(_quantize_spec(geom.o, geom.k0, k_block, grouping, device), 1),
-             (implicit_conv.launch_spec(geom, k_block, grouping, fmt, device), 1)]
+    specs = (_quantize_specs(geom.o, geom.k0, k_block, grouping, device)
+             + [(implicit_conv.launch_spec(geom, k_block, grouping, fmt, device), 1)])
     return verify_specs(name, specs)
 
 
@@ -468,8 +480,8 @@ def prove_matmul_accumulation_bits(fmt: EMFormat, k_block: int) -> int:
     """The verifier's bound on K3's integer accumulator width for one
     ``(fmt, k_block)``: equal to ``core.formats.accumulation_bits`` for every
     pair, as the tests assert."""
-    report = verify_spec(matmul_spec(8, 8, 2 * k_block, k_block, "nc", fmt))
-    return report.max_integer_bits
+    return max(verify_spec(s).max_integer_bits
+               for s in matmul_spec(8, 8, 2 * k_block, k_block, "nc", fmt))
 
 
 # ---------------------------------------------------------------------------
@@ -494,8 +506,8 @@ def _sabotage_deep_k(device: str) -> KernelReport:
     """K3's launch at <2,4> x k_block 2048: 25 integer bits >= 24.  The raw
     launcher takes it; ``mls_matmul`` and ``QuantConfig`` refuse it, the hole
     this control names."""
-    spec = matmul_spec(8, 8, 2048, 2048, "nc", FMT_IMAGENET, device)
-    return verify_specs("sabotage:deep_k", [(spec, 1)])
+    specs = matmul_spec(8, 8, 2048, 2048, "nc", FMT_IMAGENET, device_type=device)
+    return verify_specs("sabotage:deep_k", _once(specs))
 
 
 def _sabotage_drop_halo(device: str) -> KernelReport:

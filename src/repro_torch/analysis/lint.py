@@ -8,12 +8,13 @@ arithmetic the kernels assume:
   ``product_bits + ceil(log2(k_block)) < 24``.
 * **Code width.**  Packed codes (sign, exponent, mantissa) must fit a
   byte: ``1 + E + M <= 8``.
-* **Tiling.**  K3 stages each scaling group in ``kKC``-wide contraction
-  chunks (``csrc/mls_matmul.cu``); a ``k_block`` that is not a multiple of
-  ``kKC`` leaves the last chunk of every group part empty (at ``k_block``
-  144, half a chunk of five).  The kernels take any ``k_block``, so this
-  is a warning.  The JAX package's rule here (a power of two in [16, 512]
-  for the Pallas contraction tile) does not apply to the port.
+* **Tiling.**  K3 contracts each scaling group in ``kKStep``-wide (16)
+  tensor-core k steps and stages its codes with 16-byte ``cp.async``
+  copies (``csrc/mls_matmul.cu``); a ``k_block`` that is not a multiple of
+  ``kKStep`` leaves the last step of every group part empty and stages the
+  codes with plain loads.  The kernels take any ``k_block``, so this is a
+  warning.  The JAX package's rule here (a power of two in [16, 512] for
+  the Pallas contraction tile) does not apply to the port.
 * **Grouping and group-scale format.**  The grouping must name a known
   layout; the group-scale fraction must stay within the shift-add budget of
   the inter-group combine (``Mg <= 2``).
@@ -103,13 +104,13 @@ def lint_quant_config(cfg: QuantConfig) -> LintResult:
             f"the denormal level"
         )
 
-    kc = TILE["kKC"]
-    if cfg.k_block % kc:
-        chunks = -(-cfg.k_block // kc)
+    ks = TILE["kKStep"]
+    if cfg.k_block % ks:
+        steps = -(-cfg.k_block // ks)
         warnings.append(
-            f"k_block={cfg.k_block} is not a multiple of K3's {kc}-wide contraction "
-            f"chunk: each scaling group runs {chunks} chunks with "
-            f"{chunks * kc - cfg.k_block} of {chunks * kc} slots empty"
+            f"k_block={cfg.k_block} is not a multiple of K3's {ks}-wide k step: each "
+            f"scaling group runs {steps} steps with {steps * ks - cfg.k_block} of "
+            f"{steps * ks} slots empty, and its codes are staged without cp.async"
         )
 
     return LintResult(errors, warnings)

@@ -52,8 +52,8 @@ __all__ = [
 _COUNTERS = (_mls_quantize_mod.LAUNCHES, _mls_matmul_mod.LAUNCHES,
              _implicit_conv_mod.LAUNCHES, _sabotage_mod.LAUNCHES)
 
-# C entry point -> the builder of its launch descriptor from recorded arguments
-_SPEC_BUILDERS = {
+# C entry point -> its launch descriptors, from the recorded launch arguments
+_LAUNCH_SPECS = {
     "mls_quantize_rows": _mls_quantize_mod.launch_spec_rows,
     "mls_quantize_given_sg": _mls_quantize_mod.launch_spec_given_sg,
     "mls_matmul": _mls_matmul_mod.launch_spec,
@@ -80,10 +80,14 @@ def recorded_specs(
 ) -> list[tuple[launch.LaunchSpec, int]]:
     """``(spec, launches)`` of every distinct launch in ``records`` (default:
     all recorded since the last reset; take the difference of two copies of
-    ``launch.RECORDED`` for one stretch of work).  A spec recorded on the
-    card reads its tile constants from the built library."""
+    ``launch.RECORDED`` for one stretch of work).  A C entry point may make
+    several device launches per call (K1's two passes, K3's split): its
+    ``launch_spec*`` function returns one spec for each.  A spec recorded on
+    the card reads its tile constants from the built library."""
     records = launch.RECORDED if records is None else records
     specs: collections.Counter = collections.Counter()
     for (kernel, device_type, *args), n in records.items():
-        specs[_SPEC_BUILDERS[kernel](*args, device_type=device_type)] += n
+        built = _LAUNCH_SPECS[kernel](*args, device_type=device_type)
+        for spec in (built,) if isinstance(built, launch.LaunchSpec) else built:
+            specs[spec] += n
     return list(specs.items())

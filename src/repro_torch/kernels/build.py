@@ -36,14 +36,15 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, r_u8, s_t, codes, s_g, M, K, group_width, e, m, e_min, gs_m, gs_emin, stream
-    "mls_quantize_rows": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P],
+    # x, r_u8, partials, n_partials, s_t, codes, s_g, M, K, group_width,
+    # e, m, e_min, gs_m, gs_emin, stream
+    "mls_quantize_rows": [_P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P],
     # x, r_u8, s_t, s_g, codes, M, K, k_block, sg_stride, e, m, e_min, gs_m, gs_emin, stream
     "mls_quantize_given_sg": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
     # xc, sxm, sxk, xsg, sxsg_m, sxsg_g, wc, swk, swn, wsg, swsg_g, swsg_n,
-    # xst, wst, unit, out, M, N, K, k_block, e, m, stream
+    # xst, wst, unit, out, terms, M, N, K, k_block, e, m, bn, body, split, stream
     "mls_matmul": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
-                   _P, _P, ctypes.c_float, _P, _I, _I, _I, _I, _I, _I, _P],
+                   _P, _P, ctypes.c_float, _P, _P, *[_I] * 9, _P],
     # xp, r_u8, xst, xsg, sxsg_m, sxsg_g, wc, swk, swn, wsg, swsg_g, swsg_n,
     # wst, unit, out, n, c, hp, wp, o, kh, kw, sh, sw, k_block,
     # e, m, e_min, gs_m, gs_emin, stream

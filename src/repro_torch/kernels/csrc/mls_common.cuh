@@ -62,24 +62,27 @@ __device__ __forceinline__ float group_scale(float s_gf, const Fmt f) {
 
 // Packed sign|exp|man code of one element given its scale denominator
 // s_t * s_g (Alg. 2 l.9-16).  r_u8 is the stochastic-rounding byte:
-// r = (r_u8 + 0.5)/256 - 0.5.
+// r = (r_u8 + 0.5)/256 - 0.5.  The divisions by 256 and by the grid step
+// are by powers of two, whose quotients are exact (no overflow: x_f <= 1,
+// step >= 2^-127 for 8-bit codes): they are taken as the products by the
+// exact reciprocals, the same numbers as the plain version's divisions.
+// Only x / (s_t * s_g) is an IEEE division.
 __device__ __forceinline__ uint8_t element_code(float x, uint8_t r_u8,
                                                 float denom, const Fmt f) {
   const float absx = fabsf(x);
   const int sign_bit = x < 0.0f ? 1 : 0;
   const float x_f = denom > 0.0f ? __fdiv_rn(absx, denom) : 0.0f;
   const float r =
-      __fsub_rn(__fdiv_rn(__fadd_rn((float)r_u8, 0.5f), 256.0f), 0.5f);
+      __fsub_rn(__fmul_rn(__fadd_rn((float)r_u8, 0.5f), 0.00390625f), 0.5f);
   if (f.e == 0) {
     // fixed point: uniform grid man/2^M over [0, 1); the code is q itself
-    const float step = pow2(-f.m);
-    float q = floorf(__fadd_rn(__fadd_rn(__fdiv_rn(x_f, step), r), 0.5f));
+    float q = floorf(__fadd_rn(__fadd_rn(__fmul_rn(x_f, pow2(f.m)), r), 0.5f));
     q = fminf(fmaxf(q, 0.0f), (float)((1 << f.m) - 1));
     return (uint8_t)((sign_bit << f.m) | (int)q);
   }
   const int e_eff = max(f.e_min, min(exponent_of(x_f), -1));
   const float step = pow2(e_eff - f.m);
-  float q = floorf(__fadd_rn(__fadd_rn(__fdiv_rn(x_f, step), r), 0.5f));
+  float q = floorf(__fadd_rn(__fadd_rn(__fmul_rn(x_f, pow2(f.m - e_eff)), r), 0.5f));
   const float qmax =
       e_eff == -1 ? (float)((2 << f.m) - 1) : (float)(2 << f.m);
   q = fminf(fmaxf(q, 0.0f), qmax);
@@ -107,12 +110,19 @@ __host__ __device__ __forceinline__ int decode_frac(int c, int e, int m) {
   return sign_bit ? -f : f;
 }
 
-// One group's term of the fp32 sum (Eq. 8), taken in k order:
-// acc + p * (s_g^x * s_g^w), one rounding for each product and the sum.
-// p is a group's exact int32 dot (|p| < 2^24, so the conversion is exact).
+// One group's term of the fp32 sum (Eq. 8): p * (s_g^x * s_g^w), one
+// rounding for each product.  p is a group's exact int32 dot (|p| < 2^24,
+// so the conversion is exact).
+__device__ __forceinline__ float group_term(int p, float sx, float sw) {
+  return __fmul_rn((float)p, __fmul_rn(sx, sw));
+}
+
+// The term added to the sum, taken in k order: acc + p * (s_g^x * s_g^w).
+// K3's split variant stores the terms and adds them in a second pass, in
+// the same order: the same roundings.
 __device__ __forceinline__ float group_combine(float acc, int p, float sx,
                                                float sw) {
-  return __fadd_rn(acc, __fmul_rn((float)p, __fmul_rn(sx, sw)));
+  return __fadd_rn(acc, group_term(p, sx, sw));
 }
 
 // The output scale applied once after the last group:

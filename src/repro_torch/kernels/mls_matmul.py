@@ -4,11 +4,16 @@
 dot per ``k_block``-wide scaling group, scaled by ``s_g^x ⊗ s_g^w`` and
 accumulated in fp32 in k order, then multiplied once by the tensor scales.
 On a CUDA tensor it launches ``csrc/mls_matmul.cu`` (the TPU's
-``mls_matmul.py`` ``_kernel``); on a CPU tensor it runs the plain version,
-:func:`repro_torch.kernels.ref.mls_matmul_ref`.  :func:`launch_spec`
-describes its launches for the static verifier.
+``mls_matmul.py`` ``_kernel``) as :func:`matmul_plan` says: a walk over the
+groups inside each output tile, or an ordered split (every group's term in
+parallel, then a pass that adds them in k order), on int8 tensor cores or,
+for formats whose fractions exceed int8, an int32 body.  On a CPU tensor it
+runs the plain version, :func:`repro_torch.kernels.ref.mls_matmul_ref`.
+:func:`launch_spec` describes its launches for the static verifier.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -20,13 +25,59 @@ from . import build, launch
 from .launch import LaunchSpec, Operand
 from .ref import mls_matmul_ref
 
-__all__ = ["LAUNCHES", "TILE", "launch_spec", "mls_matmul", "sg_shapes"]
+__all__ = ["LAUNCHES", "SMS", "TILE", "MatmulPlan", "launch_spec", "matmul_plan", "mls_matmul",
+           "sg_shapes"]
 
-# Launches of the CUDA kernel, counted where the kernel is launched.
+# Launches of the C entry point (one per call, whatever its plan runs),
+# counted where it is called.
 LAUNCHES = {"mls_matmul": 0}
 
 # csrc/mls_matmul.cu's tile constants (mls_matmul_constants)
-TILE = {"kBM": 64, "kBN": 64, "kKC": 32, "kThreads": 256}
+TILE = {"kBM": 64, "kKStep": 16, "kThreads": 128, "kSumThreads": 64}
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+WORKSPACE_LIMIT = 256 << 20  # bytes of split terms a call may allocate
+_MAX_GRID_YZ = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """How K3 runs one GEMM.
+
+    ``variant``: ``"walk"`` (a block per output tile walks the groups in
+    order) or ``"split"`` (every (tile, group) term in parallel into a
+    ``(G, M, N)`` fp32 workspace, then an ordered sum).  ``body``:
+    ``"int8"`` (s8 tensor-core MMA) or ``"int32"`` (CUDA cores, for formats
+    whose fractions exceed 127).  ``bn``: the tile's N extent.
+    """
+
+    variant: str
+    body: str
+    bn: int
+    workspace_bytes: int
+
+
+def matmul_plan(M: int, N: int, K: int, k_block: int, fmt: EMFormat) -> MatmulPlan:
+    """K3's plan for an (M, K) @ (K, N) GEMM in ``k_block``-wide groups.
+
+    The tile is ``kBM`` = 64 rows by ``bn`` = 16, 32 or 64 columns, the
+    narrowest that holds N.  With G = K / k_block groups, the split runs
+    when the walk would leave SMs idle (fewer output tiles than the 132
+    SMs), there is more than one group, and its workspace of G * M * N
+    fp32 terms stays within ``WORKSPACE_LIMIT``.  The body is int8 when
+    ``fmt.max_fraction <= 127``, else int32.
+    """
+    if k_block < 1 or K % k_block:
+        raise ValueError(f"K={K} is not a multiple of k_block={k_block}")
+    bn = 16 if N <= 16 else 32 if N <= 32 else 64
+    groups = K // k_block
+    tiles = -(-M // TILE["kBM"]) * -(-N // bn)
+    workspace = groups * M * N * 4
+    split = (groups > 1 and tiles < SMS and workspace <= WORKSPACE_LIMIT
+             and groups <= _MAX_GRID_YZ)
+    return MatmulPlan("split" if split else "walk",
+                      "int8" if fmt.max_fraction <= 127 else "int32", bn,
+                      workspace if split else 0)
 
 
 def sg_shapes(
@@ -63,6 +114,7 @@ def mls_matmul(
     fmt: EMFormat,
     k_block: int = 128,
     grouping: str = "nc",
+    plan: MatmulPlan | None = None,
 ) -> torch.Tensor:
     """Quantized-domain GEMM: codes x (M, K) @ codes w (K, N) -> f32 (M, N).
 
@@ -70,7 +122,9 @@ def mls_matmul(
     (:func:`sg_shapes`); tensor scales are float32 scalars.  Code and scale
     tensors may be strided views (the weight typically arrives as the
     transpose of a K-contiguous (N, K) tensor).  Ragged M/N need no
-    padding; ``K`` must be a multiple of ``k_block``.
+    padding; ``K`` must be a multiple of ``k_block``.  ``plan`` (default:
+    :func:`matmul_plan`) picks the kernel's variant, body and tile; every
+    plan gives the same bits.
     """
     if x_codes.ndim != 2 or w_codes.ndim != 2:
         raise ValueError("mls_matmul takes 2-D code tensors")
@@ -98,8 +152,9 @@ def mls_matmul(
         raise ValueError("tensor scales must be scalars")
     if any(t.device != x_codes.device for t in tensors):
         raise ValueError("mls_matmul operands must share one device")
+    plan = _checked_plan(plan, M, N, K, k_block, fmt)
     if x_codes.device.type == "cpu":
-        launch.record("mls_matmul", "cpu", M, N, K, k_block, grouping, fmt)
+        launch.record("mls_matmul", "cpu", M, N, K, k_block, grouping, fmt, plan)
         with launch.plain_version():
             return mls_matmul_ref(x_codes, x_sg, x_st.reshape(()), w_codes, w_sg,
                                   w_st.reshape(()), fmt, k_block)
@@ -110,16 +165,43 @@ def mls_matmul(
     x_st = x_st.contiguous()
     w_st = w_st.contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=x_codes.device)
+    split = plan.variant == "split"
+    terms = (torch.empty((K // k_block, M, N), dtype=torch.float32, device=x_codes.device)
+             if split else None)
     unit = 2.0 ** (2 * (fmt.e_min - fmt.m))
     build.check(lib.mls_matmul(
         x_codes.data_ptr(), *_strides(x_codes), x_sg.data_ptr(), *_strides(x_sg),
         w_codes.data_ptr(), *_strides(w_codes), w_sg.data_ptr(), *_strides(w_sg),
-        x_st.data_ptr(), w_st.data_ptr(), unit, out.data_ptr(), M, N, K, k_block,
-        fmt.e, fmt.m, torch.cuda.current_stream(x_codes.device).cuda_stream),
-        "mls_matmul")
+        x_st.data_ptr(), w_st.data_ptr(), unit, out.data_ptr(),
+        terms.data_ptr() if split else None, M, N, K, k_block, fmt.e, fmt.m, plan.bn,
+        _BODIES.index(plan.body), int(split),
+        torch.cuda.current_stream(x_codes.device).cuda_stream), "mls_matmul")
     LAUNCHES["mls_matmul"] += 1
-    launch.record("mls_matmul", "cuda", M, N, K, k_block, grouping, fmt)
+    launch.record("mls_matmul", "cuda", M, N, K, k_block, grouping, fmt, plan)
     return out
+
+
+_BODIES = ("int8", "int32")  # the C entry point's body codes
+
+
+def _checked_plan(plan: MatmulPlan | None, M: int, N: int, K: int, k_block: int,
+                  fmt: EMFormat) -> MatmulPlan:
+    """``plan``, or :func:`matmul_plan`'s; raise on one the kernel cannot
+    run exactly."""
+    if plan is None:
+        return matmul_plan(M, N, K, k_block, fmt)
+    if plan.variant not in ("walk", "split") or plan.body not in _BODIES or \
+            plan.bn not in (16, 32, 64):
+        raise ValueError(f"unknown K3 plan {plan}")
+    if plan.body == "int8" and fmt.max_fraction > 127:
+        raise ValueError(f"{fmt} fractions reach {fmt.max_fraction}: beyond int8, the int8 "
+                         f"body would be wrong")
+    groups = K // k_block
+    if plan.variant == "split":
+        if not 1 <= groups <= _MAX_GRID_YZ:
+            raise ValueError(f"the split runs one grid slice per group: {groups} groups")
+        return dataclasses.replace(plan, workspace_bytes=groups * M * N * 4)
+    return dataclasses.replace(plan, workspace_bytes=0)
 
 
 def _sg_operand(name: str, grouping: str, shape: tuple[int, int], x_side: bool,
@@ -142,24 +224,53 @@ def _sg_operand(name: str, grouping: str, shape: tuple[int, int], x_side: bool,
 
 
 def launch_spec(M: int, N: int, K: int, k_block: int, grouping: str, fmt: EMFormat,
-                device_type: str = "cpu") -> LaunchSpec:
-    """K3 on codes x (M, K) @ w (K, N): one block per ``kBM x kBN`` output
-    tile, walking the ``K / k_block`` scaling groups in order; each group is
-    an exact int32 dot of ``k_block`` products of decoded fractions."""
+                plan: MatmulPlan | None = None,
+                device_type: str = "cpu") -> tuple[LaunchSpec, ...]:
+    """K3's device launches for codes x (M, K) @ w (K, N) under ``plan``
+    (default :func:`matmul_plan`).  Each group is an exact integer dot of
+    ``k_block`` products of decoded fractions.
+
+    - walk: ``mls_matmul_walk``, a block per ``kBM x bn`` output tile,
+      walking the ``K / k_block`` groups in order (a sequential axis).
+    - split: ``mls_matmul_terms``, a fully parallel grid (row tile, column
+      tile, group) writing block (g, i, j) of the workspace T (G, M, N);
+      then ``mls_matmul_sum``, a block per ``kSumThreads`` output elements
+      (row-major) walking the groups of T in order.
+
+    The launch that computes the dots carries the call's ``M * N * K``
+    quantized MACs; the ordered sum carries none.
+    """
+    plan = _checked_plan(plan, M, N, K, k_block, fmt)
     t = launch.tile_constants("mls_matmul_constants", TILE, device_type)
-    bm, bn = t["kBM"], t["kBN"]
-    xs, ws = sg_shapes(grouping, M, N, K // k_block)
-    return LaunchSpec(
-        kernel="mls_matmul",
-        grid=(("tile_m", -(-M // bm)), ("tile_n", -(-N // bn)), ("group", K // k_block)),
-        sequential=1,
+    bm, bn, groups = t["kBM"], plan.bn, K // k_block
+    xs, ws = sg_shapes(grouping, M, N, groups)
+    split = plan.variant == "split"
+    dots = LaunchSpec(
+        kernel="mls_matmul_terms" if split else "mls_matmul_walk",
+        grid=(("tile_m", -(-M // bm)), ("tile_n", -(-N // bn)), ("group", groups)),
+        sequential=0 if split else 1,
         operands=(Operand("args[0]", "x_codes", (M, K), (bm, k_block),
                           lambda i, j, g: (i, g), masked=True),
                   _sg_operand("args[1]", grouping, xs, True, bm),
                   Operand("args[2]", "w_codes", (K, N), (k_block, bn),
                           lambda i, j, g: (g, j), masked=True),
                   _sg_operand("args[3]", grouping, ws, False, bn),
+                  Operand("outputs[1]", "terms", (groups, M, N), (1, bm, bn),
+                          lambda i, j, g: (g, i, j), output=True, masked=True)
+                  if split else
                   Operand("outputs[0]", "out", (M, N), (bm, bn), lambda i, j, g: (i, j),
                           output=True, masked=True)),
         accumulations=(Accumulation("dot", k_block, fmt.max_fraction),),
         macs=M * N * K)
+    if not split:
+        return (dots,)
+    threads, mn = t["kSumThreads"], M * N
+    ordered_sum = LaunchSpec(
+        kernel="mls_matmul_sum",
+        grid=(("block", -(-mn // threads)), ("group", groups)),
+        sequential=1,
+        operands=(Operand("outputs[1]", "terms", (groups, mn), (1, threads),
+                          lambda b, g: (g, b), masked=True),
+                  Operand("outputs[0]", "out", (mn,), (threads,), lambda b, g: (b,),
+                          output=True, masked=True)))
+    return dots, ordered_sum

@@ -4,8 +4,9 @@
 scales in the compact layout of the grouping (paper Table IV) and the
 tensor scale.  On a CUDA tensor it launches the kernels of
 ``csrc/mls_quantize.cu``: the row-group kernel (groupings "nc", "n"; the
-TPU's ``_kernel_rowwise``) or the given-scale kernel ("c", "none"; the
-TPU's ``_kernel_given_sg``).  On a CPU tensor it runs the plain version,
+TPU's ``_kernel_rowwise``), two passes in one call that also take the
+tensor scale, or the given-scale kernel ("c", "none"; the TPU's
+``_kernel_given_sg``).  On a CPU tensor it runs the plain version,
 :func:`repro_torch.kernels.ref.quantize_ref`.  :func:`quantize_given_scales`
 is the given-scale kernel's own wrapper, for callers that bring their
 scales (the implicit conv's code reuse).  :func:`launch_spec_rows` and
@@ -40,7 +41,8 @@ __all__ = [
 LAUNCHES = {"mls_quantize_rows": 0, "mls_quantize_given_sg": 0}
 
 # csrc/mls_quantize.cu's launch constants (mls_quantize_constants)
-TILE = {"kThreads": 256, "kWarpGroupMax": 1024, "kGivenMaxBlocks": 132 * 32}
+TILE = {"kThreads": 256, "kWarpGroupMax": 1024, "kGivenMaxBlocks": 132 * 32,
+        "kAmaxBlocks": 2 * 132, "kAmaxChunk": 256 * 16, "kRowBlocks": 8 * 132}
 
 _DETERMINISTIC_BYTE = 127  # r = -1/512: the TPU kernel's nearest rounding
 
@@ -100,19 +102,25 @@ def mls_quantize(
     if x.device.type != "cuda":
         raise ValueError(f"mls_quantize runs on cuda or cpu tensors, not {x.device}")
 
-    s_t = torch.amax(x.abs())
-    s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
+    if x.numel() == 0:
+        raise ValueError("mls_quantize takes a non-empty operand (its tensor scale is a max)")
     if grouping in ("nc", "n"):
         width = k_block if grouping == "nc" else K
-        codes = torch.empty((M, K), dtype=torch.uint8, device=x.device)
-        s_g = torch.empty((M, K // width), dtype=torch.float32, device=x.device)
+        dev = x.device
+        partials = torch.empty((_amax_blocks(M * K, TILE),), dtype=torch.float32, device=dev)
+        s_t = torch.empty((), dtype=torch.float32, device=dev)
+        codes = torch.empty((M, K), dtype=torch.uint8, device=dev)
+        s_g = torch.empty((M, K // width), dtype=torch.float32, device=dev)
         build.check(build.library().mls_quantize_rows(
-            x.data_ptr(), r_u8.data_ptr(), s_t.data_ptr(), codes.data_ptr(),
-            s_g.data_ptr(), M, K, width, *_fmt_args(fmt, gs_fmt),
-            torch.cuda.current_stream(x.device).cuda_stream), "mls_quantize_rows")
+            x.data_ptr(), r_u8.data_ptr(), partials.data_ptr(), partials.numel(),
+            s_t.data_ptr(), codes.data_ptr(), s_g.data_ptr(), M, K, width,
+            *_fmt_args(fmt, gs_fmt), torch.cuda.current_stream(dev).cuda_stream),
+            "mls_quantize_rows")
         LAUNCHES["mls_quantize_rows"] += 1
         launch.record("mls_quantize_rows", "cuda", M, K, width)
         return codes, s_g, s_t
+    s_t = torch.amax(x.abs())
+    s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
     # "c" / "none": compact scales computed ahead (the "c" group max crosses
     # all rows), with the same exact group-scale math
     if grouping == "c":
@@ -180,22 +188,54 @@ def quantize_launch(M: int, K: int, k_block: int, grouping: str) -> tuple[str, t
     return "mls_quantize_given_sg", (M, K, k_block, int(grouping == "c" and K > k_block))
 
 
-def launch_spec_rows(M: int, K: int, group_width: int, device_type: str = "cpu") -> LaunchSpec:
+def _amax_blocks(n: int, t: dict[str, int]) -> int:
+    """Pass A's grid (and partial count) for an operand of ``n`` elements."""
+    return max(1, min(t["kAmaxBlocks"], -(-n // t["kAmaxChunk"])))
+
+
+def launch_spec_rows(M: int, K: int, group_width: int,
+                     device_type: str = "cpu") -> tuple[LaunchSpec, LaunchSpec]:
     """The row-group kernel (K1) on an (M, K) operand in ``group_width``-wide
-    groups: a warp per group up to ``kWarpGroupMax``, else a block per
-    group (``mls_quantize_rows``).  Program ``gid`` codes row ``gid // ng``,
-    group ``gid % ng`` and writes its group scale."""
+    groups (``mls_quantize_rows``), two launches:
+
+    - pass A, ``quantize_amax``: ``P`` blocks stride over x in
+      ``kAmaxChunk``-element chunks (chunk ``s * P + b`` at stride step
+      ``s``) and block ``b`` writes partial max ``b``;
+    - pass B: every block reads all ``P`` partials; then a warp per group up
+      to ``kWarpGroupMax`` (``quantize_groups_warp``, warps striding over
+      the groups: program ``(b, w, s)`` codes group ``(s * B + b) * 8 + w``),
+      else a block per group (``quantize_groups_block``).  A group codes
+      row ``gid // ng``, group ``gid % ng`` and writes its group scale.
+
+    Block 0 of pass B also stores the tensor scale, one scalar, which no
+    tiled operand describes.
+    """
     t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
+    n, chunk = M * K, t["kAmaxChunk"]
+    parts = _amax_blocks(n, t)
+    chunks = -(-n // chunk)
+    amax = LaunchSpec(
+        kernel="quantize_amax", grid=(("block", parts), ("stride", -(-chunks // parts))),
+        sequential=1,
+        operands=(Operand("args[0]", "x", (n,), (chunk,), lambda b, s: (s * parts + b,),
+                          masked=True),
+                  Operand("outputs[0]", "partials", (parts,), (1,), lambda b, s: (b,),
+                          output=True)),
+        active=lambda b, s: s * parts + b < chunks)
+
     ng = K // group_width
     groups = M * ng
     if group_width <= t["kWarpGroupMax"]:
         warps = t["kThreads"] // 32
-        grid = (("block", -(-groups // warps)), ("warp", warps))
+        blocks = min(t["kRowBlocks"], -(-groups // warps))
+        kernel, sequential = "quantize_groups_warp", 1
+        grid = (("block", blocks), ("warp", warps),
+                ("stride", -(-groups // (blocks * warps))))
 
-        def gid(b, w):
-            return b * warps + w
+        def gid(b, w, s):
+            return (s * blocks + b) * warps + w
     else:
-        grid = (("block", groups),)
+        kernel, sequential, grid = "quantize_groups_block", 0, (("block", groups),)
 
         def gid(b):
             return b
@@ -205,13 +245,15 @@ def launch_spec_rows(M: int, K: int, group_width: int, device_type: str = "cpu")
         return g // ng, g % ng
 
     blk = (1, group_width)
-    return LaunchSpec(
-        kernel="mls_quantize_rows", grid=grid, sequential=0,
+    codes = LaunchSpec(
+        kernel=kernel, grid=grid, sequential=sequential,
         operands=(Operand("args[0]", "x", (M, K), blk, group),
                   Operand("args[1]", "r_u8", (M, K), blk, group),
-                  Operand("outputs[0]", "codes", (M, K), blk, group, output=True),
-                  Operand("outputs[1]", "s_g", (M, ng), (1, 1), group, output=True)),
+                  Operand("outputs[0]", "partials", (parts,), (parts,), lambda *c: (0,)),
+                  Operand("outputs[2]", "codes", (M, K), blk, group, output=True),
+                  Operand("outputs[3]", "s_g", (M, ng), (1, 1), group, output=True)),
         active=lambda *c: gid(*c) < groups)
+    return amax, codes
 
 
 def launch_spec_given_sg(M: int, K: int, k_block: int, sg_stride: int,

@@ -31,6 +31,8 @@ from repro_torch.analysis import audit, kernel_verify as kv, lint  # noqa: E402
 from repro_torch.analysis.graphs import cifar_train_graph  # noqa: E402
 from repro_torch.core import EMFormat, QuantConfig  # noqa: E402
 from repro_torch.kernels import implicit_conv as ic  # noqa: E402
+from repro_torch.kernels.mls_matmul import TILE as MM_TILE  # noqa: E402
+from repro_torch.kernels.mls_matmul import launch_spec as matmul_spec  # noqa: E402
 from repro_torch.kernels import recorded_specs  # noqa: E402
 from repro_torch.kernels.registry import KERNEL_REGISTRY  # noqa: E402
 
@@ -144,14 +146,17 @@ def test_format_pair_check_agrees_with_jax(pair):
 
 def test_tiling_rule_is_the_ports_own():
     """JAX's Pallas backend needs a power-of-two k_block and errors on 144;
-    the port takes 144 and warns that K3's last 32-wide chunk of each group
-    is half empty."""
+    the port takes 144 without a warning (K3's 16-wide k step divides it)
+    and warns on a k_block off that step, whose last step of each group is
+    part empty."""
     jres = jlint.lint_quant_config(JQuantConfig(k_block=144, backend="pallas"))
     assert any("power-of-two" in e for e in jres.errors)
     res = lint.lint_quant_config(QuantConfig(k_block=144))
+    assert res.ok and res.warnings == []
+    res = lint.lint_quant_config(QuantConfig(k_block=36))
     assert res.ok and res.warnings == [
-        "k_block=144 is not a multiple of K3's 32-wide contraction chunk: each scaling "
-        "group runs 5 chunks with 16 of 160 slots empty"]
+        "k_block=36 is not a multiple of K3's 16-wide k step: each scaling group runs 3 "
+        "steps with 12 of 48 slots empty, and its codes are staged without cp.async"]
     assert lint.lint_quant_config(QuantConfig(k_block=128)).warnings == []
     presets = lint.lint_shipped_presets()
     assert set(presets) == {"train:mls<2,4>", "train:mls<2,1>"}
@@ -218,7 +223,8 @@ def test_registry_covers_every_kernel_of_the_training_path():
     kernels = set()
     for entry in KERNEL_REGISTRY.values():
         kernels |= {s.kernel for s, _ in recorded_specs(entry.run("cpu"))}
-    assert kernels == {"mls_quantize_rows", "mls_quantize_given_sg", "mls_matmul",
+    assert kernels == {"quantize_amax", "quantize_groups_warp", "mls_quantize_given_sg",
+                       "mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum",
                        "implicit_conv"}
 
 
@@ -294,6 +300,30 @@ def test_candidate_oracles_prove_and_reject():
     geom = ic.conv_geometry((2, 16, 8, 8), (16, 16, 3, 3), (1, 1), "SAME")
     rep = kv.verify_implicit_conv_candidate(geom, fmt, 36)
     assert rep.ok and {c.kernel.split(" ")[1].split("[")[0] for c in rep.calls} == {
-        "mls_quantize_rows", "implicit_conv"}
+        "quantize_amax", "quantize_groups_warp", "implicit_conv"}
     bad = kv.verify_implicit_conv_candidate(geom, fmt, 32)
     assert {v.kind for v in bad.violations} == {"divisibility"}
+
+
+@pytest.mark.parametrize("k_block", audit.TRAIN_K_BLOCKS)
+def test_stage1_weight_gradient_runs_a_parallel_proven_grid(k_block):
+    """Full-width ResNet-20's stage-1 weight gradient (144 x N*OH*OW x 16,
+    K padded to k_block): K3's term phase is a fully parallel grid of at
+    least 132 programs writing each workspace block once, and the ordered
+    sum walks the groups in order; both proven, the dot within 23 bits."""
+    K = -(-131072 // k_block) * k_block
+    terms, ordered = matmul_spec(144, 16, K, k_block, "nc", EMFormat(2, 4))
+    assert (terms.kernel, terms.sequential) == ("mls_matmul_terms", 0)
+    assert math.prod(terms.shape) == 3 * (K // k_block) >= 132
+    assert (ordered.kernel, ordered.sequential) == ("mls_matmul_sum", 1)
+    assert ordered.shape == (-(-144 * 16 // MM_TILE["kSumThreads"]), K // k_block)
+    assert (terms.macs, ordered.macs) == (144 * 16 * K, 0)
+    rep = kv.verify_specs("stage1_wgrad", [(terms, 1), (ordered, 1)])
+    assert rep.ok, rep.violations
+    assert all(c.exhaustive for c in rep.calls)
+    assert rep.max_integer_bits <= 23
+    ws = rep.calls[0].coverage["outputs[1]"]
+    assert ws["blocks_written"] == ws["output_blocks"] == 3 * (K // k_block)
+    assert ws["max_writers"] == ws["revisit_depth"] == 1
+    out = rep.calls[1].coverage["outputs[0]"]
+    assert out["max_writers"] == 1 and out["revisit_depth"] == K // k_block

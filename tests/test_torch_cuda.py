@@ -13,9 +13,13 @@ built library's tile constants against the launch descriptors' copies,
 and the launch specs of one full-width ResNet-20 step verifying clean.
 
 Small, ragged shapes that the main path's shapes in ``chip_smoke.py`` do
-not reach: M and N off the 64-wide GEMM tile, groups wider than a warp's
-limit, the E=0 format, and for the implicit conv k-blocks off the 32-wide
-chunk, several k-blocks, two output-channel tiles, stride 2 with SAME
+not reach: M and N off the GEMM tile, both K3 plans (walk and ordered
+split) on both bodies (int8 tensor cores; int32 for <3,1>), k_blocks off
+the 16-wide k step, operands whose k axis is not contiguous; for K1
+groups wider than a warp's limit, widths off the 4-wide vector access,
+all-zero and -0.0 operands and a tensor max over many stride steps; the
+E=0 format; and for the implicit conv k-blocks off the 32-wide chunk,
+several k-blocks, two output-channel tiles, stride 2 with SAME
 (asymmetric) and VALID (uncovered tail) padding, and a 1x1 conv.
 Tolerance 0: the kernels reproduce the plain versions bit for bit.
 """
@@ -39,6 +43,7 @@ from repro_torch.kernels import (  # noqa: E402
     recorded_specs,
     reset_launch_counts,
 )
+from repro_torch.kernels.mls_matmul import MatmulPlan, matmul_plan  # noqa: E402
 from repro_torch.kernels.ref import sabotage_overlap_tiles  # noqa: E402
 from repro_torch.kernels.sabotage import launch_spec as k5_spec  # noqa: E402
 from repro_torch.kernels.sabotage import sabotage_overlap_matmul  # noqa: E402
@@ -91,6 +96,89 @@ def test_matmul_kernel_matches_plain(cuda, grouping, mkn):
     got = mls_matmul(*(a.to(cuda) for a in args), fmt, 32, grouping)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# (M, K, N, k_block, layout): "kmajor" both operands K-contiguous (the
+# main path's), "nmajor" the weight N-contiguous, "xT" x M-contiguous
+PLAN_CASES = [(37, 96, 29, 32, "kmajor"), (70, 480, 130, 48, "nmajor"),
+              (5, 108, 16, 36, "xT"), (20, 288, 64, 144, "kmajor")]
+PLAN_PARAMS = [(fmt, case) for fmt in [(2, 4), (2, 1), (0, 4), (3, 1)] for case in PLAN_CASES
+               if not (fmt == (3, 1) and case[3] == 144)]  # <3,1> x 144: 24 bits, refused
+
+
+def _codes_on(cuda, fmt, grouping, m, k, n, kb, layout):
+    """Codes and scales of x (m, k) and w (k, n) on the CPU and the card,
+    laid out as ``layout`` says (the same values)."""
+    x, rx = _operand(6, m, k)
+    wt, rw = _operand(7, n, k)
+    xc, xsg, xst = mls_quantize(x, fmt, kb, r_u8=rx, grouping=grouping)
+    wc, wsgT, wst = mls_quantize(wt, fmt, kb, r_u8=rw, grouping=grouping)
+    cpu = (xc, xsg, xst, wc.t(), wsgT.t(), wst)
+    dx = xc.t().contiguous().to(cuda).t() if layout == "xT" else xc.to(cuda)
+    dw = wc.t().contiguous().to(cuda) if layout == "nmajor" else wc.to(cuda).t()
+    card = (dx, xsg.to(cuda), xst.to(cuda), dw, wsgT.to(cuda).t(), wst.to(cuda))
+    return cpu, card
+
+
+@pytest.mark.parametrize("variant", ["walk", "split"])
+@pytest.mark.parametrize("grouping", GROUPINGS)
+@pytest.mark.parametrize("fmt,case", PLAN_PARAMS, ids=str)
+def test_matmul_plans_match_plain(cuda, fmt, case, grouping, variant):
+    """Both K3 variants on the body the format takes, for ragged tiles,
+    k_blocks on and off the 16-wide k step (cp.async or plain staging) and
+    operands with either stride order."""
+    m, k, n, kb, layout = case
+    fmt = EMFormat(*fmt)
+    cpu, card = _codes_on(cuda, fmt, grouping, m, k, n, kb, layout)
+    assert (card[0].stride(1) == 1) == (layout != "xT")
+    assert (card[3].stride(0) == 1) == (layout != "nmajor")
+    auto = matmul_plan(m, n, k, kb, fmt)
+    assert auto.body == ("int32" if fmt.max_fraction > 127 else "int8")
+    plan = MatmulPlan(variant, auto.body, auto.bn, 0)
+    want = mls_matmul(*cpu, fmt, kb, grouping)
+    got = mls_matmul(*card, fmt, kb, grouping, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bn", [16, 32, 64])
+def test_matmul_tile_width_does_not_change_the_bits(cuda, bn):
+    fmt = EMFormat(2, 4)
+    cpu, card = _codes_on(cuda, fmt, "nc", 37, 256, 70, 128, "kmajor")
+    want = mls_matmul(*cpu, fmt, 128, "nc")
+    for variant in ("walk", "split"):
+        got = mls_matmul(*card, fmt, 128, "nc", plan=MatmulPlan(variant, "int8", bn, 0))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), variant
+
+
+# (M, K, k_block, values): widths off the float4 access (9), two float4 slots
+# per lane (144), a wide group read by a block without vector access (2050),
+# all zeros (s_t = 1), -0.0 entries, and a tensor max over more chunks than
+# pass A has blocks
+EDGE_CASES = [(6, 45, 9, "normal"), (10, 288, 144, "normal"), (3, 2050, 2050, "normal"),
+              (16, 256, 128, "zeros"), (16, 256, 128, "neg_zeros"),
+              (300, 4096, 128, "normal")]
+
+
+@pytest.mark.parametrize("fmt", [(2, 4), (2, 1)])
+@pytest.mark.parametrize("grouping", ["nc", "n"])
+@pytest.mark.parametrize("case", EDGE_CASES, ids=str)
+def test_quantize_two_passes_match_plain(cuda, case, grouping, fmt):
+    m, k, kb, values = case
+    x, r = _operand(8, m, k)
+    if values == "zeros":
+        x = torch.zeros_like(x)
+    elif values == "neg_zeros":
+        x[::2] = -0.0
+        x[1, :] = -0.0  # a row of -0.0 only
+    want = mls_quantize(x, EMFormat(*fmt), kb, r_u8=r, grouping=grouping)
+    got = mls_quantize(x.to(cuda), EMFormat(*fmt), kb, r_u8=r.to(cuda), grouping=grouping)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    if values == "zeros":
+        assert float(got[2]) == 1.0
 
 
 @pytest.mark.parametrize("case", [(2, 5, 9, 7, 3, (1, 1), "SAME"),
@@ -227,9 +315,13 @@ def test_library_tile_constants_equal_the_descriptors(cuda, module, query):
     assert launch.tile_constants(query, tile, "cuda") == tile
 
 
+_K1_K3 = {"quantize_amax", "quantize_groups_warp", "mls_matmul_walk", "mls_matmul_terms",
+          "mls_matmul_sum"}
+
+
 @pytest.mark.parametrize("k_block,kernels", [
-    (128, {"mls_quantize_rows", "mls_matmul"}),
-    (144, {"mls_quantize_rows", "mls_matmul", "implicit_conv"})])
+    (128, _K1_K3),
+    (144, _K1_K3 | {"implicit_conv"})])
 def test_full_width_step_launch_specs_verify_clean(cuda, k_block, kernels):
     graph = cifar_train_graph(k_block, device=cuda)
     cov, records = graph.run()

@@ -28,7 +28,10 @@ from repro_torch.core import (  # noqa: E402
     quantize_elements,
     quantize_group_scale,
 )
+from repro_torch.core.formats import GS_FMT_DEFAULT as GS_DEFAULT  # noqa: E402
 from repro_torch.kernels import mls_quantize, rounding_bytes  # noqa: E402
+from repro_torch.kernels.mls_quantize import TILE  # noqa: E402
+from repro_torch.kernels.ref import element_codes_ref  # noqa: E402
 
 FORMATS = [(2, 4), (2, 1), (0, 4)]
 GROUPINGS = ["nc", "c", "n", "none"]
@@ -166,3 +169,81 @@ def test_rounding_bytes_and_shape_checks():
     with pytest.raises(ValueError, match="cuda or cpu"):
         mls_quantize(torch.ones(4, 64, device="meta"), EMFormat(2, 4), 32,
                      r_u8=torch.zeros(4, 64, dtype=torch.uint8, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# K1's two passes (csrc/mls_quantize.cu), emulated
+# ---------------------------------------------------------------------------
+def _nan_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernels' max: keeps NaN, as torch.amax does."""
+    return torch.where((b > a) | torch.isnan(b), b, a)
+
+
+def _two_pass_quantize(x, r, fmt, group_width, chunk, blocks):
+    """Pass A: ``P`` blocks, block ``b`` taking max |x| over chunks b, b + P,
+    ... of ``chunk`` elements; pass B: s_t from the partials (0 -> 1), then
+    per group its max, scale and codes, as quantize_groups_warp/_block."""
+    M, K = x.shape
+    flat = x.reshape(-1)
+    chunks = -(-flat.numel() // chunk)
+    parts = max(1, min(blocks, chunks))
+    partials = []
+    for b in range(parts):
+        m = torch.tensor(0.0)
+        for c in range(b, chunks, parts):
+            m = _nan_max(m, flat[c * chunk : (c + 1) * chunk].abs().max())
+        partials.append(m)
+    s_t = torch.tensor(0.0)
+    for p in partials:
+        s_t = _nan_max(s_t, p)
+    s_t = s_t if s_t > 0 else torch.tensor(1.0)
+    amax = x.reshape(M, K // group_width, group_width).abs().amax(-1)
+    s_g = quantize_group_scale(amax / s_t, GS_DEFAULT)[0]
+    codes = element_codes_ref(x, r, s_t * s_g.repeat_interleave(group_width, dim=1), fmt)
+    return codes, s_g, s_t
+
+
+@pytest.mark.parametrize("e,m", [(2, 4), (2, 1)])
+@pytest.mark.parametrize("grouping", ["nc", "n"])
+@pytest.mark.parametrize("values", ["normal", "zeros", "neg_zeros"])
+@pytest.mark.parametrize("tile", [(64, 3), (TILE["kAmaxChunk"], TILE["kAmaxBlocks"])],
+                         ids=["many_strides", "card"])
+def test_two_pass_quantize_equals_quantize_ref(e, m, grouping, values, tile):
+    """The partial maxima give torch.amax's s_t bit for bit (max is exact in
+    any order), and the codes and group scales from it equal
+    quantize_ref's and the JAX reference's: an all-zero operand takes
+    s_t = 1, and -0.0 entries count as zeros.  (JAX's group scale of an
+    all-zero group, 2^-120, is off in its last bits: the jnp.exp2 defect of
+    the module docstring, so JAX's scales are compared above 2^-12.)"""
+    x, r = _operand(6, m=12, k=96)
+    if values == "zeros":
+        x[:] = 0.0
+    elif values == "neg_zeros":
+        x[::3] = -0.0
+        x[1] = -0.0
+    fmt = EMFormat(e, m)
+    kb = 32
+    width = kb if grouping == "nc" else x.shape[1]
+    xt, rt = torch.from_numpy(x), torch.from_numpy(r)
+    got = _two_pass_quantize(xt, rt, fmt, width, *tile)
+    want = mls_quantize(xt, fmt, kb, r_u8=rt, grouping=grouping)
+    jax_want = jax_quantize_ref(jnp.asarray(x), jformats.EMFormat(e, m), kb,
+                                r_u8=jnp.asarray(r), grouping=grouping)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    (codes, s_g, s_t), (j_codes, j_sg, j_st) = got, jax_want
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(j_codes))
+    assert float(s_t) == float(j_st)
+    exact = s_g.numpy() >= 2.0**-12
+    np.testing.assert_array_equal(s_g.numpy()[exact], np.asarray(j_sg)[exact])
+    if values == "zeros":
+        assert float(got[2]) == 1.0
+
+
+def test_tensor_max_keeps_nan_like_torch_amax():
+    x = torch.tensor([1.0, float("nan"), 3.0, -4.0])
+    m = torch.tensor(0.0)
+    for v in x.abs():
+        m = _nan_max(m, v)
+    assert torch.isnan(m) and torch.isnan(torch.amax(x.abs()))
+    assert float(_nan_max(torch.tensor(2.0), torch.tensor(-0.0))) == 2.0
