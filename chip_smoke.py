@@ -15,10 +15,13 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 stage-1 and stage-3 forwards, the stage-3 data gradient, a
                 ragged shape and k_block 144, four groupings, on the plan
                 matmul_plan picks and on the other variant (walk / ordered
-                split); <3,1> on the int32 body.  The implicit conv
-                (K4) runs at its stage-1, stage-2 (stride 2) and stage-3
-                convs, four groupings, <2,4> and <2,1>, and is timed beside
-                the im2col route of the same conv.
+                split); <3,1> on the int32 body.  K2 ("c", "none") also at
+                the implicit "none" path's (N*C*Hp, Wp) = (69632, 34)
+                operand, its code pass alone there, and an all-zero
+                operand.  The implicit conv (K4) runs at its stage-1,
+                stage-2 (stride 2) and stage-3 convs, four groupings,
+                <2,4> and <2,1>, <3,1> (int32 body) at stage 1, and is held
+                to the im2col route too and timed beside it.
   4. train    - the main path: 5 SGD steps of ResNet-20 at full width
                 (CIFAR 32x32, batch 128, <2,4>, k_block 128, grouping "nc",
                 stochastic rounding) through repro_torch.train; losses must
@@ -34,9 +37,9 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 gradient that reuses the forward codes).  Each path's
                 launches per step must equal what the dispatch gives for
                 its 20 convs (expected_launches).
-  5. trace    - 3 more steps of the main path and of the implicit path
-                under torch.profiler: device time by kernel and the
-                device's idle share of the step.
+  5. trace    - 3 more steps of the main path, the implicit path and the
+                grouping-"c" path under torch.profiler: device time by
+                kernel and the device's idle share of the step.
   6. agree    - a small ResNet-20 train step on the card (kernels) agrees
                 with the same step on the CPU (plain versions), at k_block
                 32 (im2col) and at k_block 36 (every 3x3 conv implicit).
@@ -81,11 +84,14 @@ REPORTED_SHAPE = {"mls_quantize_rows": "stage1_fwd_cols", "mls_quantize_given_sg
                   "mls_matmul": "stage1_wgrad ", "implicit_conv": "stage1_conv",
                   "sabotage_overlap": "x (8, 16)"}
 # device kernels (profiler names) of each C entry point
+# (K2 "none" and "c" on one group take K1's quantize_amax as pass A)
 DEVICE_KERNELS = {"mls_quantize_rows": ("quantize_amax", "quantize_groups_warp",
                                         "quantize_groups_block"),
-                  "mls_quantize_given_sg": ("quantize_given_sg",),
+                  "mls_quantize_given_sg": ("quantize_cols_amax", "quantize_cols_reduce",
+                                            "quantize_scales", "quantize_codes",
+                                            "quantize_amax"),
                   "mls_matmul": ("mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum"),
-                  "implicit_conv": ("implicit_conv_kernel",)}
+                  "implicit_conv": ("conv_amax", "implicit_conv_kernel", "conv_scale")}
 KERNELS = {
     "mls_quantize_rows": ("src/repro_torch/kernels/csrc/mls_quantize.cu",
                           "src/repro/kernels/mls_quantize.py:107"),
@@ -192,7 +198,7 @@ def phase_kernels(results: dict) -> list[dict]:
                 checks.append(dict(kernel=kernel, shape=sname, fmt=str(fmt),
                                    grouping=grouping, identical=same, max_abs_err=err))
                 key = (kernel, sname, str(fmt), grouping)
-                if fmt is FMT_IMAGENET and grouping in ("nc", "c"):
+                if fmt is FMT_IMAGENET and grouping in ("nc", "c", "none"):
                     M, K = x.shape
                     n_sg = got[1].numel()
                     timed[key] = dict(
@@ -206,6 +212,7 @@ def phase_kernels(results: dict) -> list[dict]:
                         bytes=M * K * 6 + n_sg * 4 + 4, ops=0, max_abs_err=err,
                         shape=f"{sname} ({M}, {K}) {grouping} {fmt}")
         del x, r
+    checks += k2_checks(gen, timed)
     checks += matmul_checks(gen, timed)
     checks += implicit_conv_checks(gen, timed)
     results["kernel_checks"] = checks
@@ -227,6 +234,74 @@ def phase_kernels(results: dict) -> list[dict]:
     if bad:
         raise AssertionError(f"{len(bad)} kernel results differ from their plain versions")
     return rows
+
+
+# K2's own shapes besides the stage-1 operands: the implicit "none" path's
+# code operand (N*C*Hp, Wp) of the stage-1 input, and an all-zero operand
+K2_SHAPES = {"none_codes_NCHp_Wp": (BATCH * 16 * 34, 34), "zeros": (4096, 256)}
+
+
+def k2_checks(gen, timed: dict) -> list[dict]:
+    """K2 at K2_SHAPES against its plain version: mls_quantize "c" and
+    "none" (k_block = the width at (69632, 34), 128 on the zeros), <2,4>
+    and <2,1>; and the code pass alone (quantize_given_scales) as the
+    implicit "none" path calls it on the padded input, against a given
+    tensor scale.  The (69632, 34) calls are timed."""
+    import torch
+
+    from repro_torch.core import FMT_CIFAR, FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import mls_quantize, rounding_bytes
+    from repro_torch.kernels.mls_quantize import quantize_given_scales
+    from repro_torch.kernels.ref import element_codes_ref, quantize_ref
+
+    checks = []
+    for sname, (M, K) in K2_SHAPES.items():
+        x = (torch.zeros((M, K), device="cuda") if sname == "zeros"
+             else torch.randn((M, K), generator=gen, device="cuda"))
+        r = rounding_bytes(x.shape, gen, x.device)
+        kb = K if sname != "zeros" else K_BLOCK
+        for fmt in (FMT_IMAGENET, FMT_CIFAR):
+            for grouping in ("c", "none"):
+                run = lambda: mls_quantize(x, fmt, kb, GS_FMT_DEFAULT, r, grouping)  # noqa: E731
+                got = run()
+                want = quantize_ref(x, fmt, kb, GS_FMT_DEFAULT, r, grouping)
+                torch.cuda.synchronize()
+                err = max(max_abs_err(a, b) for a, b in zip(got, want))
+                checks.append(dict(kernel="mls_quantize_given_sg", shape=sname, fmt=str(fmt),
+                                   grouping=grouping, identical=all(
+                                       torch.equal(a, b) for a, b in zip(got, want)),
+                                   max_abs_err=err, s_t=float(got[2])))
+                if sname == "zeros" and float(got[2]) != 1.0:
+                    checks[-1]["identical"] = False
+                if fmt is FMT_IMAGENET and grouping == "none" and sname != "zeros":
+                    timed[("mls_quantize_given_sg", sname, str(fmt), grouping)] = dict(
+                        ms=cuda_ms(run), kernel_ms=kernel_ms(
+                            run, DEVICE_KERNELS["mls_quantize_given_sg"]),
+                        plain_ms=cuda_ms(lambda: quantize_ref(x, fmt, kb, GS_FMT_DEFAULT, r,
+                                                              grouping)),
+                        bytes=M * K * 6 + 8, ops=0, max_abs_err=err,
+                        shape=f"{sname} ({M}, {K}) {grouping} {fmt}")
+        if sname == "zeros":
+            continue
+        # the code pass alone: against the tensor scale of a larger tensor
+        s_t = (x.abs().amax() * 1.5).reshape(())
+        ones = torch.ones((1, 1), device="cuda")
+        nearest = rounding_bytes(x.shape, None, x.device)
+        run = lambda: quantize_given_scales(x, FMT_IMAGENET, s_t, ones, K, nearest)  # noqa: E731
+        got = run()
+        want = element_codes_ref(x, nearest, s_t * ones, FMT_IMAGENET)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        checks.append(dict(kernel="mls_quantize_given_sg", shape=f"{sname} code pass",
+                           fmt=str(FMT_IMAGENET), grouping="none (given s_t)",
+                           identical=torch.equal(got, want), max_abs_err=err))
+        timed[("mls_quantize_given_sg", sname, "code pass")] = dict(
+            ms=cuda_ms(run), kernel_ms=kernel_ms(run, DEVICE_KERNELS["mls_quantize_given_sg"]),
+            plain_ms=cuda_ms(lambda: element_codes_ref(x, nearest, s_t * ones, FMT_IMAGENET)),
+            bytes=M * K * 6 + 8, ops=0, max_abs_err=err,
+            shape=f"{sname} code pass ({M}, {K}) none, given s_t {FMT_IMAGENET}")
+        del x, r
+    return checks
 
 
 # K3's shapes: (M, K real, K padded, N, k_block) -- forward (cols @ wmat),
@@ -312,23 +387,24 @@ def matmul_checks(gen, timed: dict) -> list[dict]:
 
 
 def implicit_conv_checks(gen, timed: dict) -> list[dict]:
-    """K4 against its plain version at the implicit path's conv shapes, four
-    groupings, <2,4> and <2,1>, stochastic rounding bytes; the "nc" <2,4>
-    case is timed beside the im2col route of the same conv (pad, unfold,
-    K1 on the patches and on the weight, K3)."""
+    """K4 against its plain version and the im2col route at the implicit
+    path's conv shapes, four groupings, <2,4> and <2,1>, stochastic
+    rounding bytes, and <3,1> (the int32 body) at stage 1; the "nc" and
+    "none" <2,4> cases are timed, "nc" beside the im2col route of the same
+    conv (pad, unfold, K1 on the patches and on the weight, K3)."""
     import torch
 
-    from repro_torch.core import FMT_CIFAR, FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.core import FMT_CIFAR, FMT_IMAGENET, GS_FMT_DEFAULT, EMFormat
     from repro_torch.kernels import (conv_geometry, implicit_conv_forward, implicit_conv_ref,
                                      mls_matmul, mls_quantize)
     from repro_torch.kernels.ref import im2col
 
-    def im2col_route(x, w, r_x, r_w, geom, fmt, grouping):
+    def im2col_route(x, w, r_x, r_w, geom, fmt, grouping, kb=K_BLOCK_IMPLICIT):
         cols, _ = im2col(x, (geom.kh, geom.kw), (geom.sh, geom.sw), geom.pads)
-        xc, xsg, xst = mls_quantize(cols, fmt, K_BLOCK_IMPLICIT, GS_FMT_DEFAULT, r_x, grouping)
-        wc, wsgT, wst = mls_quantize(w.reshape(geom.o, -1), fmt, K_BLOCK_IMPLICIT,
-                                     GS_FMT_DEFAULT, r_w, grouping)
-        return mls_matmul(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, K_BLOCK_IMPLICIT, grouping)
+        xc, xsg, xst = mls_quantize(cols, fmt, kb, GS_FMT_DEFAULT, r_x, grouping)
+        wc, wsgT, wst = mls_quantize(w.reshape(geom.o, -1), fmt, kb, GS_FMT_DEFAULT, r_w,
+                                     grouping)
+        return mls_matmul(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, kb, grouping)
 
     checks = []
     for sname, (xs, ws, stride) in CONV_SHAPES.items():
@@ -339,21 +415,26 @@ def implicit_conv_checks(gen, timed: dict) -> list[dict]:
                             device="cuda")
         r_w = torch.randint(0, 256, (geom.o, geom.k0), generator=gen, dtype=torch.uint8,
                             device="cuda")
-        for fmt in (FMT_IMAGENET, FMT_CIFAR):
+        # <2,4> and <2,1> on the int8 body; <3,1> (fractions up to 192) on
+        # the int32 body at stage 1, k_block 72 (144 would need 24 bits)
+        cases = [(fmt, K_BLOCK_IMPLICIT) for fmt in (FMT_IMAGENET, FMT_CIFAR)]
+        if sname == "stage1_conv":
+            cases.append((EMFormat(*FMT_INT32), 72))
+        for fmt, kb in cases:
             for grouping in ("nc", "c", "n", "none"):
-                kw = dict(fmt=fmt, gs_fmt=GS_FMT_DEFAULT, k_block=K_BLOCK_IMPLICIT,
-                          grouping=grouping)
+                kw = dict(fmt=fmt, gs_fmt=GS_FMT_DEFAULT, k_block=kb, grouping=grouping)
                 got = implicit_conv_forward(x, w, r_x, r_w, stride, "SAME", **kw)
                 want = implicit_conv_ref(x, w, r_x, r_w, stride, geom.pads, **kw)
-                via_im2col = im2col_route(x, w, r_x, r_w, geom, fmt, grouping)
+                via_im2col = im2col_route(x, w, r_x, r_w, geom, fmt, grouping, kb)
                 torch.cuda.synchronize()
                 err = max_abs_err(got, want)
                 y2d = got.permute(0, 2, 3, 1).reshape(geom.m0, geom.o)
                 checks.append(dict(kernel="implicit_conv", shape=sname, fmt=str(fmt),
-                                   grouping=grouping, identical=torch.equal(got, want),
-                                   max_abs_err=err, equals_im2col=torch.equal(y2d, via_im2col),
+                                   k_block=kb, grouping=grouping,
+                                   identical=torch.equal(got, want), max_abs_err=err,
+                                   equals_im2col=torch.equal(y2d, via_im2col),
                                    finite=bool(torch.isfinite(got).all())))
-                if fmt is FMT_IMAGENET and grouping == "nc":
+                if fmt is FMT_IMAGENET and grouping in ("nc", "none"):
                     timed[("implicit_conv", sname, str(fmt), grouping)] = dict(
                         ms=cuda_ms(lambda: implicit_conv_forward(x, w, r_x, r_w, stride, "SAME",
                                                                  **kw)),
@@ -362,7 +443,8 @@ def implicit_conv_checks(gen, timed: dict) -> list[dict]:
                         im2col_ms=cuda_ms(lambda: im2col_route(x, w, r_x, r_w, geom, fmt,
                                                                grouping)),
                         kernel_ms=kernel_ms(lambda: implicit_conv_forward(
-                            x, w, r_x, r_w, stride, "SAME", **kw), "implicit_conv_kernel"),
+                            x, w, r_x, r_w, stride, "SAME", **kw),
+                            DEVICE_KERNELS["implicit_conv"]),
                         # x, w, both rounding-byte tensors read once, fp32 output written once
                         bytes=4 * x.numel() + 4 * w.numel() + r_x.numel() + r_w.numel()
                         + 4 * geom.m0 * geom.o,
@@ -392,9 +474,10 @@ def expected_launches(qcfg, convs) -> dict[str, int]:
     """Kernel launches of one training step, from the dispatch of each conv:
     forward implicit (K4 + the weight's quantizer) or im2col (2 quantizes
     + K3); weight gradient with code reuse (grouping "none", nearest,
-    implicit: a given-scale code pass, the error's quantizer, K3) or without
-    (2 quantizes + K3); data gradient (2 quantizes + K3)."""
-    from repro_torch.kernels import conv_geometry, resolve_conv_impl
+    implicit: K4's tensor-scale pass, a given-scale code pass, the error's
+    quantizer, K3) or without (2 quantizes + K3); data gradient (2
+    quantizes + K3).  K2 counts its two entry points under one name."""
+    from repro_torch.kernels import conv_geometry, launch_counts, resolve_conv_impl
 
     q = "mls_quantize_rows" if qcfg.grouping in ("nc", "n") else "mls_quantize_given_sg"
     n = collections.Counter()
@@ -405,11 +488,11 @@ def expected_launches(qcfg, convs) -> dict[str, int]:
         else:
             n.update({q: 2, "mls_matmul": 1})
         if qcfg.grouping == "none" and not qcfg.stochastic and impl == "implicit":
-            n.update({"mls_quantize_given_sg": 2, "mls_matmul": 1})
+            n.update({"conv_tensor_scale": 1, "mls_quantize_given_sg": 2, "mls_matmul": 1})
         else:
             n.update({q: 2, "mls_matmul": 1})
         n.update({q: 2, "mls_matmul": 1})
-    return {k: n[k] for k in KERNELS}
+    return {k: n[k] for k in launch_counts()}
 
 
 def run_path(results: dict, key: str, qcfg, steps: int) -> dict[str, int]:
@@ -446,7 +529,7 @@ def phase_train(results: dict) -> dict[str, int]:
     main = run_path(results, "train", qcfg, TRAIN_STEPS)
     if expected_launches(qcfg, conv_list(1.0, HW, BATCH)) != {
             "mls_quantize_rows": 120, "mls_quantize_given_sg": 0, "mls_matmul": 60,
-            "implicit_conv": 0, "sabotage_overlap": 0}:
+            "implicit_conv": 0, "conv_tensor_scale": 0, "sabotage_overlap": 0}:
         raise AssertionError("the k_block-128 path no longer takes 120 quantize and 60 GEMM "
                              "launches per step on im2col alone")
     # paper Table IV grouping "c": the given-scale quantize kernel's path
@@ -463,10 +546,10 @@ def phase_train(results: dict) -> dict[str, int]:
 
 
 def phase_trace(results: dict) -> None:
-    """Where a step's time goes, on the main path and on the implicit path:
-    3 more steps of each under torch.profiler; device time by kernel, the
-    port's kernels against the rest, and the device's idle share of the
-    host-clock step time."""
+    """Where a step's time goes, on the main path, the implicit path and
+    the grouping-"c" path (K2's): 3 more steps of each under
+    torch.profiler; device time by kernel, the port's kernels against the
+    rest, and the device's idle share of the host-clock step time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -474,10 +557,16 @@ def phase_trace(results: dict) -> None:
     from repro_torch.core import FMT_IMAGENET, QuantConfig
     from repro_torch.train.loop import train_variant
 
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
     ours = tuple(n for names in DEVICE_KERNELS.values() for n in names)
     steps = 3
-    for key, k_block in (("trace", K_BLOCK), ("trace_implicit", K_BLOCK_IMPLICIT)):
-        qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=k_block, grouping="nc", stochastic=True)
+    for key, k_block, grouping in (("trace", K_BLOCK, "nc"),
+                                   ("trace_implicit", K_BLOCK_IMPLICIT, "nc"),
+                                   ("trace_grouping_c", K_BLOCK, "c")):
+        qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=k_block, grouping=grouping,
+                           stochastic=True)
+        reset_launch_counts()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             res = train_variant("traced", qcfg, steps, width=1.0, hw=HW, batch=BATCH,
@@ -488,12 +577,14 @@ def phase_trace(results: dict) -> None:
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         ours_ms = sum(v for k, v in by_name.items() if any(o in k for o in ours))
+        launched = launch_counts()  # K1 and K2 share quantize_amax: only the path's own
         by_entry = {entry: sum(v for k, v in by_name.items() if any(o in k for o in names))
-                    / steps for entry, names in DEVICE_KERNELS.items()}
+                    / steps for entry, names in DEVICE_KERNELS.items() if launched[entry]}
         device_ms = sum(by_name.values())
         host_ms = sum(res.step_s) * 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        trace = dict(k_block=k_block, steps=steps, host_ms_per_step=host_ms / steps,
+        trace = dict(k_block=k_block, grouping=grouping, steps=steps,
+                     host_ms_per_step=host_ms / steps,
                      device_ms_per_step=device_ms / steps,
                      port_kernels_ms_per_step=ours_ms / steps,
                      kernels_ms_per_step_by_entry=by_entry,
@@ -651,7 +742,7 @@ def phase_audit(results: dict) -> tuple[dict, int]:
     k1_k3 = ["mls_matmul_sum", "mls_matmul_terms", "mls_matmul_walk", "quantize_amax",
              "quantize_groups_warp"]
     want = {"train:resnet20": k1_k3,
-            "train:resnet20@kb144": sorted(k1_k3 + ["implicit_conv"])}
+            "train:resnet20@kb144": sorted(k1_k3 + ["conv_amax", "implicit_conv"])}
     if summary["recorded_kernels"] != want:
         bad.append(f"recorded kernels {summary['recorded_kernels']}")
     # exactly the closed form of tests/test_torch_analysis.py: K3's MACs are
@@ -770,8 +861,9 @@ def main() -> int:
     if failures:
         fail(f"phases failed: {failures}")
     kernels = []
-    for r in rows:
-        if not r["shape"].startswith(REPORTED_SHAPE[r["name"]]):
+    for r in rows:  # the first row timed at each kernel's reported shape
+        if (not r["shape"].startswith(REPORTED_SHAPE[r["name"]])
+                or any(k["name"] == r["name"] for k in kernels)):
             continue
         source, replaces = KERNELS[r["name"]]
         kernels.append(dict(name=r["name"], route="cuda", source=source, replaces=replaces,

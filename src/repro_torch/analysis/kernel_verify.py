@@ -17,8 +17,9 @@ point, proving for each output that
 * every read and write lands in bounds (*oob*), and array extents divide
   their blocks unless the kernel masks the ragged edge (*divisibility*).
 
-K4 gathers its patches from the padded input at addresses no block map
-describes; :func:`prove_window_grid` replays that address arithmetic.
+K4 gathers its patches from a halo band staged in shared memory, at
+addresses no block map describes; :func:`prove_window_grid` replays that
+address arithmetic and proves the band holds every tap and fits.
 
 **Accumulator exactness.**  Every integer accumulation the descriptor
 declares (:class:`repro_torch.analysis.intervals.Accumulation`) must stay
@@ -282,49 +283,78 @@ def _check_operand(spec: LaunchSpec, op: Operand, coords) -> tuple[list[Violatio
 # K4's window proof
 # ---------------------------------------------------------------------------
 def prove_window_grid(geom, k_block: int, *, block_m: int = implicit_conv.TILE["kBM"],
-                      padded_h: int | None = None) -> tuple[list[Violation], dict]:
+                      band_rows: int | None = None,
+                      band_bytes_max: int = implicit_conv.TILE["kBandBytesMax"]
+                      ) -> tuple[list[Violation], dict]:
     """Coverage proof for K4's patch gather (``csrc/implicit_conv.cu``).
 
-    K4 has no halo band: each ``block_m``-row M-tile gathers its taps from
-    the padded input through L1/L2.  This replays the kernel's address
-    arithmetic (row ``m`` of tile ``i`` is ``i * block_m + r``, decomposed
-    into ``(n, oh, ow)``; feature ``k`` into ``(channel, tap)``) and proves:
+    Each ``block_m``-row M-tile stages a halo band in shared memory: ``cb =
+    k_block / (kh*kw)`` channels x the padded rows its patches touch x the
+    padded width, starting on its first row's patch row in the image-major
+    stack of padded rows (``implicit_conv.band_rows``), at a channel pitch
+    of ``band_rows`` rows, the tallest band of any tile.  This replays the
+    kernel's addressing (row ``m`` of tile ``i`` is ``i * block_m + r``,
+    decomposed into ``(n, oh, ow)``; feature ``k`` into ``(channel, tap)``)
+    and proves:
 
     * every ``(n, oh, ow)`` is produced by exactly one M-tile row;
-    * every tap lands inside the padded input, ``padded_h x wp``;
+    * every tap of every row lies inside its tile's staged band: rows below
+      ``start + min(height, band_rows)``, columns below ``wp``, and the
+      band inside the stack of ``N`` padded images;
+    * the band fits the kernel's shared memory, ``cb * band_rows * wp * 4
+      <= band_bytes_max``;
     * every channel's taps lie in exactly one k-block (``k_block = cb *
       kh * kw`` with ``cb | C``).
 
-    ``padded_h`` stands in for the padded height the kernel is handed; the
-    ``drop_halo`` negative control sets it one row short, which must
-    surface an ``oob``.
+    ``band_rows`` (default: the tallest band) stands in for the height the
+    kernel stages; the ``drop_halo`` negative control sets it one row
+    short, which must surface an ``oob``.
     """
     viols: list[Violation] = []
-    hp = geom.hp if padded_h is None else padded_h
     kk, cb = geom.kk, k_block // geom.kk
     if k_block < kk or k_block % kk or geom.c % cb:
         viols.append(Violation(
             "divisibility", "window_grid",
             f"k_block={k_block} is not cb*kh*kw with cb | C={geom.c} (kh*kw={kk})"))
         return viols, {}
+    start, height = implicit_conv.band_rows(geom, block_m)
+    tallest = int(height.max())
+    pitch = tallest if band_rows is None else band_rows
+    staged = np.minimum(height, pitch)
     m0, ohw = geom.m0, geom.oh * geom.ow
     tiles = -(-m0 // block_m)
     m = (np.arange(tiles)[:, None] * block_m + np.arange(block_m)[None, :]).ravel()
     m = m[m < m0]  # the kernel masks rows past M0
+    tile = m // block_m
     n, rem = m // ohw, m % ohw
     oh, ow = rem // geom.ow, rem % geom.ow
-    last_row = oh * geom.sh + geom.kh - 1  # deepest tap row of each patch
+    # deepest tap row of each patch, in band rows; deepest tap column
+    last_row = n * geom.hp + oh * geom.sh + geom.kh - 1 - start[tile]
     last_col = ow * geom.sw + geom.kw - 1
-    for what, at, limit in (("image", n, geom.n), ("tap row", last_row, hp),
-                            ("tap column", last_col, geom.wp)):
+    for what, at, limit in (("image", n, np.full_like(n, geom.n)),
+                            ("band row", last_row, staged[tile]),
+                            ("tap column", last_col, np.full_like(n, geom.wp))):
         bad = np.flatnonzero(at >= limit)
         if bad.size:
             r = int(bad[0])
             viols.append(Violation(
                 "oob", "window_grid",
-                f"M-tile {int(m[r]) // block_m}: row {int(m[r])} (n={int(n[r])}, "
-                f"oh={int(oh[r])}, ow={int(ow[r])}) reads {what} {int(at[r])} >= {limit}: "
-                f"the padded input is short of its taps ({bad.size} rows)"))
+                f"M-tile {int(tile[r])}: row {int(m[r])} (n={int(n[r])}, oh={int(oh[r])}, "
+                f"ow={int(ow[r])}) reads {what} {int(at[r])} >= {int(limit[r])}: the staged "
+                f"band is short of its taps ({bad.size} rows)"))
+    beyond = np.flatnonzero(start + staged > geom.n * geom.hp)
+    if beyond.size:
+        viols.append(Violation(
+            "oob", "window_grid",
+            f"M-tile {int(beyond[0])}: band rows {int(start[beyond[0]])}.."
+            f"{int(start[beyond[0]] + staged[beyond[0]]) - 1} run past the "
+            f"{geom.n * geom.hp} padded rows of the input"))
+    band_bytes = cb * pitch * geom.wp * 4
+    if band_bytes > band_bytes_max:
+        viols.append(Violation(
+            "oob", "window_grid",
+            f"the band of {cb} channels x {pitch} rows x {geom.wp} columns takes {band_bytes} "
+            f"bytes > the kernel's {band_bytes_max} of shared memory"))
     produced = np.bincount((n * geom.oh + oh) * geom.ow + ow, minlength=geom.n * ohw)
     if (produced == 0).any():
         viols.append(Violation(
@@ -344,7 +374,8 @@ def prove_window_grid(geom, k_block: int, *, block_m: int = implicit_conv.TILE["
             f"k-blocks cover channels {per_channel.tolist()[:8]}... times instead of "
             f"0..{geom.c - 1} exactly once"))
     cov = {"output_rows": int(produced.size), "rows_produced": int(np.count_nonzero(produced)),
-           "m_tiles": tiles, "k_blocks": nkb, "padded_h": hp}
+           "m_tiles": tiles, "k_blocks": nkb, "band_rows": pitch, "tallest_band": tallest,
+           "band_bytes": band_bytes}
     return viols, cov
 
 
@@ -372,7 +403,9 @@ def verify_spec(spec: LaunchSpec, name: str | None = None, launches: int = 1) ->
                 coverage[op.name] = cov
     if spec.window is not None:
         w = spec.window
-        viols, cov = prove_window_grid(w.geom, w.k_block, block_m=w.block_m)
+        viols, cov = prove_window_grid(w.geom, w.k_block, block_m=w.block_m,
+                                       band_rows=w.band_rows,
+                                       band_bytes_max=w.band_bytes_max)
         violations += viols
         coverage["window_grid"] = cov
     int_accs = [a for a in spec.accumulations if a.integer]
@@ -472,7 +505,7 @@ def verify_implicit_conv_candidate(geom, fmt: EMFormat, k_block: int, grouping: 
         return KernelReport(name, [_window_report(
             name, [Violation("divisibility", "window_grid", reason)], {})])
     specs = (_quantize_specs(geom.o, geom.k0, k_block, grouping, device)
-             + [(implicit_conv.launch_spec(geom, k_block, grouping, fmt, device), 1)])
+             + _once(implicit_conv.launch_spec(geom, k_block, grouping, fmt, device)))
     return verify_specs(name, specs)
 
 
@@ -511,11 +544,12 @@ def _sabotage_deep_k(device: str) -> KernelReport:
 
 
 def _sabotage_drop_halo(device: str) -> KernelReport:
-    """K4's window proof with the padded input one row short of its taps
+    """K4's window proof with the staged band one row short of its taps
     (the JAX control's geometry: x (2, 4, 8, 8), w (8, 4, 3, 3), SAME, two
     channels per k-block): the proof must name the ``oob``."""
     geom = implicit_conv.conv_geometry((2, 4, 8, 8), (8, 4, 3, 3), (1, 1), "SAME")
-    viols, cov = prove_window_grid(geom, 2 * geom.kk, padded_h=geom.hp - 1)
+    short = int(implicit_conv.band_rows(geom)[1].max()) - 1
+    viols, cov = prove_window_grid(geom, 2 * geom.kk, band_rows=short)
     return KernelReport("sabotage:drop_halo", [_window_report("sabotage:drop_halo", viols, cov)])
 
 

@@ -55,9 +55,11 @@ _COUNTERS = (_mls_quantize_mod.LAUNCHES, _mls_matmul_mod.LAUNCHES,
 # C entry point -> its launch descriptors, from the recorded launch arguments
 _LAUNCH_SPECS = {
     "mls_quantize_rows": _mls_quantize_mod.launch_spec_rows,
+    "mls_quantize_cols": _mls_quantize_mod.launch_spec_cols,
     "mls_quantize_given_sg": _mls_quantize_mod.launch_spec_given_sg,
     "mls_matmul": _mls_matmul_mod.launch_spec,
     "implicit_conv": _implicit_conv_mod.launch_spec,
+    "conv_tensor_scale": _implicit_conv_mod.launch_spec_scale,
     "sabotage_overlap": _sabotage_mod.launch_spec,
 }
 
@@ -81,7 +83,8 @@ def recorded_specs(
     """``(spec, launches)`` of every distinct launch in ``records`` (default:
     all recorded since the last reset; take the difference of two copies of
     ``launch.RECORDED`` for one stretch of work).  A C entry point may make
-    several device launches per call (K1's two passes, K3's split): its
+    several device launches per call (K1's two passes, K2's scale passes,
+    K3's split, K4's pass A): its
     ``launch_spec*`` function returns one spec for each.  A spec recorded on
     the card reads its tile constants from the built library."""
     records = launch.RECORDED if records is None else records

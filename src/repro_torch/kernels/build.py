@@ -39,17 +39,23 @@ _SIGNATURES = {
     # x, r_u8, partials, n_partials, s_t, codes, s_g, M, K, group_width,
     # e, m, e_min, gs_m, gs_emin, stream
     "mls_quantize_rows": [_P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P],
-    # x, r_u8, s_t, s_g, codes, M, K, k_block, sg_stride, e, m, e_min, gs_m, gs_emin, stream
-    "mls_quantize_given_sg": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, r_u8, part, n_part, gmax, s_t, codes, s_g, M, K, group_width, vec,
+    # e, m, e_min, gs_m, gs_emin, stream
+    "mls_quantize_cols": [_P, _P, _P, _LL, _P, _P, _P, _P, _LL, *[_I] * 8, _P],
+    # x, r_u8, s_t, s_g, codes, M, K, k_block, sg_stride, vec,
+    # e, m, e_min, gs_m, gs_emin, stream
+    "mls_quantize_given_sg": [_P, _P, _P, _P, _P, _LL, *[_I] * 9, _P],
     # xc, sxm, sxk, xsg, sxsg_m, sxsg_g, wc, swk, swn, wsg, swsg_g, swsg_n,
     # xst, wst, unit, out, terms, M, N, K, k_block, e, m, bn, body, split, stream
     "mls_matmul": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
                    _P, _P, ctypes.c_float, _P, _P, *[_I] * 9, _P],
-    # xp, r_u8, xst, xsg, sxsg_m, sxsg_g, wc, swk, swn, wsg, swsg_g, swsg_n,
-    # wst, unit, out, n, c, hp, wp, o, kh, kw, sh, sw, k_block,
-    # e, m, e_min, gs_m, gs_emin, stream
-    "implicit_conv": [_P, _P, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
-                      _P, ctypes.c_float, _P, *[_I] * 10, *[_I] * 5, _P],
+    # x, r_u8, partials, n_partials, xst, xsg, sxsg_m, sxsg_g, wc, swk, swn,
+    # wsg, swsg_g, swsg_n, wst, unit, out, n, c, h, w, o, kh, kw, sh, sw, ph,
+    # pw, hp, wp, k_block, mode, e, m, e_min, gs_m, gs_emin, stream
+    "implicit_conv": [_P, _P, _P, _I, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
+                      _P, ctypes.c_float, _P, *[_I] * 15, *[_I] * 5, _P],
+    # x, partials, n_partials, s_t, n, c, h, w, kh, kw, sh, sw, ph, pw, hp, wp, stream
+    "conv_tensor_scale": [_P, _P, _I, _P, *[_I] * 12, _P],
     # x, w, out, probe (or NULL), M, K, N, stream
     "sabotage_overlap": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mls_error_string": [_I],

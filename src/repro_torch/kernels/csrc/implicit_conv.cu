@@ -6,225 +6,487 @@
 //   out (M0, O) = conv(x, w) in the MLS quantized domain
 // as the virtual GEMM (M0 = N*OH*OW, K0 = C*kh*kw) @ (K0, O), rows in
 // (n, oh, ow) order and features in (c, kh, kw) order: the layout im2col
-// builds, but no patch matrix is ever written.  Each block owns one output
-// tile and walks the k-blocks g = 0..K0/k_block-1 in order (no split-K);
-// a k-block is cb whole input channels' kh*kw taps.  Per k-block it
-//   - gathers its patch elements straight from the padded NCHW input;
-//   - quantizes them: "nc" takes K1's group max, IEEE division by s_t and
-//     group scale; "c", "n" and "none" take the compact scales computed
-//     ahead.  The rounding byte of element (m, k) is r[m, k] of the same
-//     (M0, K0) tensor the im2col path hands K1;
-//   - contracts the codes with the weight codes in exact int32 and adds
-//     p * (s_g^x * s_g^w) to the fp32 sum (K3's combine);
-// then multiplies by (s_t^x * s_t^w) * unit.  Every step is a device
-// function of mls_common.cuh that K1/K2/K3 call too, so the result is
-// bit-identical to im2col + K1/K2 + K3 on the same rounding bytes.
+// builds, but no patch matrix is ever written, and no padded copy of x
+// either.  The rounding byte of element (m, k) is r[m, k] of the same
+// (M0, K0) tensor the im2col path hands K1, and every step is a device
+// function of mls_common.cuh / mls_mma.cuh that K1/K2/K3 call too, so the
+// result is bit-identical to im2col + K1/K2 + K3 on the same bytes.
 //
 // Bound: device memory.  The work reads the input once (4 B per element),
-// one rounding byte per patch element and the weight codes, and writes
-// 4 B per output; its 2*M0*K0*O integer operations are far below the int8
-// rate.  This first version is simple, not at that bound: K3's layout (a
-// 64x64 output tile per block, 256 threads with a 4x4 register tile each,
-// codes decoded to integer fractions in shared memory), and each thread
-// gathers and codes one fixed row of the tile, so the "nc" group max is a
-// per-thread max and a 4-way reduction in shared memory.  The input is
-// read twice for "nc" (max, then codes, the second from L1/L2) and once
-// per 64-wide tile of output channels (one tile for ResNet-20's O <= 64).
-// Staging the halo band with TMA, wgmma int8 dots and a coalesced
-// rounding-byte layout are later work.
+// one rounding byte per patch element (9 per input element for 3x3) and
+// the weight codes, and writes 4 B per output; its 2*M0*K0*O integer
+// operations are far below the int8 rate.  Design, one C call:
+//   pass A (conv_amax, groupings "nc" and "none"): partial maxima of |x|
+//     over the pixels some patch covers (VALID or a stride can leave a
+//     tail out), up to 2 x 132 blocks; the main kernel's blocks reduce them
+//     to the tensor scale (and "none"'s one group scale) themselves.  "c"
+//     and "n" take compact scales computed ahead in PyTorch.
+//   main kernel (implicit_conv_kernel): a block per 64-row x BN output
+//     tile (BN = 16, 32 or 64 from O) walks the scaling groups in k order
+//     (no split-K); a group is cb whole channels' kh*kw taps.  8 warps
+//     share the prologue's element codes (the element arithmetic, not the
+//     bytes, sets the pace, and stage 3 has one tile per SM); for the dot,
+//     warp w takes rows 16 * (w % 4) and half the tile's columns.  Per
+//     group:
+//     - the tile's halo band, cb channels x the input rows its patches
+//       touch x the padded width, is staged once in shared memory with
+//       4-byte cp.async; padding is the copy's zero fill.  64 rows may
+//       span two images (the band then runs on into the next image's
+//       rows); the host sizes shared memory for the tallest band.
+//     - "nc" group maxima come from the band: x is read from device
+//       memory once.
+//     - the rounding bytes are staged as the tile's 64 x KC chunk, each
+//       row KC contiguous bytes at m*K0 + g*k_block + c*KC, with 16-byte
+//       cp.async copies (k_block and K0 multiples of 16; else byte loads).
+//     - tap offsets into the band are precomputed per kernel (the same for
+//       every group: whole channels) and row offsets per tile, so no
+//       element takes a division.
+//     - codes go through the fraction table into int8 (int32) rows in the
+//       layout mma.sync.m16n8k16 reads, and the group dot runs on int8
+//       tensor cores when every fraction fits int8 (max_fraction <= 127),
+//       else on CUDA cores in int32: K3's staging, decode and bodies,
+//       shared through mls_mma.cuh.
+//     - the combine stays mls::group_combine in k order, then the tensor
+//       scale (K3's epilogue).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "mls_common.cuh"
+#include "mls_mma.cuh"
 
 namespace {
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kKC = 32;  // contraction chunk staged per __syncthreads
-constexpr int kThreads = 256;
-constexpr int kRowThreads = kThreads / kBM;  // threads that share a tile row
+constexpr int kBM = 64;           // output rows per tile: 4 row warps x 16
+constexpr int kThreads = 256;     // 8 warps: 4 row warps x 2 column halves
+constexpr int kWarpsM = 4;
+constexpr int kAmaxThreads = 256;  // pass A
+constexpr int kAmaxBlocks = 2 * 132;
+constexpr int kBandBytesMax = 160 * 1024;  // staged band, at most
+constexpr int kMaxGridY = 65535;
 
-struct ConvDims {
-  int c, hp, wp, kh, kw, sh, sw, oh, ow;
+enum Mode { kModeNc = 0, kModeNone = 1, kModeGiven = 2 };
+
+struct ConvArgs {
+  const float* x;  // (n, c, h, w) unpadded
+  const uint8_t* r;
+  const float* partials;  // pass A ("nc", "none")
+  int n_partials;
+  const float* xst;  // given ("c", "n")
+  const float* xsg;
+  long long sxsg_m, sxsg_g;
+  const uint8_t* wc;
+  long long swk, swn;
+  const float* wsg;
+  long long swsg_g, swsg_n;
+  const float* wst;
+  float unit;
+  float* out;
+  int M, O, K, k_block, cb, mode;
+  int n, c, h, w, hp, wp, ph, pw, kh, kw, sh, sw, oh, ow;
+  int band_rows;  // the tallest band of any tile: the band's channel pitch in rows
+  bool r_async, w_async;
+  mls::Fmt f;
 };
 
-// Offset in the padded input of feature k = (c, i, j) of a patch, from the
-// patch's top-left element.
-__device__ __forceinline__ long long tap_offset(int k, const ConvDims& d) {
-  const int kk = d.kh * d.kw;
-  const int ch = k / kk, t = k - ch * kk;
-  const int i = t / d.kw, j = t - i * d.kw;
-  return ((long long)ch * d.hp + i) * d.wp + j;
+// The rows of the padded input stack (image-major, n * hp + padded row)
+// that output row m's patch starts on.
+__host__ __device__ __forceinline__ int patch_row(int m, int oh, int ow, int hp, int sh) {
+  const int q = m / ow;
+  return (q / oh) * hp + (q % oh) * sh;
 }
 
-__global__ void __launch_bounds__(kThreads) implicit_conv_kernel(
-    const float* __restrict__ xp, const uint8_t* __restrict__ r,
-    const float* __restrict__ xst_ptr, const float* __restrict__ xsg,
-    long long sxsg_m, long long sxsg_g, const uint8_t* __restrict__ wc,
-    long long swk, long long swn, const float* __restrict__ wsg,
-    long long swsg_g, long long swsg_n, const float* __restrict__ wst_ptr,
-    float unit, float* __restrict__ out, int M, int N, int K, int k_block,
-    ConvDims d, mls::Fmt f) {
-  __shared__ int lut[256];
-  __shared__ int xs[kKC][kBM + 1];
-  __shared__ int ws[kKC][kBN + 1];
-  __shared__ float part[kThreads];  // partial "nc" group maxima
-  __shared__ float row_sg[kBM];     // "nc" group scale of each tile row
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * kBN;
-  const bool nc = xsg == nullptr;  // "nc": group scales made here
-  lut[tid] = mls::decode_frac(tid, f.e, f.m);
-
-  // The tile row this thread gathers and codes in every chunk (t = tid +
-  // kThreads*q covers row t % kBM = tid % kBM), its first feature, and the
-  // offset of its patch's top-left element in the padded input.
-  const int my_r = tid % kBM, my_k = tid / kBM;
-  const int my_m = row0 + my_r;
-  const bool my_valid = my_m < M;
-  long long base = 0;
-  const uint8_t* my_rb = r;
-  if (my_valid) {
-    const int ohw = d.oh * d.ow;
-    const int n = my_m / ohw, rem = my_m - n * ohw;
-    const int oh = rem / d.ow, ow = rem - oh * d.ow;
-    base = ((long long)n * d.c * d.hp + (long long)oh * d.sh) * d.wp +
-           (long long)ow * d.sw;
-    my_rb = r + (long long)my_m * K;
+// Shared-memory layout of one block (bytes), for a tile width BN and body.
+template <int BN, bool kMma>
+struct Smem {
+  static constexpr int KC = kMma ? 64 : 32;          // k staged per chunk
+  static constexpr int KCP = kMma ? KC + 16 : KC + 1;  // decoded row pitch (elements)
+  static constexpr int RBP = KC + 16;                // rounding-byte row pitch (bytes)
+  using Dec = typename std::conditional<kMma, int8_t, int>::type;
+  int band, toff, roff, rs, red2, lut, red, rbuf, deca, rawb, decb, total;
+  __host__ __device__ static int up16(int b) { return (b + 15) & ~15; }
+  __host__ __device__ Smem(int cb, int band_rows, int wp, int k_block) {
+    band = 0;
+    toff = up16(band + cb * band_rows * wp * 4);
+    roff = up16(toff + k_block * 4);
+    rs = roff + kBM * 4;
+    red2 = rs + kBM * 4;
+    lut = red2 + kThreads * 4;
+    red = lut + 256 * 4;
+    rbuf = up16(red + (kThreads / 32 + 1) * 4);
+    deca = up16(rbuf + kBM * RBP);
+    rawb = up16(deca + kBM * KCP * (int)sizeof(Dec));
+    decb = up16(rawb + BN * KC);
+    total = up16(decb + BN * KCP * (int)sizeof(Dec));
   }
-  const float xst = *xst_ptr;
-  __syncthreads();
+};
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+// Pass A: partials[b] = max |x| over the covered rows of block b's row
+// iterations.  Covered rows: (plane, hh) with hh < hcov, columns < wcov; a
+// block is rb row lanes x s threads; iteration it covers covered rows it *
+// rb .. it * rb + rb - 1 of the R = planes * hcov; block b takes b, b + P, ...
+__global__ void __launch_bounds__(kAmaxThreads) conv_amax(const float* __restrict__ x,
+                                                          int planes, int H, int W,
+                                                          int hcov, int wcov, int s,
+                                                          float* __restrict__ partials) {
+  __shared__ float red[kAmaxThreads / 32 + 1];
+  const int ls = threadIdx.x % s, lr = threadIdx.x / s, rb = kAmaxThreads / s;
+  const long long rows = (long long)planes * hcov;
+  float m = 0.0f;
+  for (long long it = blockIdx.x; it * rb < rows; it += gridDim.x) {
+    const long long row = it * rb + lr;
+    if (row >= rows) continue;
+    const long long plane = row / hcov;
+    const float* src = x + (plane * H + (row - plane * hcov)) * W;
+    for (int col = ls; col < wcov; col += s) m = mls::nan_max(m, fabsf(src[col]));
+  }
+  m = mls::block_max<kAmaxThreads>(m, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = m;
+}
 
-  const int nkb = K / k_block;
-  for (int g = 0; g < nkb; ++g) {
-    const int kg = g * k_block;
-    float denom;  // s_t * s_g of this thread's row in group g
-    if (nc) {
-      // K1's group scale: max |x| over the group (padding zeros included,
-      // as in im2col's cols), IEEE-divided by s_t, ceil-rounded
-      float amax = 0.0f;
-      if (my_valid)
-        for (int k = my_k; k < k_block; k += kRowThreads)
-          amax = fmaxf(amax, fabsf(xp[base + tap_offset(kg + k, d)]));
-      part[tid] = amax;
-      __syncthreads();
-      if (tid < kBM) {
-        float a = part[tid];
-        for (int q = 1; q < kRowThreads; ++q) a = fmaxf(a, part[tid + q * kBM]);
-        row_sg[tid] = mls::group_scale(__fdiv_rn(a, xst), f);
-      }
-      __syncthreads();
-      denom = __fmul_rn(xst, row_sg[my_r]);
-    } else {
-      denom = my_valid ? __fmul_rn(xst, xsg[my_m * sxsg_m + g * sxsg_g]) : 0.0f;
-    }
+// The tensor scale alone (covered_tensor_scale), one block.
+__global__ void __launch_bounds__(kAmaxThreads) conv_scale(const float* __restrict__ partials,
+                                                           int n_partials,
+                                                           float* __restrict__ s_t) {
+  __shared__ float red[kAmaxThreads / 32 + 1];
+  float m = 0.0f;
+  for (int i = threadIdx.x; i < n_partials; i += kAmaxThreads) m = mls::nan_max(m, partials[i]);
+  m = mls::block_max<kAmaxThreads>(m, red);
+  if (threadIdx.x == 0) *s_t = mls::tensor_scale_of_max(m);
+}
 
-    int p[4][4];
+template <int BN, bool kMma>
+__global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvArgs a) {
+  using L = Smem<BN, kMma>;
+  using Dec = typename L::Dec;
+  constexpr int KC = L::KC, KCP = L::KCP, RBP = L::RBP;
+  constexpr int NT = BN / 16;  // n8 tiles of each warp: half the tile's columns
+  extern __shared__ __align__(16) unsigned char smem[];
+  const L lay(a.cb, a.band_rows, a.wp, a.k_block);
+  float* band = reinterpret_cast<float*>(smem + lay.band);
+  int* toff = reinterpret_cast<int*>(smem + lay.toff);
+  int* roff = reinterpret_cast<int*>(smem + lay.roff);
+  float* rs = reinterpret_cast<float*>(smem + lay.rs);  // "nc": each row's group scale
+  float* red2 = reinterpret_cast<float*>(smem + lay.red2);
+  int* lut = reinterpret_cast<int*>(smem + lay.lut);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  uint8_t* rbuf = smem + lay.rbuf;
+  Dec* deca = reinterpret_cast<Dec*>(smem + lay.deca);
+  uint8_t* rawb = smem + lay.rawb;
+  Dec* decb = reinterpret_cast<Dec*>(smem + lay.decb);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;  // row warp, column half
+  const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * BN, wcol0 = col0 + wn * (BN / 2);
+  const int rows = min(kBM, a.M - row0);
+  const int kk = a.kh * a.kw;
+
+  // the tensor scale: from pass A's partials, or given
+  float xst, sg_none = 1.0f;
+  if (a.mode != kModeGiven) {
+    float m = 0.0f;
+    for (int i = tid; i < a.n_partials; i += kThreads) m = mls::nan_max(m, a.partials[i]);
+    m = mls::block_max<kThreads>(m, red);
+    xst = mls::tensor_scale_of_max(m);
+    if (a.mode == kModeNone) sg_none = mls::group_scale(mls::scale_ratio(m, xst), a.f);
+  } else {
+    xst = *a.xst;
+  }
+  for (int i = tid; i < 256; i += kThreads) lut[i] = mls::decode_frac(i, a.f.e, a.f.m);
+  // tap k of a group -> its offset in the band (channel pitch band_rows rows)
+  for (int k = tid; k < a.k_block; k += kThreads) {
+    const int cl = k / kk, t = k - cl * kk, i = t / a.kw;
+    toff[k] = (cl * a.band_rows + i) * a.wp + (t - i * a.kw);
+  }
+  // the band: padded rows [gr0, gr0 + bh) of the image-major stack
+  const int gr0 = patch_row(row0, a.oh, a.ow, a.hp, a.sh);
+  const int bh = patch_row(row0 + rows - 1, a.oh, a.ow, a.hp, a.sh) + a.kh - gr0;
+  if (tid < kBM)
+    roff[tid] = tid < rows ? (patch_row(row0 + tid, a.oh, a.ow, a.hp, a.sh) - gr0) * a.wp +
+                                 ((row0 + tid) % a.ow) * a.sw
+                           : 0;
+
+  int p[NT][4];
+  float acc[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[i][j] = 0;
-    for (int k0 = 0; k0 < k_block; k0 += kKC) {
-      const int kc = min(kKC, k_block - k0);
-      // quantize prologue: this thread's row, features my_k, my_k + 4, ...
-      for (int k = my_k; k < kKC; k += kRowThreads) {
-        int v = 0;
-        if (my_valid && k < kc) {
-          const int kf = kg + k0 + k;
-          v = lut[mls::element_code(xp[base + tap_offset(kf, d)], my_rb[kf],
-                                    denom, f)];
-        }
-        xs[k][my_r] = v;
-      }
-      const long long kbase = (long long)kg + k0;
-      for (int t = tid; t < kBN * kKC; t += kThreads) {
-        int n, k;
-        if (swk == 1) { n = t / kKC; k = t % kKC; } else { k = t / kBN; n = t % kBN; }
-        const int gn = col0 + n;
-        ws[k][n] = (gn < N && k < kc) ? lut[wc[(kbase + k) * swk + gn * swn]] : 0;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kKC; ++k) {
-        int a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xs[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ws[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) p[i][j] += a[i] * b[j];
-      }
-      __syncthreads();
-    }
-    // K3's inter-group combine, group g after group g - 1
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int lr = ty + 16 * i, gr = row0 + lr;
-      float sx = 0.0f;
-      if (gr < M) sx = nc ? row_sg[lr] : xsg[gr * sxsg_m + g * sxsg_g];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gn = col0 + tx + 16 * j;
-        const float sw = gn < N ? wsg[g * swsg_g + gn * swsg_n] : 0.0f;
-        acc[i][j] = mls::group_combine(acc[i][j], p[i][j], sx, sw);
+      p[t][i] = 0;
+      acc[t][i] = 0.0f;
+    }
+  const int r_lo = row0 + wm * 16 + gid, r_hi = r_lo + 8;
+  const int n_chunks = (a.k_block + KC - 1) / KC;
+  const int nkb = a.K / a.k_block;
+  __syncthreads();
+
+  for (int g = 0; g < nkb; ++g) {
+    const long long kg = (long long)g * a.k_block;
+    // stage the band of channels g*cb .. g*cb + cb - 1: a warp per row
+    for (int br = warp; br < a.cb * bh; br += kThreads / 32) {
+      const int cl = br / bh, row = br - cl * bh;
+      const int grow = gr0 + row, img = grow / a.hp, hh = grow - img * a.hp - a.ph;
+      const bool row_ok = img < a.n && hh >= 0 && hh < a.h;
+      const float* src =
+          a.x + (((long long)img * a.c + g * a.cb + cl) * a.h + (row_ok ? hh : 0)) * a.w;
+      float* dst = band + (cl * a.band_rows + row) * a.wp;
+      for (int j = lane; j < a.wp; j += 32) {
+        const int col = j - a.pw;
+        const bool ok = row_ok && col >= 0 && col < a.w;
+        mls::cp_async4(dst + j, ok ? src + col : a.x, ok ? 4 : 0);
       }
     }
-  }
-  const float st = mls::tensor_scale(xst, *wst_ptr, unit);
+    for (int c = 0; c < n_chunks; ++c) {
+      const long long kof = kg + (long long)c * KC;
+      const int kw = min(KC, a.k_block - c * KC);
+      mls::stage_operand<KC, kThreads>(rbuf, RBP, a.r, a.K, 1, kBM, row0, a.M, kof, kw,
+                                       a.r_async);
+      mls::stage_operand<KC, kThreads>(rawb, KC, a.wc, a.swn, a.swk, BN, col0, a.O, kof, kw,
+                                       a.w_async);
+      mls::cp_async_commit();
+      mls::cp_async_wait<0>();
+      __syncthreads();  // band (c == 0), bytes and weight codes of chunk c landed
+      if (c == 0 && a.mode == kModeNc) {
+        // K1's group scale per row: max |x| over the group's taps (padding
+        // zeros included, as in im2col's cols), / s_t, ceil-rounded
+        const int m = tid % kBM, half = tid / kBM;
+        float mx = 0.0f;
+        for (int k = half; k < a.k_block; k += kThreads / kBM)
+          mx = mls::nan_max(mx, fabsf(band[toff[k] + roff[m]]));
+        red2[tid] = mx;
+        __syncthreads();
+        if (tid < kBM) {
+          float v = red2[tid];
+          for (int q = 1; q < kThreads / kBM; ++q) v = mls::nan_max(v, red2[tid + q * kBM]);
+          rs[tid] = mls::group_scale(mls::scale_ratio(v, xst), a.f);
+        }
+        __syncthreads();
+      }
+      // codes of the 64 x kw chunk, zeros up to the MMA's 16-wide k step:
+      // item (row m, 4 features); a warp's lanes take consecutive rows, so
+      // band, byte and code accesses fall in distinct banks
+      const int kw16 = (kw + mls::kKStep - 1) / mls::kKStep * mls::kKStep;
+      for (int it = tid; it < kBM * (kw16 / 4); it += kThreads) {
+        const int m = it % kBM, k4 = (it / kBM) * 4;
+        uint32_t codes = 0u;
+        if (m < rows && k4 < kw) {
+          const float sx = a.mode == kModeNc ? rs[m]
+                           : a.mode == kModeNone
+                               ? sg_none
+                               : a.xsg[(long long)(row0 + m) * a.sxsg_m + g * a.sxsg_g];
+          const float denom = __fmul_rn(xst, sx);
+          const uint32_t rb = *reinterpret_cast<const uint32_t*>(rbuf + m * RBP + k4);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = row0 + ty + 16 * i;
+          for (int u = 0; u < 4; ++u) {
+            const int k = c * KC + k4 + u;
+            if (k4 + u < kw)
+              codes |= (uint32_t)mls::element_code(band[toff[k] + roff[m]],
+                                                   (rb >> (8 * u)) & 0xFF, denom, a.f)
+                       << (8 * u);
+          }
+        }
+        if constexpr (kMma) {
+          *reinterpret_cast<uint32_t*>(deca + m * KCP + k4) =
+              k4 < kw ? mls::decode4(lut, codes) : 0u;
+        } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = col0 + tx + 16 * j;
-      if (gr < M && gn < N) out[(long long)gr * N + gn] = __fmul_rn(acc[i][j], st);
+          for (int u = 0; u < 4; ++u)
+            deca[m * KCP + k4 + u] = k4 + u < kw ? lut[(codes >> (8 * u)) & 0xFF] : 0;
+        }
+      }
+      // weight codes -> fractions, 4 per step (K3's decode)
+      {
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(rawb);
+        for (int t = tid; t < BN * (KC / 4); t += kThreads) {
+          const int n = t / (KC / 4), w4 = (t % (KC / 4)) * 4;
+          const uint32_t v = src[t];
+          if constexpr (kMma) {
+            *reinterpret_cast<uint32_t*>(decb + n * KCP + w4) = mls::decode4(lut, v);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) decb[n * KCP + w4 + u] = lut[(v >> (8 * u)) & 0xFF];
+          }
+        }
+      }
+      __syncthreads();  // deca, decb ready
+      mls::group_dot<kMma, KC, NT>(p, deca + wm * 16 * KCP, decb + wn * (BN / 2) * KCP, KCP,
+                                   gid, tig, kw);
+      if (c == n_chunks - 1) {  // group g complete: K3's combine, in k order
+        float sx[2];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int gr = h2 ? r_hi : r_lo;
+          sx[h2] = gr >= a.M                ? 0.0f
+                   : a.mode == kModeNc      ? rs[gr - row0]
+                   : a.mode == kModeNone    ? sg_none
+                                            : a.xsg[(long long)gr * a.sxsg_m + g * a.sxsg_g];
+        }
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = wcol0 + t * 8 + 2 * tig + j;
+            const float sw = col < a.O ? a.wsg[g * a.swsg_g + col * a.swsg_n] : 0.0f;
+            acc[t][j] = mls::group_combine(acc[t][j], p[t][j], sx[0], sw);
+            acc[t][2 + j] = mls::group_combine(acc[t][2 + j], p[t][2 + j], sx[1], sw);
+            p[t][j] = 0;
+            p[t][2 + j] = 0;
+          }
+      }
+      __syncthreads();  // the buffers are free for the next chunk or group
     }
   }
+  const float st = mls::tensor_scale(xst, *a.wst, a.unit);
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = wcol0 + t * 8 + 2 * tig + j;
+      if (col < a.O && r_lo < a.M) a.out[(long long)r_lo * a.O + col] = __fmul_rn(acc[t][j], st);
+      if (col < a.O && r_hi < a.M)
+        a.out[(long long)r_hi * a.O + col] = __fmul_rn(acc[t][2 + j], st);
+    }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Pass A's row tiling: s threads per covered row (a power of two from 32
+// to kAmaxThreads), and the grid.
+void amax_tiling(int planes, int hcov, int wcov, int* s, int* blocks) {
+  *s = 32;
+  while (*s < wcov && *s < kAmaxThreads) *s <<= 1;
+  const long long rb = kAmaxThreads / *s;
+  const long long iters = ((long long)planes * (hcov > 0 ? hcov : 0) + rb - 1) / rb;
+  *blocks = (int)(iters < 1 ? 1 : iters > kAmaxBlocks ? kAmaxBlocks : iters);
+}
+
+// The tallest band over the output tiles, in padded rows.
+int band_rows_max(int M, int oh, int ow, int hp, int sh, int kh) {
+  int best = 0;
+  for (int row0 = 0; row0 < M; row0 += kBM) {
+    const int last = row0 + (M - row0 < kBM ? M - row0 : kBM) - 1;
+    const int bh = patch_row(last, oh, ow, hp, sh) + kh - patch_row(row0, oh, ow, hp, sh);
+    if (bh > best) best = bh;
+  }
+  return best;
+}
+
+int max_fraction(int e, int m) {
+  int best = 0;
+  for (int c = 0; c < (1 << (1 + e + m)); ++c) {
+    const int v = mls::decode_frac(c, e, m);
+    best = v > best ? v : -v > best ? -v : best;
+  }
+  return best;
+}
+
+template <int BN, bool kMma>
+cudaError_t launch_main(const ConvArgs& a, cudaStream_t s) {
+  const Smem<BN, kMma> lay(a.cb, a.band_rows, a.wp, a.k_block);
+  auto kernel = implicit_conv_kernel<BN, kMma>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.M + kBM - 1) / kBM, (a.O + BN - 1) / BN);
+  if (grid.y > kMaxGridY) return cudaErrorInvalidValue;
+  kernel<<<grid, kThreads, lay.total, s>>>(a);
+  return cudaGetLastError();
+}
+
+void covered(int h, int w, int kh, int kw, int sh, int sw, int ph, int pw, int oh, int ow,
+             int* hcov, int* wcov) {
+  const int hc = (oh - 1) * sh + kh - ph, wc = (ow - 1) * sw + kw - pw;
+  *hcov = hc < h ? hc : h;
+  *wcov = wc < w ? wc : w;
 }
 
 }  // namespace
 
-// The tile constants, in the order kBM, kBN, kKC, kThreads, for the launch
-// descriptors (kernels/implicit_conv.py launch_spec) to read from the binary.
+// The tile constants, in the order kBM, kThreads, kAmaxThreads,
+// kAmaxBlocks, kBandBytesMax, for the launch descriptors
+// (kernels/implicit_conv.py launch_spec) to read from the binary.
 extern "C" int implicit_conv_constants(int* out, int n) {
-  const int c[] = {kBM, kBN, kKC, kThreads};
-  for (int i = 0; i < n && i < 4; ++i) out[i] = c[i];
-  return 4;
+  const int c[] = {kBM, kThreads, kAmaxThreads, kAmaxBlocks, kBandBytesMax};
+  for (int i = 0; i < n && i < 5; ++i) out[i] = c[i];
+  return 5;
 }
 
-// xp: the padded input (n, c, hp, wp), fp32, contiguous.  r: the rounding
-// bytes (M0, K0).  xsg: the compact activation group scales with element
-// strides (0 along a broadcast axis), or NULL for grouping "nc".  wc, wsg:
+// K4.  x: the unpadded input (n, c, h, w), fp32, contiguous; padded to
+// (hp, wp) with (ph, pw) zero rows and columns at the top and left.  r: the rounding
+// bytes (M0, K0).  mode 0 ("nc") and 1 ("none"): pass A into `partials`
+// (n_partials floats, as amax_tiling gives), which also yields the
+// tensor scale; mode 2 ("c", "n"): xst and the compact activation scales
+// xsg with element strides (0 along a broadcast axis) are given.  wc, wsg:
 // the weight's codes (K0, O) and compact scales, strided.  out: (M0, O).
-extern "C" int implicit_conv(const float* xp, const uint8_t* r,
-                             const float* xst, const float* xsg,
-                             long long sxsg_m, long long sxsg_g,
-                             const uint8_t* wc, long long swk, long long swn,
-                             const float* wsg, long long swsg_g,
-                             long long swsg_n, const float* wst, float unit,
-                             float* out, int n, int c, int hp, int wp, int o,
-                             int kh, int kw, int sh, int sw, int k_block,
-                             int e, int m, int e_min, int gs_m, int gs_emin,
-                             void* stream) {
-  const ConvDims d{c, hp, wp, kh, kw, sh, sw, (hp - kh) / sh + 1,
-                   (wp - kw) / sw + 1};
-  const mls::Fmt f{e, m, e_min, gs_m, gs_emin};
-  const int M = n * d.oh * d.ow, K = c * kh * kw;
-  if (M > 0 && o > 0) {
-    const dim3 grid((M + kBM - 1) / kBM, (o + kBN - 1) / kBN);
-    implicit_conv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        xp, r, xst, xsg, sxsg_m, sxsg_g, wc, swk, swn, wsg, swsg_g, swsg_n,
-        wst, unit, out, M, o, K, k_block, d, f);
+extern "C" int implicit_conv(const float* x, const uint8_t* r, float* partials, int n_partials,
+                             const float* xst, const float* xsg, long long sxsg_m,
+                             long long sxsg_g, const uint8_t* wc, long long swk,
+                             long long swn, const float* wsg, long long swsg_g,
+                             long long swsg_n, const float* wst, float unit, float* out,
+                             int n, int c, int h, int w, int o, int kh, int kw, int sh, int sw,
+                             int ph, int pw, int hp, int wp, int k_block, int mode, int e,
+                             int m, int e_min, int gs_m, int gs_emin, void* stream) {
+  ConvArgs a;
+  a.n = n; a.c = c; a.h = h; a.w = w; a.kh = kh; a.kw = kw; a.sh = sh; a.sw = sw;
+  a.ph = ph; a.pw = pw; a.hp = hp; a.wp = wp;
+  a.oh = (hp - kh) / sh + 1;
+  a.ow = (wp - kw) / sw + 1;
+  if (hp < kh || wp < kw) return (int)cudaErrorInvalidValue;
+  const int oh = a.oh, ow = a.ow;
+  a.M = n * oh * ow; a.O = o; a.K = c * kh * kw; a.k_block = k_block; a.mode = mode;
+  if (k_block <= 0 || k_block % (kh * kw) || c % (k_block / (kh * kw)) || mode < 0 ||
+      mode > 2 || (mode != kModeGiven) != (partials != nullptr))
+    return (int)cudaErrorInvalidValue;
+  a.cb = k_block / (kh * kw);
+  if (a.M <= 0 || o <= 0) return (int)cudaGetLastError();
+  a.f = mls::Fmt{e, m, e_min, gs_m, gs_emin};
+  a.x = x; a.r = r; a.partials = partials; a.n_partials = n_partials;
+  a.xst = xst; a.xsg = xsg; a.sxsg_m = sxsg_m; a.sxsg_g = sxsg_g;
+  a.wc = wc; a.swk = swk; a.swn = swn; a.wsg = wsg; a.swsg_g = swsg_g; a.swsg_n = swsg_n;
+  a.wst = wst; a.unit = unit; a.out = out;
+  a.band_rows = band_rows_max(a.M, oh, ow, a.hp, sh, kh);
+  if ((long long)a.cb * a.band_rows * a.wp * 4 > kBandBytesMax) return (int)cudaErrorInvalidValue;
+  a.r_async = a.K % 16 == 0 && k_block % 16 == 0 && aligned16(r);
+  a.w_async = swk == 1 && k_block % 16 == 0 && swn % 16 == 0 && aligned16(wc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode != kModeGiven) {
+    int hcov, wcov, threads, blocks;
+    covered(h, w, kh, kw, sh, sw, ph, pw, oh, ow, &hcov, &wcov);
+    amax_tiling(n * c, hcov, wcov, &threads, &blocks);
+    if (n_partials != blocks) return (int)cudaErrorInvalidValue;
+    conv_amax<<<blocks, kAmaxThreads, 0, s>>>(x, n * c, h, w, hcov, wcov, threads, partials);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
+  const bool mma = max_fraction(e, m) <= 127;
+  const int bn = o <= 16 ? 16 : o <= 32 ? 32 : 64;
+  cudaError_t err;
+  if (mma)
+    err = bn == 16 ? launch_main<16, true>(a, s) : bn == 32 ? launch_main<32, true>(a, s)
+                                                 : launch_main<64, true>(a, s);
+  else
+    err = bn == 16 ? launch_main<16, false>(a, s) : bn == 32 ? launch_main<32, false>(a, s)
+                                                  : launch_main<64, false>(a, s);
+  return (int)err;
+}
+
+// K4's pass A alone: the tensor scale over the covered pixels
+// (covered_tensor_scale), into s_t.
+extern "C" int conv_tensor_scale(const float* x, float* partials, int n_partials, float* s_t,
+                                 int n, int c, int h, int w, int kh, int kw, int sh, int sw,
+                                 int ph, int pw, int hp, int wp, void* stream) {
+  if (hp < kh || wp < kw) return (int)cudaErrorInvalidValue;
+  const int oh = (hp - kh) / sh + 1, ow = (wp - kw) / sw + 1;
+  int hcov, wcov, threads, blocks;
+  covered(h, w, kh, kw, sh, sw, ph, pw, oh, ow, &hcov, &wcov);
+  amax_tiling(n * c, hcov, wcov, &threads, &blocks);
+  if (n_partials != blocks) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  conv_amax<<<blocks, kAmaxThreads, 0, s>>>(x, n * c, h, w, hcov, wcov, threads, partials);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  conv_scale<<<1, kAmaxThreads, 0, s>>>(partials, blocks, s_t);
   return (int)cudaGetLastError();
 }

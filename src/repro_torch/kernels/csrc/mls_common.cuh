@@ -100,6 +100,45 @@ __device__ __forceinline__ uint8_t element_code(float x, uint8_t r_u8,
   return (uint8_t)((sign_bit << (f.e + f.m)) | (exp_stored << f.m) | man);
 }
 
+// max that keeps NaN, as torch.amax does (fmaxf would drop it).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (b > a || b != b) ? b : a;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide nan_max of v over THREADS threads; every thread gets it.
+// `red` holds THREADS / 32 + 1 floats; the caller syncs before reusing it.
+template <int THREADS>
+__device__ __forceinline__ float block_max(float v, float* red) {
+  constexpr int kWarps = THREADS / 32;
+  v = warp_max(v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float m = threadIdx.x < kWarps ? red[threadIdx.x] : 0.0f;
+    m = warp_max(m);
+    if (threadIdx.x == 0) red[kWarps] = m;
+  }
+  __syncthreads();
+  return red[kWarps];
+}
+
+// The tensor scale of a max |x|: s_t = max > 0 ? max : 1 (0 and NaN give
+// 1, as quantize_ref's torch.where(s_t > 0, s_t, 1)).
+__device__ __forceinline__ float tensor_scale_of_max(float m) { return m > 0.0f ? m : 1.0f; }
+
+// The ratio s_r / s_t that a group scale is made from.  A NaN max passes
+// through unchanged: an IEEE division would hand back the card's canonical
+// NaN, while the plain version's division on the CPU keeps the operand's
+// payload, and group_scale reads the fraction bits.
+__device__ __forceinline__ float scale_ratio(float s_r, float s_t) {
+  return s_r != s_r ? s_r : __fdiv_rn(s_r, s_t);
+}
+
 // Signed integer fraction F of a code: |value| = |F| * 2^(e_min - M).
 __host__ __device__ __forceinline__ int decode_frac(int c, int e, int m) {
   const int man = c & ((1 << m) - 1);

@@ -48,7 +48,8 @@
 //     int32 body) in the layout the MMA reads.  An operand whose k axis is
 //     not contiguous and 16-byte aligned, or a k_block that is not a
 //     multiple of 16, is staged with plain loads instead (any strides:
-//     the weight may arrive K-major or N-major).
+//     the weight may arrive K-major or N-major).  The staging, the decode
+//     and both dot bodies live in mls_mma.cuh, shared with K4.
 // Group scales come in any compact layout (sg_shapes) through strides, 0
 // along a broadcast axis.  -fmad=false keeps each product and sum rounded
 // on its own (mls_common.cuh).
@@ -58,11 +59,12 @@
 #include <type_traits>
 
 #include "mls_common.cuh"
+#include "mls_mma.cuh"
 
 namespace {
 
 constexpr int kBM = 64;         // output rows per block: 4 warps x 16
-constexpr int kKStep = 16;      // MMA k step (m16n8k16)
+constexpr int kKStep = mls::kKStep;  // MMA k step (m16n8k16)
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kSumThreads = 64; // phase 2: one thread per output element
 constexpr int kSumUnroll = 32;  // terms in flight per phase-2 thread
@@ -85,58 +87,6 @@ struct Args {
   int M, N, K, k_block, e, m;
   bool x_async, w_async;  // stage the operand with cp.async
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-// Stage `rows` rows x KC bytes of one operand's chunk into raw[row][k]:
-// element (row0 + r, kof + k) at row stride sr and k stride sk; rows past
-// `limit` and k past `kw` read as code 0 (fraction 0).
-template <int KC>
-__device__ __forceinline__ void stage_operand(uint8_t* raw, const uint8_t* src, long long sr,
-                                              long long sk, int rows, int row0, int limit,
-                                              long long kof, int kw, bool async) {
-  if (async) {  // sk == 1, 16-byte aligned rows and chunk starts, kw % 16 == 0
-    constexpr int kPieces = KC / 16;
-    for (int t = threadIdx.x; t < rows * kPieces; t += kThreads) {
-      const int r = t / kPieces, kp = (t % kPieces) * 16;
-      if (kp >= kw) continue;  // past the group: never read
-      const bool ok = row0 + r < limit;
-      const uint8_t* g = ok ? src + (long long)(row0 + r) * sr + kof + kp : src;
-      cp_async16(raw + r * KC + kp, g, ok ? 16 : 0);
-    }
-  } else {
-    for (int t = threadIdx.x; t < rows * KC; t += kThreads) {
-      int r, k;
-      if (sk == 1) {
-        r = t / KC;
-        k = t % KC;
-      } else {
-        k = t / rows;
-        r = t % rows;
-      }
-      const int gr = row0 + r;
-      raw[r * KC + k] = (gr < limit && k < kw) ? src[(long long)gr * sr + (kof + k) * sk] : 0;
-    }
-  }
-}
 
 // One CTA: a kBM x BN output tile over groups [g_begin, g_end).  kMma: the
 // int8 tensor-core body (else int32 on CUDA cores).  kSplit: each group's
@@ -166,10 +116,12 @@ __device__ __forceinline__ void matmul_tile(const Args& a, int g_begin, int g_en
       const long long kof = (long long)g * a.k_block + c * KC;
       const int kw = min(KC, a.k_block - c * KC);
       uint8_t* s = raw[q % 2];
-      stage_operand<KC>(s, a.xc, a.sxm, a.sxk, kBM, row0, a.M, kof, kw, a.x_async);
-      stage_operand<KC>(s + kBM * KC, a.wc, a.swn, a.swk, BN, col0, a.N, kof, kw, a.w_async);
+      mls::stage_operand<KC, kThreads>(s, KC, a.xc, a.sxm, a.sxk, kBM, row0, a.M, kof, kw,
+                                       a.x_async);
+      mls::stage_operand<KC, kThreads>(s + kBM * KC, KC, a.wc, a.swn, a.swk, BN, col0, a.N, kof,
+                                       kw, a.w_async);
     }
-    cp_async_commit();  // one group per chunk, empty past the end
+    mls::cp_async_commit();  // one group per chunk, empty past the end
   };
 
   int p[NT][4];
@@ -188,7 +140,7 @@ __device__ __forceinline__ void matmul_tile(const Args& a, int g_begin, int g_en
   stage(0);
   stage(1);
   for (int q = 0; q < total; ++q) {
-    cp_async_wait_prev();  // chunk q has landed (this thread's copies)
+    mls::cp_async_wait<1>();  // chunk q has landed (this thread's copies)
     __syncthreads();       // ... everyone's; the last chunk's MMAs are done
     {  // decode raw stage q % 2 -> dec, 4 codes per step
       const uint32_t* src = reinterpret_cast<const uint32_t*>(raw[q % 2]);
@@ -196,9 +148,7 @@ __device__ __forceinline__ void matmul_tile(const Args& a, int g_begin, int g_en
         const int r = t / (KC / 4), w = t % (KC / 4);
         const uint32_t v = src[t];
         if constexpr (kMma) {
-          const uint32_t d = (lut[v & 0xFF] & 0xFF) | (lut[(v >> 8) & 0xFF] & 0xFF) << 8 |
-                             (lut[(v >> 16) & 0xFF] & 0xFF) << 16 | (uint32_t)lut[v >> 24] << 24;
-          *reinterpret_cast<uint32_t*>(dec + r * KCP + w * 4) = d;
+          *reinterpret_cast<uint32_t*>(dec + r * KCP + w * 4) = mls::decode4(lut, v);
         } else {
 #pragma unroll
           for (int i = 0; i < 4; ++i) dec[r * KCP + w * 4 + i] = lut[(v >> (8 * i)) & 0xFF];
@@ -211,34 +161,7 @@ __device__ __forceinline__ void matmul_tile(const Args& a, int g_begin, int g_en
     const int kw = min(KC, a.k_block - c * KC);
     const Dec* As = dec + warp * 16 * KCP;
     const Dec* Bs = dec + kBM * KCP;
-    if constexpr (kMma) {
-      const int steps = (kw + kKStep - 1) / kKStep;  // zero-padded past kw
-#pragma unroll
-      for (int s = 0; s < KC / kKStep; ++s) {
-        if (s < steps) {
-          const int k0 = s * kKStep + tig * 4;
-          const uint32_t a0 = *reinterpret_cast<const uint32_t*>(As + gid * KCP + k0);
-          const uint32_t a1 = *reinterpret_cast<const uint32_t*>(As + (gid + 8) * KCP + k0);
-#pragma unroll
-          for (int t = 0; t < NT; ++t)
-            mma_s8(p[t], a0, a1,
-                   *reinterpret_cast<const uint32_t*>(Bs + (t * 8 + gid) * KCP + k0));
-        }
-      }
-    } else {
-      for (int k = 0; k < kw; ++k) {
-        const int a_lo = As[gid * KCP + k], a_hi = As[(gid + 8) * KCP + k];
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const int b0 = Bs[(t * 8 + 2 * tig) * KCP + k];
-          const int b1 = Bs[(t * 8 + 2 * tig + 1) * KCP + k];
-          p[t][0] += a_lo * b0;
-          p[t][1] += a_lo * b1;
-          p[t][2] += a_hi * b0;
-          p[t][3] += a_hi * b1;
-        }
-      }
-    }
+    mls::group_dot<kMma, KC, NT>(p, As, Bs, KCP, gid, tig, kw);
     if (c == n_chunks - 1) {  // the group's dot is complete: its term
       const float sx_lo = r_lo < a.M ? a.xsg[r_lo * a.sxsg_m + g * a.sxsg_g] : 0.0f;
       const float sx_hi = r_hi < a.M ? a.xsg[r_hi * a.sxsg_m + g * a.sxsg_g] : 0.0f;

@@ -15,30 +15,37 @@ groups must be whole channels' taps, ``k_block = cb*kh*kw`` with
 ``cb | C`` (:func:`implicit_compatible`); then the codes, scales and
 rounding bytes are exactly those of the im2col pipeline, so the choice of
 lowering never changes the numbers (stochastic rounding included: both
-draw ``r_u8`` of shape (M0, K0) from the same stream).  Outside the kernel,
-in PyTorch, are the padding, the tensor scale and the compact group scales
-of "c", "n" and "none" (window maxima, no patch matrix) and the weight's
-quantization (K1/K2, as in ``qd_gemm``).  On a CPU tensor the wrapper runs
-the plain version, :func:`repro_torch.kernels.ref.implicit_conv_ref`.
+draw ``r_u8`` of shape (M0, K0) from the same stream).  The kernel stages
+each output tile's halo band of the unpadded input in shared memory (the
+padding is its zero fill) and, for groupings "nc" and "none", makes the
+tensor scale in a pass of its own; outside it, in PyTorch, are the compact
+group scales of "c" and "n" (window maxima of a padded copy, no patch
+matrix) and the weight's quantization (K1/K2, as in ``qd_gemm``).  On a
+CPU tensor the wrapper runs the plain version,
+:func:`repro_torch.kernels.ref.implicit_conv_ref`.
 
 :func:`resolve_conv_impl` picks the lowering: ``REPRO_CONV_IMPL`` env >
 ``QuantConfig.conv_impl`` > implicit whenever legal.  The JAX package
 consults its tuned-block cache between the last two; the port has no
 autotuner yet, and the JAX seed cache's one conv entry picks "implicit"
 too, so the decisions agree.  The kernel sizes its own tiles: there are no
-block options.
+block options; a conv whose band would not fit the kernel's shared memory
+(:func:`band_fits`) stays on im2col.
 
 :func:`covered_tensor_scale`, :func:`elementwise_codes` and
 :func:`patches_u8` serve the weight gradient's reuse of the forward codes
-under grouping "none" (:mod:`.lowbit_conv`).  :func:`launch_spec`
-describes the kernel's launches for the static verifier.
+under grouping "none" (:mod:`.lowbit_conv`).  :func:`launch_spec` and
+:func:`launch_spec_scale` describe the kernel's launches for the static
+verifier.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -63,18 +70,24 @@ __all__ = [
     "conv_pads",
     "covered_tensor_scale",
     "elementwise_codes",
+    "band_fits",
+    "band_rows",
     "implicit_compatible",
     "implicit_conv_forward",
     "launch_spec",
+    "launch_spec_scale",
     "patches_u8",
     "resolve_conv_impl",
 ]
 
-# Launches of the CUDA kernel, counted where the kernel is launched.
-LAUNCHES = {"implicit_conv": 0}
+# Launches of K4's C entry points, counted where each is called: the
+# conv ("implicit_conv") and its tensor-scale pass alone
+# ("conv_tensor_scale", for the grouping-"none" weight gradient).
+LAUNCHES = {"implicit_conv": 0, "conv_tensor_scale": 0}
 
 # csrc/implicit_conv.cu's tile constants (implicit_conv_constants)
-TILE = {"kBM": 64, "kBN": 64, "kKC": 32, "kThreads": 256}
+TILE = {"kBM": 64, "kThreads": 256, "kAmaxThreads": 256, "kAmaxBlocks": 2 * 132,
+        "kBandBytesMax": 160 * 1024}
 
 CONV_IMPL_ENV_VAR = "REPRO_CONV_IMPL"
 CONV_IMPLS = ("auto", "im2col", "implicit")
@@ -196,11 +209,41 @@ def _nearest_conv_k_block(geom: ConvGeom, k_block: int) -> int:
     return best
 
 
+def band_rows(geom: ConvGeom, block_m: int = TILE["kBM"]) -> tuple[np.ndarray, np.ndarray]:
+    """Per ``block_m``-row output tile, the halo band K4 stages: its first
+    row and its height in the image-major stack of padded rows (image
+    ``n``'s padded row ``i`` is stack row ``n * Hp + i``).  Output row
+    ``m = (n, oh, ow)``'s patch starts on stack row ``n * Hp + oh * sh``;
+    a tile's band runs from its first row's to its last row's ``+ kh``
+    (``csrc/implicit_conv.cu`` ``patch_row``)."""
+    first = np.arange(0, geom.m0, block_m)
+    last = np.minimum(first + block_m, geom.m0) - 1
+
+    def patch_row(m):
+        q = m // geom.ow
+        return (q // geom.oh) * geom.hp + (q % geom.oh) * geom.sh
+
+    start = patch_row(first)
+    return start, patch_row(last) + geom.kh - start
+
+
+@functools.lru_cache(maxsize=256)
+def _tallest_band(geom: ConvGeom) -> int:
+    return int(band_rows(geom)[1].max())
+
+
+def band_fits(geom: ConvGeom, k_block: int) -> bool:
+    """Does K4's tallest band of ``cb = k_block / (kh*kw)`` channels fit the
+    shared memory the kernel gives it (``kBandBytesMax``)?  (Asked for
+    every conv of every step: the band heights are kept per geometry.)"""
+    return k_block // geom.kk * _tallest_band(geom) * geom.wp * 4 <= TILE["kBandBytesMax"]
+
+
 def resolve_conv_impl(geom: ConvGeom, cfg) -> str:
     """``"im2col"`` or ``"implicit"`` for this conv.
 
     Precedence: ``REPRO_CONV_IMPL`` env (A/B runs) > ``cfg.conv_impl`` >
-    implicit whenever :func:`implicit_compatible`.  An explicit
+    implicit whenever :func:`implicit_compatible` and :func:`band_fits`.  An explicit
     ``"implicit"`` on an illegal ``k_block`` raises: the choice never
     changes the scaling groups.
     """
@@ -211,6 +254,10 @@ def resolve_conv_impl(geom: ConvGeom, cfg) -> str:
     if choice == "im2col":
         return "im2col"
     ok, reason = implicit_compatible(geom, cfg.k_block)
+    if ok and not band_fits(geom, cfg.k_block):
+        ok, reason = False, (f"its halo band of {cfg.k_block // geom.kk} channels x "
+                             f"{geom.wp} columns does not fit K4's "
+                             f"{TILE['kBandBytesMax']} bytes of shared memory")
     if choice == "implicit" and not ok:
         raise ValueError(f"conv_impl='implicit' is not legal for this conv: {reason}")
     return "implicit" if ok else "im2col"
@@ -264,12 +311,50 @@ def _implicit_x_scales(xp: torch.Tensor, geom: ConvGeom, gs_fmt: EMFormat, kb: i
     return s_t, quantize_group_scale(s_r / s_t, gs_fmt)[0]
 
 
+def _amax_tiling(geom: ConvGeom, t: dict[str, int]) -> tuple[int, int, int, int]:
+    """K4's pass A (``conv_amax``): the covered rows and columns of the
+    unpadded input (``hcov``, ``wcov``), the threads per row ``s`` and the
+    number of blocks, i.e. of partial maxima."""
+    hcov = min(geom.h, (geom.oh - 1) * geom.sh + geom.kh - geom.ph_lo)
+    wcov = min(geom.w, (geom.ow - 1) * geom.sw + geom.kw - geom.pw_lo)
+    s = 32
+    while s < wcov and s < t["kAmaxThreads"]:
+        s *= 2
+    rb = t["kAmaxThreads"] // s
+    iters = -(-geom.n * geom.c * max(hcov, 0) // rb)
+    return hcov, wcov, s, max(1, min(t["kAmaxBlocks"], iters))
+
+
 def covered_tensor_scale(x: torch.Tensor, geom: ConvGeom) -> tuple[torch.Tensor, torch.Tensor]:
     """``(s_t, x_padded)``: the forward tensor scale, the abs-max over the
-    pixels some patch covers."""
+    pixels some patch covers (on CUDA K4's pass A, ``conv_tensor_scale``),
+    and the padded input whose codes the caller gathers."""
     xp = _pad(x, geom)
-    s_t = _covered_abs_max(xp, geom).amax()
-    return torch.where(s_t > 0, s_t, torch.ones_like(s_t)), xp
+    if x.device.type == "cpu":
+        launch.record("conv_tensor_scale", "cpu", geom)
+        with launch.plain_version():
+            s_t = _covered_abs_max(xp, geom).amax()
+            return torch.where(s_t > 0, s_t, torch.ones_like(s_t)), xp
+    if x.device.type != "cuda":
+        raise ValueError(f"covered_tensor_scale runs on cuda or cpu tensors, not {x.device}")
+    xf = x.float().contiguous()
+    parts = _amax_tiling(geom, TILE)[3]
+    partials = torch.empty((parts,), dtype=torch.float32, device=x.device)
+    s_t = torch.empty((), dtype=torch.float32, device=x.device)
+    build.check(build.library().conv_tensor_scale(
+        xf.data_ptr(), partials.data_ptr(), parts, s_t.data_ptr(), *_dims(geom)[:4],
+        *_dims(geom)[5:], torch.cuda.current_stream(x.device).cuda_stream),
+        "conv_tensor_scale")
+    LAUNCHES["conv_tensor_scale"] += 1
+    launch.record("conv_tensor_scale", "cuda", geom)
+    return s_t, xp
+
+
+def _dims(geom: ConvGeom) -> tuple[int, ...]:
+    """The geometry arguments of K4's C entry points: n, c, h, w, o, kh, kw,
+    sh, sw, ph, pw, hp, wp."""
+    return (geom.n, geom.c, geom.h, geom.w, geom.o, geom.kh, geom.kw, geom.sh, geom.sw,
+            geom.ph_lo, geom.pw_lo, geom.hp, geom.wp)
 
 
 # ---------------------------------------------------------------------------
@@ -327,53 +412,116 @@ def implicit_conv_forward(
     if x.device.type != "cuda":
         raise ValueError(f"implicit_conv_forward runs on cuda or cpu tensors, not {x.device}")
 
-    xp = _pad(x, geom)
-    s_t, x_sg = _implicit_x_scales(xp, geom, gs_fmt, k_block, grouping)
+    if not band_fits(geom, k_block):
+        raise ValueError("implicit_conv_forward: the halo band does not fit K4's shared memory "
+                         "(resolve_conv_impl keeps such convs on im2col)")
+    dev = x.device
+    xf = x.float().contiguous()
+    if grouping in ("nc", "none"):  # the kernel makes the activation's scales
+        parts = _amax_tiling(geom, TILE)[3]
+        partials = torch.empty((parts,), dtype=torch.float32, device=dev)
+        xscale_args = (partials.data_ptr(), parts, None, None, 0, 0)
+    else:
+        s_t, x_sg = _implicit_x_scales(_pad(x, geom), geom, gs_fmt, k_block, grouping)
+        xscale_args = (None, 0, s_t.data_ptr(), x_sg.data_ptr(), *_strides(x_sg))
     # the weight side is qd_gemm's: (O, K0) quantized along K0
     wc, wsgT, wst = mls_quantize(w.reshape(geom.o, -1).float().contiguous(), fmt, k_block,
                                  gs_fmt, r_w, grouping)
     wcT, wsg = wc.t(), wsgT.t()
-    xsg_args = (None, 0, 0) if x_sg is None else (x_sg.data_ptr(), *_strides(x_sg))
-    out = torch.empty((geom.m0, geom.o), dtype=torch.float32, device=x.device)
+    out = torch.empty((geom.m0, geom.o), dtype=torch.float32, device=dev)
     build.check(build.library().implicit_conv(
-        xp.data_ptr(), r_x.data_ptr(), s_t.data_ptr(), *xsg_args,
+        xf.data_ptr(), r_x.data_ptr(), *xscale_args,
         wcT.data_ptr(), *_strides(wcT), wsg.data_ptr(), *_strides(wsg), wst.data_ptr(),
-        2.0 ** (2 * (fmt.e_min - fmt.m)), out.data_ptr(),
-        geom.n, geom.c, geom.hp, geom.wp, geom.o, geom.kh, geom.kw, geom.sh, geom.sw,
-        k_block, *_fmt_args(fmt, gs_fmt), torch.cuda.current_stream(x.device).cuda_stream),
+        2.0 ** (2 * (fmt.e_min - fmt.m)), out.data_ptr(), *_dims(geom), k_block,
+        _MODES[grouping], *_fmt_args(fmt, gs_fmt), torch.cuda.current_stream(dev).cuda_stream),
         "implicit_conv")
     LAUNCHES["implicit_conv"] += 1
     launch.record("implicit_conv", "cuda", geom, k_block, grouping, fmt)
     return out.reshape(geom.n, geom.oh, geom.ow, geom.o).permute(0, 3, 1, 2)
 
 
+_MODES = {"nc": 0, "none": 1, "c": 2, "n": 2}  # the C entry point's scale modes
+
+
+def _amax_spec(geom: ConvGeom, t: dict[str, int]) -> LaunchSpec:
+    """K4's pass A, ``conv_amax``: ``P`` blocks of ``rb`` row lanes take
+    the covered rows ``(plane, hh < hcov)`` in turns of ``rb`` rows (block
+    ``b`` turns ``b``, ``b + P``, ...), each lane a row's ``wcov`` covered
+    columns; block ``b`` writes partial max ``b``.  The lanes and turns are
+    inside the block."""
+    hcov, _, s, parts = _amax_tiling(geom, t)
+    rb = t["kAmaxThreads"] // s
+    rows = geom.n * geom.c * max(hcov, 0)
+    iters = -(-rows // rb)
+    turns = max(1, -(-iters // parts))
+
+    def x_row(b, lane, i):
+        r = (i * parts + b) * rb + lane
+        return (r // max(hcov, 1)) * geom.h + r % max(hcov, 1), 0
+
+    return LaunchSpec(
+        kernel="conv_amax", grid=(("block", parts), ("lane", rb), ("turn", turns)),
+        sequential=2,
+        operands=(Operand("args[0]", "x", (geom.n * geom.c * geom.h, geom.w), (1, geom.w),
+                          x_row),
+                  Operand("outputs[1]", "partials", (parts,), (1,), lambda b, lane, i: (b,),
+                          output=True)),
+        active=lambda b, lane, i: (i * parts + b) * rb + lane < rows)
+
+
 def launch_spec(geom: ConvGeom, k_block: int, grouping: str, fmt: EMFormat,
-                device_type: str = "cpu") -> LaunchSpec:
-    """K4 on one conv: one block per ``kBM x kBN`` tile of the virtual
-    (M0, O) output, walking the ``K0 / k_block`` scaling groups in order.
-    Its patch rows are gathered from the padded input, which the
+                device_type: str = "cpu") -> tuple[LaunchSpec, ...]:
+    """K4 on one conv (``implicit_conv``): for groupings "nc" and "none"
+    pass A (:func:`_amax_spec`), whose partial maxima every block of the
+    main launch reads; then the main launch, a block per ``kBM x bn`` tile
+    of the virtual (M0, O) output (bn = 16, 32 or 64 from O), walking the
+    ``K0 / k_block`` scaling groups in order.  Its patch rows come from
+    the tile's halo band staged in shared memory, which the
     :class:`~.launch.Window` describes for ``prove_window_grid``; the
-    rounding bytes, the compact scales of "c", "n" and "none", the weight
-    codes and the output are tiled as in K3."""
+    rounding bytes, the compact scales of "c" and "n", the weight codes and
+    the output are tiled as in K3.  The group dot is an exact integer dot
+    of ``k_block`` decoded fractions."""
     t = launch.tile_constants("implicit_conv_constants", TILE, device_type)
-    bm, bn = t["kBM"], t["kBN"]
+    bm = t["kBM"]
+    bn = 16 if geom.o <= 16 else 32 if geom.o <= 32 else 64
     m0, k0, o, nkb = geom.m0, geom.k0, geom.o, geom.k0 // k_block
     xs, ws = sg_shapes(grouping, m0, o, nkb)
+    first: tuple[LaunchSpec, ...] = ()
     operands = [Operand("args[1]", "r_u8", (m0, k0), (bm, k_block), lambda i, j, g: (i, g),
                         masked=True)]
-    if grouping != "nc":  # "nc" scales are made in the kernel
+    if grouping in ("nc", "none"):  # the scales are made on the card
+        first = (_amax_spec(geom, t),)
+        parts = first[0].shape[0]
+        operands.append(Operand("outputs[1]", "partials", (parts,), (parts,),
+                                lambda i, j, g: (0,)))
+    else:
         operands.append(_sg_operand("args[3]", grouping, xs, True, bm))
     operands += [Operand("args[4]", "w_codes", (k0, o), (k_block, bn), lambda i, j, g: (g, j),
                          masked=True),
                  _sg_operand("args[5]", grouping, ws, False, bn),
                  Operand("outputs[0]", "out", (m0, o), (bm, bn), lambda i, j, g: (i, j),
                          output=True, masked=True)]
-    return LaunchSpec(
+    main = LaunchSpec(
         kernel="implicit_conv",
         grid=(("tile_m", -(-m0 // bm)), ("tile_n", -(-o // bn)), ("group", nkb)),
         sequential=1, operands=tuple(operands),
         accumulations=(Accumulation("dot", k_block, fmt.max_fraction),),
-        window=Window(geom, k_block, bm), macs=m0 * k0 * o)
+        window=Window(geom, k_block, bm, int(band_rows(geom, bm)[1].max()), t["kBandBytesMax"]),
+        macs=m0 * k0 * o)
+    return (*first, main)
+
+
+def launch_spec_scale(geom: ConvGeom, device_type: str = "cpu") -> tuple[LaunchSpec, ...]:
+    """K4's pass A alone (``conv_tensor_scale``): ``conv_amax``, then one
+    block reduces the partials to the tensor scale (``conv_scale``)."""
+    t = launch.tile_constants("implicit_conv_constants", TILE, device_type)
+    amax = _amax_spec(geom, t)
+    parts = amax.shape[0]
+    scale = LaunchSpec(
+        kernel="conv_scale", grid=(("block", 1),), sequential=0,
+        operands=(Operand("outputs[1]", "partials", (parts,), (parts,), lambda b: (0,)),
+                  Operand("outputs[0]", "s_t", (1,), (1,), lambda b: (0,), output=True)))
+    return amax, scale
 
 
 # ---------------------------------------------------------------------------

@@ -70,12 +70,17 @@ class Operand:
 @dataclasses.dataclass(frozen=True)
 class Window:
     """K4's patch gather, which no block index map describes: row tiles of
-    ``block_m`` patches of ``geom`` (an ``implicit_conv.ConvGeom``) read
-    straight from the padded input, in ``k_block``-wide scaling groups."""
+    ``block_m`` patches of ``geom`` (an ``implicit_conv.ConvGeom``) in
+    ``k_block``-wide scaling groups, read from each tile's halo band staged
+    in shared memory: ``cb = k_block / (kh*kw)`` channels x up to
+    ``band_rows`` padded rows x the padded width, at most
+    ``band_bytes_max`` bytes."""
 
     geom: Any
     k_block: int
     block_m: int
+    band_rows: int
+    band_bytes_max: int
 
 
 @dataclasses.dataclass(frozen=True)

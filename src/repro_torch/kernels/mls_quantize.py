@@ -2,25 +2,28 @@
 
 :func:`mls_quantize` returns packed ``sign|exp|man`` uint8 codes, the group
 scales in the compact layout of the grouping (paper Table IV) and the
-tensor scale.  On a CUDA tensor it launches the kernels of
-``csrc/mls_quantize.cu``: the row-group kernel (groupings "nc", "n"; the
-TPU's ``_kernel_rowwise``), two passes in one call that also take the
-tensor scale, or the given-scale kernel ("c", "none"; the TPU's
-``_kernel_given_sg``).  On a CPU tensor it runs the plain version,
+tensor scale.  On a CUDA tensor it calls one C entry point of
+``csrc/mls_quantize.cu`` and launches no PyTorch op but ``torch.empty``:
+the row-group kernel K1 (groupings "nc", "n"; the TPU's
+``_kernel_rowwise``), two passes that also take the tensor scale, or K2
+(groupings "c", "none"; the TPU's ``_kernel_given_sg``), whose column
+passes make the tensor and group scales on the card before its code pass.
+On a CPU tensor it runs the plain version,
 :func:`repro_torch.kernels.ref.quantize_ref`.  :func:`quantize_given_scales`
-is the given-scale kernel's own wrapper, for callers that bring their
-scales (the implicit conv's code reuse).  :func:`launch_spec_rows` and
-:func:`launch_spec_given_sg` describe the two kernels' launches for the
-static verifier.
+is K2's code pass alone, for callers that bring their scales (the
+implicit conv's code reuse).  :func:`launch_spec_rows`,
+:func:`launch_spec_cols` and :func:`launch_spec_given_sg` describe the
+launches for the static verifier.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.core.formats import EMFormat, GS_FMT_DEFAULT
 from repro_torch.core.lowbit import GROUPINGS
-from repro_torch.core.quantize import quantize_group_scale
 
 from . import build, launch
 from .launch import LaunchSpec, Operand
@@ -29,6 +32,8 @@ from .ref import element_codes_ref, quantize_ref
 __all__ = [
     "LAUNCHES",
     "TILE",
+    "col_tiling",
+    "launch_spec_cols",
     "launch_spec_given_sg",
     "launch_spec_rows",
     "mls_quantize",
@@ -37,12 +42,15 @@ __all__ = [
     "rounding_bytes",
 ]
 
-# Launches of each CUDA kernel, counted where the kernel is launched.
+# Launches of each kernel, counted where its C entry point is called: K1
+# ("mls_quantize_rows") and K2 (both of its entry points, mls_quantize_cols
+# and mls_quantize_given_sg, under K2's name "mls_quantize_given_sg").
 LAUNCHES = {"mls_quantize_rows": 0, "mls_quantize_given_sg": 0}
 
 # csrc/mls_quantize.cu's launch constants (mls_quantize_constants)
-TILE = {"kThreads": 256, "kWarpGroupMax": 1024, "kGivenMaxBlocks": 132 * 32,
-        "kAmaxBlocks": 2 * 132, "kAmaxChunk": 256 * 16, "kRowBlocks": 8 * 132}
+TILE = {"kThreads": 256, "kWarpGroupMax": 1024, "kAmaxBlocks": 2 * 132,
+        "kAmaxChunk": 256 * 16, "kRowBlocks": 8 * 132, "kColAmaxBlocks": 2 * 132,
+        "kCodeBlocks": 8 * 132}
 
 _DETERMINISTIC_BYTE = 127  # r = -1/512: the TPU kernel's nearest rounding
 
@@ -119,16 +127,40 @@ def mls_quantize(
         LAUNCHES["mls_quantize_rows"] += 1
         launch.record("mls_quantize_rows", "cuda", M, K, width)
         return codes, s_g, s_t
-    s_t = torch.amax(x.abs())
-    s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
-    # "c" / "none": compact scales computed ahead (the "c" group max crosses
-    # all rows), with the same exact group-scale math
-    if grouping == "c":
-        s_r = x.abs().amax(dim=0).reshape(K // k_block, k_block).amax(dim=1)
-        s_g = quantize_group_scale(s_r / s_t, gs_fmt)[0].reshape(1, -1).contiguous()
-    else:
-        s_g = torch.ones((1, 1), dtype=torch.float32, device=x.device)
-    return quantize_given_scales(x, fmt, s_t, s_g, k_block, r_u8), s_g, s_t
+    return _quantize_cols(x, fmt, k_block if grouping == "c" else K, gs_fmt, r_u8)
+
+
+def _vec(K: int, group_width: int, *tensors: torch.Tensor) -> int:
+    """1 when K2's passes take float4 / 32-bit accesses: widths that are
+    multiples of 4 and aligned operands (x 16 bytes, bytes 4)."""
+    aligned = all(t.data_ptr() % (16 if t.dtype == torch.float32 else 4) == 0
+                  for t in tensors)
+    return int(K % 4 == 0 and group_width % 4 == 0 and aligned)
+
+
+def _quantize_cols(x: torch.Tensor, fmt: EMFormat, group_width: int, gs_fmt: EMFormat,
+                   r_u8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 with its scales made on the card ("c": ``group_width`` =
+    k_block; "none": ``group_width`` = K): one C call, outputs and scratch
+    from ``torch.empty``."""
+    M, K = x.shape
+    dev = x.device
+    G = K // group_width
+    codes = torch.empty((M, K), dtype=torch.uint8, device=dev)
+    vec = _vec(K, group_width, x, r_u8, codes)
+    parts = _cols_partials(M, K, group_width, vec, TILE)
+    part = torch.empty((parts,), dtype=torch.float32, device=dev)
+    gmax = torch.empty((G,), dtype=torch.float32, device=dev) if G > 1 else None
+    s_t = torch.empty((), dtype=torch.float32, device=dev)
+    s_g = torch.empty((1, G), dtype=torch.float32, device=dev)
+    build.check(build.library().mls_quantize_cols(
+        x.data_ptr(), r_u8.data_ptr(), part.data_ptr(), parts,
+        gmax.data_ptr() if gmax is not None else None, s_t.data_ptr(), codes.data_ptr(),
+        s_g.data_ptr(), M, K, group_width, vec, *_fmt_args(fmt, gs_fmt),
+        torch.cuda.current_stream(dev).cuda_stream), "mls_quantize_cols")
+    LAUNCHES["mls_quantize_given_sg"] += 1
+    launch.record("mls_quantize_cols", "cuda", M, K, group_width, vec)
+    return codes, s_g, s_t
 
 
 def quantize_given_scales(
@@ -152,7 +184,8 @@ def quantize_given_scales(
                          f"k_block={k_block}")
     sg_stride = 0 if s_g.numel() == 1 else 1
     if x.device.type == "cpu":
-        launch.record("mls_quantize_given_sg", "cpu", M, K, k_block, sg_stride)
+        launch.record("mls_quantize_given_sg", "cpu", M, K, k_block, sg_stride,
+                      int(K % 4 == 0 and k_block % 4 == 0))
         per_col = s_g.repeat_interleave(k_block, dim=1) if s_g.numel() > 1 else s_g
         with launch.plain_version():
             return element_codes_ref(x, r_u8, s_t * per_col, fmt)
@@ -166,13 +199,14 @@ def quantize_given_scales(
         raise ValueError("scales must be float32 tensors on x's device")
     s_t, s_g = s_t.contiguous(), s_g.contiguous()
     codes = torch.empty((M, K), dtype=torch.uint8, device=x.device)
+    vec = _vec(K, k_block, x, r_u8, codes)
     build.check(build.library().mls_quantize_given_sg(
         x.data_ptr(), r_u8.data_ptr(), s_t.data_ptr(), s_g.data_ptr(),
-        codes.data_ptr(), M, K, k_block, sg_stride,
+        codes.data_ptr(), M, K, k_block, sg_stride, vec,
         *_fmt_args(fmt, GS_FMT_DEFAULT), torch.cuda.current_stream(x.device).cuda_stream),
         "mls_quantize_given_sg")
     LAUNCHES["mls_quantize_given_sg"] += 1
-    launch.record("mls_quantize_given_sg", "cuda", M, K, k_block, sg_stride)
+    launch.record("mls_quantize_given_sg", "cuda", M, K, k_block, sg_stride, vec)
     return codes
 
 
@@ -180,12 +214,14 @@ def quantize_given_scales(
 # Launch descriptors
 # ---------------------------------------------------------------------------
 def quantize_launch(M: int, K: int, k_block: int, grouping: str) -> tuple[str, tuple]:
-    """The kernel :func:`mls_quantize` launches on an (M, K) operand and its
-    launch arguments (those of :func:`launch_spec_rows` /
-    :func:`launch_spec_given_sg`)."""
+    """The C entry point :func:`mls_quantize` calls on an (M, K) operand and
+    its launch arguments (those of :func:`launch_spec_rows` /
+    :func:`launch_spec_cols`), for operands whose allocations are aligned
+    (as ``torch.empty``'s are)."""
     if grouping in ("nc", "n"):
         return "mls_quantize_rows", (M, K, k_block if grouping == "nc" else K)
-    return "mls_quantize_given_sg", (M, K, k_block, int(grouping == "c" and K > k_block))
+    width = k_block if grouping == "c" else K
+    return "mls_quantize_cols", (M, K, width, int(K % 4 == 0 and width % 4 == 0))
 
 
 def _amax_blocks(n: int, t: dict[str, int]) -> int:
@@ -193,14 +229,29 @@ def _amax_blocks(n: int, t: dict[str, int]) -> int:
     return max(1, min(t["kAmaxBlocks"], -(-n // t["kAmaxChunk"])))
 
 
+def _amax_spec(n: int, t: dict[str, int]) -> LaunchSpec:
+    """``quantize_amax`` on ``n`` elements: ``P`` blocks stride over x in
+    ``kAmaxChunk``-element chunks (chunk ``s * P + b`` at stride step
+    ``s``) and block ``b`` writes partial max ``b``."""
+    chunk = t["kAmaxChunk"]
+    parts = _amax_blocks(n, t)
+    chunks = -(-n // chunk)
+    return LaunchSpec(
+        kernel="quantize_amax", grid=(("block", parts), ("stride", -(-chunks // parts))),
+        sequential=1,
+        operands=(Operand("args[0]", "x", (n,), (chunk,), lambda b, s: (s * parts + b,),
+                          masked=True),
+                  Operand("outputs[0]", "partials", (parts,), (1,), lambda b, s: (b,),
+                          output=True)),
+        active=lambda b, s: s * parts + b < chunks)
+
+
 def launch_spec_rows(M: int, K: int, group_width: int,
                      device_type: str = "cpu") -> tuple[LaunchSpec, LaunchSpec]:
     """The row-group kernel (K1) on an (M, K) operand in ``group_width``-wide
     groups (``mls_quantize_rows``), two launches:
 
-    - pass A, ``quantize_amax``: ``P`` blocks stride over x in
-      ``kAmaxChunk``-element chunks (chunk ``s * P + b`` at stride step
-      ``s``) and block ``b`` writes partial max ``b``;
+    - pass A, ``quantize_amax`` (:func:`_amax_spec`): ``P`` partial maxima;
     - pass B: every block reads all ``P`` partials; then a warp per group up
       to ``kWarpGroupMax`` (``quantize_groups_warp``, warps striding over
       the groups: program ``(b, w, s)`` codes group ``(s * B + b) * 8 + w``),
@@ -211,17 +262,8 @@ def launch_spec_rows(M: int, K: int, group_width: int,
     tiled operand describes.
     """
     t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
-    n, chunk = M * K, t["kAmaxChunk"]
-    parts = _amax_blocks(n, t)
-    chunks = -(-n // chunk)
-    amax = LaunchSpec(
-        kernel="quantize_amax", grid=(("block", parts), ("stride", -(-chunks // parts))),
-        sequential=1,
-        operands=(Operand("args[0]", "x", (n,), (chunk,), lambda b, s: (s * parts + b,),
-                          masked=True),
-                  Operand("outputs[0]", "partials", (parts,), (1,), lambda b, s: (b,),
-                          output=True)),
-        active=lambda b, s: s * parts + b < chunks)
+    amax = _amax_spec(M * K, t)
+    parts = amax.shape[0]
 
     ng = K // group_width
     groups = M * ng
@@ -256,34 +298,124 @@ def launch_spec_rows(M: int, K: int, group_width: int,
     return amax, codes
 
 
-def launch_spec_given_sg(M: int, K: int, k_block: int, sg_stride: int,
-                         device_type: str = "cpu") -> LaunchSpec:
-    """The given-scale kernel (K2): a grid-stride pass over the M*K elements
-    in row-major order.  Block ``b`` at stride step ``s`` codes the
-    ``kThreads`` elements of chunk ``s * blocks + b``; each element reads
-    its compact group scale ``(col // k_block) * sg_stride``."""
-    t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
-    n, threads = M * K, t["kThreads"]
-    chunks = -(-n // threads)
-    blocks = min(chunks, t["kGivenMaxBlocks"])
-    strides = -(-chunks // blocks) if blocks else 0
+@dataclasses.dataclass(frozen=True)
+class ColTiling:
+    """K2's column tiling (``col_tiling`` of ``csrc/mls_quantize.cu``): a
+    thread owns ``v`` columns; a block is ``rb`` row lanes x ``s`` slots
+    over column tile ``ct``; ``p`` row slices take the ``iters`` row
+    iterations of ``rb`` rows in turn (slice ``p`` takes ``p``, ``p + P``,
+    ...)."""
 
-    def chunk(b, s):
-        return (s * blocks + b,)
+    v: int
+    s: int
+    rb: int
+    ct: int
+    p: int
+    iters: int
 
-    def scale(b, s):  # the largest scale index a chunk reads
-        first = (s * blocks + b) * threads
-        last = np.minimum(first + threads, n) - 1
-        col = np.where(last // K > first // K, K - 1, last % K)
-        return (0, (col // k_block) * sg_stride)
 
-    blk = (threads,)
+def col_tiling(M: int, K: int, vec: int, target_blocks: int, threads: int) -> ColTiling:
+    v = 4 if vec else 1
+    slots = -(-K // v)
+    s = 32
+    while s < slots and s < threads:
+        s *= 2
+    rb, ct = threads // s, -(-slots // s)
+    iters = -(-M // rb)
+    return ColTiling(v, s, rb, ct, max(1, min(iters, -(-target_blocks // ct))), iters)
+
+
+def _cols_partials(M: int, K: int, group_width: int, vec: int, t: dict[str, int]) -> int:
+    """Floats of K2's pass-A scratch: P x K column maxima, or K1's
+    pass-A partials for one group."""
+    if K // group_width == 1:
+        return _amax_blocks(M * K, t)
+    return col_tiling(M, K, vec, t["kColAmaxBlocks"], t["kThreads"]).p * K
+
+
+def _col_grid(ct: ColTiling):
+    """The grid of a column pass, its active programs and the (row block,
+    column tile) index of x's ``(rb, s * v)`` blocks."""
+    grid = (("tile", ct.ct), ("slice", ct.p), ("iter", -(-ct.iters // ct.p)))
+    return (grid, lambda c, p, i: i * ct.p + p < ct.iters,
+            lambda c, p, i: (i * ct.p + p, c))
+
+
+def _codes_spec(M: int, K: int, group_width: int, sg_stride: int, vec: int,
+                t: dict[str, int], scales: str, codes: str) -> LaunchSpec:
+    """``quantize_codes``: each block codes its ``(rb, s * v)`` blocks of
+    x, one per row iteration, and reads the scales of the groups its
+    columns lie in (the largest index is checked)."""
+    ct = col_tiling(M, K, vec, t["kCodeBlocks"], t["kThreads"])
+    grid, active, tile = _col_grid(ct)
+    blk = (ct.rb, ct.s * ct.v)
+    ng = K // group_width if sg_stride else 1
+
+    def scale(c, p, i):
+        last = np.minimum((c + 1) * blk[1], K) - 1
+        return (0, (last // group_width) * sg_stride)
+
     return LaunchSpec(
-        kernel="mls_quantize_given_sg", grid=(("block", blocks), ("stride", strides)),
-        sequential=1,
-        operands=(Operand("args[0]", "x", (n,), blk, chunk, masked=True),
-                  Operand("args[1]", "r_u8", (n,), blk, chunk, masked=True),
-                  Operand("args[3]", "s_g", (1, K // k_block if sg_stride else 1), (1, 1),
-                          scale),
-                  Operand("outputs[0]", "codes", (n,), blk, chunk, output=True, masked=True)),
-        active=lambda b, s: s * blocks + b < chunks)
+        kernel="quantize_codes", grid=grid, sequential=1,
+        operands=(Operand("args[0]", "x", (M, K), blk, tile, masked=True),
+                  Operand("args[1]", "r_u8", (M, K), blk, tile, masked=True),
+                  Operand(scales, "s_g", (1, ng), (1, 1), scale),
+                  Operand(codes, "codes", (M, K), blk, tile, output=True, masked=True)),
+        active=active)
+
+
+def launch_spec_cols(M: int, K: int, group_width: int, vec: int,
+                     device_type: str = "cpu") -> tuple[LaunchSpec, ...]:
+    """K2 with its scales made on the card (``mls_quantize_cols``) on an
+    (M, K) operand in G = K / ``group_width`` column groups:
+
+    - G > 1 ("c"): pass A ``quantize_cols_amax`` (a (tile, slice, iter)
+      grid; block (c, p) reads x's ``(rb, s * v)`` blocks of its row slice
+      and writes its slice's column maxima, block (p, c) of the (P, K)
+      scratch, revisited along the iterations it walks), then
+      ``quantize_cols_reduce`` (a block per group reads the P x
+      group_width partials of its group, writes its max);
+    - G = 1 ("none"): K1's ``quantize_amax``;
+    - ``quantize_scales``, one block: all maxima in, s_t and the G group
+      scales out;
+    - ``quantize_codes``: the code pass.
+    """
+    t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
+    G = K // group_width
+    if G == 1:
+        first = (_amax_spec(M * K, t),)
+        vals = first[0].shape[0]
+    else:
+        ct = col_tiling(M, K, vec, t["kColAmaxBlocks"], t["kThreads"])
+        grid, active, tile = _col_grid(ct)
+        blk = (ct.rb, ct.s * ct.v)
+        amax = LaunchSpec(
+            kernel="quantize_cols_amax", grid=grid, sequential=1,
+            operands=(Operand("args[0]", "x", (M, K), blk, tile, masked=True),
+                      Operand("outputs[0]", "partials", (ct.p, K), (1, blk[1]),
+                              lambda c, p, i: (p, c), output=True, masked=True)),
+            active=active)
+        reduce = LaunchSpec(
+            kernel="quantize_cols_reduce", grid=(("group", G),), sequential=0,
+            operands=(Operand("outputs[0]", "partials", (ct.p, K), (ct.p, group_width),
+                              lambda g: (0, g)),
+                      Operand("outputs[1]", "group_max", (G,), (1,), lambda g: (g,),
+                              output=True)))
+        first, vals = (amax, reduce), G
+    scales = LaunchSpec(
+        kernel="quantize_scales", grid=(("block", 1),), sequential=0,
+        operands=(Operand("outputs[0]" if G == 1 else "outputs[1]", "maxima", (vals,),
+                          (vals,), lambda b: (0,)),
+                  Operand("outputs[4]", "s_g", (1, G), (1, G), lambda b: (0, 0),
+                          output=True)))
+    codes = _codes_spec(M, K, group_width, int(G > 1), vec, t, "outputs[4]", "outputs[3]")
+    return (*first, scales, codes)
+
+
+def launch_spec_given_sg(M: int, K: int, k_block: int, sg_stride: int, vec: int,
+                         device_type: str = "cpu") -> LaunchSpec:
+    """K2's code pass alone (``mls_quantize_given_sg``): the
+    ``quantize_codes`` launch of :func:`launch_spec_cols` against given
+    scales, ``(col // k_block) * sg_stride``."""
+    t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
+    return _codes_spec(M, K, k_block, sg_stride, vec, t, "args[3]", "outputs[0]")

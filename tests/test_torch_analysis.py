@@ -55,16 +55,16 @@ RESNET_CONVS = [
 # ---------------------------------------------------------------------------
 def _window_kinds(xs, ws, s, cb, short=False):
     """Violation kinds of both window proofs for one conv, ``cb`` channels
-    per k-block; ``short`` drops one row of the padded input (the port) /
-    of the halo band (JAX)."""
+    per k-block; ``short`` drops one row of the halo band (both)."""
     jgeom = jic.conv_geometry(xs, ws, (s, s), "SAME")
     geom = ic.conv_geometry(xs, ws, (s, s), "SAME")
     bh = 2  # JAX's M-tile height in output rows; divides every OH here
     band = jgeom.sh * (bh - 1) + jgeom.kh
     jviols, _ = jkv.prove_window_grid(jgeom, bh, cb, 64,
                                       band_h_override=band - 1 if short else None)
+    tallest = int(ic.band_rows(geom)[1].max())
     viols, _ = kv.prove_window_grid(geom, cb * geom.kk,
-                                    padded_h=geom.hp - 1 if short else None)
+                                    band_rows=tallest - 1 if short else None)
     return {v.kind for v in jviols}, {v.kind for v in viols}
 
 
@@ -93,6 +93,59 @@ def test_drop_halo_control_names_the_short_input():
     rep = kv._sabotage_drop_halo("cpu")
     assert not rep.ok and {v.kind for v in rep.violations} == {"oob"}
     assert all("short of its taps" in v.detail for v in rep.violations)
+
+
+# (x, w, stride, padding, k_block): SAME/VALID, stride 1/2, ragged M0
+# (tiles spanning two images, a short last tile), several k-blocks
+BAND_GEOMS = [
+    ((3, 5, 9, 9), (7, 5, 3, 3), 1, "SAME", 9),
+    ((2, 8, 12, 12), (6, 8, 3, 3), 2, "VALID", 36),
+    ((2, 4, 10, 10), (6, 4, 3, 3), 2, "SAME", 18),
+    ((1, 3, 11, 7), (4, 3, 1, 1), 2, "SAME", 3),
+    ((2, 6, 7, 7), (5, 6, 5, 5), 1, "VALID", 50),
+]
+
+
+@pytest.mark.parametrize("conv", BAND_GEOMS, ids=str)
+@pytest.mark.parametrize("short", [False, True], ids=["band", "short_band"])
+def test_window_proof_holds_the_staged_band(conv, short):
+    """Every tap of every row lies in its tile's staged band, which fits the
+    kernel's shared memory; a band one row short names the oob."""
+    xs, ws, s, pad, kb = conv
+    geom = ic.conv_geometry(xs, ws, (s, s), pad)
+    tallest = int(ic.band_rows(geom)[1].max())
+    viols, cov = kv.prove_window_grid(geom, kb, band_rows=tallest - 1 if short else None)
+    if short:
+        assert {v.kind for v in viols} == {"oob"}
+        assert all("short of its taps" in v.detail for v in viols)
+    else:
+        assert viols == []
+        assert cov["band_rows"] == tallest and cov["rows_produced"] == geom.m0
+        assert cov["band_bytes"] == kb // geom.kk * tallest * geom.wp * 4
+
+
+@pytest.mark.parametrize("conv", RESNET_CONVS[:2] + RESNET_CONVS[-1:],
+                         ids=["stage1", "stage2_s2", "stage3"])
+@pytest.mark.parametrize("grouping", ["nc", "none", "c"])
+def test_k4_launch_specs_prove_at_the_three_stages(conv, grouping):
+    """K4's launches at full-width ResNet-20's stage convs, k_block 144:
+    pass A ("nc", "none") and the main launch, every program proven and
+    the band within the sizes the design names (8.7 / 19 / 6.4 KB)."""
+    xs, ws, s = conv
+    geom = ic.conv_geometry(xs, ws, (s, s), "SAME")
+    specs = ic.launch_spec(geom, 144, grouping, EMFormat(2, 4))
+    assert [sp.kernel for sp in specs] == (["conv_amax"] if grouping != "c" else []) + \
+        ["implicit_conv"]
+    rep = kv.verify_specs("k4", [(sp, 1) for sp in specs])
+    assert rep.ok, rep.violations
+    assert all(c.exhaustive for c in rep.calls)
+    band = rep.calls[-1].coverage["window_grid"]["band_bytes"]
+    assert band == {16: 8704, 32: 19008, 64: 6400}[ws[0]]
+    if grouping != "c":  # pass A: one partial per block, each written once
+        part = rep.calls[0].coverage["outputs[1]"]
+        assert part["max_writers"] == 1 and part["blocks_written"] == part["output_blocks"]
+    scale = ic.launch_spec_scale(geom)
+    assert kv.verify_specs("k4_scale", [(sp, 1) for sp in scale]).ok
 
 
 # ---------------------------------------------------------------------------
@@ -223,9 +276,10 @@ def test_registry_covers_every_kernel_of_the_training_path():
     kernels = set()
     for entry in KERNEL_REGISTRY.values():
         kernels |= {s.kernel for s, _ in recorded_specs(entry.run("cpu"))}
-    assert kernels == {"quantize_amax", "quantize_groups_warp", "mls_quantize_given_sg",
+    assert kernels == {"quantize_amax", "quantize_groups_warp", "quantize_cols_amax",
+                       "quantize_cols_reduce", "quantize_scales", "quantize_codes",
                        "mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum",
-                       "implicit_conv"}
+                       "conv_amax", "implicit_conv"}
 
 
 SMALL = ["--device", "cpu", "--width", "0.25", "--hw", "16", "--batch", "2"]
@@ -272,7 +326,8 @@ def test_baselines_are_no_looser_than_the_jax_ones():
 
 def test_launch_spec_macs_and_accumulation_follow_the_launch():
     geom = ic.conv_geometry((2, 16, 8, 8), (32, 16, 3, 3), (2, 2), "SAME")
-    spec = ic.launch_spec(geom, 144, "nc", EMFormat(2, 4))
+    amax, spec = ic.launch_spec(geom, 144, "nc", EMFormat(2, 4))
+    assert amax.macs == 0
     assert spec.macs == geom.m0 * geom.k0 * geom.o == 32 * 144 * 32
     assert spec.shape == (math.ceil(32 / 64), 1, 1)
     (acc,) = spec.accumulations
@@ -300,7 +355,7 @@ def test_candidate_oracles_prove_and_reject():
     geom = ic.conv_geometry((2, 16, 8, 8), (16, 16, 3, 3), (1, 1), "SAME")
     rep = kv.verify_implicit_conv_candidate(geom, fmt, 36)
     assert rep.ok and {c.kernel.split(" ")[1].split("[")[0] for c in rep.calls} == {
-        "quantize_amax", "quantize_groups_warp", "implicit_conv"}
+        "quantize_amax", "quantize_groups_warp", "conv_amax", "implicit_conv"}
     bad = kv.verify_implicit_conv_candidate(geom, fmt, 32)
     assert {v.kind for v in bad.violations} == {"divisibility"}
 

@@ -18,10 +18,14 @@ split) on both bodies (int8 tensor cores; int32 for <3,1>), k_blocks off
 the 16-wide k step, operands whose k axis is not contiguous; for K1
 groups wider than a warp's limit, widths off the 4-wide vector access,
 all-zero and -0.0 operands and a tensor max over many stride steps; the
-E=0 format; and for the implicit conv k-blocks off the 32-wide chunk,
-several k-blocks, two output-channel tiles, stride 2 with SAME
-(asymmetric) and VALID (uncovered tail) padding, and a 1x1 conv.
-Tolerance 0: the kernels reproduce the plain versions bit for bit.
+E=0 format; for K2 the path's tall, wide and (N*C*Hp, Wp) operands,
+widths off 4, an all-zero operand and a NaN; and for the implicit conv
+k-blocks off the 16-wide k step, several k-blocks, two output-channel
+tiles, stride 2 with SAME (asymmetric) and VALID (uncovered tail)
+padding, a 1x1 conv, ResNet-20's three stage convs, the int32 body and a
+NaN.  torch.profiler shows that K2 and the implicit conv launch no
+PyTorch kernel around their own.  Tolerance 0: the kernels reproduce the
+plain versions bit for bit.
 """
 import importlib
 
@@ -210,7 +214,8 @@ def test_conv_counts_six_quantize_and_three_gemm_launches(cuda):
     lowbit_conv_fused(x, w, 5, (1, 1), "SAME", cfg).sum().backward()
     torch.cuda.synchronize()
     assert launch_counts() == {"mls_quantize_rows": 6, "mls_quantize_given_sg": 0,
-                               "mls_matmul": 3, "implicit_conv": 0, "sabotage_overlap": 0}
+                               "mls_matmul": 3, "implicit_conv": 0, "conv_tensor_scale": 0,
+                               "sabotage_overlap": 0}
 
 
 # (x shape, w shape, stride, padding, k_block)
@@ -266,13 +271,16 @@ def test_implicit_conv_on_the_card_equals_im2col(cuda, grouping, stochastic):
 
 
 @pytest.mark.parametrize("grouping,stochastic,want", [
-    ("nc", True, {"mls_quantize_rows": 5, "mls_quantize_given_sg": 0, "mls_matmul": 2}),
-    ("none", False, {"mls_quantize_rows": 0, "mls_quantize_given_sg": 5, "mls_matmul": 2}),
+    ("nc", True, {"mls_quantize_rows": 5, "mls_quantize_given_sg": 0, "mls_matmul": 2,
+                  "conv_tensor_scale": 0}),
+    ("none", False, {"mls_quantize_rows": 0, "mls_quantize_given_sg": 5, "mls_matmul": 2,
+                     "conv_tensor_scale": 1}),
 ])
 def test_implicit_conv_launch_counts(cuda, grouping, stochastic, want):
     """Forward: K4 and the weight's quantizer.  Backward: two GEMMs of
-    two quantizes each, or with code reuse ("none", nearest) one code pass,
-    the error's quantizer and the GEMM for the weight gradient."""
+    two quantizes each, or with code reuse ("none", nearest) K4's tensor
+    scale pass, one code pass, the error's quantizer and the GEMM for the
+    weight gradient."""
     x = torch.randn(2, 4, 8, 8, device=cuda, requires_grad=True)
     w = torch.randn(6, 4, 3, 3, device=cuda, requires_grad=True)
     cfg = QuantConfig(fmt=EMFormat(2, 4), k_block=36, grouping=grouping, stochastic=stochastic)
@@ -321,7 +329,7 @@ _K1_K3 = {"quantize_amax", "quantize_groups_warp", "mls_matmul_walk", "mls_matmu
 
 @pytest.mark.parametrize("k_block,kernels", [
     (128, _K1_K3),
-    (144, _K1_K3 | {"implicit_conv"})])
+    (144, _K1_K3 | {"conv_amax", "implicit_conv"})])
 def test_full_width_step_launch_specs_verify_clean(cuda, k_block, kernels):
     graph = cifar_train_graph(k_block, device=cuda)
     cov, records = graph.run()
@@ -332,3 +340,174 @@ def test_full_width_step_launch_specs_verify_clean(cuda, k_block, kernels):
     assert report.ok, report.violations
     assert report.max_integer_bits == (21 if k_block == 128 else 22)
     assert cov.quantized_fraction >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# K2 with its scales made on the card, K4 with its staged band
+# ---------------------------------------------------------------------------
+def _device_kernels(fn) -> set[str]:
+    """Names of the device kernels ``fn`` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+_K2_KERNELS = ("quantize_cols_amax", "quantize_cols_reduce", "quantize_scales",
+               "quantize_codes", "quantize_amax")
+_K1_KERNELS = ("quantize_amax", "quantize_groups_warp", "quantize_groups_block")
+_K4_KERNELS = ("conv_amax", "implicit_conv_kernel")
+
+
+def _only(names: set[str], allowed) -> bool:
+    return bool(names) and all(any(a in n for a in allowed) for n in names)
+
+
+# (M, K, k_block, values): the path's operands -- tall (2 groups), wide (1024
+# groups), the implicit "none" path's (N*C*Hp, Wp) code operand -- an all-zero
+# operand, widths and k_blocks off 4 (scalar columns), many row slices
+K2_CASES = [(131072, 256, 128, "normal"), (144, 131072, 128, "normal"),
+            (69632, 34, 34, "normal"), (4096, 256, 128, "zeros"), (37, 90, 30, "normal"),
+            (6, 45, 9, "normal"), (3000, 384, 128, "normal")]
+
+
+@pytest.mark.parametrize("fmt", [(2, 4), (2, 1)])
+@pytest.mark.parametrize("grouping", ["c", "none"])
+@pytest.mark.parametrize("case", K2_CASES, ids=str)
+def test_k2_matches_plain(cuda, case, grouping, fmt):
+    m, k, kb, values = case
+    x, r = _operand(9, m, k)
+    if values == "zeros":
+        x = torch.zeros_like(x)
+    big = m * k > 1 << 22  # the plain version on the card, as chip_smoke.py
+    xd, rd = x.to(cuda), r.to(cuda)
+    want = mls_quantize(xd if big else x, EMFormat(*fmt), kb,
+                        r_u8=rd if big else r, grouping=grouping)
+    before = launch_counts()["mls_quantize_given_sg"]
+    got = mls_quantize(xd, EMFormat(*fmt), kb, r_u8=rd, grouping=grouping)
+    torch.cuda.synchronize()
+    assert launch_counts()["mls_quantize_given_sg"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    if values == "zeros":
+        assert float(got[2]) == 1.0
+
+
+@pytest.mark.parametrize("grouping", ["c", "none"])
+def test_k2_keeps_nan_like_the_plain_version(cuda, grouping):
+    """A NaN makes the tensor scale 1 and its group's scale the one the
+    plain version (on the CPU) derives from the NaN; every code but the
+    NaN's own, which IEEE leaves to the implementation, is bit-identical."""
+    x, r = _operand(10, 40, 96)
+    x[7, 40] = float("nan")
+    want = mls_quantize(x, EMFormat(2, 4), 32, r_u8=r, grouping=grouping)
+    got = [t.cpu() for t in mls_quantize(x.to(cuda), EMFormat(2, 4), 32, r_u8=r.to(cuda),
+                                         grouping=grouping)]
+    assert float(got[2]) == float(want[2]) == 1.0
+    assert torch.equal(got[1], want[1])
+    keep = ~torch.isnan(x)
+    assert torch.equal(got[0][keep], want[0][keep])
+
+
+@pytest.mark.parametrize("grouping", ["c", "none"])
+def test_k2_launches_only_its_own_kernels(cuda, grouping):
+    """On the card, mls_quantize for "c" / "none" is one C call: no
+    PyTorch kernel (abs, amax, where, the scale math) around K2's own."""
+    x, r = _operand(11, 512, 256)
+    x, r = x.to(cuda), r.to(cuda)
+    names = _device_kernels(lambda: mls_quantize(x, EMFormat(2, 4), 128, r_u8=r,
+                                                 grouping=grouping))
+    assert _only(names, _K2_KERNELS), names
+
+
+# full-width ResNet-20's stage convs at batch 4, k_block 144; and small
+# convs with an int32-body format (<3,1>: fractions up to 192)
+STAGE_CONVS = [((4, 16, 32, 32), (16, 16, 3, 3), (1, 1), "SAME", 144),
+               ((4, 16, 32, 32), (32, 16, 3, 3), (2, 2), "SAME", 144),
+               ((4, 64, 8, 8), (64, 64, 3, 3), (1, 1), "SAME", 144)]
+INT32_CONVS = [((2, 8, 10, 10), (12, 8, 3, 3), (1, 1), "SAME", 72),
+               ((3, 8, 12, 12), (70, 8, 3, 3), (2, 2), "VALID", 36)]
+
+
+def _conv_inputs(seed, xs, ws, stride, pad):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(xs).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal(ws) * 0.2).astype(np.float32))
+    from repro_torch.kernels import conv_geometry
+
+    geom = conv_geometry(xs, ws, stride, pad)
+    r_x = torch.from_numpy(rng.integers(0, 256, (geom.m0, geom.k0), dtype=np.uint8))
+    r_w = torch.from_numpy(rng.integers(0, 256, (geom.o, geom.k0), dtype=np.uint8))
+    return x, w, r_x, r_w, geom
+
+
+@pytest.mark.parametrize("grouping", GROUPINGS)
+@pytest.mark.parametrize("case,fmt", [(c, (2, 4)) for c in STAGE_CONVS]
+                         + [(c, (2, 1)) for c in STAGE_CONVS[:1]]
+                         + [(c, (3, 1)) for c in INT32_CONVS],
+                         ids=["stage1", "stage2_s2", "stage3", "stage1_e2m1", "int32_ragged",
+                              "int32_valid_two_n_tiles"])
+def test_k4_matches_plain_at_the_stage_convs(cuda, case, fmt, grouping):
+    xs, ws, stride, pad, kb = case
+    x, w, r_x, r_w, _ = _conv_inputs(12, xs, ws, stride, pad)
+    kw = dict(fmt=EMFormat(*fmt), k_block=kb, grouping=grouping)
+    want = implicit_conv_forward(x, w, r_x, r_w, stride, pad, **kw)
+    got = implicit_conv_forward(x.to(cuda), w.to(cuda), r_x.to(cuda), r_w.to(cuda), stride,
+                                pad, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("grouping", ["nc", "none"])
+def test_k4_keeps_nan_like_the_plain_version(cuda, grouping):
+    """A NaN pixel: K4 makes these groupings' scales itself, so every output
+    row whose patch does not cover the pixel is bit-identical to the plain
+    version on the CPU ("c" and "n" scales are PyTorch glue on the card,
+    whose division returns the card's canonical NaN)."""
+    x, w, r_x, r_w, geom = _conv_inputs(13, (2, 4, 8, 8), (6, 4, 3, 3), (1, 1), "SAME")
+    x[1, 2, 3, 5] = float("nan")
+    kw = dict(fmt=EMFormat(2, 4), k_block=18, grouping=grouping)
+    want = implicit_conv_forward(x, w, r_x, r_w, (1, 1), "SAME", **kw)
+    got = implicit_conv_forward(x.to(cuda), w.to(cuda), r_x.to(cuda), r_w.to(cuda), (1, 1),
+                                "SAME", **kw).cpu()
+    hit = torch.zeros((2, 8, 8), dtype=torch.bool)
+    hit[1, 2:5, 4:7] = True  # the outputs whose 3x3 patch covers (3, 5)
+    keep = ~hit[:, None].expand_as(got)
+    assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.parametrize("grouping,allowed", [
+    ("nc", _K4_KERNELS + _K1_KERNELS),
+    ("none", _K4_KERNELS + _K2_KERNELS)])
+def test_implicit_conv_launches_only_k4_and_the_weight_quantizer(cuda, grouping, allowed):
+    """implicit_conv_forward for "nc" / "none" on the card: no F.pad, abs,
+    max_pool2d or amax; K4's own kernels and the weight's quantizer only."""
+    x, w, r_x, r_w, _ = _conv_inputs(14, (4, 16, 16, 16), (16, 16, 3, 3), (1, 1), "SAME")
+    args = (x.to(cuda), w.to(cuda), r_x.to(cuda), r_w.to(cuda), (1, 1), "SAME")
+    names = _device_kernels(lambda: implicit_conv_forward(
+        *args, fmt=EMFormat(2, 4), k_block=144, grouping=grouping))
+    assert _only(names, allowed), names
+    assert any("implicit_conv_kernel" in n for n in names)
+
+
+def test_covered_tensor_scale_on_the_card(cuda):
+    """K4's pass A alone: the covered abs-max of a VALID stride-2 conv
+    whose tail no patch covers, bit-identical to the plain version."""
+    from repro_torch.kernels import conv_geometry
+    from repro_torch.kernels.implicit_conv import covered_tensor_scale
+
+    x, _, _, _, _ = _conv_inputs(15, (3, 8, 12, 12), (6, 8, 3, 3), (2, 2), "VALID")
+    x[:, :, -1, :] = 9.0  # the uncovered last row
+    geom = conv_geometry(x.shape, (6, 8, 3, 3), (2, 2), "VALID")
+    want, _ = covered_tensor_scale(x, geom)
+    before = launch_counts()["conv_tensor_scale"]
+    got, xp = covered_tensor_scale(x.to(cuda), geom)
+    torch.cuda.synchronize()
+    assert launch_counts()["conv_tensor_scale"] == before + 1
+    assert float(got) == float(want) < 9.0
+    assert xp.shape == (3, 8, 12, 12)

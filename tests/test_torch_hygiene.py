@@ -94,7 +94,7 @@ def test_kernel_build_is_lazy_and_exact():
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags
     assert {p.name for p in build.CSRC.iterdir()} >= {
-        "mls_common.cuh", "mls_quantize.cu", "mls_matmul.cu", "implicit_conv.cu",
+        "mls_common.cuh", "mls_mma.cuh", "mls_quantize.cu", "mls_matmul.cu", "implicit_conv.cu",
         "sabotage_overlap.cu"}
     assert build.library_path().name.startswith("libmls_kernels_")
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():

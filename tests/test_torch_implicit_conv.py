@@ -35,6 +35,7 @@ from repro_torch.core import GS_FMT_DEFAULT, EMFormat, QuantConfig  # noqa: E402
 from repro_torch.kernels import implicit_conv as ic  # noqa: E402
 from repro_torch.kernels import lowbit_conv  # noqa: E402
 from repro_torch.kernels import lowbit_conv_fused  # noqa: E402
+from repro_torch.kernels.ref import im2col as ref_im2col  # noqa: E402
 
 # jitted: one XLA compile per conv instead of one per eager op and group
 _jax_fwd = jax.jit(lowbit_conv_fused_ref, static_argnums=(2, 3, 4, 5))
@@ -300,3 +301,67 @@ def test_implicit_forward_refuses_what_it_cannot_compute():
     cfg = QuantConfig(fmt=fmt, k_block=32, conv_impl="implicit", stochastic=False)
     with pytest.raises(ValueError, match="not legal for this conv"):
         lowbit_conv_fused(x, w, None, (1, 1), "SAME", cfg)
+
+
+# ---------------------------------------------------------------------------
+# K4's staged halo band and pass A (csrc/implicit_conv.cu), emulated
+# ---------------------------------------------------------------------------
+def _k4_band_patches(x: torch.Tensor, geom, k_block: int) -> torch.Tensor:
+    """The (M0, K0) patch values the kernel reads: per 64-row tile and
+    scaling group, the band of cb channels x its padded rows x Wp staged
+    from the unpadded input (zeros where the padding is), at a channel
+    pitch of the tallest band; element (m, k) read at toff[k] + roff[m]."""
+    bm = ic.TILE["kBM"]
+    start, height = ic.band_rows(geom, bm)
+    pitch = int(height.max())
+    kk, cb = geom.kk, k_block // geom.kk
+    k = np.arange(k_block)
+    toff = torch.from_numpy(((k // kk) * pitch + (k % kk) // geom.kw) * geom.wp
+                            + (k % kk) % geom.kw)
+    out = torch.full((geom.m0, geom.k0), float("nan"))
+    for tile, (gr0, bh) in enumerate(zip(start.tolist(), height.tolist())):
+        m = np.arange(tile * bm, min(geom.m0, tile * bm + bm))
+        q = m // geom.ow
+        patch = (q // geom.oh) * geom.hp + (q % geom.oh) * geom.sh
+        roff = torch.from_numpy((patch - gr0) * geom.wp + (m % geom.ow) * geom.sw)
+        for g in range(geom.k0 // k_block):
+            band = torch.zeros((cb, pitch, geom.wp))
+            for row in range(bh):
+                img, hh = divmod(gr0 + row, geom.hp)
+                hh -= geom.ph_lo
+                if img < geom.n and 0 <= hh < geom.h:
+                    band[:, row, geom.pw_lo : geom.pw_lo + geom.w] = \
+                        x[img, g * cb : (g + 1) * cb, hh]
+            out[m, g * k_block : (g + 1) * k_block] = \
+                band.reshape(-1)[roff[:, None] + toff[None, :]]
+    return out
+
+
+def _k4_pass_a_max(x: torch.Tensor, geom) -> torch.Tensor:
+    """conv_amax's partial maxima over the covered rows, then their max."""
+    hcov, wcov, s, parts = ic._amax_tiling(geom, ic.TILE)
+    rb = ic.TILE["kAmaxThreads"] // s
+    rows = x.reshape(geom.n * geom.c, geom.h, geom.w)[:, :max(hcov, 0), :max(wcov, 0)]
+    rows = rows.reshape(-1, max(wcov, 0)).abs()
+    turn = torch.arange(rows.shape[0]) // rb % parts
+    partials = [rows[turn == b].amax() if (turn == b).any() else torch.tensor(0.0)
+                for b in range(parts)]
+    return torch.stack(partials).amax()
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_k4_band_gather_and_pass_a_equal_im2col(case):
+    """Every patch value the kernel reads through its band addressing equals
+    im2col's (SAME and VALID, strides 1 and 2, tiles that span two images,
+    a ragged last tile, an uncovered tail), and pass A's covered max is
+    the tensor scale of the patches (``covered_tensor_scale``, JAX's)."""
+    x, _, _, _ = _inputs(0, case)
+    geom, jgeom = _geoms(case)
+    kb = case[-1]
+    xt = torch.from_numpy(x)
+    got = _k4_band_patches(xt, geom, kb)
+    want, _ = ref_im2col(xt, (geom.kh, geom.kw), (geom.sh, geom.sw), geom.pads)
+    assert torch.equal(got, want)
+    s_t = _k4_pass_a_max(xt, geom)
+    assert float(s_t) == float(want.abs().max())
+    assert float(s_t) == float(_jax_covered_scale(jnp.asarray(x), jgeom)[0])

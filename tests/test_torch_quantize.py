@@ -13,6 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import importlib  # noqa: E402
+
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -30,8 +33,11 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.formats import GS_FMT_DEFAULT as GS_DEFAULT  # noqa: E402
 from repro_torch.kernels import mls_quantize, rounding_bytes  # noqa: E402
-from repro_torch.kernels.mls_quantize import TILE  # noqa: E402
+from repro_torch.analysis.kernel_verify import verify_specs  # noqa: E402
+from repro_torch.kernels.mls_quantize import TILE, col_tiling  # noqa: E402
 from repro_torch.kernels.ref import element_codes_ref  # noqa: E402
+
+qmod = importlib.import_module("repro_torch.kernels.mls_quantize")
 
 FORMATS = [(2, 4), (2, 1), (0, 4)]
 GROUPINGS = ["nc", "c", "n", "none"]
@@ -247,3 +253,110 @@ def test_tensor_max_keeps_nan_like_torch_amax():
         m = _nan_max(m, v)
     assert torch.isnan(m) and torch.isnan(torch.amax(x.abs()))
     assert float(_nan_max(torch.tensor(2.0), torch.tensor(-0.0))) == 2.0
+
+
+# ---------------------------------------------------------------------------
+# K2's scale passes and code pass (csrc/mls_quantize.cu), emulated
+# ---------------------------------------------------------------------------
+_jax_quantize_ref = jax.jit(jax_quantize_ref, static_argnums=(1, 2),
+                            static_argnames=("grouping",))
+
+
+def _k2_emulate(x, r, fmt, group_width, vec):
+    """mls_quantize_cols as the card runs it: pass A (K1's flat partial
+    maxima for one group; else the column tiling's P row slices of column
+    maxima and a max per group), quantize_scales (s_t from all maxima, 0
+    and NaN -> 1; each group's ratio passed through unchanged when NaN),
+    then the code pass, whose thread owns a column and its group's scale."""
+    M, K = x.shape
+    G = K // group_width
+    if G == 1:
+        flat = x.reshape(-1).abs()
+        chunk, parts = TILE["kAmaxChunk"], qmod._amax_blocks(M * K, TILE)
+        n_chunks = -(-flat.numel() // chunk)
+        vals = [flat[c * chunk : (c + 1) * chunk] for b in range(parts)
+                for c in range(b, n_chunks, parts)]
+        gmax = [torch.stack([v.amax() for v in vals]).amax()]
+    else:
+        ct = col_tiling(M, K, vec, TILE["kColAmaxBlocks"], TILE["kThreads"])
+        slice_of_row = (torch.arange(M) // ct.rb) % ct.p
+        part = torch.stack([x[slice_of_row == p].abs().amax(dim=0) if (slice_of_row == p).any()
+                            else torch.zeros(K) for p in range(ct.p)])
+        gmax = [part[:, g * group_width : (g + 1) * group_width].amax() for g in range(G)]
+    s_t = torch.tensor(0.0)
+    for g in gmax:
+        s_t = _nan_max(s_t, g)
+    s_t = s_t if s_t > 0 else torch.tensor(1.0)
+    ratio = torch.stack([g if torch.isnan(g) else g / s_t for g in gmax])
+    s_g = quantize_group_scale(ratio, GS_DEFAULT)[0].reshape(1, G)
+    per_col = s_g[0, torch.arange(K) // group_width]
+    return element_codes_ref(x, r, s_t * per_col, fmt), s_g, s_t
+
+
+# (M, K, grouping, k_block): "c" with float4 columns, scalar columns (K and
+# k_block off 4), many row slices; "none" over K1's flat partials, with a
+# width off 4 like the implicit "none" path's (N*C*Hp, Wp) operand
+K2_CASES = [(48, 96, "c", 32), (6, 45, "c", 9), (300, 256, "c", 128), (5, 2048, "c", 128),
+            (12, 34, "none", 34), (300, 256, "none", 128)]
+
+
+@pytest.mark.parametrize("e,m", [(2, 4), (2, 1)])
+@pytest.mark.parametrize("values", ["normal", "zeros", "tiny_group", "nan"])
+@pytest.mark.parametrize("case", K2_CASES, ids=str)
+def test_k2_scale_passes_equal_quantize_ref(case, values, e, m):
+    """K2's own scale math (max exact in any order, s_t = 1 for an all-zero
+    operand, NaN kept, group scales of maxima below 2^-14 of s_t) gives
+    quantize_ref's codes, scales and tensor scale bit for bit, and the JAX
+    reference's wherever ``jnp.exp2`` is exact (module docstring)."""
+    M, K, grouping, kb = case
+    x, r = _operand(11, m=M, k=K)
+    if values == "zeros":
+        x[:] = 0.0
+    elif values == "tiny_group":
+        x[:, :kb] *= 2.0**-20  # group 0 ("none": a region) far below s_t
+    elif values == "nan":
+        x[M // 2, K // 3] = np.nan
+    fmt = EMFormat(e, m)
+    xt, rt = torch.from_numpy(x), torch.from_numpy(r)
+    width = kb if grouping == "c" else K
+    vec = int(K % 4 == 0 and width % 4 == 0)
+    got = _k2_emulate(xt, rt, fmt, width, vec)
+    want = mls_quantize(xt, fmt, kb, r_u8=rt, grouping=grouping)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if values == "zeros":
+        assert float(got[2]) == 1.0
+    if values == "nan":
+        assert float(got[2]) == 1.0  # NaN max -> 1, as quantize_ref
+        return  # the JAX reference's NaN payloads are XLA's own
+    j_codes, j_sg, j_st = _jax_quantize_ref(jnp.asarray(x), jformats.EMFormat(e, m), kb,
+                                            r_u8=jnp.asarray(r), grouping=grouping)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(j_codes))
+    assert float(got[2]) == float(j_st)
+    exp = np.round(np.log2(got[1].numpy())).astype(int)
+    exact = np.isin(exp, list(_exact_exp2_exponents()))
+    np.testing.assert_array_equal(got[1].numpy()[exact], np.asarray(j_sg)[exact])
+
+
+@pytest.mark.parametrize("shape", [(131072, 256, "c", 128), (144, 131072, "c", 128),
+                                   (69632, 34, "none", 34), (144, 131072, "none", 128)],
+                         ids=str)
+def test_k2_launch_specs_prove_at_full_width_shapes(shape):
+    """The descriptors of K2's launches at the operands a full-width step
+    quantizes: the tall and wide "c" operands (2 and 1024 groups) and the
+    implicit "none" path's (N*C*Hp, Wp) = (69632, 34) code operand; every
+    launch proven exhaustively, each code written by one program."""
+    M, K, grouping, kb = shape
+    kernel, args = qmod.quantize_launch(M, K, kb, grouping)
+    assert kernel == "mls_quantize_cols"
+    specs = qmod.launch_spec_cols(*args)
+    names = [s.kernel for s in specs]
+    assert names == (["quantize_cols_amax", "quantize_cols_reduce"] if grouping == "c"
+                     else ["quantize_amax"]) + ["quantize_scales", "quantize_codes"]
+    rep = verify_specs(f"k2_{M}x{K}", [(s, 1) for s in specs])
+    assert rep.ok, rep.violations
+    assert all(c.exhaustive for c in rep.calls)
+    codes = rep.calls[-1].coverage["outputs[3]"]
+    assert codes["blocks_written"] == codes["output_blocks"] and codes["max_writers"] == 1
+    given = qmod.launch_spec_given_sg(M, K, kb, 0, args[3])
+    assert verify_specs("given", [(given, 1)]).ok
