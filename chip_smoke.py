@@ -19,9 +19,19 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 the implicit "none" path's (N*C*Hp, Wp) = (69632, 34)
                 operand, its code pass alone there, and an all-zero
                 operand.  The implicit conv (K4) runs at its stage-1,
-                stage-2 (stride 2) and stage-3 convs, four groupings,
-                <2,4> and <2,1>, <3,1> (int32 body) at stage 1, and is held
-                to the im2col route too and timed beside it.
+                stage-2 (stride 2) and stage-3 convs, four groupings (the
+                scales of every grouping made by K4's own passes),
+                <2,4> and <2,1>, <3,1> (int32 body) at stage 1, and at two
+                zoo convs the dispatch sends to it at k_block 128
+                (GoogleNet's 3b 1x1, ResNet-18's stride-2 projection); it
+                is held to the im2col route too and timed beside it ("c"
+                and "n" also beside the PyTorch glue that made their
+                scales before).  K1 ("nc", "n") on both operands and K3
+                (both plans) of the three GEMMs of four zoo convs at the
+                zoo phase's shapes (ZOO_CONVS: ResNet-18's stage-1 3x3,
+                ResNet-34's stage-4 3x3, GoogleNet's 4b 3x3, VGG-16's
+                last 3x3).  K1 ("nc", "n") and K4 (four groupings) with a
+                NaN input against the plain versions on the CPU.
   4. train    - the main path: 5 SGD steps of ResNet-20 at full width
                 (CIFAR 32x32, batch 128, <2,4>, k_block 128, grouping "nc",
                 stochastic rounding) through repro_torch.train; losses must
@@ -55,6 +65,25 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 on both paths and every recorded launch spec of K1-K4
                 proven; and each of the four --sabotage modes must fail the
                 gate naming its violation (overlap_write runs K5 once).
+  8. zoo      - VGG-16 and GoogleNet (CIFAR: 32x32, 10 classes, batch 128)
+                and ResNet-18/34 (ImageNet: 224x224, 1000 classes, batch
+                64) at full width on the quantized backend (<2,4>, k_block
+                128, "nc", stochastic): 2 steps each with finite losses
+                and each step's launches equal to the dispatch's count over
+                the model's quantized convs as OpTrace lists them (K1 and
+                K3 on all, K4 on the 1x1 convs with 128 | C); step time,
+                peak device memory and one traced step.
+  9. fake_quant - the fake-quant backend: 5 steps of full-width ResNet-20,
+                batch 128, <2,1>, on the card, with finite losses and no
+                launch of the port's kernels (the JAX package runs this
+                path without Pallas: the quantizer is PyTorch code, the
+                convs fp32 convs); a traced step; a small step on the card
+                that agrees with the CPU.
+  10. driver  - examples/torch_train_cifar_lowbit.py for 3 full-width steps
+                (fp32, <2,4>, <2,1>, quantized backend); a checkpoint saved
+                on the card and restored on the card and on the CPU, every
+                tensor equal; the run resumed from it takes the next step
+                with the uninterrupted run's loss.
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
@@ -91,7 +120,9 @@ DEVICE_KERNELS = {"mls_quantize_rows": ("quantize_amax", "quantize_groups_warp",
                                             "quantize_scales", "quantize_codes",
                                             "quantize_amax"),
                   "mls_matmul": ("mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum"),
-                  "implicit_conv": ("conv_amax", "implicit_conv_kernel", "conv_scale")}
+                  "implicit_conv": ("conv_amax", "implicit_conv_kernel", "conv_scale",
+                                    "conv_win_amax", "conv_chan_amax", "conv_group_reduce",
+                                    "conv_chan_scales")}
 KERNELS = {
     "mls_quantize_rows": ("src/repro_torch/kernels/csrc/mls_quantize.cu",
                           "src/repro/kernels/mls_quantize.py:107"),
@@ -104,13 +135,35 @@ KERNELS = {
     "sabotage_overlap": ("src/repro_torch/kernels/csrc/sabotage_overlap.cu",
                          "src/repro/analysis/kernel_verify.py:730"),
 }
-# K4's shapes on the implicit path: (x shape, w shape, stride)
+# K4's shapes on the implicit path: (x shape, w shape, stride, k_block) --
+# ResNet-20's stage convs at k_block 144, and two zoo convs that the
+# dispatch sends to K4 at the paper's k_block 128: GoogleNet's 3b 1x1 branch
+# (CIFAR, batch 128) and ResNet-18's stage-3 stride-2 projection (ImageNet,
+# batch 64)
 CONV_SHAPES = {
-    "stage1_conv": ((BATCH, 16, 32, 32), (16, 16, 3, 3), (1, 1)),
-    "stage2_conv_s2": ((BATCH, 16, 32, 32), (32, 16, 3, 3), (2, 2)),
-    "stage3_conv": ((BATCH, 64, 8, 8), (64, 64, 3, 3), (1, 1)),
+    "stage1_conv": ((BATCH, 16, 32, 32), (16, 16, 3, 3), (1, 1), K_BLOCK_IMPLICIT),
+    "stage2_conv_s2": ((BATCH, 16, 32, 32), (32, 16, 3, 3), (2, 2), K_BLOCK_IMPLICIT),
+    "stage3_conv": ((BATCH, 64, 8, 8), (64, 64, 3, 3), (1, 1), K_BLOCK_IMPLICIT),
+    "googlenet_3b_1x1": ((BATCH, 256, 32, 32), (128, 256, 1, 1), (1, 1), K_BLOCK),
+    "resnet18_proj_s2": ((64, 128, 28, 28), (256, 128, 1, 1), (2, 2), K_BLOCK),
 }
 
+# The zoo at full width: CIFAR size for VGG-16 and GoogleNet, ImageNet size
+# for the ResNets.  arch: (hw, classes, batch)
+ZOO = {"vgg16": (32, 10, 128), "googlenet": (32, 10, 128), "resnet18": (224, 1000, 64),
+       "resnet34": (224, 1000, 64)}
+# The zoo convs whose three GEMMs K1 and K3 are held to their plain
+# versions at the zoo phase's own shapes (name: arch, which conv of its
+# traced list): ResNet-18's stage-1 3x3 (M 200704; the weight gradient's
+# 1568 scaling groups give K3's largest split workspace), ResNet-34's
+# stage-4 3x3 (K 4608, N 512; its data gradient N 4608), GoogleNet's 4b
+# 3x3 (C 112: K 1008 padded to 1024, N 224) and VGG-16's last 3x3 (M 512)
+ZOO_CONVS = {
+    "resnet18_stage1": ("resnet18", lambda g: g.c == 64 and g.kh == 3 and g.h == 56),
+    "resnet34_stage4": ("resnet34", lambda g: g.k0 == 4608),
+    "googlenet_4b_3x3": ("googlenet", lambda g: g.c == 112 and g.kh == 3),
+    "vgg16_conv5": ("vgg16", lambda g: g.h == 2),
+}
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
@@ -215,6 +268,8 @@ def phase_kernels(results: dict) -> list[dict]:
     checks += k2_checks(gen, timed)
     checks += matmul_checks(gen, timed)
     checks += implicit_conv_checks(gen, timed)
+    checks += zoo_checks(gen, timed)
+    checks += nan_checks()
     results["kernel_checks"] = checks
     rows = []
     for (kernel, *_), t in timed.items():
@@ -225,7 +280,7 @@ def phase_kernels(results: dict) -> list[dict]:
                          bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                          max_abs_err=t["max_abs_err"]))
         rows[-1].update({k: t[k] for k in ("im2col_ms", "kernel_ms", "plan", "other_plan",
-                                           "other_ms", "other_kernel_ms") if k in t})
+                                           "other_ms", "other_kernel_ms", "glue_ms") if k in t})
         print(json.dumps({"timing": rows[-1]}))
     results["kernel_times"] = rows
     bad = [c for c in checks if not c["identical"] or not c.get("equals_im2col", True)]
@@ -387,16 +442,21 @@ def matmul_checks(gen, timed: dict) -> list[dict]:
 
 
 def implicit_conv_checks(gen, timed: dict) -> list[dict]:
-    """K4 against its plain version and the im2col route at the implicit
-    path's conv shapes, four groupings, <2,4> and <2,1>, stochastic
-    rounding bytes, and <3,1> (the int32 body) at stage 1; the "nc" and
-    "none" <2,4> cases are timed, "nc" beside the im2col route of the same
-    conv (pad, unfold, K1 on the patches and on the weight, K3)."""
+    """K4 against its plain version and the im2col route at CONV_SHAPES,
+    four groupings, stochastic rounding bytes: <2,4> and <2,1> at the stage
+    convs, <3,1> (the int32 body) at stage 1, <2,4> at the zoo convs (which
+    the dispatch must send to K4).  The <2,4> stage-conv cases are timed,
+    beside the im2col route of the same conv (pad, unfold, K1 on the
+    patches and on the weight, K3), and for "c" and "n" beside the
+    PyTorch glue that made their compact scales before this slice
+    (``_implicit_x_scales`` on a padded copy)."""
     import torch
 
     from repro_torch.core import FMT_CIFAR, FMT_IMAGENET, GS_FMT_DEFAULT, EMFormat
+    from repro_torch.core import QuantConfig
     from repro_torch.kernels import (conv_geometry, implicit_conv_forward, implicit_conv_ref,
-                                     mls_matmul, mls_quantize)
+                                     mls_matmul, mls_quantize, resolve_conv_impl)
+    from repro_torch.kernels.implicit_conv import _implicit_x_scales, _pad
     from repro_torch.kernels.ref import im2col
 
     def im2col_route(x, w, r_x, r_w, geom, fmt, grouping, kb=K_BLOCK_IMPLICIT):
@@ -407,8 +467,10 @@ def implicit_conv_checks(gen, timed: dict) -> list[dict]:
         return mls_matmul(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, kb, grouping)
 
     checks = []
-    for sname, (xs, ws, stride) in CONV_SHAPES.items():
+    for sname, (xs, ws, stride, k_block) in CONV_SHAPES.items():
         geom = conv_geometry(xs, ws, stride, "SAME")
+        if resolve_conv_impl(geom, QuantConfig(k_block=k_block)) != "implicit":
+            raise AssertionError(f"{sname}: the dispatch does not send it to K4")
         x = torch.randn(xs, generator=gen, device="cuda")
         w = torch.randn(ws, generator=gen, device="cuda") * math.sqrt(2.0 / geom.k0)
         r_x = torch.randint(0, 256, (geom.m0, geom.k0), generator=gen, dtype=torch.uint8,
@@ -417,7 +479,8 @@ def implicit_conv_checks(gen, timed: dict) -> list[dict]:
                             device="cuda")
         # <2,4> and <2,1> on the int8 body; <3,1> (fractions up to 192) on
         # the int32 body at stage 1, k_block 72 (144 would need 24 bits)
-        cases = [(fmt, K_BLOCK_IMPLICIT) for fmt in (FMT_IMAGENET, FMT_CIFAR)]
+        zoo = k_block == K_BLOCK
+        cases = [(fmt, k_block) for fmt in ((FMT_IMAGENET,) if zoo else (FMT_IMAGENET, FMT_CIFAR))]
         if sname == "stage1_conv":
             cases.append((EMFormat(*FMT_INT32), 72))
         for fmt, kb in cases:
@@ -434,7 +497,7 @@ def implicit_conv_checks(gen, timed: dict) -> list[dict]:
                                    identical=torch.equal(got, want), max_abs_err=err,
                                    equals_im2col=torch.equal(y2d, via_im2col),
                                    finite=bool(torch.isfinite(got).all())))
-                if fmt is FMT_IMAGENET and grouping in ("nc", "none"):
+                if fmt is FMT_IMAGENET and not zoo:
                     timed[("implicit_conv", sname, str(fmt), grouping)] = dict(
                         ms=cuda_ms(lambda: implicit_conv_forward(x, w, r_x, r_w, stride, "SAME",
                                                                  **kw)),
@@ -442,6 +505,9 @@ def implicit_conv_checks(gen, timed: dict) -> list[dict]:
                                                                    geom.pads, **kw)),
                         im2col_ms=cuda_ms(lambda: im2col_route(x, w, r_x, r_w, geom, fmt,
                                                                grouping)),
+                        **({"glue_ms": cuda_ms(lambda: _implicit_x_scales(
+                            _pad(x, geom), geom, GS_FMT_DEFAULT, kb, grouping))}
+                           if grouping in ("c", "n") else {}),
                         kernel_ms=kernel_ms(lambda: implicit_conv_forward(
                             x, w, r_x, r_w, stride, "SAME", **kw),
                             DEVICE_KERNELS["implicit_conv"]),
@@ -454,35 +520,169 @@ def implicit_conv_checks(gen, timed: dict) -> list[dict]:
     return checks
 
 
-def conv_list(width: float, hw: int, batch: int) -> list[tuple]:
-    """(x shape, w shape, stride) of ResNet-20's 20 quantized convs."""
-    from repro_torch.models.cnn import CNNConfig, ResNet
+def zoo_gemms(geom, kb: int) -> dict[str, tuple]:
+    """The three GEMMs of a conv's training step as qd_gemm makes them,
+    (M, K real, K padded to ``kb``, N): forward cols @ wmat, weight
+    gradient cols.T @ e2d, data gradient e2d @ wmat.T."""
+    pad = lambda k: -(-k // kb) * kb  # noqa: E731
+    return {"fwd": (geom.m0, geom.k0, pad(geom.k0), geom.o),
+            "wgrad": (geom.k0, geom.m0, pad(geom.m0), geom.o),
+            "dgrad": (geom.m0, geom.o, pad(geom.o), geom.k0)}
 
-    model = ResNet(CNNConfig("resnet20", width_mult=width, in_hw=hw))
-    convs = []
-    for blk in model.blocks:
-        s, c_in = blk.stride, blk.conv1.w.shape[1]
-        convs.append(((batch, c_in, hw, hw), tuple(blk.conv1.w.shape), (s, s)))
-        if hasattr(blk, "proj"):
-            convs.append(((batch, c_in, hw, hw), tuple(blk.proj.w.shape), (s, s)))
-        hw = -(-hw // s)
-        convs.append(((batch, blk.conv2.w.shape[1], hw, hw), tuple(blk.conv2.w.shape), (1, 1)))
-    return convs
+
+def zoo_checks(gen, timed: dict) -> list[dict]:
+    """K1 and K3 at the zoo phase's own shapes (ZOO_CONVS, traced at the
+    zoo phase's sizes): for each of a conv's three GEMMs, K1 ("nc" and
+    "n", <2,4>, stochastic rounding bytes) on both operands against
+    quantize_ref, and K3 on those codes against mls_matmul_ref, on the plan
+    matmul_plan picks and on the other variant.  The "nc" calls are timed
+    (the plain versions on 3 calls: they take up to seconds here)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import mls_matmul, mls_quantize, rounding_bytes
+    from repro_torch.kernels.mls_matmul import matmul_plan, sg_shapes
+    from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
+
+    fmt, kb = FMT_IMAGENET, K_BLOCK
+    checks = []
+    for cname, (arch, pick) in ZOO_CONVS.items():
+        hw, classes, batch = ZOO[arch]
+        geom = next(g for g in conv_list(arch, hw, batch, classes) if pick(g))
+        for gname, (M, real, K, N) in zoo_gemms(geom, kb).items():
+            sname = f"zoo {cname} {gname}"
+            x = quantize_operand(M, real, K, gen)
+            wt = quantize_operand(N, real, K, gen)  # the weight side, quantized as (N, K)
+            rx = rounding_bytes(x.shape, gen, x.device)
+            rw = rounding_bytes(wt.shape, gen, wt.device)
+            for grouping in ("nc", "n"):
+                qx = mls_quantize(x, fmt, kb, GS_FMT_DEFAULT, rx, grouping)
+                qw = mls_quantize(wt, fmt, kb, GS_FMT_DEFAULT, rw, grouping)
+                pairs = [(qx, quantize_ref(x, fmt, kb, GS_FMT_DEFAULT, rx, grouping)),
+                         (qw, quantize_ref(wt, fmt, kb, GS_FMT_DEFAULT, rw, grouping))]
+                torch.cuda.synchronize()
+                err = max(max_abs_err(a, b) for got, want in pairs for a, b in zip(got, want))
+                checks.append(dict(kernel="mls_quantize_rows", shape=sname, fmt=str(fmt),
+                                   grouping=grouping, operands=[(M, K), (N, K)],
+                                   identical=all(torch.equal(a, b) for got, want in pairs
+                                                 for a, b in zip(got, want)),
+                                   max_abs_err=err))
+                if grouping == "nc":
+                    run = lambda: mls_quantize(x, fmt, kb, GS_FMT_DEFAULT, rx, "nc")  # noqa: E731
+                    timed[("mls_quantize_rows", sname, str(fmt), grouping)] = dict(
+                        ms=cuda_ms(run),
+                        kernel_ms=kernel_ms(run, DEVICE_KERNELS["mls_quantize_rows"]),
+                        plain_ms=cuda_ms(lambda: quantize_ref(x, fmt, kb, GS_FMT_DEFAULT, rx,
+                                                              grouping), iters=3, warmup=1),
+                        bytes=M * K * 6 + qx[1].numel() * 4 + 4, ops=0, max_abs_err=err,
+                        shape=f"{sname} ({M}, {K}) {grouping} {fmt}")
+                args = (*qx, qw[0].t(), qw[1].t(), qw[2], fmt, kb)
+                want = mls_matmul_ref(*args)
+                plan = matmul_plan(M, N, K, kb, fmt)
+                plans = [plan]
+                if K // kb > 1:
+                    plans.append(dataclasses.replace(
+                        plan, variant="walk" if plan.variant == "split" else "split"))
+                for p in plans:
+                    got = mls_matmul(*args, grouping, plan=p)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, want)
+                    checks.append(dict(kernel="mls_matmul", shape=sname, fmt=str(fmt),
+                                       grouping=grouping, k_block=kb, mkn=(M, K, N),
+                                       plan=dataclasses.asdict(p), chosen=p == plan,
+                                       identical=torch.equal(got, want), max_abs_err=err,
+                                       finite=bool(torch.isfinite(got).all())))
+                    del got
+                if grouping == "nc":
+                    xs_shape, ws_shape = sg_shapes(grouping, M, N, K // kb)
+                    run = lambda: mls_matmul(*args, grouping, plan=plan)  # noqa: E731
+                    timed[("mls_matmul", sname, str(fmt), grouping)] = dict(
+                        ms=cuda_ms(run), kernel_ms=kernel_ms(run, DEVICE_KERNELS["mls_matmul"]),
+                        plain_ms=cuda_ms(lambda: mls_matmul_ref(*args), iters=3, warmup=1),
+                        bytes=M * K + K * N + 4 * (math.prod(xs_shape) + math.prod(ws_shape))
+                        + 4 * M * N + 8,
+                        ops=2 * M * N * K, max_abs_err=checks[-len(plans)]["max_abs_err"],
+                        plan=dataclasses.asdict(plan),
+                        shape=f"{sname} ({M}x{K}x{N}) kb{kb} {grouping} {fmt}")
+                del qx, qw, want, args, pairs
+            del x, wt, rx, rw
+            torch.cuda.empty_cache()
+    return checks
+
+
+def nan_checks() -> list[dict]:
+    """K1 ("nc", "n") and K4 (four groupings) on an input holding one NaN,
+    against their plain versions on the CPU, whose division keeps the NaN's
+    payload (the card's would give its canonical NaN): K1's scales equal
+    and every code but the NaN's own; K4's every output whose patch does
+    not cover the NaN.  Stage-1 shapes at batch 8 (K1: the patches of that
+    conv, K padded to 256)."""
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import conv_geometry, implicit_conv_forward, mls_quantize
+
+    gen = torch.Generator().manual_seed(7)
+    checks = []
+    x = torch.randn((8 * HW * HW, 256), generator=gen)
+    x[7, 40] = float("nan")
+    r = torch.randint(0, 256, x.shape, generator=gen, dtype=torch.uint8)
+    for grouping in ("nc", "n"):
+        want = mls_quantize(x, FMT_IMAGENET, K_BLOCK, GS_FMT_DEFAULT, r, grouping)
+        got = [t.cpu() for t in mls_quantize(x.cuda(), FMT_IMAGENET, K_BLOCK, GS_FMT_DEFAULT,
+                                             r.cuda(), grouping)]
+        keep = ~torch.isnan(x)
+        same = (torch.equal(got[0][keep], want[0][keep]) and torch.equal(got[1], want[1])
+                and float(got[2]) == float(want[2]) == 1.0)
+        checks.append(dict(kernel="mls_quantize_rows", shape=f"nan {tuple(x.shape)}",
+                           fmt=str(FMT_IMAGENET), grouping=grouping, identical=same,
+                           max_abs_err=0.0 if same else float("nan")))
+    xs, ws = (8, 16, HW, HW), (16, 16, 3, 3)
+    geom = conv_geometry(xs, ws, (1, 1), "SAME")
+    xc = torch.randn(xs, generator=gen)
+    xc[1, 2, 3, 5] = float("nan")
+    w = torch.randn(ws, generator=gen) * 0.1
+    r_x = torch.randint(0, 256, (geom.m0, geom.k0), generator=gen, dtype=torch.uint8)
+    r_w = torch.randint(0, 256, (geom.o, geom.k0), generator=gen, dtype=torch.uint8)
+    hit = torch.zeros((8, HW, HW), dtype=torch.bool)
+    hit[1, 2:5, 4:7] = True  # the outputs whose 3x3 patch covers (3, 5)
+    for grouping in ("nc", "c", "n", "none"):
+        kw = dict(fmt=FMT_IMAGENET, k_block=K_BLOCK_IMPLICIT, grouping=grouping)
+        want = implicit_conv_forward(xc, w, r_x, r_w, (1, 1), "SAME", **kw)
+        got = implicit_conv_forward(xc.cuda(), w.cuda(), r_x.cuda(), r_w.cuda(), (1, 1),
+                                    "SAME", **kw).cpu()
+        keep = ~hit[:, None].expand_as(got)
+        same = torch.equal(got[keep], want[keep])
+        checks.append(dict(kernel="implicit_conv", shape=f"nan stage1 x{xs}",
+                           fmt=str(FMT_IMAGENET), grouping=grouping, identical=same,
+                           max_abs_err=max_abs_err(got[keep], want[keep])))
+    return checks
+
+
+def conv_list(arch: str, hw: int, batch: int, num_classes: int = 10) -> list:
+    """The geometry of a model's quantized convs at full width, traced by
+    ``models.nn.OpTrace`` on the meta device."""
+    from repro_torch.models.cnn import CNNConfig, quantized_convs
+
+    return quantized_convs(CNNConfig(arch, num_classes, 1.0, hw), batch)
 
 
 def expected_launches(qcfg, convs) -> dict[str, int]:
-    """Kernel launches of one training step, from the dispatch of each conv:
-    forward implicit (K4 + the weight's quantizer) or im2col (2 quantizes
-    + K3); weight gradient with code reuse (grouping "none", nearest,
-    implicit: K4's tensor-scale pass, a given-scale code pass, the error's
-    quantizer, K3) or without (2 quantizes + K3); data gradient (2
-    quantizes + K3).  K2 counts its two entry points under one name."""
-    from repro_torch.kernels import conv_geometry, launch_counts, resolve_conv_impl
+    """Kernel launches of one training step, from the dispatch of each conv
+    (``convs``: the geometries of ``conv_list``): forward implicit (K4 +
+    the weight's quantizer) or im2col (2 quantizes + K3); weight gradient
+    with code reuse (grouping "none", nearest, implicit: K4's tensor-scale
+    pass, a given-scale code pass, the error's quantizer, K3) or without
+    (2 quantizes + K3); data gradient (2 quantizes + K3).  K2 counts its
+    two entry points under one name."""
+    from repro_torch.kernels import launch_counts, resolve_conv_impl
 
     q = "mls_quantize_rows" if qcfg.grouping in ("nc", "n") else "mls_quantize_given_sg"
     n = collections.Counter()
-    for xs, ws, stride in convs:
-        impl = resolve_conv_impl(conv_geometry(xs, ws, stride, "SAME"), qcfg)
+    for geom in convs:
+        impl = resolve_conv_impl(geom, qcfg)
         if impl == "implicit":
             n.update({"implicit_conv": 1, q: 1})
         else:
@@ -502,7 +702,7 @@ def run_path(results: dict, key: str, qcfg, steps: int) -> dict[str, int]:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.train.loop import train_variant
 
-    want = expected_launches(qcfg, conv_list(1.0, HW, BATCH))
+    want = expected_launches(qcfg, conv_list("resnet20", HW, BATCH))
     reset_launch_counts()
     res = train_variant(key, qcfg, steps, width=1.0, hw=HW, batch=BATCH, device="cuda")
     counts = launch_counts()
@@ -527,7 +727,7 @@ def phase_train(results: dict) -> dict[str, int]:
 
     qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK, grouping="nc", stochastic=True)
     main = run_path(results, "train", qcfg, TRAIN_STEPS)
-    if expected_launches(qcfg, conv_list(1.0, HW, BATCH)) != {
+    if expected_launches(qcfg, conv_list("resnet20", HW, BATCH)) != {
             "mls_quantize_rows": 120, "mls_quantize_given_sg": 0, "mls_matmul": 60,
             "implicit_conv": 0, "conv_tensor_scale": 0, "sabotage_overlap": 0}:
         raise AssertionError("the k_block-128 path no longer takes 120 quantize and 60 GEMM "
@@ -597,57 +797,266 @@ def phase_trace(results: dict) -> None:
             raise AssertionError("the profiler recorded no device time")
 
 
-def phase_agree(results: dict) -> None:
-    """One small train step on the card agrees with the CPU's plain run, on
-    im2col (k_block 32) and with every 3x3 conv implicit (k_block 36)."""
+def card_vs_cpu(qcfg) -> dict:
+    """One small ResNet-20 train step (width 1/4, 8x8, batch 4) on the card
+    and on the CPU (the plain versions): the loss, logits and gradients
+    compared, and the card's launches."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.core import FMT_IMAGENET, QuantConfig
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.cnn import CNNConfig, init_resnet
+    from repro_torch.models.cnn import CNNConfig, init_cnn
 
     cfg = CNNConfig("resnet20", width_mult=0.25, in_hw=8)
     gen = torch.Generator().manual_seed(1)
     x, y = torch.randn((4, 3, 8, 8), generator=gen), torch.randint(0, 10, (4,), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = init_cnn(cfg, seed=3, device=dev)
+        reset_launch_counts()
+        logits = model(x.to(dev), qcfg)
+        loss = F.cross_entropy(logits, y.to(dev))
+        loss.backward()
+        out[dev] = (float(loss.detach()), logits.detach().cpu(),
+                    {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                    launch_counts())
+    (l_cpu, z_cpu, g_cpu, _), (l_gpu, z_gpu, g_gpu, counts) = out["cpu"], out["cuda"]
+    cos, grad_rel = 1.0, 0.0
+    for n in g_cpu:
+        a, b = g_gpu[n].flatten().double(), g_cpu[n].flatten().double()
+        cos = min(cos, float(a @ b / (a.norm() * b.norm())))
+        grad_rel = max(grad_rel, float((a - b).norm() / b.norm()))
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    z_err = max_abs_err(z_cpu, z_gpu)
+    # tolerance: the quantized convs are bit-exact, but the stem conv, BN
+    # and the classifier reduce in another order on the card (on the
+    # fake-quant backend every conv is an fp32 conv of the quantized
+    # operands), so the last bits differ (seen: loss equal, logits within
+    # 7.2e-7, fp32 gradient cosine above 1 - 1.2e-7); each limit is far
+    # below what a wrong kernel or a flipped code gives
+    ok = (rel <= 1e-5 and z_err <= 1e-5 and cos >= 1 - 1e-5 and grad_rel <= 1e-4
+          and bool(torch.isfinite(z_gpu).all()))
+    return dict(k_block=qcfg.k_block, backend=qcfg.backend, loss_cpu=l_cpu, loss_gpu=l_gpu,
+                loss_rel=rel, min_grad_cos=cos, max_grad_rel=grad_rel, logits_max_abs=z_err,
+                card_launches=counts, agree=ok)
+
+
+def phase_agree(results: dict) -> None:
+    """One small train step on the card agrees with the CPU's plain run, on
+    im2col (k_block 32) and with every 3x3 conv implicit (k_block 36)."""
+    from repro_torch.core import FMT_IMAGENET, QuantConfig
+
     disagree = []
     for k_block in (32, 36):
-        qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=k_block, stochastic=False)
-        out = {}
-        for dev in ("cpu", "cuda"):
-            model = init_resnet(cfg, seed=3, device=dev)
-            reset_launch_counts()
-            logits = model(x.to(dev), qcfg)
-            loss = F.cross_entropy(logits, y.to(dev))
-            loss.backward()
-            out[dev] = (float(loss.detach()), logits.detach().cpu(),
-                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
-                        launch_counts())
-        (l_cpu, z_cpu, g_cpu, _), (l_gpu, z_gpu, g_gpu, counts) = out["cpu"], out["cuda"]
-        cos, grad_rel = 1.0, 0.0
-        for n in g_cpu:
-            a, b = g_gpu[n].flatten().double(), g_cpu[n].flatten().double()
-            cos = min(cos, float(a @ b / (a.norm() * b.norm())))
-            grad_rel = max(grad_rel, float((a - b).norm() / b.norm()))
-        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-        z_err = max_abs_err(z_cpu, z_gpu)
         key = "agree" if k_block == 32 else "agree_implicit"
-        results[key] = dict(k_block=k_block, loss_cpu=l_cpu, loss_gpu=l_gpu, loss_rel=rel,
-                            min_grad_cos=cos, max_grad_rel=grad_rel, logits_max_abs=z_err,
-                            card_launches=counts)
-        print(f"{key}: {results[key]}")
-        # tolerance: the quantized convs are bit-exact, but the stem conv, BN
-        # and the classifier reduce in another order on the card, so the last
-        # bits differ (seen: loss equal, logits within 7.2e-7, fp32 gradient
-        # cosine above 1 - 1.2e-7); each limit is far below what a wrong
-        # kernel or a flipped code gives
-        if not (rel <= 1e-5 and z_err <= 1e-5 and cos >= 1 - 1e-5 and grad_rel <= 1e-4
-                and torch.isfinite(z_gpu).all()):
+        results[key] = r = card_vs_cpu(QuantConfig(fmt=FMT_IMAGENET, k_block=k_block,
+                                                   stochastic=False))
+        print(f"{key}: {r}")
+        if not r["agree"]:
             disagree.append(key)
-        if (counts["implicit_conv"] > 0) != (k_block == 36):
-            disagree.append(f"{key}: launches {counts}")
+        if (r["card_launches"]["implicit_conv"] > 0) != (k_block == 36):
+            disagree.append(f"{key}: launches {r['card_launches']}")
     if disagree:
         raise AssertionError(f"card and CPU disagree: {disagree}")
+
+
+def traced_step(state, qcfg, lr: float) -> dict:
+    """One more train step under torch.profiler: device busy (the sum of
+    kernel times), the port's kernels' share, and the device's idle share
+    of the host-clock step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.loop import train_step
+
+    ours = tuple(n for names in DEVICE_KERNELS.values() for n in names)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, qcfg, lr)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values())
+    if device_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(host_ms_under_profiler=host_ms, device_ms=device_ms,
+                port_kernels_ms=sum(v for k, v in by_name.items() if any(o in k for o in ours)),
+                device_idle_share=1.0 - device_ms / host_ms,
+                top_kernels_ms=[(k[:80], v) for k, v in top])
+
+
+ZOO_STEPS = 2
+
+
+def phase_zoo(results: dict) -> None:
+    """VGG-16, GoogleNet, ResNet-18 and ResNet-34 at full width on the
+    quantized backend (<2,4>, k_block 128, "nc", stochastic rounding):
+    ZOO_STEPS steps each with counts set to 0 just before and read just
+    after; finite losses, and every step's launches equal to the dispatch's
+    count over the model's traced quantized convs (K1 and K3 on every
+    model, K4 where the dispatch picks it).  Step times (host clock, after
+    a device sync), the peak device memory, and one more step traced."""
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, QuantConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.cnn import CNNConfig
+    from repro_torch.train.loop import init_state, train_step
+
+    qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK, grouping="nc", stochastic=True)
+    bad = []
+    for arch, (hw, classes, batch) in ZOO.items():
+        want = expected_launches(qcfg, conv_list(arch, hw, batch, classes))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(CNNConfig(arch, classes, 1.0, hw), batch, seed=0, device="cuda")
+        losses, step_ms, per_step = [], [], []
+        reset_launch_counts()
+        for _ in range(ZOO_STEPS):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            loss, _ = train_step(state, qcfg, 0.05)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        trace = traced_step(state, qcfg, 0.05)
+        r = dict(hw=hw, classes=classes, batch=batch, losses=losses, step_ms=step_ms,
+                 launches_per_step=per_step, expected_per_step=want, launches=counts,
+                 peak_memory_bytes=peak, trace=trace)
+        results[f"zoo_{arch}"] = r
+        print(f"zoo {arch}: {hw}x{hw} batch {batch}: losses {losses} step ms {step_ms} "
+              f"peak memory {peak / 2**30:.2f} GiB launches/step {per_step[0]} "
+              f"device busy {trace['device_ms']:.1f} ms of {trace['host_ms_under_profiler']:.1f}"
+              f" (profiled)")
+        if not all(math.isfinite(v) for v in losses):
+            bad.append(f"{arch}: non-finite loss {losses}")
+        if any(p != want for p in per_step):
+            bad.append(f"{arch}: launches {per_step}, expected {want}")
+        if not (counts["mls_quantize_rows"] and counts["mls_matmul"]):
+            bad.append(f"{arch}: K1 or K3 not launched: {counts}")
+        del state
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+FAKE_QUANT_STEPS = 5
+
+
+def phase_fakequant(results: dict) -> None:
+    """The fake-quant backend (the JAX package's default; the quantizer is
+    PyTorch code and the convs are fp32 convs, as the JAX package runs them
+    outside any Pallas kernel, so no kernel of the port launches): full-width
+    ResNet-20, batch 128, <2,1>, stochastic rounding, FAKE_QUANT_STEPS
+    steps with finite losses; one more step traced; and a small step on
+    the card that agrees with the CPU."""
+    import torch
+
+    from repro_torch.core import FMT_CIFAR, QuantConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.cnn import CNNConfig
+    from repro_torch.train.loop import init_state, train_step
+
+    qcfg = QuantConfig(fmt=FMT_CIFAR, k_block=K_BLOCK, backend="fake_quant")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(CNNConfig("resnet20", 10, 1.0, HW), BATCH, seed=0, device="cuda")
+    reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(FAKE_QUANT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(train_step(state, qcfg, 0.05)[0])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    r = dict(losses=losses, step_ms=step_ms, median_step_ms=statistics.median(step_ms[1:]),
+             peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts,
+             trace=traced_step(state, qcfg, 0.05),
+             agree=card_vs_cpu(QuantConfig(fmt=FMT_CIFAR, k_block=32, stochastic=False,
+                                           backend="fake_quant")))
+    results["fake_quant"] = r
+    print(f"fake_quant: losses {losses} median step {r['median_step_ms']:.2f} ms peak "
+          f"{r['peak_memory_bytes'] / 2**30:.2f} GiB device busy {r['trace']['device_ms']:.1f} ms"
+          f"; agree {r['agree']}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"fake_quant: non-finite loss {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"fake_quant launched the port's kernels: {counts}")
+    if not r["agree"]["agree"]:
+        raise AssertionError(f"fake_quant: card and CPU disagree: {r['agree']}")
+
+
+def phase_driver(results: dict) -> None:
+    """The CIFAR driver (examples/torch_train_cifar_lowbit.py) for a few
+    full-width steps on the quantized backend; a checkpoint of the main
+    path's state saved on the card and restored on the card and on the CPU
+    (every tensor equal to the saved one); and the run resumed from it,
+    whose next loss equals the uninterrupted run's."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, QuantConfig
+    from repro_torch.models.cnn import CNNConfig
+    from repro_torch.train import CheckpointManager
+    from repro_torch.train.loop import init_state, train_step
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_cifar_lowbit", ROOT / "examples" / "torch_train_cifar_lowbit.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    runs = example.main(["--steps", "3", "--width", "1.0", "--hw", str(HW), "--batch",
+                         str(BATCH), "--backend", "quantized", "--device", "cuda"])
+    bad = [f"driver {n}: non-finite loss {r.losses}" for n, r in runs.items()
+           if not all(math.isfinite(v) for v in r.losses)]
+
+    qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK)
+    cfg = CNNConfig("resnet20", 10, 1.0, HW)
+    run = init_state(cfg, BATCH, seed=0, device="cuda")
+    for _ in range(2):
+        train_step(run, qcfg, 0.05)
+    saved = run.state_dict()
+    saved_copy = [t.detach().clone() for t in _tensors(saved)]  # the state dict is live
+    same = True
+    with tempfile.TemporaryDirectory() as td:
+        mgr = CheckpointManager(td, keep=2)
+        mgr.save(run.step, saved, blocking=False)
+        next_loss = train_step(run, qcfg, 0.05)[0]  # the uninterrupted run steps on
+        mgr.wait()
+        for device in ("cuda", "cpu"):
+            restored = mgr.restore(init_state(cfg, BATCH, seed=0, device="cuda").state_dict(),
+                                   device=device)
+            for a, b in zip(saved_copy, _tensors(restored)):
+                same &= b.device.type == device and torch.equal(a.cpu(), b.cpu())
+        resumed = init_state(cfg, BATCH, seed=0, device="cuda")
+        resumed.load_state_dict(mgr.restore(resumed.state_dict(), device="cuda"))
+        resumed_loss = train_step(resumed, qcfg, 0.05)[0]
+    results["driver"] = dict(example_losses={n: r.losses for n, r in runs.items()},
+                             straggler={n: r.straggler for n, r in runs.items()},
+                             restored_equal=same, next_loss=next_loss,
+                             resumed_loss=resumed_loss)
+    print(f"driver: {results['driver']}")
+    if not same:
+        bad.append("a restored tensor differs from the saved one")
+    if resumed_loss != next_loss:
+        bad.append(f"resumed loss {resumed_loss} != uninterrupted {next_loss}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if hasattr(tree, "device") else []
 
 
 def k5_checks() -> dict:
@@ -837,7 +1246,8 @@ def main() -> int:
     rows, launches = [], {}
     for name, phase in (("kernels", phase_kernels), ("train", phase_train),
                         ("trace", phase_trace), ("agree", phase_agree),
-                        ("audit", phase_audit)):
+                        ("audit", phase_audit), ("zoo", phase_zoo),
+                        ("fake_quant", phase_fakequant), ("driver", phase_driver)):
         t = time.perf_counter()
         try:
             out = phase(results)

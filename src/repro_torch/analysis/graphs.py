@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import FMT_IMAGENET, QuantConfig, fold_in
 from repro_torch.data.synthetic import CifarIterator
-from repro_torch.models.cnn import CNNConfig, init_resnet
+from repro_torch.models.cnn import CNNConfig, init_cnn
 from repro_torch.optim.optimizers import sgdm
 
 from .coverage import CoverageReport, coverage_of_run
@@ -49,7 +49,7 @@ def cifar_train_graph(k_block: int = 128, width_mult: float = 1.0, in_hw: int = 
     rounding and ``k_block``, on ``device`` (CUDA unless asked for the CPU)."""
     cfg = CNNConfig("resnet20", width_mult=width_mult, in_hw=in_hw)
     qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=k_block, grouping="nc", stochastic=True)
-    model = init_resnet(cfg, seed, device)
+    model = init_cnn(cfg, seed, device)
     opt = sgdm(model.parameters(), lr=0.05)
     b = next(CifarIterator(batch, in_hw, seed=seed, device=device))
 

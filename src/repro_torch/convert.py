@@ -1,10 +1,11 @@
 """Parameter conversion from the JAX package's pytrees (as numpy arrays).
 
-The JAX ResNet is a nested dict/list of arrays; the port's ``ResNet``
-names each parameter by its path in that tree (``blocks.3.conv1.w``), with
-the same layouts (OIHW convs, (d_in, d_out) classifier).  Takes numpy
-arrays, e.g. ``jax.tree.map(np.asarray, init_cnn(key, cfg))``, so this
-module needs no JAX.
+A JAX CNN of the zoo is a nested dict/list of arrays; the port's models
+name each parameter by its path in that tree (``blocks.3.conv1.w``,
+``convs.3.conv.w``, ``inception.4.b5.conv.w``), with the same layouts
+(OIHW convs, (d_in, d_out) classifier).  Takes numpy arrays, e.g.
+``jax.tree.map(np.asarray, init_cnn(key, cfg))``, so this module needs no
+JAX.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from collections.abc import Mapping, Sequence
 import numpy as np
 import torch
 
-__all__ = ["resnet_params_from_jax"]
+__all__ = ["cnn_params_from_jax", "resnet_params_from_jax"]
 
 
 def _flatten(tree, prefix: str, out: dict[str, np.ndarray]) -> None:
@@ -27,8 +28,12 @@ def _flatten(tree, prefix: str, out: dict[str, np.ndarray]) -> None:
         out[prefix[:-1]] = np.asarray(tree)
 
 
-def resnet_params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a JAX ResNet pytree of numpy arrays."""
+def cnn_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for a JAX CNN pytree of numpy arrays (any
+    architecture of the zoo)."""
     flat: dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in flat.items()}
+
+
+resnet_params_from_jax = cnn_params_from_jax  # the name of the ResNet-20 slice

@@ -1,22 +1,51 @@
-"""Low-bit training configuration (paper Alg. 1 / Sec. V-B).
+"""Low-bit training configuration and the fake-quant training ops (paper
+Alg. 1 / Sec. V-B).
 
 :class:`QuantConfig` says how a layer quantizes the three operands of its
-conv/matmul (weights, activations, back-propagated errors).  Stochastic
-rounding (paper Eq. 5) draws its uint8 rounding bytes from a seeded
-``torch.Generator`` per (step, site tag, GEMM index): :func:`fold_in`
-derives the seeds, :func:`rounding_generator` builds the generator.
+conv/matmul (weights, activations, back-propagated errors), and with which
+arithmetic (``backend``).  Stochastic rounding (paper Eq. 5) draws from a
+seeded ``torch.Generator`` per (step, site tag, operand index):
+:func:`fold_in` derives the seeds, :func:`rounding_generator` builds the
+generator.
+
+:func:`lowbit_matmul` / :func:`lowbit_conv` are the ``"fake_quant"``
+backend: they quantize **both operands** to the MLS format on the forward
+pass and the **back-propagated error** once before the two backward
+GEMMs/convs (streams 0, 1 and 2 of the site), and run the GEMMs/convs
+themselves in fp32 on the dequantized (unit-scaled) values, as the JAX
+package does outside any Pallas kernel:
+
+    forward : Z  = Conv(qW, qA)                        (l.4)
+    backward: G  = Conv(qE, qA)      -> weight grad    (l.13)
+              dA = Conv(qE, qW), STE -> input grad     (l.15-16)
+
+The ``"quantized"`` backend (the port's main path) runs the same three
+GEMMs in the quantized domain on the CUDA kernels
+(:mod:`repro_torch.kernels.lowbit_conv`).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from .formats import EMFormat, FMT_IMAGENET, GS_FMT_DEFAULT, accumulation_bits
+from .quantize import GroupSpec, mls_quantize
 
-__all__ = ["GROUPINGS", "QuantConfig", "fold_in", "rounding_generator"]
+__all__ = [
+    "BACKENDS",
+    "GROUPINGS",
+    "QuantConfig",
+    "fold_in",
+    "lowbit_conv",
+    "lowbit_matmul",
+    "quantize_operand",
+    "rounding_generator",
+]
 
 GROUPINGS = ("nc", "c", "n", "none")  # scaling-group layouts, paper Table IV
+BACKENDS = ("quantized", "fake_quant")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +59,10 @@ class QuantConfig:
     stochastic: bool = True  # stochastic rounding (False -> nearest)
     enabled: bool = True
     # Arithmetic of the three training GEMMs: "quantized" runs them in the
-    # MLS quantized domain (mls_quantize -> mls_matmul over im2col).
-    # "fake_quant" (quantize-dequantize + float conv) is not ported yet.
+    # MLS quantized domain (mls_quantize -> mls_matmul over im2col, the CUDA
+    # kernels); "fake_quant" quantizes and dequantizes the operands and runs
+    # fp32 convs/matmuls on them (the JAX package's default backend, and
+    # the paper's GPU simulation).
     backend: str = "quantized"
     # Forward-conv lowering: "im2col", "implicit" (the implicit-GEMM kernel;
     # needs k_block = cb*kh*kw with cb | C) or "auto" (implicit where legal,
@@ -39,14 +70,10 @@ class QuantConfig:
     conv_impl: str = "auto"
 
     def __post_init__(self):
-        if self.backend == "fake_quant":
-            raise NotImplementedError(
-                "QuantConfig.backend='fake_quant' is not ported yet "
-                "(ROADMAP.md queue 1, item 1: lowbit_matmul/lowbit_conv)"
-            )
-        if self.backend != "quantized":
+        if self.backend not in BACKENDS:
             raise ValueError(
-                f"QuantConfig.backend must be 'quantized', got {self.backend!r}"
+                f"QuantConfig.backend must be 'quantized' or 'fake_quant', "
+                f"got {self.backend!r}"
             )
         if self.grouping not in GROUPINGS:
             raise ValueError(
@@ -70,6 +97,33 @@ class QuantConfig:
                 f"longer exact integer arithmetic. Reduce k_block or use a "
                 f"narrower <E,M> format."
             )
+
+
+    def _aligned_kb(self, k: int) -> int:
+        return min(self.k_block, k)
+
+    def matmul_specs(self, x_shape, w_shape) -> tuple[GroupSpec, GroupSpec]:
+        """Group specs for ``x @ w`` with x: (..., K), w: (K, N): the
+        contraction axis plays the input channel.  "nc" gives one scale per
+        (row, k-block) of x and per (k-block, column) of w."""
+        kb = self._aligned_kb(x_shape[-1])
+        if self.grouping == "none":
+            return GroupSpec.per_tensor(len(x_shape)), GroupSpec.per_tensor(2)
+        if self.grouping == "c":  # contraction blocks only
+            return (GroupSpec((None,) * (len(x_shape) - 1) + (kb,)), GroupSpec((kb, None)))
+        if self.grouping == "n":  # row/column only
+            return (GroupSpec((1,) * (len(x_shape) - 1) + (None,)), GroupSpec((None, kb)))
+        return (GroupSpec((1,) * (len(x_shape) - 1) + (kb,)), GroupSpec((kb, 1)))
+
+    def conv_specs(self) -> tuple[GroupSpec, GroupSpec]:
+        """Group specs for NCHW activations / OIHW weights (paper Sec. IV-B)."""
+        if self.grouping == "none":
+            return GroupSpec.per_tensor(4), GroupSpec.per_tensor(4)
+        if self.grouping == "c":
+            return GroupSpec((None, 1, None, None)), GroupSpec((None, 1, None, None))
+        if self.grouping == "n":
+            return GroupSpec((1, None, None, None)), GroupSpec((1, None, None, None))
+        return GroupSpec.conv_nc(), GroupSpec.conv_nc()
 
 
 _MASK64 = (1 << 64) - 1
@@ -97,3 +151,114 @@ def rounding_generator(
     g = torch.Generator(device=device)
     g.manual_seed(fold_in(key, idx))
     return g
+
+
+# ---------------------------------------------------------------------------
+# The fake-quant backend
+# ---------------------------------------------------------------------------
+def quantize_operand(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: int | None,
+                     idx: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize -> ``(unit-scaled values, fp32 tensor scale)``: the tensor
+    scale is factored out of the GEMM (paper Sec. V-B).  ``idx`` is the
+    operand's rounding stream at the site (0: activation, 1: weight, 2:
+    error)."""
+    if not cfg.enabled:
+        return x.to(torch.float32), torch.ones((), dtype=torch.float32, device=x.device)
+    t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt,
+                     rounding_generator(key, cfg, idx, x.device))
+    return t.unit_value(), t.s_t
+
+
+def _error_spec(cfg: QuantConfig, g: torch.Tensor) -> GroupSpec:
+    """The matmul error's groups: per (row, k-block) for "nc"/"c", else one."""
+    if cfg.grouping in ("nc", "c"):
+        return GroupSpec((1,) * (g.ndim - 1) + (min(cfg.k_block, g.shape[-1]),))
+    return GroupSpec.per_tensor(g.ndim)
+
+
+class LowbitMatmul(torch.autograd.Function):
+    """``x (..., K) @ w (K, N)`` with MLS fake-quantized operands and error."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, cfg):
+        sx, sw = cfg.matmul_specs(x.shape, w.shape)
+        qx, stx = quantize_operand(x, cfg, sx, key, 0)
+        qw, stw = quantize_operand(w, cfg, sw, key, 1)
+        ctx.save_for_backward(qx, stx, qw, stw)
+        ctx.conf = (key, cfg, x.dtype, w.dtype)
+        return torch.matmul(qx, qw) * (stx * stw)
+
+    @staticmethod
+    def backward(ctx, g):
+        qx, stx, qw, stw = ctx.saved_tensors
+        key, cfg, x_dtype, w_dtype = ctx.conf
+        ge, ste = quantize_operand(g.to(torch.float32), cfg, _error_spec(cfg, g), key, 2)
+        dx = torch.matmul(ge, qw.t()) * (ste * stw)  # paper l.15: qE @ qW^T
+        dw = torch.matmul(qx.reshape(-1, qx.shape[-1]).t(),
+                          ge.reshape(-1, ge.shape[-1])) * (ste * stx)  # l.13: qX^T @ qE
+        return dx.to(x_dtype), dw.to(w_dtype), None, None
+
+
+def lowbit_matmul(x: torch.Tensor, w: torch.Tensor, key: int | None,
+                  cfg: QuantConfig) -> torch.Tensor:
+    """``x @ w`` with MLS-quantized operands; x: (..., K), w: (K, N)."""
+    return LowbitMatmul.apply(x, w, key, cfg)
+
+
+def conv_pads(hw, ksize, stride, padding) -> tuple[tuple[int, int], tuple[int, int]]:
+    """``((ph_lo, ph_hi), (pw_lo, pw_hi))`` of "SAME"/"VALID" or explicit
+    pairs, by the rule of ``lax.padtype_to_pads``: "SAME" gives ``out =
+    ceil(in / stride)`` with the odd pad at the high end."""
+    if isinstance(padding, str):
+        if padding == "VALID":
+            return (0, 0), (0, 0)
+        if padding != "SAME":
+            raise ValueError(f"unknown padding {padding!r}")
+        pads = []
+        for d, k, s in zip(hw, ksize, stride):
+            total = max((-(-d // s) - 1) * s + k - d, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    (a, b), (c, d) = padding
+    return (int(a), int(b)), (int(c), int(d))
+
+
+def conv2d_fp32(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:
+    """NCHW/OIHW fp32 conv with JAX's padding rule (``F.conv2d`` pads only
+    symmetrically, so the pads are applied with ``F.pad``)."""
+    s = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = conv_pads(x.shape[2:], w.shape[2:], s, padding)
+    return F.conv2d(F.pad(x.float(), (pw_lo, pw_hi, ph_lo, ph_hi)), w.float(), stride=s)
+
+
+class LowbitConv(torch.autograd.Function):
+    """NCHW conv with MLS fake-quantized W/A/E (paper Alg. 1): the error is
+    quantized once and used by both gradients, which are the fp32 conv's
+    own transposes evaluated at the quantized operands."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, stride, padding, cfg):
+        sa, sw = cfg.conv_specs()
+        qx, stx = quantize_operand(x, cfg, sa, key, 0)
+        qw, stw = quantize_operand(w, cfg, sw, key, 1)
+        ctx.save_for_backward(qx, stx, qw, stw)
+        ctx.conf = (key, stride, padding, cfg, x.dtype, w.dtype)
+        return conv2d_fp32(qx, qw, stride, padding) * (stx * stw)
+
+    @staticmethod
+    def backward(ctx, g):
+        qx, stx, qw, stw = ctx.saved_tensors
+        key, stride, padding, cfg, x_dtype, w_dtype = ctx.conf
+        ge, ste = quantize_operand(g.to(torch.float32), cfg, cfg.conv_specs()[0], key, 2)
+        with torch.enable_grad():
+            a, b = qx.detach().requires_grad_(), qw.detach().requires_grad_()
+            dx, dw = torch.autograd.grad(conv2d_fp32(a, b, stride, padding), (a, b), ge)
+        return ((dx * (ste * stw)).to(x_dtype), (dw * (ste * stx)).to(w_dtype),
+                None, None, None, None)
+
+
+def lowbit_conv(x: torch.Tensor, w: torch.Tensor, key: int | None, stride, padding,
+                cfg: QuantConfig) -> torch.Tensor:
+    """NCHW conv with MLS-quantized W/A/E; ``key`` seeds the site's
+    stochastic rounding (``None``: round to nearest)."""
+    return LowbitConv.apply(x, w, key, stride, padding, cfg)

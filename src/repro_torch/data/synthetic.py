@@ -18,11 +18,13 @@ from repro_torch.runtime import resolve_device
 __all__ = ["CifarIterator", "class_pattern", "cifar_like_batch"]
 
 
-def class_pattern(num_classes: int, hw: int) -> torch.Tensor:
-    """(classes, 3, hw, hw) fixed per-class spatial frequency patterns."""
+def class_pattern(num_classes: int, hw: int, classes: torch.Tensor | None = None) -> torch.Tensor:
+    """(classes, 3, hw, hw) fixed per-class spatial frequency patterns: of
+    every class, or of the class indices ``classes`` only (the same values,
+    without building the patterns of 1000 classes at 224x224 per batch)."""
     ys, xs = torch.meshgrid(torch.arange(hw), torch.arange(hw), indexing="ij")
     ys, xs = ys / hw, xs / hw  # float32
-    cls = torch.arange(num_classes)
+    cls = torch.arange(num_classes) if classes is None else classes
     fx = 1.0 + (cls % 5).float()
     fy = 1.0 + (cls // 5 % 5).float()
     phase = cls.float() * 0.7
@@ -41,7 +43,7 @@ def cifar_like_batch(generator: torch.Generator, batch: int, hw: int = 32,
     seed gives the same batch on either device."""
     device = resolve_device(device)
     labels = torch.randint(0, num_classes, (batch,), generator=generator)
-    x = class_pattern(num_classes, hw)[labels]
+    x = class_pattern(num_classes, hw, labels)
     x = x + noise * torch.randn((batch, 3, hw, hw), generator=generator)
     return {"image": x.to(device), "label": labels.to(device)}
 

@@ -49,10 +49,10 @@ _SIGNATURES = {
     # xst, wst, unit, out, terms, M, N, K, k_block, e, m, bn, body, split, stream
     "mls_matmul": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
                    _P, _P, ctypes.c_float, _P, _P, *[_I] * 9, _P],
-    # x, r_u8, partials, n_partials, xst, xsg, sxsg_m, sxsg_g, wc, swk, swn,
-    # wsg, swsg_g, swsg_n, wst, unit, out, n, c, h, w, o, kh, kw, sh, sw, ph,
-    # pw, hp, wp, k_block, mode, e, m, e_min, gs_m, gs_emin, stream
-    "implicit_conv": [_P, _P, _P, _I, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
+    # x, r_u8, scratch, n_scratch, wc, swk, swn, wsg, swsg_g, swsg_n, wst,
+    # unit, out, n, c, h, w, o, kh, kw, sh, sw, ph, pw, hp, wp, k_block, mode,
+    # e, m, e_min, gs_m, gs_emin, stream
+    "implicit_conv": [_P, _P, _P, _LL, _P, _LL, _LL, _P, _LL, _LL,
                       _P, ctypes.c_float, _P, *[_I] * 15, *[_I] * 5, _P],
     # x, partials, n_partials, s_t, n, c, h, w, kh, kw, sh, sw, ph, pw, hp, wp, stream
     "conv_tensor_scale": [_P, _P, _I, _P, *[_I] * 12, _P],

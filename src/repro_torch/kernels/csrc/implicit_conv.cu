@@ -16,11 +16,24 @@
 // one rounding byte per patch element (9 per input element for 3x3) and
 // the weight codes, and writes 4 B per output; its 2*M0*K0*O integer
 // operations are far below the int8 rate.  Design, one C call:
-//   pass A (conv_amax, groupings "nc" and "none"): partial maxima of |x|
-//     over the pixels some patch covers (VALID or a stride can leave a
-//     tail out), up to 2 x 132 blocks; the main kernel's blocks reduce them
-//     to the tensor scale (and "none"'s one group scale) themselves.  "c"
-//     and "n" take compact scales computed ahead in PyTorch.
+//   scale passes, by grouping, all without atomics (max is exact in any
+//   order) and keeping NaN as torch.amax does:
+//   - "nc", "none": pass A (conv_amax): partial maxima of |x| over the
+//     pixels some patch covers (VALID or a stride can leave a tail out,
+//     and a stride wider than the window skips rows and columns), up to
+//     2 x 132 blocks; the main kernel's blocks reduce them to the tensor
+//     scale (and "none"'s one group scale) themselves.
+//   - "n" (a group per patch): conv_win_amax, a thread per output row,
+//     writes each patch's max |x| and a partial max per block; the main
+//     kernel's blocks make s_t from the partials and their rows' group
+//     scales from the patch maxima.
+//   - "c" (a group is cb whole channels' taps over all patches): a tap's
+//     max over the patches it covers, taken over the group's taps, is
+//     the max over the pixels of the group's channels that some patch
+//     covers.  So conv_chan_amax takes a warp per (image, channel) plane's
+//     covered max, conv_group_reduce a block per group (K2's
+//     quantize_cols_reduce pattern), and conv_chan_scales one block makes
+//     s_t and the group scales (mls::scales_of_maxima, K2's).
 //   main kernel (implicit_conv_kernel): a block per 64-row x BN output
 //     tile (BN = 16, 32 or 64 from O) walks the scaling groups in k order
 //     (no split-K); a group is cb whole channels' kh*kw taps.  8 warps
@@ -66,16 +79,26 @@ constexpr int kAmaxBlocks = 2 * 132;
 constexpr int kBandBytesMax = 160 * 1024;  // staged band, at most
 constexpr int kMaxGridY = 65535;
 
-enum Mode { kModeNc = 0, kModeNone = 1, kModeGiven = 2 };
+// The C entry point's groupings.  "c" reads s_t and its compact group
+// scales from the scratch its own passes fill.
+enum Mode { kModeNc = 0, kModeNone = 1, kModeC = 2, kModeN = 3 };
+
+// Which pixels some patch covers: padded row i is covered iff i % sh < kh
+// (always when sh <= kh) and i is below the last patch's end (hcov).
+struct Cov {
+  int ph, pw, sh, sw, kh, kw;
+  __device__ __forceinline__ bool row(int hh) const { return (hh + ph) % sh < kh; }
+  __device__ __forceinline__ bool col(int ww) const { return (ww + pw) % sw < kw; }
+};
 
 struct ConvArgs {
   const float* x;  // (n, c, h, w) unpadded
   const uint8_t* r;
-  const float* partials;  // pass A ("nc", "none")
+  const float* partials;  // pass A ("nc", "none") or conv_win_amax ("n")
   int n_partials;
-  const float* xst;  // given ("c", "n")
+  const float* s_r;  // "n": each patch's max |x|
+  const float* xst;  // "c": s_t and the compact group scales
   const float* xsg;
-  long long sxsg_m, sxsg_g;
   const uint8_t* wc;
   long long swk, swn;
   const float* wsg;
@@ -129,6 +152,7 @@ struct Smem {
 __global__ void __launch_bounds__(kAmaxThreads) conv_amax(const float* __restrict__ x,
                                                           int planes, int H, int W,
                                                           int hcov, int wcov, int s,
+                                                          const Cov cov,
                                                           float* __restrict__ partials) {
   __shared__ float red[kAmaxThreads / 32 + 1];
   const int ls = threadIdx.x % s, lr = threadIdx.x / s, rb = kAmaxThreads / s;
@@ -138,8 +162,11 @@ __global__ void __launch_bounds__(kAmaxThreads) conv_amax(const float* __restric
     const long long row = it * rb + lr;
     if (row >= rows) continue;
     const long long plane = row / hcov;
-    const float* src = x + (plane * H + (row - plane * hcov)) * W;
-    for (int col = ls; col < wcov; col += s) m = mls::nan_max(m, fabsf(src[col]));
+    const int hh = (int)(row - plane * hcov);
+    if (!cov.row(hh)) continue;
+    const float* src = x + (plane * H + hh) * W;
+    for (int col = ls; col < wcov; col += s)
+      if (cov.col(col)) m = mls::nan_max(m, mls::abs_bits(src[col]));
   }
   m = mls::block_max<kAmaxThreads>(m, red);
   if (threadIdx.x == 0) partials[blockIdx.x] = m;
@@ -156,6 +183,77 @@ __global__ void __launch_bounds__(kAmaxThreads) conv_scale(const float* __restri
   if (threadIdx.x == 0) *s_t = mls::tensor_scale_of_max(m);
 }
 
+// "n": s_r[m] = max |x| over output row m's patch (the padding's zeros
+// never raise a max), a thread per row; rows m = (turn * P + b) * kAmaxThreads
+// + lane; partials[b] = max over block b's rows.
+__global__ void __launch_bounds__(kAmaxThreads) conv_win_amax(const ConvArgs a,
+                                                              float* __restrict__ s_r,
+                                                              float* __restrict__ partials) {
+  __shared__ float red[kAmaxThreads / 32 + 1];
+  float bm = 0.0f;
+  const long long ohw = (long long)a.oh * a.ow;
+  for (long long m = (long long)blockIdx.x * kAmaxThreads + threadIdx.x; m < a.M;
+       m += (long long)gridDim.x * kAmaxThreads) {
+    const long long img = m / ohw;
+    const int q = (int)(m - img * ohw), i0 = (q / a.ow) * a.sh - a.ph,
+              j0 = (q % a.ow) * a.sw - a.pw;
+    float mx = 0.0f;
+    for (int ch = 0; ch < a.c; ++ch) {
+      const float* plane = a.x + (img * a.c + ch) * a.h * a.w;
+      for (int i = max(i0, 0); i < min(i0 + a.kh, a.h); ++i)
+        for (int j = max(j0, 0); j < min(j0 + a.kw, a.w); ++j)
+          mx = mls::nan_max(mx, mls::abs_bits(plane[i * a.w + j]));
+    }
+    s_r[m] = mx;
+    bm = mls::nan_max(bm, mx);
+  }
+  bm = mls::block_max<kAmaxThreads>(bm, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = bm;
+}
+
+// "c": pm[ch * N + img] = max |x| over the covered pixels of plane (img,
+// ch), a warp per plane, so each group's planes are one contiguous run.
+__global__ void __launch_bounds__(kAmaxThreads) conv_chan_amax(const float* __restrict__ x,
+                                                               int N, int C, int H, int W,
+                                                               int hcov, int wcov,
+                                                               const Cov cov,
+                                                               float* __restrict__ pm) {
+  const int lane = threadIdx.x % 32;
+  const long long p = (long long)blockIdx.x * (kAmaxThreads / 32) + threadIdx.x / 32;
+  if (p >= (long long)N * C) return;  // the whole warp: no block-wide sync follows
+  const float* src = x + p * H * W;
+  float m = 0.0f;
+  for (int hh = 0; hh < hcov; ++hh) {
+    if (!cov.row(hh)) continue;
+    for (int col = lane; col < wcov; col += 32)
+      if (cov.col(col)) m = mls::nan_max(m, mls::abs_bits(src[hh * W + col]));
+  }
+  m = mls::warp_max(m);
+  if (lane == 0) pm[(p % C) * N + p / C] = m;
+}
+
+// "c": gmax[g] = max of the group's run of `per` plane maxima, a block per group.
+__global__ void __launch_bounds__(kAmaxThreads) conv_group_reduce(const float* __restrict__ pm,
+                                                                  int per,
+                                                                  float* __restrict__ gmax) {
+  __shared__ float red[kAmaxThreads / 32 + 1];
+  float m = 0.0f;
+  for (int i = threadIdx.x; i < per; i += kAmaxThreads)
+    m = mls::nan_max(m, pm[(long long)blockIdx.x * per + i]);
+  m = mls::block_max<kAmaxThreads>(m, red);
+  if (threadIdx.x == 0) gmax[blockIdx.x] = m;
+}
+
+// "c": s_t and the G group scales, one block.
+__global__ void __launch_bounds__(kAmaxThreads) conv_chan_scales(const float* __restrict__ gmax,
+                                                                 int G,
+                                                                 float* __restrict__ s_t,
+                                                                 float* __restrict__ s_g,
+                                                                 mls::Fmt f) {
+  __shared__ float red[kAmaxThreads / 32 + 1];
+  mls::scales_of_maxima<kAmaxThreads>(gmax, G, 1, s_t, s_g, f, red);
+}
+
 template <int BN, bool kMma>
 __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvArgs a) {
   using L = Smem<BN, kMma>;
@@ -167,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
   float* band = reinterpret_cast<float*>(smem + lay.band);
   int* toff = reinterpret_cast<int*>(smem + lay.toff);
   int* roff = reinterpret_cast<int*>(smem + lay.roff);
-  float* rs = reinterpret_cast<float*>(smem + lay.rs);  // "nc": each row's group scale
+  float* rs = reinterpret_cast<float*>(smem + lay.rs);  // "nc", "n": each row's group scale
   float* red2 = reinterpret_cast<float*>(smem + lay.red2);
   int* lut = reinterpret_cast<int*>(smem + lay.lut);
   float* red = reinterpret_cast<float*>(smem + lay.red);
@@ -183,9 +281,9 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
   const int rows = min(kBM, a.M - row0);
   const int kk = a.kh * a.kw;
 
-  // the tensor scale: from pass A's partials, or given
+  // the tensor scale: from the partial maxima, or made by the "c" passes
   float xst, sg_none = 1.0f;
-  if (a.mode != kModeGiven) {
+  if (a.mode != kModeC) {
     float m = 0.0f;
     for (int i = tid; i < a.n_partials; i += kThreads) m = mls::nan_max(m, a.partials[i]);
     m = mls::block_max<kThreads>(m, red);
@@ -207,6 +305,9 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
     roff[tid] = tid < rows ? (patch_row(row0 + tid, a.oh, a.ow, a.hp, a.sh) - gr0) * a.wp +
                                  ((row0 + tid) % a.ow) * a.sw
                            : 0;
+  if (a.mode == kModeN && tid < kBM)  // a row's one group scale, for every group
+    rs[tid] = tid < rows ? mls::group_scale(mls::scale_ratio(a.s_r[row0 + tid], xst), a.f)
+                         : 0.0f;
 
   int p[NT][4];
   float acc[NT][4];
@@ -254,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
         const int m = tid % kBM, half = tid / kBM;
         float mx = 0.0f;
         for (int k = half; k < a.k_block; k += kThreads / kBM)
-          mx = mls::nan_max(mx, fabsf(band[toff[k] + roff[m]]));
+          mx = mls::nan_max(mx, mls::abs_bits(band[toff[k] + roff[m]]));
         red2[tid] = mx;
         __syncthreads();
         if (tid < kBM) {
@@ -272,10 +373,9 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
         const int m = it % kBM, k4 = (it / kBM) * 4;
         uint32_t codes = 0u;
         if (m < rows && k4 < kw) {
-          const float sx = a.mode == kModeNc ? rs[m]
-                           : a.mode == kModeNone
-                               ? sg_none
-                               : a.xsg[(long long)(row0 + m) * a.sxsg_m + g * a.sxsg_g];
+          const float sx = a.mode == kModeNc || a.mode == kModeN ? rs[m]
+                           : a.mode == kModeNone                  ? sg_none
+                                                                  : a.xsg[g];
           const float denom = __fmul_rn(xst, sx);
           const uint32_t rb = *reinterpret_cast<const uint32_t*>(rbuf + m * RBP + k4);
 #pragma unroll
@@ -318,10 +418,10 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
           const int gr = h2 ? r_hi : r_lo;
-          sx[h2] = gr >= a.M                ? 0.0f
-                   : a.mode == kModeNc      ? rs[gr - row0]
-                   : a.mode == kModeNone    ? sg_none
-                                            : a.xsg[(long long)gr * a.sxsg_m + g * a.sxsg_g];
+          sx[h2] = gr >= a.M                                ? 0.0f
+                   : a.mode == kModeNc || a.mode == kModeN  ? rs[gr - row0]
+                   : a.mode == kModeNone                    ? sg_none
+                                                            : a.xsg[g];
         }
 #pragma unroll
         for (int t = 0; t < NT; ++t)
@@ -402,6 +502,12 @@ void covered(int h, int w, int kh, int kw, int sh, int sw, int ph, int pw, int o
   *wcov = wc < w ? wc : w;
 }
 
+// conv_win_amax's grid ("n"): a thread per output row, at most kAmaxBlocks blocks.
+int win_blocks(long long M) {
+  const long long b = (M + kAmaxThreads - 1) / kAmaxThreads;
+  return (int)(b < 1 ? 1 : b > kAmaxBlocks ? kAmaxBlocks : b);
+}
+
 }  // namespace
 
 // The tile constants, in the order kBM, kThreads, kAmaxThreads,
@@ -414,15 +520,17 @@ extern "C" int implicit_conv_constants(int* out, int n) {
 }
 
 // K4.  x: the unpadded input (n, c, h, w), fp32, contiguous; padded to
-// (hp, wp) with (ph, pw) zero rows and columns at the top and left.  r: the rounding
-// bytes (M0, K0).  mode 0 ("nc") and 1 ("none"): pass A into `partials`
-// (n_partials floats, as amax_tiling gives), which also yields the
-// tensor scale; mode 2 ("c", "n"): xst and the compact activation scales
-// xsg with element strides (0 along a broadcast axis) are given.  wc, wsg:
-// the weight's codes (K0, O) and compact scales, strided.  out: (M0, O).
-extern "C" int implicit_conv(const float* x, const uint8_t* r, float* partials, int n_partials,
-                             const float* xst, const float* xsg, long long sxsg_m,
-                             long long sxsg_g, const uint8_t* wc, long long swk,
+// (hp, wp) with (ph, pw) zero rows and columns at the top and left.  r: the
+// rounding bytes (M0, K0).  mode: 0 "nc", 1 "none", 2 "c", 3 "n".  scratch
+// (n_scratch floats) holds what the scale passes write:
+//   "nc", "none": pass A's partials (as amax_tiling gives);
+//   "n": the M0 patch maxima, then win_blocks(M0) partials;
+//   "c": the n*c plane maxima, G group maxima, s_t, G group scales
+//        (G = K0 / k_block).
+// wc, wsg: the weight's codes (K0, O) and compact scales, strided.
+// out: (M0, O).
+extern "C" int implicit_conv(const float* x, const uint8_t* r, float* scratch,
+                             long long n_scratch, const uint8_t* wc, long long swk,
                              long long swn, const float* wsg, long long swsg_g,
                              long long swsg_n, const float* wst, float unit, float* out,
                              int n, int c, int h, int w, int o, int kh, int kw, int sh, int sw,
@@ -431,19 +539,19 @@ extern "C" int implicit_conv(const float* x, const uint8_t* r, float* partials, 
   ConvArgs a;
   a.n = n; a.c = c; a.h = h; a.w = w; a.kh = kh; a.kw = kw; a.sh = sh; a.sw = sw;
   a.ph = ph; a.pw = pw; a.hp = hp; a.wp = wp;
+  if (hp < kh || wp < kw || sh < 1 || sw < 1) return (int)cudaErrorInvalidValue;
   a.oh = (hp - kh) / sh + 1;
   a.ow = (wp - kw) / sw + 1;
-  if (hp < kh || wp < kw) return (int)cudaErrorInvalidValue;
   const int oh = a.oh, ow = a.ow;
   a.M = n * oh * ow; a.O = o; a.K = c * kh * kw; a.k_block = k_block; a.mode = mode;
   if (k_block <= 0 || k_block % (kh * kw) || c % (k_block / (kh * kw)) || mode < 0 ||
-      mode > 2 || (mode != kModeGiven) != (partials != nullptr))
+      mode > 3 || !scratch)
     return (int)cudaErrorInvalidValue;
   a.cb = k_block / (kh * kw);
   if (a.M <= 0 || o <= 0) return (int)cudaGetLastError();
   a.f = mls::Fmt{e, m, e_min, gs_m, gs_emin};
-  a.x = x; a.r = r; a.partials = partials; a.n_partials = n_partials;
-  a.xst = xst; a.xsg = xsg; a.sxsg_m = sxsg_m; a.sxsg_g = sxsg_g;
+  a.x = x; a.r = r; a.partials = nullptr; a.n_partials = 0; a.s_r = nullptr;
+  a.xst = nullptr; a.xsg = nullptr;
   a.wc = wc; a.swk = swk; a.swn = swn; a.wsg = wsg; a.swsg_g = swsg_g; a.swsg_n = swsg_n;
   a.wst = wst; a.unit = unit; a.out = out;
   a.band_rows = band_rows_max(a.M, oh, ow, a.hp, sh, kh);
@@ -451,18 +559,43 @@ extern "C" int implicit_conv(const float* x, const uint8_t* r, float* partials, 
   a.r_async = a.K % 16 == 0 && k_block % 16 == 0 && aligned16(r);
   a.w_async = swk == 1 && k_block % 16 == 0 && swn % 16 == 0 && aligned16(wc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode != kModeGiven) {
-    int hcov, wcov, threads, blocks;
-    covered(h, w, kh, kw, sh, sw, ph, pw, oh, ow, &hcov, &wcov);
+  int hcov, wcov;
+  covered(h, w, kh, kw, sh, sw, ph, pw, oh, ow, &hcov, &wcov);
+  const Cov cov{ph, pw, sh, sw, kh, kw};
+  if (mode == kModeNc || mode == kModeNone) {
+    int threads, blocks;
     amax_tiling(n * c, hcov, wcov, &threads, &blocks);
-    if (n_partials != blocks) return (int)cudaErrorInvalidValue;
-    conv_amax<<<blocks, kAmaxThreads, 0, s>>>(x, n * c, h, w, hcov, wcov, threads, partials);
-    const cudaError_t err = cudaGetLastError();
+    if (n_scratch != blocks) return (int)cudaErrorInvalidValue;
+    a.partials = scratch;
+    a.n_partials = blocks;
+    conv_amax<<<blocks, kAmaxThreads, 0, s>>>(x, n * c, h, w, hcov, wcov, threads, cov,
+                                              scratch);
+  } else if (mode == kModeN) {
+    const int blocks = win_blocks(a.M);
+    if (n_scratch != (long long)a.M + blocks) return (int)cudaErrorInvalidValue;
+    a.s_r = scratch;
+    a.partials = scratch + a.M;
+    a.n_partials = blocks;
+    conv_win_amax<<<blocks, kAmaxThreads, 0, s>>>(a, scratch, scratch + a.M);
+  } else {
+    const int G = a.K / k_block;
+    const long long planes = (long long)n * c;
+    if (n_scratch != planes + 2LL * G + 1) return (int)cudaErrorInvalidValue;
+    float* gmax = scratch + planes;
+    a.xst = gmax + G;
+    a.xsg = gmax + G + 1;
+    conv_chan_amax<<<(unsigned)((planes + kAmaxThreads / 32 - 1) / (kAmaxThreads / 32)),
+                     kAmaxThreads, 0, s>>>(x, n, c, h, w, hcov, wcov, cov, scratch);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    conv_group_reduce<<<G, kAmaxThreads, 0, s>>>(scratch, a.cb * n, gmax);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    conv_chan_scales<<<1, kAmaxThreads, 0, s>>>(gmax, G, gmax + G, gmax + G + 1, a.f);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const bool mma = max_fraction(e, m) <= 127;
   const int bn = o <= 16 ? 16 : o <= 32 ? 32 : 64;
-  cudaError_t err;
   if (mma)
     err = bn == 16 ? launch_main<16, true>(a, s) : bn == 32 ? launch_main<32, true>(a, s)
                                                  : launch_main<64, true>(a, s);
@@ -477,14 +610,15 @@ extern "C" int implicit_conv(const float* x, const uint8_t* r, float* partials, 
 extern "C" int conv_tensor_scale(const float* x, float* partials, int n_partials, float* s_t,
                                  int n, int c, int h, int w, int kh, int kw, int sh, int sw,
                                  int ph, int pw, int hp, int wp, void* stream) {
-  if (hp < kh || wp < kw) return (int)cudaErrorInvalidValue;
+  if (hp < kh || wp < kw || sh < 1 || sw < 1) return (int)cudaErrorInvalidValue;
   const int oh = (hp - kh) / sh + 1, ow = (wp - kw) / sw + 1;
   int hcov, wcov, threads, blocks;
   covered(h, w, kh, kw, sh, sw, ph, pw, oh, ow, &hcov, &wcov);
   amax_tiling(n * c, hcov, wcov, &threads, &blocks);
   if (n_partials != blocks) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  conv_amax<<<blocks, kAmaxThreads, 0, s>>>(x, n * c, h, w, hcov, wcov, threads, partials);
+  conv_amax<<<blocks, kAmaxThreads, 0, s>>>(x, n * c, h, w, hcov, wcov, threads,
+                                            Cov{ph, pw, sh, sw, kh, kw}, partials);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   conv_scale<<<1, kAmaxThreads, 0, s>>>(partials, blocks, s_t);

@@ -100,9 +100,23 @@ __device__ __forceinline__ uint8_t element_code(float x, uint8_t r_u8,
   return (uint8_t)((sign_bit << (f.e + f.m)) | (exp_stored << f.m) | man);
 }
 
-// max that keeps NaN, as torch.amax does (fmaxf would drop it).
+// |x| by clearing the sign bit, so a NaN keeps its payload as torch.abs
+// keeps it on the CPU (the card's fabsf returns the canonical NaN, whose
+// fraction bits a group scale made from it would then read).
+__device__ __forceinline__ float abs_bits(float x) {
+  return __int_as_float(__float_as_int(x) & 0x7fffffff);
+}
+
+// max that keeps NaN, as torch.amax does (fmaxf would drop it), for the
+// non-negative values and NaNs that every caller reduces (abs_bits of x,
+// and maxima of those).  Their bit patterns order as the floats do, with
+// NaN above +inf, so an integer max keeps a NaN and its payload bit for
+// bit; a float select may be compiled to max.NaN, which returns the
+// canonical NaN.  That is torch.amax's result where the reduction meets
+// one NaN payload; among NaNs of different payloads this keeps the
+// largest, while torch.amax keeps whichever its own order meets.
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (b > a || b != b) ? b : a;
+  return __int_as_float(max(__float_as_int(a), __float_as_int(b)));
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -137,6 +151,27 @@ __device__ __forceinline__ float tensor_scale_of_max(float m) { return m > 0.0f 
 // payload, and group_scale reads the fraction bits.
 __device__ __forceinline__ float scale_ratio(float s_r, float s_t) {
   return s_r != s_r ? s_r : __fdiv_rn(s_r, s_t);
+}
+
+// The scales of G groups from their maxima, in one block of THREADS
+// threads: vals holds G runs of `per` maxima (one run per group).  s_t =
+// max > 0 ? max : 1 over all of them, and s_g[g] = group_scale(max of run
+// g / s_t): quantize_ref's quantize_group_scale(s_r / s_t) with s_r the
+// group's max |x|.  K2 ("c", "none") and K4 ("c") make their scales here.
+template <int THREADS>
+__device__ __forceinline__ void scales_of_maxima(const float* __restrict__ vals, int G,
+                                                 int per, float* __restrict__ s_t_out,
+                                                 float* __restrict__ s_g, const Fmt f,
+                                                 float* red) {
+  float m = 0.0f;
+  for (int i = threadIdx.x; i < G * per; i += THREADS) m = nan_max(m, vals[i]);
+  const float s_t = tensor_scale_of_max(block_max<THREADS>(m, red));
+  if (threadIdx.x == 0) *s_t_out = s_t;
+  for (int g = threadIdx.x; g < G; g += THREADS) {
+    float gm = 0.0f;
+    for (int i = 0; i < per; ++i) gm = nan_max(gm, vals[g * per + i]);
+    s_g[g] = group_scale(scale_ratio(gm, s_t), f);
+  }
 }
 
 // Signed integer fraction F of a code: |value| = |F| * 2^(e_min - M).

@@ -64,9 +64,10 @@ constexpr int kCodeBlocks = 8 * 132;     // K2 code pass: blocks aimed at
 
 // m, nan_max'ed with the four |q|
 __device__ __forceinline__ float abs_max4(float m, float4 q) {
-  return mls::nan_max(mls::nan_max(mls::nan_max(mls::nan_max(m, fabsf(q.x)), fabsf(q.y)),
-                                   fabsf(q.z)),
-                      fabsf(q.w));
+  m = mls::nan_max(m, mls::abs_bits(q.x));
+  m = mls::nan_max(m, mls::abs_bits(q.y));
+  m = mls::nan_max(m, mls::abs_bits(q.z));
+  return mls::nan_max(m, mls::abs_bits(q.w));
 }
 
 bool aligned(const void* p, int bytes) {
@@ -91,7 +92,7 @@ __global__ void __launch_bounds__(kThreads) quantize_amax(const float* __restric
         m = abs_max4(m, v[u]);
     } else {
       for (long long i = base + threadIdx.x; i < n && i < base + kAmaxChunk; i += kThreads)
-        m = mls::nan_max(m, fabsf(x[i]));
+        m = mls::nan_max(m, mls::abs_bits(x[i]));
     }
   }
   m = mls::block_max<kThreads>(m, red);
@@ -151,9 +152,9 @@ __global__ void __launch_bounds__(kThreads) quantize_groups_warp(
     }
     float amax = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4 * S; ++i) amax = mls::nan_max(amax, fabsf(v[i]));
+    for (int i = 0; i < 4 * S; ++i) amax = mls::nan_max(amax, mls::abs_bits(v[i]));
     amax = mls::warp_max(amax);
-    const float s_g = mls::group_scale(__fdiv_rn(amax, s_t), f);
+    const float s_g = mls::group_scale(mls::scale_ratio(amax, s_t), f);
     if (lane == 0) s_g_out[gid] = s_g;
     const float denom = __fmul_rn(s_t, s_g);
 #pragma unroll
@@ -194,12 +195,12 @@ __global__ void __launch_bounds__(kThreads) quantize_groups_block(
       const float4 q = *reinterpret_cast<const float4*>(x + base + j);
       amax = abs_max4(amax, q);
     } else {
-      amax = mls::nan_max(amax, fabsf(x[base + j]));
+      amax = mls::nan_max(amax, mls::abs_bits(x[base + j]));
     }
   }
   __syncthreads();  // red is reused
   amax = mls::block_max<kThreads>(amax, red);
-  const float s_g = mls::group_scale(__fdiv_rn(amax, s_t), f);
+  const float s_g = mls::group_scale(mls::scale_ratio(amax, s_t), f);
   if (threadIdx.x == 0) s_g_out[gid] = s_g;
   const float denom = __fmul_rn(s_t, s_g);
   for (int j = vec ? 4 * threadIdx.x : threadIdx.x; j < gw; j += step) {
@@ -272,10 +273,10 @@ __global__ void __launch_bounds__(kThreads) quantize_cols_amax(const float* __re
       }
 #pragma unroll
       for (int u = 0; u < kColUnroll; ++u) {
-        m[0] = mls::nan_max(m[0], fabsf(q[u].x));
-        m[1] = mls::nan_max(m[1], fabsf(q[u].y));
-        m[2] = mls::nan_max(m[2], fabsf(q[u].z));
-        m[3] = mls::nan_max(m[3], fabsf(q[u].w));
+        m[0] = mls::nan_max(m[0], mls::abs_bits(q[u].x));
+        m[1] = mls::nan_max(m[1], mls::abs_bits(q[u].y));
+        m[2] = mls::nan_max(m[2], mls::abs_bits(q[u].z));
+        m[3] = mls::nan_max(m[3], mls::abs_bits(q[u].w));
       }
     }
   }
@@ -306,24 +307,14 @@ __global__ void __launch_bounds__(kThreads) quantize_cols_reduce(
 }
 
 // The scales, one block: vals holds G runs of `per` partial maxima (one
-// run per scaling group).  s_t = max > 0 ? max : 1 over all of them, and
-// s_g[g] = group_scale(max of run g / s_t): quantize_ref's
-// quantize_group_scale(s_r / s_t) with s_r the group's max |x|.
+// run per scaling group); mls::scales_of_maxima makes s_t and every s_g.
 __global__ void __launch_bounds__(kThreads) quantize_scales(const float* __restrict__ vals,
                                                             int G, int per,
                                                             float* __restrict__ s_t_out,
                                                             float* __restrict__ s_g,
                                                             mls::Fmt f) {
   __shared__ float red[kWarps + 1];
-  float m = 0.0f;
-  for (int i = threadIdx.x; i < G * per; i += kThreads) m = mls::nan_max(m, vals[i]);
-  const float s_t = mls::tensor_scale_of_max(mls::block_max<kThreads>(m, red));
-  if (threadIdx.x == 0) *s_t_out = s_t;
-  for (int g = threadIdx.x; g < G; g += kThreads) {
-    float gm = 0.0f;
-    for (int i = 0; i < per; ++i) gm = mls::nan_max(gm, vals[g * per + i]);
-    s_g[g] = mls::group_scale(mls::scale_ratio(gm, s_t), f);
-  }
+  mls::scales_of_maxima<kThreads>(vals, G, per, s_t_out, s_g, f, red);
 }
 
 // The code pass: codes of x against s_t and the compact group scale

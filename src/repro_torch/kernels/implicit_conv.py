@@ -17,12 +17,14 @@ rounding bytes are exactly those of the im2col pipeline, so the choice of
 lowering never changes the numbers (stochastic rounding included: both
 draw ``r_u8`` of shape (M0, K0) from the same stream).  The kernel stages
 each output tile's halo band of the unpadded input in shared memory (the
-padding is its zero fill) and, for groupings "nc" and "none", makes the
-tensor scale in a pass of its own; outside it, in PyTorch, are the compact
-group scales of "c" and "n" (window maxima of a padded copy, no patch
-matrix) and the weight's quantization (K1/K2, as in ``qd_gemm``).  On a
-CPU tensor the wrapper runs the plain version,
+padding is its zero fill) and makes the activation's scales in passes of
+its own, for every grouping, inside its one C call; outside it is only
+the weight's quantization (K1/K2, as in ``qd_gemm``).  On a CPU tensor the
+wrapper runs the plain version,
 :func:`repro_torch.kernels.ref.implicit_conv_ref`.
+:func:`_implicit_x_scales` computes the activation's scales from window
+maxima of a padded copy, as the JAX package's helper does: the plain
+version of K4's scale passes, which the tests hold both to.
 
 :func:`resolve_conv_impl` picks the lowering: ``REPRO_CONV_IMPL`` env >
 ``QuantConfig.conv_impl`` > implicit whenever legal.  The JAX package
@@ -42,7 +44,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 import os
 
 import numpy as np
@@ -51,7 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.analysis.intervals import Accumulation
 from repro_torch.core.formats import GS_FMT_DEFAULT, EMFormat, accumulation_bits
-from repro_torch.core.lowbit import GROUPINGS
+from repro_torch.core.lowbit import GROUPINGS, conv_pads
 from repro_torch.core.quantize import quantize_group_scale
 
 from . import build, launch
@@ -96,25 +97,6 @@ CONV_IMPLS = ("auto", "im2col", "implicit")
 # ---------------------------------------------------------------------------
 # Geometry
 # ---------------------------------------------------------------------------
-def conv_pads(hw: tuple[int, int], ksize: tuple[int, int], stride: tuple[int, int],
-              padding) -> Pads:
-    """``((ph_lo, ph_hi), (pw_lo, pw_hi))`` of "SAME"/"VALID" or explicit
-    pairs, by the rule of ``lax.padtype_to_pads``: "SAME" gives
-    ``out = ceil(in / stride)`` with the odd pad at the high end."""
-    if isinstance(padding, str):
-        if padding == "VALID":
-            return (0, 0), (0, 0)
-        if padding != "SAME":
-            raise ValueError(f"unknown padding {padding!r}")
-        pads = []
-        for d, k, s in zip(hw, ksize, stride):
-            total = max((math.ceil(d / s) - 1) * s + k - d, 0)
-            pads.append((total // 2, total - total // 2))
-        return tuple(pads)
-    (a, b), (c, d) = padding
-    return (int(a), int(b)), (int(c), int(d))
-
-
 @dataclasses.dataclass(frozen=True)
 class ConvGeom:
     """NCHW conv geometry with explicit padding."""
@@ -290,9 +272,10 @@ def _tap_abs_max(xp: torch.Tensor, geom: ConvGeom) -> torch.Tensor:
 def _implicit_x_scales(xp: torch.Tensor, geom: ConvGeom, gs_fmt: EMFormat, kb: int,
                        grouping: str) -> tuple[torch.Tensor, torch.Tensor | None]:
     """``(s_t, compact s_g)`` of the activation, equal to what the im2col
-    pipeline's quantizer computes from the patches.  ``s_g`` is ``None``
-    for "nc" (the kernel makes those scales), (M0, 1) for "n", (1, K0/kb)
-    for "c" and ones (1, 1) for "none"."""
+    pipeline's quantizer computes from the patches, from the padded input
+    ``xp``.  ``s_g`` is ``None`` for "nc" (the kernel makes those scales
+    from its band), (M0, 1) for "n", (1, K0/kb) for "c" and ones (1, 1) for
+    "none"."""
     if grouping in ("c", "none"):
         feat = _tap_abs_max(xp, geom)
         s_t = feat.amax()
@@ -323,6 +306,24 @@ def _amax_tiling(geom: ConvGeom, t: dict[str, int]) -> tuple[int, int, int, int]
     rb = t["kAmaxThreads"] // s
     iters = -(-geom.n * geom.c * max(hcov, 0) // rb)
     return hcov, wcov, s, max(1, min(t["kAmaxBlocks"], iters))
+
+
+def _win_blocks(m0: int, t: dict[str, int]) -> int:
+    """``conv_win_amax``'s grid ("n"): a thread per output row, at most
+    ``kAmaxBlocks`` blocks, i.e. partial maxima."""
+    return max(1, min(t["kAmaxBlocks"], -(-m0 // t["kAmaxThreads"])))
+
+
+def _scratch_floats(geom: ConvGeom, k_block: int, grouping: str, t: dict[str, int]) -> int:
+    """The floats K4's scale passes write (its C entry point's ``scratch``):
+    pass A's partials ("nc", "none"); the M0 patch maxima and their
+    partials ("n"); the N*C plane maxima, G group maxima, s_t and the G
+    group scales ("c", G = K0 / k_block)."""
+    if grouping in ("nc", "none"):
+        return _amax_tiling(geom, t)[3]
+    if grouping == "n":
+        return geom.m0 + _win_blocks(geom.m0, t)
+    return geom.n * geom.c + 2 * (geom.k0 // k_block) + 1
 
 
 def covered_tensor_scale(x: torch.Tensor, geom: ConvGeom) -> tuple[torch.Tensor, torch.Tensor]:
@@ -417,20 +418,16 @@ def implicit_conv_forward(
                          "(resolve_conv_impl keeps such convs on im2col)")
     dev = x.device
     xf = x.float().contiguous()
-    if grouping in ("nc", "none"):  # the kernel makes the activation's scales
-        parts = _amax_tiling(geom, TILE)[3]
-        partials = torch.empty((parts,), dtype=torch.float32, device=dev)
-        xscale_args = (partials.data_ptr(), parts, None, None, 0, 0)
-    else:
-        s_t, x_sg = _implicit_x_scales(_pad(x, geom), geom, gs_fmt, k_block, grouping)
-        xscale_args = (None, 0, s_t.data_ptr(), x_sg.data_ptr(), *_strides(x_sg))
+    # the kernel's scale passes write here
+    scratch = torch.empty((_scratch_floats(geom, k_block, grouping, TILE),),
+                          dtype=torch.float32, device=dev)
     # the weight side is qd_gemm's: (O, K0) quantized along K0
     wc, wsgT, wst = mls_quantize(w.reshape(geom.o, -1).float().contiguous(), fmt, k_block,
                                  gs_fmt, r_w, grouping)
     wcT, wsg = wc.t(), wsgT.t()
     out = torch.empty((geom.m0, geom.o), dtype=torch.float32, device=dev)
     build.check(build.library().implicit_conv(
-        xf.data_ptr(), r_x.data_ptr(), *xscale_args,
+        xf.data_ptr(), r_x.data_ptr(), scratch.data_ptr(), scratch.numel(),
         wcT.data_ptr(), *_strides(wcT), wsg.data_ptr(), *_strides(wsg), wst.data_ptr(),
         2.0 ** (2 * (fmt.e_min - fmt.m)), out.data_ptr(), *_dims(geom), k_block,
         _MODES[grouping], *_fmt_args(fmt, gs_fmt), torch.cuda.current_stream(dev).cuda_stream),
@@ -440,7 +437,7 @@ def implicit_conv_forward(
     return out.reshape(geom.n, geom.oh, geom.ow, geom.o).permute(0, 3, 1, 2)
 
 
-_MODES = {"nc": 0, "none": 1, "c": 2, "n": 2}  # the C entry point's scale modes
+_MODES = {"nc": 0, "none": 1, "c": 2, "n": 3}  # the C entry point's groupings
 
 
 def _amax_spec(geom: ConvGeom, t: dict[str, int]) -> LaunchSpec:
@@ -469,14 +466,74 @@ def _amax_spec(geom: ConvGeom, t: dict[str, int]) -> LaunchSpec:
         active=lambda b, lane, i: (i * parts + b) * rb + lane < rows)
 
 
+def _win_spec(geom: ConvGeom, t: dict[str, int]) -> LaunchSpec:
+    """K4's "n" scale pass, ``conv_win_amax``: ``P`` blocks of
+    ``kAmaxThreads`` lanes take the output rows ``m = (turn * P + b) *
+    kAmaxThreads + lane``; row ``m`` reads its image's planes around its
+    patch and writes the patch's max |x|; block ``b`` writes partial max
+    ``b``.  The lanes and turns are inside the block."""
+    parts, lanes = _win_blocks(geom.m0, t), t["kAmaxThreads"]
+    turns = max(1, -(-(-(-geom.m0 // lanes)) // parts))
+
+    def row(b, lane, i):
+        return (i * parts + b) * lanes + lane
+
+    ohw = geom.oh * geom.ow
+    return LaunchSpec(
+        kernel="conv_win_amax", grid=(("block", parts), ("lane", lanes), ("turn", turns)),
+        sequential=2,
+        operands=(Operand("args[0]", "x", (geom.n, geom.c * geom.h * geom.w),
+                          (1, geom.c * geom.h * geom.w),
+                          lambda b, lane, i: (row(b, lane, i) // ohw, 0)),
+                  Operand("outputs[1]", "patch_max", (geom.m0,), (1,),
+                          lambda b, lane, i: (row(b, lane, i),), output=True),
+                  Operand("outputs[2]", "partials", (parts,), (1,), lambda b, lane, i: (b,),
+                          output=True)),
+        active=lambda b, lane, i: row(b, lane, i) < geom.m0)
+
+
+def _chan_specs(geom: ConvGeom, k_block: int, t: dict[str, int]) -> tuple[LaunchSpec, ...]:
+    """K4's "c" scale passes: ``conv_chan_amax`` (a warp per (image,
+    channel) plane, 8 to a block, writing the plane's covered max at
+    ``c * N + n``, so a group's planes are one run), ``conv_group_reduce``
+    (a block per group reads its run of ``cb * N`` plane maxima) and
+    ``conv_chan_scales`` (one block: the G group maxima in, s_t and the G
+    group scales out)."""
+    planes, warps, G = geom.n * geom.c, t["kAmaxThreads"] // 32, geom.k0 // k_block
+    cb = k_block // geom.kk
+
+    def plane(b, w):
+        return b * warps + w
+
+    chan = LaunchSpec(
+        kernel="conv_chan_amax", grid=(("block", -(-planes // warps)), ("warp", warps)),
+        sequential=1,
+        operands=(Operand("args[0]", "x", (planes, geom.h * geom.w), (1, geom.h * geom.w),
+                          lambda b, w: (plane(b, w), 0)),
+                  Operand("outputs[1]", "plane_max", (planes,), (1,),
+                          lambda b, w: ((plane(b, w) % geom.c) * geom.n + plane(b, w) // geom.c,),
+                          output=True)),
+        active=lambda b, w: plane(b, w) < planes)
+    reduce = LaunchSpec(
+        kernel="conv_group_reduce", grid=(("group", G),), sequential=0,
+        operands=(Operand("outputs[1]", "plane_max", (planes,), (cb * geom.n,), lambda g: (g,)),
+                  Operand("outputs[2]", "group_max", (G,), (1,), lambda g: (g,), output=True)))
+    scales = LaunchSpec(
+        kernel="conv_chan_scales", grid=(("block", 1),), sequential=0,
+        operands=(Operand("outputs[2]", "group_max", (G,), (G,), lambda b: (0,)),
+                  Operand("outputs[3]", "s_t", (1,), (1,), lambda b: (0,), output=True),
+                  Operand("outputs[4]", "s_g", (1, G), (1, G), lambda b: (0, 0), output=True)))
+    return chan, reduce, scales
+
+
 def launch_spec(geom: ConvGeom, k_block: int, grouping: str, fmt: EMFormat,
                 device_type: str = "cpu") -> tuple[LaunchSpec, ...]:
-    """K4 on one conv (``implicit_conv``): for groupings "nc" and "none"
-    pass A (:func:`_amax_spec`), whose partial maxima every block of the
-    main launch reads; then the main launch, a block per ``kBM x bn`` tile
-    of the virtual (M0, O) output (bn = 16, 32 or 64 from O), walking the
-    ``K0 / k_block`` scaling groups in order.  Its patch rows come from
-    the tile's halo band staged in shared memory, which the
+    """K4 on one conv (``implicit_conv``): the scale passes of the grouping
+    (pass A :func:`_amax_spec` for "nc" and "none", :func:`_win_spec` for
+    "n", :func:`_chan_specs` for "c"), then the main launch, a block per
+    ``kBM x bn`` tile of the virtual (M0, O) output (bn = 16, 32 or 64 from
+    O), walking the ``K0 / k_block`` scaling groups in order.  Its patch
+    rows come from the tile's halo band staged in shared memory, which the
     :class:`~.launch.Window` describes for ``prove_window_grid``; the
     rounding bytes, the compact scales of "c" and "n", the weight codes and
     the output are tiled as in K3.  The group dot is an exact integer dot
@@ -486,19 +543,23 @@ def launch_spec(geom: ConvGeom, k_block: int, grouping: str, fmt: EMFormat,
     bn = 16 if geom.o <= 16 else 32 if geom.o <= 32 else 64
     m0, k0, o, nkb = geom.m0, geom.k0, geom.o, geom.k0 // k_block
     xs, ws = sg_shapes(grouping, m0, o, nkb)
-    first: tuple[LaunchSpec, ...] = ()
     operands = [Operand("args[1]", "r_u8", (m0, k0), (bm, k_block), lambda i, j, g: (i, g),
                         masked=True)]
-    if grouping in ("nc", "none"):  # the scales are made on the card
-        first = (_amax_spec(geom, t),)
+    if grouping in ("nc", "none", "n"):  # the main launch reduces the partials to s_t
+        first: tuple[LaunchSpec, ...] = (
+            _win_spec(geom, t) if grouping == "n" else _amax_spec(geom, t),)
         parts = first[0].shape[0]
-        operands.append(Operand("outputs[1]", "partials", (parts,), (parts,),
-                                lambda i, j, g: (0,)))
+        operands.append(Operand("outputs[2]" if grouping == "n" else "outputs[1]", "partials",
+                                (parts,), (parts,), lambda i, j, g: (0,)))
+        if grouping == "n":
+            operands.append(_sg_operand("outputs[1]", grouping, xs, True, bm))
     else:
-        operands.append(_sg_operand("args[3]", grouping, xs, True, bm))
-    operands += [Operand("args[4]", "w_codes", (k0, o), (k_block, bn), lambda i, j, g: (g, j),
+        first = _chan_specs(geom, k_block, t)
+        operands += [Operand("outputs[3]", "s_t", (1,), (1,), lambda i, j, g: (0,)),
+                     _sg_operand("outputs[4]", grouping, xs, True, bm)]
+    operands += [Operand("args[2]", "w_codes", (k0, o), (k_block, bn), lambda i, j, g: (g, j),
                          masked=True),
-                 _sg_operand("args[5]", grouping, ws, False, bn),
+                 _sg_operand("args[3]", grouping, ws, False, bn),
                  Operand("outputs[0]", "out", (m0, o), (bm, bn), lambda i, j, g: (i, j),
                          output=True, masked=True)]
     main = LaunchSpec(

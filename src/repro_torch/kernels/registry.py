@@ -85,9 +85,14 @@ def _matmul_fused(x, w):
 
 
 _CONV_CFG = QuantConfig(fmt=FMT_IMAGENET, stochastic=False, k_block=32, conv_impl="im2col")
-# k_block = cb*kh*kw = 4*3*3: the implicit grouping for C=16 3x3 convs
-_IMPLICIT_CFG = QuantConfig(fmt=FMT_IMAGENET, stochastic=False, k_block=36,
-                            conv_impl="implicit")
+
+
+def _conv_implicit(x, w):
+    # every grouping, each with K4's own scale passes; k_block = cb*kh*kw =
+    # 4*3*3, the implicit grouping for C=16 3x3 convs
+    return sum(lowbit_conv_fused(x, w, None, (1, 1), "SAME", QuantConfig(
+        fmt=FMT_IMAGENET, stochastic=False, k_block=36, conv_impl="implicit", grouping=g))
+        for g in GROUPINGS)
 
 
 KERNEL_REGISTRY: dict[str, KernelEntry] = {
@@ -104,9 +109,9 @@ KERNEL_REGISTRY: dict[str, KernelEntry] = {
                     lambda x, w: lowbit_conv_fused(x, w, None, (1, 1), "SAME", _CONV_CFG),
                     (((2, 16, 8, 8), _F32), ((16, 16, 3, 3), _F32)), needs_grad=True),
         KernelEntry("lowbit_conv_implicit", "implicit-GEMM conv, quantize fused into the "
-                    "GEMM prologue (no materialized im2col)",
-                    lambda x, w: lowbit_conv_fused(x, w, None, (1, 1), "SAME", _IMPLICIT_CFG),
-                    (((2, 16, 8, 8), _F32), ((16, 16, 3, 3), _F32)), needs_grad=True),
+                    "GEMM prologue (no materialized im2col), all four groupings",
+                    _conv_implicit, (((2, 16, 8, 8), _F32), ((16, 16, 3, 3), _F32)),
+                    needs_grad=True),
         KernelEntry("lowbit_matmul_qd", "linear-layer training op, all three GEMMs "
                     "quantized-domain",
                     lambda x, w: lowbit_matmul_qd(x, w, None, _CONV_CFG),

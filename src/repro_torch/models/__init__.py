@@ -1,4 +1,4 @@
-"""ResNet-20 and its layer ops."""
-from .cnn import CNNConfig, ResNet, init_resnet
+"""The paper's CNN zoo and its layer ops."""
+from .cnn import CNN, CNNConfig, GoogleNet, ResNet, VGG16, count_ops, init_cnn
 
-__all__ = ["CNNConfig", "ResNet", "init_resnet"]
+__all__ = ["CNN", "CNNConfig", "GoogleNet", "ResNet", "VGG16", "count_ops", "init_cnn"]

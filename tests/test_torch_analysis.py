@@ -126,24 +126,30 @@ def test_window_proof_holds_the_staged_band(conv, short):
 
 @pytest.mark.parametrize("conv", RESNET_CONVS[:2] + RESNET_CONVS[-1:],
                          ids=["stage1", "stage2_s2", "stage3"])
-@pytest.mark.parametrize("grouping", ["nc", "none", "c"])
+@pytest.mark.parametrize("grouping", ["nc", "none", "c", "n"])
 def test_k4_launch_specs_prove_at_the_three_stages(conv, grouping):
     """K4's launches at full-width ResNet-20's stage convs, k_block 144:
-    pass A ("nc", "none") and the main launch, every program proven and
-    the band within the sizes the design names (8.7 / 19 / 6.4 KB)."""
+    the scale passes of each grouping (pass A for "nc" and "none"; the
+    patch maxima for "n"; plane maxima, group maxima and scales for "c")
+    and the main launch, every program proven and the band within the
+    sizes the design names (8.7 / 19 / 6.4 KB)."""
     xs, ws, s = conv
     geom = ic.conv_geometry(xs, ws, (s, s), "SAME")
     specs = ic.launch_spec(geom, 144, grouping, EMFormat(2, 4))
-    assert [sp.kernel for sp in specs] == (["conv_amax"] if grouping != "c" else []) + \
-        ["implicit_conv"]
+    first = {"nc": ["conv_amax"], "none": ["conv_amax"], "n": ["conv_win_amax"],
+             "c": ["conv_chan_amax", "conv_group_reduce", "conv_chan_scales"]}[grouping]
+    assert [sp.kernel for sp in specs] == first + ["implicit_conv"]
     rep = kv.verify_specs("k4", [(sp, 1) for sp in specs])
     assert rep.ok, rep.violations
     assert all(c.exhaustive for c in rep.calls)
     band = rep.calls[-1].coverage["window_grid"]["band_bytes"]
     assert band == {16: 8704, 32: 19008, 64: 6400}[ws[0]]
-    if grouping != "c":  # pass A: one partial per block, each written once
-        part = rep.calls[0].coverage["outputs[1]"]
-        assert part["max_writers"] == 1 and part["blocks_written"] == part["output_blocks"]
+    # each scale pass writes each block of its outputs once
+    for call in rep.calls[:-1]:
+        for out in call.coverage.values():
+            assert out["max_writers"] == 1 and out["blocks_written"] == out["output_blocks"]
+    if grouping == "n":  # one patch max per output row
+        assert rep.calls[0].coverage["outputs[1]"]["output_blocks"] == geom.m0
     scale = ic.launch_spec_scale(geom)
     assert kv.verify_specs("k4_scale", [(sp, 1) for sp in scale]).ok
 
@@ -279,7 +285,8 @@ def test_registry_covers_every_kernel_of_the_training_path():
     assert kernels == {"quantize_amax", "quantize_groups_warp", "quantize_cols_amax",
                        "quantize_cols_reduce", "quantize_scales", "quantize_codes",
                        "mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum",
-                       "conv_amax", "implicit_conv"}
+                       "conv_amax", "implicit_conv", "conv_win_amax", "conv_chan_amax",
+                       "conv_group_reduce", "conv_chan_scales", "conv_scale"}
 
 
 SMALL = ["--device", "cpu", "--width", "0.25", "--hw", "16", "--batch", "2"]

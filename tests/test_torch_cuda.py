@@ -361,7 +361,8 @@ def _device_kernels(fn) -> set[str]:
 _K2_KERNELS = ("quantize_cols_amax", "quantize_cols_reduce", "quantize_scales",
                "quantize_codes", "quantize_amax")
 _K1_KERNELS = ("quantize_amax", "quantize_groups_warp", "quantize_groups_block")
-_K4_KERNELS = ("conv_amax", "implicit_conv_kernel")
+_K4_KERNELS = ("conv_amax", "implicit_conv_kernel", "conv_win_amax", "conv_chan_amax",
+               "conv_group_reduce", "conv_chan_scales")
 
 
 def _only(names: set[str], allowed) -> bool:
@@ -414,6 +415,25 @@ def test_k2_keeps_nan_like_the_plain_version(cuda, grouping):
     assert torch.equal(got[0][keep], want[0][keep])
 
 
+@pytest.mark.parametrize("grouping", ["nc", "n"])
+def test_k1_keeps_nan_like_the_plain_version(cuda, grouping):
+    """K1's group scale of a NaN max is made through mls::scale_ratio, so
+    the NaN's group gets the scale the plain version (on the CPU) derives
+    from the NaN's payload; the tensor scale is 1 and every code but the
+    NaN's own is bit-identical."""
+    x, r = _operand(10, 40, 96)
+    x[7, 40] = float("nan")
+    want = mls_quantize(x, EMFormat(2, 4), 32, r_u8=r, grouping=grouping)
+    before = launch_counts()["mls_quantize_rows"]
+    got = [t.cpu() for t in mls_quantize(x.to(cuda), EMFormat(2, 4), 32, r_u8=r.to(cuda),
+                                         grouping=grouping)]
+    assert launch_counts()["mls_quantize_rows"] == before + 1
+    assert float(got[2]) == float(want[2]) == 1.0
+    assert torch.equal(got[1], want[1])
+    keep = ~torch.isnan(x)
+    assert torch.equal(got[0][keep], want[0][keep])
+
+
 @pytest.mark.parametrize("grouping", ["c", "none"])
 def test_k2_launches_only_its_own_kernels(cuda, grouping):
     """On the card, mls_quantize for "c" / "none" is one C call: no
@@ -432,6 +452,12 @@ STAGE_CONVS = [((4, 16, 32, 32), (16, 16, 3, 3), (1, 1), "SAME", 144),
                ((4, 64, 8, 8), (64, 64, 3, 3), (1, 1), "SAME", 144)]
 INT32_CONVS = [((2, 8, 10, 10), (12, 8, 3, 3), (1, 1), "SAME", 72),
                ((3, 8, 12, 12), (70, 8, 3, 3), (2, 2), "VALID", 36)]
+# 1x1 convs of the zoo that the dispatch sends to K4 at k_block 128, at
+# batch 2: ResNet-18's stride-2 projection of stage 3 (a stride wider than
+# the window: pass A must skip the rows and columns no patch covers) and
+# GoogleNet's 3b branch on a 256-channel input
+ZOO_CONVS = [((2, 128, 28, 28), (256, 128, 1, 1), (2, 2), "SAME", 128),
+             ((2, 256, 32, 32), (128, 256, 1, 1), (1, 1), "SAME", 128)]
 
 
 def _conv_inputs(seed, xs, ws, stride, pad):
@@ -449,9 +475,10 @@ def _conv_inputs(seed, xs, ws, stride, pad):
 @pytest.mark.parametrize("grouping", GROUPINGS)
 @pytest.mark.parametrize("case,fmt", [(c, (2, 4)) for c in STAGE_CONVS]
                          + [(c, (2, 1)) for c in STAGE_CONVS[:1]]
-                         + [(c, (3, 1)) for c in INT32_CONVS],
+                         + [(c, (3, 1)) for c in INT32_CONVS]
+                         + [(c, (2, 4)) for c in ZOO_CONVS],
                          ids=["stage1", "stage2_s2", "stage3", "stage1_e2m1", "int32_ragged",
-                              "int32_valid_two_n_tiles"])
+                              "int32_valid_two_n_tiles", "resnet18_proj_s2", "googlenet_3b_1x1"])
 def test_k4_matches_plain_at_the_stage_convs(cuda, case, fmt, grouping):
     xs, ws, stride, pad, kb = case
     x, w, r_x, r_w, _ = _conv_inputs(12, xs, ws, stride, pad)
@@ -463,12 +490,12 @@ def test_k4_matches_plain_at_the_stage_convs(cuda, case, fmt, grouping):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("grouping", ["nc", "none"])
+@pytest.mark.parametrize("grouping", GROUPINGS)
 def test_k4_keeps_nan_like_the_plain_version(cuda, grouping):
-    """A NaN pixel: K4 makes these groupings' scales itself, so every output
-    row whose patch does not cover the pixel is bit-identical to the plain
-    version on the CPU ("c" and "n" scales are PyTorch glue on the card,
-    whose division returns the card's canonical NaN)."""
+    """A NaN pixel: K4 makes every grouping's scales itself, passing a NaN
+    group max to the group scale undivided (mls::scale_ratio), so every
+    output row whose patch does not cover the pixel is bit-identical to the
+    plain version on the CPU."""
     x, w, r_x, r_w, geom = _conv_inputs(13, (2, 4, 8, 8), (6, 4, 3, 3), (1, 1), "SAME")
     x[1, 2, 3, 5] = float("nan")
     kw = dict(fmt=EMFormat(2, 4), k_block=18, grouping=grouping)
@@ -483,9 +510,11 @@ def test_k4_keeps_nan_like_the_plain_version(cuda, grouping):
 
 @pytest.mark.parametrize("grouping,allowed", [
     ("nc", _K4_KERNELS + _K1_KERNELS),
-    ("none", _K4_KERNELS + _K2_KERNELS)])
+    ("none", _K4_KERNELS + _K2_KERNELS),
+    ("c", _K4_KERNELS + _K2_KERNELS),
+    ("n", _K4_KERNELS + _K1_KERNELS)])
 def test_implicit_conv_launches_only_k4_and_the_weight_quantizer(cuda, grouping, allowed):
-    """implicit_conv_forward for "nc" / "none" on the card: no F.pad, abs,
+    """implicit_conv_forward on the card, every grouping: no F.pad, abs,
     max_pool2d or amax; K4's own kernels and the weight's quantizer only."""
     x, w, r_x, r_w, _ = _conv_inputs(14, (4, 16, 16, 16), (16, 16, 3, 3), (1, 1), "SAME")
     args = (x.to(cuda), w.to(cuda), r_x.to(cuda), r_w.to(cuda), (1, 1), "SAME")
@@ -511,3 +540,115 @@ def test_covered_tensor_scale_on_the_card(cuda):
     assert launch_counts()["conv_tensor_scale"] == before + 1
     assert float(got) == float(want) < 9.0
     assert xp.shape == (3, 8, 12, 12)
+
+
+# ---------------------------------------------------------------------------
+# The fake-quant backend and the zoo on the card
+# ---------------------------------------------------------------------------
+def _step(model, x, y, qcfg):
+    logits = model(x, qcfg, None)
+    loss = torch.nn.functional.cross_entropy(logits, y)
+    loss.backward()
+    return (float(loss.detach()), logits.detach().cpu(),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def test_fake_quant_step_on_the_card_agrees_with_cpu(cuda):
+    """ResNet-20 on the fake-quant backend, nearest rounding: the card's
+    step (cuDNN fp32 convs on the fake-quantized operands) against the
+    CPU's, to the limits of chip_smoke.py's agree phase (loss 1e-5
+    relative, logits 1e-5, gradient cosine >= 1 - 1e-5 and relative error
+    <= 1e-4): the quantizer is the same PyTorch code on both devices, the
+    convs and BN sum in other orders.  No kernel of the port launches."""
+    from repro_torch.models.cnn import CNNConfig, init_cnn
+
+    cfg = CNNConfig("resnet20", width_mult=0.25, in_hw=8)
+    qcfg = QuantConfig(fmt=EMFormat(2, 1), k_block=32, stochastic=False, backend="fake_quant")
+    gen = torch.Generator().manual_seed(1)
+    x, y = torch.randn((4, 3, 8, 8), generator=gen), torch.randint(0, 10, (4,), generator=gen)
+    out = {}
+    reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        out[dev] = _step(init_cnn(cfg, 3, dev), x.to(dev), y.to(dev), qcfg)
+    assert not any(launch_counts().values())
+    (l_c, z_c, g_c), (l_g, z_g, g_g) = out["cpu"], out["cuda"]
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c)
+    assert float((z_g - z_c).abs().max()) <= 1e-5
+    for n in g_c:
+        a, b = g_g[n].flatten().double(), g_c[n].flatten().double()
+        assert float(a @ b / (a.norm() * b.norm())) >= 1 - 1e-5, n
+        assert float((a - b).norm() / b.norm()) <= 1e-4, n
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo root, whose ``expected_launches`` is
+    the count of a step's launches by the conv dispatch."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("arch,hw", [("vgg16", 32), ("googlenet", 32), ("resnet18", 64),
+                                     ("resnet34", 64)])
+def test_zoo_step_on_the_card_launches_what_the_dispatch_gives(cuda, arch, hw):
+    """One quantized-backend step of each zoo model at a small width on the
+    card: a finite loss, and per C entry point the launches that
+    chip_smoke.expected_launches gives over the model's traced quantized
+    convs."""
+    from repro_torch.models.cnn import CNNConfig, init_cnn, quantized_convs
+
+    cfg = CNNConfig(arch, width_mult=0.25, in_hw=hw)
+    qcfg = QuantConfig(fmt=EMFormat(2, 4), k_block=32)
+    want = _chip_smoke().expected_launches(qcfg, quantized_convs(cfg, 4))
+    gen = torch.Generator().manual_seed(2)
+    x, y = torch.randn((4, 3, hw, hw), generator=gen), torch.randint(0, 10, (4,), generator=gen)
+    model = init_cnn(cfg, 0, cuda)
+    reset_launch_counts()
+    loss, _, _ = _step(model, x.to(cuda), y.to(cuda), qcfg)
+    torch.cuda.synchronize()
+    assert np.isfinite(loss)
+    assert launch_counts() == want
+
+
+# (M, K real, K padded to 128, N) of zoo GEMMs at full width: ResNet-34's
+# stage-4 3x3 at 224x224, batch 64 (forward, weight and data gradients),
+# GoogleNet's 4b 3x3 forward at 32x32, batch 128, and ResNet-18's stage-1
+# weight gradient (1568 scaling groups)
+ZOO_GEMMS = [(3136, 4608, 4608, 512), (4608, 3136, 3200, 512), (3136, 512, 512, 4608),
+             (32768, 1008, 1024, 224), (576, 200704, 200704, 64)]
+
+
+@pytest.mark.parametrize("grouping", ["nc", "n"])
+@pytest.mark.parametrize("mkn", ZOO_GEMMS, ids=str)
+def test_k1_k3_match_plain_at_zoo_shapes(cuda, mkn, grouping):
+    """K1 on both operands of a zoo GEMM and K3 on their codes, on the plan
+    matmul_plan picks and on the other variant, bit-identical to
+    quantize_ref and mls_matmul_ref (<2,4>, k_block 128)."""
+    import dataclasses
+
+    from repro_torch.kernels import rounding_bytes
+    from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
+
+    M, real, K, N = mkn
+    fmt, gen = EMFormat(2, 4), torch.Generator(device=cuda).manual_seed(M + N)
+    qs = []
+    for rows in (M, N):
+        x = torch.zeros((rows, K), device=cuda)
+        x[:, :real] = torch.randn((rows, real), generator=gen, device=cuda)
+        r = rounding_bytes(x.shape, gen, cuda)
+        got = mls_quantize(x, fmt, 128, r_u8=r, grouping=grouping)
+        want = quantize_ref(x, fmt, 128, r_u8=r, grouping=grouping)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        qs.append(got)
+    (xc, xsg, xst), (wc, wsg, wst) = qs
+    args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, 128)
+    want = mls_matmul_ref(*args)
+    plan = matmul_plan(M, N, K, 128, fmt)
+    other = dataclasses.replace(plan, variant="walk" if plan.variant == "split" else "split")
+    for p in (plan, other):
+        assert torch.equal(mls_matmul(*args, grouping, plan=p), want), p

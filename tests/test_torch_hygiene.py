@@ -14,7 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted(ROOT.glob("examples/torch_*.py"))
+              + sorted(ROOT.glob("benchmarks/torch_*.py")))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -43,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.kernels, repro_torch.models.cnn, "
             "repro_torch.train.loop, repro_torch.convert, repro_torch.kernels.registry, "
             "repro_torch.kernels.sabotage, repro_torch.analysis.audit, "
-            "repro_torch.analysis.kernel_verify, repro_torch.analysis.graphs; "
+            "repro_torch.analysis.kernel_verify, repro_torch.analysis.graphs, "
+            "repro_torch.energy, repro_torch.train, repro_torch.core.quantize; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(), timeout=120)
@@ -51,7 +54,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
     from repro_torch.data import CifarIterator, cifar_like_batch
-    from repro_torch.models.cnn import CNNConfig, init_resnet
+    from repro_torch.models.cnn import CNNConfig, init_cnn
     from repro_torch.runtime import resolve_device
     from repro_torch.train import loop
 
@@ -59,7 +62,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         loop.main(["--steps", "1", "--width", "0.25", "--hw", "8", "--batch", "2"])
     with pytest.raises(RuntimeError, match="no GPU"):
-        init_resnet(CNNConfig(width_mult=0.25, in_hw=8))
+        init_cnn(CNNConfig(width_mult=0.25, in_hw=8))
     with pytest.raises(RuntimeError, match="no GPU"):
         CifarIterator(2, 8)
     with pytest.raises(RuntimeError, match="no GPU"):
@@ -72,8 +75,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
 def test_quantized_config_refusals():
     from repro_torch.core import EMFormat, QuantConfig
 
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        QuantConfig(backend="fake_quant")
+    assert QuantConfig(backend="fake_quant").backend == "fake_quant"
+    with pytest.raises(ValueError, match="backend"):
+        QuantConfig(backend="pallas")
     assert QuantConfig(conv_impl="implicit").conv_impl == "implicit"
     with pytest.raises(ValueError, match="conv_impl"):
         QuantConfig(conv_impl="winograd")

@@ -60,8 +60,9 @@ CASES = [
     (1, 7, 7, 5, 5, (1, 1), [(2, 2), (2, 2)], 25),
     (2, 4, 8, 6, 3, (2, 2), "SAME", 18),  # ResNet-20's downsampling conv
     (2, 4, 10, 6, 3, (2, 2), "VALID", 36),  # uncovered tail
+    (2, 4, 8, 6, 1, (2, 2), "SAME", 4),  # 1x1 stride 2: every other row and column uncovered
 ]
-TAIL = CASES[-1]
+TAIL = CASES[6]
 IDS = [f"c{i}" for i in range(len(CASES))]
 
 # geometries for the dispatch: (x shape, w shape, stride, padding)
@@ -337,12 +338,21 @@ def _k4_band_patches(x: torch.Tensor, geom, k_block: int) -> torch.Tensor:
     return out
 
 
+def _covered(x: torch.Tensor, geom) -> torch.Tensor:
+    """|x| (N*C, hcov, wcov) with zeros where no patch covers the pixel: a
+    row is covered iff (hh + ph) % sh < kh (``Cov`` in the kernel)."""
+    hcov, wcov, _, _ = ic._amax_tiling(geom, ic.TILE)
+    rows = x.reshape(geom.n * geom.c, geom.h, geom.w)[:, :max(hcov, 0), :max(wcov, 0)].abs()
+    hh = (torch.arange(rows.shape[1]) + geom.ph_lo) % geom.sh < geom.kh
+    ww = (torch.arange(rows.shape[2]) + geom.pw_lo) % geom.sw < geom.kw
+    return rows * (hh[:, None] & ww[None, :])
+
+
 def _k4_pass_a_max(x: torch.Tensor, geom) -> torch.Tensor:
     """conv_amax's partial maxima over the covered rows, then their max."""
     hcov, wcov, s, parts = ic._amax_tiling(geom, ic.TILE)
     rb = ic.TILE["kAmaxThreads"] // s
-    rows = x.reshape(geom.n * geom.c, geom.h, geom.w)[:, :max(hcov, 0), :max(wcov, 0)]
-    rows = rows.reshape(-1, max(wcov, 0)).abs()
+    rows = _covered(x, geom).reshape(-1, max(wcov, 0))
     turn = torch.arange(rows.shape[0]) // rb % parts
     partials = [rows[turn == b].amax() if (turn == b).any() else torch.tensor(0.0)
                 for b in range(parts)]
@@ -365,3 +375,59 @@ def test_k4_band_gather_and_pass_a_equal_im2col(case):
     s_t = _k4_pass_a_max(xt, geom)
     assert float(s_t) == float(want.abs().max())
     assert float(s_t) == float(_jax_covered_scale(jnp.asarray(x), jgeom)[0])
+
+
+def _k4_scale_passes(x: torch.Tensor, geom, k_block: int, grouping: str):
+    """``(s_t, compact s_g)`` as K4's "n" and "c" passes make them:
+    "n" (conv_win_amax) a thread per output row takes its patch's max over
+    the window clipped to the image, s_t the max of the blocks' partials;
+    "c" the covered max of each (image, channel) plane (conv_chan_amax) at
+    c * N + n, runs of cb * N per group (conv_group_reduce), then s_t and
+    the group scales (conv_chan_scales)."""
+    from repro_torch.core.quantize import quantize_group_scale
+
+    if grouping == "n":
+        m = torch.arange(geom.m0)
+        img, q = m // (geom.oh * geom.ow), m % (geom.oh * geom.ow)
+        i0, j0 = (q // geom.ow) * geom.sh - geom.ph_lo, (q % geom.ow) * geom.sw - geom.pw_lo
+        s_r = torch.zeros(geom.m0)
+        for i in range(geom.kh):
+            for j in range(geom.kw):
+                hh, ww = i0 + i, j0 + j
+                ok = (hh >= 0) & (hh < geom.h) & (ww >= 0) & (ww < geom.w)
+                v = x.abs()[img, :, hh.clamp(0, geom.h - 1), ww.clamp(0, geom.w - 1)].amax(1)
+                s_r = torch.where(ok, torch.maximum(s_r, v), s_r)
+        lanes = ic.TILE["kAmaxThreads"]
+        parts = ic._win_blocks(geom.m0, ic.TILE)
+        partials = [s_r[(m // lanes) % parts == b].amax() for b in range(parts)]
+        s_t = torch.stack(partials).amax()
+        s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
+        return s_t, quantize_group_scale(s_r / s_t, GS_FMT_DEFAULT)[0][:, None]
+    plane = _covered(x, geom).amax(dim=(1, 2))  # (N*C,) in (n, c) order
+    pm = plane.reshape(geom.n, geom.c).t().reshape(-1)  # at c * N + n
+    gmax = pm.reshape(geom.k0 // k_block, -1).amax(dim=1)
+    s_t = gmax.amax()
+    s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
+    return s_t, quantize_group_scale(gmax / s_t, GS_FMT_DEFAULT)[0][None, :]
+
+
+@pytest.mark.parametrize("grouping", ["c", "n"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_k4_c_and_n_scale_passes_equal_the_window_maxima(case, grouping):
+    """The compact scales K4's "c" and "n" passes make on the card (a
+    plane's covered max reduced by whole-channel groups; a patch's max over
+    its clipped window), emulated, equal the window maxima of the padded
+    input (``_implicit_x_scales``) and the JAX package's helper."""
+    x, _, _, _ = _inputs(7, case)
+    kb = case[-1]
+    geom, jgeom = _geoms(case)
+    xt = torch.from_numpy(x)
+    s_t, s_g = _k4_scale_passes(xt, geom, kb, grouping)
+    _, xp = ic.covered_tensor_scale(xt, geom)
+    w_t, w_g = ic._implicit_x_scales(xp, geom, GS_FMT_DEFAULT, kb, grouping)
+    js_t, js_g = _jax_x_scales(jnp.asarray(xp.numpy()), jgeom, jformats.FMT_IMAGENET,
+                               jformats.GS_FMT_DEFAULT, kb, grouping)
+    assert float(s_t) == float(w_t) == float(js_t)
+    assert torch.equal(s_g, w_g)
+    assert float(s_g.min()) > 2.0**-12  # where jnp.exp2 is exact
+    np.testing.assert_array_equal(s_g.numpy(), np.asarray(js_g))

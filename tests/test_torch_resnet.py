@@ -40,7 +40,8 @@ from repro_torch.convert import resnet_params_from_jax  # noqa: E402
 from repro_torch.core import EMFormat, QuantConfig  # noqa: E402
 from repro_torch.data.synthetic import CifarIterator, class_pattern  # noqa: E402
 from repro_torch.kernels import conv_geometry, resolve_conv_impl  # noqa: E402
-from repro_torch.models.cnn import CNNConfig, ResNet, init_resnet  # noqa: E402
+from repro_torch.models.cnn import CNNConfig, ResNet  # noqa: E402
+from repro_torch.models.cnn import init_cnn as init_port_cnn  # noqa: E402
 from repro_torch.optim.optimizers import sgdm, step_decay_schedule  # noqa: E402
 
 WIDTH, HW, BATCH, K_BLOCK = 0.25, 8, 2, 32
@@ -170,7 +171,7 @@ def test_data_and_init_are_seeded():
     assert torch.equal(a["image"], b["image"]) and torch.equal(a["label"], b["label"])
     assert a["image"].shape == (4, 3, 8, 8) and a["image"].dtype == torch.float32
     cfg = CNNConfig("resnet20", width_mult=WIDTH, in_hw=HW)
-    m1, m2 = init_resnet(cfg, 5, "cpu"), init_resnet(cfg, 5, "cpu")
+    m1, m2 = init_port_cnn(cfg, 5, "cpu"), init_port_cnn(cfg, 5, "cpu")
     for (n, p), q in zip(m1.named_parameters(), m2.parameters()):
         assert torch.equal(p, q), n
 
