@@ -63,8 +63,12 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 --kernels --gate` at full width (one step at k_block 128,
                 one at 144): it must pass, with quantized fraction >= 0.99
                 on both paths and every recorded launch spec of K1-K4
-                proven; and each of the four --sabotage modes must fail the
-                gate naming its violation (overlap_write runs K5 once).
+                proven; `--graph serve --kernels --gate` (one quantized
+                decode step of qwen2-72b's smoke config, batch 4, cache
+                128): it must pass at the closed form's fraction 0.619048
+                with its 42 launches proven; and each of the four
+                --sabotage modes must fail the gate naming its violation
+                (overlap_write runs K5 once).
   8. zoo      - VGG-16 and GoogleNet (CIFAR: 32x32, 10 classes, batch 128)
                 and ResNet-18/34 (ImageNet: 224x224, 1000 classes, batch
                 64) at full width on the quantized backend (<2,4>, k_block
@@ -84,7 +88,32 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 on the card and restored on the card and on the CPU, every
                 tensor equal; the run resumed from it takes the next step
                 with the uninterrupted run's loss.
-The line before the last is {"kernels": [...]}, the last line
+  11. serve   - the LM serving path through repro_torch.serve.ServeEngine
+                on the quantized kernels (quant_backend "pallas": K1 on
+                both operands of every linear, then K3; nearest rounding),
+                random weights, bf16 compute, batch 4 and 16 new tokens:
+                chatglm3-6b at full width and depth (6.24 G fp32
+                parameters, 128-token prompts), mamba2-370m at full width
+                and depth (320-token prompts: SSD chunk 160 by the divisor
+                rule) and zamba2-7b at full width cut to 12 layers with a
+                window of 136 (the ring buffer wraps).  Every logit finite;
+                the launches of a whole generate, and of each prefill and
+                decode step, equal the closed form (7 linears per attention
+                block, 2 per Mamba2 layer: 196 K3 / 392 K1 per step on
+                chatglm3-6b, 96 / 192 on mamba2-370m, 38 / 76 on the cut
+                zamba2-7b); prefill ms, decode ms per step (median) and
+                tokens/s, one decode step traced (device busy, idle share,
+                K1 and K3 ms), peak memory.  K1 and K3 (both plans) held
+                bit-identical to their plain versions at the serving GEMMs
+                (SERVE_GEMMS) and timed; what re-coding chatglm3-6b's
+                weights costs per step (qd_gemm's transposed copy, the
+                rounding-byte fill, K1), timed; the smoke configs of the three
+                families on the card against the CPU (logits within 1e-3 of
+                max(1, max|logit|), greedy tokens equal).
+The line before the last is {"kernels": [...]}: each kernel's `launches`
+are its count on the training path (phase train; K5's in the audit's
+overlap_write run), and `serve_launches` its count per model of the serve
+phase, each read from its own run.  The last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
 """
@@ -1051,6 +1080,362 @@ def phase_driver(results: dict) -> None:
         raise AssertionError("; ".join(bad))
 
 
+# The serve phase: the LM serving path (repro_torch.serve.ServeEngine) on
+# the quantized kernels, random weights from seed 0, bf16 compute as the
+# FULL configs say.  name: (config overrides, prompt length); every model
+# serves SERVE_BATCH prompts and SERVE_NEW new tokens (one prefill, then
+# SERVE_NEW - 1 decode steps).  mamba2-370m's prompt of 320 is not a
+# multiple of its ssm_chunk 256: the chunk is 160 by the divisor rule.
+# zamba2-7b's depth is cut from 81 to 12 layers (the shared block runs
+# twice) and its window set to 136, under 128 + 15, so that the ring
+# buffer wraps during decode.
+SERVE_BATCH, SERVE_NEW = 4, 16
+SERVE_MODELS = {
+    "chatglm3-6b": ({}, 128),
+    "mamba2-370m": ({}, 320),
+    "zamba2-7b": ({"n_layers": 12, "window": 136}, 128),
+}
+SERVE_CUTS = {"zamba2-7b": "n_layers 81 -> 12 (2 shared-block applications), window 136"}
+
+
+def serve_linears(cfg) -> int:
+    """Quantized linears per serving step (prefill or decode): 7 per
+    attention block (wq, wk, wv, wo, w_up, w_gate, w_down), 2 per Mamba2
+    layer (in_proj, out_proj); each launches K1 twice and K3 once."""
+    if cfg.family == "dense":
+        return 7 * cfg.n_layers
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers
+    return 2 * cfg.n_layers + 7 * (cfg.n_layers // cfg.attn_every)
+
+
+def traced_decode(engine, cache, tok) -> dict:
+    """One decode step under torch.profiler: device busy (the sum of kernel
+    times), K1's and K3's kernel time, and the device's idle share of the
+    host-clock step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, _ = engine.decode(cache, tok)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values())
+    if device_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    of = lambda entry: sum(v for k, v in by_name.items()  # noqa: E731
+                           if any(n in k for n in DEVICE_KERNELS[entry]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(host_ms_under_profiler=host_ms, device_ms=device_ms,
+                k1_ms=of("mls_quantize_rows"), k3_ms=of("mls_matmul"),
+                device_idle_share=1.0 - device_ms / host_ms,
+                top_kernels_ms=[(k[:80], v) for k, v in top],
+                finite=bool(torch.isfinite(logits).all()))
+
+
+def serve_model(name: str, smi: str) -> dict:
+    """Serve one of SERVE_MODELS at full width through ServeEngine: the
+    launches of a whole ``generate`` (counts set to 0 just before, read just
+    after), then a prefill and SERVE_NEW - 1 decode steps timed one by one
+    (host clock after a device sync) with each step's launches, and one
+    decode step traced."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve import ServeEngine
+
+    over, prompt_len = SERVE_MODELS[name]
+    cfg = dataclasses.replace(get_config(name), quant_backend="pallas", **over)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(cfg, init_lm(cfg, seed=0, device="cuda"),
+                         max_len=prompt_len + SERVE_NEW, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = {"tokens": torch.randint(0, cfg.vocab, (SERVE_BATCH, prompt_len), generator=gen,
+                                       device="cuda")}
+    n = serve_linears(cfg)
+    want = {"mls_quantize_rows": 2 * n, "mls_matmul": n}
+
+    reset_launch_counts()
+    tokens = engine.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    bad = []
+    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_NEW) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        bad.append(f"generate gave {tuple(tokens.shape)} tokens out of range")
+    if {k: launched[k] for k in want} != {k: v * SERVE_NEW for k, v in want.items()}:
+        bad.append(f"generate launched {launched}, expected {want} x {SERVE_NEW} steps")
+
+    steps_ms, per_step, finite = [], [], True
+    with torch.inference_mode():
+        for i in range(SERVE_NEW):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                logits, cache = engine.prefill(prompts)
+            else:
+                logits, cache = engine.decode(cache, tok)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: launch_counts()[k] - before[k] for k in want})
+            finite &= bool(torch.isfinite(logits).all())
+        same_tokens = torch.equal(tokens[:, -1:], tok)
+    trace = traced_decode(engine, cache, tok)
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = statistics.median(steps_ms[1:])
+    r = dict(config={k: getattr(cfg, k) for k in ("n_layers", "d_model", "n_heads",
+                                                   "n_kv_heads", "d_ff", "vocab",
+                                                   "compute_dtype", "window")},
+             cut=SERVE_CUTS.get(name), params=sum(p.numel() for p in engine.model.parameters()),
+             batch=SERVE_BATCH, prompt_len=prompt_len, new_tokens=SERVE_NEW,
+             prefill_ms=steps_ms[0], decode_ms=steps_ms[1:], decode_ms_median=decode_ms,
+             tokens_per_s=SERVE_BATCH * 1e3 / decode_ms, launches_generate=launched,
+             launches_per_step=per_step, expected_per_step=want, trace=trace,
+             peak_memory_bytes=peak, finite=finite and trace["finite"],
+             generate_equals_stepwise=same_tokens, nvidia_smi=smi)
+    print(f"serve {name} ({smi}): {r['params'] / 1e9:.3f} G params, prefill "
+          f"{r['prefill_ms']:.2f} ms, decode {decode_ms:.2f} ms/step median "
+          f"({r['tokens_per_s']:.1f} tokens/s), device busy {trace['device_ms']:.2f} ms of "
+          f"{trace['host_ms_under_profiler']:.2f} (idle {trace['device_idle_share']:.3f}), K1 "
+          f"{trace['k1_ms']:.2f} ms, K3 {trace['k3_ms']:.2f} ms per decode step, peak "
+          f"{peak / 2**30:.2f} GiB, launches per step {per_step[0]}"
+          + (f"; cut: {r['cut']}" if r["cut"] else ""))
+    if not r["finite"]:
+        bad.append("a non-finite logit")
+    if any(p != want for p in per_step):
+        bad.append(f"launches per step {per_step}, expected {want}")
+    if not same_tokens:
+        bad.append("generate's last tokens differ from the stepwise run's")
+    del engine, cache, logits
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"{name}: " + "; ".join(bad))
+    return r
+
+
+# K1 and K3 at the serving path's GEMMs, (M, K, N): the linear's input x
+# (M, K), its weight quantized transposed (N, K), and the GEMM
+SERVE_GEMMS = {
+    "chatglm3 decode wq/wo": (4, 4096, 4096),
+    "chatglm3 decode wk/wv": (4, 4096, 256),
+    "chatglm3 decode qkv 4608": (4, 4096, 4608),
+    "chatglm3 decode w_up/w_gate": (4, 4096, 13696),
+    "chatglm3 decode w_down": (4, 13696, 4096),
+    "chatglm3 prefill w_up": (512, 4096, 13696),
+    "mamba2 prefill in_proj": (512, 1024, 4384),
+    "mamba2 decode in_proj": (4, 1024, 4384),
+    "mamba2 decode out_proj": (4, 2048, 1024),
+    "zamba2 decode in_proj": (4, 3584, 14576),
+    "zamba2 decode out_proj": (4, 7168, 3584),
+}
+
+
+def serve_kernel_checks(timed: dict) -> list[dict]:
+    """K1 ("nc", <2,4>, nearest rounding: the serving path's) on both
+    operands of each SERVE_GEMMS GEMM against quantize_ref, and K3 on those
+    codes against mls_matmul_ref on the plan matmul_plan picks and on the
+    other variant; all timed (the plain versions on 3 calls)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import mls_matmul, mls_quantize, rounding_bytes
+    from repro_torch.kernels.mls_matmul import matmul_plan, sg_shapes
+    from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
+
+    fmt, kb = FMT_IMAGENET, K_BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    checks = []
+    for sname, (M, K, N) in SERVE_GEMMS.items():
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        wt = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+        operands = {"x": x, "w^T": wt}
+        coded = {}
+        for oname, t in operands.items():
+            r = rounding_bytes(t.shape, None, t.device)
+            got = mls_quantize(t, fmt, kb, GS_FMT_DEFAULT, r, "nc")
+            want = quantize_ref(t, fmt, kb, GS_FMT_DEFAULT, r, "nc")
+            torch.cuda.synchronize()
+            err = max(max_abs_err(a, b) for a, b in zip(got, want))
+            checks.append(dict(kernel="mls_quantize_rows", shape=f"serve {sname} {oname}",
+                               operand=tuple(t.shape), identical=all(
+                                   torch.equal(a, b) for a, b in zip(got, want)),
+                               max_abs_err=err))
+            run = lambda t=t, r=r: mls_quantize(t, fmt, kb, GS_FMT_DEFAULT, r, "nc")  # noqa: E731
+            timed[("mls_quantize_rows", sname, oname)] = dict(
+                ms=cuda_ms(run), kernel_ms=kernel_ms(run, DEVICE_KERNELS["mls_quantize_rows"]),
+                plain_ms=cuda_ms(lambda t=t, r=r: quantize_ref(t, fmt, kb, GS_FMT_DEFAULT, r,
+                                                               "nc"), iters=3, warmup=1),
+                # x read, codes and scales written: nearest rounding needs no
+                # rounding byte, though the wrapper reads a constant one
+                bytes=t.numel() * 5 + got[1].numel() * 4 + 4, ops=0, max_abs_err=err,
+                shape=f"serve {sname} {oname} {tuple(t.shape)}")
+            coded[oname] = got
+        (xc, xsg, xst), (wc, wsg, wst) = coded["x"], coded["w^T"]
+        args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, kb)
+        want = mls_matmul_ref(*args)
+        plan = matmul_plan(M, N, K, kb, fmt)
+        plans = [plan, dataclasses.replace(plan, variant="walk" if plan.variant == "split"
+                                           else "split")]
+        for p in plans:
+            got = mls_matmul(*args, "nc", plan=p)
+            torch.cuda.synchronize()
+            checks.append(dict(kernel="mls_matmul", shape=f"serve {sname}", mkn=(M, K, N),
+                               plan=dataclasses.asdict(p), chosen=p == plan,
+                               identical=torch.equal(got, want),
+                               max_abs_err=max_abs_err(got, want),
+                               finite=bool(torch.isfinite(got).all())))
+        xs_shape, ws_shape = sg_shapes("nc", M, N, K // kb)
+        run = lambda p: lambda: mls_matmul(*args, "nc", plan=p)  # noqa: E731
+        timed[("mls_matmul", sname)] = dict(
+            ms=cuda_ms(run(plan)), kernel_ms=kernel_ms(run(plan), DEVICE_KERNELS["mls_matmul"]),
+            other_plan=plans[1].variant, other_ms=cuda_ms(run(plans[1])),
+            other_kernel_ms=kernel_ms(run(plans[1]), DEVICE_KERNELS["mls_matmul"]),
+            plain_ms=cuda_ms(lambda: mls_matmul_ref(*args), iters=3, warmup=1),
+            bytes=M * K + K * N + 4 * (math.prod(xs_shape) + math.prod(ws_shape))
+            + 4 * M * N + 8, ops=2 * M * N * K, max_abs_err=checks[-2]["max_abs_err"],
+            plan=dataclasses.asdict(plan), shape=f"serve {sname} ({M}x{K}x{N}) {plan.variant}")
+        del x, wt, coded, args, want, got
+        torch.cuda.empty_cache()
+    return checks
+
+
+def weight_requant_ms() -> dict:
+    """What re-coding chatglm3-6b's weights costs per serving step, as
+    qd_gemm does it on every call: for each of one layer's 7 weights (K, N)
+    its transposed fp32 copy (``F.pad(w.float().t(), (0, pk)).contiguous()``,
+    pk = 0 here), the nearest-rounding byte fill and K1 on the (N, K) copy,
+    each timed by CUDA events; per layer and times the 28 layers."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import mls_quantize, rounding_bytes
+
+    cfg = dataclasses.replace(get_config("chatglm3-6b"), quant_backend="pallas")
+    d, kv, f = cfg.d_model, cfg.n_kv_heads * cfg.hd, cfg.d_ff
+    shapes = [(d, cfg.n_heads * cfg.hd), (d, kv), (d, kv), (cfg.n_heads * cfg.hd, d), (d, f),
+              (d, f), (f, d)]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    layer = dict(copy_ms=0.0, fill_ms=0.0, k1_ms=0.0, elements=0)
+    for K, N in shapes:
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+        wt = F.pad(w.float().t(), (0, (-K) % K_BLOCK)).contiguous()
+        r = rounding_bytes(wt.shape, None, wt.device)
+        layer["copy_ms"] += cuda_ms(lambda: F.pad(w.float().t(), (0, (-K) % K_BLOCK)).contiguous())
+        layer["fill_ms"] += cuda_ms(lambda: rounding_bytes(wt.shape, None, wt.device))
+        layer["k1_ms"] += cuda_ms(lambda: mls_quantize(wt, FMT_IMAGENET, K_BLOCK, GS_FMT_DEFAULT,
+                                                       r, "nc"))
+        layer["elements"] += K * N
+        del w, wt, r
+    torch.cuda.empty_cache()
+    return dict(per_layer=layer, layers=cfg.n_layers,
+                per_step={k: v * cfg.n_layers for k, v in layer.items()})
+
+
+def serve_card_vs_cpu() -> dict:
+    """A smoke config of each family (fp32, quantized kernels) with the same
+    weights on the CPU (plain versions) and on the card: prefill and 8
+    decode logits, and the greedy tokens."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for name in SERVE_MODELS:
+        cfg = dataclasses.replace(get_smoke_config(name), quant_backend="pallas")
+        cpu = init_lm(cfg, seed=3, device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        toks = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(4))
+        logits, tokens = {}, {}
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            engine = ServeEngine(cfg, model, max_len=32, device=dev)
+            reset_launch_counts()
+            with torch.inference_mode():
+                lg, cache = engine.prefill({"tokens": toks[:, :4]})
+                steps = [lg]
+                for i in range(4, 12):
+                    lg, cache = engine.decode(cache, toks[:, i:i + 1].to(dev))
+                    steps.append(lg)
+            launched = launch_counts()
+            logits[dev] = torch.stack(steps).cpu()
+            tokens[dev] = engine.generate({"tokens": toks[:, :4]}, 8).cpu()
+        err = max_abs_err(logits["cuda"], logits["cpu"])
+        scale = max(1.0, float(logits["cpu"].abs().max()))
+        out[name] = dict(logits_max_abs=err, tolerance=SERVE_AGREE_TOL * scale,
+                         tokens_equal=torch.equal(tokens["cuda"], tokens["cpu"]),
+                         card_launches={k: launched[k] for k in ("mls_quantize_rows",
+                                                                 "mls_matmul")})
+        out[name]["agree"] = (err <= SERVE_AGREE_TOL * scale and out[name]["tokens_equal"]
+                              and launched["mls_matmul"] > 0)
+    return out
+
+
+# card against CPU on the smoke configs: the quantized linears are
+# bit-exact, but the norms, attention and SSD sums reduce in other orders
+# on the card, and one ulp before a quantizer can move an element to the
+# neighbouring code (the CPU cross-tests against the JAX package hold the
+# same logits to this bound)
+SERVE_AGREE_TOL = 1e-3
+
+
+def phase_serve(results: dict) -> dict[str, dict[str, int]]:
+    """The LM serving path: SERVE_MODELS at full width on the card, K1 and
+    K3 at the serving GEMMs, and card against CPU on the smoke configs.
+    Returns each model's launches of its whole ``generate`` by kernel (the
+    counts set to 0 just before that run and read just after it)."""
+    smi = results["nvidia_smi"]
+    served = {name: serve_model(name, smi) for name in SERVE_MODELS}
+    timed: dict = {}
+    checks = serve_kernel_checks(timed)
+    rows = []
+    for (kernel, *_), t in timed.items():
+        bound_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        bound_ops = t["ops"] / INT8_OPS_PER_S * 1e3
+        rows.append(dict(name=kernel, bound_ms=max(bound_bytes, bound_ops),
+                         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                         **{k: v for k, v in t.items() if k not in ("bytes", "ops")}))
+        print(json.dumps({"serve_timing": rows[-1], "nvidia_smi": smi}))
+    requant = weight_requant_ms()
+    print(json.dumps({"serve_weight_requant_chatglm3": requant, "nvidia_smi": smi}))
+    agree = serve_card_vs_cpu()
+    print(json.dumps({"serve_agree": agree}))
+    results["serve"] = dict(models=served, kernel_checks=checks, kernel_times=rows,
+                            weight_requant=requant, agree=agree)
+    bad = [c for c in checks if not c["identical"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} serving-shape kernel results differ from their plain "
+                             f"versions: {bad[:3]}")
+    if not all(a["agree"] for a in agree.values()):
+        raise AssertionError(f"card and CPU disagree on the smoke configs: {agree}")
+    return {name: r["launches_generate"] for name, r in served.items()}
+
+
 def _tensors(tree) -> list:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -1168,6 +1553,22 @@ def phase_audit(results: dict) -> tuple[dict, int]:
                              for c in stage1):
         bad.append(f"stage-1 weight gradient term phase not recorded as a proven grid of >= 132 "
                    f"programs: {stage1}")
+    # the serve graph: one quantized decode step of qwen2-72b's smoke config
+    # (batch 4, cache 128); its fraction is the closed form of
+    # tests/test_torch_analysis.py
+    path = out_dir / "AUDIT_torch_serve.json"
+    rc = audit.main(["--graph", "serve", "--kernels", "--gate", "--out", str(path)])
+    serve = json.loads(path.read_text())
+    entry = serve["graphs"]["serve:qwen2-72b"]
+    summary["serve_graph"] = dict(rc=rc, gate_pass=serve["gate"]["pass"],
+                                  quantized_fraction=entry["coverage"]["quantized_fraction"],
+                                  launches=entry["launches"],
+                                  kernels_ok=serve["kernels"]["kernels"]["serve:qwen2-72b"]["ok"])
+    print(json.dumps({"audit_serve": summary["serve_graph"]}))
+    if (rc != 0 or not serve["gate"]["pass"] or not summary["serve_graph"]["kernels_ok"]
+            or summary["serve_graph"]["quantized_fraction"] != 0.619048
+            or entry["launches"] != 42):
+        bad.append(f"serve audit: {summary['serve_graph']}, {serve['gate']['failures']}")
     sabotage = {}
     k5_launches = 0
     for mode, graph, named in (
@@ -1243,11 +1644,12 @@ def main() -> int:
         traceback.print_exc()
         fail("kernel build failed")
 
-    rows, launches = [], {}
+    rows, launches, serve_launches = [], {}, {}
     for name, phase in (("kernels", phase_kernels), ("train", phase_train),
                         ("trace", phase_trace), ("agree", phase_agree),
                         ("audit", phase_audit), ("zoo", phase_zoo),
-                        ("fake_quant", phase_fakequant), ("driver", phase_driver)):
+                        ("fake_quant", phase_fakequant), ("driver", phase_driver),
+                        ("serve", phase_serve)):
         t = time.perf_counter()
         try:
             out = phase(results)
@@ -1258,6 +1660,8 @@ def main() -> int:
             elif name == "audit":
                 rows.append(out[0])
                 launches["sabotage_overlap"] = out[1]
+            elif name == "serve":
+                serve_launches = out
         except Exception:
             traceback.print_exc()
             failures.append(name)
@@ -1277,7 +1681,10 @@ def main() -> int:
             continue
         source, replaces = KERNELS[r["name"]]
         kernels.append(dict(name=r["name"], route="cuda", source=source, replaces=replaces,
-                            launches=launches.get(r["name"], 0), max_abs_err=r["max_abs_err"],
+                            launches=launches.get(r["name"], 0),
+                            serve_launches={m: n.get(r["name"], 0)
+                                            for m, n in serve_launches.items()},
+                            max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None, shape=r["shape"],
                             **{k: r[k] for k in ("im2col_ms", "kernel_ms") if k in r}))

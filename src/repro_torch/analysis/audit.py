@@ -1,19 +1,25 @@
 """Quantization-coverage audit and kernel verifier of the port.
 
-Runs one ResNet-20 training step at the paper's ``k_block`` 128 (every conv
-on im2col) and one at 144 (the 3x3 convs' forward on the implicit-GEMM
-kernel), classifies every MAC as quantized-domain, full-precision or data
-movement, lints each ``QuantConfig`` and the trainer's presets, and writes
-``AUDIT_torch_report.json``.  With ``--gate`` the report is checked against
-``analysis/baselines/gate.json`` and the process exits non-zero on any
-regression.  It runs on the card unless ``--device cpu`` is given (then the
+``--graph train`` runs one ResNet-20 training step at the paper's
+``k_block`` 128 (every conv on im2col) and one at 144 (the 3x3 convs'
+forward on the implicit-GEMM kernel); ``--graph serve`` one decode step of
+the qwen2-72b smoke config on the quantized kernels (batch 4, a filled
+cache of 128); ``all`` both.  It classifies every MAC as quantized-domain,
+full-precision or data movement, lints each ``QuantConfig`` and the
+shipped presets, and writes ``AUDIT_torch_report.json``.  With ``--gate``
+the report is checked against ``analysis/baselines/gate.json`` and the
+process exits non-zero on any regression.  The serve step's gate (0.61)
+is lower than the JAX package's (0.95): the JAX audit counts a Pallas
+GEMM's MACs over its zero-padded 128 x 128 tiles (a decode step's 4 rows
+as 128), the port counts what each launch computes, and at smoke width
+the step's fp32 LM head and attention are large beside its linears.  It runs on the card unless ``--device cpu`` is given (then the
 kernels' plain versions run; use a small ``--width/--hw/--batch``).
 
-    PYTHONPATH=src python -m repro_torch.analysis.audit --graph train --kernels --gate
+    PYTHONPATH=src python -m repro_torch.analysis.audit --graph all --kernels --gate
 
 ``--kernels`` adds the static kernel verifier
-(:mod:`repro_torch.analysis.kernel_verify`): every launch the training
-steps recorded and every ``KERNEL_REGISTRY`` entry is proven for grid
+(:mod:`repro_torch.analysis.kernel_verify`): every launch the graphs
+recorded and every ``KERNEL_REGISTRY`` entry is proven for grid
 coverage and ``< 2^24`` integer accumulation, gated against
 ``analysis/baselines/kernels.json``.
 
@@ -39,7 +45,7 @@ TRAIN_K_BLOCKS = (128, 144)  # the paper's im2col path and the implicit path
 def build_report(graphs: tuple = ("train",), sabotage: str | None = None,
                  kernels: bool = False, device: str = "cuda", width: float = 1.0,
                  hw: int = 32, batch: int = 128) -> dict:
-    from repro_torch.analysis.graphs import cifar_train_graph
+    from repro_torch.analysis.graphs import cifar_train_graph, serve_decode_graph
     from repro_torch.analysis.kernel_verify import SABOTAGE_MODES, run_kernel_audit
     from repro_torch.analysis.lint import lint_quant_config, lint_shipped_presets
     from repro_torch.kernels import recorded_specs
@@ -48,15 +54,19 @@ def build_report(graphs: tuple = ("train",), sabotage: str | None = None,
     dev = resolve_device(device)
     report: dict = {"version": 1, "device": str(dev), "graphs": {}}
     recorded = {}
+    built = []
     if "train" in graphs:
-        for k_block in TRAIN_K_BLOCKS:
-            g = cifar_train_graph(k_block, width, hw, batch, dev,
-                                  sabotage=sabotage == "fp32_gemm")
-            cov, records = g.run()
-            report["graphs"][g.name] = {**g.meta, "coverage": cov.to_json(),
-                                        "launches": sum(records.values()),
-                                        "lint": lint_quant_config(g.qcfg).to_json()}
-            recorded[g.name] = recorded_specs(records)
+        built += [cifar_train_graph(k_block, width, hw, batch, dev,
+                                    sabotage=sabotage == "fp32_gemm")
+                  for k_block in TRAIN_K_BLOCKS]
+    if "serve" in graphs:
+        built.append(serve_decode_graph(device=dev))
+    for g in built:
+        cov, records = g.run()
+        report["graphs"][g.name] = {**g.meta, "coverage": cov.to_json(),
+                                    "launches": sum(records.values()),
+                                    "lint": lint_quant_config(g.qcfg).to_json()}
+        recorded[g.name] = recorded_specs(records)
     report["presets"] = {name: res.to_json() for name, res in lint_shipped_presets().items()}
     if kernels:
         report["kernels"] = run_kernel_audit(
@@ -115,7 +125,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.analysis.audit",
                                  description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--graph", choices=["train", "none"], default="train")
+    ap.add_argument("--graph", choices=["train", "serve", "all", "none"], default="train")
     ap.add_argument("--kernels", action="store_true",
                     help="run the static kernel verifier over the recorded launches and "
                          "KERNEL_REGISTRY")
@@ -125,15 +135,16 @@ def main(argv=None) -> int:
     ap.add_argument("--gate", action="store_true",
                     help="check against the baselines; exit 1 on regression")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--width", type=float, default=1.0)
-    ap.add_argument("--hw", type=int, default=32)
-    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--width", type=float, default=1.0, help="train graph only")
+    ap.add_argument("--hw", type=int, default=32, help="train graph only")
+    ap.add_argument("--batch", type=int, default=128, help="train graph only")
     ap.add_argument("--out", default="AUDIT_torch_report.json")
     ap.add_argument("--baseline", default=str(_BASELINE))
     ap.add_argument("--kernels-baseline", default=str(_KERNELS_BASELINE))
     args = ap.parse_args(argv)
 
-    report = build_report(graphs=() if args.graph == "none" else (args.graph,),
+    graphs = {"all": ("train", "serve"), "none": ()}.get(args.graph, (args.graph,))
+    report = build_report(graphs=graphs,
                           sabotage=args.sabotage, kernels=args.kernels, device=args.device,
                           width=args.width, hw=args.hw, batch=args.batch)
     baseline = json.loads(pathlib.Path(args.baseline).read_text())

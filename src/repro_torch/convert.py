@@ -3,7 +3,10 @@
 A JAX CNN of the zoo is a nested dict/list of arrays; the port's models
 name each parameter by its path in that tree (``blocks.3.conv1.w``,
 ``convs.3.conv.w``, ``inception.4.b5.conv.w``), with the same layouts
-(OIHW convs, (d_in, d_out) classifier).  Takes numpy arrays, e.g.
+(OIHW convs, (d_in, d_out) classifier).  A JAX LM stacks its layers on a
+leading axis for its layer scan; :func:`lm_params_from_jax` unstacks them
+into the port's per-layer names (``layers.3.attn.wq.w``,
+``shared_attn.mlp.w_up.w``).  Takes numpy arrays, e.g.
 ``jax.tree.map(np.asarray, init_cnn(key, cfg))``, so this module needs no
 JAX.
 """
@@ -14,7 +17,7 @@ from collections.abc import Mapping, Sequence
 import numpy as np
 import torch
 
-__all__ = ["cnn_params_from_jax", "resnet_params_from_jax"]
+__all__ = ["cnn_params_from_jax", "lm_params_from_jax", "resnet_params_from_jax"]
 
 
 def _flatten(tree, prefix: str, out: dict[str, np.ndarray]) -> None:
@@ -37,3 +40,24 @@ def cnn_params_from_jax(tree) -> dict[str, torch.Tensor]:
 
 
 resnet_params_from_jax = cnn_params_from_jax  # the name of the ResNet-20 slice
+
+
+def lm_params_from_jax(tree, cfg) -> dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for a JAX LM pytree of numpy arrays
+    (``models.lm.init_lm``'s layout): every leaf under ``layers`` carries a
+    leading axis of ``cfg.n_layers`` and becomes one tensor per layer."""
+    flat: dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    out = {}
+    for name, v in flat.items():
+        v = np.array(v, dtype=np.float32)
+        if not name.startswith("layers."):
+            out[name] = torch.from_numpy(v)
+            continue
+        if v.shape[0] != cfg.n_layers:
+            raise ValueError(f"{name}: leading axis {v.shape[0]}, expected the "
+                             f"{cfg.n_layers} stacked layers of {cfg.name}")
+        rest = name[len("layers."):]
+        for i in range(cfg.n_layers):
+            out[f"layers.{i}.{rest}"] = torch.from_numpy(v[i].copy())
+    return out

@@ -1,0 +1,277 @@
+"""The LM families of the port and their serving path: init, full-sequence
+logits, prefill and decode over KV and SSM caches.
+
+The port of the JAX package's ``models/lm.py`` for three of its five
+families:
+
+* ``dense``  — GQA transformer (yi-34b, chatglm3, qwen2, glm4, pixtral's
+               backbone);
+* ``ssm``    — Mamba2 / SSD stack (mamba2-370m);
+* ``hybrid`` — Mamba2 backbone with ONE shared attention+MLP block applied
+               after every full segment of ``attn_every`` layers (zamba2-7b).
+
+``moe`` and ``encdec`` raise ``NotImplementedError`` (ROADMAP queue 1, the
+next LM slice), and the training loss (``lm_loss``) is not ported yet.
+The JAX package scans stacked layer pytrees; the port holds the layers in
+an ``nn.ModuleList`` (named ``layers.<i>.…``;
+:func:`repro_torch.convert.lm_params_from_jax` unstacks a JAX tree).  The
+JAX package's sharding annotations (``parallel.shard``) are the identity
+on one device and have no counterpart.  Serving rounds to nearest (no
+stochastic-rounding key), and with ``quant_backend="pallas"`` every
+quantized linear runs K1 on both operands and K3
+(:func:`repro_torch.kernels.lowbit_matmul_qd`).
+
+A cache is a dict of tensors plus ``"pos"`` (a Python int, the next
+position).  :func:`decode_step` writes the KV caches in place (the JAX
+engine donates them) and returns a new dict with the new SSM states.  As
+in the JAX package, :func:`cache_spec` lists the compute dtype for the
+conv state, which only the zero state of a fresh cache keeps: prefill and
+decode return the fp32 rows of the projection, as JAX's layer scan does.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.core import QuantConfig, fold_in
+from repro_torch.runtime import resolve_device
+
+from . import nn as L
+from .mamba2 import Mamba2Block
+from .transformer import Block, norm_init
+
+__all__ = ["LM", "cache_spec", "decode_step", "embed", "init_cache", "init_lm", "logits_fn",
+           "prefill", "serve_qcfg"]
+
+FAMILIES = ("dense", "ssm", "hybrid")
+
+
+class LM(nn.Module):
+    """Parameters of one LM: ``emb`` (vocab, d), ``final_norm``, ``lm_head``
+    (vocab, d; absent when tied), ``frontend_proj`` (with a frontend),
+    ``layers`` and, for ``hybrid``, the ``shared_attn`` block."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(
+                f"the {cfg.family!r} family is not ported yet (ROADMAP queue 1, the next LM "
+                f"slice); the port serves {FAMILIES}")
+        self.cfg = cfg
+        d = cfg.d_model
+        self.emb = nn.Parameter(torch.empty(cfg.vocab, d))
+        self.final_norm = norm_init(cfg)
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(torch.empty(cfg.vocab, d))
+        self.frontend_proj = (L.Linear(cfg.frontend_dim, d, bias=True)
+                              if cfg.frontend != "none" else None)
+        layer = Block if cfg.family == "dense" else Mamba2Block
+        self.layers = nn.ModuleList(layer(cfg) for _ in range(cfg.n_layers))
+        self.shared_attn = Block(cfg) if cfg.family == "hybrid" else None
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        """The JAX package's ``init_lm`` distributions (not its stream)."""
+        self.emb.copy_(L.trunc_normal(self.emb.shape, 0.02, generator, self.emb.device))
+        if self.lm_head is not None:
+            self.lm_head.copy_(L.trunc_normal(self.lm_head.shape, 0.02, generator,
+                                              self.lm_head.device))
+        if self.frontend_proj is not None:
+            self.frontend_proj.init_(generator)
+        for layer in self.layers:
+            layer.init_(generator)
+        if self.shared_attn is not None:
+            self.shared_attn.init_(generator)
+
+    def forward(self, batch: dict, window: int | None = None) -> torch.Tensor:
+        """Teacher-forced logits of every position, fp32 (B, S, vocab), on
+        the config's quantization with nearest rounding; ``window`` bounds
+        the attention (the hybrid's ring buffer in a full-sequence pass)."""
+        cfg, qcfg = self.cfg, serve_qcfg(self.cfg)
+        x = embed(self, batch)
+        if cfg.family == "dense":
+            x = _dense(self, x, qcfg, None, window=window)
+        elif cfg.family == "ssm":
+            x, _ = _ssm(self, x, qcfg, None)
+        else:
+            x, _ = _hybrid(self, x, qcfg, None, window=window)
+        return logits_fn(self, self.final_norm(x))
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda") -> LM:
+    """A model of ``cfg`` with fp32 random weights from ``seed``, made on
+    ``device`` (CUDA unless the caller asks for the CPU) by a generator
+    there: one seed gives other weights on the card than on the CPU; move
+    a model with ``.to`` to compare the two."""
+    device = resolve_device(device)
+    with torch.device(device):
+        model = LM(cfg)
+    model.init_(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+# ===========================================================================
+# embedding / head
+# ===========================================================================
+def embed(model: LM, batch: dict) -> torch.Tensor:
+    """Token embeddings in the compute dtype; with a frontend, its
+    projected embeddings (unquantized: the first layer) replace the first
+    positions."""
+    cfg = model.cfg
+    cdt = torch_dtype(cfg.compute_dtype)
+    x = model.emb[batch["tokens"]].to(cdt)
+    if cfg.frontend != "none" and "frontend_emb" in batch:
+        fe = model.frontend_proj(batch["frontend_emb"].to(cdt))
+        f = fe.shape[1]
+        x = torch.cat([fe.to(cdt), x[:, f:]], dim=1)
+    return x
+
+
+def logits_fn(model: LM, x: torch.Tensor) -> torch.Tensor:
+    """``x @ head.T`` -> fp32, unquantized (the last layer, paper Sec.
+    VI-A): the head rounded to ``x``'s dtype, the products summed in fp32
+    (the JAX package's ``preferred_element_type=float32``)."""
+    head = model.emb if model.cfg.tie_embeddings else model.lm_head
+    return x.float() @ head.to(x.dtype).float().t()
+
+
+# ===========================================================================
+# family bodies
+# ===========================================================================
+def _dense(model: LM, x, qcfg, key, *, caches=None, cache_pos: int = 0, window=None):
+    """The dense stack, threading the stacked KV caches ``(k, v)`` (L, B,
+    M, KV, hd) when given (written in place)."""
+    for i, layer in enumerate(model.layers):
+        cache = (caches[0][i], caches[1][i]) if caches is not None else None
+        x = layer(x, qcfg, fold_in(key, i), cache=cache, cache_pos=cache_pos, window=window)
+    return x
+
+
+def _ssm(model: LM, x, qcfg, key, *, states=None):
+    """The Mamba2 stack; with ``states`` (conv (L, B, K-1, C), ssm (L, B, H,
+    P, N)) returns the new ones."""
+    conv, ssm = [], []
+    for i, layer in enumerate(model.layers):
+        st = (states[0][i], states[1][i]) if states is not None else None
+        x, ns = layer(x, qcfg, fold_in(key, i), st)
+        if states is not None:
+            conv.append(ns[0])
+            ssm.append(ns[1])
+    return x, ((torch.stack(conv), torch.stack(ssm)) if states is not None else None)
+
+
+def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos: int = 0,
+            kv_valid=None, positions=None, window=None):
+    """Zamba2: Mamba2 segments of ``attn_every`` layers, the shared block
+    after every full segment (instance ``si`` uses KV cache ``si``), then the
+    tail of ``n_layers % attn_every`` layers.  KV caches are written in
+    place; with ``states``, returns the new SSM states."""
+    cfg = model.cfg
+    e, n = cfg.attn_every, cfg.n_layers
+    conv, ssm = [], []
+    for i, layer in enumerate(model.layers):
+        st = (states[0][i], states[1][i]) if states is not None else None
+        x, ns = layer(x, qcfg, fold_in(key, i), st)
+        if states is not None:
+            conv.append(ns[0])
+            ssm.append(ns[1])
+        si, last = divmod(i + 1, e)
+        if last == 0 and i < (n // e) * e:  # the end of full segment si - 1
+            si -= 1
+            cache = ((attn_caches[0][si], attn_caches[1][si])
+                     if attn_caches is not None else None)
+            x = model.shared_attn(x, qcfg, fold_in(key, 10_000 + si), cache=cache,
+                                  cache_pos=cache_pos, kv_valid=kv_valid, positions=positions,
+                                  window=window)
+    return x, ((torch.stack(conv), torch.stack(ssm)) if states is not None else None)
+
+
+# ===========================================================================
+# caches / serving
+# ===========================================================================
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict[str, tuple]:
+    """``{name: (shape, dtype)}`` of the decode cache's tensors."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"no cache for the {cfg.family!r} family yet (ROADMAP "
+                                  f"queue 1)")
+    dt = torch_dtype(cfg.compute_dtype)
+    hd, kv, n = cfg.hd, cfg.n_kv_heads, cfg.n_layers
+    if cfg.family == "dense":
+        return {"k": ((n, batch, max_len, kv, hd), dt), "v": ((n, batch, max_len, kv, hd), dt)}
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    spec = {"conv": ((n, batch, cfg.ssm_conv - 1, conv_dim), dt),
+            "ssm": ((n, batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state), torch.float32)}
+    if cfg.family == "hybrid":
+        alen = min(max_len, cfg.window) if cfg.window else max_len
+        shape = (n // cfg.attn_every, batch, alen, kv, hd)
+        spec.update(ak=(shape, dt), av=(shape, dt))
+    return spec
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: str | torch.device = "cuda") -> dict:
+    """A zero cache at position 0 on ``device``."""
+    cache: dict = {name: torch.zeros(shape, dtype=dt, device=device)
+                   for name, (shape, dt) in cache_spec(cfg, batch, max_len).items()}
+    cache["pos"] = 0
+    return cache
+
+
+def serve_qcfg(cfg: ModelConfig) -> QuantConfig | None:
+    """The quantized linears' config at inference: ``cfg.qcfg()`` with
+    nearest rounding (no stochastic rounding)."""
+    qcfg = cfg.qcfg()
+    return None if qcfg is None else dataclasses.replace(qcfg, stochastic=False)
+
+
+@torch.no_grad()
+def prefill(model: LM, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
+    """Run the whole prompt ``batch["tokens"]`` (B, S), filling a new cache
+    of ``max_len`` positions; returns ``(logits of the last position fp32
+    (B, vocab), cache)``."""
+    cfg, qcfg = model.cfg, serve_qcfg(model.cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len, tokens.device)
+    x = embed(model, batch)
+    if cfg.family == "dense":
+        x = _dense(model, x, qcfg, None, caches=(cache["k"], cache["v"]))
+    elif cfg.family == "ssm":
+        x, (cache["conv"], cache["ssm"]) = _ssm(model, x, qcfg, None,
+                                                 states=(cache["conv"], cache["ssm"]))
+    else:
+        x, (cache["conv"], cache["ssm"]) = _hybrid(
+            model, x, qcfg, None, states=(cache["conv"], cache["ssm"]),
+            attn_caches=(cache["ak"], cache["av"]))
+    cache["pos"] = s
+    return logits_fn(model, model.final_norm(x[:, -1:]))[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(model: LM, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One serving step: ``tokens`` (B, 1) -> ``(logits fp32 (B, vocab),
+    cache)``, the cache one position further."""
+    cfg, qcfg = model.cfg, serve_qcfg(model.cfg)
+    x = model.emb[tokens].to(torch_dtype(cfg.compute_dtype))
+    pos = cache["pos"]
+    new_cache = dict(cache)
+    if cfg.family == "dense":
+        x = _dense(model, x, qcfg, None, caches=(cache["k"], cache["v"]), cache_pos=pos)
+    elif cfg.family == "ssm":
+        x, (new_cache["conv"], new_cache["ssm"]) = _ssm(
+            model, x, qcfg, None, states=(cache["conv"], cache["ssm"]))
+    else:
+        alen = cache["ak"].shape[2]
+        if cfg.window:  # ring buffer: write slot pos % alen; the filled slots are valid
+            wpos, kv_valid = pos % alen, min(pos + 1, alen)
+            positions = torch.full((tokens.shape[0], 1), pos, device=tokens.device)
+        else:
+            wpos, kv_valid, positions = pos, None, None
+        x, (new_cache["conv"], new_cache["ssm"]) = _hybrid(
+            model, x, qcfg, None, states=(cache["conv"], cache["ssm"]),
+            attn_caches=(cache["ak"], cache["av"]), cache_pos=wpos, kv_valid=kv_valid,
+            positions=positions)  # the ring buffer already bounds the window
+    new_cache["pos"] = pos + 1
+    return logits_fn(model, model.final_norm(x))[:, 0], new_cache

@@ -10,6 +10,9 @@
 - The coverage fraction of a small ResNet-20 step against its closed form,
   every registry entry clean, every sabotage mode failing the gate, and
   baselines no looser than the JAX package's.
+- The serve graph (one quantized decode step of qwen2-72b's smoke config)
+  against its closed form, passing the gate with every recorded launch
+  proven; the fake-quant backend there fails it.
 
 Everything runs on the CPU (the kernels' plain versions) at small sizes.
 """
@@ -28,7 +31,8 @@ from repro.core.formats import EMFormat as JEMFormat  # noqa: E402
 from repro.core.formats import accumulation_bits  # noqa: E402
 from repro.kernels import implicit_conv as jic  # noqa: E402
 from repro_torch.analysis import audit, kernel_verify as kv, lint  # noqa: E402
-from repro_torch.analysis.graphs import cifar_train_graph  # noqa: E402
+from repro_torch.analysis.graphs import cifar_train_graph, serve_decode_graph  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import EMFormat, QuantConfig  # noqa: E402
 from repro_torch.kernels import implicit_conv as ic  # noqa: E402
 from repro_torch.kernels.mls_matmul import TILE as MM_TILE  # noqa: E402
@@ -389,3 +393,45 @@ def test_stage1_weight_gradient_runs_a_parallel_proven_grid(k_block):
     assert ws["max_writers"] == ws["revisit_depth"] == 1
     out = rep.calls[1].coverage["outputs[0]"]
     assert out["max_writers"] == 1 and out["revisit_depth"] == K // k_block
+
+
+def test_serve_graph_passes_the_gate_with_its_closed_form(tmp_path):
+    """One decode step (batch 4, cache 128) of qwen2-72b's smoke config:
+    each of the 7 quantized linears per layer launches K1 twice and K3 once,
+    its K (64 or 96) padded to one 128-wide group; the fp32 MACs are the LM
+    head and the two attention contractions over the 128 cache slots.
+
+    The port's gate is 0.61, not the JAX package's 0.95: the JAX audit counts
+    a Pallas GEMM's MACs over its zero-padded 128 x 128 output tiles (M = 4
+    rows padded to 128), which puts the same step at 0.991; the port counts
+    the M x N x K a launch computes."""
+    out = tmp_path / "a.json"
+    assert audit.main(["--device", "cpu", "--graph", "serve", "--kernels", "--gate",
+                       "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["gate"]["baseline"]["min_quantized_fraction"]["serve:qwen2-72b"] == 0.61
+    entry = report["graphs"]["serve:qwen2-72b"]
+    cfg, b, m, kb = get_smoke_config("qwen2-72b"), 4, 128, 128
+    d, hd = cfg.d_model, cfg.hd
+    n_out = [cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd, d, cfg.d_ff, cfg.d_ff, d]
+    q = cfg.n_layers * b * kb * sum(n_out)
+    fp = b * d * cfg.vocab + cfg.n_layers * 2 * b * cfg.n_heads * m * hd
+    cov = entry["coverage"]
+    assert (cov["quantized_macs"], cov["full_precision_macs"]) == (q, fp)
+    assert entry["launches"] == cfg.n_layers * 7 * 3 and entry["lint"]["ok"]
+    assert cov["quantized_fraction"] == round(q / (q + fp), 6) >= 0.61
+    padded = cfg.n_layers * 7 * 128 ** 3  # the JAX audit's count of the same GEMMs
+    assert padded / (padded + fp) >= 0.95 > cov["quantized_fraction"]
+    kernels = report["kernels"]["kernels"]["serve:qwen2-72b"]
+    assert kernels["ok"] and kernels["calls"]
+    assert {c["kernel"].split(" ")[1].split("[")[0] for c in kernels["calls"]} >= {
+        "quantize_amax", "quantize_groups_warp", "mls_matmul_walk"}
+    assert all(not c["violations"] for c in kernels["calls"])
+
+    fake = serve_decode_graph("cpu", backend="fake_quant")
+    fcov, records = fake.run()
+    assert fcov.quantized_macs == 0 and not records
+    report = {"graphs": {fake.name: {"coverage": fcov.to_json(), "lint": {"ok": True}}}}
+    failures = audit.apply_gate(report, json.loads(
+        (ROOT / "src" / "repro_torch" / "analysis" / "baselines" / "gate.json").read_text()))
+    assert failures and "serve:qwen2-72b: quantized fraction" in failures[0]

@@ -652,3 +652,81 @@ def test_k1_k3_match_plain_at_zoo_shapes(cuda, mkn, grouping):
     other = dataclasses.replace(plan, variant="walk" if plan.variant == "split" else "split")
     for p in (plan, other):
         assert torch.equal(mls_matmul(*args, grouping, plan=p), want), p
+
+
+# (M, K, N) of the LM serving path's GEMMs at full width: chatglm3-6b's
+# decode (batch 4) wq, wk/wv, w_up and w_down and its prefill w_up (batch
+# 4 x 128 tokens), mamba2-370m's in_proj at prefill, zamba2-7b's decode
+# out_proj (56 scaling groups)
+LM_GEMMS = [(4, 4096, 4096), (4, 4096, 256), (4, 4096, 13696), (4, 13696, 4096),
+            (512, 4096, 13696), (512, 1024, 4384), (4, 7168, 3584)]
+
+
+@pytest.mark.parametrize("mkn", LM_GEMMS, ids=str)
+def test_k1_k3_match_plain_at_lm_shapes(cuda, mkn):
+    """The serving path's quantized linear: K1 ("nc", nearest rounding) on
+    the input and on the transposed weight, K3 on their codes on the plan
+    matmul_plan picks and on the other variant, bit-identical to
+    quantize_ref and mls_matmul_ref (<2,4>, k_block 128)."""
+    import dataclasses
+
+    from repro_torch.kernels import rounding_bytes
+    from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
+
+    M, K, N = mkn
+    fmt, gen = EMFormat(2, 4), torch.Generator(device=cuda).manual_seed(M + N)
+    qs = []
+    for rows, scale in ((M, 1.0), (N, 0.02)):
+        x = torch.randn((rows, K), generator=gen, device=cuda) * scale
+        r = rounding_bytes(x.shape, None, cuda)  # the serving path's nearest rounding
+        got = mls_quantize(x, fmt, 128, r_u8=r, grouping="nc")
+        want = quantize_ref(x, fmt, 128, r_u8=r, grouping="nc")
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        qs.append(got)
+    (xc, xsg, xst), (wc, wsg, wst) = qs
+    args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, 128)
+    want = mls_matmul_ref(*args)
+    plan = matmul_plan(M, N, K, 128, fmt)
+    other = dataclasses.replace(plan, variant="walk" if plan.variant == "split" else "split")
+    for p in (plan, other):
+        assert torch.equal(mls_matmul(*args, "nc", plan=p), want), p
+
+
+@pytest.mark.parametrize("name", ["chatglm3-6b", "mamba2-370m", "zamba2-7b"])
+def test_smoke_serve_on_the_card_agrees_with_the_cpu(cuda, name):
+    """A smoke config on the quantized kernels, the same weights on the card
+    and on the CPU: prefill and decode logits within 1e-3 of max(1,
+    max|logit|) (the norms and attention sum in other orders; the quantized
+    linears are bit-exact), the same greedy tokens, and the launches of
+    chip_smoke.serve_linears's closed form on the card (K1 twice and K3
+    once per quantized linear)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_smoke_config(name), quant_backend="pallas")
+    cpu_model = init_lm(cfg, seed=3, device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
+    toks = torch.randint(0, cfg.vocab, (2, 10), generator=torch.Generator().manual_seed(4))
+    n = _chip_smoke().serve_linears(cfg)
+    logits, tokens = {}, {}
+    for dev, model in models.items():
+        engine = ServeEngine(cfg, model, max_len=32, device=dev)
+        reset_launch_counts()
+        with torch.inference_mode():
+            lg, cache = engine.prefill({"tokens": toks[:, :4]})
+            steps = [lg]
+            for i in range(4, 10):
+                lg, cache = engine.decode(cache, toks[:, i:i + 1].to(dev))
+                steps.append(lg)
+        logits[dev] = torch.stack(steps).cpu()
+        if dev == "cuda":
+            counts = launch_counts()
+            assert (counts["mls_quantize_rows"], counts["mls_matmul"]) == (2 * n * 7, n * 7)
+        tokens[dev] = engine.generate({"tokens": toks[:, :4]}, 6).cpu()
+    scale = max(1.0, float(logits["cpu"].abs().max()))
+    assert float((logits["cuda"] - logits["cpu"]).abs().max()) <= 1e-3 * scale
+    assert torch.equal(tokens["cuda"], tokens["cpu"])

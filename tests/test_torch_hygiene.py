@@ -46,16 +46,20 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.train.loop, repro_torch.convert, repro_torch.kernels.registry, "
             "repro_torch.kernels.sabotage, repro_torch.analysis.audit, "
             "repro_torch.analysis.kernel_verify, repro_torch.analysis.graphs, "
-            "repro_torch.energy, repro_torch.train, repro_torch.core.quantize; "
+            "repro_torch.energy, repro_torch.train, repro_torch.core.quantize, "
+            "repro_torch.configs, repro_torch.models.lm, repro_torch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(), timeout=120)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
+    from repro_torch.configs import get_smoke_config
     from repro_torch.data import CifarIterator, cifar_like_batch
     from repro_torch.models.cnn import CNNConfig, init_cnn
+    from repro_torch.models.lm import init_lm
     from repro_torch.runtime import resolve_device
+    from repro_torch.serve import ServeEngine
     from repro_torch.train import loop
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -70,6 +74,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+    cfg = get_smoke_config("qwen2-72b")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        init_lm(cfg)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ServeEngine(cfg, init_lm(cfg, device="cpu"))
 
 
 def test_quantized_config_refusals():
