@@ -110,10 +110,41 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 rounding-byte fill, K1), timed; the smoke configs of the three
                 families on the card against the CPU (logits within 1e-3 of
                 max(1, max|logit|), greedy tokens equal).
+  12. lm_train - LM training through repro_torch.train.make_train_step on
+                the quantized kernels (quant_backend "pallas": K1 on both
+                operands and K3 for the forward, data-gradient and
+                weight-gradient GEMM of every linear, and once more for the
+                forward that full remat recomputes), stochastic rounding,
+                AdamW with the default cosine schedule, random weights, bf16
+                compute, 4 steps each: chatglm3-6b at full width cut to 8 of
+                its 28 layers at batch 2 x 4096 (train_4k's sequence),
+                mamba2-370m at full width and depth at batch 4 x 1024, and
+                zamba2-7b at full width cut to 12 layers at batch 2 x 4096
+                (the shared block runs twice, not remat'd).  Losses and grad
+                norms finite; the weights unchanged by step 1 (lr 0) and
+                moved by step 2; the launches of each step and of the run
+                equal the closed form (lm_train_launches: 224 K3 / 448 K1
+                per step on chatglm3-6b, 384 / 768 on mamba2-370m, 138 /
+                276 on the cut zamba2-7b); one step traced (device busy,
+                idle share, K1, K3, copies), peak memory, the attention and
+                the LM head timed alone at the step's shapes; a microbatch-2
+                step on chatglm3-6b (finite, twice the launches);
+                mamba2-370m checkpointed after step 2 on the card, restored
+                on the card, its step 3 bit-identical to the uninterrupted
+                one.  K1 (stochastic, given bytes) and K3 (both plans)
+                bit-identical to their plain versions at every distinct
+                training GEMM of the three models (forward, data and weight
+                gradient of each quantized linear at the run's T:
+                lm_train_gemms, 27 shapes), chatglm3-6b's nine timed, with
+                the weight gradient's transposed copies; each step's time
+                is train_step alone, its batch drawn and timed before it;
+                the smoke configs' lm_loss and gradients
+                (key None) on the card against the CPU (LM_TRAIN_AGREE).
 The line before the last is {"kernels": [...]}: each kernel's `launches`
 are its count on the training path (phase train; K5's in the audit's
-overlap_write run), and `serve_launches` its count per model of the serve
-phase, each read from its own run.  The last line is
+overlap_write run), `serve_launches` its count per model of the serve
+phase and `lm_train_launches` per model of the lm_train phase's 4-step
+run, each read from its own run.  The last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
 """
@@ -136,6 +167,7 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BATCH, HW, K_BLOCK = 128, 32, 128
 K_BLOCK_IMPLICIT = 144  # 16 channels x 3x3 taps: legal for K4 on all 18 3x3 convs
 TRAIN_STEPS = 5
+PROFILER_PAD = 256  # kernels that open each kernel_ms session (see there)
 # the shape each kernel is reported at on the {"kernels": ...} line (all
 # timed shapes are in chiprun_out/chip_smoke.json)
 REPORTED_SHAPE = {"mls_quantize_rows": "stage1_fwd_cols", "mls_quantize_given_sg": "stage1_fwd_cols",
@@ -217,24 +249,35 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, name, iters: int = 10) -> float:
+def kernel_ms(fn, name, iters: int = 10) -> float | None:
     """Mean device time per call of ``fn`` spent in kernels whose name
     contains ``name`` (or one of a tuple of names; torch.profiler), without
-    the wrapper's other work."""
+    the wrapper's other work.  Late in a long process (after the traced
+    training steps) the profiler has dropped the first kernels of a
+    session, so each session opens with PROFILER_PAD small kernels of no
+    interest; and the reading is None unless every call's kernels were
+    recorded (a count that is a multiple of ``iters``), never a time too
+    small."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_PAD):
+            pad.add_(1)
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     names = (name,) if isinstance(name, str) else name
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and any(n in e.name for n in names))
-    return total / 1e3 / iters
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+    if not times or len(times) % iters:
+        return None
+    return sum(times) / 1e3 / iters
 
 
 def max_abs_err(a, b) -> float:
@@ -1109,6 +1152,23 @@ def serve_linears(cfg) -> int:
     return 2 * cfg.n_layers + 7 * (cfg.n_layers // cfg.attn_every)
 
 
+def lm_train_launches(cfg, microbatch: int = 1) -> dict[str, int]:
+    """K1 and K3 launches of one LM training step (lm_loss forward and
+    backward): each quantized linear runs qd_gemm for its forward, its data
+    gradient and its weight gradient (K1 on both operands, then K3), and
+    under full remat once more for the recomputed forward; the hybrid's
+    shared block is not remat'd.  Times the microbatches."""
+    per = 4 if cfg.remat == "full" else 3
+    block = 4 + (3 if cfg.gated_mlp else 2)  # wq, wk, wv, wo + the MLP's
+    if cfg.family == "dense":
+        k3 = block * cfg.n_layers * per
+    else:
+        k3 = 2 * cfg.n_layers * per  # in_proj, out_proj
+        if cfg.family == "hybrid":
+            k3 += block * (cfg.n_layers // cfg.attn_every) * 3
+    return {"mls_quantize_rows": 2 * k3 * microbatch, "mls_matmul": k3 * microbatch}
+
+
 def traced_decode(engine, cache, tok) -> dict:
     """One decode step under torch.profiler: device busy (the sum of kernel
     times), K1's and K3's kernel time, and the device's idle share of the
@@ -1436,6 +1496,464 @@ def phase_serve(results: dict) -> dict[str, dict[str, int]]:
     return {name: r["launches_generate"] for name, r in served.items()}
 
 
+# The lm_train phase: LM training (repro_torch.train.make_train_step) on the
+# quantized kernels, quant_backend "pallas" (K1 on both operands and K3 for
+# the forward, data-gradient and weight-gradient GEMM of every linear),
+# stochastic rounding from fold_in(seed, step), bf16 compute and full remat
+# as the FULL configs say, AdamW with the default cosine schedule (lr 0 at
+# step 0), random weights from seed 0, train_4k's sequence.
+# name: (config overrides, batch, seq)
+LM_TRAIN_STEPS = 4
+LM_TRAIN_MODELS = {
+    "chatglm3-6b": ({"n_layers": 8}, 2, 4096),
+    "mamba2-370m": ({}, 4, 1024),
+    "zamba2-7b": ({"n_layers": 12}, 2, 4096),
+}
+LM_TRAIN_CUTS = {
+    "chatglm3-6b": "n_layers 28 -> 8 (all 28 with AdamW's state take ~100 GB); train_4k's "
+                   "global batch 256 -> 2 (seq 4096)",
+    "mamba2-370m": "train_4k's global batch 256 -> 4, seq 4096 -> 1024",
+    "zamba2-7b": "n_layers 81 -> 12 (2 shared-block applications); train_4k's global batch "
+                 "256 -> 2 (seq 4096)",
+}
+# the model whose run is checkpointed after step 2 and resumed
+LM_TRAIN_CKPT = "mamba2-370m"
+
+
+def _device_ms_by_name(prof) -> dict[str, float]:
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def traced_train_step(step_fn, model, opt, batch) -> tuple:
+    """One train step under torch.profiler: the host-clock step, device busy
+    (the sum of kernel times), K1's and K3's kernel time, copies (the
+    transposed operands qd_gemm makes contiguous, among others) and the
+    device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt, m = step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    by_name = _device_ms_by_name(prof)
+    device_ms = sum(by_name.values())
+    if device_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    of = lambda names: sum(v for k, v in by_name.items()  # noqa: E731
+                           if any(n.lower() in k.lower() for n in names))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    trace = dict(host_ms_under_profiler=host_ms, device_ms=device_ms,
+                 k1_ms=of(DEVICE_KERNELS["mls_quantize_rows"]),
+                 k3_ms=of(DEVICE_KERNELS["mls_matmul"]),
+                 copy_ms=of(("copy", "Memcpy")), softmax_ms=of(("softmax",)),
+                 device_idle_share=1.0 - device_ms / host_ms,
+                 top_kernels_ms=[(k[:90], v) for k, v in top],
+                 finite=bool(torch.isfinite(m["loss"])))
+    return model, opt, trace
+
+
+def lm_component_ms(cfg, batch: int, seq: int) -> dict:
+    """The step's attention and LM head timed alone at its shapes (CUDA
+    events, fresh random tensors): one attention forward, one forward and
+    backward; the LM head with the loss forward and backward.  Per step,
+    every attention use runs forward and backward, and under full remat
+    a dense layer's forward once more (the hybrid's shared block is not
+    remat'd)."""
+    import torch
+
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.models import nn as L
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    if cfg.n_heads:
+        q = torch.randn((batch, seq, cfg.n_heads, cfg.hd), generator=gen, device="cuda")
+        k, v = (torch.randn((batch, seq, cfg.n_kv_heads, cfg.hd), generator=gen, device="cuda")
+                for _ in range(2))
+        qkv = [t.requires_grad_() for t in (q, k, v)]
+        g = torch.randn_like(q)
+        fwd = cuda_ms(lambda: L.gqa_attention(*qkv), iters=3, warmup=1)
+        both = cuda_ms(lambda: torch.autograd.grad(L.gqa_attention(*qkv), qkv, g), iters=3,
+                       warmup=1)
+        uses = cfg.n_layers if cfg.family == "dense" else cfg.n_layers // cfg.attn_every
+        remat_fwd = uses if cfg.family == "dense" and cfg.remat == "full" else 0
+        out.update(attention_fwd_ms=fwd, attention_fwd_bwd_ms=both, attention_uses=uses,
+                   attention_ms_per_step=uses * both + remat_fwd * fwd)
+        del q, k, v, qkv, g
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device="cuda").to(
+        torch_dtype(cfg.compute_dtype)).requires_grad_()
+    head = (torch.randn((cfg.vocab, cfg.d_model), generator=gen, device="cuda") * 0.02
+            ).requires_grad_()
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device="cuda")
+
+    def head_and_loss():
+        logits = x.float() @ head.to(x.dtype).float().t()  # lm.logits_fn
+        lg = logits[:, :-1]
+        ll = torch.gather(lg, -1, tokens[:, 1:, None])[..., 0]
+        loss = (torch.logsumexp(lg, dim=-1) - ll).mean()
+        return torch.autograd.grad(loss, (x, head))
+
+    out["lm_head_and_loss_fwd_bwd_ms"] = cuda_ms(head_and_loss, iters=3, warmup=1)
+    del x, head, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_model(name: str, smi: str) -> dict:
+    """Train one of LM_TRAIN_MODELS for LM_TRAIN_STEPS steps at full width:
+    counts set to 0 just before the run and read just after; each step's
+    launches, loss, grad norm and host time (train_step alone: its batch is
+    drawn first, and that time kept apart); the weights unchanged by step
+    1 (lr 0) and moved by step 2; one more step traced; chatglm3-6b also a
+    step at microbatch 2; LM_TRAIN_CKPT checkpointed after step 2 on the
+    card, restored on the card and resumed, its step 3 equal bit for bit."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import SHAPES, RunConfig, get_config
+    from repro_torch.data import make_lm_iterator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import CheckpointManager, make_train_step
+
+    over, batch, seq = LM_TRAIN_MODELS[name]
+    cfg = dataclasses.replace(get_config(name), quant_backend="pallas", **over)
+    if cfg.remat != "full" or cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{name}: expected full remat and bf16 compute, got {cfg.remat}, "
+                             f"{cfg.compute_dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"])
+    step_fn, opt_init = make_train_step(run)
+    model = init_lm(cfg, seed=0, device="cuda")
+    opt = opt_init(model)
+    data = make_lm_iterator(batch, seq, cfg.vocab, device="cuda")
+    params = dict(model.named_parameters())
+    watched = ("emb", "layers.0." + ("attn.wq.w" if cfg.family == "dense" else "in_proj.w"))
+    before_run = {k: params[k].detach().clone() for k in watched}
+    want = lm_train_launches(cfg)
+    ckpt_dir = tempfile.TemporaryDirectory() if name == LM_TRAIN_CKPT else None
+    losses, gnorms, lrs, steps_ms, data_ms, per_step, moved, bad = [], [], [], [], [], [], [], []
+    step3 = None
+
+    reset_launch_counts()
+    for i in range(LM_TRAIN_STEPS):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inputs = next(data)  # drawn on the host and put on the card
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model, opt, m = step_fn(model, opt, inputs)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t1) * 1e3)
+        data_ms.append((t1 - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        per_step.append({k: launch_counts()[k] - before[k] for k in want})
+        moved.append([not torch.equal(before_run[k], params[k]) for k in watched])
+        if ckpt_dir is not None and i == 1:
+            CheckpointManager(ckpt_dir.name).save(
+                i + 1, {"params": model.state_dict(), "opt": opt, "data": data.state_dict()})
+        if ckpt_dir is not None and i == 2:
+            step3 = (losses[-1], {k: p.detach().clone() for k, p in params.items()})
+    torch.cuda.synchronize()
+    launched = launch_counts()
+
+    model, opt, trace = traced_train_step(step_fn, model, opt, next(data))
+    r = dict(config={k: getattr(cfg, k) for k in ("n_layers", "d_model", "n_heads",
+                                                   "n_kv_heads", "d_ff", "vocab",
+                                                   "compute_dtype", "remat")},
+             cut=LM_TRAIN_CUTS[name], params=sum(p.numel() for p in params.values()),
+             batch=batch, seq=seq, tokens_per_step=batch * seq, losses=losses,
+             grad_norms=gnorms, lrs=lrs, steps_ms=steps_ms, data_ms=data_ms,
+             median_step_ms=statistics.median(steps_ms[1:]), launches_per_step=per_step,
+             expected_per_step=want, launches=launched, weights_moved=moved, trace=trace,
+             nvidia_smi=smi)
+    if name == "chatglm3-6b":  # the same run, one step at microbatch 2
+        mb_fn, _ = make_train_step(dataclasses.replace(run, microbatch=2))
+        before = launch_counts()
+        model, opt, m = mb_fn(model, opt, next(data))
+        r["microbatch2"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                launches={k: launch_counts()[k] - before[k] for k in want},
+                                expected=lm_train_launches(cfg, microbatch=2))
+        if not math.isfinite(r["microbatch2"]["loss"]):
+            bad.append(f"microbatch-2 loss {r['microbatch2']['loss']}")
+        if r["microbatch2"]["launches"] != r["microbatch2"]["expected"]:
+            bad.append(f"microbatch-2 launches {r['microbatch2']['launches']}")
+    r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del model, opt, params, before_run, m
+    torch.cuda.empty_cache()
+    if ckpt_dir is not None:  # a fresh run restored from step 2 on the card
+        model = init_lm(cfg, seed=1, device="cuda")
+        opt = opt_init(model)
+        data = make_lm_iterator(batch, seq, cfg.vocab, device="cuda")
+        mgr = CheckpointManager(ckpt_dir.name)
+        st = mgr.restore({"params": model.state_dict(), "opt": opt,
+                          "data": data.state_dict()}, device="cuda")
+        model.load_state_dict(st["params"])
+        data.load_state_dict(st["data"])
+        model, _, m = step_fn(model, st["opt"], next(data))
+        same = float(m["loss"]) == step3[0] and all(
+            torch.equal(p, step3[1][k]) for k, p in model.named_parameters())
+        r["resume"] = dict(from_step=mgr.latest_step(), resumed_loss=float(m["loss"]),
+                           uninterrupted_loss=step3[0], bit_identical=same)
+        if not same:
+            bad.append(f"the resumed step 3 differs from the uninterrupted one: {r['resume']}")
+        del model, opt, st, step3
+        ckpt_dir.cleanup()
+        torch.cuda.empty_cache()
+    r["components"] = lm_component_ms(cfg, batch, seq)
+    print(f"lm_train {name} ({smi}): {r['params'] / 1e9:.3f} G params, losses {losses}, grad "
+          f"norms {gnorms}, steps {[round(t, 1) for t in steps_ms]} ms (batches drawn in "
+          f"{[round(t, 2) for t in data_ms]} ms before them), device busy "
+          f"{trace['device_ms']:.1f} ms of {trace['host_ms_under_profiler']:.1f} (idle "
+          f"{trace['device_idle_share']:.3f}), K1 {trace['k1_ms']:.1f} ms, K3 "
+          f"{trace['k3_ms']:.1f} ms, copies {trace['copy_ms']:.1f} ms, peak "
+          f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches per step {per_step[0]}; "
+          f"reduced: {r['cut']}")
+    if not all(math.isfinite(v) for v in losses + gnorms) or not trace["finite"]:
+        bad.append(f"non-finite loss or grad norm: {losses} {gnorms}")
+    if any(moved[0]) or not all(moved[1]):
+        bad.append(f"weights moved {moved}: expected none after step 1 (lr 0), all after 2")
+    if any(p != want for p in per_step):
+        bad.append(f"launches per step {per_step}, expected {want}")
+    if {k: launched[k] for k in want} != {k: v * LM_TRAIN_STEPS for k, v in want.items()}:
+        bad.append(f"the run launched {launched}, expected {want} x {LM_TRAIN_STEPS}")
+    if bad:
+        raise AssertionError(f"{name}: " + "; ".join(bad))
+    return r
+
+
+# K1 (stochastic, given bytes) and K3 are held to their plain versions at
+# every training GEMM of the lm_train phase's models, each at its run's T =
+# batch x seq tokens: for a quantized linear K -> N its forward (T, K, N),
+# data gradient (T, N, K) and weight gradient (K, T, N), contracting over
+# the tokens (T/128 scaling groups) with both operands transposed copies in
+# qd_gemm.  The rows of LM_TRAIN_TIMED are also timed.
+LM_TRAIN_TIMED = "chatglm3-6b"
+
+
+def lm_train_gemms() -> dict[str, tuple]:
+    """{label: (M, K, N, kind)}: the distinct (M, K, N) of every quantized
+    linear of the LM_TRAIN_MODELS configs (as cut), read from the model
+    built on the meta device; K is the contraction before qd_gemm pads it
+    to K_BLOCK."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import nn as L
+    from repro_torch.models.lm import LM
+
+    out, seen = {}, set()
+    for name, (over, batch, seq) in LM_TRAIN_MODELS.items():
+        cfg = dataclasses.replace(get_config(name), quant_backend="pallas", **over)
+        with torch.device("meta"):
+            model = LM(cfg)
+        t = batch * seq
+        for mname, mod in model.named_modules():
+            if not isinstance(mod, L.Linear) or mname == "frontend_proj":
+                continue
+            k, n = mod.w.shape
+            for kind, mkn in (("fwd", (t, k, n)), ("dgrad", (t, n, k)), ("wgrad", (k, t, n))):
+                if (name, mkn) not in seen:
+                    seen.add((name, mkn))
+                    out[f"{name} {mname.split('.')[-1]} {kind}"] = (*mkn, kind)
+    return out
+
+
+def lm_train_kernel_checks(timed: dict) -> list[dict]:
+    """K1 ("nc", <2,4>, stochastic: given rounding bytes to both) on both
+    operands of each lm_train_gemms GEMM against quantize_ref, and K3 on
+    those codes against mls_matmul_ref on the plan matmul_plan picks and on
+    the other variant; each operand zero-padded along K to K_BLOCK as
+    qd_gemm pads it.  The LM_TRAIN_TIMED rows are timed (the plain versions
+    on 3 calls), with, for the weight gradient, the transposed copy qd_gemm
+    makes of each operand."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import mls_matmul, mls_quantize
+    from repro_torch.kernels.mls_matmul import matmul_plan, sg_shapes
+    from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
+
+    fmt, kb = FMT_IMAGENET, K_BLOCK
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    checks = []
+    for sname, (M, K, N, kind) in lm_train_gemms().items():
+        timing = sname.startswith(LM_TRAIN_TIMED)
+        pk = (-K) % kb
+        coded = {}
+        for oname, rows in (("x", M), ("w^T", N)):
+            if kind == "wgrad":  # the operand as the step holds it, copied transposed
+                src = torch.randn((K, rows), generator=gen, device="cuda")
+                t = F.pad(src.t(), (0, pk)).contiguous()
+                if timing:
+                    timed[("transpose_copy", sname, oname)] = dict(
+                        ms=cuda_ms(lambda src=src: F.pad(src.t(), (0, pk)).contiguous()),
+                        bytes=8 * src.numel(), ops=0, shape=f"lm_train {sname} {oname} "
+                        f"{tuple(src.shape)}^T")
+                del src
+            else:
+                t = F.pad(torch.randn((rows, K), generator=gen, device="cuda"), (0, pk))
+            r = torch.randint(0, 256, t.shape, generator=gen, dtype=torch.uint8, device="cuda")
+            got = mls_quantize(t, fmt, kb, GS_FMT_DEFAULT, r, "nc")
+            want = quantize_ref(t, fmt, kb, GS_FMT_DEFAULT, r, "nc")
+            torch.cuda.synchronize()
+            err = max(max_abs_err(a, b) for a, b in zip(got, want))
+            checks.append(dict(kernel="mls_quantize_rows", shape=f"lm_train {sname} {oname}",
+                               operand=tuple(t.shape), identical=all(
+                                   torch.equal(a, b) for a, b in zip(got, want)),
+                               max_abs_err=err))
+            run = lambda t=t, r=r: mls_quantize(t, fmt, kb, GS_FMT_DEFAULT, r, "nc")  # noqa: E731
+            if timing:
+                timed[("mls_quantize_rows", sname, oname)] = dict(
+                    ms=cuda_ms(run),
+                    kernel_ms=kernel_ms(run, DEVICE_KERNELS["mls_quantize_rows"]),
+                    plain_ms=cuda_ms(lambda t=t, r=r: quantize_ref(t, fmt, kb, GS_FMT_DEFAULT,
+                                                                   r, "nc"), iters=3, warmup=1),
+                    # x and its rounding bytes read, codes and scales written
+                    bytes=t.numel() * 6 + got[1].numel() * 4 + 4, ops=0, max_abs_err=err,
+                    shape=f"lm_train {sname} {oname} {tuple(t.shape)}")
+            coded[oname] = got
+            del t, r, want
+        (xc, xsg, xst), (wc, wsg, wst) = coded["x"], coded["w^T"]
+        args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, kb)
+        want = mls_matmul_ref(*args)
+        plan = matmul_plan(M, N, K + pk, kb, fmt)
+        plans = [plan, dataclasses.replace(plan, variant="walk" if plan.variant == "split"
+                                           else "split")]
+        errs = []
+        for p in plans:
+            got = mls_matmul(*args, "nc", plan=p)
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(got, want))
+            checks.append(dict(kernel="mls_matmul", shape=f"lm_train {sname}", mkn=(M, K, N),
+                               plan=dataclasses.asdict(p), chosen=p == plan,
+                               identical=torch.equal(got, want), max_abs_err=errs[-1],
+                               finite=bool(torch.isfinite(got).all())))
+            del got
+        if timing:
+            xs_shape, ws_shape = sg_shapes("nc", M, N, (K + pk) // kb)
+            run = lambda p: lambda: mls_matmul(*args, "nc", plan=p)  # noqa: E731
+            timed[("mls_matmul", sname)] = dict(
+                ms=cuda_ms(run(plan)),
+                kernel_ms=kernel_ms(run(plan), DEVICE_KERNELS["mls_matmul"]),
+                other_plan=plans[1].variant, other_ms=cuda_ms(run(plans[1])),
+                other_kernel_ms=kernel_ms(run(plans[1]), DEVICE_KERNELS["mls_matmul"]),
+                plain_ms=cuda_ms(lambda: mls_matmul_ref(*args), iters=3, warmup=1),
+                bytes=(M + N) * (K + pk) + 4 * (math.prod(xs_shape) + math.prod(ws_shape))
+                + 4 * M * N + 8, ops=2 * M * N * (K + pk), max_abs_err=errs[0],
+                plan=dataclasses.asdict(plan),
+                shape=f"lm_train {sname} ({M}x{K}x{N}) {plan.variant}")
+        del coded, args, want
+        torch.cuda.empty_cache()
+    return checks
+
+
+# card against CPU on smoke configs (lm_loss and its gradients, key None,
+# fp32): without quantization only the sums' order differs (1e-4 relative
+# for the loss and each gradient's L2 norm); on the kernels one ulp before a
+# quantizer can move an element to the neighbouring code, which moves a
+# gradient by up to a few percent (the CPU cross-tests saw 1.6% on one
+# weight against the JAX package), so there 1e-4 for the loss and 5e-2 per
+# gradient
+LM_TRAIN_AGREE = {"off": (1e-4, 1e-4), "pallas": (1e-4, 5e-2)}
+
+
+def lm_train_card_vs_cpu() -> dict:
+    """lm_loss and its gradients with key None, the same weights and tokens
+    on the CPU (plain versions) and on the card, for the smoke configs of
+    the three families on the kernels and of chatglm3-6b unquantized."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+
+    out = {}
+    cases = [(n, "pallas") for n in LM_TRAIN_MODELS] + [("chatglm3-6b", "off")]
+    for name, backend in cases:
+        over = {"quant": False} if backend == "off" else {"quant_backend": backend}
+        cfg = dataclasses.replace(get_smoke_config(name), **over)
+        cpu = lm.init_lm(cfg, seed=3, device="cpu")
+        models = {"cpu": cpu, "cuda": copy.deepcopy(cpu).to("cuda")}
+        toks = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(4))
+        res = {}
+        for dev, model in models.items():
+            reset_launch_counts()
+            loss, _ = lm.lm_loss(model, {"tokens": toks.to(dev)}, None)
+            loss.backward()
+            res[dev] = (float(loss.detach()),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()})
+            if dev == "cuda":
+                launched = launch_counts()
+        loss_tol, grad_tol = LM_TRAIN_AGREE[backend]
+        grad_rel = max(float((res["cuda"][1][k] - g).double().norm()
+                             / max(float(g.double().norm()), 1e-30))
+                       for k, g in res["cpu"][1].items())
+        loss_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        want = lm_train_launches(cfg) if backend == "pallas" else {
+            "mls_quantize_rows": 0, "mls_matmul": 0}
+        out[f"{name} {backend}"] = dict(
+            loss_cpu=res["cpu"][0], loss_cuda=res["cuda"][0], loss_rel=loss_rel,
+            worst_grad_rel=grad_rel, tolerance=(loss_tol, grad_tol),
+            card_launches={k: launched[k] for k in want},
+            agree=loss_rel <= loss_tol and grad_rel <= grad_tol
+            and {k: launched[k] for k in want} == want)
+    return out
+
+
+def phase_lm_train(results: dict) -> dict[str, dict[str, int]]:
+    """LM training: LM_TRAIN_MODELS at full width on the card, K1 and K3 at
+    chatglm3-6b's training GEMMs, and card against CPU on the smoke configs.
+    Returns each model's launches of its LM_TRAIN_STEPS-step run by kernel
+    (the counts set to 0 just before that run and read just after it)."""
+    smi = results["nvidia_smi"]
+    trained = {name: lm_train_model(name, smi) for name in LM_TRAIN_MODELS}
+    timed: dict = {}
+    checks = lm_train_kernel_checks(timed)
+    rows = []
+    for (kernel, *_), t in timed.items():
+        bound_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        bound_ops = t["ops"] / INT8_OPS_PER_S * 1e3
+        rows.append(dict(name=kernel, bound_ms=max(bound_bytes, bound_ops),
+                         bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                         **{k: v for k, v in t.items() if k not in ("bytes", "ops")}))
+        print(json.dumps({"lm_train_timing": rows[-1], "nvidia_smi": smi}))
+    agree = lm_train_card_vs_cpu()
+    print(json.dumps({"lm_train_agree": agree}))
+    results["lm_train"] = dict(models=trained, kernel_checks=checks, kernel_times=rows,
+                               agree=agree)
+    bad = [c for c in checks if not c["identical"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} training-shape kernel results differ from their "
+                             f"plain versions: {bad[:3]}")
+    if not all(a["agree"] for a in agree.values()):
+        raise AssertionError(f"card and CPU disagree on the smoke configs: {agree}")
+    return {name: r["launches"] for name, r in trained.items()}
+
+
 def _tensors(tree) -> list:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -1644,12 +2162,12 @@ def main() -> int:
         traceback.print_exc()
         fail("kernel build failed")
 
-    rows, launches, serve_launches = [], {}, {}
+    rows, launches, serve_launches, lm_train_launches_ = [], {}, {}, {}
     for name, phase in (("kernels", phase_kernels), ("train", phase_train),
                         ("trace", phase_trace), ("agree", phase_agree),
                         ("audit", phase_audit), ("zoo", phase_zoo),
                         ("fake_quant", phase_fakequant), ("driver", phase_driver),
-                        ("serve", phase_serve)):
+                        ("serve", phase_serve), ("lm_train", phase_lm_train)):
         t = time.perf_counter()
         try:
             out = phase(results)
@@ -1662,6 +2180,8 @@ def main() -> int:
                 launches["sabotage_overlap"] = out[1]
             elif name == "serve":
                 serve_launches = out
+            elif name == "lm_train":
+                lm_train_launches_ = out
         except Exception:
             traceback.print_exc()
             failures.append(name)
@@ -1684,6 +2204,8 @@ def main() -> int:
                             launches=launches.get(r["name"], 0),
                             serve_launches={m: n.get(r["name"], 0)
                                             for m, n in serve_launches.items()},
+                            lm_train_launches={m: n.get(r["name"], 0)
+                                               for m, n in lm_train_launches_.items()},
                             max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None, shape=r["shape"],

@@ -1,4 +1,13 @@
-"""Synthetic CIFAR-like data."""
-from .synthetic import CifarIterator, cifar_like_batch, class_pattern
+"""Synthetic data: CIFAR-like images and LM token streams."""
+from .synthetic import (
+    CifarIterator,
+    LMIterator,
+    cifar_like_batch,
+    class_pattern,
+    lm_batch,
+    make_lm_iterator,
+    markov_tokens,
+)
 
-__all__ = ["CifarIterator", "cifar_like_batch", "class_pattern"]
+__all__ = ["CifarIterator", "LMIterator", "cifar_like_batch", "class_pattern", "lm_batch",
+           "make_lm_iterator", "markov_tokens"]

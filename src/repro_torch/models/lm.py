@@ -1,5 +1,5 @@
-"""The LM families of the port and their serving path: init, full-sequence
-logits, prefill and decode over KV and SSM caches.
+"""The LM families of the port: init, the training loss, full-sequence
+logits, and the serving path (prefill and decode over KV and SSM caches).
 
 The port of the JAX package's ``models/lm.py`` for three of its five
 families:
@@ -10,16 +10,25 @@ families:
 * ``hybrid`` — Mamba2 backbone with ONE shared attention+MLP block applied
                after every full segment of ``attn_every`` layers (zamba2-7b).
 
-``moe`` and ``encdec`` raise ``NotImplementedError`` (ROADMAP queue 1, the
-next LM slice), and the training loss (``lm_loss``) is not ported yet.
+``moe`` and ``encdec`` raise ``NotImplementedError`` (ROADMAP queue 1).
 The JAX package scans stacked layer pytrees; the port holds the layers in
 an ``nn.ModuleList`` (named ``layers.<i>.…``;
 :func:`repro_torch.convert.lm_params_from_jax` unstacks a JAX tree).  The
 JAX package's sharding annotations (``parallel.shard``) are the identity
-on one device and have no counterpart.  Serving rounds to nearest (no
-stochastic-rounding key), and with ``quant_backend="pallas"`` every
-quantized linear runs K1 on both operands and K3
-(:func:`repro_torch.kernels.lowbit_matmul_qd`).
+on one device and have no counterpart.  With ``quant_backend="pallas"``
+every quantized linear runs K1 on both operands and K3
+(:func:`repro_torch.kernels.lowbit_matmul_qd`), in training for its
+forward, data-gradient and weight-gradient GEMM alike.
+
+Training (:func:`lm_loss`) rounds stochastically whenever it is given a
+key: the stack's key is ``fold_in(key, 2)``, layer ``i``'s ``fold_in(that,
+i)`` (the hybrid's shared block ``10_000 + si``), and every linear folds
+in its site tag, as in the JAX package.  With ``cfg.remat == "full"`` each
+dense or Mamba2 layer runs under ``torch.utils.checkpoint``, its forward
+computed again in the backward pass, as JAX remats its layer scans; the
+rounding streams are seeded per (key, site, operand), so the recomputed
+forward draws the same bytes.  The hybrid's shared block is not remat'd,
+as in JAX.  Serving rounds to nearest (no key).
 
 A cache is a dict of tensors plus ``"pos"`` (a Python int, the next
 position).  :func:`decode_step` writes the KV caches in place (the JAX
@@ -34,6 +43,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import QuantConfig, fold_in
@@ -43,8 +53,8 @@ from . import nn as L
 from .mamba2 import Mamba2Block
 from .transformer import Block, norm_init
 
-__all__ = ["LM", "cache_spec", "decode_step", "embed", "init_cache", "init_lm", "logits_fn",
-           "prefill", "serve_qcfg"]
+__all__ = ["LM", "cache_spec", "decode_step", "embed", "gather_view", "init_cache", "init_lm",
+           "lm_loss", "logits_fn", "prefill", "serve_qcfg"]
 
 FAMILIES = ("dense", "ssm", "hybrid")
 
@@ -59,7 +69,7 @@ class LM(nn.Module):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"the {cfg.family!r} family is not ported yet (ROADMAP queue 1, the next LM "
-                f"slice); the port serves {FAMILIES}")
+                f"slice); the port serves and trains {FAMILIES}")
         self.cfg = cfg
         d = cfg.d_model
         self.emb = nn.Parameter(torch.empty(cfg.vocab, d))
@@ -140,22 +150,44 @@ def logits_fn(model: LM, x: torch.Tensor) -> torch.Tensor:
 # ===========================================================================
 # family bodies
 # ===========================================================================
-def _dense(model: LM, x, qcfg, key, *, caches=None, cache_pos: int = 0, window=None):
+def _layer(layer: nn.Module, view: dict | None, remat: bool, *args, **kwargs):
+    """``layer(*args, **kwargs)``: on the cast parameters of ``view`` (by
+    name within the layer; :func:`gather_view`) where given, and under
+    activation checkpointing when ``remat``."""
+    fn = layer
+    if view is not None:
+        def fn(*a, **k):
+            return torch.func.functional_call(layer, view, a, k)
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
+def _sub(view: dict | None, prefix: str) -> dict | None:
+    """The entries of ``view`` under ``prefix``, named within it."""
+    if view is None:
+        return None
+    return {k[len(prefix):]: v for k, v in view.items() if k.startswith(prefix)}
+
+
+def _dense(model: LM, x, qcfg, key, *, caches=None, cache_pos: int = 0, window=None,
+           view=None, remat=False):
     """The dense stack, threading the stacked KV caches ``(k, v)`` (L, B,
     M, KV, hd) when given (written in place)."""
     for i, layer in enumerate(model.layers):
         cache = (caches[0][i], caches[1][i]) if caches is not None else None
-        x = layer(x, qcfg, fold_in(key, i), cache=cache, cache_pos=cache_pos, window=window)
+        x = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i),
+                   cache=cache, cache_pos=cache_pos, window=window)
     return x
 
 
-def _ssm(model: LM, x, qcfg, key, *, states=None):
+def _ssm(model: LM, x, qcfg, key, *, states=None, view=None, remat=False):
     """The Mamba2 stack; with ``states`` (conv (L, B, K-1, C), ssm (L, B, H,
     P, N)) returns the new ones."""
     conv, ssm = [], []
     for i, layer in enumerate(model.layers):
         st = (states[0][i], states[1][i]) if states is not None else None
-        x, ns = layer(x, qcfg, fold_in(key, i), st)
+        x, ns = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i), st)
         if states is not None:
             conv.append(ns[0])
             ssm.append(ns[1])
@@ -163,17 +195,18 @@ def _ssm(model: LM, x, qcfg, key, *, states=None):
 
 
 def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos: int = 0,
-            kv_valid=None, positions=None, window=None):
+            kv_valid=None, positions=None, window=None, view=None, remat=False):
     """Zamba2: Mamba2 segments of ``attn_every`` layers, the shared block
     after every full segment (instance ``si`` uses KV cache ``si``), then the
     tail of ``n_layers % attn_every`` layers.  KV caches are written in
-    place; with ``states``, returns the new SSM states."""
+    place; with ``states``, returns the new SSM states.  ``remat`` applies
+    to the Mamba2 layers, never to the shared block."""
     cfg = model.cfg
     e, n = cfg.attn_every, cfg.n_layers
     conv, ssm = [], []
     for i, layer in enumerate(model.layers):
         st = (states[0][i], states[1][i]) if states is not None else None
-        x, ns = layer(x, qcfg, fold_in(key, i), st)
+        x, ns = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i), st)
         if states is not None:
             conv.append(ns[0])
             ssm.append(ns[1])
@@ -182,10 +215,66 @@ def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos
             si -= 1
             cache = ((attn_caches[0][si], attn_caches[1][si])
                      if attn_caches is not None else None)
-            x = model.shared_attn(x, qcfg, fold_in(key, 10_000 + si), cache=cache,
-                                  cache_pos=cache_pos, kv_valid=kv_valid, positions=positions,
-                                  window=window)
+            x = _layer(model.shared_attn, _sub(view, "shared_attn."), False, x, qcfg,
+                       fold_in(key, 10_000 + si), cache=cache, cache_pos=cache_pos,
+                       kv_valid=kv_valid, positions=positions, window=window)
     return x, ((torch.stack(conv), torch.stack(ssm)) if states is not None else None)
+
+
+# ===========================================================================
+# train loss
+# ===========================================================================
+def gather_view(model: LM) -> dict[str, torch.Tensor] | None:
+    """The layer parameters (``layers.*``, ``shared_attn.*``) cast to
+    ``cfg.param_gather_dtype`` inside the forward, or None when that is
+    float32.  The fp32 masters stay the parameters (and get the
+    gradients, through the cast): in the JAX package the cast lets FSDP
+    gather 2-byte weights; on one card it changes only the numbers the
+    layers see."""
+    cfg = model.cfg
+    if cfg.param_gather_dtype == "float32":
+        return None
+    dt = torch_dtype(cfg.param_gather_dtype)
+    return {name: (p.to(dt) if p.dtype == torch.float32 else p)
+            for name, p in model.named_parameters()
+            if name.startswith(("layers.", "shared_attn."))}
+
+
+def lm_loss(model: LM, batch: dict, key: int | None = None
+            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Causal LM loss of ``batch["tokens"]`` (B, S) (with a frontend, its
+    ``frontend_emb`` (B, F, frontend_dim) replaces the first positions,
+    which are not trained on): ``(ce + 0.01 * aux, {"ce", "aux"})``, fp32
+    scalars.  ``cfg.qcfg()`` quantizes the linears, rounding
+    stochastically from ``key`` (to nearest when it is None)."""
+    cfg = model.cfg
+    if cfg.remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"remat {cfg.remat!r} (JAX's dots_with_no_batch_dims_saveable policy) is not "
+            f"ported yet (ROADMAP queue 1); the port remats 'full' or 'none'")
+    qcfg, view, remat = cfg.qcfg(), gather_view(model), cfg.remat == "full"
+    x = embed(model, batch)
+    kw = dict(view=view, remat=remat)
+    if cfg.family == "dense":
+        x = _dense(model, x, qcfg, fold_in(key, 2), **kw)
+    elif cfg.family == "ssm":
+        x, _ = _ssm(model, x, qcfg, fold_in(key, 2), **kw)
+    else:
+        x, _ = _hybrid(model, x, qcfg, fold_in(key, 2), **kw)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE router here
+    logits = logits_fn(model, model.final_norm(x))
+
+    targets = batch["tokens"][:, 1:]
+    lg = logits[:, :-1].float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
+    if cfg.frontend != "none" and cfg.frontend_len:
+        # no training on the frontend's positions
+        pos = torch.arange(targets.shape[1], device=x.device)
+        mask = mask * (pos[None, :] >= cfg.frontend_len)
+    ce = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ===========================================================================

@@ -21,8 +21,9 @@ Layout (one directory per step)::
   step's rounding key, so a resumed run repeats the uninterrupted one.
 
 A state is a tree of dicts (any keys that print uniquely, such as an
-optimizer's integer keys), lists and tuples whose leaves are tensors or
-JSON values (ints, floats, strings, bools, ``None``).
+optimizer's integer keys), lists, tuples and named tuples (an LM
+optimizer's ``OptState``) whose leaves are tensors or JSON values (ints,
+floats, strings, bools, ``None``).
 """
 from __future__ import annotations
 
@@ -54,8 +55,10 @@ def _unflatten(template: Any, leaves: dict[str, Any], prefix: str = "") -> Any:
         return type(template)((k, _unflatten(v, leaves, f"{prefix}[{k!r}]"))
                               for k, v in template.items())
     if isinstance(template, (list, tuple)):
-        return type(template)(_unflatten(v, leaves, f"{prefix}[{i}]")
-                              for i, v in enumerate(template))
+        items = [_unflatten(v, leaves, f"{prefix}[{i}]") for i, v in enumerate(template)]
+        if hasattr(template, "_fields"):  # a NamedTuple, such as an OptState
+            return type(template)(*items)
+        return type(template)(items)
     return leaves[prefix]
 
 

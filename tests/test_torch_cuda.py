@@ -730,3 +730,96 @@ def test_smoke_serve_on_the_card_agrees_with_the_cpu(cuda, name):
     scale = max(1.0, float(logits["cpu"].abs().max()))
     assert float((logits["cuda"] - logits["cpu"]).abs().max()) <= 1e-3 * scale
     assert torch.equal(tokens["cuda"], tokens["cpu"])
+
+
+# (M, K, N) of the LM training path's GEMMs at T = 256 tokens: chatglm3-6b's
+# w_up (4096 -> 13696), w_down (13696 -> 4096) and wk (4096 -> 256), and
+# mamba2-370m's in_proj (1024 -> 4384: its data gradient contracts over
+# 4384, which qd_gemm pads to 4480), each forward (x (T, K) @ w), data
+# gradient (e (T, N) @ w^T) and weight gradient (x^T @ e: both operands
+# transposed copies, contracting over the tokens); "wgrad" marks the GEMMs
+# whose operands are made as qd_gemm makes them, (T, rows) tensors copied
+# transposed
+LM_TRAIN_GEMMS = [(256, 4096, 13696, "fwd"), (256, 13696, 4096, "dgrad"),
+                  (4096, 256, 13696, "wgrad"), (256, 13696, 4096, "fwd"),
+                  (256, 4096, 13696, "dgrad"), (13696, 256, 4096, "wgrad"),
+                  (256, 4096, 256, "fwd"), (256, 256, 4096, "dgrad"),
+                  (4096, 256, 256, "wgrad"), (256, 1024, 4384, "fwd"),
+                  (256, 4384, 1024, "dgrad"), (1024, 256, 4384, "wgrad")]
+
+
+@pytest.mark.parametrize("gemm", LM_TRAIN_GEMMS, ids=str)
+def test_k1_k3_match_plain_at_lm_training_shapes(cuda, gemm):
+    """The training path's quantized linear: K1 ("nc", stochastic, the same
+    rounding bytes to both) on both operands, K3 on their codes on the plan
+    matmul_plan picks and on the other variant, bit-identical to
+    quantize_ref and mls_matmul_ref (<2,4>, k_block 128)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
+
+    M, K, N, kind = gemm
+    fmt, gen = EMFormat(2, 4), torch.Generator(device=cuda).manual_seed(M + K + N)
+    pk = (-K) % 128  # qd_gemm pads the contraction to k_block
+    qs = []
+    for rows, scale in ((M, 1.0), (N, 0.02)):
+        if kind == "wgrad":  # qd_gemm's copy of a transposed operand
+            x = F.pad((torch.randn((K, rows), generator=gen, device=cuda) * scale).t(),
+                      (0, pk)).contiguous()
+        else:
+            x = F.pad(torch.randn((rows, K), generator=gen, device=cuda) * scale, (0, pk))
+        r = torch.randint(0, 256, x.shape, generator=gen, dtype=torch.uint8, device=cuda)
+        got = mls_quantize(x, fmt, 128, r_u8=r, grouping="nc")
+        want = quantize_ref(x, fmt, 128, r_u8=r, grouping="nc")
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        qs.append(got)
+    (xc, xsg, xst), (wc, wsg, wst) = qs
+    args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, 128)
+    want = mls_matmul_ref(*args)
+    plan = matmul_plan(M, N, K + pk, 128, fmt)
+    other = dataclasses.replace(plan, variant="walk" if plan.variant == "split" else "split")
+    for p in (plan, other):
+        assert torch.equal(mls_matmul(*args, "nc", plan=p), want), p
+
+
+@pytest.mark.parametrize("name", ["chatglm3-6b", "mamba2-370m", "zamba2-7b"])
+def test_smoke_train_step_on_the_card_agrees_with_the_cpu(cuda, name, monkeypatch):
+    """One train step (sgdm, lr 1e-2) of a smoke config on the quantized
+    kernels, with the key None (the trainer's fold_in patched to give none:
+    the card's and the CPU's generators draw other rounding bytes), the same
+    weights and tokens on the card and on the CPU: the loss within 1e-4
+    relative, the grad norm within 1e-3 (the norms, attention and SSD sum in
+    other orders, and one ulp before a quantizer can move an element to the
+    neighbouring code: a few percent on one gradient), the weights within
+    1e-5, and K1/K3 launched as chip_smoke.lm_train_launches says."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, RunConfig, get_smoke_config
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.train import make_train_step, trainer
+
+    cfg = dataclasses.replace(get_smoke_config(name), quant_backend="pallas")
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"], optimizer="sgdm", lr=1e-2)
+    monkeypatch.setattr(trainer, "fold_in", lambda seed, step: None)
+    step, init = make_train_step(run, cosine_schedule(run.lr, 0, 10))
+    cpu_model = init_lm(cfg, seed=3, device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(4))
+    out = {}
+    for dev, model in models.items():
+        reset_launch_counts()
+        model, _, m = step(model, init(model), {"tokens": toks.to(model.emb.device)})
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    {k: p.detach().cpu() for k, p in model.named_parameters()})
+        if dev == "cuda":
+            counts = launch_counts()
+            want = _chip_smoke().lm_train_launches(cfg)
+            assert {k: counts[k] for k in want} == want
+    (l0, g0, p0), (l1, g1, p1) = out["cpu"], out["cuda"]
+    assert abs(l1 - l0) <= 1e-4 * abs(l0) and abs(g1 - g0) <= 1e-3 * abs(g0)
+    for k, p in p0.items():
+        assert float((p1[k] - p).abs().max()) <= 1e-5, k

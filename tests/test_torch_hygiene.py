@@ -47,7 +47,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.sabotage, repro_torch.analysis.audit, "
             "repro_torch.analysis.kernel_verify, repro_torch.analysis.graphs, "
             "repro_torch.energy, repro_torch.train, repro_torch.core.quantize, "
-            "repro_torch.configs, repro_torch.models.lm, repro_torch.serve; "
+            "repro_torch.configs, repro_torch.models.lm, repro_torch.serve, "
+            "repro_torch.train.trainer, repro_torch.launch.train, repro_torch.optim, "
+            "repro_torch.data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(), timeout=120)
@@ -55,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
     from repro_torch.configs import get_smoke_config
-    from repro_torch.data import CifarIterator, cifar_like_batch
+    from repro_torch.data import CifarIterator, cifar_like_batch, make_lm_iterator
+    from repro_torch.launch import train
     from repro_torch.models.cnn import CNNConfig, init_cnn
     from repro_torch.models.lm import init_lm
     from repro_torch.runtime import resolve_device
@@ -79,6 +82,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
         init_lm(cfg)
     with pytest.raises(RuntimeError, match="no GPU"):
         ServeEngine(cfg, init_lm(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        make_lm_iterator(2, 8, cfg.vocab)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        train.main(["--arch", "qwen2-72b", "--smoke", "--steps", "1"])
 
 
 def test_quantized_config_refusals():
