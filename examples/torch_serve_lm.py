@@ -4,6 +4,11 @@ and activations at inference).  The counterpart of ``examples/serve_lm.py``.
 
 Run on the card:  PYTHONPATH=src python examples/torch_serve_lm.py --tokens 32 --batch 4
 On the CPU:       PYTHONPATH=src python examples/torch_serve_lm.py --device cpu
+Every family serves: ``--arch moonshot-v1-16b-a3b`` or
+``llama4-scout-17b-a16e`` (MoE), ``seamless-m4t-medium`` (encoder-decoder:
+the prompts come with ``--src-len`` random frames of its audio frontend's
+embeddings for the encoder), ``mamba2-370m``, ``zamba2-7b``, and the dense
+configs.
 ``--full`` serves the architecture's full config instead of its reduced
 smoke config (random weights; chatglm3-6b's take 25 GB on the card).
 ``--backend pallas`` runs every quantized linear on the port's kernels (K1
@@ -36,6 +41,8 @@ def main(argv=None) -> torch.Tensor:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--src-len", type=int, default=32,
+                    help="encoder frames per prompt (encoder-decoder archs)")
     ap.add_argument("--backend", choices=["fake_quant", "pallas"], default=None,
                     help="quant_backend of the config (default: the config's own)")
     ap.add_argument("--full", action="store_true",
@@ -50,14 +57,17 @@ def main(argv=None) -> torch.Tensor:
     engine = ServeEngine(cfg, model, max_len=args.prompt_len + args.tokens, device=args.device)
     dev = engine.device
     gen = torch.Generator(device=dev).manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
-                            device=dev)
+    prompts = {"tokens": torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                                       generator=gen, device=dev)}
+    if cfg.family == "encdec":
+        prompts["src_emb"] = torch.randn((args.batch, args.src_len, cfg.frontend_dim),
+                                         generator=gen, device=dev)
 
     print(f"serving {'full' if args.full else 'reduced'} {cfg.name} on {dev}: "
           f"batch={args.batch} prompt={args.prompt_len} gen={args.tokens}")
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = engine.prefill({"tokens": prompts})
+        logits, cache = engine.prefill(prompts)
         tok = torch.argmax(logits, -1)[:, None]
         _sync(dev)
         print(f"prefill: {time.perf_counter() - t0:.2f}s "

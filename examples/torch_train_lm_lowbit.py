@@ -1,7 +1,11 @@
 """Train a small LM (reduced glm4-9b family) with MLS low-bit matmuls
 through the port's production stack: RunConfig -> make_train_step
 (gradient accumulation, clipping, schedule) -> checkpoint and restart.
-The port's counterpart of ``examples/train_lm_lowbit.py``.
+The port's counterpart of ``examples/train_lm_lowbit.py``.  ``--arch``
+trains another arch's reduced config at the same sizes: an MoE
+(``moonshot-v1-16b-a3b``, ``llama4-scout-17b-a16e``) or the
+encoder-decoder ``seamless-m4t-medium``, whose batches carry random
+frontend frames (``src_emb``, seq of them) for its encoder.
 
 Run:  PYTHONPATH=src python examples/torch_train_lm_lowbit.py --steps 60
       (on the card; add --device cpu for the CPU, where the quantized
@@ -22,6 +26,7 @@ from repro_torch.train import CheckpointManager, StragglerMonitor, make_train_st
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="glm4-9b")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -35,7 +40,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    cfg = get_smoke_config("glm4-9b")
+    cfg = get_smoke_config(args.arch)
     cfg = dataclasses.replace(
         cfg, n_layers=args.layers, d_model=args.d_model, d_ff=args.d_model * 3 // 2,
         vocab=1024, quant=not args.no_quant, quant_backend=args.backend)
@@ -47,7 +52,10 @@ def main(argv=None) -> dict:
 
     model = lm.init_lm(cfg, seed=0, device=device)
     opt = opt_init(model)
-    data = make_lm_iterator(batch=args.batch, seq=args.seq, vocab=cfg.vocab, device=device)
+    extras = ((("src_emb", (args.batch, args.seq, cfg.frontend_dim)),)
+              if cfg.family == "encdec" else ())
+    data = make_lm_iterator(batch=args.batch, seq=args.seq, vocab=cfg.vocab, extras=extras,
+                            device=device)
     mon = StragglerMonitor()
     losses = []
 

@@ -6,7 +6,7 @@ name each parameter by its path in that tree (``blocks.3.conv1.w``,
 (OIHW convs, (d_in, d_out) classifier).  A JAX LM stacks its layers on a
 leading axis for its layer scan; :func:`lm_params_from_jax` unstacks them
 into the port's per-layer names (``layers.3.attn.wq.w``,
-``shared_attn.mlp.w_up.w``).  Takes numpy arrays, e.g.
+``enc_layers.3.mlp.w_up.w``, ``shared_attn.mlp.w_up.w``).  Takes numpy arrays, e.g.
 ``jax.tree.map(np.asarray, init_cnn(key, cfg))``, so this module needs no
 JAX.
 """
@@ -45,19 +45,23 @@ resnet_params_from_jax = cnn_params_from_jax  # the name of the ResNet-20 slice
 def lm_params_from_jax(tree, cfg) -> dict[str, torch.Tensor]:
     """The port's ``state_dict`` for a JAX LM pytree of numpy arrays
     (``models.lm.init_lm``'s layout): every leaf under ``layers`` carries a
-    leading axis of ``cfg.n_layers`` and becomes one tensor per layer."""
+    leading axis of ``cfg.n_layers`` (under ``enc_layers``, of
+    ``cfg.enc_layers``) and becomes one tensor per layer; an MoE layer's
+    expert stacks (E, ...) stay whole."""
     flat: dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
+    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers}
     out = {}
     for name, v in flat.items():
         v = np.array(v, dtype=np.float32)
-        if not name.startswith("layers."):
+        stack, _, rest = name.partition(".")
+        if stack not in stacks:
             out[name] = torch.from_numpy(v)
             continue
-        if v.shape[0] != cfg.n_layers:
+        n = stacks[stack]
+        if v.shape[0] != n:
             raise ValueError(f"{name}: leading axis {v.shape[0]}, expected the "
-                             f"{cfg.n_layers} stacked layers of {cfg.name}")
-        rest = name[len("layers."):]
-        for i in range(cfg.n_layers):
-            out[f"layers.{i}.{rest}"] = torch.from_numpy(v[i].copy())
+                             f"{n} stacked {stack} of {cfg.name}")
+        for i in range(n):
+            out[f"{stack}.{i}.{rest}"] = torch.from_numpy(v[i].copy())
     return out

@@ -13,7 +13,9 @@ backend: they quantize **both operands** to the MLS format on the forward
 pass and the **back-propagated error** once before the two backward
 GEMMs/convs (streams 0, 1 and 2 of the site), and run the GEMMs/convs
 themselves in fp32 on the dequantized (unit-scaled) values, as the JAX
-package does outside any Pallas kernel:
+package does outside any Pallas kernel; :func:`lowbit_matmul_stack` is
+:func:`lowbit_matmul` over a stack of independent GEMMs (the MoE experts,
+which the JAX package runs under ``jax.vmap``), each with its own scales:
 
     forward : Z  = Conv(qW, qA)                        (l.4)
     backward: G  = Conv(qE, qA)      -> weight grad    (l.13)
@@ -31,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .formats import EMFormat, FMT_IMAGENET, GS_FMT_DEFAULT, accumulation_bits
-from .quantize import GroupSpec, mls_quantize
+from .quantize import GroupSpec, mls_quantize, normalize_slices, quantize_grid
 
 __all__ = [
     "BACKENDS",
@@ -40,7 +42,9 @@ __all__ = [
     "fold_in",
     "lowbit_conv",
     "lowbit_matmul",
+    "lowbit_matmul_stack",
     "quantize_operand",
+    "quantize_stack",
     "rounding_generator",
 ]
 
@@ -156,16 +160,25 @@ def rounding_generator(
 # ---------------------------------------------------------------------------
 # The fake-quant backend
 # ---------------------------------------------------------------------------
+def _source(key: int | None, cfg: QuantConfig, idx: int, device, r) -> (
+        torch.Tensor | torch.Generator | None):
+    """Operand ``idx``'s rounding source: ``r[idx]`` when offsets are given
+    (``r``: a tuple of U[-1/2, 1/2) tensors, one per operand), else its
+    stream's generator (``None``: nearest)."""
+    if r is not None:
+        return r[idx]
+    return rounding_generator(key, cfg, idx, device)
+
+
 def quantize_operand(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: int | None,
-                     idx: int) -> tuple[torch.Tensor, torch.Tensor]:
+                     idx: int, r=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize -> ``(unit-scaled values, fp32 tensor scale)``: the tensor
     scale is factored out of the GEMM (paper Sec. V-B).  ``idx`` is the
     operand's rounding stream at the site (0: activation, 1: weight, 2:
-    error)."""
+    error); ``r`` gives the offsets instead (see :func:`lowbit_matmul`)."""
     if not cfg.enabled:
         return x.to(torch.float32), torch.ones((), dtype=torch.float32, device=x.device)
-    t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt,
-                     rounding_generator(key, cfg, idx, x.device))
+    t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt, _source(key, cfg, idx, x.device, r))
     return t.unit_value(), t.s_t
 
 
@@ -180,29 +193,107 @@ class LowbitMatmul(torch.autograd.Function):
     """``x (..., K) @ w (K, N)`` with MLS fake-quantized operands and error."""
 
     @staticmethod
-    def forward(ctx, x, w, key, cfg):
+    def forward(ctx, x, w, key, cfg, r):
         sx, sw = cfg.matmul_specs(x.shape, w.shape)
-        qx, stx = quantize_operand(x, cfg, sx, key, 0)
-        qw, stw = quantize_operand(w, cfg, sw, key, 1)
+        qx, stx = quantize_operand(x, cfg, sx, key, 0, r)
+        qw, stw = quantize_operand(w, cfg, sw, key, 1, r)
         ctx.save_for_backward(qx, stx, qw, stw)
-        ctx.conf = (key, cfg, x.dtype, w.dtype)
+        ctx.conf = (key, cfg, r, x.dtype, w.dtype)
         return torch.matmul(qx, qw) * (stx * stw)
 
     @staticmethod
     def backward(ctx, g):
         qx, stx, qw, stw = ctx.saved_tensors
-        key, cfg, x_dtype, w_dtype = ctx.conf
-        ge, ste = quantize_operand(g.to(torch.float32), cfg, _error_spec(cfg, g), key, 2)
+        key, cfg, r, x_dtype, w_dtype = ctx.conf
+        ge, ste = quantize_operand(g.to(torch.float32), cfg, _error_spec(cfg, g), key, 2, r)
         dx = torch.matmul(ge, qw.t()) * (ste * stw)  # paper l.15: qE @ qW^T
         dw = torch.matmul(qx.reshape(-1, qx.shape[-1]).t(),
                           ge.reshape(-1, ge.shape[-1])) * (ste * stx)  # l.13: qX^T @ qE
-        return dx.to(x_dtype), dw.to(w_dtype), None, None
+        return dx.to(x_dtype), dw.to(w_dtype), None, None, None
 
 
 def lowbit_matmul(x: torch.Tensor, w: torch.Tensor, key: int | None,
-                  cfg: QuantConfig) -> torch.Tensor:
-    """``x @ w`` with MLS-quantized operands; x: (..., K), w: (K, N)."""
-    return LowbitMatmul.apply(x, w, key, cfg)
+                  cfg: QuantConfig, r=None) -> torch.Tensor:
+    """``x @ w`` with MLS-quantized operands; x: (..., K), w: (K, N).
+    ``r``, where given, is ``(r_x, r_w, r_e)``: the rounding offsets of the
+    activation, the weight and the error, each of its operand's shape, in
+    place of the streams of ``key``."""
+    return LowbitMatmul.apply(x, w, key, cfg, r)
+
+
+# Elements one pass of quantize_stack codes at a time (whole experts): it
+# bounds the quantizer's fp32 temporaries at a few GiB on an expert stack
+# of 671 M elements (llama4-scout's w_up: 16 x 5120 x 8192).
+STACK_CHUNK = 1 << 27
+
+
+def quantize_stack(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec,
+                   r: torch.Tensor | torch.Generator | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each slice ``x[i]`` of a stack quantized with its own tensor and
+    group scales (``spec`` groups one slice): ``(unit values (E, ...), fp32
+    tensor scales (E,))``, bit for bit ``quantize_operand`` of each slice on
+    the offsets ``r[i]``.  ``r``: offsets of ``x``'s shape, a generator that
+    draws them slice group by slice group, or ``None`` (nearest).  The
+    slices are coded STACK_CHUNK elements at a time, whole slices each."""
+    n = x.shape[0]
+    if isinstance(r, torch.Tensor) and r.shape != x.shape:
+        raise ValueError(f"rounding offsets {tuple(r.shape)} do not match {tuple(x.shape)}")
+    if not cfg.enabled:
+        return x.to(torch.float32), torch.ones(n, dtype=torch.float32, device=x.device)
+    full = GroupSpec((1,) + tuple(spec.block))
+    unit = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    s_t = torch.empty(n, dtype=torch.float32, device=x.device)
+    per = max(1, STACK_CHUNK // max(1, x[0].numel()))
+    for lo in range(0, n, per):
+        xs = x[lo:lo + per].to(torch.float32)
+        if isinstance(r, torch.Generator):
+            rs = torch.rand(xs.shape, generator=r, device=r.device, dtype=torch.float32) - 0.5
+        else:
+            rs = None if r is None else r[lo:lo + per]
+        sign, s_t[lo:lo + per], _, _, _, scale, x_f = normalize_slices(xs, full, cfg.gs_fmt)
+        unit[lo:lo + per] = sign.to(torch.float32) * scale * quantize_grid(x_f, cfg.fmt, rs)
+    return unit, s_t
+
+
+# torch.profiler spans of the stacked GEMM's forward and backward (what a
+# trace reads as the MoE experts' fake-quant time)
+STACK_SPANS = ("lowbit_matmul_stack", "lowbit_matmul_stack.backward")
+
+
+class LowbitMatmulStack(torch.autograd.Function):
+    """``x (E, R, K) @ w (E, K, N)``: E independent :class:`LowbitMatmul`,
+    each operand of the stack quantized at once (:func:`quantize_stack`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, cfg, r):
+        with torch.profiler.record_function(STACK_SPANS[0]):
+            sx, sw = cfg.matmul_specs(x.shape[1:], w.shape[1:])
+            qx, stx = quantize_stack(x, cfg, sx, _source(key, cfg, 0, x.device, r))
+            qw, stw = quantize_stack(w, cfg, sw, _source(key, cfg, 1, x.device, r))
+            ctx.save_for_backward(qx, stx, qw, stw)
+            ctx.conf = (key, cfg, r, x.dtype, w.dtype)
+            return torch.matmul(qx, qw) * (stx * stw)[:, None, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.profiler.record_function(STACK_SPANS[1]):
+            qx, stx, qw, stw = ctx.saved_tensors
+            key, cfg, r, x_dtype, w_dtype = ctx.conf
+            ge, ste = quantize_stack(g.to(torch.float32), cfg, _error_spec(cfg, g[0]),
+                                     _source(key, cfg, 2, g.device, r))
+            dx = torch.matmul(ge, qw.transpose(1, 2)) * (ste * stw)[:, None, None]
+            dw = torch.matmul(qx.transpose(1, 2), ge) * (ste * stx)[:, None, None]
+            return dx.to(x_dtype), dw.to(w_dtype), None, None, None
+
+
+def lowbit_matmul_stack(x: torch.Tensor, w: torch.Tensor, key: int | None,
+                        cfg: QuantConfig, r=None) -> torch.Tensor:
+    """``x (E, R, K) @ w (E, K, N)`` -> fp32 (E, R, N): for each ``e``,
+    :func:`lowbit_matmul` of ``x[e]`` and ``w[e]`` (its own tensor and group
+    scales), in some 40 operations per operand for the whole stack.  The
+    rounding offsets of each operand come from one stream of ``key`` for
+    the whole stack, or from ``r = (r_x, r_w, r_e)`` of the stacked shapes."""
+    return LowbitMatmulStack.apply(x, w, key, cfg, r)
 
 
 def conv_pads(hw, ksize, stride, padding) -> tuple[tuple[int, int], tuple[int, int]]:

@@ -42,8 +42,10 @@ __all__ = [
     "fake_quant_ste",
     "group_reduce_max",
     "mls_quantize",
+    "normalize_slices",
     "pack_elements",
     "quantize_elements",
+    "quantize_grid",
     "quantize_group_scale",
     "unpack_elements",
 ]
@@ -129,15 +131,14 @@ def quantize_group_scale(
     return s_g, (-e).to(torch.int32), man
 
 
-def quantize_elements(
-    x_f: torch.Tensor, fmt: EMFormat, r: torch.Tensor | None = None
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Quantize normalized magnitudes in [0, 1] to the <E,M> grid.
+def quantize_grid(x_f: torch.Tensor, fmt: EMFormat, r: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """Quantize normalized magnitudes in [0, 1] to the <E,M> grid: the
+    on-grid values ``xbar`` of :func:`quantize_elements` alone.
 
     Paper Alg. 2 lines 9-16: per-element exponent, mantissa rounding
     (stochastic with the U[-1/2, 1/2) tensor ``r``, nearest when ``None``),
     gradual underflow at ``e_min`` and saturation at the top of the grid.
-    Returns ``(xbar, exp_stored, man)``, ``xbar`` exactly on the grid.
     """
     x_f = x_f.to(torch.float32)
     if fmt.e == 0:  # plain fixed point: uniform grid man/2^M over [0, 1)
@@ -160,7 +161,15 @@ def quantize_elements(
             torch.full_like(q, 2.0 ** (fmt.m + 1)),
         )
         xbar = torch.minimum(q.clamp_min(0.0), qmax) * step
+    return xbar
 
+
+def quantize_elements(
+    x_f: torch.Tensor, fmt: EMFormat, r: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`quantize_grid` with the exact storage fields: ``(xbar,
+    exp_stored, man)``, ``xbar`` exactly on the grid."""
+    xbar = quantize_grid(x_f, fmt, r)
     # exact storage fields from the on-grid value
     e2, frac2 = exponent_fraction(xbar)
     is_normal = e2 >= fmt.e_min
@@ -232,6 +241,30 @@ def _offsets(r: torch.Tensor | torch.Generator | None, x: torch.Tensor) -> torch
     return torch.rand(x.shape, generator=r, device=r.device, dtype=torch.float32) - 0.5
 
 
+def normalize_slices(
+    x: torch.Tensor, spec: GroupSpec, gs_fmt: EMFormat = GS_FMT_DEFAULT
+) -> tuple[torch.Tensor, ...]:
+    """Paper Alg. 2 lines 1-8 over a stack of independent slices ``x[i]``
+    (fp32 (n, ...); ``spec`` has block 1 on axis 0): each slice's signs,
+    group maxima, its own tensor scale, the quantized group scales, and the
+    magnitudes normalized into [0, 1].  Returns ``(sign, s_t (n,), s_g,
+    exp_g, man_g, scale, x_f)``, ``scale`` the group scales broadcast to
+    ``x``'s shape; a zero slice gets tensor scale 1."""
+    n = x.shape[0]
+    sign = torch.sign(x).to(torch.int8)
+    absx = x.abs()
+    s_r = group_reduce_max(absx, spec)  # group maxima
+    s_t = torch.amax(s_r.reshape(n, -1), dim=1)  # tensor scales
+    s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
+    s_g, exp_g, man_g = quantize_group_scale(
+        s_r / s_t.reshape((n,) + (1,) * (s_r.ndim - 1)), gs_fmt)
+    scale = broadcast_groups(s_g, spec, x.shape)
+    denom = s_t.reshape((n,) + (1,) * (x.ndim - 1)) * scale
+    safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+    x_f = torch.where(denom > 0, absx / safe, torch.zeros_like(absx))
+    return sign, s_t, s_g, exp_g, man_g, scale, x_f
+
+
 def mls_quantize(
     x: torch.Tensor,
     fmt: EMFormat,
@@ -245,18 +278,11 @@ def mls_quantize(
     x = x.to(torch.float32)
     if spec is None:
         spec = GroupSpec.per_tensor(x.ndim)
-    sign = torch.sign(x).to(torch.int8)
-    absx = x.abs()
-    s_r = group_reduce_max(absx, spec)  # group maxima
-    s_t = torch.amax(s_r)  # tensor scale
-    s_t_safe = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
-    s_g, exp_g, man_g = quantize_group_scale(s_r / s_t_safe, gs_fmt)
-    denom = s_t_safe * broadcast_groups(s_g, spec, x.shape)
-    safe = torch.where(denom > 0, denom, torch.ones_like(denom))
-    x_f = torch.where(denom > 0, absx / safe, torch.zeros_like(absx))
-    xbar, exp_x, man_x = quantize_elements(x_f, fmt, _offsets(r, x))
-    return MLSTensor(sign=sign, s_t=s_t_safe, s_g=s_g, exp_g=exp_g, man_g=man_g, xbar=xbar,
-                     exp_x=exp_x, man_x=man_x, fmt=fmt, gs_fmt=gs_fmt, spec=spec)
+    sign, s_t, s_g, exp_g, man_g, _, x_f = normalize_slices(
+        x[None], GroupSpec((1,) + tuple(spec.block)), gs_fmt)
+    xbar, exp_x, man_x = quantize_elements(x_f[0], fmt, _offsets(r, x))
+    return MLSTensor(sign=sign[0], s_t=s_t[0], s_g=s_g[0], exp_g=exp_g[0], man_g=man_g[0],
+                     xbar=xbar, exp_x=exp_x, man_x=man_x, fmt=fmt, gs_fmt=gs_fmt, spec=spec)
 
 
 def fake_quant(

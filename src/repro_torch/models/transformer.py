@@ -50,8 +50,9 @@ def norm_init(cfg: ModelConfig) -> nn.Module:
 
 
 class Attention(nn.Module):
-    """Causal grouped-query self-attention: ``wq``, ``wk``, ``wv`` (with
-    the config's QKV bias) and ``wo``."""
+    """Grouped-query attention: ``wq``, ``wk``, ``wv`` (with the config's
+    QKV bias) and ``wo``; causal self-attention unless told otherwise, or
+    cross-attention over a source sequence or its precomputed K/V."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -77,20 +78,31 @@ class Attention(nn.Module):
         cache_pos: int = 0,  # write offset into the cache
         kv_valid: int | None = None,  # valid cache slots (ring buffers)
         window: int | None = None,
+        causal: bool = True,
+        kv: torch.Tensor | None = None,  # cross-attention source (B, Sk, d)
+        cross_cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # read-only K/V
     ) -> torch.Tensor:
         """fp32 (B, S, d).  The cache is written in place at ``cache_pos``:
         where ``cache_pos + S`` passes its end this raises (the JAX
         package's ``dynamic_update_slice`` would clamp the start and
-        overwrite the last slots)."""
+        overwrite the last slots).  Cross-attention (``kv`` or
+        ``cross_cache``) has no rotary embedding and no mask;
+        ``cross_cache`` (B, Sk, KV, hd) x2 is read, never written."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.hd
         q = self.wq(x, qcfg, fold_in(key, 0)).reshape(b, s, cfg.n_heads, hd)
         q_chunk = 1024 if s > 4096 else None
-        k = self.wk(x, qcfg, fold_in(key, 1)).reshape(b, s, cfg.n_kv_heads, hd)
-        v = self.wv(x, qcfg, fold_in(key, 2)).reshape(b, s, cfg.n_kv_heads, hd)
+        if cross_cache is not None:
+            out = L.gqa_attention(q, *cross_cache, causal=False, q_chunk=q_chunk)
+            out = out.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
+            return self.wo(out, qcfg, fold_in(key, 3))
+        xkv = x if kv is None else kv
+        sk = xkv.shape[1]
+        k = self.wk(xkv, qcfg, fold_in(key, 1)).reshape(b, sk, cfg.n_kv_heads, hd)
+        v = self.wv(xkv, qcfg, fold_in(key, 2)).reshape(b, sk, cfg.n_kv_heads, hd)
 
-        if cfg.rotary_pct > 0:
+        if kv is None and cfg.rotary_pct > 0:
             rd = int(hd * cfg.rotary_pct)
             if positions is None:  # absolute positions (decode: offset by the cache)
                 positions = (torch.arange(s, device=x.device) + cache_pos)[None, :].expand(b, s)
@@ -109,10 +121,11 @@ class Attention(nn.Module):
                 # ring buffer: slot order is arbitrary; rope carries positions
                 out = L.gqa_attention(q, ck, cv, causal=False, kv_len=kv_valid, q_chunk=q_chunk)
             else:
-                out = L.gqa_attention(q, ck, cv, causal=True, q_offset=cache_pos,
+                out = L.gqa_attention(q, ck, cv, causal=causal, q_offset=cache_pos,
                                       window=window, kv_len=cache_pos + s, q_chunk=q_chunk)
         else:
-            out = L.gqa_attention(q, k, v, causal=True, window=window, q_chunk=q_chunk)
+            out = L.gqa_attention(q, k, v, causal=causal and kv is None, window=window,
+                                  q_chunk=q_chunk)
 
         out = out.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
         return self.wo(out, qcfg, fold_in(key, 3))
@@ -122,10 +135,10 @@ class MLP(nn.Module):
     """``w_up``, ``w_down`` and, gated (SwiGLU), ``w_gate``; else GELU
     (tanh approximation, JAX's default)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, d_ff: int | None = None):
         super().__init__()
         self.gated = cfg.gated_mlp
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         self.w_up = L.Linear(d, f)
         self.w_down = L.Linear(f, d)
         self.w_gate = L.Linear(d, f) if cfg.gated_mlp else None
@@ -145,7 +158,8 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm decoder block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """Pre-norm decoder block: ``ln1``, ``attn``, ``ln2``, ``mlp``;
+    bidirectional with ``causal=False`` (the encoder's)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -159,9 +173,9 @@ class Block(nn.Module):
         self.mlp.init_(generator)
 
     def forward(self, x, qcfg: QuantConfig | None, key: int | None, *, positions=None,
-                cache=None, cache_pos: int = 0, kv_valid=None, window=None):
+                cache=None, cache_pos: int = 0, kv_valid=None, window=None, causal=True):
         h = self.attn(self.ln1(x), qcfg, key, positions=positions, cache=cache,
-                      cache_pos=cache_pos, kv_valid=kv_valid, window=window)
+                      cache_pos=cache_pos, kv_valid=kv_valid, window=window, causal=causal)
         x = x + h.to(x.dtype)
         h = self.mlp(self.ln2(x), qcfg, key)
         return x + h.to(x.dtype)

@@ -33,8 +33,13 @@ def make_train_step(run: RunConfig, lr_fn: Callable | None = None):
     """``(train_step, opt_init)`` for ``run``: ``opt_init(model)`` gives the
     optimizer's state at step 0, ``train_step(model, opt_state, batch)``
     takes one step and returns ``(model, opt_state, {"loss", "grad_norm",
-    "lr"})`` (0-dim fp32 tensors).  ``lr_fn(step)`` defaults to a cosine of
-    ``run.lr`` with 100 warmup steps over 10,000."""
+    "lr", "aux"})`` (0-dim fp32 tensors; ``aux`` is the MoE layers'
+    load-balance loss inside ``loss``, 0 for the other families, averaged
+    over the microbatches as the loss is).  The batch holds whatever
+    ``lm_loss`` reads (``tokens``, and ``frontend_emb`` or the
+    encoder-decoder's ``src_emb``), each split along its first axis.
+    ``lr_fn(step)`` defaults to a cosine of ``run.lr`` with 100 warmup
+    steps over 10,000."""
     cfg = run.model
     opt_init, opt_update = make_optimizer(run.optimizer, weight_decay=run.weight_decay)
     lr_fn = lr_fn or cosine_schedule(run.lr, warmup=100, total=10_000)
@@ -51,24 +56,26 @@ def make_train_step(run: RunConfig, lr_fn: Callable | None = None):
             raise ValueError(f"microbatch {n} does not divide the batch "
                              f"{[tuple(v.shape) for v in batch.values()]}")
         parts = [{k: v.chunk(n, dim=0)[i] for k, v in batch.items()} for i in range(n)]
-        loss = None
+        loss = aux = None
         for part in parts:  # each part's gradients add into .grad, in fp32
-            part_loss, _ = lm.lm_loss(model, part, key)
+            part_loss, part_metrics = lm.lm_loss(model, part, key)
             part_loss.backward()
             part_loss = part_loss.detach().float()
+            part_aux = part_metrics["aux"].detach().float()
             loss = part_loss if loss is None else loss + part_loss
+            aux = part_aux if aux is None else aux + part_aux
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
                  for k, p in params.items()}
         if n > 1:
             grads = {k: g.div_(n) for k, g in grads.items()}
-            loss = loss / n
+            loss, aux = loss / n, aux / n
         grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
         lr = lr_fn(step)
         opt_state = opt_update(grads, opt_state, params, lr)
         for p in params.values():
             p.grad = None
         return model, opt_state, {"loss": loss, "grad_norm": gnorm,
-                                  "lr": torch.as_tensor(lr, dtype=torch.float32)}
+                                  "lr": torch.as_tensor(lr, dtype=torch.float32), "aux": aux}
 
     return train_step, opt_init
 

@@ -657,9 +657,13 @@ def test_k1_k3_match_plain_at_zoo_shapes(cuda, mkn, grouping):
 # (M, K, N) of the LM serving path's GEMMs at full width: chatglm3-6b's
 # decode (batch 4) wq, wk/wv, w_up and w_down and its prefill w_up (batch
 # 4 x 128 tokens), mamba2-370m's in_proj at prefill, zamba2-7b's decode
-# out_proj (56 scaling groups)
+# out_proj (56 scaling groups); moonshot-v1-16b-a3b's decode attention,
+# llama4-scout's shared expert at decode (w_up, w_down), seamless-m4t's
+# decoder MLP at decode and its encoder's w_up at prefill (4 x 1024 frames)
 LM_GEMMS = [(4, 4096, 4096), (4, 4096, 256), (4, 4096, 13696), (4, 13696, 4096),
-            (512, 4096, 13696), (512, 1024, 4384), (4, 7168, 3584)]
+            (512, 4096, 13696), (512, 1024, 4384), (4, 7168, 3584),
+            (4, 2048, 2048), (4, 5120, 8192), (4, 8192, 5120), (4, 1024, 4096),
+            (4, 4096, 1024), (4096, 1024, 4096)]
 
 
 @pytest.mark.parametrize("mkn", LM_GEMMS, ids=str)
@@ -692,14 +696,28 @@ def test_k1_k3_match_plain_at_lm_shapes(cuda, mkn):
         assert torch.equal(mls_matmul(*args, "nc", plan=p), want), p
 
 
-@pytest.mark.parametrize("name", ["chatglm3-6b", "mamba2-370m", "zamba2-7b"])
+LM_ARCHS = ["chatglm3-6b", "mamba2-370m", "zamba2-7b", "moonshot-v1-16b-a3b",
+            "llama4-scout-17b-a16e", "seamless-m4t-medium"]
+
+
+def _lm_inputs(cfg, toks) -> dict:
+    """The batch of ``toks``, with the encoder-decoder's source frames."""
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["src_emb"] = torch.randn((toks.shape[0], 12, cfg.frontend_dim),
+                                       generator=torch.Generator().manual_seed(5))
+    return batch
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_smoke_serve_on_the_card_agrees_with_the_cpu(cuda, name):
     """A smoke config on the quantized kernels, the same weights on the card
     and on the CPU: prefill and decode logits within 1e-3 of max(1,
     max|logit|) (the norms and attention sum in other orders; the quantized
     linears are bit-exact), the same greedy tokens, and the launches of
     chip_smoke.serve_linears's closed form on the card (K1 twice and K3
-    once per quantized linear)."""
+    once per quantized linear; the encoder-decoder's prefill also runs its
+    encoder)."""
     import copy
     import dataclasses
 
@@ -711,13 +729,14 @@ def test_smoke_serve_on_the_card_agrees_with_the_cpu(cuda, name):
     cpu_model = init_lm(cfg, seed=3, device="cpu")
     models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to(cuda)}
     toks = torch.randint(0, cfg.vocab, (2, 10), generator=torch.Generator().manual_seed(4))
-    n = _chip_smoke().serve_linears(cfg)
+    prompts = _lm_inputs(cfg, toks[:, :4])
+    n = _chip_smoke().serve_linears(cfg, prefill=True) + 6 * _chip_smoke().serve_linears(cfg)
     logits, tokens = {}, {}
     for dev, model in models.items():
         engine = ServeEngine(cfg, model, max_len=32, device=dev)
         reset_launch_counts()
         with torch.inference_mode():
-            lg, cache = engine.prefill({"tokens": toks[:, :4]})
+            lg, cache = engine.prefill(prompts)
             steps = [lg]
             for i in range(4, 10):
                 lg, cache = engine.decode(cache, toks[:, i:i + 1].to(dev))
@@ -725,8 +744,8 @@ def test_smoke_serve_on_the_card_agrees_with_the_cpu(cuda, name):
         logits[dev] = torch.stack(steps).cpu()
         if dev == "cuda":
             counts = launch_counts()
-            assert (counts["mls_quantize_rows"], counts["mls_matmul"]) == (2 * n * 7, n * 7)
-        tokens[dev] = engine.generate({"tokens": toks[:, :4]}, 6).cpu()
+            assert (counts["mls_quantize_rows"], counts["mls_matmul"]) == (2 * n, n)
+        tokens[dev] = engine.generate(prompts, 6).cpu()
     scale = max(1.0, float(logits["cpu"].abs().max()))
     assert float((logits["cuda"] - logits["cpu"]).abs().max()) <= 1e-3 * scale
     assert torch.equal(tokens["cuda"], tokens["cpu"])
@@ -739,13 +758,17 @@ def test_smoke_serve_on_the_card_agrees_with_the_cpu(cuda, name):
 # gradient (e (T, N) @ w^T) and weight gradient (x^T @ e: both operands
 # transposed copies, contracting over the tokens); "wgrad" marks the GEMMs
 # whose operands are made as qd_gemm makes them, (T, rows) tensors copied
-# transposed
+# transposed; then moonshot-v1-16b-a3b's attention (2048 -> 2048) and
+# seamless-m4t's w_up (1024 -> 4096)
 LM_TRAIN_GEMMS = [(256, 4096, 13696, "fwd"), (256, 13696, 4096, "dgrad"),
                   (4096, 256, 13696, "wgrad"), (256, 13696, 4096, "fwd"),
                   (256, 4096, 13696, "dgrad"), (13696, 256, 4096, "wgrad"),
                   (256, 4096, 256, "fwd"), (256, 256, 4096, "dgrad"),
                   (4096, 256, 256, "wgrad"), (256, 1024, 4384, "fwd"),
-                  (256, 4384, 1024, "dgrad"), (1024, 256, 4384, "wgrad")]
+                  (256, 4384, 1024, "dgrad"), (1024, 256, 4384, "wgrad"),
+                  (256, 2048, 2048, "fwd"), (256, 2048, 2048, "dgrad"),
+                  (2048, 256, 2048, "wgrad"), (256, 1024, 4096, "fwd"),
+                  (256, 4096, 1024, "dgrad"), (1024, 256, 4096, "wgrad")]
 
 
 @pytest.mark.parametrize("gemm", LM_TRAIN_GEMMS, ids=str)
@@ -794,6 +817,24 @@ def test_smoke_train_step_on_the_card_agrees_with_the_cpu(cuda, name, monkeypatc
     other orders, and one ulp before a quantizer can move an element to the
     neighbouring code: a few percent on one gradient), the weights within
     1e-5, and K1/K3 launched as chip_smoke.lm_train_launches says."""
+    _train_step_agrees(cuda, name, monkeypatch, weight_tol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e",
+                                  "seamless-m4t-medium"])
+def test_smoke_moe_and_encdec_train_step_on_the_card_agrees_with_the_cpu(cuda, name,
+                                                                        monkeypatch):
+    """The same step on the MoE and encoder-decoder smoke configs.  A code
+    moved by a sum's order on the card moves more codes in every later
+    quantizer, and these configs run more of them (the routed experts'
+    fake-quant GEMMs; the encoder and the cross-attention): the
+    embedding's update differed by 1.03e-5 (moonshot) and 1.21e-5
+    (seamless) at lr 1e-2 on an H100.  The weights within 1e-4, the rest
+    as above."""
+    _train_step_agrees(cuda, name, monkeypatch, weight_tol=1e-4)
+
+
+def _train_step_agrees(cuda, name, monkeypatch, weight_tol):
     import copy
     import dataclasses
 
@@ -812,7 +853,8 @@ def test_smoke_train_step_on_the_card_agrees_with_the_cpu(cuda, name, monkeypatc
     out = {}
     for dev, model in models.items():
         reset_launch_counts()
-        model, _, m = step(model, init(model), {"tokens": toks.to(model.emb.device)})
+        batch = {k: v.to(model.emb.device) for k, v in _lm_inputs(cfg, toks).items()}
+        model, _, m = step(model, init(model), batch)
         out[dev] = (float(m["loss"]), float(m["grad_norm"]),
                     {k: p.detach().cpu() for k, p in model.named_parameters()})
         if dev == "cuda":
@@ -822,4 +864,4 @@ def test_smoke_train_step_on_the_card_agrees_with_the_cpu(cuda, name, monkeypatc
     (l0, g0, p0), (l1, g1, p1) = out["cpu"], out["cuda"]
     assert abs(l1 - l0) <= 1e-4 * abs(l0) and abs(g1 - g0) <= 1e-3 * abs(g0)
     for k, p in p0.items():
-        assert float((p1[k] - p).abs().max()) <= 1e-5, k
+        assert float((p1[k] - p).abs().max()) <= weight_tol, k

@@ -246,9 +246,9 @@ def test_fake_quant_ops_quantize_the_error_once_on_streams_0_1_2(monkeypatch):
     idxs = []
     orig = lowbit.quantize_operand
 
-    def spy(x, cfg, spec, key, idx):
+    def spy(x, cfg, spec, key, idx, r=None):
         idxs.append(idx)
-        return orig(x, cfg, spec, key, idx)
+        return orig(x, cfg, spec, key, idx, r)
 
     monkeypatch.setattr(lowbit, "quantize_operand", spy)
     cfg = QuantConfig(fmt=EMFormat(2, 4), backend="fake_quant", k_block=32)

@@ -258,6 +258,15 @@ def test_lm_params_from_jax_is_one_to_one(name):
 
 
 def test_unported_families_raise():
-    for name in ("llama4-scout-17b-a16e", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.LM(configs.get_smoke_config(name))
+    """Every family is ported: all ten full configs build (on the meta
+    device: no memory) with the JAX package's parameter count, and only a
+    family the JAX package does not have raises."""
+    for name, cfg in configs.ARCHS.items():
+        with torch.device("meta"):
+            model = lm.LM(cfg)
+        assert sum(p.numel() for p in model.parameters()) == sum(
+            a.size for a in jax.tree.leaves(jax.eval_shape(
+                lambda k, c=jconfigs.get_config(name): jlm.init_lm(k, c),
+                jax.random.key(0)))), name
+    with pytest.raises(ValueError, match="unknown LM family"):
+        lm.LM(dataclasses.replace(configs.get_smoke_config("qwen2-72b"), family="rwkv"))
