@@ -160,11 +160,29 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 (key None) on the card against the CPU (LM_TRAIN_AGREE),
                 as run and with every quantizer fed the CPU run's
                 operands (fed_operands).
+  13. sweep   - the frontier sweep's chip grid (repro_torch.sweep.chip_grid:
+                ResNet-20 at full width, CIFAR 32x32, batch 128, lr 0.05,
+                40 SGD-momentum steps; fp32, <2,4>, <2,1> and <0,4> on
+                fake_quant; <2,4> and <2,1> on the kernels ("pallas": K1/K3,
+                120 / 60 launches a step); <2,1> on the kernels with
+                grouping "c" and "none" (K2/K3)), through
+                repro_torch.sweep.runner; finite losses, every step's
+                launches the dispatch's count (none on fake_quant), step
+                times (median of steps 2-40) and the frontier table; the
+                gate against the committed chip entries of
+                src/repro_torch/sweep/baselines/accuracy.json must pass and
+                fail under both sabotage modes ("regress", "missing_cell");
+                two cells run again must repeat their losses bit for bit
+                (and the fp32 cell twice with cuDNN's default algorithms,
+                reported); then
+                benchmarks/torch_table2_accuracy.py (quick) on the card,
+                every variant's loss finite.
 The line before the last is {"kernels": [...]}: each kernel's `launches`
 are its count on the training path (phase train; K5's in the audit's
 overlap_write run), `serve_launches` its count per model of the serve
-phase and `lm_train_launches` per model of the lm_train phase's 4-step
-run, each read from its own run.  The last line is
+phase, `lm_train_launches` per model of the lm_train phase's 4-step
+run, and `sweep_launches` its launches per step in each "pallas" cell of
+the sweep's chip grid, each read from its own run.  The last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
 """
@@ -2221,6 +2239,116 @@ def phase_lm_train(results: dict) -> dict[str, dict[str, int]]:
     return {name: r["launches"] for name, r in trained.items()}
 
 
+SWEEP_REPEAT = ("resnet20/fp32/fake_quant", "resnet20/mls_e2m1/pallas")  # run twice
+
+
+def sweep_cell(cell, convs) -> dict:
+    """Train one chip-grid cell on the card, counts set to 0 just before
+    and read just after; every step's launches must equal the dispatch's
+    count over ResNet-20's 20 quantized convs ("pallas": K1/K3 for "nc",
+    K2/K3 for "c" and "none") or none at all (fake_quant, fp32), and every
+    loss must be finite.  Step time: host clock, each step ending in a read
+    of its loss; median of steps 2-40."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sweep.runner import cell_qcfg, cell_row, train_cell
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    want = expected_launches(cell_qcfg(cell), convs) if cell.backend == "pallas" else zero
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    traj = train_cell(cell, "cuda")
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    row = cell_row(cell, traj, wall)
+    r = dict(row=row, losses=traj.losses, accs=traj.accs, wall_s=wall,
+             median_step_ms=statistics.median(traj.step_s[1:]) * 1e3,
+             first_step_ms=traj.step_s[0] * 1e3, launches=counts, expected_per_step=want)
+    print(f"sweep {row['cell_id']}: loss {row['final_loss']} acc {row['final_acc']} median "
+          f"step {r['median_step_ms']:.2f} ms wall {wall:.1f} s launches {counts}")
+    if not all(math.isfinite(v) for v in traj.losses):
+        raise AssertionError(f"{row['cell_id']}: non-finite loss {traj.losses}")
+    for i, per in enumerate(traj.launches):
+        if per != want:
+            raise AssertionError(f"{row['cell_id']} step {i}: launches {per}, expected {want}")
+    return r
+
+
+def phase_sweep(results: dict) -> dict[str, dict[str, int]]:
+    """The frontier sweep's chip grid (``repro_torch.sweep.chip_grid``:
+    ResNet-20 at full width, CIFAR 32x32, batch 128, lr 0.05, 40 steps;
+    fp32, <2,4>, <2,1> and <0,4> on fake_quant, <2,4> and <2,1> on the
+    kernels, <2,1> on the kernels with grouping "c" and "none"), each cell
+    seeded by its own generators; the frontier table; the gate against
+    the committed chip entries of the port's baseline, which must pass, and
+    its two negative controls, which must fail; two cells run again, which
+    must take the same steps (the runner's cuDNN is deterministic), and
+    the fp32 cell twice with cuDNN's default algorithms (reported); then
+    the Table II benchmark (quick).  Returns each kernel's launches per step by "pallas" cell."""
+    import importlib.util
+    from unittest import mock
+
+    from repro_torch.sweep import apply_gate, chip_grid, frontier_table, load_baseline
+    from repro_torch.sweep import runner as sweep_runner
+    from repro_torch.sweep.gate import SABOTAGE_MODES, sabotage_baseline
+
+    convs = conv_list("resnet20", HW, BATCH)
+    cells = {c.cell_id(): c for c in chip_grid()}
+    runs = {cid: sweep_cell(c, convs) for cid, c in cells.items()}
+    nc = {"mls_quantize_rows": 120, "mls_quantize_given_sg": 0, "mls_matmul": 60,
+          "implicit_conv": 0, "conv_tensor_scale": 0, "sabotage_overlap": 0}
+    for cid in ("resnet20/mls_e2m4/pallas", "resnet20/mls_e2m1/pallas"):
+        if runs[cid]["expected_per_step"] != nc:
+            raise AssertionError(f"{cid} no longer takes 120 K1 and 60 K3 launches a step "
+                                 f"on im2col alone: {runs[cid]['expected_per_step']}")
+    rows = [r["row"] for r in runs.values()]
+    results["sweep"] = sweep = dict(cells=runs)
+    print(frontier_table(rows, title="Bit-width x architecture frontier (chip grid, "
+                                     f"{results['nvidia_smi']})"))
+    baseline = load_baseline()
+    failures = apply_gate(rows, baseline, grid_name="chip")
+    sabotaged = {mode: apply_gate(rows, sabotage_baseline(baseline, mode, "chip"), "chip")
+                 for mode in SABOTAGE_MODES}
+    repeat = {}
+    for cid in SWEEP_REPEAT:
+        again = sweep_cell(cells[cid], convs)
+        repeat[cid] = dict(losses_equal=again["losses"] == runs[cid]["losses"],
+                           max_loss_diff=max(abs(a - b) for a, b in
+                                             zip(again["losses"], runs[cid]["losses"])))
+    # the control: cuDNN's default algorithms, which the runner replaces
+    with mock.patch.object(sweep_runner, "_deterministic_cudnn", contextlib.nullcontext):
+        a, b = (sweep_cell(cells[SWEEP_REPEAT[0]], convs) for _ in range(2))
+    repeat["cudnn_default"] = dict(losses_equal=a["losses"] == b["losses"],
+                                   max_loss_diff=max(abs(x - y) for x, y in
+                                                     zip(a["losses"], b["losses"])),
+                                   median_step_ms=(a["median_step_ms"], b["median_step_ms"]))
+    print(json.dumps({"sweep_repeat": repeat}))
+    spec = importlib.util.spec_from_file_location(
+        "torch_table2_accuracy", ROOT / "benchmarks" / "torch_table2_accuracy.py")
+    table2 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(table2)
+    t = time.perf_counter()
+    t2_rows = table2.run(quick=True, device="cuda")
+    t2_s = time.perf_counter() - t
+    for r in t2_rows:
+        print(f'{r["name"]},{r["us_per_call"]:.1f},"{r["derived"]}"')
+    sweep.update(gate_failures=failures, sabotaged=sabotaged, repeat=repeat, table2=t2_rows,
+                 table2_s=t2_s)
+    print(json.dumps({"sweep_gate": failures or "pass",
+                      "sabotaged": {m: len(f) for m, f in sabotaged.items()}}))
+    if failures:
+        raise AssertionError(f"sweep gate failed: {failures}")
+    if not all(sabotaged.values()):
+        raise AssertionError(f"a sabotaged baseline passed the gate: {sabotaged}")
+    if not all(repeat[cid]["losses_equal"] for cid in SWEEP_REPEAT):
+        raise AssertionError(f"a cell run again on the card took other steps: {repeat}")
+    bad = [r["name"] for r in t2_rows
+           if r["final_loss"] is None or not math.isfinite(r["final_loss"])]
+    if bad:
+        raise AssertionError(f"Table II variants with non-finite loss: {bad}")
+    return {cid: r["expected_per_step"] for cid, r in runs.items()
+            if cells[cid].backend == "pallas"}
+
+
 def _tensors(tree) -> list:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2404,13 +2532,12 @@ def main() -> int:
         fail("no CUDA device: this smoke test needs a GPU")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside {Path(__file__).name}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    smi_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
-    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi_line}")
-
     from repro_torch.kernels import build
     from repro_torch.runtime import resolve_device
+    from repro_torch.sweep.record import nvidia_smi
+
+    smi_line = nvidia_smi()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi_line}")
 
     resolve_device("cuda")  # TF32 off
     results: dict = {"nvidia_smi": smi_line, "torch": torch.__version__,
@@ -2429,12 +2556,13 @@ def main() -> int:
         traceback.print_exc()
         fail("kernel build failed")
 
-    rows, launches, serve_launches, lm_train_launches_ = [], {}, {}, {}
+    rows, launches, serve_launches, lm_train_launches_, sweep_launches = [], {}, {}, {}, {}
     for name, phase in (("kernels", phase_kernels), ("train", phase_train),
                         ("trace", phase_trace), ("agree", phase_agree),
                         ("audit", phase_audit), ("zoo", phase_zoo),
                         ("fake_quant", phase_fakequant), ("driver", phase_driver),
-                        ("serve", phase_serve), ("lm_train", phase_lm_train)):
+                        ("serve", phase_serve), ("lm_train", phase_lm_train),
+                        ("sweep", phase_sweep)):
         t = time.perf_counter()
         try:
             out = phase(results)
@@ -2449,6 +2577,8 @@ def main() -> int:
                 serve_launches = out
             elif name == "lm_train":
                 lm_train_launches_ = out
+            elif name == "sweep":
+                sweep_launches = out
         except Exception:
             traceback.print_exc()
             failures.append(name)
@@ -2473,6 +2603,8 @@ def main() -> int:
                                             for m, n in serve_launches.items()},
                             lm_train_launches={m: n.get(r["name"], 0)
                                                for m, n in lm_train_launches_.items()},
+                            sweep_launches={c: n.get(r["name"], 0)
+                                            for c, n in sweep_launches.items()},
                             max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None, shape=r["shape"],

@@ -865,3 +865,20 @@ def _train_step_agrees(cuda, name, monkeypatch, weight_tol):
     assert abs(l1 - l0) <= 1e-4 * abs(l0) and abs(g1 - g0) <= 1e-3 * abs(g0)
     for k, p in p0.items():
         assert float((p1[k] - p).abs().max()) <= weight_tol, k
+
+
+def test_sweep_pallas_cell_on_the_card_launches_the_closed_form(cuda):
+    """A reduced "pallas" ResNet-20 cell of the frontier sweep on the card:
+    every step launches K1 120 and K3 60 times (chip_smoke.expected_launches
+    over the 20 quantized convs), and every loss is finite."""
+    from repro_torch.models.cnn import quantized_convs
+    from repro_torch.sweep.grid import Cell
+    from repro_torch.sweep.runner import cell_cnn_config, cell_qcfg, train_cell
+
+    cell = Cell(arch="resnet20", fmt="mls_e2m4", backend="pallas", steps=3, batch=8, hw=8)
+    convs = quantized_convs(cell_cnn_config(cell), cell.batch)
+    want = _chip_smoke().expected_launches(cell_qcfg(cell), convs)
+    assert want["mls_quantize_rows"] == 120 and want["mls_matmul"] == 60
+    traj = train_cell(cell, cuda)
+    assert all(np.isfinite(traj.losses))
+    assert traj.launches == [want] * cell.steps

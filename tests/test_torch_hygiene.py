@@ -49,7 +49,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.energy, repro_torch.train, repro_torch.core.quantize, "
             "repro_torch.configs, repro_torch.models.lm, repro_torch.serve, "
             "repro_torch.train.trainer, repro_torch.launch.train, repro_torch.optim, "
-            "repro_torch.data; "
+            "repro_torch.data, repro_torch.sweep, repro_torch.sweep.__main__, "
+            "repro_torch.sweep.grid, repro_torch.sweep.runner, repro_torch.sweep.gate, "
+            "repro_torch.sweep.report, repro_torch.sweep.record; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(), timeout=120)
@@ -86,6 +88,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
         make_lm_iterator(2, 8, cfg.vocab)
     with pytest.raises(RuntimeError, match="no GPU"):
         train.main(["--arch", "qwen2-72b", "--smoke", "--steps", "1"])
+    from repro_torch.sweep import __main__ as sweep_cli
+
+    with pytest.raises(RuntimeError, match="no GPU"):
+        sweep_cli.main(["--smoke", "--only", "resnet20/fp32/fake_quant"])
 
 
 def test_quantized_config_refusals():
