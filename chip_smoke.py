@@ -32,6 +32,21 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 ResNet-34's stage-4 3x3, GoogleNet's 4b 3x3, VGG-16's
                 last 3x3).  K1 ("nc", "n") and K4 (four groupings) with a
                 NaN input against the plain versions on the CPU.
+  3b. tune    - the tile cache (repro_torch.kernels.autotune): the committed
+                seed cache's --check on the card (every path and registry
+                spec cached, every winner proven with the built library's
+                constants); every cached winner's output bit-identical to
+                its default's and to the plain version at its spec's shape;
+                --tune --force of one gemm, one quantize and one conv spec
+                (TUNE_FORCE) into chiprun_out/kernel_tune_forced.json,
+                candidates timed and pruned; benchmarks/torch_kernel_bench.py
+                into chiprun_out/BENCH_torch_kernels.json; one full-width
+                ResNet-20 main-path step with the seed cache and one with an
+                empty cache: loss and gradients equal bit for bit, 120 K1 /
+                60 K3 launches each, both step times printed.  The phases
+                after it resolve through the seed cache where it was tuned
+                on this card (its conv choices can move a k_block-144 conv
+                from K4 to im2col: expected_launches follows the dispatch).
   4. train    - the main path: 5 SGD steps of ResNet-20 at full width
                 (CIFAR 32x32, batch 128, <2,4>, k_block 128, grouping "nc",
                 stochastic rounding) through repro_torch.train; losses must
@@ -146,7 +161,10 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 fake-quant), peak memory, the attention, the LM head and
                 an MoE layer's experts timed alone at the step's shapes;
                 a microbatch-2
-                step on chatglm3-6b (finite, twice the launches);
+                step on chatglm3-6b (finite, twice the launches), and one
+                lm_loss forward and backward of it under remat "full" and
+                under "dots" (loss and gradient norm equal bit for bit; ms
+                and peak memory of each);
                 mamba2-370m checkpointed after step 2 on the card, restored
                 on the card, its step 3 bit-identical to the uninterrupted
                 one.  K1 (stochastic, given bytes) and K3 (both plans)
@@ -556,7 +574,7 @@ def implicit_conv_checks(gen, timed: dict) -> list[dict]:
     """K4 against its plain version and the im2col route at CONV_SHAPES,
     four groupings, stochastic rounding bytes: <2,4> and <2,1> at the stage
     convs, <3,1> (the int32 body) at stage 1, <2,4> at the zoo convs (which
-    the dispatch must send to K4).  The <2,4> stage-conv cases are timed,
+    the dispatch must send to K4 without a tile cache).  The <2,4> stage-conv cases are timed,
     beside the im2col route of the same conv (pad, unfold, K1 on the
     patches and on the weight, K3), and for "c" and "n" beside the
     PyTorch glue that made their compact scales before this slice
@@ -577,11 +595,15 @@ def implicit_conv_checks(gen, timed: dict) -> list[dict]:
                                      grouping)
         return mls_matmul(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, kb, grouping)
 
+    from repro_torch.kernels import autotune
+
     checks = []
     for sname, (xs, ws, stride, k_block) in CONV_SHAPES.items():
         geom = conv_geometry(xs, ws, stride, "SAME")
-        if resolve_conv_impl(geom, QuantConfig(k_block=k_block)) != "implicit":
-            raise AssertionError(f"{sname}: the dispatch does not send it to K4")
+        # the default dispatch (no tile cache: the seed may send a conv to im2col)
+        with autotune.override_cache(autotune.TuneCache()):
+            if resolve_conv_impl(geom, QuantConfig(k_block=k_block)) != "implicit":
+                raise AssertionError(f"{sname}: the dispatch does not send it to K4")
         x = torch.randn(xs, generator=gen, device="cuda")
         w = torch.randn(ws, generator=gen, device="cuda") * math.sqrt(2.0 / geom.k0)
         r_x = torch.randint(0, 256, (geom.m0, geom.k0), generator=gen, dtype=torch.uint8,
@@ -1239,8 +1261,10 @@ def lm_train_launches(cfg, microbatch: int = 1) -> dict[str, int]:
     under full remat once more for the recomputed forward; the hybrid's
     shared block is not remat'd.  In training the encoder-decoder's cross
     attention computes its K/V from the encoder's output, quantized, so a
-    decoder layer has 8 attention linears.  Times the microbatches."""
-    per = 4 if cfg.remat == "full" else 3
+    decoder layer has 8 attention linears.  Remat "dots" recomputes the
+    forward too: K3 runs inside an autograd.Function that its policy does
+    not see.  Times the microbatches."""
+    per = 3 if cfg.remat == "none" else 4
     mlp = 3 if cfg.gated_mlp else 2
     if cfg.family == "dense":
         k3 = (4 + mlp) * cfg.n_layers * per
@@ -1907,6 +1931,9 @@ def lm_train_model(name: str, smi: str) -> dict:
             bad.append(f"microbatch-2 loss {r['microbatch2']['loss']}")
         if r["microbatch2"]["launches"] != r["microbatch2"]["expected"]:
             bad.append(f"microbatch-2 launches {r['microbatch2']['launches']}")
+        r["remat_dots"] = remat_dots_vs_full(model, next(data))
+        if not r["remat_dots"]["same_bits"]:
+            bad.append(f"remat dots differs from full: {r['remat_dots']}")
     r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     del model, opt, params, before_run, m
     torch.cuda.empty_cache()
@@ -1950,6 +1977,42 @@ def lm_train_model(name: str, smi: str) -> dict:
     if bad:
         raise AssertionError(f"{name}: " + "; ".join(bad))
     return r
+
+
+def remat_dots_vs_full(model, batch: dict) -> dict:
+    """One lm_loss forward and backward (key 7) of ``model`` under remat
+    "full", then "dots": the loss and the gradients' norm must be the same
+    bits (under the kernels K3 is recomputed either way); each one's ms
+    (host clock after a sync) and peak device memory."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.lm import lm_loss
+
+    cfg, out = model.cfg, {}
+    for remat in ("full", "dots"):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = lm_loss(model, batch, 7)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        gnorm = torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(p.grad.float()) for p in model.parameters()
+            if p.grad is not None]))
+        out[remat] = dict(loss=float(loss), grad_norm=float(gnorm), ms=ms,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del loss
+    model.cfg = cfg
+    model.zero_grad(set_to_none=True)
+    out["same_bits"] = (out["full"]["loss"] == out["dots"]["loss"]
+                        and out["full"]["grad_norm"] == out["dots"]["grad_norm"])
+    print(f"lm_train remat dots vs full: {json.dumps(out)}")
+    return out
 
 
 # K1 (stochastic, given bytes) and K3 are held to their plain versions at
@@ -2239,6 +2302,154 @@ def phase_lm_train(results: dict) -> dict[str, dict[str, int]]:
     return {name: r["launches"] for name, r in trained.items()}
 
 
+# one spec of each kind re-tuned with --force: K3 at the stage-1 weight
+# gradient, K1 at the stage-1 forward operand, K4 at the stage-1 conv
+TUNE_FORCE = ("gemm:144x131072x16:e2m4:nc", "quantize:131072x256:e2m4:nc",
+              "conv:128x16x32x32x16x3x3x1x1x1x1x1x1x144:e2m4:nc")
+RESNET_PAIRS = 6  # ResNet-20 steps with the seed and with an empty cache, in turns
+
+
+def resnet_step_with(cache, qcfg) -> dict:
+    """One full-width ResNet-20 main-path step (batch 128, weights and data
+    from seed 0, rounding key of step 0) resolving through ``cache``: loss,
+    gradients, launches and the step's ms (host clock after a sync).
+    cuDNN runs its deterministic algorithms (the fp32 stem conv's default
+    weight gradient does not repeat itself), as the sweep's runner does."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import fold_in
+    from repro_torch.kernels import autotune, launch_counts
+    from repro_torch.models.cnn import CNNConfig
+    from repro_torch.train.loop import init_state
+
+    from repro_torch.sweep.runner import _deterministic_cudnn
+
+    state = init_state(CNNConfig("resnet20", 10, 1.0, HW), BATCH, seed=0, device="cuda")
+    b = next(state.data)
+    with autotune.override_cache(cache), _deterministic_cudnn():
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = F.cross_entropy(state.model(b["image"], qcfg, fold_in(7, 0)), b["label"])
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+    return dict(loss=loss.detach(), grads=[p.grad.clone() for p in state.model.parameters()],
+                launches=launched, ms=ms)
+
+
+def phase_tune(results: dict) -> None:
+    """The tile cache on the card: the committed seed's --check (static
+    proofs with the built library's constants); every cached winner's
+    output bit-identical to its default's and to the plain version at its
+    spec's shape; --tune --force of TUNE_FORCE into chiprun_out/; the
+    kernel bench into chiprun_out/; a full-width ResNet-20 main-path step
+    with the seed cache and with an empty cache, equal bit for bit with
+    the closed form's launches (120 K1 / 60 K3)."""
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, QuantConfig
+    from repro_torch.kernels import autotune as at
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    seed = at.TuneCache.load(at.SEED_CACHE_PATH)
+    here = at.device_name("cuda")
+    t = time.perf_counter()
+    check = at.check_cache(seed, at.specs_named("all"), device="cuda")
+    r = dict(seed_device=seed.device, device=here, seed_applies=seed.device == here,
+             check=dict(ok=check["ok"], verified=check["verified"],
+                        failures=check["failures"][:5], s=time.perf_counter() - t))
+    print(f"tune: seed cache of {seed.device} ({len(seed)} entries) checked on {here}: "
+          f"{'OK' if check['ok'] else check['failures'][:3]} ({r['check']['s']:.1f} s)")
+
+    t = time.perf_counter()
+    winners = []
+    for key, ent in sorted(seed.entries.items()):
+        spec, config = at.TuneSpec.from_json(ent), at.BlockConfig.from_json(ent["config"])
+        default = at.default_block_config(spec)
+        outs = [at.config_call(spec, c, device="cuda")() for c in (config, default, None)]
+        torch.cuda.synchronize()
+        tup = [o if isinstance(o, tuple) else (o,) for o in outs]
+        same = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*tup))
+        winners.append(dict(key=key, winner=config.to_json(), default=default.to_json(),
+                            tuned_is_default=config == default, identical=same,
+                            ms=ent["ms"]))
+        del outs, tup
+    torch.cuda.empty_cache()
+    r["winners"] = winners
+    r["winners_s"] = time.perf_counter() - t
+    n_diff = sum(not w["tuned_is_default"] for w in winners)
+    print(f"tune: {len(winners)} cached winners ({n_diff} not the default) against their "
+          f"defaults and the plain versions: {sum(w['identical'] for w in winners)} identical "
+          f"({r['winners_s']:.1f} s)")
+
+    t = time.perf_counter()
+    forced = at.TuneCache(device=here)
+    specs = {s.key(): s for s in at.specs_named("all")}
+    at.tune_all(forced, [specs[k] for k in TUNE_FORCE], force=True, device="cuda")
+    forced.save(out_dir / "kernel_tune_forced.json")
+    r["forced"] = {k: {f: forced.entries[k][f] for f in ("config", "ms", "candidates_timed",
+                                                        "candidates_pruned")}
+                   for k in TUNE_FORCE}
+    r["forced_s"] = time.perf_counter() - t
+    print(f"tune --force: {json.dumps(r['forced'])} ({r['forced_s']:.1f} s)")
+
+    t = time.perf_counter()
+    bench_json = out_dir / "BENCH_torch_kernels.json"
+    proc = subprocess.run([sys.executable, str(ROOT / "benchmarks" / "torch_kernel_bench.py"),
+                           "--json", str(bench_json)], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    r["bench_s"] = time.perf_counter() - t
+    if proc.returncode:
+        raise AssertionError(f"torch_kernel_bench.py failed:\n{proc.stderr[-3000:]}")
+    bench = json.loads(bench_json.read_text())
+    r["bench_rows"] = len(bench["rows"])
+    for row in bench["rows"]:
+        print(json.dumps({"bench": {k: row[k] for k in ("kernel", "shape", "default", "tuned",
+                                                        "kernel_ms", "bound_ms", "bound_by")},
+                          "nvidia_smi": bench.get("nvidia_smi")}))
+
+    qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK, grouping="nc", stochastic=True)
+    empty = at.TuneCache(device=here)
+    steps = [resnet_step_with(cache, qcfg)  # in turns; the first pair is cold
+             for _ in range(RESNET_PAIRS) for cache in (at.get_cache(), empty)]
+
+    def equal(u, v):
+        return torch.equal(u["loss"], v["loss"]) and all(
+            torch.equal(x, y) for x, y in zip(u["grads"], v["grads"]))
+
+    a, b = steps[0], steps[1]
+    repeats = all(equal(a, u) for u in steps[2::2]) and all(equal(b, u) for u in steps[3::2])
+    same = equal(a, b)
+    seed_ms, empty_ms = [u["ms"] for u in steps[::2]], [u["ms"] for u in steps[1::2]]
+    want = {"mls_quantize_rows": 120, "mls_matmul": 60}
+    r["resnet_step"] = dict(identical=same, repeats=repeats, loss=float(a["loss"]),
+                            seed_ms=seed_ms, empty_ms=empty_ms,
+                            seed_launches=a["launches"], empty_launches=b["launches"])
+    print(f"tune: ResNet-20 step with the seed cache {statistics.median(seed_ms[1:]):.2f} ms, "
+          f"with an empty cache {statistics.median(empty_ms[1:]):.2f} ms (medians of "
+          f"{RESNET_PAIRS - 1} warm steps in turns; all {seed_ms} / {empty_ms}); loss and "
+          f"gradients identical: {same}, repeated: {repeats}; launches {a['launches']} / "
+          f"{b['launches']}")
+    results["tune"] = r
+    bad = []
+    if not check["ok"]:
+        bad.append(f"the seed cache does not check: {check['failures'][:3]}")
+    if not all(w["identical"] for w in winners):
+        bad.append(f"cached winners differ: {[w['key'] for w in winners if not w['identical']]}")
+    if not (same and repeats):
+        bad.append(f"the ResNet-20 step with the seed and an empty cache: identical {same}, "
+                   f"each repeated {repeats}")
+    for launched in (a["launches"], b["launches"]):
+        if {k: launched[k] for k in want} != want:
+            bad.append(f"ResNet-20 step launches {launched}, expected {want}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 SWEEP_REPEAT = ("resnet20/fp32/fake_quant", "resnet20/mls_e2m1/pallas")  # run twice
 
 
@@ -2404,6 +2615,40 @@ def k5_checks() -> dict:
     return out
 
 
+def expected_device_kernels(k_block: int) -> list[str]:
+    """The device kernels a full-width ResNet-20 step ("nc", <2,4>) records,
+    from the dispatch of each conv (``resolve_conv_impl``) and the tile
+    cache's choice for each of its K1 and K3 calls (``qd_gemm``'s
+    resolutions, as ``autotune.path_specs`` lists them)."""
+    from repro_torch.core import FMT_IMAGENET, QuantConfig
+    from repro_torch.kernels import autotune, resolve_conv_impl
+
+    qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=k_block)
+    names = set()
+
+    def quantize(m, k):
+        c = autotune.resolve_block_config("quantize", (m, k), FMT_IMAGENET, k_block=k_block,
+                                          device="cuda")
+        names.update(("quantize_amax", f"quantize_groups_{c.variant}"))
+
+    for g in conv_list("resnet20", HW, BATCH):
+        gemms = [(g.k0, g.m0, g.o), (g.m0, g.o, g.k0)]
+        if resolve_conv_impl(g, qcfg, "cuda") == "implicit":
+            names.update(("conv_amax", "implicit_conv"))
+            quantize(g.o, g.k0)
+        else:
+            gemms.append((g.m0, g.k0, g.o))
+        for m, k, n in gemms:
+            kp = -(-k // k_block) * k_block
+            quantize(m, kp)
+            quantize(n, kp)
+            c = autotune.resolve_block_config("gemm", (m, k, n), FMT_IMAGENET, k_block=k_block,
+                                              device="cuda")
+            names.update(("mls_matmul_walk",) if c.variant == "walk"
+                         else ("mls_matmul_terms", "mls_matmul_sum"))
+    return sorted(names)
+
+
 def phase_audit(results: dict) -> tuple[dict, int]:
     """K5 checked; the clean audit at full width; the four sabotage modes.
     Returns K5's timing row and its launches in the overlap_write run."""
@@ -2446,10 +2691,8 @@ def phase_audit(results: dict) -> tuple[dict, int]:
         bad.append(f"quantized fraction {summary['quantized_fraction']}")
     if any(v != fp for v in summary["full_precision_macs"].values()):
         bad.append(f"fp32 MACs {summary['full_precision_macs']}, expected {fp}")
-    k1_k3 = ["mls_matmul_sum", "mls_matmul_terms", "mls_matmul_walk", "quantize_amax",
-             "quantize_groups_warp"]
-    want = {"train:resnet20": k1_k3,
-            "train:resnet20@kb144": sorted(k1_k3 + ["conv_amax", "implicit_conv"])}
+    want = {"train:resnet20": expected_device_kernels(K_BLOCK),
+            "train:resnet20@kb144": expected_device_kernels(K_BLOCK_IMPLICIT)}
     if summary["recorded_kernels"] != want:
         bad.append(f"recorded kernels {summary['recorded_kernels']}")
     # exactly the closed form of tests/test_torch_analysis.py: K3's MACs are
@@ -2557,7 +2800,7 @@ def main() -> int:
         fail("kernel build failed")
 
     rows, launches, serve_launches, lm_train_launches_, sweep_launches = [], {}, {}, {}, {}
-    for name, phase in (("kernels", phase_kernels), ("train", phase_train),
+    for name, phase in (("kernels", phase_kernels), ("tune", phase_tune), ("train", phase_train),
                         ("trace", phase_trace), ("agree", phase_agree),
                         ("audit", phase_audit), ("zoo", phase_zoo),
                         ("fake_quant", phase_fakequant), ("driver", phase_driver),

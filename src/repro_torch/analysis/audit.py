@@ -21,7 +21,10 @@ kernels' plain versions run; use a small ``--width/--hw/--batch``).
 (:mod:`repro_torch.analysis.kernel_verify`): every launch the graphs
 recorded and every ``KERNEL_REGISTRY`` entry is proven for grid
 coverage and ``< 2^24`` integer accumulation, gated against
-``analysis/baselines/kernels.json``.
+``analysis/baselines/kernels.json``; and a ``tune_cache`` section,
+``autotune.check_cache`` of the tile cache (the committed seed, or
+``--tune-cache PATH``): every registry spec cached and every cached
+winner proven.  ``--gate`` fails on a stale cache.
 
 ``--sabotage MODE`` plants a negative control that must make the gate
 fail: ``fp32_gemm`` (an fp32 GEMM on the train hot path), ``overlap_write``
@@ -44,7 +47,7 @@ TRAIN_K_BLOCKS = (128, 144)  # the paper's im2col path and the implicit path
 
 def build_report(graphs: tuple = ("train",), sabotage: str | None = None,
                  kernels: bool = False, device: str = "cuda", width: float = 1.0,
-                 hw: int = 32, batch: int = 128) -> dict:
+                 hw: int = 32, batch: int = 128, tune_cache: str | None = None) -> dict:
     from repro_torch.analysis.graphs import cifar_train_graph, serve_decode_graph
     from repro_torch.analysis.kernel_verify import SABOTAGE_MODES, run_kernel_audit
     from repro_torch.analysis.lint import lint_quant_config, lint_shipped_presets
@@ -72,6 +75,10 @@ def build_report(graphs: tuple = ("train",), sabotage: str | None = None,
         report["kernels"] = run_kernel_audit(
             sabotage=sabotage if sabotage in SABOTAGE_MODES else None, device=dev.type,
             recorded=recorded)
+        from repro_torch.kernels.autotune import SEED_CACHE_PATH, TuneCache, check_cache
+
+        report["tune_cache"] = check_cache(TuneCache.load(tune_cache or SEED_CACHE_PATH),
+                                           device=dev.type)
     return report
 
 
@@ -96,6 +103,9 @@ def apply_gate(report: dict, baseline: dict) -> list[str]:
         if not res["ok"]:
             failures.append(f"preset {name}: lint errors {res['errors']}")
     failures += apply_kernel_gate(report.get("kernels"), baseline.get("kernels", {}))
+    tc = report.get("tune_cache")
+    if tc is not None and not tc["ok"]:
+        failures += [f"tune cache: {f}" for f in tc["failures"]]
     return failures
 
 
@@ -141,12 +151,15 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="AUDIT_torch_report.json")
     ap.add_argument("--baseline", default=str(_BASELINE))
     ap.add_argument("--kernels-baseline", default=str(_KERNELS_BASELINE))
+    ap.add_argument("--tune-cache", default=None, metavar="PATH",
+                    help="the tile cache --kernels checks (default: the committed seed)")
     args = ap.parse_args(argv)
 
     graphs = {"all": ("train", "serve"), "none": ()}.get(args.graph, (args.graph,))
     report = build_report(graphs=graphs,
                           sabotage=args.sabotage, kernels=args.kernels, device=args.device,
-                          width=args.width, hw=args.hw, batch=args.batch)
+                          width=args.width, hw=args.hw, batch=args.batch,
+                          tune_cache=args.tune_cache)
     baseline = json.loads(pathlib.Path(args.baseline).read_text())
     if args.kernels:
         baseline["kernels"] = json.loads(pathlib.Path(args.kernels_baseline).read_text())
@@ -167,6 +180,10 @@ def main(argv=None) -> int:
             print(f"kernel {name}: {'OK' if rep['ok'] else 'FAIL'} "
                   f"({rep['num_launch_specs']} launch spec(s), max int accumulation "
                   f"{rep['max_integer_accumulation_bits']} bits / budget {ks['budget_bits']})")
+    if "tune_cache" in report:
+        tc = report["tune_cache"]
+        print(f"tune cache: {'OK' if tc['ok'] else 'STALE'} ({tc['verified']} winner(s) "
+              f"proven, tuned on {tc['device']})")
     if failures:
         print("GATE FAILURES:", file=sys.stderr)
         for msg in failures:

@@ -47,8 +47,10 @@ import torch
 from repro_torch.core.formats import FMT_IMAGENET, GS_FMT_DEFAULT, EMFormat
 from repro_torch.core.lowbit import QuantConfig
 from repro_torch.kernels import implicit_conv, launch, recorded_specs
+from repro_torch.kernels.autotune import BNS
 from repro_torch.kernels.launch import LaunchSpec, Operand
 from repro_torch.kernels.mls_matmul import launch_spec as matmul_spec
+from repro_torch.kernels.mls_matmul import tuned_plan
 from repro_torch.kernels.mls_quantize import quantize_launch
 
 __all__ = [
@@ -59,6 +61,7 @@ __all__ = [
     "Violation",
     "prove_matmul_accumulation_bits",
     "prove_window_grid",
+    "refused",
     "run_kernel_audit",
     "verify_candidate",
     "verify_entry",
@@ -82,7 +85,7 @@ SABOTAGE_MODES = ("overlap_write", "deep_k", "drop_halo")
 class Violation:
     """One statically proven defect in a launch's grid or arithmetic."""
 
-    kind: str  # gap | overlap | oob | divisibility | overflow | unproven
+    kind: str  # gap | overlap | oob | divisibility | overflow | unproven | illegal_config
     where: str  # operand ("outputs[0]", "args[2]"), "window_grid" or "body"
     detail: str
 
@@ -137,6 +140,13 @@ class KernelReport:
     @property
     def max_integer_bits(self) -> int:
         return max((c.max_integer_bits for c in self.calls), default=0)
+
+    def first_violation(self) -> str:
+        """``"kind at where: detail"`` of the first violation ("" if none)."""
+        for c in self.calls:
+            for v in c.violations:
+                return f"{v.kind} at {v.where}: {v.detail}"
+        return ""
 
     @property
     def violations(self) -> list[Violation]:
@@ -451,10 +461,11 @@ def _unpack_qcfg(qcfg) -> tuple[EMFormat, int, EMFormat]:
     return fmt, int(k_block), GS_FMT_DEFAULT
 
 
-def _quantize_specs(M: int, K: int, k_block: int, grouping: str,
-                    device: str) -> list[tuple[LaunchSpec, int]]:
-    """The quantizer launches ``mls_quantize`` makes on an (M, K) operand."""
-    kernel, args = quantize_launch(M, K, k_block, grouping)
+def _quantize_specs(M: int, K: int, k_block: int, grouping: str, device: str,
+                    config=None) -> list[tuple[LaunchSpec, int]]:
+    """The quantizer launches ``mls_quantize`` makes on an (M, K) operand
+    (K1 with ``config``'s variant and pass-A grid, default today's)."""
+    kernel, args = quantize_launch(M, K, k_block, grouping, config)
     return recorded_specs(collections.Counter({(kernel, device, *args): 1}))
 
 
@@ -462,50 +473,81 @@ def _once(specs) -> list[tuple[LaunchSpec, int]]:
     return [(s, 1) for s in specs]
 
 
+def refused(name: str, detail: str, kind: str = "illegal_config",
+            where: str = "config") -> KernelReport:
+    """A report whose one violation is a launch choice the kernel refuses
+    (a warp per group over ``kWarpGroupMax``, a split over the workspace
+    limit, K4 where its band does not fit, ...)."""
+    return KernelReport(name, [CallReport(
+        kernel=name, grid=(), coverage={}, accumulations=[], max_integer_bits=0, warnings=[],
+        exhaustive=True, violations=[Violation(kind, where, detail)])])
+
+
 def verify_candidate(shape: tuple[int, int, int], qcfg, grouping: str | None = None,
-                     device: str = "cpu") -> KernelReport:
+                     device: str = "cpu", config=None) -> KernelReport:
     """Legality of ``qd_gemm`` on an ``(M, K, N)`` GEMM: the two quantizer
     launches (x (M, Kp), the transposed weight (N, Kp), K padded to a
-    multiple of k_block) and K3.  ``qcfg`` is a ``QuantConfig`` or a bare
+    multiple of k_block, at their default launches) and K3, on the plan of
+    ``config`` (an ``autotune.BlockConfig``: variant and ``bn``; a split
+    must keep its workspace within ``mls_matmul.WORKSPACE_LIMIT``) or, by
+    default, ``matmul_plan``'s.  ``qcfg`` is a ``QuantConfig`` or a bare
     ``(fmt, k_block)`` pair (for pairs ``QuantConfig`` refuses)."""
     M, K, N = shape
     fmt, k_block, _ = _unpack_qcfg(qcfg)
     if grouping is None:
         grouping = qcfg.grouping if isinstance(qcfg, QuantConfig) else "nc"
     kp = -(-K // k_block) * k_block
+    name = f"candidate_{M}x{K}x{N}_{fmt}_kb{k_block}_{grouping}"
+    plan = None
+    if config is not None:
+        try:
+            plan = tuned_plan(config.variant, config.bn, M, N, kp, k_block, fmt)
+        except ValueError as e:
+            return refused(name, f"K3 cannot run {config}: {e}")
     specs = (_quantize_specs(M, kp, k_block, grouping, device)
              + _quantize_specs(N, kp, k_block, grouping, device)
-             + _once(matmul_spec(M, N, kp, k_block, grouping, fmt, device_type=device)))
-    return verify_specs(f"candidate_{M}x{K}x{N}_{fmt}_kb{k_block}_{grouping}", specs)
+             + _once(matmul_spec(M, N, kp, k_block, grouping, fmt, plan, device_type=device)))
+    return verify_specs(name, specs)
 
 
 def verify_quantize_candidate(shape: tuple[int, int], fmt: EMFormat, k_block: int,
                               gs_fmt: EMFormat = GS_FMT_DEFAULT, grouping: str = "nc",
-                              device: str = "cpu") -> KernelReport:
-    """Legality of the quantizer launch on an ``(M, K)`` operand."""
+                              device: str = "cpu", config=None) -> KernelReport:
+    """Legality of the quantizer launch on an ``(M, K)`` operand, with
+    ``config``'s variant and pass-A grid (default today's)."""
     M, K = shape
     name = f"qcandidate_{M}x{K}_{fmt}_kb{k_block}_{grouping}"
     if K % k_block:
-        return KernelReport(name, [CallReport(
-            kernel=name, grid=(), coverage={}, accumulations=[], max_integer_bits=0,
-            warnings=[], exhaustive=True, violations=[Violation(
-                "divisibility", "args[0]", f"K={K} is not a multiple of k_block={k_block}")])])
-    return verify_specs(name, _quantize_specs(M, K, k_block, grouping, device))
+        return refused(name, f"K={K} is not a multiple of k_block={k_block}", "divisibility",
+                       "args[0]")
+    try:
+        specs = _quantize_specs(M, K, k_block, grouping, device, config)
+    except ValueError as e:
+        return refused(name, str(e))
+    return verify_specs(name, specs)
 
 
 def verify_implicit_conv_candidate(geom, fmt: EMFormat, k_block: int, grouping: str = "nc",
                                    gs_fmt: EMFormat = GS_FMT_DEFAULT,
-                                   device: str = "cpu") -> KernelReport:
-    """Legality of the implicit conv on one geometry: the window proof, then
-    the weight's quantizer launch and K4."""
+                                   device: str = "cpu", config=None) -> KernelReport:
+    """Legality of the implicit conv on one geometry: the layout and the
+    halo band's shared memory, then the weight's quantizer launch and K4 at
+    ``config``'s tile width (default the narrowest that holds O), whose
+    window the verifier proves."""
     name = f"iconv_{geom.n}x{geom.c}x{geom.h}x{geom.w}_o{geom.o}k{geom.kh}s{geom.sh}" \
            f"_{fmt}_kb{k_block}_{grouping}"
     ok, reason = implicit_conv.implicit_compatible(geom, k_block)
     if not ok:
         return KernelReport(name, [_window_report(
             name, [Violation("divisibility", "window_grid", reason)], {})])
+    ok, reason = implicit_conv.implicit_legal(geom, k_block)
+    if not ok:
+        return refused(name, reason, "oob", "window_grid")
+    bn = None if config is None else config.bn
+    if bn is not None and bn not in BNS:
+        return refused(name, f"K4's tile width is one of 16, 32, 64, not {bn}")
     specs = (_quantize_specs(geom.o, geom.k0, k_block, grouping, device)
-             + _once(implicit_conv.launch_spec(geom, k_block, grouping, fmt, device)))
+             + _once(implicit_conv.launch_spec(geom, k_block, grouping, fmt, bn, device)))
     return verify_specs(name, specs)
 
 

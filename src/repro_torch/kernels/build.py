@@ -37,8 +37,9 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
     # x, r_u8, partials, n_partials, s_t, codes, s_g, M, K, group_width,
-    # e, m, e_min, gs_m, gs_emin, stream
-    "mls_quantize_rows": [_P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P],
+    # variant, e, m, e_min, gs_m, gs_emin, stream
+    "mls_quantize_rows": [_P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
     # x, r_u8, part, n_part, gmax, s_t, codes, s_g, M, K, group_width, vec,
     # e, m, e_min, gs_m, gs_emin, stream
     "mls_quantize_cols": [_P, _P, _P, _LL, _P, _P, _P, _P, _LL, *[_I] * 8, _P],
@@ -51,9 +52,9 @@ _SIGNATURES = {
                    _P, _P, ctypes.c_float, _P, _P, *[_I] * 9, _P],
     # x, r_u8, scratch, n_scratch, wc, swk, swn, wsg, swsg_g, swsg_n, wst,
     # unit, out, n, c, h, w, o, kh, kw, sh, sw, ph, pw, hp, wp, k_block, mode,
-    # e, m, e_min, gs_m, gs_emin, stream
+    # bn, e, m, e_min, gs_m, gs_emin, stream
     "implicit_conv": [_P, _P, _P, _LL, _P, _LL, _LL, _P, _LL, _LL,
-                      _P, ctypes.c_float, _P, *[_I] * 15, *[_I] * 5, _P],
+                      _P, ctypes.c_float, _P, *[_I] * 16, *[_I] * 5, _P],
     # x, partials, n_partials, s_t, n, c, h, w, kh, kw, sh, sw, ph, pw, hp, wp, stream
     "conv_tensor_scale": [_P, _P, _I, _P, *[_I] * 12, _P],
     # x, w, out, probe (or NULL), M, K, N, stream

@@ -528,14 +528,16 @@ extern "C" int implicit_conv_constants(int* out, int n) {
 //   "c": the n*c plane maxima, G group maxima, s_t, G group scales
 //        (G = K0 / k_block).
 // wc, wsg: the weight's codes (K0, O) and compact scales, strided.
-// out: (M0, O).
+// out: (M0, O).  bn: the main kernel's tile width, 16, 32 or 64 (every
+// width gives the same bits; the wrapper's default is the narrowest that
+// holds O).
 extern "C" int implicit_conv(const float* x, const uint8_t* r, float* scratch,
                              long long n_scratch, const uint8_t* wc, long long swk,
                              long long swn, const float* wsg, long long swsg_g,
                              long long swsg_n, const float* wst, float unit, float* out,
                              int n, int c, int h, int w, int o, int kh, int kw, int sh, int sw,
-                             int ph, int pw, int hp, int wp, int k_block, int mode, int e,
-                             int m, int e_min, int gs_m, int gs_emin, void* stream) {
+                             int ph, int pw, int hp, int wp, int k_block, int mode, int bn,
+                             int e, int m, int e_min, int gs_m, int gs_emin, void* stream) {
   ConvArgs a;
   a.n = n; a.c = c; a.h = h; a.w = w; a.kh = kh; a.kw = kw; a.sh = sh; a.sw = sw;
   a.ph = ph; a.pw = pw; a.hp = hp; a.wp = wp;
@@ -545,7 +547,7 @@ extern "C" int implicit_conv(const float* x, const uint8_t* r, float* scratch,
   const int oh = a.oh, ow = a.ow;
   a.M = n * oh * ow; a.O = o; a.K = c * kh * kw; a.k_block = k_block; a.mode = mode;
   if (k_block <= 0 || k_block % (kh * kw) || c % (k_block / (kh * kw)) || mode < 0 ||
-      mode > 3 || !scratch)
+      mode > 3 || !scratch || (bn != 16 && bn != 32 && bn != 64))
     return (int)cudaErrorInvalidValue;
   a.cb = k_block / (kh * kw);
   if (a.M <= 0 || o <= 0) return (int)cudaGetLastError();
@@ -595,7 +597,6 @@ extern "C" int implicit_conv(const float* x, const uint8_t* r, float* scratch,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool mma = max_fraction(e, m) <= 127;
-  const int bn = o <= 16 ? 16 : o <= 32 ? 32 : 64;
   if (mma)
     err = bn == 16 ? launch_main<16, true>(a, s) : bn == 32 ? launch_main<32, true>(a, s)
                                                  : launch_main<64, true>(a, s);

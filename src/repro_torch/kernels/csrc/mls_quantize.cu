@@ -393,16 +393,23 @@ extern "C" const char* mls_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1: pass A into `partials` (n_partials floats: min(kAmaxBlocks,
-// ceil(M*K / kAmaxChunk)), at least 1), then pass B, which stores s_t,
-// the codes and the (M, K / group_width) group scales.
+// K1: pass A into `partials` (n_partials floats, 1 to kAmaxBlocks: pass
+// A's grid; the wrapper's default is min(kAmaxBlocks, ceil(M*K /
+// kAmaxChunk))), then pass B, which stores s_t, the codes and the (M, K /
+// group_width) group scales.  variant: 0 a warp per group
+// (quantize_groups_warp, group_width <= kWarpGroupMax), 1 a block per
+// group (quantize_groups_block, any width).  Max is exact in any order, so
+// every grid and variant gives the same bits.
 extern "C" int mls_quantize_rows(const float* x, const uint8_t* r, float* partials,
                                  int n_partials, float* s_t, uint8_t* codes, float* s_g,
-                                 long long M, long long K, int group_width, int e, int m,
-                                 int e_min, int gs_m, int gs_emin, void* stream) {
+                                 long long M, long long K, int group_width, int variant,
+                                 int e, int m, int e_min, int gs_m, int gs_emin,
+                                 void* stream) {
   const long long n = M * K;
   if (group_width <= 0 || K % group_width || n_partials < 1 || n_partials > kAmaxBlocks)
     return (int)cudaErrorInvalidValue;
+  if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
+  if (variant == 0 && group_width > kWarpGroupMax) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   const mls::Fmt f = make_fmt(e, m, e_min, gs_m, gs_emin);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -412,7 +419,7 @@ extern "C" int mls_quantize_rows(const float* x, const uint8_t* r, float* partia
   const long long groups = M * (K / group_width);
   const bool vec = group_width % 4 == 0 && aligned(x, 16) && aligned(r, 4) &&
                    aligned(codes, 4);
-  if (group_width <= kWarpGroupMax) {
+  if (variant == 0) {
     long long blocks = (groups + kWarps - 1) / kWarps;
     if (blocks > kRowBlocks) blocks = kRowBlocks;
     const int slots = (group_width + 127) / 128;

@@ -27,12 +27,14 @@ maxima of a padded copy, as the JAX package's helper does: the plain
 version of K4's scale passes, which the tests hold both to.
 
 :func:`resolve_conv_impl` picks the lowering: ``REPRO_CONV_IMPL`` env >
-``QuantConfig.conv_impl`` > implicit whenever legal.  The JAX package
-consults its tuned-block cache between the last two; the port has no
-autotuner yet, and the JAX seed cache's one conv entry picks "implicit"
-too, so the decisions agree.  The kernel sizes its own tiles: there are no
-block options; a conv whose band would not fit the kernel's shared memory
-(:func:`band_fits`) stays on im2col.
+``QuantConfig.conv_impl`` > the tile cache's winner for this conv on this
+card (:mod:`.autotune`) > implicit whenever legal, the JAX package's
+order.  A conv whose band would not fit the kernel's shared memory
+(:func:`band_fits`) is not legal for K4.  :func:`resolve_conv_blocks`
+gives K4's tile, ``kBM`` rows by ``bn`` columns: ``bn`` from the cache,
+else the narrowest of 16, 32 and 64 that holds O.  Neither choice ever
+changes the numbers.  :func:`im2col_conv_bytes` and
+:func:`implicit_conv_bytes` count the bytes each lowering moves.
 
 :func:`covered_tensor_scale`, :func:`elementwise_codes` and
 :func:`patches_u8` serve the weight gradient's reuse of the forward codes
@@ -55,7 +57,7 @@ from repro_torch.core.formats import GS_FMT_DEFAULT, EMFormat, accumulation_bits
 from repro_torch.core.lowbit import GROUPINGS, conv_pads
 from repro_torch.core.quantize import quantize_group_scale
 
-from . import build, launch
+from . import autotune, build, launch
 from .launch import LaunchSpec, Operand, Window
 from .mls_matmul import _sg_operand, _strides, sg_shapes
 from .mls_quantize import _fmt_args, mls_quantize, quantize_given_scales, rounding_bytes
@@ -70,14 +72,20 @@ __all__ = [
     "conv_geometry",
     "conv_pads",
     "covered_tensor_scale",
+    "conv_tune_dims",
+    "default_conv_blocks",
     "elementwise_codes",
     "band_fits",
     "band_rows",
+    "im2col_conv_bytes",
     "implicit_compatible",
+    "implicit_conv_bytes",
     "implicit_conv_forward",
+    "implicit_legal",
     "launch_spec",
     "launch_spec_scale",
     "patches_u8",
+    "resolve_conv_blocks",
     "resolve_conv_impl",
 ]
 
@@ -146,6 +154,12 @@ class ConvGeom:
     @property
     def pads(self) -> Pads:
         return (self.ph_lo, self.ph_hi), (self.pw_lo, self.pw_hi)
+
+    def as_dims(self) -> tuple[int, ...]:
+        """The 13 ints in the JAX package's order (a conv tuning key's
+        shape, without ``k_block``)."""
+        return (self.n, self.c, self.h, self.w, self.o, self.kh, self.kw, self.sh, self.sw,
+                self.ph_lo, self.ph_hi, self.pw_lo, self.pw_hi)
 
 
 def conv_geometry(x_shape, w_shape, stride, padding) -> ConvGeom:
@@ -221,13 +235,45 @@ def band_fits(geom: ConvGeom, k_block: int) -> bool:
     return k_block // geom.kk * _tallest_band(geom) * geom.wp * 4 <= TILE["kBandBytesMax"]
 
 
-def resolve_conv_impl(geom: ConvGeom, cfg) -> str:
-    """``"im2col"`` or ``"implicit"`` for this conv.
+def implicit_legal(geom: ConvGeom, k_block: int) -> tuple[bool, str]:
+    """Can K4 run this conv: :func:`implicit_compatible` and
+    :func:`band_fits`?  ``(ok, reason)``."""
+    ok, reason = implicit_compatible(geom, k_block)
+    if ok and not band_fits(geom, k_block):
+        ok, reason = False, (f"its halo band of {k_block // geom.kk} channels x "
+                             f"{geom.wp} columns does not fit K4's "
+                             f"{TILE['kBandBytesMax']} bytes of shared memory")
+    return ok, reason
+
+
+def default_conv_blocks(geom: ConvGeom) -> tuple[int, int]:
+    """K4's shipped tile ``(kBM, bn)``: 64 rows by the narrowest of 16, 32
+    and 64 columns that holds O."""
+    return TILE["kBM"], 16 if geom.o <= 16 else 32 if geom.o <= 32 else 64
+
+
+def conv_tune_dims(geom: ConvGeom, k_block: int) -> tuple[int, ...]:
+    """A conv tuning key's shape: the geometry and ``k_block`` (the scaling
+    groups' width, so it keys the entry)."""
+    return (*geom.as_dims(), k_block)
+
+
+def _cached_conv(geom: ConvGeom, fmt: EMFormat, grouping: str, k_block: int, device):
+    """The tile cache's conv choice for this conv on ``device``'s card
+    (default otherwise)."""
+    return autotune.resolve_block_config("conv", conv_tune_dims(geom, k_block), fmt, grouping,
+                                         k_block=k_block, device=device)
+
+
+def resolve_conv_impl(geom: ConvGeom, cfg, device=None) -> str:
+    """``"im2col"`` or ``"implicit"`` for this conv on ``device`` (default:
+    the process's, :func:`autotune.device_name`).
 
     Precedence: ``REPRO_CONV_IMPL`` env (A/B runs) > ``cfg.conv_impl`` >
-    implicit whenever :func:`implicit_compatible` and :func:`band_fits`.  An explicit
-    ``"implicit"`` on an illegal ``k_block`` raises: the choice never
-    changes the scaling groups.
+    the tile cache's winner for this conv on this card > implicit
+    whenever :func:`implicit_legal`.  An explicit or cached ``"implicit"``
+    that K4 cannot run raises: the choice never changes the scaling groups,
+    and a cached choice has no fallback.
     """
     env = os.environ.get(CONV_IMPL_ENV_VAR, "").strip().lower()
     if env and env not in CONV_IMPLS:
@@ -235,14 +281,33 @@ def resolve_conv_impl(geom: ConvGeom, cfg) -> str:
     choice = env or cfg.conv_impl
     if choice == "im2col":
         return "im2col"
-    ok, reason = implicit_compatible(geom, cfg.k_block)
-    if ok and not band_fits(geom, cfg.k_block):
-        ok, reason = False, (f"its halo band of {cfg.k_block // geom.kk} channels x "
-                             f"{geom.wp} columns does not fit K4's "
-                             f"{TILE['kBandBytesMax']} bytes of shared memory")
-    if choice == "implicit" and not ok:
+    ok, reason = implicit_legal(geom, cfg.k_block)
+    if choice == "auto":
+        choice = _cached_conv(geom, cfg.fmt, cfg.grouping, cfg.k_block, device).variant
+        if choice == "implicit" and not ok:
+            raise ValueError(f"the tile cache picks K4 for a conv it cannot run: {reason}")
+        return choice
+    if not ok:
         raise ValueError(f"conv_impl='implicit' is not legal for this conv: {reason}")
-    return "implicit" if ok else "im2col"
+    return "implicit"
+
+
+def resolve_conv_blocks(geom: ConvGeom, cfg, *, bn: int | None = None,
+                        device=None) -> tuple[int, int]:
+    """K4's tile ``(kBM, bn)`` for this conv: an explicit ``bn`` > the tile
+    cache's implicit winner on ``device``'s card > :func:`default_conv_blocks`."""
+    return _conv_tile(geom, cfg.fmt, cfg.grouping, cfg.k_block, bn, device)
+
+
+def _conv_tile(geom: ConvGeom, fmt: EMFormat, grouping: str, k_block: int, bn: int | None,
+               device) -> tuple[int, int]:
+    bm, default = default_conv_blocks(geom)
+    if bn is None:
+        cached = _cached_conv(geom, fmt, grouping, k_block, device)
+        bn = cached.bn if cached.variant == "implicit" else default
+    if bn not in autotune.BNS:
+        raise ValueError(f"K4's tile width is one of {autotune.BNS}, not {bn}")
+    return bm, bn
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +448,7 @@ def implicit_conv_forward(
     gs_fmt: EMFormat = GS_FMT_DEFAULT,
     k_block: int,
     grouping: str = "nc",
+    bn: int | None = None,
 ) -> torch.Tensor:
     """Quantized-domain forward conv as one implicit GEMM: ``x``
     (N, C, H, W), ``w`` (O, C, kh, kw) -> fp32 (N, O, OH, OW).
@@ -390,7 +456,9 @@ def implicit_conv_forward(
     ``r_x`` (N*OH*OW, C*kh*kw) and ``r_w`` (O, C*kh*kw) are the uint8
     rounding bytes of the patches and of the weight (``None``: the constant
     127, round to nearest), the shapes the im2col path draws.  ``k_block``
-    must pass :func:`implicit_compatible`.
+    must pass :func:`implicit_compatible`.  ``bn`` is K4's tile width
+    (default :func:`resolve_conv_blocks`'s); every width gives the same
+    bits.
     """
     if grouping not in GROUPINGS:
         raise ValueError(f"unknown grouping {grouping!r}; expected one of {GROUPINGS}")
@@ -405,8 +473,9 @@ def implicit_conv_forward(
         raise ValueError("x and w must share one device")
     r_x = _check_bytes(r_x, (geom.m0, geom.k0), x.device)
     r_w = _check_bytes(r_w, (geom.o, geom.k0), x.device)
+    bn = _conv_tile(geom, fmt, grouping, k_block, bn, x.device)[1]
     if x.device.type == "cpu":
-        launch.record("implicit_conv", "cpu", geom, k_block, grouping, fmt)
+        launch.record("implicit_conv", "cpu", geom, k_block, grouping, fmt, bn)
         with launch.plain_version():
             return implicit_conv_ref(x, w, r_x, r_w, (geom.sh, geom.sw), geom.pads, fmt=fmt,
                                      gs_fmt=gs_fmt, k_block=k_block, grouping=grouping)
@@ -430,10 +499,10 @@ def implicit_conv_forward(
         xf.data_ptr(), r_x.data_ptr(), scratch.data_ptr(), scratch.numel(),
         wcT.data_ptr(), *_strides(wcT), wsg.data_ptr(), *_strides(wsg), wst.data_ptr(),
         2.0 ** (2 * (fmt.e_min - fmt.m)), out.data_ptr(), *_dims(geom), k_block,
-        _MODES[grouping], *_fmt_args(fmt, gs_fmt), torch.cuda.current_stream(dev).cuda_stream),
-        "implicit_conv")
+        _MODES[grouping], bn, *_fmt_args(fmt, gs_fmt),
+        torch.cuda.current_stream(dev).cuda_stream), "implicit_conv")
     LAUNCHES["implicit_conv"] += 1
-    launch.record("implicit_conv", "cuda", geom, k_block, grouping, fmt)
+    launch.record("implicit_conv", "cuda", geom, k_block, grouping, fmt, bn)
     return out.reshape(geom.n, geom.oh, geom.ow, geom.o).permute(0, 3, 1, 2)
 
 
@@ -527,12 +596,13 @@ def _chan_specs(geom: ConvGeom, k_block: int, t: dict[str, int]) -> tuple[Launch
 
 
 def launch_spec(geom: ConvGeom, k_block: int, grouping: str, fmt: EMFormat,
-                device_type: str = "cpu") -> tuple[LaunchSpec, ...]:
+                bn: int | None = None, device_type: str = "cpu") -> tuple[LaunchSpec, ...]:
     """K4 on one conv (``implicit_conv``): the scale passes of the grouping
     (pass A :func:`_amax_spec` for "nc" and "none", :func:`_win_spec` for
     "n", :func:`_chan_specs` for "c"), then the main launch, a block per
-    ``kBM x bn`` tile of the virtual (M0, O) output (bn = 16, 32 or 64 from
-    O), walking the ``K0 / k_block`` scaling groups in order.  Its patch
+    ``kBM x bn`` tile of the virtual (M0, O) output (``bn`` 16, 32 or 64;
+    default :func:`default_conv_blocks`'s), walking the ``K0 / k_block``
+    scaling groups in order.  Its patch
     rows come from the tile's halo band staged in shared memory, which the
     :class:`~.launch.Window` describes for ``prove_window_grid``; the
     rounding bytes, the compact scales of "c" and "n", the weight codes and
@@ -540,7 +610,7 @@ def launch_spec(geom: ConvGeom, k_block: int, grouping: str, fmt: EMFormat,
     of ``k_block`` decoded fractions."""
     t = launch.tile_constants("implicit_conv_constants", TILE, device_type)
     bm = t["kBM"]
-    bn = 16 if geom.o <= 16 else 32 if geom.o <= 32 else 64
+    bn = default_conv_blocks(geom)[1] if bn is None else bn
     m0, k0, o, nkb = geom.m0, geom.k0, geom.o, geom.k0 // k_block
     xs, ws = sg_shapes(grouping, m0, o, nkb)
     operands = [Operand("args[1]", "r_u8", (m0, k0), (bm, k_block), lambda i, j, g: (i, g),
@@ -609,3 +679,89 @@ def patches_u8(xq: torch.Tensor, geom: ConvGeom) -> torch.Tensor:
             for i in range(geom.kh) for j in range(geom.kw)]  # (N, C, OH, OW) each
     g = torch.stack(taps, dim=2)  # (N, C, KK, OH, OW)
     return g.permute(0, 3, 4, 1, 2).reshape(geom.m0, geom.k0)
+
+
+# ---------------------------------------------------------------------------
+# Bytes each lowering of the forward conv moves (device memory, fp32 x)
+# ---------------------------------------------------------------------------
+def im2col_conv_bytes(geom: ConvGeom, k_block: int, *, bn: int | None = None) -> dict:
+    """Device-memory bytes of the im2col forward as the port runs it
+    (``lowbit_conv._conv_fwd_impl``): each term is what its step reads and
+    writes once, caches aside.
+
+    - ``pad``: ``F.pad`` reads x, writes the padded copy;
+    - ``unfold``: ``F.unfold`` reads the padded copy, writes the (N, K0, L)
+      patch tensor; ``transpose``: ``reshape`` of its transpose copies it
+      to (M0, K0);
+    - ``k_pad``: ``qd_gemm``'s ``F.pad`` to Kp (K0 rounded up to
+      ``k_block``) reads it, writes (M0, Kp);
+    - ``rounding_bytes``: the (M0, Kp) and (O, Kp) rounding bytes written;
+    - ``k1_x``: K1 on the patches: pass A reads them, pass B reads them and
+      their rounding bytes again and writes codes and group scales;
+    - ``weight``: the transposed, padded fp32 weight (O, Kp) written from
+      w, and K1 on it as on the patches;
+    - ``k3_codes``: K3 fetches each 64-row tile's x codes and scales once
+      per column tile and the weight's once per row tile (``bn``: K3's
+      tile width, default the narrowest that holds O);
+    - ``out``: the fp32 (M0, O) result.
+    """
+    m0, k0, o = geom.m0, geom.k0, geom.o
+    kp = -(-k0 // k_block) * k_block
+    g = kp // k_block
+    bn = default_conv_blocks(geom)[1] if bn is None else bn
+    tiles_m, tiles_n = -(-m0 // TILE["kBM"]), -(-o // bn)
+    xp = 4 * geom.n * geom.c * geom.hp * geom.wp
+
+    def k1(rows):  # pass A: x; pass B: x and bytes in, codes and scales out
+        return 4 * rows * kp + (4 * rows * kp + rows * kp) + (rows * kp + 4 * rows * g)
+
+    terms = {
+        "pad": 4 * geom.n * geom.c * geom.h * geom.w + xp,
+        "unfold": xp + 4 * m0 * k0,
+        "transpose": 2 * 4 * m0 * k0,
+        "k_pad": 4 * m0 * k0 + 4 * m0 * kp,
+        "rounding_bytes": m0 * kp + o * kp,
+        "k1_x": k1(m0),
+        "weight": 4 * o * k0 + 4 * o * kp + k1(o),
+        "k3_codes": (m0 * kp + 4 * m0 * g) * tiles_n + (kp * o + 4 * g * o) * tiles_m,
+        "out": 4 * m0 * o,
+    }
+    return {"total": sum(terms.values()), **terms}
+
+
+def implicit_conv_bytes(geom: ConvGeom, k_block: int, *, bn: int | None = None,
+                        grouping: str = "nc") -> dict:
+    """Device-memory bytes of K4's forward as the port runs it
+    (``implicit_conv_forward``), each term read or written once, caches
+    aside.  Not the JAX package's model: its Pallas kernel fetches the
+    padded image once per image, K4 stages a halo band per tile and group.
+
+    - ``scale_pass``: the grouping's scale passes read the covered input
+      once (the "n" pass also writes a max per patch, "c" one per plane);
+    - ``band``: every (row tile, column tile) block stages, per scaling
+      group, its halo band of ``cb`` channels x its band rows x the padded
+      width (:func:`band_rows`; the zero fill counted as staged);
+    - ``rounding_bytes``: the (M0, K0) and (O, K0) rounding bytes written,
+      and each block's 64 x ``k_block`` chunk of them read per group;
+    - ``weight``: K1 (or K2) on the (O, K0) weight: two reads of it and its
+      rounding bytes, codes and group scales written;
+    - ``w_codes``: each row tile fetches the weight's codes and scales;
+    - ``out``: the fp32 (M0, O) result.
+    """
+    m0, k0, o = geom.m0, geom.k0, geom.o
+    g, cb = k0 // k_block, k_block // geom.kk
+    bn = default_conv_blocks(geom)[1] if bn is None else bn
+    tiles_n = -(-o // bn)
+    _, rows = band_rows(geom, TILE["kBM"])
+    hcov, wcov = _amax_tiling(geom, TILE)[:2]
+    scale = 4 * geom.n * geom.c * max(hcov, 0) * max(wcov, 0)
+    scale += {"n": 4 * m0, "c": 4 * geom.n * geom.c}.get(grouping, 0)
+    terms = {
+        "scale_pass": scale,
+        "band": int(rows.sum()) * cb * geom.wp * 4 * g * tiles_n,
+        "rounding_bytes": m0 * k0 + o * k0 + m0 * k0 * tiles_n,
+        "weight": 4 * o * k0 + (4 * o * k0 + o * k0) + (o * k0 + 4 * o * g),
+        "w_codes": (k0 * o + 4 * g * o) * len(rows),
+        "out": 4 * m0 * o,
+    }
+    return {"total": sum(terms.values()), **terms}

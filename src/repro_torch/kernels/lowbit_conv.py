@@ -45,7 +45,8 @@ from .implicit_conv import (
     patches_u8,
     resolve_conv_impl,
 )
-from .mls_matmul import mls_matmul
+from . import autotune
+from .mls_matmul import mls_matmul, tuned_plan
 from .mls_quantize import mls_quantize, rounding_bytes
 from .ref import Pads, im2col
 
@@ -78,11 +79,15 @@ def qd_gemm(
     0, and zeros never raise a group maximum); ragged M/N need no padding,
     the GEMM kernel masks them.  The weight is quantized transposed, so its
     groups run along K, and its codes/scales are handed over as transposed
-    views: exactly the GEMM-side compact layout for every grouping.
+    views: exactly the GEMM-side compact layout for every grouping.  K3's
+    plan resolves through the tile cache on the logical (M, K, N), as the
+    JAX package's tiles do (:func:`_gemm_plan`); each quantizer on its own
+    operand.
     """
     M, K = x2d.shape
     if w2d.shape[0] != K:
         raise ValueError(f"contraction mismatch {tuple(x2d.shape)} @ {tuple(w2d.shape)}")
+    plan = _gemm_plan(M, K, w2d.shape[1], fmt, k_block, grouping, x2d.device)
     pk = (-K) % k_block
     xp = F.pad(x2d.float(), (0, pk)).contiguous()
     wt = F.pad(w2d.float().t(), (0, pk)).contiguous()  # (N, K + pk)
@@ -90,7 +95,17 @@ def qd_gemm(
                                 rounding_bytes(xp.shape, gen_x, xp.device), grouping)
     wc, wsgT, wst = mls_quantize(wt, fmt, k_block, gs_fmt,
                                  rounding_bytes(wt.shape, gen_w, wt.device), grouping)
-    return mls_matmul(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, k_block, grouping)
+    return mls_matmul(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, k_block, grouping, plan=plan)
+
+
+def _gemm_plan(M: int, K: int, N: int, fmt: EMFormat, k_block: int, grouping: str, device):
+    """K3's plan for ``qd_gemm``'s (M, K) @ (K, N): the tile cache's choice
+    for the logical shape on ``device``'s card (default: ``matmul_plan``'s),
+    on K padded to ``k_block``.  A cached choice K3 cannot run raises."""
+    config = autotune.resolve_block_config("gemm", (M, K, N), fmt, grouping, k_block=k_block,
+                                           device=device)
+    return tuned_plan(config.variant, config.bn, M, N, -(-K // k_block) * k_block, k_block,
+                      fmt)
 
 
 def _gemm_kwargs(cfg: QuantConfig) -> dict:
@@ -130,7 +145,7 @@ def _conv_fwd_impl(x, w, key, stride, padding, cfg: QuantConfig):
     geom = conv_geometry(x.shape, w.shape, stride, padding)
     gen_x = rounding_generator(key, cfg, 0, x.device)
     gen_w = rounding_generator(key, cfg, 1, x.device)
-    if resolve_conv_impl(geom, cfg) == "implicit":
+    if resolve_conv_impl(geom, cfg, x.device) == "implicit":
         # the im2col path's rounding streams and shapes: same numbers
         return implicit_conv_forward(
             x, w, rounding_bytes((geom.m0, geom.k0), gen_x, x.device),
@@ -160,13 +175,14 @@ def _qd_gemm_precoded_x(
     K = xc.shape[1]
     if w2d.shape[0] != K:
         raise ValueError(f"contraction mismatch {tuple(xc.shape)} @ {tuple(w2d.shape)}")
+    plan = _gemm_plan(xc.shape[0], K, w2d.shape[1], fmt, k_block, "none", xc.device)
     pk = (-K) % k_block
     xcp = F.pad(xc, (0, pk))  # zero codes decode to 0: exact
     wt = F.pad(w2d.float().t(), (0, pk)).contiguous()  # (N, K + pk)
     wc, wsgT, wst = mls_quantize(wt, fmt, k_block, gs_fmt,
                                  rounding_bytes(wt.shape, gen_w, wt.device), "none")
     ones = torch.ones((1, 1), dtype=torch.float32, device=xc.device)
-    return mls_matmul(xcp, ones, x_st, wc.t(), wsgT.t(), wst, fmt, k_block, "none")
+    return mls_matmul(xcp, ones, x_st, wc.t(), wsgT.t(), wst, fmt, k_block, "none", plan=plan)
 
 
 def _conv_bwd_impl(x, w, g, key, stride, padding, cfg: QuantConfig):
@@ -176,7 +192,8 @@ def _conv_bwd_impl(x, w, g, key, stride, padding, cfg: QuantConfig):
     gen = [rounding_generator(key, cfg, i, x.device) for i in range(2, 6)]
     kwargs = _gemm_kwargs(cfg)
     # G = Cols(qA)^T @ qE: contraction over the N*OH*OW patches (Alg. 1 l.13)
-    if cfg.grouping == "none" and gen[0] is None and resolve_conv_impl(geom, cfg) == "implicit":
+    if (cfg.grouping == "none" and gen[0] is None
+            and resolve_conv_impl(geom, cfg, x.device) == "implicit"):
         # reuse the forward's codes: code the padded input once against the
         # covered tensor scale and gather the codes as bytes
         s_t, xp = covered_tensor_scale(x, geom)

@@ -25,8 +25,8 @@ from . import build, launch
 from .launch import LaunchSpec, Operand
 from .ref import mls_matmul_ref
 
-__all__ = ["LAUNCHES", "SMS", "TILE", "MatmulPlan", "launch_spec", "matmul_plan", "mls_matmul",
-           "sg_shapes"]
+__all__ = ["LAUNCHES", "SMS", "TILE", "WORKSPACE_LIMIT", "MatmulPlan", "launch_spec",
+           "matmul_plan", "mls_matmul", "sg_shapes", "tuned_plan"]
 
 # Launches of the C entry point (one per call, whatever its plan runs),
 # counted where it is called.
@@ -185,9 +185,10 @@ _BODIES = ("int8", "int32")  # the C entry point's body codes
 
 
 def _checked_plan(plan: MatmulPlan | None, M: int, N: int, K: int, k_block: int,
-                  fmt: EMFormat) -> MatmulPlan:
+                  fmt: EMFormat, workspace_limit: int | None = None) -> MatmulPlan:
     """``plan``, or :func:`matmul_plan`'s; raise on one the kernel cannot
-    run exactly."""
+    run exactly, or (``workspace_limit``) whose split workspace exceeds
+    that many bytes."""
     if plan is None:
         return matmul_plan(M, N, K, k_block, fmt)
     if plan.variant not in ("walk", "split") or plan.body not in _BODIES or \
@@ -196,12 +197,30 @@ def _checked_plan(plan: MatmulPlan | None, M: int, N: int, K: int, k_block: int,
     if plan.body == "int8" and fmt.max_fraction > 127:
         raise ValueError(f"{fmt} fractions reach {fmt.max_fraction}: beyond int8, the int8 "
                          f"body would be wrong")
+    if -(-N // plan.bn) > _MAX_GRID_YZ:
+        raise ValueError(f"N={N} in {plan.bn}-wide tiles passes the grid's {_MAX_GRID_YZ}")
     groups = K // k_block
     if plan.variant == "split":
         if not 1 <= groups <= _MAX_GRID_YZ:
             raise ValueError(f"the split runs one grid slice per group: {groups} groups")
-        return dataclasses.replace(plan, workspace_bytes=groups * M * N * 4)
+        workspace = groups * M * N * 4
+        if workspace_limit is not None and workspace > workspace_limit:
+            raise ValueError(f"the split's workspace of {workspace} bytes ({groups} x {M} x {N} "
+                             f"fp32 terms) exceeds {workspace_limit}")
+        return dataclasses.replace(plan, workspace_bytes=workspace)
     return dataclasses.replace(plan, workspace_bytes=0)
+
+
+def tuned_plan(variant: str, bn: int, M: int, N: int, K: int, k_block: int,
+               fmt: EMFormat) -> MatmulPlan:
+    """The plan of a tuned choice (``autotune.BlockConfig``'s ``variant``
+    and ``bn``) for an (M, K) @ (K, N) GEMM, K padded to ``k_block``: the
+    body is the format's, and a split must keep its workspace within
+    ``WORKSPACE_LIMIT``.  Raises on a choice the kernel cannot run; there
+    is no fallback."""
+    body = "int8" if fmt.max_fraction <= 127 else "int32"
+    return _checked_plan(MatmulPlan(variant, body, bn, 0), M, N, K, k_block, fmt,
+                         workspace_limit=WORKSPACE_LIMIT)
 
 
 def _sg_operand(name: str, grouping: str, shape: tuple[int, int], x_side: bool,

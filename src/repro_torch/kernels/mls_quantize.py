@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.formats import EMFormat, GS_FMT_DEFAULT
 from repro_torch.core.lowbit import GROUPINGS
 
-from . import build, launch
+from . import autotune, build, launch
 from .launch import LaunchSpec, Operand
 from .ref import element_codes_ref, quantize_ref
 
@@ -77,6 +77,7 @@ def mls_quantize(
     gs_fmt: EMFormat = GS_FMT_DEFAULT,
     r_u8: torch.Tensor | None = None,
     grouping: str = "nc",
+    config: autotune.BlockConfig | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Quantize a contiguous float32 ``(M, K)`` operand to packed MLS codes.
 
@@ -84,7 +85,10 @@ def mls_quantize(
     in the compact layout of ``grouping``: (M, K/k_block) for "nc",
     (1, K/k_block) for "c", (M, 1) for "n", (1, 1) for "none".  ``r_u8``
     (M, K) uint8 is the rounding source; ``None`` means the constant 127.
-    ``K`` must be a multiple of ``k_block``.
+    ``K`` must be a multiple of ``k_block``.  ``config`` (default: the
+    tile cache's choice for this (M, K) operand on this device,
+    :func:`autotune.resolve_block_config`) picks K1's pass-B variant and
+    pass-A grid; every choice gives the same bits.
     """
     if grouping not in GROUPINGS:
         raise ValueError(f"unknown grouping {grouping!r}; expected one of {GROUPINGS}")
@@ -102,8 +106,11 @@ def mls_quantize(
     if (r_u8.shape != x.shape or r_u8.dtype != torch.uint8 or r_u8.device != x.device
             or not r_u8.is_contiguous()):
         raise ValueError("r_u8 must be a contiguous uint8 tensor of x's shape and device")
+    if config is None:
+        config = autotune.resolve_block_config("quantize", (M, K), fmt, grouping,
+                                               k_block=k_block, device=x.device)
     if x.device.type == "cpu":
-        kernel, args = quantize_launch(M, K, k_block, grouping)  # what the card would run
+        kernel, args = quantize_launch(M, K, k_block, grouping, config)  # what the card runs
         launch.record(kernel, "cpu", *args)
         with launch.plain_version():
             return quantize_ref(x, fmt, k_block, gs_fmt, r_u8, grouping)
@@ -113,19 +120,19 @@ def mls_quantize(
     if x.numel() == 0:
         raise ValueError("mls_quantize takes a non-empty operand (its tensor scale is a max)")
     if grouping in ("nc", "n"):
-        width = k_block if grouping == "nc" else K
+        _, (_, _, width, variant, parts) = quantize_launch(M, K, k_block, grouping, config)
         dev = x.device
-        partials = torch.empty((_amax_blocks(M * K, TILE),), dtype=torch.float32, device=dev)
+        partials = torch.empty((parts,), dtype=torch.float32, device=dev)
         s_t = torch.empty((), dtype=torch.float32, device=dev)
         codes = torch.empty((M, K), dtype=torch.uint8, device=dev)
         s_g = torch.empty((M, K // width), dtype=torch.float32, device=dev)
         build.check(build.library().mls_quantize_rows(
-            x.data_ptr(), r_u8.data_ptr(), partials.data_ptr(), partials.numel(),
+            x.data_ptr(), r_u8.data_ptr(), partials.data_ptr(), parts,
             s_t.data_ptr(), codes.data_ptr(), s_g.data_ptr(), M, K, width,
-            *_fmt_args(fmt, gs_fmt), torch.cuda.current_stream(dev).cuda_stream),
-            "mls_quantize_rows")
+            _ROW_VARIANTS.index(variant), *_fmt_args(fmt, gs_fmt),
+            torch.cuda.current_stream(dev).cuda_stream), "mls_quantize_rows")
         LAUNCHES["mls_quantize_rows"] += 1
-        launch.record("mls_quantize_rows", "cuda", M, K, width)
+        launch.record("mls_quantize_rows", "cuda", M, K, width, variant, parts)
         return codes, s_g, s_t
     return _quantize_cols(x, fmt, k_block if grouping == "c" else K, gs_fmt, r_u8)
 
@@ -213,13 +220,32 @@ def quantize_given_scales(
 # ---------------------------------------------------------------------------
 # Launch descriptors
 # ---------------------------------------------------------------------------
-def quantize_launch(M: int, K: int, k_block: int, grouping: str) -> tuple[str, tuple]:
+_ROW_VARIANTS = ("warp", "block")  # mls_quantize_rows' variant codes
+
+
+def quantize_launch(M: int, K: int, k_block: int, grouping: str,
+                    config: autotune.BlockConfig | None = None) -> tuple[str, tuple]:
     """The C entry point :func:`mls_quantize` calls on an (M, K) operand and
     its launch arguments (those of :func:`launch_spec_rows` /
     :func:`launch_spec_cols`), for operands whose allocations are aligned
-    (as ``torch.empty``'s are)."""
+    (as ``torch.empty``'s are).  K1's carry ``config``'s variant and pass-A
+    grid (default: today's rule, ``autotune.default_block_config``);
+    raises on a config K1 or K2 cannot launch."""
     if grouping in ("nc", "n"):
-        return "mls_quantize_rows", (M, K, k_block if grouping == "nc" else K)
+        width = k_block if grouping == "nc" else K
+        if config is None:
+            variant = "warp" if width <= TILE["kWarpGroupMax"] else "block"
+            parts = _amax_blocks(M * K, TILE)
+        else:
+            variant, parts = config.variant, config.amax_blocks
+        if variant not in _ROW_VARIANTS or (variant == "warp" and width > TILE["kWarpGroupMax"]):
+            raise ValueError(f"K1 cannot run variant {variant!r} on {width}-wide groups "
+                             f"(a warp takes at most {TILE['kWarpGroupMax']})")
+        if not 1 <= parts <= TILE["kAmaxBlocks"]:
+            raise ValueError(f"K1's pass A runs 1 to {TILE['kAmaxBlocks']} blocks, not {parts}")
+        return "mls_quantize_rows", (M, K, width, variant, parts)
+    if config is not None and config.variant != "cols":
+        raise ValueError(f"K2 (grouping {grouping!r}) has one choice, 'cols', not {config}")
     width = k_block if grouping == "c" else K
     return "mls_quantize_cols", (M, K, width, int(K % 4 == 0 and width % 4 == 0))
 
@@ -229,12 +255,13 @@ def _amax_blocks(n: int, t: dict[str, int]) -> int:
     return max(1, min(t["kAmaxBlocks"], -(-n // t["kAmaxChunk"])))
 
 
-def _amax_spec(n: int, t: dict[str, int]) -> LaunchSpec:
-    """``quantize_amax`` on ``n`` elements: ``P`` blocks stride over x in
-    ``kAmaxChunk``-element chunks (chunk ``s * P + b`` at stride step
-    ``s``) and block ``b`` writes partial max ``b``."""
+def _amax_spec(n: int, t: dict[str, int], parts: int | None = None) -> LaunchSpec:
+    """``quantize_amax`` on ``n`` elements: ``P`` blocks (``parts``,
+    default :func:`_amax_blocks`) stride over x in ``kAmaxChunk``-element
+    chunks (chunk ``s * P + b`` at stride step ``s``) and block ``b``
+    writes partial max ``b``."""
     chunk = t["kAmaxChunk"]
-    parts = _amax_blocks(n, t)
+    parts = _amax_blocks(n, t) if parts is None else parts
     chunks = -(-n // chunk)
     return LaunchSpec(
         kernel="quantize_amax", grid=(("block", parts), ("stride", -(-chunks // parts))),
@@ -246,28 +273,34 @@ def _amax_spec(n: int, t: dict[str, int]) -> LaunchSpec:
         active=lambda b, s: s * parts + b < chunks)
 
 
-def launch_spec_rows(M: int, K: int, group_width: int,
+def launch_spec_rows(M: int, K: int, group_width: int, variant: str | None = None,
+                     amax_blocks: int | None = None,
                      device_type: str = "cpu") -> tuple[LaunchSpec, LaunchSpec]:
     """The row-group kernel (K1) on an (M, K) operand in ``group_width``-wide
     groups (``mls_quantize_rows``), two launches:
 
-    - pass A, ``quantize_amax`` (:func:`_amax_spec`): ``P`` partial maxima;
-    - pass B: every block reads all ``P`` partials; then a warp per group up
-      to ``kWarpGroupMax`` (``quantize_groups_warp``, warps striding over
-      the groups: program ``(b, w, s)`` codes group ``(s * B + b) * 8 + w``),
-      else a block per group (``quantize_groups_block``).  A group codes
-      row ``gid // ng``, group ``gid % ng`` and writes its group scale.
+    - pass A, ``quantize_amax`` (:func:`_amax_spec`): ``amax_blocks``
+      (default: from the operand's size) partial maxima;
+    - pass B: every block reads all ``P`` partials; then, ``variant``
+      "warp" (default up to ``kWarpGroupMax``), a warp per group
+      (``quantize_groups_warp``, warps striding over the groups: program
+      ``(b, w, s)`` codes group ``(s * B + b) * 8 + w``), or "block"
+      (default above), a block per group (``quantize_groups_block``).  A
+      group codes row ``gid // ng``, group ``gid % ng`` and writes its
+      group scale.
 
     Block 0 of pass B also stores the tensor scale, one scalar, which no
     tiled operand describes.
     """
     t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
-    amax = _amax_spec(M * K, t)
+    amax = _amax_spec(M * K, t, amax_blocks)
     parts = amax.shape[0]
 
     ng = K // group_width
     groups = M * ng
-    if group_width <= t["kWarpGroupMax"]:
+    if variant is None:
+        variant = "warp" if group_width <= t["kWarpGroupMax"] else "block"
+    if variant == "warp":
         warps = t["kThreads"] // 32
         blocks = min(t["kRowBlocks"], -(-groups // warps))
         kernel, sequential = "quantize_groups_warp", 1

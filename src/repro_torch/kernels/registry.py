@@ -4,8 +4,10 @@ for its ``*_pallas`` wrappers) and at its example shapes.
 
 The static verifier (:mod:`repro_torch.analysis.kernel_verify`) runs each
 entry once on a device, forward and, where ``needs_grad``, backward, and
-proves every launch the wrappers recorded.  The JAX entries' autotuning
-specs (``tune``) wait for the port's autotuner (ROADMAP queue 1, item 7).
+proves every launch the wrappers recorded.  Each entry's ``tune`` is the
+JAX entry's tuning spec (:mod:`.autotune`), at JAX's shapes and keys: the
+workload whose winner the committed seed cache must hold
+(``python -m repro_torch.kernels.autotune --check``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from repro_torch.core.formats import FMT_IMAGENET, GS_FMT_DEFAULT
 from repro_torch.core.lowbit import GROUPINGS, QuantConfig
 
 from . import launch
+from .autotune import TuneSpec
+from .implicit_conv import conv_geometry, conv_tune_dims
 from .lowbit_conv import lowbit_conv_fused, lowbit_matmul_qd, qd_gemm
 from .mls_matmul import mls_matmul
 from .mls_quantize import mls_quantize
@@ -31,13 +35,15 @@ class KernelEntry:
     """One verifiable kernel entry point: ``fn`` applied to example inputs of
     ``shapes`` (``uint8`` code tensors where the shape's dtype says so).
     ``needs_grad`` marks training ops whose backward GEMMs are verified
-    too."""
+    too.  ``tune``: the entry's tuning workload (``None`` where another
+    entry's spec has the key, as for the raw-codes GEMM in JAX)."""
 
     name: str
     description: str
     fn: Callable
     shapes: tuple[tuple[tuple[int, ...], torch.dtype], ...]
     needs_grad: bool = False
+    tune: TuneSpec | None = None
 
     def example_args(self, device, seed: int = 0) -> list[torch.Tensor]:
         """Seeded example inputs on ``device``: normal floats, uint8 codes
@@ -95,26 +101,34 @@ def _conv_implicit(x, w):
         for g in GROUPINGS)
 
 
+_ICONV_GEOM = conv_geometry((2, 16, 8, 8), (16, 16, 3, 3), (1, 1), "SAME")
+
 KERNEL_REGISTRY: dict[str, KernelEntry] = {
     e.name: e
     for e in (
         KernelEntry("mls_quantize", "MLS dynamic quantization (paper Alg. 2), all four "
-                    "groupings", _quantize, (((256, 512), _F32),)),
+                    "groupings", _quantize, (((256, 512), _F32),),
+                    tune=TuneSpec("quantize", (256, 512), FMT_IMAGENET, 128)),
         KernelEntry("mls_matmul", "quantized-domain GEMM (paper Eq. 6-8)", _matmul,
                     (((256, 512), _U8), ((512, 256), _U8))),
         KernelEntry("lowbit_matmul_fused", "dynamic-quantize-both-operands GEMM (qd_gemm)",
-                    _matmul_fused, (((256, 512), _F32), ((512, 256), _F32))),
+                    _matmul_fused, (((256, 512), _F32), ((512, 256), _F32)),
+                    tune=TuneSpec("gemm", (256, 512, 256), FMT_IMAGENET, 128)),
         KernelEntry("lowbit_conv_fused", "im2col conv with fwd/wgrad/dgrad quantized GEMMs "
                     "(paper Alg. 1)",
                     lambda x, w: lowbit_conv_fused(x, w, None, (1, 1), "SAME", _CONV_CFG),
-                    (((2, 16, 8, 8), _F32), ((16, 16, 3, 3), _F32)), needs_grad=True),
+                    (((2, 16, 8, 8), _F32), ((16, 16, 3, 3), _F32)), needs_grad=True,
+                    # the forward im2col GEMM (N*OH*OW, C*kh*kw, O) at k_block 32
+                    tune=TuneSpec("gemm", (128, 144, 16), FMT_IMAGENET, 32)),
         KernelEntry("lowbit_conv_implicit", "implicit-GEMM conv, quantize fused into the "
                     "GEMM prologue (no materialized im2col), all four groupings",
                     _conv_implicit, (((2, 16, 8, 8), _F32), ((16, 16, 3, 3), _F32)),
-                    needs_grad=True),
+                    needs_grad=True,
+                    tune=TuneSpec("conv", conv_tune_dims(_ICONV_GEOM, 36), FMT_IMAGENET, 36)),
         KernelEntry("lowbit_matmul_qd", "linear-layer training op, all three GEMMs "
                     "quantized-domain",
                     lambda x, w: lowbit_matmul_qd(x, w, None, _CONV_CFG),
-                    (((64, 96), _F32), ((96, 64), _F32)), needs_grad=True),
+                    (((64, 96), _F32), ((96, 64), _F32)), needs_grad=True,
+                    tune=TuneSpec("gemm", (64, 96, 64), FMT_IMAGENET, 32)),
     )
 }

@@ -32,7 +32,14 @@ layer ``i`` on ``fold_in(that, 20_000 + i)``).  With ``cfg.remat ==
 "full"`` each dense, MoE, Mamba2, encoder or decoder layer runs under
 ``torch.utils.checkpoint``, its forward computed again in the backward
 pass, as JAX remats its layer scans; the rounding streams are seeded per
-(key, site, operand), so the recomputed forward draws the same bytes.  The
+(key, site, operand), so the recomputed forward draws the same bytes.
+``"dots"`` is JAX's ``dots_with_no_batch_dims_saveable``: the same
+layers checkpointed selectively (:func:`dots_policy`), the outputs of
+matmuls without batch dims (``aten.mm``, ``aten.addmm``) saved and
+everything else, attention's ``aten.bmm`` included, recomputed.  Under
+``quant_backend="pallas"`` a quantized linear's GEMMs are K3 calls inside
+an ``autograd.Function``, which no op-level policy sees, so they are
+recomputed, as JAX's ``pallas_call`` (not a ``dot_general``) is.  The
 hybrid's shared block is not remat'd, as in JAX.  Serving rounds to
 nearest (no key).  As in the JAX package, the encoder-decoder's
 cross-attention K/V are quantized in training (``wk``/``wv`` of the
@@ -49,13 +56,19 @@ decode return the fp32 rows of the projection, as JAX's layer scan does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import QuantConfig, fold_in
+from repro_torch.kernels.launch import in_plain_version
 from repro_torch.runtime import resolve_device
 
 from . import nn as L
@@ -224,16 +237,35 @@ def logits_fn(model: LM, x: torch.Tensor) -> torch.Tensor:
 # ===========================================================================
 # family bodies
 # ===========================================================================
-def _layer(layer: nn.Module, view: dict | None, remat: bool, *args, **kwargs):
+REMATS = ("none", "full", "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of remat "dots" (JAX's
+    ``dots_with_no_batch_dims_saveable``): save the output of a matmul
+    with no batch dims, recompute every other op.  A kernel's plain
+    version on the CPU is a black box, as the kernel is on the card: its
+    ops are recomputed."""
+    if op in _SAVED_DOTS and not in_plain_version():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer(layer: nn.Module, view: dict | None, remat: str, *args, **kwargs):
     """``layer(*args, **kwargs)``: on the cast parameters of ``view`` (by
     name within the layer; :func:`gather_view`) where given, and under
-    activation checkpointing when ``remat``."""
+    activation checkpointing when ``remat`` is "full" (recompute all) or
+    "dots" (save what :func:`dots_policy` saves)."""
     fn = layer
     if view is not None:
         def fn(*a, **k):
             return torch.func.functional_call(layer, view, a, k)
-    if remat:
+    if remat == "full":
         return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, dots_policy), **kwargs)
     return fn(*args, **kwargs)
 
 
@@ -245,7 +277,7 @@ def _sub(view: dict | None, prefix: str) -> dict | None:
 
 
 def _dense(model: LM, x, qcfg, key, *, caches=None, cache_pos: int = 0, window=None,
-           view=None, remat=False):
+           view=None, remat="none"):
     """The dense or MoE stack, threading the stacked KV caches ``(k, v)``
     (L, B, M, KV, hd) when given (written in place); returns ``(x, aux)``,
     aux the mean of the MoE layers' load-balance losses (0 for dense)."""
@@ -263,7 +295,7 @@ def _dense(model: LM, x, qcfg, key, *, caches=None, cache_pos: int = 0, window=N
     return x, torch.stack(auxes).mean()
 
 
-def _encoder(model: LM, batch: dict, qcfg, key, *, view=None, remat=False):
+def _encoder(model: LM, batch: dict, qcfg, key, *, view=None, remat="none"):
     """The encoder: its bidirectional blocks over ``frontend_proj(src_emb)``
     (unquantized: the first layer), layer ``i`` on ``fold_in(key, 20_000 +
     i)``."""
@@ -276,7 +308,7 @@ def _encoder(model: LM, batch: dict, qcfg, key, *, view=None, remat=False):
 
 
 def _xdec(model: LM, x, qcfg, key, memory=None, *, caches=None, cross=None,
-          cache_pos: int = 0, view=None, remat=False):
+          cache_pos: int = 0, view=None, remat="none"):
     """The decoder stack: cross-attention over ``memory`` (the encoder's
     output) or, serving, over the stacked cross K/V ``cross`` (L, B, Sk,
     KV, hd) x2; self-attention threads the KV caches ``caches`` when
@@ -289,7 +321,7 @@ def _xdec(model: LM, x, qcfg, key, memory=None, *, caches=None, cross=None,
     return x
 
 
-def _ssm(model: LM, x, qcfg, key, *, states=None, view=None, remat=False):
+def _ssm(model: LM, x, qcfg, key, *, states=None, view=None, remat="none"):
     """The Mamba2 stack; with ``states`` (conv (L, B, K-1, C), ssm (L, B, H,
     P, N)) returns the new ones."""
     conv, ssm = [], []
@@ -303,7 +335,7 @@ def _ssm(model: LM, x, qcfg, key, *, states=None, view=None, remat=False):
 
 
 def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos: int = 0,
-            kv_valid=None, positions=None, window=None, view=None, remat=False):
+            kv_valid=None, positions=None, window=None, view=None, remat="none"):
     """Zamba2: Mamba2 segments of ``attn_every`` layers, the shared block
     after every full segment (instance ``si`` uses KV cache ``si``), then the
     tail of ``n_layers % attn_every`` layers.  KV caches are written in
@@ -323,7 +355,7 @@ def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos
             si -= 1
             cache = ((attn_caches[0][si], attn_caches[1][si])
                      if attn_caches is not None else None)
-            x = _layer(model.shared_attn, _sub(view, "shared_attn."), False, x, qcfg,
+            x = _layer(model.shared_attn, _sub(view, "shared_attn."), "none", x, qcfg,
                        fold_in(key, 10_000 + si), cache=cache, cache_pos=cache_pos,
                        kv_valid=kv_valid, positions=positions, window=window)
     return x, ((torch.stack(conv), torch.stack(ssm)) if states is not None else None)
@@ -360,12 +392,10 @@ def lm_loss(model: LM, batch: dict, key: int | None = None
     ``cfg.qcfg()`` quantizes the linears, rounding stochastically from
     ``key`` (to nearest when it is None)."""
     cfg = model.cfg
-    if cfg.remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"remat {cfg.remat!r} (JAX's dots_with_no_batch_dims_saveable policy) is not "
-            f"ported yet (ROADMAP queue 1); the port remats 'full' or 'none'")
-    qcfg, view, remat = cfg.qcfg(), gather_view(model), cfg.remat == "full"
-    kw = dict(view=view, remat=remat)
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat {cfg.remat!r}: expected one of {REMATS}")
+    qcfg, view = cfg.qcfg(), gather_view(model)
+    kw = dict(view=view, remat=cfg.remat)
     memory = (_encoder(model, batch, qcfg, fold_in(key, 1), **kw)
               if cfg.family == "encdec" else None)
     x = embed(model, batch)

@@ -11,6 +11,10 @@ gaps, each written element bit-identical to one of its two racing
 writers, a store probe of 2 per element where two programs write), the
 built library's tile constants against the launch descriptors' copies,
 and the launch specs of one full-width ResNet-20 step verifying clean.
+Every choice the tile cache may make (``autotune.candidates_for``) at the
+ResNet-20 stage shapes, a ragged shape, k_block 144, four groupings,
+<2,4>/<2,1>/<3,1> and two LM decode shapes gives the default's bits and
+the plain version's; the committed seed cache checks on the card.
 
 Small, ragged shapes that the main path's shapes in ``chip_smoke.py`` do
 not reach: M and N off the GEMM tile, both K3 plans (walk and ordered
@@ -331,14 +335,24 @@ _K1_K3 = {"quantize_amax", "quantize_groups_warp", "mls_matmul_walk", "mls_matmu
     (128, _K1_K3),
     (144, _K1_K3 | {"conv_amax", "implicit_conv"})])
 def test_full_width_step_launch_specs_verify_clean(cuda, k_block, kernels):
-    graph = cifar_train_graph(k_block, device=cuda)
-    cov, records = graph.run()
-    specs = recorded_specs(records)
-    assert {s.kernel for s, _ in specs} == kernels
-    assert {key[1] for key in records} == {"cuda"}  # recorded on the card
-    report = verify_specs(graph.name, specs)
-    assert report.ok, report.violations
-    assert report.max_integer_bits == (21 if k_block == 128 else 22)
+    """With no tile cache the step launches ``kernels``; with the seed
+    cache (on its card) it may take K1's block pass too; every launch
+    verifies either way."""
+    from repro_torch.kernels import autotune
+
+    for cache in (autotune.TuneCache(), autotune.get_cache()):
+        with autotune.override_cache(cache):
+            graph = cifar_train_graph(k_block, device=cuda)
+            cov, records = graph.run()
+        specs = recorded_specs(records)
+        if cache.device is None:
+            assert {s.kernel for s, _ in specs} == kernels
+        else:
+            assert {s.kernel for s, _ in specs} <= kernels | {"quantize_groups_block"}
+        assert {key[1] for key in records} == {"cuda"}  # recorded on the card
+        report = verify_specs(graph.name, specs)
+        assert report.ok, report.violations
+        assert report.max_integer_bits == (21 if k_block == 128 else 22)
     assert cov.quantized_fraction >= 0.99
 
 
@@ -882,3 +896,62 @@ def test_sweep_pallas_cell_on_the_card_launches_the_closed_form(cuda):
     traj = train_cell(cell, cuda)
     assert all(np.isfinite(traj.losses))
     assert traj.launches == [want] * cell.steps
+
+
+# ---------------------------------------------------------------------------
+# the tile cache's choices (repro_torch.kernels.autotune)
+# ---------------------------------------------------------------------------
+def _tune_specs():
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.implicit_conv import conv_geometry, conv_tune_dims
+
+    F = EMFormat(2, 4)
+    specs = [at.TuneSpec("gemm", s, F) for s in (
+        (131072, 144, 16), (144, 131072, 16), (131072, 16, 144), (8192, 576, 64),
+        (1000, 300, 50), (4, 4096, 13696), (4, 13696, 4096))]  # stages, ragged, LM decode
+    specs += [at.TuneSpec("gemm", (2048, 576, 64), F, 144)]
+    specs += [at.TuneSpec("gemm", (8192, 576, 64), F, 128, g) for g in ("c", "n", "none")]
+    specs += [at.TuneSpec("gemm", (1000, 300, 50), EMFormat(*f), 64) for f in ((2, 1), (3, 1))]
+    specs += [at.TuneSpec("quantize", s, F, 128, g) for s, g in (
+        ((131072, 256), "nc"), ((144, 131072), "nc"), ((4, 4096), "nc"), ((1000, 384), "n"),
+        ((8192, 4096), "nc"), ((1000, 384), "c"))]
+    specs += [at.TuneSpec("quantize", (1000, 384), EMFormat(*f), 128) for f in ((2, 1), (3, 1))]
+    for xs, ws, s in (((128, 16, 32, 32), (16, 16, 3, 3), 1), ((128, 16, 32, 32), (32, 16, 3, 3), 2),
+                      ((128, 32, 16, 16), (32, 32, 3, 3), 1), ((128, 32, 16, 16), (64, 32, 3, 3), 2),
+                      ((128, 64, 8, 8), (64, 64, 3, 3), 1)):
+        g = conv_geometry(xs, ws, (s, s), "SAME")
+        for grouping in (GROUPINGS if s == 1 and xs[1] == 16 else ["nc"]):
+            specs.append(at.TuneSpec("conv", conv_tune_dims(g, 144), F, 144, grouping))
+    return specs
+
+
+@pytest.mark.parametrize("spec", _tune_specs(), ids=lambda s: s.key())
+def test_every_tuning_candidate_matches_the_default_and_the_plain_version(cuda, spec):
+    """Each candidate the tuner may pick (K3's walk and split at every tile
+    width, K1's warp and block passes at every pass-A grid, including the
+    block pass at width 128, K4 at every tile width and im2col) gives the
+    default's bits and the plain version's."""
+    from repro_torch.kernels import autotune as at
+
+    want = at.config_call(spec, None, device="cuda")()
+    default = at.config_call(spec, at.default_block_config(spec), device="cuda")()
+    cands = at.candidates_for(spec)
+    assert len(cands) > 1 or spec.grouping in ("c", "none")
+    for config in cands:
+        assert at.verify_config(spec, config, "cuda").ok, config
+        got = at.config_call(spec, config, device="cuda")()
+        torch.cuda.synchronize()
+        for a, b, c in zip(*(t if isinstance(t, tuple) else (t,) for t in (got, default, want))):
+            assert torch.equal(a, b) and torch.equal(a, c), (spec.key(), config)
+
+
+def test_the_seed_cache_checks_on_the_card(cuda, capsys):
+    from repro_torch.kernels import autotune as at
+
+    assert at.main(["--check"]) == 0, capsys.readouterr().err
+    seed = at.TuneCache.load(at.SEED_CACHE_PATH)
+    if seed.device == torch.cuda.get_device_name(0):  # the seed resolves on its own card
+        at.invalidate_cache()
+        spec = next(iter(at.specs_named("path")))
+        assert at.resolve_block_config(spec.kind, spec.shape, spec.fmt, spec.grouping,
+                                       k_block=spec.k_block, device=cuda) == seed.get(spec.key())

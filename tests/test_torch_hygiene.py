@@ -51,7 +51,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.train.trainer, repro_torch.launch.train, repro_torch.optim, "
             "repro_torch.data, repro_torch.sweep, repro_torch.sweep.__main__, "
             "repro_torch.sweep.grid, repro_torch.sweep.runner, repro_torch.sweep.gate, "
-            "repro_torch.sweep.report, repro_torch.sweep.record; "
+            "repro_torch.sweep.report, repro_torch.sweep.record, "
+            "repro_torch.kernels.autotune; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(), timeout=120)
@@ -92,6 +93,14 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no GPU"):
         sweep_cli.main(["--smoke", "--only", "resnet20/fp32/fake_quant"])
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_bench", ROOT / "benchmarks" / "torch_kernel_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        bench.main(["--small"])
 
 
 def test_quantized_config_refusals():

@@ -290,7 +290,15 @@ def test_full_remat_recomputes_each_forward_and_launches_the_closed_form(name):
 
 
 def test_remat_dots_is_not_ported():
+    """Remat "dots" is ported now (``tests/test_torch_remat.py`` holds it to
+    JAX's): ``lm_loss`` accepts it, gives "full"'s loss, and refuses an
+    unknown policy."""
     model = lm.init_lm(dataclasses.replace(configs.get_smoke_config("chatglm3-6b"),
                                            remat="dots"), device="cpu")
-    with pytest.raises(NotImplementedError, match="dots"):
-        lm.lm_loss(model, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    loss = lm.lm_loss(model, batch)[0]
+    model.cfg = dataclasses.replace(model.cfg, remat="full")
+    assert torch.equal(loss, lm.lm_loss(model, batch)[0])
+    model.cfg = dataclasses.replace(model.cfg, remat="some")
+    with pytest.raises(ValueError, match="remat"):
+        lm.lm_loss(model, batch)
