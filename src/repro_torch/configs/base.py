@@ -102,15 +102,19 @@ class ModelConfig:
 
     def qcfg(self) -> QuantConfig | None:
         """The port's ``QuantConfig`` of every quantized linear (None when
-        ``quant`` is off): "nc" groups of 128, stochastic rounding, and the
-        backend ``quant_backend`` names ("pallas" -> "quantized")."""
+        ``quant`` is off): "nc" groups of 128 aligned to 16 FSDP shards
+        (``shard_ways=16``, which narrows a fake-quant matmul's groups where
+        K / 128 is not a multiple of 16), stochastic rounding,
+        ``packed_wire`` as configured, and the backend ``quant_backend``
+        names ("pallas" -> "quantized")."""
         if not self.quant:
             return None
         if self.quant_backend not in _BACKENDS:
             raise ValueError(f"quant_backend must be one of {sorted(_BACKENDS)}, "
                              f"got {self.quant_backend!r}")
         return QuantConfig(fmt=self.fmt, gs_fmt=self.gs_fmt, grouping="nc", k_block=128,
-                           stochastic=True, backend=_BACKENDS[self.quant_backend])
+                           stochastic=True, packed_wire=self.packed_wire, shard_ways=16,
+                           backend=_BACKENDS[self.quant_backend])
 
     def n_params(self) -> int:
         """Total parameter count (for 6·N·D roofline math)."""

@@ -72,6 +72,21 @@ class QuantConfig:
     # needs k_block = cb*kh*kw with cb | C) or "auto" (implicit where legal,
     # else im2col).  The choice never changes numerics.
     conv_impl: str = "auto"
+    # Route the fake-quant WEIGHT through its packed uint8 codes and compact
+    # group scales, each pinned to the FSDP shard axis (parallel.wire_pin):
+    # an exact round trip, so the numbers do not move.
+    packed_wire: bool = False
+    # Which weight dim is FSDP-sharded (0 for in-projections, 1 for
+    # out-projections); None disables the pinning.  Set per call site by the
+    # layers (models.nn.linear(..., wire=...)).
+    wire_fsdp_dim: int | None = None
+    # The contraction axis of a GEMM weight is FSDP-sharded this many ways in
+    # the JAX package's production mesh, and a fake-quant matmul's scaling
+    # groups are narrowed to align with those shards (_aligned_kb): this
+    # changes the groups, and so the numbers, on one device as well.  1: no
+    # alignment; ModelConfig.qcfg sets 16, as the JAX package does.  The
+    # quantized backend keeps k_block whatever this says.
+    shard_ways: int = 1
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -102,8 +117,14 @@ class QuantConfig:
                 f"narrower <E,M> format."
             )
 
-
     def _aligned_kb(self, k: int) -> int:
+        """The matmul's group width along a contraction of ``k``: the widest
+        of ``(k_block, 64, 32, 16)`` that divides ``k`` into a multiple of
+        ``shard_ways`` groups, else ``min(k_block, k)``."""
+        if self.shard_ways > 1:
+            for kb in (self.k_block, 64, 32, 16):
+                if k % kb == 0 and (k // kb) % self.shard_ways == 0:
+                    return kb
         return min(self.k_block, k)
 
     def matmul_specs(self, x_shape, w_shape) -> tuple[GroupSpec, GroupSpec]:
