@@ -26,6 +26,11 @@ coverage and ``< 2^24`` integer accumulation, gated against
 ``--tune-cache PATH``): every registry spec cached and every cached
 winner proven.  ``--gate`` fails on a stale cache.
 
+The ``wire_ring`` section (``--no-wire`` skips it) runs the MLS-compressed
+cross-pod gradient ring in two gloo processes on the CPU and counts the
+bytes each sends (:mod:`repro_torch.analysis.wire`); the gate holds its
+compression against fp32 to ``min_wire_compression_ratio``.
+
 ``--sabotage MODE`` plants a negative control that must make the gate
 fail: ``fp32_gemm`` (an fp32 GEMM on the train hot path), ``overlap_write``
 (runs K5, whose output map writes blocks from conflicting programs),
@@ -47,7 +52,8 @@ TRAIN_K_BLOCKS = (128, 144)  # the paper's im2col path and the implicit path
 
 def build_report(graphs: tuple = ("train",), sabotage: str | None = None,
                  kernels: bool = False, device: str = "cuda", width: float = 1.0,
-                 hw: int = 32, batch: int = 128, tune_cache: str | None = None) -> dict:
+                 hw: int = 32, batch: int = 128, tune_cache: str | None = None,
+                 wire: bool = True) -> dict:
     from repro_torch.analysis.graphs import cifar_train_graph, serve_decode_graph
     from repro_torch.analysis.kernel_verify import SABOTAGE_MODES, run_kernel_audit
     from repro_torch.analysis.lint import lint_quant_config, lint_shipped_presets
@@ -71,6 +77,10 @@ def build_report(graphs: tuple = ("train",), sabotage: str | None = None,
                                     "lint": lint_quant_config(g.qcfg).to_json()}
         recorded[g.name] = recorded_specs(records)
     report["presets"] = {name: res.to_json() for name, res in lint_shipped_presets().items()}
+    if wire:
+        from repro_torch.analysis.wire import audit_wire_ring
+
+        report["wire_ring"] = audit_wire_ring()
     if kernels:
         report["kernels"] = run_kernel_audit(
             sabotage=sabotage if sabotage in SABOTAGE_MODES else None, device=dev.type,
@@ -102,6 +112,10 @@ def apply_gate(report: dict, baseline: dict) -> list[str]:
     for name, res in report.get("presets", {}).items():
         if not res["ok"]:
             failures.append(f"preset {name}: lint errors {res['errors']}")
+    wire, min_ratio = report.get("wire_ring"), baseline.get("min_wire_compression_ratio")
+    if wire is not None and min_ratio is not None and wire["compression_ratio"] < min_ratio:
+        failures.append(f"wire ring: compression ratio {wire['compression_ratio']:.2f} "
+                        f"< {min_ratio}")
     failures += apply_kernel_gate(report.get("kernels"), baseline.get("kernels", {}))
     tc = report.get("tune_cache")
     if tc is not None and not tc["ok"]:
@@ -151,6 +165,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="AUDIT_torch_report.json")
     ap.add_argument("--baseline", default=str(_BASELINE))
     ap.add_argument("--kernels-baseline", default=str(_KERNELS_BASELINE))
+    ap.add_argument("--no-wire", action="store_true",
+                    help="skip the compressed gradient ring's wire-byte audit")
     ap.add_argument("--tune-cache", default=None, metavar="PATH",
                     help="the tile cache --kernels checks (default: the committed seed)")
     args = ap.parse_args(argv)
@@ -159,7 +175,7 @@ def main(argv=None) -> int:
     report = build_report(graphs=graphs,
                           sabotage=args.sabotage, kernels=args.kernels, device=args.device,
                           width=args.width, hw=args.hw, batch=args.batch,
-                          tune_cache=args.tune_cache)
+                          tune_cache=args.tune_cache, wire=not args.no_wire)
     baseline = json.loads(pathlib.Path(args.baseline).read_text())
     if args.kernels:
         baseline["kernels"] = json.loads(pathlib.Path(args.kernels_baseline).read_text())
@@ -174,6 +190,10 @@ def main(argv=None) -> int:
               f"({cov['quantized_macs']:,} q / {cov['full_precision_macs']:,} fp / "
               f"{cov['data_movement_macs']:,} dm MACs), "
               f"lint {'OK' if entry['lint']['ok'] else 'FAIL'}")
+    if "wire_ring" in report:
+        w = report["wire_ring"]
+        print(f"wire ring: {w['compression_ratio']:.2f}x vs fp32 "
+              f"({w['wire_bytes_per_device']:.0f} B/device)")
     if "kernels" in report:
         ks = report["kernels"]
         for name, rep in ks["kernels"].items():

@@ -183,9 +183,10 @@ def _block_indices(spec: LaunchSpec, op: Operand, coords) -> tuple[np.ndarray, n
     idx = np.stack([np.broadcast_to(np.asarray(v, dtype=np.int64), shape).ravel()
                     for v in op.index_map(*coords)], axis=1)
     active = np.ones(len(idx), dtype=bool)
-    if spec.active is not None:
-        active = np.broadcast_to(np.asarray(spec.active(*coords)), shape).ravel()
-        idx[~active] = -1
+    for pred in (spec.active, op.active):
+        if pred is not None:
+            active = active & np.broadcast_to(np.asarray(pred(*coords)), shape).ravel()
+    idx[~active] = -1
     return idx, active
 
 
@@ -547,7 +548,8 @@ def verify_implicit_conv_candidate(geom, fmt: EMFormat, k_block: int, grouping: 
     if bn is not None and bn not in BNS:
         return refused(name, f"K4's tile width is one of 16, 32, 64, not {bn}")
     specs = (_quantize_specs(geom.o, geom.k0, k_block, grouping, device)
-             + _once(implicit_conv.launch_spec(geom, k_block, grouping, fmt, bn, device)))
+             + _once(implicit_conv.launch_spec(geom, k_block, grouping, fmt, bn,
+                                                   device_type=device)))
     return verify_specs(name, specs)
 
 

@@ -18,6 +18,9 @@ arithmetic the kernels assume:
 * **Grouping and group-scale format.**  The grouping must name a known
   layout; the group-scale fraction must stay within the shift-add budget of
   the inter-group combine (``Mg <= 2``).
+* **Wire fields** (the JAX package's checks): ``shard_ways >= 1``,
+  ``wire_fsdp_dim`` in {None, 0, 1}, and a warning for ``packed_wire``
+  without ``wire_fsdp_dim``.
 
 Pure Python on dataclass fields: it runs on any host.
 """
@@ -112,6 +115,14 @@ def lint_quant_config(cfg: QuantConfig) -> LintResult:
             f"scaling group runs {steps} steps with {steps * ks - cfg.k_block} of "
             f"{steps * ks} slots empty, and its codes are staged without cp.async"
         )
+
+    if cfg.shard_ways < 1:
+        errors.append(f"shard_ways must be >= 1, got {cfg.shard_ways}")
+    if cfg.wire_fsdp_dim not in (None, 0, 1):
+        errors.append(f"wire_fsdp_dim must be None, 0 or 1, got {cfg.wire_fsdp_dim}")
+    if cfg.packed_wire and cfg.wire_fsdp_dim is None:
+        warnings.append("packed_wire=True without wire_fsdp_dim: codes are packed but not "
+                        "pinned to the FSDP shard axis, so the gather may still move fp32")
 
     return LintResult(errors, warnings)
 

@@ -33,7 +33,15 @@ import torch
 import torch.nn.functional as F
 
 from .formats import EMFormat, FMT_IMAGENET, GS_FMT_DEFAULT, accumulation_bits
-from .quantize import GroupSpec, mls_quantize, normalize_slices, quantize_grid
+from .quantize import (
+    GroupSpec,
+    broadcast_groups,
+    mls_quantize,
+    normalize_slices,
+    pack_elements,
+    quantize_grid,
+    unpack_elements,
+)
 
 __all__ = [
     "BACKENDS",
@@ -192,15 +200,33 @@ def _source(key: int | None, cfg: QuantConfig, idx: int, device, r) -> (
 
 
 def quantize_operand(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: int | None,
-                     idx: int, r=None) -> tuple[torch.Tensor, torch.Tensor]:
+                     idx: int, r=None, wire: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize -> ``(unit-scaled values, fp32 tensor scale)``: the tensor
     scale is factored out of the GEMM (paper Sec. V-B).  ``idx`` is the
     operand's rounding stream at the site (0: activation, 1: weight, 2:
-    error); ``r`` gives the offsets instead (see :func:`lowbit_matmul`)."""
+    error); ``r`` gives the offsets instead (see :func:`lowbit_matmul`).
+
+    With ``wire=True`` (a 2-D weight) and ``cfg.wire_fsdp_dim`` set, the
+    values pass :func:`repro_torch.parallel.wire_pin` on that dim; with
+    ``cfg.packed_wire`` too, as their packed uint8 codes and their compact
+    group scales, each pinned, unpacked and broadcast after: the FSDP
+    gather then moves 1 B an element.  The round trip is exact."""
     if not cfg.enabled:
         return x.to(torch.float32), torch.ones((), dtype=torch.float32, device=x.device)
     t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt, _source(key, cfg, idx, x.device, r))
-    return t.unit_value(), t.s_t
+    pin = wire and cfg.wire_fsdp_dim is not None and x.ndim == 2
+    if not pin:
+        return t.unit_value(), t.s_t
+    from repro_torch.parallel.sharding import wire_pin
+
+    if cfg.packed_wire and t.fmt.element_bits <= 8:
+        codes = wire_pin(pack_elements(t), cfg.wire_fsdp_dim)  # the 1-byte gather
+        sign, mag = unpack_elements(codes, cfg.fmt)
+        # the group scales travel compact (1/k_block of the elements) and
+        # are broadcast after: broadcast first, they would be a full fp32 tensor
+        sgc = wire_pin(t.s_g, min(cfg.wire_fsdp_dim, t.s_g.ndim - 1))
+        return sign * mag * broadcast_groups(sgc, t.spec, x.shape), t.s_t
+    return wire_pin(t.unit_value(), cfg.wire_fsdp_dim), t.s_t
 
 
 def _error_spec(cfg: QuantConfig, g: torch.Tensor) -> GroupSpec:
@@ -217,7 +243,7 @@ class LowbitMatmul(torch.autograd.Function):
     def forward(ctx, x, w, key, cfg, r):
         sx, sw = cfg.matmul_specs(x.shape, w.shape)
         qx, stx = quantize_operand(x, cfg, sx, key, 0, r)
-        qw, stw = quantize_operand(w, cfg, sw, key, 1, r)
+        qw, stw = quantize_operand(w, cfg, sw, key, 1, r, wire=True)
         ctx.save_for_backward(qx, stx, qw, stw)
         ctx.conf = (key, cfg, r, x.dtype, w.dtype)
         return torch.matmul(qx, qw) * (stx * stw)

@@ -51,10 +51,10 @@ _SIGNATURES = {
     "mls_matmul": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
                    _P, _P, ctypes.c_float, _P, _P, *[_I] * 9, _P],
     # x, r_u8, scratch, n_scratch, wc, swk, swn, wsg, swsg_g, swsg_n, wst,
-    # unit, out, n, c, h, w, o, kh, kw, sh, sw, ph, pw, hp, wp, k_block, mode,
-    # bn, e, m, e_min, gs_m, gs_emin, stream
+    # unit, out, codes_out, sg_out, st_out, n, c, h, w, o, kh, kw, sh, sw, ph,
+    # pw, hp, wp, k_block, mode, bn, e, m, e_min, gs_m, gs_emin, stream
     "implicit_conv": [_P, _P, _P, _LL, _P, _LL, _LL, _P, _LL, _LL,
-                      _P, ctypes.c_float, _P, *[_I] * 16, *[_I] * 5, _P],
+                      _P, ctypes.c_float, _P, _P, _P, _P, *[_I] * 16, *[_I] * 5, _P],
     # x, partials, n_partials, s_t, n, c, h, w, kh, kw, sh, sw, ph, pw, hp, wp, stream
     "conv_tensor_scale": [_P, _P, _I, _P, *[_I] * 12, _P],
     # x, w, out, probe (or NULL), M, K, N, stream

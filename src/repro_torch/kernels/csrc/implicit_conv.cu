@@ -61,6 +61,11 @@
 //       shared through mls_mma.cuh.
 //     - the combine stays mls::group_combine in k order, then the tensor
 //       scale (K3's epilogue).
+//   emit (the kEmit instances, the JAX kernel's emit_codes): the tiles of
+//     column 0 (blockIdx.y == 0) also store the prologue's codes (M0, K0)
+//     and "nc"'s and "n"'s row group scales, block (0, 0) s_t and the
+//     compact "c"/"none" scales, so each byte has one writer.  The default
+//     instances (kEmit false) carry none of these stores.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -106,6 +111,9 @@ struct ConvArgs {
   const float* wst;
   float unit;
   float* out;
+  uint8_t* codes_out;  // emit: (M0, K0) codes, the compact x scales, s_t
+  float* sg_out;
+  float* st_out;
   int M, O, K, k_block, cb, mode;
   int n, c, h, w, hp, wp, ph, pw, kh, kw, sh, sw, oh, ow;
   int band_rows;  // the tallest band of any tile: the band's channel pitch in rows
@@ -254,7 +262,7 @@ __global__ void __launch_bounds__(kAmaxThreads) conv_chan_scales(const float* __
   mls::scales_of_maxima<kAmaxThreads>(gmax, G, 1, s_t, s_g, f, red);
 }
 
-template <int BN, bool kMma>
+template <int BN, bool kMma, bool kEmit>
 __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvArgs a) {
   using L = Smem<BN, kMma>;
   using Dec = typename L::Dec;
@@ -322,6 +330,14 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
   const int n_chunks = (a.k_block + KC - 1) / KC;
   const int nkb = a.K / a.k_block;
   __syncthreads();
+  if constexpr (kEmit) {
+    const bool first = blockIdx.x == 0 && blockIdx.y == 0;
+    if (a.mode == kModeN && blockIdx.y == 0 && tid < rows) a.sg_out[row0 + tid] = rs[tid];
+    if (first && a.mode == kModeNone && tid == 0) a.sg_out[0] = sg_none;
+    if (first && a.mode == kModeC)
+      for (int g = tid; g < nkb; g += kThreads) a.sg_out[g] = a.xsg[g];
+    if (first && tid == 0) *a.st_out = xst;
+  }
 
   for (int g = 0; g < nkb; ++g) {
     const long long kg = (long long)g * a.k_block;
@@ -362,6 +378,10 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
           float v = red2[tid];
           for (int q = 1; q < kThreads / kBM; ++q) v = mls::nan_max(v, red2[tid + q * kBM]);
           rs[tid] = mls::group_scale(mls::scale_ratio(v, xst), a.f);
+          if constexpr (kEmit) {
+            if (blockIdx.y == 0 && tid < rows)
+              a.sg_out[(long long)(row0 + tid) * nkb + g] = rs[tid];
+          }
         }
         __syncthreads();
       }
@@ -385,6 +405,12 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
               codes |= (uint32_t)mls::element_code(band[toff[k] + roff[m]],
                                                    (rb >> (8 * u)) & 0xFF, denom, a.f)
                        << (8 * u);
+          }
+          if constexpr (kEmit) {
+            if (blockIdx.y == 0) {
+              uint8_t* dst = a.codes_out + (long long)(row0 + m) * a.K + kof + k4;
+              for (int u = 0; u < 4 && k4 + u < kw; ++u) dst[u] = (codes >> (8 * u)) & 0xFF;
+            }
           }
         }
         if constexpr (kMma) {
@@ -482,10 +508,10 @@ int max_fraction(int e, int m) {
   return best;
 }
 
-template <int BN, bool kMma>
+template <int BN, bool kMma, bool kEmit>
 cudaError_t launch_main(const ConvArgs& a, cudaStream_t s) {
   const Smem<BN, kMma> lay(a.cb, a.band_rows, a.wp, a.k_block);
-  auto kernel = implicit_conv_kernel<BN, kMma>;
+  auto kernel = implicit_conv_kernel<BN, kMma, kEmit>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
   if (err != cudaSuccess) return err;
@@ -530,12 +556,15 @@ extern "C" int implicit_conv_constants(int* out, int n) {
 // wc, wsg: the weight's codes (K0, O) and compact scales, strided.
 // out: (M0, O).  bn: the main kernel's tile width, 16, 32 or 64 (every
 // width gives the same bits; the wrapper's default is the narrowest that
-// holds O).
+// holds O).  codes_out, sg_out, st_out: all NULL, or (emit) the
+// activation's codes (M0, K0), its compact group scales ("nc" (M0, K0 /
+// k_block), "n" (M0, 1), "c" (1, K0 / k_block), "none" (1, 1)) and s_t.
 extern "C" int implicit_conv(const float* x, const uint8_t* r, float* scratch,
                              long long n_scratch, const uint8_t* wc, long long swk,
                              long long swn, const float* wsg, long long swsg_g,
                              long long swsg_n, const float* wst, float unit, float* out,
-                             int n, int c, int h, int w, int o, int kh, int kw, int sh, int sw,
+                             uint8_t* codes_out, float* sg_out, float* st_out, int n,
+                             int c, int h, int w, int o, int kh, int kw, int sh, int sw,
                              int ph, int pw, int hp, int wp, int k_block, int mode, int bn,
                              int e, int m, int e_min, int gs_m, int gs_emin, void* stream) {
   ConvArgs a;
@@ -556,6 +585,10 @@ extern "C" int implicit_conv(const float* x, const uint8_t* r, float* scratch,
   a.xst = nullptr; a.xsg = nullptr;
   a.wc = wc; a.swk = swk; a.swn = swn; a.wsg = wsg; a.swsg_g = swsg_g; a.swsg_n = swsg_n;
   a.wst = wst; a.unit = unit; a.out = out;
+  const bool emit = codes_out != nullptr;
+  if (emit != (sg_out != nullptr) || emit != (st_out != nullptr))
+    return (int)cudaErrorInvalidValue;
+  a.codes_out = codes_out; a.sg_out = sg_out; a.st_out = st_out;
   a.band_rows = band_rows_max(a.M, oh, ow, a.hp, sh, kh);
   if ((long long)a.cb * a.band_rows * a.wp * 4 > kBandBytesMax) return (int)cudaErrorInvalidValue;
   a.r_async = a.K % 16 == 0 && k_block % 16 == 0 && aligned16(r);
@@ -597,12 +630,15 @@ extern "C" int implicit_conv(const float* x, const uint8_t* r, float* scratch,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool mma = max_fraction(e, m) <= 127;
-  if (mma)
-    err = bn == 16 ? launch_main<16, true>(a, s) : bn == 32 ? launch_main<32, true>(a, s)
-                                                 : launch_main<64, true>(a, s);
-  else
-    err = bn == 16 ? launch_main<16, false>(a, s) : bn == 32 ? launch_main<32, false>(a, s)
-                                                  : launch_main<64, false>(a, s);
+#define MAIN(EMIT)                                                                       \
+  (mma ? (bn == 16   ? launch_main<16, true, EMIT>(a, s)                                \
+          : bn == 32 ? launch_main<32, true, EMIT>(a, s)                                \
+                     : launch_main<64, true, EMIT>(a, s))                               \
+       : (bn == 16   ? launch_main<16, false, EMIT>(a, s)                               \
+          : bn == 32 ? launch_main<32, false, EMIT>(a, s)                               \
+                     : launch_main<64, false, EMIT>(a, s)))
+  err = emit ? MAIN(true) : MAIN(false);
+#undef MAIN
   return (int)err;
 }
 

@@ -66,14 +66,14 @@ __device__ __forceinline__ float group_scale(float s_gf, const Fmt f) {
 // are by powers of two, whose quotients are exact (no overflow: x_f <= 1,
 // step >= 2^-127 for 8-bit codes): they are taken as the products by the
 // exact reciprocals, the same numbers as the plain version's divisions.
-// Only x / (s_t * s_g) is an IEEE division.
-__device__ __forceinline__ uint8_t element_code(float x, uint8_t r_u8,
-                                                float denom, const Fmt f) {
+// Only x / (s_t * s_g) is an IEEE division.  Here the rounding offset r
+// in [-1/2, 1/2) is given; r = 0 rounds to nearest, half up (quantize_ref
+// without rounding bytes).
+__device__ __forceinline__ uint8_t element_code_offset(float x, float r, float denom,
+                                                       const Fmt f) {
   const float absx = fabsf(x);
   const int sign_bit = x < 0.0f ? 1 : 0;
   const float x_f = denom > 0.0f ? __fdiv_rn(absx, denom) : 0.0f;
-  const float r =
-      __fsub_rn(__fmul_rn(__fadd_rn((float)r_u8, 0.5f), 0.00390625f), 0.5f);
   if (f.e == 0) {
     // fixed point: uniform grid man/2^M over [0, 1); the code is q itself
     float q = floorf(__fadd_rn(__fadd_rn(__fmul_rn(x_f, pow2(f.m)), r), 0.5f));
@@ -98,6 +98,13 @@ __device__ __forceinline__ uint8_t element_code(float x, uint8_t r_u8,
     exp_stored = 0;
   }
   return (uint8_t)((sign_bit << (f.e + f.m)) | (exp_stored << f.m) | man);
+}
+
+// The code with the rounding byte r_u8: offset (r_u8 + 0.5) / 256 - 0.5.
+__device__ __forceinline__ uint8_t element_code(float x, uint8_t r_u8, float denom,
+                                                const Fmt f) {
+  return element_code_offset(
+      x, __fsub_rn(__fmul_rn(__fadd_rn((float)r_u8, 0.5f), 0.00390625f), 0.5f), denom, f);
 }
 
 // |x| by clearing the sign bit, so a NaN keeps its payload as torch.abs

@@ -138,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) quantize_groups_warp(
         const bool in = j < gw;
         const float4 q = in ? *reinterpret_cast<const float4*>(x + base + j)
                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        rb[s] = in ? *reinterpret_cast<const uint32_t*>(r + base + j) : 0u;
+        rb[s] = in && r ? *reinterpret_cast<const uint32_t*>(r + base + j) : 0u;
         v[4 * s] = q.x; v[4 * s + 1] = q.y; v[4 * s + 2] = q.z; v[4 * s + 3] = q.w;
       } else {
         rb[s] = 0u;
@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(kThreads) quantize_groups_warp(
         for (int u = 0; u < 4; ++u) {
           const int j = (4 * s + u) * 32 + lane;
           v[4 * s + u] = j < gw ? x[base + j] : 0.0f;
-          rb[s] |= (j < gw ? (uint32_t)r[base + j] : 0u) << (8 * u);
+          rb[s] |= (j < gw && r ? (uint32_t)r[base + j] : 0u) << (8 * u);
         }
       }
     }
@@ -162,7 +162,8 @@ __global__ void __launch_bounds__(kThreads) quantize_groups_warp(
       uint32_t c = 0u;
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        c |= (uint32_t)mls::element_code(v[4 * s + u], (rb[s] >> (8 * u)) & 0xFF, denom, f)
+        c |= (uint32_t)(r ? mls::element_code(v[4 * s + u], (rb[s] >> (8 * u)) & 0xFF, denom, f)
+                          : mls::element_code_offset(v[4 * s + u], 0.0f, denom, f))
              << (8 * u);
       if (vec) {
         const int j = s * 128 + lane * 4;
@@ -204,14 +205,22 @@ __global__ void __launch_bounds__(kThreads) quantize_groups_block(
   if (threadIdx.x == 0) s_g_out[gid] = s_g;
   const float denom = __fmul_rn(s_t, s_g);
   for (int j = vec ? 4 * threadIdx.x : threadIdx.x; j < gw; j += step) {
-    if (vec) {
+    if (vec && r) {
       const float4 q = *reinterpret_cast<const float4*>(x + base + j);
       const uchar4 b = *reinterpret_cast<const uchar4*>(r + base + j);
       *reinterpret_cast<uchar4*>(codes + base + j) = make_uchar4(
           mls::element_code(q.x, b.x, denom, f), mls::element_code(q.y, b.y, denom, f),
           mls::element_code(q.z, b.z, denom, f), mls::element_code(q.w, b.w, denom, f));
+    } else if (vec) {
+      const float4 q = *reinterpret_cast<const float4*>(x + base + j);
+      *reinterpret_cast<uchar4*>(codes + base + j) = make_uchar4(
+          mls::element_code_offset(q.x, 0.0f, denom, f),
+          mls::element_code_offset(q.y, 0.0f, denom, f),
+          mls::element_code_offset(q.z, 0.0f, denom, f),
+          mls::element_code_offset(q.w, 0.0f, denom, f));
     } else {
-      codes[base + j] = mls::element_code(x[base + j], r[base + j], denom, f);
+      codes[base + j] = r ? mls::element_code(x[base + j], r[base + j], denom, f)
+                          : mls::element_code_offset(x[base + j], 0.0f, denom, f);
     }
   }
 }
@@ -399,7 +408,8 @@ extern "C" const char* mls_error_string(int code) {
 // group_width) group scales.  variant: 0 a warp per group
 // (quantize_groups_warp, group_width <= kWarpGroupMax), 1 a block per
 // group (quantize_groups_block, any width).  Max is exact in any order, so
-// every grid and variant gives the same bits.
+// every grid and variant gives the same bits.  r == nullptr rounds to
+// nearest (offset 0) and reads no bytes.
 extern "C" int mls_quantize_rows(const float* x, const uint8_t* r, float* partials,
                                  int n_partials, float* s_t, uint8_t* codes, float* s_g,
                                  long long M, long long K, int group_width, int variant,

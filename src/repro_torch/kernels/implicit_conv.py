@@ -449,7 +449,8 @@ def implicit_conv_forward(
     k_block: int,
     grouping: str = "nc",
     bn: int | None = None,
-) -> torch.Tensor:
+    emit_codes: bool = False,
+):
     """Quantized-domain forward conv as one implicit GEMM: ``x``
     (N, C, H, W), ``w`` (O, C, kh, kw) -> fp32 (N, O, OH, OW).
 
@@ -458,7 +459,11 @@ def implicit_conv_forward(
     127, round to nearest), the shapes the im2col path draws.  ``k_block``
     must pass :func:`implicit_compatible`.  ``bn`` is K4's tile width
     (default :func:`resolve_conv_blocks`'s); every width gives the same
-    bits.
+    bits.  With ``emit_codes`` (the JAX kernel's debug output) it returns
+    ``(y, codes (M0, K0) u8, x_sg, s_t)``: the activation's codes in
+    im2col layout and its scales, ``x_sg`` in the grouping's compact
+    layout ("nc" (M0, K0 / k_block), "c" (1, K0 / k_block), "n" (M0, 1),
+    "none" (1, 1)), stored by K4 itself (its ``kEmit`` instances).
     """
     if grouping not in GROUPINGS:
         raise ValueError(f"unknown grouping {grouping!r}; expected one of {GROUPINGS}")
@@ -474,11 +479,13 @@ def implicit_conv_forward(
     r_x = _check_bytes(r_x, (geom.m0, geom.k0), x.device)
     r_w = _check_bytes(r_w, (geom.o, geom.k0), x.device)
     bn = _conv_tile(geom, fmt, grouping, k_block, bn, x.device)[1]
+    emit = (True,) if emit_codes else ()  # the launch record's emit flag
     if x.device.type == "cpu":
-        launch.record("implicit_conv", "cpu", geom, k_block, grouping, fmt, bn)
+        launch.record("implicit_conv", "cpu", geom, k_block, grouping, fmt, bn, *emit)
         with launch.plain_version():
             return implicit_conv_ref(x, w, r_x, r_w, (geom.sh, geom.sw), geom.pads, fmt=fmt,
-                                     gs_fmt=gs_fmt, k_block=k_block, grouping=grouping)
+                                     gs_fmt=gs_fmt, k_block=k_block, grouping=grouping,
+                                     emit_codes=emit_codes)
     if x.device.type != "cuda":
         raise ValueError(f"implicit_conv_forward runs on cuda or cpu tensors, not {x.device}")
 
@@ -495,15 +502,21 @@ def implicit_conv_forward(
                                  gs_fmt, r_w, grouping)
     wcT, wsg = wc.t(), wsgT.t()
     out = torch.empty((geom.m0, geom.o), dtype=torch.float32, device=dev)
+    emitted = ((torch.empty((geom.m0, geom.k0), dtype=torch.uint8, device=dev),
+                torch.empty(sg_shapes(grouping, geom.m0, geom.o, geom.k0 // k_block)[0],
+                            dtype=torch.float32, device=dev),
+                torch.empty((), dtype=torch.float32, device=dev)) if emit_codes else ())
     build.check(build.library().implicit_conv(
         xf.data_ptr(), r_x.data_ptr(), scratch.data_ptr(), scratch.numel(),
         wcT.data_ptr(), *_strides(wcT), wsg.data_ptr(), *_strides(wsg), wst.data_ptr(),
-        2.0 ** (2 * (fmt.e_min - fmt.m)), out.data_ptr(), *_dims(geom), k_block,
-        _MODES[grouping], bn, *_fmt_args(fmt, gs_fmt),
+        2.0 ** (2 * (fmt.e_min - fmt.m)), out.data_ptr(),
+        *([t.data_ptr() for t in emitted] if emit_codes else [None] * 3), *_dims(geom),
+        k_block, _MODES[grouping], bn, *_fmt_args(fmt, gs_fmt),
         torch.cuda.current_stream(dev).cuda_stream), "implicit_conv")
     LAUNCHES["implicit_conv"] += 1
-    launch.record("implicit_conv", "cuda", geom, k_block, grouping, fmt, bn)
-    return out.reshape(geom.n, geom.oh, geom.ow, geom.o).permute(0, 3, 1, 2)
+    launch.record("implicit_conv", "cuda", geom, k_block, grouping, fmt, bn, *emit)
+    y = out.reshape(geom.n, geom.oh, geom.ow, geom.o).permute(0, 3, 1, 2)
+    return (y, *emitted) if emit_codes else y
 
 
 _MODES = {"nc": 0, "none": 1, "c": 2, "n": 3}  # the C entry point's groupings
@@ -596,7 +609,8 @@ def _chan_specs(geom: ConvGeom, k_block: int, t: dict[str, int]) -> tuple[Launch
 
 
 def launch_spec(geom: ConvGeom, k_block: int, grouping: str, fmt: EMFormat,
-                bn: int | None = None, device_type: str = "cpu") -> tuple[LaunchSpec, ...]:
+                bn: int | None = None, emit: bool = False,
+                device_type: str = "cpu") -> tuple[LaunchSpec, ...]:
     """K4 on one conv (``implicit_conv``): the scale passes of the grouping
     (pass A :func:`_amax_spec` for "nc" and "none", :func:`_win_spec` for
     "n", :func:`_chan_specs` for "c"), then the main launch, a block per
@@ -607,7 +621,10 @@ def launch_spec(geom: ConvGeom, k_block: int, grouping: str, fmt: EMFormat,
     :class:`~.launch.Window` describes for ``prove_window_grid``; the
     rounding bytes, the compact scales of "c" and "n", the weight codes and
     the output are tiled as in K3.  The group dot is an exact integer dot
-    of ``k_block`` decoded fractions."""
+    of ``k_block`` decoded fractions.  ``emit`` (``emit_codes``) adds the
+    outputs only some programs store: the codes (M0, K0) and, "nc"/"n",
+    the row scales by the tiles of column 0; the compact "c"/"none" scales
+    and s_t by program (0, 0)."""
     t = launch.tile_constants("implicit_conv_constants", TILE, device_type)
     bm = t["kBM"]
     bn = default_conv_blocks(geom)[1] if bn is None else bn
@@ -632,6 +649,22 @@ def launch_spec(geom: ConvGeom, k_block: int, grouping: str, fmt: EMFormat,
                  _sg_operand("args[3]", grouping, ws, False, bn),
                  Operand("outputs[0]", "out", (m0, o), (bm, bn), lambda i, j, g: (i, j),
                          output=True, masked=True)]
+    if emit:
+        col0 = lambda i, j, g: j == 0  # noqa: E731
+        origin = lambda i, j, g: (i == 0) & (j == 0)  # noqa: E731
+        operands += [
+            Operand("outputs[5]", "codes", (m0, k0), (bm, k_block), lambda i, j, g: (i, g),
+                    output=True, masked=True, active=col0),
+            Operand("outputs[7]", "s_t", (1,), (1,), lambda i, j, g: (0,), output=True,
+                    active=origin)]
+        if grouping in ("nc", "n"):
+            operands.append(Operand(
+                "outputs[6]", "x_sg", xs, (bm, 1),
+                (lambda i, j, g: (i, g)) if grouping == "nc" else (lambda i, j, g: (i, 0)),
+                output=True, masked=True, active=col0))
+        else:
+            operands.append(Operand("outputs[6]", "x_sg", xs, xs, lambda i, j, g: (0, 0),
+                                    output=True, active=origin))
     main = LaunchSpec(
         kernel="implicit_conv",
         grid=(("tile_m", -(-m0 // bm)), ("tile_n", -(-o // bn)), ("group", nkb)),

@@ -55,7 +55,9 @@ class Operand:
     ``index_map(*coords)`` takes the grid coordinates as numpy integer
     arrays that broadcast over the grid and returns the block index, one
     array (or int) per array dimension.  ``masked``: the kernel masks the
-    ragged edge, so the last block may overhang the array.
+    ragged edge, so the last block may overhang the array.  ``active(*coords)``
+    is False where a working program does not touch this operand (``None``:
+    every program does), e.g. an output only one column of tiles stores.
     """
 
     name: str  # "args[i]" / "outputs[i]": position among the C entry point's inputs / outputs
@@ -65,6 +67,8 @@ class Operand:
     index_map: Callable[..., tuple[Any, ...]] = dataclasses.field(compare=False, repr=False)
     output: bool = False
     masked: bool = False
+    active: Callable[..., Any] | None = dataclasses.field(default=None, compare=False,
+                                                          repr=False)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -78,6 +78,7 @@ def mls_quantize(
     r_u8: torch.Tensor | None = None,
     grouping: str = "nc",
     config: autotune.BlockConfig | None = None,
+    exact_nearest: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Quantize a contiguous float32 ``(M, K)`` operand to packed MLS codes.
 
@@ -88,7 +89,11 @@ def mls_quantize(
     ``K`` must be a multiple of ``k_block``.  ``config`` (default: the
     tile cache's choice for this (M, K) operand on this device,
     :func:`autotune.resolve_block_config`) picks K1's pass-B variant and
-    pass-A grid; every choice gives the same bits.
+    pass-A grid; every choice gives the same bits.  ``exact_nearest``
+    (K1's groupings "nc" and "n", no ``r_u8``) rounds to nearest with no
+    offset and reads no bytes: ``quantize_ref`` without bytes, the JAX
+    package's ``core.mls_quantize`` without a key, where the constant byte
+    127 is its Pallas kernel's nearest.
     """
     if grouping not in GROUPINGS:
         raise ValueError(f"unknown grouping {grouping!r}; expected one of {GROUPINGS}")
@@ -101,10 +106,14 @@ def mls_quantize(
     if K % k_block:
         raise ValueError(f"mls_quantize: K={K} is not a multiple of k_block={k_block}; "
                          f"pad the operand (qd_gemm does) or pick a dividing k_block")
-    if r_u8 is None:
+    if exact_nearest:
+        if r_u8 is not None or grouping not in ("nc", "n"):
+            raise ValueError("exact_nearest takes no rounding bytes and K1's groupings "
+                             "'nc' or 'n'")
+    elif r_u8 is None:
         r_u8 = rounding_bytes((M, K), None, x.device)
-    if (r_u8.shape != x.shape or r_u8.dtype != torch.uint8 or r_u8.device != x.device
-            or not r_u8.is_contiguous()):
+    if r_u8 is not None and (r_u8.shape != x.shape or r_u8.dtype != torch.uint8
+                             or r_u8.device != x.device or not r_u8.is_contiguous()):
         raise ValueError("r_u8 must be a contiguous uint8 tensor of x's shape and device")
     if config is None:
         config = autotune.resolve_block_config("quantize", (M, K), fmt, grouping,
@@ -127,8 +136,8 @@ def mls_quantize(
         codes = torch.empty((M, K), dtype=torch.uint8, device=dev)
         s_g = torch.empty((M, K // width), dtype=torch.float32, device=dev)
         build.check(build.library().mls_quantize_rows(
-            x.data_ptr(), r_u8.data_ptr(), partials.data_ptr(), parts,
-            s_t.data_ptr(), codes.data_ptr(), s_g.data_ptr(), M, K, width,
+            x.data_ptr(), None if r_u8 is None else r_u8.data_ptr(), partials.data_ptr(),
+            parts, s_t.data_ptr(), codes.data_ptr(), s_g.data_ptr(), M, K, width,
             _ROW_VARIANTS.index(variant), *_fmt_args(fmt, gs_fmt),
             torch.cuda.current_stream(dev).cuda_stream), "mls_quantize_rows")
         LAUNCHES["mls_quantize_rows"] += 1

@@ -185,9 +185,11 @@ def implicit_conv_ref(
     gs_fmt: EMFormat = GS_FMT_DEFAULT,
     k_block: int,
     grouping: str = "nc",
-) -> torch.Tensor:
+    emit_codes: bool = False,
+):
     """The implicit conv's function, computed the im2col way: fp32 NCHW
-    ``x`` (N, C, H, W) and OIHW ``w`` -> fp32 (N, O, OH, OW).
+    ``x`` (N, C, H, W) and OIHW ``w`` -> fp32 (N, O, OH, OW); with
+    ``emit_codes`` also the patches' ``(codes, compact s_g, s_t)``.
 
     The patches ``im2col(x)`` (M0, K0) are quantized with rounding bytes
     ``r_x`` (M0, K0), the weight ``w.reshape(O, K0)`` with ``r_w``
@@ -201,7 +203,8 @@ def implicit_conv_ref(
     xc, xsg, xst = quantize_ref(cols, fmt, k_block, gs_fmt, r_x, grouping)
     wc, wsgT, wst = quantize_ref(wt, fmt, k_block, gs_fmt, r_w, grouping)
     y2d = mls_matmul_ref(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, k_block)
-    return y2d.reshape(n, oh, ow, o).permute(0, 3, 1, 2)
+    y = y2d.reshape(n, oh, ow, o).permute(0, 3, 1, 2)
+    return (y, xc, xsg, xst) if emit_codes else y
 
 
 def sabotage_overlap_tiles(x: torch.Tensor, w: torch.Tensor) -> dict[tuple[int, int], torch.Tensor]:

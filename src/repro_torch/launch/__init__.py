@@ -1,6 +1,7 @@
-"""Launchers: the LM train launcher (``python -m repro_torch.launch.train``)
-and its microbatch rule.  The multi-pod mesh and sharding wait for the
-port of ``parallel`` (ROADMAP queue 1)."""
+"""Launchers: the LM train launcher (``python -m repro_torch.launch.train``,
+one process or HSDP under torchrun), its meshes (:mod:`.mesh`), the
+abstract inputs and microbatch rule of a cell (:mod:`.specs`) and the
+analytic roofline terms (:mod:`.roofline`)."""
 from .specs import choose_microbatch
 
 __all__ = ["choose_microbatch"]

@@ -1,6 +1,6 @@
 """LM training launcher.
 
-    python -m repro_torch.launch.train --arch mamba2-370m --shape train_4k \
+    python -m repro_torch.launch.train --arch mamba2-370m --shape train_4k \\
         --steps 1000 --ckpt-dir ckpts/mamba2
 
 builds the (optionally microbatched) train step of
@@ -10,24 +10,112 @@ from the run's seed, and runs the loop with asynchronous checkpoints
 latest one, and straggler monitoring; it prints every 10 steps.  It runs
 on CUDA unless ``--device cpu`` is given.  ``--smoke`` trains the arch's
 reduced config (batch 8, seq 64 unless overridden), with no accumulation.
-The JAX launcher's ``--multi-pod`` (a mesh across pods) is not offered
-until ``parallel`` is ported (ROADMAP queue 1).
+
+Under ``torchrun`` (``WORLD_SIZE`` set) it trains data-parallel over the
+world: ``torchrun --nproc_per_node 8 -m repro_torch.launch.train --arch
+mamba2-370m [--multi-pod]``.  The mesh is ``(pods, world // pods, 1)``
+over ("pod", "data", "model"), ``pods`` 2 under ``--multi-pod`` and 1
+otherwise; every layer and then the model are sharded with FSDP2
+``fully_shard`` over the 2-D ("pod", "data") mesh (HSDP): parameters
+sharded over ``data`` and replicated across pods, the JAX package's layout
+(:mod:`repro_torch.parallel.specs`).  Each rank trains on its slice of the
+global batch, chosen by its ("pod", "data") coordinate; the gradient
+reduction averages over the world.  The JAX launcher's mesh is the fixed
+(2, 16, 16) of 512 TPU chips; the port sizes ``data`` from the world
+instead.  The ``model`` axis stays 1 (``--model-axis`` > 1 raises): tensor
+parallelism of the quantized linears is not ported (ROADMAP queue 1).
+Checkpoints under torchrun hold each rank's shards, in ``rank<r>/`` of
+``--ckpt-dir``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import os
+
+import torch
 
 from repro_torch.configs import SHAPES, RunConfig, get_config, get_smoke_config
 from repro_torch.configs import shape_model_config
 from repro_torch.data import make_lm_iterator
 from repro_torch.models import lm
+from repro_torch.parallel.sharding import MeshShape, axis_sizes
 from repro_torch.runtime import resolve_device
 from repro_torch.train import CheckpointManager, StragglerMonitor, make_train_step
+from repro_torch.train.trainer import local_params
 
+from .mesh import make_mesh
 from .specs import choose_microbatch
 
-__all__ = ["main"]
+__all__ = ["hsdp_mesh", "local_batch", "main", "shard_model"]
+
+MESH_AXES = ("pod", "data", "model")
+_NO_TP = ("tensor parallelism over the 'model' axis is not ported (ROADMAP queue 1): "
+          "the model axis must be 1")
+
+
+def hsdp_mesh(world: int, multi_pod: bool = False, model_axis: int = 1,
+              device_type: str | None = None):
+    """The launcher's ``(pods, world // pods, model_axis)`` mesh over
+    ("pod", "data", "model"), ``pods`` 2 under ``multi_pod``."""
+    if model_axis != 1:
+        raise NotImplementedError(_NO_TP)
+    pods = 2 if multi_pod else 1
+    if world % pods:
+        raise ValueError(f"--multi-pod splits the world into {pods} pods; {world} ranks do not")
+    return make_mesh((pods, world // pods, model_axis), MESH_AXES, device_type)
+
+
+def _dp_mesh(mesh):
+    return mesh[tuple(n for n in ("pod", "data") if n in mesh.mesh_dim_names)]
+
+
+def shard_model(model: lm.LM, mesh) -> lm.LM:
+    """HSDP: FSDP2 ``fully_shard`` of every layer (and encoder layer), then
+    of the model, over the mesh's ("pod", "data") dims, and ``model.loss``
+    registered as a forward of the root, so that the trainer's loss runs
+    inside FSDP2's hooks.  The hybrid's shared block runs several times a
+    step and stays in the root's group (gathered for the whole step)."""
+    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+
+    if axis_sizes(mesh).get("model", 1) != 1:
+        raise NotImplementedError(_NO_TP)
+    if model.cfg.param_gather_dtype != "float32":
+        raise NotImplementedError("param_gather_dtype other than float32 under FSDP2: the "
+                                  "2-byte gather is not ported (ROADMAP queue 1)")
+    dp = _dp_mesh(mesh)
+    for layer in [*model.layers, *(model.enc_layers or ())]:
+        fully_shard(layer, mesh=dp)
+    fully_shard(model, mesh=dp)
+    register_fsdp_forward_method(model, "loss")
+    return model
+
+
+def local_batch(batch: dict, mesh) -> dict:
+    """This rank's slice of the global ``batch``: part ``pod * data_size +
+    data`` of ``pod x data`` along the first axis."""
+    sizes = axis_sizes(mesh)
+    names = mesh.mesh_dim_names
+    coord = dict(zip(names, mesh.get_coordinate()))
+    dp = sizes.get("pod", 1) * sizes.get("data", 1)
+    i = coord.get("pod", 0) * sizes.get("data", 1) + coord.get("data", 0)
+    if any(v.shape[0] % dp for v in batch.values()):
+        raise ValueError(f"the batch {[tuple(v.shape) for v in batch.values()]} does not "
+                         f"split over {dp} data-parallel ranks")
+    return {k: v.chunk(dp, dim=0)[i] for k, v in batch.items()}
+
+
+def _init_world(device: torch.device) -> tuple[int, int, torch.device]:
+    """``torchrun``'s process group: (rank, world, this rank's device)."""
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return dist.get_rank(), dist.get_world_size(), device
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -37,6 +125,10 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--shape", default="train_4k", choices=sorted(SHAPES))
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced config")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="under torchrun: two pods, parameters replicated across them")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="the mesh's model axis (tensor parallelism): only 1 runs")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--batch", type=int, default=0, help="override batch")
@@ -45,6 +137,14 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.model_axis != 1:
+        raise NotImplementedError(_NO_TP)
+    mesh, rank = None, 0
+    if int(os.environ.get("WORLD_SIZE", "0")):
+        rank, world, device = _init_world(device)
+        mesh = hsdp_mesh(world, args.multi_pod, args.model_axis, device.type)
+    elif args.multi_pod:
+        raise ValueError("--multi-pod trains across ranks: run it under torchrun")
     shape = SHAPES[args.shape]
     if args.smoke:
         cfg = get_smoke_config(args.arch)
@@ -55,18 +155,27 @@ def main(argv: list[str] | None = None) -> dict:
     # the cell as run: with --batch/--seq the JAX launcher sizes the
     # accumulation by the shape's own batch, which need not divide the batch
     run_shape = dataclasses.replace(shape, global_batch=batch_size, seq_len=seq)
-    mb = choose_microbatch(cfg, run_shape, dp=1) if not args.smoke else 0
+    mb = 0 if args.smoke else choose_microbatch(
+        cfg, run_shape, mesh if mesh is not None else MeshShape(MESH_AXES, (1, 1, 1)))
     run = RunConfig(model=cfg, shape=run_shape, microbatch=mb)
     train_step, opt_init = make_train_step(run)
 
     model = lm.init_lm(cfg, seed=run.seed, device=device)
+    if mesh is not None:
+        shard_model(model, mesh)
     opt = opt_init(model)
     data = make_lm_iterator(batch=batch_size, seq=seq, vocab=cfg.vocab, device=device)
-    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    ckpt_dir = args.ckpt_dir
+    if ckpt_dir and mesh is not None:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     if mgr and mgr.latest_step() is not None:
-        st = mgr.restore({"params": model.state_dict(), "opt": opt, "data": data.state_dict()})
-        model.load_state_dict(st["params"])
+        params = local_params(model)
+        st = mgr.restore({"params": params, "opt": opt, "data": data.state_dict()})
+        with torch.no_grad():
+            for k, v in st["params"].items():
+                params[k].copy_(v)
         opt, start = st["opt"], mgr.latest_step()
         data.load_state_dict(st["data"])
         print(f"resumed from step {start}")
@@ -75,22 +184,34 @@ def main(argv: list[str] | None = None) -> dict:
     losses = []
     for i in range(start, args.steps):
         batch = next(data)
+        if mesh is not None:
+            batch = local_batch(batch, mesh)
         mon.start()
         model, opt, metrics = train_step(model, opt, batch)
-        loss = float(metrics["loss"])  # waits for the step
+        loss = metrics["loss"]
+        if mesh is not None:  # the global batch's loss: the mean of the ranks'
+            import torch.distributed as dist
+
+            loss = loss.clone()
+            dist.all_reduce(loss)
+            loss = loss / dist.get_world_size()
+        loss = float(loss)  # waits for the step
         dt = mon.stop()
         losses.append(loss)
-        if (i + 1) % 10 == 0 or i == start:
+        if rank == 0 and ((i + 1) % 10 == 0 or i == start):
             print(f"step {i + 1}: loss={loss:.4f} gnorm={float(metrics['grad_norm']):.2f} "
                   f"{dt:.2f}s")
         if mgr and (i + 1) % args.ckpt_every == 0:
-            mgr.save(i + 1, {"params": model.state_dict(), "opt": opt,
+            mgr.save(i + 1, {"params": local_params(model), "opt": opt,
                              "data": data.state_dict()}, blocking=False)
     if mgr:
         mgr.wait()
     report = mon.report()
-    print("straggler report:", report)
-    return {"start": start, "losses": losses, "straggler": report, "microbatch": mb}
+    if rank == 0:
+        print("straggler report:", report)
+    return {"start": start, "losses": losses, "straggler": report, "microbatch": mb,
+            "world": 1 if mesh is None else math.prod(axis_sizes(mesh).values()),
+            "model": model, "opt": opt}
 
 
 if __name__ == "__main__":

@@ -16,8 +16,10 @@ The JAX package scans stacked layer pytrees; the port holds the layers in
 ``nn.ModuleList``s (named ``layers.<i>.…`` and, for the encoder,
 ``enc_layers.<i>.…``; :func:`repro_torch.convert.lm_params_from_jax`
 unstacks a JAX tree).  The
-JAX package's sharding annotations (``parallel.shard``) are the identity
-on one device and have no counterpart.  With ``quant_backend="pallas"``
+JAX package's sharding annotations (``parallel.shard``) have no
+counterpart: the port's models compute on per-rank local tensors, and
+under FSDP2 (``launch.train.shard_model``) each rank runs the whole model
+on its slice of the batch, the parameters gathered by FSDP2's hooks.  With ``quant_backend="pallas"``
 every quantized linear runs K1 on both operands and K3
 (:func:`repro_torch.kernels.lowbit_matmul_qd`), in training for its
 forward, data-gradient and weight-gradient GEMM alike.
@@ -179,6 +181,11 @@ class LM(nn.Module):
             self.shared_attn.init_(generator)
         for layer in self.enc_layers or ():
             layer.init_(generator)
+
+    def loss(self, batch: dict, key: int | None = None):
+        """:func:`lm_loss` of this model: the method a sharded model's FSDP2
+        hooks run around (``launch.train.shard_model``)."""
+        return lm_loss(self, batch, key)
 
     def forward(self, batch: dict, window: int | None = None) -> torch.Tensor:
         """Teacher-forced logits of every position, fp32 (B, S, vocab), on

@@ -156,7 +156,7 @@ class Mamba2Block(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         din, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-        zxbcdt = self.in_proj(self.ln(x), qcfg, fold_in(key, 0))
+        zxbcdt = self.in_proj(self.ln(x), qcfg, fold_in(key, 0), wire=0)
         z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * g * n, h], dim=-1)
         xbc, new_conv_state = _causal_conv(xbc, self.conv_w, self.conv_b,
                                            state[0] if state is not None else None)
@@ -184,6 +184,6 @@ class Mamba2Block(nn.Module):
 
         y = y + self.D[:, None] * xin.float()
         y = self.out_norm(y.reshape(b, s, din) * F.silu(z.float()))
-        out = self.out_proj(y.to(x.dtype), qcfg, fold_in(key, 1))
+        out = self.out_proj(y.to(x.dtype), qcfg, fold_in(key, 1), wire=1)
         new_state = (new_conv_state, new_ssm) if state is not None or s == 1 else None
         return x + out.to(x.dtype), new_state

@@ -26,6 +26,7 @@ kernel) and masks with ``-1e30``, so a row with no valid key averages V.
 from __future__ import annotations
 
 import contextvars
+import dataclasses
 import math
 
 import torch
@@ -86,17 +87,26 @@ def ew_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a + b
 
 
-def linear(x, w, b=None, qcfg: QuantConfig | None = None, key=None) -> torch.Tensor:
+def linear(x, w, b=None, qcfg: QuantConfig | None = None, key=None,
+           wire: int | None = None) -> torch.Tensor:
     """``x (..., d_in) @ w (d_in, d_out)`` -> fp32; the bias is added in
     fp32.  Unquantized, ``w`` is first rounded to ``x``'s dtype and the
     products summed in fp32, as the JAX package's ``dot_general`` with
     ``preferred_element_type=float32`` does (exact products of bf16
-    operands; TF32 must be off on the card)."""
+    operands; TF32 must be off on the card).  ``wire``: the weight dim
+    that FSDP shards (0 for an in-projection, 1 for an out-projection),
+    where the fake-quant backend pins the weight's gather
+    (``QuantConfig.wire_fsdp_dim``); the quantized backend moves codes
+    already and ignores it, as the JAX package's does."""
     _trace("fc", d_in=w.shape[0], d_out=w.shape[1], rows=x.numel() // x.shape[-1],
            quantized=_quantized(qcfg))
     if _quantized(qcfg):
-        fn = lowbit_matmul_qd if qcfg.backend == "quantized" else lowbit_matmul
-        y = fn(x, w.float(), key, qcfg)
+        if qcfg.backend == "quantized":
+            y = lowbit_matmul_qd(x, w.float(), key, qcfg)
+        else:
+            if wire is not None and qcfg.wire_fsdp_dim != wire:
+                qcfg = dataclasses.replace(qcfg, wire_fsdp_dim=wire)
+            y = lowbit_matmul(x, w.float(), key, qcfg)
     else:
         y = x.float() @ w.to(x.dtype).float()
     return y if b is None else y + b.float()
@@ -133,8 +143,9 @@ class Linear(nn.Module):
         if self.b is not None:
             self.b.zero_()
 
-    def forward(self, x, qcfg: QuantConfig | None = None, key=None) -> torch.Tensor:
-        return linear(x, self.w, self.b, qcfg, key)
+    def forward(self, x, qcfg: QuantConfig | None = None, key=None,
+                wire: int | None = None) -> torch.Tensor:
+        return linear(x, self.w, self.b, qcfg, key, wire)
 
 
 def conv2d(x, w, stride=1, padding="SAME", qcfg: QuantConfig | None = None,

@@ -91,16 +91,16 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.hd
-        q = self.wq(x, qcfg, fold_in(key, 0)).reshape(b, s, cfg.n_heads, hd)
+        q = self.wq(x, qcfg, fold_in(key, 0), wire=0).reshape(b, s, cfg.n_heads, hd)
         q_chunk = 1024 if s > 4096 else None
         if cross_cache is not None:
             out = L.gqa_attention(q, *cross_cache, causal=False, q_chunk=q_chunk)
             out = out.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
-            return self.wo(out, qcfg, fold_in(key, 3))
+            return self.wo(out, qcfg, fold_in(key, 3), wire=1)
         xkv = x if kv is None else kv
         sk = xkv.shape[1]
-        k = self.wk(xkv, qcfg, fold_in(key, 1)).reshape(b, sk, cfg.n_kv_heads, hd)
-        v = self.wv(xkv, qcfg, fold_in(key, 2)).reshape(b, sk, cfg.n_kv_heads, hd)
+        k = self.wk(xkv, qcfg, fold_in(key, 1), wire=0).reshape(b, sk, cfg.n_kv_heads, hd)
+        v = self.wv(xkv, qcfg, fold_in(key, 2), wire=0).reshape(b, sk, cfg.n_kv_heads, hd)
 
         if kv is None and cfg.rotary_pct > 0:
             rd = int(hd * cfg.rotary_pct)
@@ -128,7 +128,7 @@ class Attention(nn.Module):
                                   q_chunk=q_chunk)
 
         out = out.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
-        return self.wo(out, qcfg, fold_in(key, 3))
+        return self.wo(out, qcfg, fold_in(key, 3), wire=1)
 
 
 class MLP(nn.Module):
@@ -149,12 +149,12 @@ class MLP(nn.Module):
                 lin.init_(generator, std=0.02)
 
     def forward(self, x, qcfg: QuantConfig | None, key: int | None) -> torch.Tensor:
-        up = self.w_up(x, qcfg, fold_in(key, 10))
+        up = self.w_up(x, qcfg, fold_in(key, 10), wire=0)
         if self.gated:
-            h = F.silu(self.w_gate(x, qcfg, fold_in(key, 11))) * up
+            h = F.silu(self.w_gate(x, qcfg, fold_in(key, 11), wire=0)) * up
         else:
             h = F.gelu(up, approximate="tanh")
-        return self.w_down(h.to(x.dtype), qcfg, fold_in(key, 12))
+        return self.w_down(h.to(x.dtype), qcfg, fold_in(key, 12), wire=1)
 
 
 class Block(nn.Module):

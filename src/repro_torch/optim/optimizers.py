@@ -56,12 +56,16 @@ def _named(params) -> dict[str, torch.Tensor]:
     return dict(params)
 
 
-def clip_by_global_norm(grads: Params, max_norm: float) -> tuple[dict, torch.Tensor]:
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
+                        ) -> tuple[dict, torch.Tensor]:
     """``(grads * min(1, max_norm / max(gn, 1e-9)), gn)`` with ``gn`` the
     fp32 norm over every gradient; the scale is applied always (to each
-    gradient in place)."""
+    gradient in place).  ``reduce``, where given, sums the squared norm of
+    these (sharded) gradients over the ranks that hold the other shards."""
     sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
-    gn = torch.sqrt(sum(sq[1:], sq[0]) if sq else _f32(0.0))
+    total = sum(sq[1:], sq[0]) if sq else _f32(0.0)
+    gn = torch.sqrt(reduce(total) if reduce is not None else total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return {k: g.mul_(scale) for k, g in grads.items()}, gn
 

@@ -1,0 +1,22 @@
+"""Data and model parallelism of the port: logical-axis sharding rules on a
+``DeviceMesh`` (:mod:`.sharding`), the parameter, batch and cache layouts
+(:mod:`.specs`), and the MLS-compressed cross-pod gradient ring
+(:mod:`.compress`), over ``torch.distributed``."""
+from .sharding import (
+    DEFAULT_RULES,
+    SP_RULES,
+    AxisRules,
+    MeshShape,
+    PartitionSpec,
+    axis_rules,
+    current_rules,
+    logical_to_mesh,
+    placements,
+    shard,
+    wire_pin,
+)
+
+__all__ = [
+    "DEFAULT_RULES", "SP_RULES", "AxisRules", "MeshShape", "PartitionSpec", "axis_rules",
+    "current_rules", "logical_to_mesh", "placements", "shard", "wire_pin",
+]

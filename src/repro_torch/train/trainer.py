@@ -10,23 +10,59 @@ batch, and returns ``(model, opt_state, metrics)``.  The step's key is
 every quantized GEMM operand stochastically from it.  With ``microbatch =
 n > 1`` the batch is split into n parts along its first axis, each part's
 gradients are added up in fp32 under the **same** key, and the sums of
-gradients and losses are divided by n.  The MLS-compressed cross-pod
-gradient exchange (``run.grad_compression``) belongs to the multi-pod
-launcher, which waits for ``parallel`` (ROADMAP queue 1): on one card the
-flag changes nothing, as on one pod in the JAX package.
+gradients and losses are divided by n.
+
+The step runs the loss through ``model.loss`` (:func:`lm.lm_loss`), the
+method the launcher registers with FSDP2 when it shards the model
+(``launch.train.shard_model``).  On such a model the parameters and
+gradients are DTensors: the step clips and updates this rank's shards
+(:func:`local_params`), the squared norm summed over the mesh dims that
+shard them, and the gradients come already averaged over the
+data-parallel ranks.  On a plain model it is the one-device step.  As in
+the JAX package, ``run.grad_compression`` only tags the run: the step
+exchanges no compressed gradients (the ring is
+:func:`repro_torch.parallel.compress.crosspod_allreduce_mean`).
 """
 from __future__ import annotations
 
 from collections.abc import Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import fold_in
 from repro_torch.models import lm
 from repro_torch.optim import OptState, clip_by_global_norm, cosine_schedule, make_optimizer
 
-__all__ = ["make_prefill_step", "make_serve_step", "make_train_step"]
+__all__ = ["local_params", "make_prefill_step", "make_serve_step", "make_train_step"]
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def local_params(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The model's parameters by name; under FSDP2, this rank's shards (views
+    that an in-place update writes through)."""
+    return {k: _local(p) for k, p in model.named_parameters()}
+
+
+def _norm_reducer(params: dict) -> Callable | None:
+    """Sums a squared norm of local shards over the mesh dims that shard the
+    parameters (None on a plain model)."""
+    p = next((p for p in params.values() if isinstance(p, DTensor)), None)
+    if p is None:
+        return None
+    groups = [p.device_mesh.get_group(d) for d, pl in enumerate(p.placements) if pl.is_shard()]
+
+    def reduce(sq: torch.Tensor) -> torch.Tensor:
+        for g in groups:
+            dist.all_reduce(sq, group=g)
+        return sq
+
+    return reduce
 
 
 def make_train_step(run: RunConfig, lr_fn: Callable | None = None):
@@ -41,8 +77,11 @@ def make_train_step(run: RunConfig, lr_fn: Callable | None = None):
     ``lr_fn(step)`` defaults to a cosine of ``run.lr`` with 100 warmup
     steps over 10,000."""
     cfg = run.model
-    opt_init, opt_update = make_optimizer(run.optimizer, weight_decay=run.weight_decay)
+    init, opt_update = make_optimizer(run.optimizer, weight_decay=run.weight_decay)
     lr_fn = lr_fn or cosine_schedule(run.lr, warmup=100, total=10_000)
+
+    def opt_init(model):
+        return init(local_params(model) if isinstance(model, torch.nn.Module) else model)
 
     def train_step(model: lm.LM, opt_state: OptState, batch: dict):
         _check_model(model, cfg)
@@ -58,20 +97,20 @@ def make_train_step(run: RunConfig, lr_fn: Callable | None = None):
         parts = [{k: v.chunk(n, dim=0)[i] for k, v in batch.items()} for i in range(n)]
         loss = aux = None
         for part in parts:  # each part's gradients add into .grad, in fp32
-            part_loss, part_metrics = lm.lm_loss(model, part, key)
+            part_loss, part_metrics = model.loss(part, key)
             part_loss.backward()
             part_loss = part_loss.detach().float()
             part_aux = part_metrics["aux"].detach().float()
             loss = part_loss if loss is None else loss + part_loss
             aux = part_aux if aux is None else aux + part_aux
-        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+        grads = {k: _local(p.grad if p.grad is not None else torch.zeros_like(p)).float()
                  for k, p in params.items()}
         if n > 1:
             grads = {k: g.div_(n) for k, g in grads.items()}
             loss, aux = loss / n, aux / n
-        grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, run.grad_clip, _norm_reducer(params))
         lr = lr_fn(step)
-        opt_state = opt_update(grads, opt_state, params, lr)
+        opt_state = opt_update(grads, opt_state, local_params(model), lr)
         for p in params.values():
             p.grad = None
         return model, opt_state, {"loss": loss, "grad_norm": gnorm,

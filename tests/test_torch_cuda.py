@@ -955,3 +955,101 @@ def test_the_seed_cache_checks_on_the_card(cuda, capsys):
         spec = next(iter(at.specs_named("path")))
         assert at.resolve_block_config(spec.kind, spec.shape, spec.fmt, spec.grouping,
                                        k_block=spec.k_block, device=cuda) == seed.get(spec.key())
+
+
+# ---------------------------------------------------------------------------
+# the parallel slice: compress on K1, K4's emit path, a world-1 HSDP step
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("numel", [128 * 300, 1000 * 77 + 5])
+@pytest.mark.parametrize("stochastic", [False, True], ids=["nearest", "bytes"])
+def test_compress_on_k1_matches_its_plain_version(cuda, numel, stochastic):
+    """``parallel.compress`` on rows (n, 128): K1 with its nearest mode (no
+    byte read) or the rounding bytes, bit for bit the plain version."""
+    from repro_torch.parallel import compress
+
+    g, _ = _operand(31, 1, numel)
+    rows = -(-numel // 128)
+    r = (torch.from_numpy(np.random.default_rng(32).integers(0, 256, (rows, 128),
+                                                               dtype=np.uint8))
+         if stochastic else None)
+    reset_launch_counts()
+    got = compress.compress(g.to(cuda), r_u8=None if r is None else r.to(cuda))
+    assert launch_counts()["mls_quantize_rows"] == 1
+    want = compress.compress(g, r_u8=r)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(compress.decompress(*got, g.shape).cpu(),
+                       compress.decompress(*want, g.shape))
+
+
+@pytest.mark.parametrize("grouping", GROUPINGS)
+@pytest.mark.parametrize("shape", [((2, 16, 12, 12), (24, 16, 3, 3), (1, 1), "SAME", 144),
+                                   ((2, 8, 9, 9), (80, 8, 3, 3), (2, 2), "VALID", 36),
+                                   ((2, 256, 7, 7), (96, 256, 1, 1), (1, 1), "SAME", 128)],
+                         ids=["3x3", "stride2-2tiles", "1x1-2groups"])
+def test_k4_emit_codes_match_its_plain_version(cuda, shape, grouping):
+    """K4's emit store path (its kEmit instances): y, the codes (M0, K0), the
+    compact scales and s_t bit for bit the plain version's, y also equal
+    to the default path's; the launch proves with its emit outputs."""
+    xs, ws, stride, pad, k_block = shape
+    x, _ = _operand(40, xs[0] * xs[1], xs[2] * xs[3])
+    w, _ = _operand(41, ws[0], ws[1] * ws[2] * ws[3])
+    x, w = x.reshape(xs), (w * 0.2).reshape(ws)
+    from repro_torch.kernels import implicit_conv as ic
+
+    geom = ic.conv_geometry(xs, ws, stride, pad)
+    rx = torch.from_numpy(np.random.default_rng(42).integers(0, 256, (geom.m0, geom.k0),
+                                                             dtype=np.uint8))
+    kw = dict(fmt=EMFormat(2, 4), k_block=k_block, grouping=grouping)
+    reset_launch_counts()
+    got = implicit_conv_forward(x.to(cuda), w.to(cuda), rx.to(cuda), None, stride, pad, **kw,
+                                emit_codes=True)
+    specs = recorded_specs()
+    want = implicit_conv_forward(x, w, rx, None, stride, pad, **kw, emit_codes=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    plain = implicit_conv_forward(x.to(cuda), w.to(cuda), rx.to(cuda), None, stride, pad, **kw)
+    assert torch.equal(plain, got[0])
+    rep = verify_specs("implicit_conv:emit", specs)
+    assert rep.ok and any("outputs[5]" in c.coverage for c in rep.calls)
+
+
+def test_world_one_hsdp_step_equals_the_unwrapped_step(cuda):
+    """The launcher's HSDP wrapping on a world of one (NCCL, mesh 1x1x1)
+    takes the unwrapped ``make_train_step``'s step bit for bit."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, RunConfig, get_smoke_config
+    from repro_torch.data import make_lm_iterator
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import lm
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("mamba2-370m"), quant_backend="pallas",
+                              remat="full")
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=4, seq_len=32)
+    step, init = make_train_step(RunConfig(model=cfg, shape=shape))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = launcher.hsdp_mesh(1, device_type="cuda")
+        sharded = launcher.shard_model(lm.init_lm(cfg, seed=0, device=cuda), mesh)
+        plain = lm.init_lm(cfg, seed=0, device=cuda)
+        opt_s, opt_p = init(sharded), init(plain)
+        data = make_lm_iterator(batch=4, seq=32, vocab=cfg.vocab, device=cuda)
+        for _ in range(2):
+            batch = next(data)
+            sharded, opt_s, ms = step(sharded, opt_s, launcher.local_batch(batch, mesh))
+            plain, opt_p, mp = step(plain, opt_p, batch)
+            assert torch.equal(ms["loss"], mp["loss"])
+            assert torch.equal(ms["grad_norm"], mp["grad_norm"])
+        for (k, a), (_, b) in zip(sharded.named_parameters(), plain.named_parameters()):
+            assert torch.equal(a.full_tensor(), b.detach()), k
+    finally:
+        dist.destroy_process_group()

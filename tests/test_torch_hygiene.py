@@ -52,7 +52,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.data, repro_torch.sweep, repro_torch.sweep.__main__, "
             "repro_torch.sweep.grid, repro_torch.sweep.runner, repro_torch.sweep.gate, "
             "repro_torch.sweep.report, repro_torch.sweep.record, "
-            "repro_torch.kernels.autotune; "
+            "repro_torch.kernels.autotune, repro_torch.parallel, repro_torch.parallel.compress, "
+            "repro_torch.parallel.sharding, repro_torch.parallel.specs, "
+            "repro_torch.launch.mesh, repro_torch.launch.specs, repro_torch.launch.roofline, "
+            "repro_torch.analysis.wire; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(), timeout=120)
@@ -89,6 +92,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(monkeypatch):
         make_lm_iterator(2, 8, cfg.vocab)
     with pytest.raises(RuntimeError, match="no GPU"):
         train.main(["--arch", "qwen2-72b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no GPU"):
+        train.main(["--arch", "qwen2-72b", "--smoke", "--steps", "1", "--multi-pod"])
     from repro_torch.sweep import __main__ as sweep_cli
 
     with pytest.raises(RuntimeError, match="no GPU"):

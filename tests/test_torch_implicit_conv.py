@@ -31,6 +31,8 @@ import repro.kernels.implicit_conv as jic  # noqa: E402
 from repro.core import QuantConfig as JQuantConfig  # noqa: E402
 from repro.core import formats as jformats  # noqa: E402
 from repro.kernels import conv_fused_grads_ref, lowbit_conv_fused_ref  # noqa: E402
+from repro.kernels import lowbit_conv as lowbit_conv_jax  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
 from repro_torch.core import GS_FMT_DEFAULT, EMFormat, QuantConfig  # noqa: E402
 from repro_torch.kernels import implicit_conv as ic  # noqa: E402
 from repro_torch.kernels import lowbit_conv  # noqa: E402
@@ -47,6 +49,7 @@ _jax_x_scales = jax.jit(jic._implicit_x_scales, static_argnums=(1, 2, 3, 4, 5))
 
 GROUPINGS = ["nc", "c", "n", "none"]
 FORMATS = [(2, 4), (2, 1)]
+FMT = EMFormat(*FORMATS[0])
 
 # (N, C, H/W, O, ksize, stride, padding, k_block): the cases of
 # test_torch_lowbit_conv.py, each with a legal k_block (several groups
@@ -431,3 +434,38 @@ def test_k4_c_and_n_scale_passes_equal_the_window_maxima(case, grouping):
     assert torch.equal(s_g, w_g)
     assert float(s_g.min()) > 2.0**-12  # where jnp.exp2 is exact
     np.testing.assert_array_equal(s_g.numpy(), np.asarray(js_g))
+
+
+# ---------------------------------------------------------------------------
+# emit_codes: the activation's codes and scales, as JAX's kernel emits them
+# ---------------------------------------------------------------------------
+_jax_im2col = jax.jit(lowbit_conv_jax._im2col, static_argnums=(1, 2, 3))
+_jax_quantize_ref = jax.jit(jax_ref.quantize_ref, static_argnums=(1, 2, 3, 5))
+
+
+@pytest.mark.parametrize("grouping", GROUPINGS)
+@pytest.mark.parametrize("case", [CASES[0], CASES[3], TAIL], ids=["c0", "c3", "tail"])
+def test_emit_codes_equal_im2col_then_quantize_ref(case, grouping):
+    """``implicit_conv_forward(..., emit_codes=True)`` (the plain version
+    here) returns ``(y, codes (M0, K0), x_sg, s_t)``: JAX's ``_im2col`` of x
+    quantized by JAX's ``quantize_ref`` on the same rounding bytes, codes
+    and compact scales bit for bit, and ``y`` the conv without emit."""
+    x, w, stride, pad = _inputs(4, case)
+    geom, _ = _geoms(case)
+    k_block = case[-1]
+    rng = np.random.default_rng(5)
+    r_x = rng.integers(0, 256, (geom.m0, geom.k0), dtype=np.uint8)
+    r_w = rng.integers(0, 256, (geom.o, geom.k0), dtype=np.uint8)
+    args = (torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(r_x),
+            torch.from_numpy(r_w), stride, pad)
+    kw = dict(fmt=FMT, k_block=k_block, grouping=grouping)
+    y, codes, x_sg, s_t = ic.implicit_conv_forward(*args, **kw, emit_codes=True)
+    cols, _ = _jax_im2col(jnp.asarray(x), tuple(w.shape[2:]), stride,
+                          pad if isinstance(pad, str) else tuple(map(tuple, pad)))
+    jc, jsg, jst = _jax_quantize_ref(cols, jformats.EMFormat(*FORMATS[0]), k_block,
+                                     jformats.GS_FMT_DEFAULT, jnp.asarray(r_x), grouping)
+    assert codes.dtype == torch.uint8 and tuple(codes.shape) == (geom.m0, geom.k0)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(x_sg.numpy(), np.asarray(jsg))
+    assert s_t.item() == float(jst)
+    assert torch.equal(y, ic.implicit_conv_forward(*args, **kw))

@@ -55,6 +55,7 @@ from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.data import lm_batch, make_lm_iterator, markov_tokens  # noqa: E402
 from repro_torch.kernels import launch, reset_launch_counts  # noqa: E402
 from repro_torch.launch import choose_microbatch  # noqa: E402
+from repro_torch.parallel import MeshShape  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     CheckpointManager,
@@ -365,7 +366,8 @@ def test_choose_microbatch_matches_jax(name, dp):
     mesh = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty((dp, 1)))
     for shape in ("train_4k", "decode_32k"):
         want = jax_choose_microbatch(jconfigs.get_config(name), jconfigs.SHAPES[shape], mesh)
-        assert choose_microbatch(configs.get_config(name), SHAPES[shape], dp=dp) == want
+        ours = MeshShape(("data", "model"), (dp, 1))
+        assert choose_microbatch(configs.get_config(name), SHAPES[shape], ours) == want
 
 
 def _chip_smoke():
