@@ -195,12 +195,32 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 reported); then
                 benchmarks/torch_table2_accuracy.py (quick) on the card,
                 every variant's loss finite.
+  14. parallel - the parallel slice.  The main path (counts set to 0 just
+                before, read just after): parallel.compress of chatglm3-6b's
+                w_up weight gradient (4096 x 13696 = 56.1 M elements, rows
+                (438272, 128)) on K1, then the launcher's HSDP wrapping
+                (launch.train.shard_model: FSDP2 over a 1x1x1 ("pod",
+                "data", "model") mesh, NCCL, world 1) of mamba2-370m at
+                full width, 2 steps at 4 x 1024 on K1/K3, each equal bit
+                for bit (loss, grad norm, then every parameter) to the
+                unwrapped make_train_step's, launches the closed form.
+                compress held bit for bit to its plain version at nearest
+                (K1 reading no byte) and with rounding bytes, both timed
+                (CUDA events, and K1's kernels alone) beside the byte
+                bound; the compressed ring in two processes on cuda:0 over
+                gloo (the payload staged through the host) equal bit for
+                bit to the in-process ordered sum, with exactly the ideal
+                wire bytes (no multi-card time: one card); K4's emit path
+                (emit_codes) at stage 1 "nc" bit for bit against im2col ->
+                K1 and its y against the default path, both timed; the
+                audit's wire section (analysis.wire.audit_wire_ring).
 The line before the last is {"kernels": [...]}: each kernel's `launches`
 are its count on the training path (phase train; K5's in the audit's
 overlap_write run), `serve_launches` its count per model of the serve
 phase, `lm_train_launches` per model of the lm_train phase's 4-step
-run, and `sweep_launches` its launches per step in each "pallas" cell of
-the sweep's chip grid, each read from its own run.  The last line is
+run, `sweep_launches` its launches per step in each "pallas" cell of
+the sweep's chip grid, and `parallel_launches` its count on the parallel
+phase's main path, each read from its own run.  The last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
 """
@@ -2765,6 +2785,288 @@ def phase_audit(results: dict) -> tuple[dict, int]:
     return row, k5_launches
 
 
+# chatglm3-6b's MLP up-projection weight gradient (d_model x d_ff)
+COMPRESS_SHAPE = (4096, 13696)
+RING_NUMEL = (1 << 20) + 77  # the two-process ring's gradient: a ragged tail
+RING_SEED = 11
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _ring_grad(rank: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(RING_SEED * 100 + rank)
+    return torch.randn(RING_NUMEL, generator=gen, device="cuda") * (1e-3 * (rank + 1))
+
+
+def _ring_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of the compressed ring on cuda:0 over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel import compress
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        g = _ring_grad(rank)
+        reset_launch_counts()
+        compress.reset_wire_counts()
+        res = compress.crosspod_allreduce_mean(g)
+        torch.cuda.synchronize()
+        torch.save({"out": res.cpu(), "wire": dict(compress.WIRE),
+                    "k1": launch_counts()["mls_quantize_rows"]}, f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def ring_on_one_card() -> dict:
+    """The ring in two processes on cuda:0 (gloo: NCCL takes one card a
+    rank), against the ordered sum of each rank's decoded payload here."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.parallel import compress
+
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "ring")
+        mp.spawn(_ring_rank, args=(world, _free_port(), out), nprocs=world, join=True)
+        ranks = [torch.load(f"{out}.{r}") for r in range(world)]
+    grads = [_ring_grad(r) for r in range(world)]
+    payloads = [compress.compress(g) for g in grads]
+    rows = -(-RING_NUMEL // 128)
+    ideal = {"u8": rows * 128 * (world - 1), "f32": (rows * 4 + 4) * (world - 1),
+             "sends": 3 * (world - 1)}
+    same, wire_ok = [], []
+    for i, r in enumerate(ranks):
+        acc = grads[i].float()
+        for h in range(1, world):
+            acc = acc + compress.decompress(*payloads[(i - h) % world], grads[i].shape)
+        same.append(torch.equal(r["out"], (acc / world).cpu()))
+        wire_ok.append(r["wire"] == ideal)
+    return dict(numel=RING_NUMEL, world=world, bit_identical=same, wire=ranks[0]["wire"],
+                ideal_wire=ideal, wire_exact=wire_ok, k1_launches=[r["k1"] for r in ranks])
+
+
+def hsdp_world_one(smi: str) -> dict:
+    """mamba2-370m at full width, 4 x 1024 on K1/K3: the launcher's HSDP
+    wrapping on a world of one against the unwrapped step, bit for bit."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, RunConfig, get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import make_train_step
+
+    name = "mamba2-370m"
+    over, batch, seq = LM_TRAIN_MODELS[name]
+    cfg = dataclasses.replace(get_config(name), quant_backend="pallas", **over)
+    step_fn, opt_init = make_train_step(RunConfig(model=cfg, shape=SHAPES["train_4k"]))
+    want = lm_train_launches(cfg)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = launcher.hsdp_mesh(1, device_type="cuda")
+        sharded = launcher.shard_model(init_lm(cfg, seed=0, device="cuda"), mesh)
+        opt = opt_init(sharded)
+        data = lm_train_data(cfg, batch, seq)
+        inputs = [next(data) for _ in range(2)]
+        steps, per_step, metrics = [], [], []
+        for b in inputs:
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sharded, opt, m = step_fn(sharded, opt, launcher.local_batch(b, mesh))
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t) * 1e3)
+            per_step.append({k: launch_counts()[k] - before[k] for k in want})
+            metrics.append((m["loss"].clone(), m["grad_norm"].clone()))
+        main_path = launch_counts()  # the comparison below launches too
+        after = {k: p.full_tensor() for k, p in sharded.named_parameters()}
+        del sharded, opt
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    plain = init_lm(cfg, seed=0, device="cuda")
+    opt = opt_init(plain)
+    same_metrics, plain_ms = [], []
+    for b, (loss, gnorm) in zip(inputs, metrics):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain, opt, m = step_fn(plain, opt, b)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t) * 1e3)
+        same_metrics.append(torch.equal(loss, m["loss"]) and torch.equal(gnorm, m["grad_norm"]))
+    same_params = all(torch.equal(after[k], p.detach()) for k, p in plain.named_parameters())
+    r = dict(arch=name, batch=batch, seq=seq, losses=[float(l) for l, _ in metrics],
+             grad_norms=[float(g) for _, g in metrics], metrics_bit_identical=same_metrics,
+             params_bit_identical=same_params, hsdp_steps_ms=steps, plain_steps_ms=plain_ms,
+             launches_per_step=per_step, expected_per_step=want, nvidia_smi=smi,
+             main_path_counts=main_path)
+    del plain, opt, after
+    torch.cuda.empty_cache()
+    return r
+
+
+def emit_checks(gen) -> tuple[dict, dict]:
+    """K4 with emit_codes at stage 1 "nc" against im2col -> K1, and its y
+    against the default path; both timed, and the emit row's byte bound."""
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import implicit_conv_forward, mls_quantize, rounding_bytes
+    from repro_torch.kernels.implicit_conv import conv_geometry
+    from repro_torch.kernels.ref import im2col, implicit_conv_ref
+
+    xs, ws, stride, kb = CONV_SHAPES["stage1_conv"]
+    geom = conv_geometry(xs, ws, stride, "SAME")
+    x = torch.randn(xs, generator=gen, device="cuda")
+    w = torch.randn(ws, generator=gen, device="cuda") * 0.1
+    rx = rounding_bytes((geom.m0, geom.k0), gen, x.device)
+    rw = rounding_bytes((geom.o, geom.k0), gen, x.device)
+    kw = dict(fmt=FMT_IMAGENET, k_block=kb, grouping="nc")
+    y, codes, x_sg, s_t = implicit_conv_forward(x, w, rx, rw, stride, "SAME", **kw,
+                                                emit_codes=True)
+    cols, _ = im2col(x, ws[2:], stride, geom.pads)
+    want = mls_quantize(cols.contiguous(), FMT_IMAGENET, kb, GS_FMT_DEFAULT, rx, "nc")
+    y0 = implicit_conv_forward(x, w, rx, rw, stride, "SAME", **kw)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(a, b) for a, b in zip((codes, x_sg, s_t), want))
+            and torch.equal(y, y0))
+    err = max(max_abs_err(a, b) for a, b in zip((codes, x_sg, s_t, y), (*want, y0)))
+    emit = lambda: implicit_conv_forward(x, w, rx, rw, stride, "SAME", **kw,  # noqa: E731
+                                         emit_codes=True)
+    default = lambda: implicit_conv_forward(x, w, rx, rw, stride, "SAME", **kw)  # noqa: E731
+    x_bytes = x.numel() * 4
+    out_bytes = geom.m0 * geom.o * 4
+    emit_bytes = geom.m0 * geom.k0 + geom.m0 * (geom.k0 // kb) * 4 + 4
+    nbytes = (x_bytes + rx.numel() + rw.numel() + w.numel() * 4 + out_bytes + emit_bytes)
+    ops = 2 * geom.m0 * geom.k0 * geom.o
+    bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    row = dict(name="implicit_conv", shape=f"stage1_conv emit_codes nc {tuple(xs)}",
+               ms=cuda_ms(emit), default_ms=cuda_ms(default),
+               kernel_ms=kernel_ms(emit, DEVICE_KERNELS["implicit_conv"]),
+               default_kernel_ms=kernel_ms(default, DEVICE_KERNELS["implicit_conv"]),
+               plain_ms=cuda_ms(lambda: implicit_conv_ref(x, w, rx, rw, stride, geom.pads, **kw,
+                                                          emit_codes=True), iters=5),
+               bound_ms=max(bound_bytes, bound_ops),
+               bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+               max_abs_err=err)
+    return dict(identical=same, max_abs_err=err), row
+
+
+def compress_rows(gen) -> tuple[list[dict], list[dict]]:
+    """compress of the w_up gradient on K1 against its plain version, at
+    nearest and with rounding bytes, timed beside the byte bound."""
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import rounding_bytes
+    from repro_torch.kernels.ref import quantize_ref
+    from repro_torch.parallel import compress
+
+    g = torch.randn(COMPRESS_SHAPE, generator=gen, device="cuda") * 1e-3
+    n = g.numel()
+    rows_shape = (n // 128, 128)
+    checks, rows = [], []
+    for mode in ("nearest", "bytes"):
+        r = rounding_bytes(rows_shape, gen, g.device) if mode == "bytes" else None
+        got = compress.compress(g, r_u8=r)
+        want = quantize_ref(g.reshape(rows_shape), FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc")
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        checks.append(dict(kernel="mls_quantize_rows", shape=f"compress {COMPRESS_SHAPE} {mode}",
+                           identical=same, max_abs_err=err))
+        fn = lambda: compress.compress(g, r_u8=r)  # noqa: E731
+        nbytes = n * 4 + n + rows_shape[0] * 4 + 4 + (n if r is not None else 0)
+        rows.append(dict(
+            name="mls_quantize_rows", shape=f"compress w_up grad {COMPRESS_SHAPE} as "
+            f"{rows_shape} nc {mode}", ms=cuda_ms(fn),
+            kernel_ms=kernel_ms(fn, DEVICE_KERNELS["mls_quantize_rows"]),
+            plain_ms=cuda_ms(lambda: quantize_ref(g.reshape(rows_shape), FMT_IMAGENET, 128,
+                                                  GS_FMT_DEFAULT, r, "nc"), iters=5),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
+            max_abs_err=err))
+        del r, got, want
+    del g
+    torch.cuda.empty_cache()
+    return checks, rows
+
+
+def phase_parallel(results: dict) -> dict[str, int]:
+    """The parallel slice (see the module docstring, phase 14)."""
+    import torch
+
+    from repro_torch.analysis.wire import audit_wire_ring
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel import compress
+    from repro_torch.sweep.record import nvidia_smi
+
+    smi = nvidia_smi()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    g = torch.randn(COMPRESS_SHAPE, generator=gen, device="cuda") * 1e-3
+    torch.cuda.synchronize()
+    reset_launch_counts()  # the main path: compress, then the HSDP steps
+    payload = compress.compress(g)
+    hsdp = hsdp_world_one(smi)  # reads the counts after its HSDP steps
+    launched = hsdp.pop("main_path_counts")
+    out = dict(main_path_launches=launched, hsdp=hsdp,
+               compress_payload_bytes=sum(t.numel() * t.element_size() for t in payload))
+    del g, payload
+    checks, rows = compress_rows(gen)
+    emit, emit_row = emit_checks(gen)
+    checks.append(dict(kernel="implicit_conv", shape="stage1_conv emit_codes nc", **emit))
+    rows.append(emit_row)
+    out["ring"] = ring_on_one_card()
+    out["wire_audit"] = audit_wire_ring()
+    out["checks"], out["rows"] = checks, rows
+    results["parallel"] = out
+    for row in rows:
+        print(json.dumps({"timing": row}))
+    print(f"parallel ({smi}): main-path launches {launched}; HSDP world-1 steps "
+          f"{[round(t, 1) for t in hsdp['hsdp_steps_ms']]} ms vs unwrapped "
+          f"{[round(t, 1) for t in hsdp['plain_steps_ms']]} ms, losses {hsdp['losses']}; ring "
+          f"{out['ring']['bit_identical']} wire {out['ring']['wire']}; wire audit ratio "
+          f"{out['wire_audit']['compression_ratio']:.4f}")
+    bad = [c for c in checks if not c["identical"]]
+    w = out["wire_audit"]
+    if bad:
+        bad = [f"{len(bad)} results differ from their plain versions: {bad}"]
+    if not (all(hsdp["metrics_bit_identical"]) and hsdp["params_bit_identical"]):
+        bad.append(f"the HSDP step differs from the unwrapped one: {hsdp}")
+    if any(p != hsdp["expected_per_step"] for p in hsdp["launches_per_step"]):
+        bad.append(f"HSDP launches {hsdp['launches_per_step']}, expected "
+                   f"{hsdp['expected_per_step']}")
+    if not (all(out["ring"]["bit_identical"]) and all(out["ring"]["wire_exact"])
+            and all(n == 1 for n in out["ring"]["k1_launches"])):
+        bad.append(f"the ring: {out['ring']}")
+    if not (w["wire_bytes_per_device"] == w["ideal_compressed_bytes_per_device"]
+            and w["compression_ratio"] >= 3.5):
+        bad.append(f"wire audit {w}")
+    if launched["mls_quantize_rows"] != 1 + 2 * hsdp["expected_per_step"]["mls_quantize_rows"]:
+        bad.append(f"K1 launches on the main path {launched}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return launched
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -2800,12 +3102,13 @@ def main() -> int:
         fail("kernel build failed")
 
     rows, launches, serve_launches, lm_train_launches_, sweep_launches = [], {}, {}, {}, {}
+    parallel_launches: dict = {}
     for name, phase in (("kernels", phase_kernels), ("tune", phase_tune), ("train", phase_train),
                         ("trace", phase_trace), ("agree", phase_agree),
                         ("audit", phase_audit), ("zoo", phase_zoo),
                         ("fake_quant", phase_fakequant), ("driver", phase_driver),
                         ("serve", phase_serve), ("lm_train", phase_lm_train),
-                        ("sweep", phase_sweep)):
+                        ("sweep", phase_sweep), ("parallel", phase_parallel)):
         t = time.perf_counter()
         try:
             out = phase(results)
@@ -2822,6 +3125,8 @@ def main() -> int:
                 lm_train_launches_ = out
             elif name == "sweep":
                 sweep_launches = out
+            elif name == "parallel":
+                parallel_launches = out
         except Exception:
             traceback.print_exc()
             failures.append(name)
@@ -2848,6 +3153,7 @@ def main() -> int:
                                                for m, n in lm_train_launches_.items()},
                             sweep_launches={c: n.get(r["name"], 0)
                                             for c, n in sweep_launches.items()},
+                            parallel_launches=parallel_launches.get(r["name"], 0),
                             max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None, shape=r["shape"],

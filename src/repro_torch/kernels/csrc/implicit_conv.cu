@@ -409,7 +409,10 @@ __global__ void __launch_bounds__(kThreads, 3) implicit_conv_kernel(const ConvAr
           if constexpr (kEmit) {
             if (blockIdx.y == 0) {
               uint8_t* dst = a.codes_out + (long long)(row0 + m) * a.K + kof + k4;
-              for (int u = 0; u < 4 && k4 + u < kw; ++u) dst[u] = (codes >> (8 * u)) & 0xFF;
+              if (k4 + 4 <= kw && (reinterpret_cast<uintptr_t>(dst) & 3) == 0)
+                *reinterpret_cast<uint32_t*>(dst) = codes;
+              else
+                for (int u = 0; u < 4 && k4 + u < kw; ++u) dst[u] = (codes >> (8 * u)) & 0xFF;
             }
           }
         }

@@ -55,16 +55,13 @@ _NO_TP = ("tensor parallelism over the 'model' axis is not ported (ROADMAP queue
           "the model axis must be 1")
 
 
-def hsdp_mesh(world: int, multi_pod: bool = False, model_axis: int = 1,
-              device_type: str | None = None):
-    """The launcher's ``(pods, world // pods, model_axis)`` mesh over
-    ("pod", "data", "model"), ``pods`` 2 under ``multi_pod``."""
-    if model_axis != 1:
-        raise NotImplementedError(_NO_TP)
+def hsdp_mesh(world: int, multi_pod: bool = False, device_type: str | None = None):
+    """The launcher's ``(pods, world // pods, 1)`` mesh over ("pod", "data",
+    "model"), ``pods`` 2 under ``multi_pod``."""
     pods = 2 if multi_pod else 1
     if world % pods:
         raise ValueError(f"--multi-pod splits the world into {pods} pods; {world} ranks do not")
-    return make_mesh((pods, world // pods, model_axis), MESH_AXES, device_type)
+    return make_mesh((pods, world // pods, 1), MESH_AXES, device_type)
 
 
 def _dp_mesh(mesh):
@@ -142,7 +139,7 @@ def main(argv: list[str] | None = None) -> dict:
     mesh, rank = None, 0
     if int(os.environ.get("WORLD_SIZE", "0")):
         rank, world, device = _init_world(device)
-        mesh = hsdp_mesh(world, args.multi_pod, args.model_axis, device.type)
+        mesh = hsdp_mesh(world, args.multi_pod, device.type)
     elif args.multi_pod:
         raise ValueError("--multi-pod trains across ranks: run it under torchrun")
     shape = SHAPES[args.shape]
@@ -178,7 +175,8 @@ def main(argv: list[str] | None = None) -> dict:
                 params[k].copy_(v)
         opt, start = st["opt"], mgr.latest_step()
         data.load_state_dict(st["data"])
-        print(f"resumed from step {start}")
+        if rank == 0:
+            print(f"resumed from step {start}")
 
     mon = StragglerMonitor()
     losses = []

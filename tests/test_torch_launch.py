@@ -20,7 +20,8 @@ launcher's HSDP step on a world of gloo processes on the CPU.
   tolerance is fp32's: the reduction adds the ranks' gradients in another
   order than the microbatch loop, 1e-5 of the largest gradient, 1e-6 on
   the parameters and losses (seen: below 1e-8).
-- ``--model-axis`` > 1 and ``--multi-pod`` without torchrun raise.
+- ``--model-axis`` > 1, a mesh with a ``model`` axis > 1 and
+  ``--multi-pod`` without torchrun raise.
 """
 import dataclasses
 import types
@@ -143,7 +144,8 @@ HSDP_CASES = [("chatglm3-6b", True, "none"), ("mamba2-370m", True, "full"),
 
 @pytest.fixture(scope="module")
 def hsdp():
-    return {case: workers.run_world(workers.hsdp_worker, 4, *case) for case in HSDP_CASES}
+    ranks = workers.run_world(workers.hsdp_worker, 4, HSDP_CASES)
+    return {case: [r[case] for r in ranks] for case in HSDP_CASES}
 
 
 def _reference(arch, quant, remat, n_parts):
@@ -211,7 +213,8 @@ def test_launcher_refuses_tensor_parallelism_and_multi_pod_without_a_world(monke
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         launcher.main(argv + ["--multi-pod", "--model-axis", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launcher.hsdp_mesh(8, multi_pod=True, model_axis=2, device_type="cpu")
+        launcher.shard_model(lm.init_lm(configs.get_smoke_config("chatglm3-6b"), device="cpu"),
+                             MeshShape(launcher.MESH_AXES, (2, 2, 2)))
     with pytest.raises(ValueError, match="torchrun"):
         launcher.main(argv + ["--multi-pod"])
     with pytest.raises(RuntimeError, match="needs 4 ranks"):

@@ -14,6 +14,8 @@ zamba2-7b's K = 3584 gets 32).  That changes the numbers on one device.
   bit-exact, the fp32 matmuls sum in each library's order).
 - The quantized backend ignores ``shard_ways``, as JAX's
   ``lowbit_matmul_qd`` does: its ``k_block`` stays 128.
+- The weight's wire path (``packed_wire`` / ``wire_fsdp_dim``) is exact and
+  matches JAX's; the lint's three wire checks fire where JAX's do.
 """
 import pytest
 
@@ -129,3 +131,51 @@ def test_quantized_backend_keeps_k_block():
         assert k_blocks == {128}, k_blocks
     reset_launch_counts()
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("packed_wire,wire", [(False, 0), (True, 0), (True, 1)])
+def test_the_wire_path_is_exact_and_matches_jax(packed_wire, wire):
+    """``quantize_operand(..., wire=True)`` through the packed codes and
+    compact scales (``packed_wire``) or the unit values, at either FSDP dim:
+    the same forward and gradients as JAX's, and as without the wire (the
+    round trip is exact; ``wire_pin`` is the identity without bound rules)."""
+    import dataclasses
+
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((6, 256)).astype(np.float32)
+    w = (rng.standard_normal((256, 48)) * 0.2).astype(np.float32)
+    g = rng.standard_normal((6, 48)).astype(np.float32)
+    ours, ref = _cfgs()
+    ours = dataclasses.replace(ours, packed_wire=packed_wire, wire_fsdp_dim=wire)
+    ref = dataclasses.replace(ref, packed_wire=packed_wire, wire_fsdp_dim=wire)
+    y_ref = jax.jit(lambda a, b: jlowbit.lowbit_matmul(a, b, None, ref))(x, w)
+    dx_ref, dw_ref = jax.jit(jax.grad(
+        lambda a, b: jnp.sum(jlowbit.lowbit_matmul(a, b, None, ref) * g), argnums=(0, 1)))(x, w)
+    outs = []
+    for cfg in (ours, _cfgs()[0]):
+        xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+        y = lowbit.lowbit_matmul(xt, wt, None, cfg)
+        (y * torch.from_numpy(g)).sum().backward()
+        outs.append((y.detach(), xt.grad, wt.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    _close(outs[0][0], y_ref, "y")
+    _close(outs[0][1], dx_ref, "dx")
+    _close(outs[0][2], dw_ref, "dw")
+
+
+def test_lint_checks_the_wire_fields_as_jax_does():
+    import dataclasses
+
+    from repro.analysis.lint import lint_quant_config as jlint
+    from repro_torch.analysis.lint import lint_quant_config, lint_shipped_presets
+
+    for kw in ({"shard_ways": 0}, {"wire_fsdp_dim": 2}, {"packed_wire": True},
+               {"packed_wire": True, "wire_fsdp_dim": 1}, {"shard_ways": 16}):
+        ours = lint_quant_config(dataclasses.replace(QuantConfig(), **kw))
+        ref = jlint(dataclasses.replace(JQuantConfig(), **kw))
+        for mine, theirs in ((ours.errors, ref.errors), (ours.warnings, ref.warnings)):
+            pick = ("shard_ways", "wire_fsdp_dim", "packed_wire")
+            assert len([m for m in mine if any(p in m for p in pick)]) == \
+                len([m for m in theirs if any(p in m for p in pick)]), kw
+    assert all(r.ok for r in lint_shipped_presets().values())

@@ -102,7 +102,12 @@ def placements_worker(rank: int, world: int):
 HSDP_BATCH, HSDP_SEQ = 8, 16
 
 
-def hsdp_worker(rank: int, world: int, arch: str, quant: bool, remat: str):
+def hsdp_worker(rank: int, world: int, cases):
+    """:func:`hsdp_case` of each ``(arch, quant, remat)`` case, by case."""
+    return {case: hsdp_case(world, *case) for case in cases}
+
+
+def hsdp_case(world: int, arch: str, quant: bool, remat: str):
     """Gradients of one loss on this rank's slice (full tensors); with the
     smoke config as shipped (``quant``), also two steps of the launcher
     (``train.main`` under the world, ``--multi-pod``) and the parameters
