@@ -246,9 +246,9 @@ def test_fake_quant_ops_quantize_the_error_once_on_streams_0_1_2(monkeypatch):
     idxs = []
     orig = lowbit.quantize_operand
 
-    def spy(x, cfg, spec, key, idx, r=None):
+    def spy(x, cfg, spec, key, idx, r=None, **kw):
         idxs.append(idx)
-        return orig(x, cfg, spec, key, idx, r)
+        return orig(x, cfg, spec, key, idx, r, **kw)
 
     monkeypatch.setattr(lowbit, "quantize_operand", spy)
     cfg = QuantConfig(fmt=EMFormat(2, 4), backend="fake_quant", k_block=32)
