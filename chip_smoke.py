@@ -214,13 +214,43 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 (emit_codes) at stage 1 "nc" bit for bit against im2col ->
                 K1 and its y against the default path, both timed; the
                 audit's wire section (analysis.wire.audit_wire_ring).
+  15. tensor  - tensor parallelism over the model axis
+                (repro_torch.parallel.tensor).  K1's split entries
+                (mls_quantize_rows_amax, then mls_quantize_rows_codes over
+                the given max) at chatglm3-6b's training operands x (8192,
+                4096) and w^T (13696, 4096) with rounding bytes: bit for
+                bit the one-call entry's and the plain version's with the
+                operand's own max, and quantize_ref's with a larger given
+                max; each entry timed beside its byte bound (pass A also
+                beside torch.linalg.vector_norm(x, inf)).  Then the main
+                path (counts set to 0 just before, read just after, in each
+                rank): chatglm3-6b at full width cut to 2 layers, batch 1 x
+                4096, K1/K3, stochastic rounding, bf16, full remat, AdamW at
+                a constant lr 3e-4: one step of a 2-rank model axis in two
+                processes on cuda:0 over gloo (NCCL takes one card a rank),
+                and a second step for its time alone.
+                Each rank then runs the unsharded model on the same card as
+                the reference: quantized, the loss gap printed and held
+                within 5e-2, and every linear of the two layers given the
+                unsharded linear's recorded x, g and key (column-parallel
+                outputs and weight gradients, row-parallel data and weight
+                gradients bit for bit; the sums over the split within (G_r
+                + 1) eps max|ref|); unquantized (fp32 compute, as JAX holds
+                its own mesh), the loss and the grad norm within 1e-4
+                relative and the rank's updated parameters within 1e-4
+                (relative L2; TP_AGREE);
+                K1 (one call and split) and K3 launches per rank equal to
+                the closed form (tp_train_launches); per-rank step ms and
+                peak memory printed (gloo through the host: not a TP speed).
 The line before the last is {"kernels": [...]}: each kernel's `launches`
 are its count on the training path (phase train; K5's in the audit's
-overlap_write run), `serve_launches` its count per model of the serve
-phase, `lm_train_launches` per model of the lm_train phase's 4-step
-run, `sweep_launches` its launches per step in each "pallas" cell of
-the sweep's chip grid, and `parallel_launches` its count on the parallel
-phase's main path, each read from its own run.  The last line is
+overlap_write run; K1's split entries' on the tensor phase's main path),
+`serve_launches` its count per model of the serve phase,
+`lm_train_launches` per model of the lm_train phase's 4-step run,
+`sweep_launches` its launches per step in each "pallas" cell of the
+sweep's chip grid, `parallel_launches` its count on the parallel phase's
+main path and `tensor_launches` on the tensor phase's (rank 0's), each read
+from its own run.  The last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
 """
@@ -249,11 +279,14 @@ PROFILER_PAD = 256  # kernels that open each kernel_ms session (see there)
 # timed shapes are in chiprun_out/chip_smoke.json)
 REPORTED_SHAPE = {"mls_quantize_rows": "stage1_fwd_cols", "mls_quantize_given_sg": "stage1_fwd_cols",
                   "mls_matmul": "stage1_wgrad ", "implicit_conv": "stage1_conv",
-                  "sabotage_overlap": "x (8, 16)"}
+                  "sabotage_overlap": "x (8, 16)", "mls_quantize_rows_amax": "x (8192, 4096)",
+                  "mls_quantize_rows_codes": "x (8192, 4096)"}
 # device kernels (profiler names) of each C entry point
 # (K2 "none" and "c" on one group take K1's quantize_amax as pass A)
 DEVICE_KERNELS = {"mls_quantize_rows": ("quantize_amax", "quantize_groups_warp",
                                         "quantize_groups_block"),
+                  "mls_quantize_rows_amax": ("quantize_amax", "quantize_partials_max"),
+                  "mls_quantize_rows_codes": ("quantize_groups_warp", "quantize_groups_block"),
                   "mls_quantize_given_sg": ("quantize_cols_amax", "quantize_cols_reduce",
                                             "quantize_scales", "quantize_codes",
                                             "quantize_amax"),
@@ -264,6 +297,11 @@ DEVICE_KERNELS = {"mls_quantize_rows": ("quantize_amax", "quantize_groups_warp",
 KERNELS = {
     "mls_quantize_rows": ("src/repro_torch/kernels/csrc/mls_quantize.cu",
                           "src/repro/kernels/mls_quantize.py:107"),
+    # K1's two split entries (tensor parallelism): the same TPU kernel
+    "mls_quantize_rows_amax": ("src/repro_torch/kernels/csrc/mls_quantize.cu",
+                               "src/repro/kernels/mls_quantize.py:107"),
+    "mls_quantize_rows_codes": ("src/repro_torch/kernels/csrc/mls_quantize.cu",
+                                "src/repro/kernels/mls_quantize.py:107"),
     "mls_quantize_given_sg": ("src/repro_torch/kernels/csrc/mls_quantize.cu",
                               "src/repro/kernels/mls_quantize.py:123"),
     "mls_matmul": ("src/repro_torch/kernels/csrc/mls_matmul.cu",
@@ -881,7 +919,8 @@ def phase_train(results: dict) -> dict[str, int]:
     qcfg = QuantConfig(fmt=FMT_IMAGENET, k_block=K_BLOCK, grouping="nc", stochastic=True)
     main = run_path(results, "train", qcfg, TRAIN_STEPS)
     if expected_launches(qcfg, conv_list("resnet20", HW, BATCH)) != {
-            "mls_quantize_rows": 120, "mls_quantize_given_sg": 0, "mls_matmul": 60,
+            "mls_quantize_rows": 120, "mls_quantize_rows_amax": 0,
+            "mls_quantize_rows_codes": 0, "mls_quantize_given_sg": 0, "mls_matmul": 60,
             "implicit_conv": 0, "conv_tensor_scale": 0, "sabotage_overlap": 0}:
         raise AssertionError("the k_block-128 path no longer takes 120 quantize and 60 GEMM "
                              "launches per step on im2col alone")
@@ -1274,7 +1313,7 @@ def serve_linears(cfg, prefill: bool = False) -> int:
     return 2 * cfg.n_layers + (4 + mlp) * (cfg.n_layers // cfg.attn_every)
 
 
-def lm_train_launches(cfg, microbatch: int = 1) -> dict[str, int]:
+def lm_train_launches(cfg, microbatch: int = 1, model_axis: int = 1) -> dict[str, int]:
     """K1 and K3 launches of one LM training step (lm_loss forward and
     backward): each quantized linear runs qd_gemm for its forward, its data
     gradient and its weight gradient (K1 on both operands, then K3), and
@@ -1283,7 +1322,11 @@ def lm_train_launches(cfg, microbatch: int = 1) -> dict[str, int]:
     attention computes its K/V from the encoder's output, quantized, so a
     decoder layer has 8 attention linears.  Remat "dots" recomputes the
     forward too: K3 runs inside an autograd.Function that its policy does
-    not see.  Times the microbatches."""
+    not see.  Times the microbatches.  With a ``model_axis`` above 1 (the
+    dense family, tensor-parallel) the launches of one rank
+    (:func:`tp_train_launches`)."""
+    if model_axis > 1:
+        return tp_train_launches(cfg, model_axis, microbatch)
     per = 3 if cfg.remat == "none" else 4
     mlp = 3 if cfg.gated_mlp else 2
     if cfg.family == "dense":
@@ -1297,6 +1340,32 @@ def lm_train_launches(cfg, microbatch: int = 1) -> dict[str, int]:
         if cfg.family == "hybrid":
             k3 += (4 + mlp) * (cfg.n_layers // cfg.attn_every) * 3
     return {"mls_quantize_rows": 2 * k3 * microbatch, "mls_matmul": k3 * microbatch}
+
+
+def tp_train_launches(cfg, model_axis: int, microbatch: int = 1) -> dict[str, int]:
+    """One rank's K1 and K3 launches of a tensor-parallel LM training step
+    (parallel.tensor, the dense family): a GEMM operand held whole takes
+    K1's one call (mls_quantize_rows), a sharded one K1's two
+    (mls_quantize_rows_amax, then mls_quantize_rows_codes).  A
+    column-parallel linear (wq, w_up, w_gate, and wk / wv where the kv
+    heads split) holds x and x^T whole and shards w, the error and its
+    transpose: 2 whole and 4 sharded operands, and the recomputed forward
+    one more of each under remat.  A row-parallel one (wo, w_down) holds the
+    error and its transpose whole: 2 and 4, and its recomputed forward 2
+    sharded.  Replicated kv linears are whole: 6, and 2 under remat.  Each
+    linear runs K3 three times (four under remat)."""
+    if cfg.family != "dense":
+        raise ValueError(f"tensor parallelism is ported for the dense family, not {cfg.family}")
+    r = 0 if cfg.remat == "none" else 1
+    kv_split = cfg.n_kv_heads % model_axis == 0
+    cols = (2 if cfg.gated_mlp else 1) + 1 + (2 if kv_split else 0)
+    rows, whole = 2, (0 if kv_split else 2)
+    one = cols * (2 + r) + rows * 2 + whole * (6 + 2 * r)
+    split = cols * (4 + r) + rows * (4 + 2 * r)
+    k3 = (cols + rows + whole) * (3 + r)
+    n = cfg.n_layers * microbatch
+    return {"mls_quantize_rows": one * n, "mls_quantize_rows_amax": split * n,
+            "mls_quantize_rows_codes": split * n, "mls_matmul": k3 * n}
 
 
 def traced_decode(engine, cache, tok) -> dict:
@@ -2525,8 +2594,9 @@ def phase_sweep(results: dict) -> dict[str, dict[str, int]]:
     convs = conv_list("resnet20", HW, BATCH)
     cells = {c.cell_id(): c for c in chip_grid()}
     runs = {cid: sweep_cell(c, convs) for cid, c in cells.items()}
-    nc = {"mls_quantize_rows": 120, "mls_quantize_given_sg": 0, "mls_matmul": 60,
-          "implicit_conv": 0, "conv_tensor_scale": 0, "sabotage_overlap": 0}
+    nc = {"mls_quantize_rows": 120, "mls_quantize_rows_amax": 0, "mls_quantize_rows_codes": 0,
+          "mls_quantize_given_sg": 0, "mls_matmul": 60, "implicit_conv": 0,
+          "conv_tensor_scale": 0, "sabotage_overlap": 0}
     for cid in ("resnet20/mls_e2m4/pallas", "resnet20/mls_e2m1/pallas"):
         if runs[cid]["expected_per_step"] != nc:
             raise AssertionError(f"{cid} no longer takes 120 K1 and 60 K3 launches a step "
@@ -3067,6 +3137,317 @@ def phase_parallel(results: dict) -> dict[str, int]:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+TP_ARCH, TP_LAYERS, TP_BATCH, TP_SEQ, TP_AXIS = "chatglm3-6b", 2, 1, 4096, 2
+TP_ENTRIES = ("mls_quantize_rows_amax", "mls_quantize_rows_codes")  # K1's split entries
+TP_CUT = "n_layers 28 -> 2; train_4k's global batch 256 -> 1 (seq 4096)"
+# K1's split entries at chatglm3-6b's training operands: the activation of
+# a batch of 2 x 4096 and the MLP up-projection's weight, quantized as (N, K)
+TP_K1_SHAPES = {"x (8192, 4096)": (8192, 4096), "w^T (13696, 4096)": (13696, 4096)}
+# fp32: JAX's own (data 2, model 2) mesh tolerance, relative on the loss, the
+# grad norm and the rank's updated parameters as one vector (relative L2).
+# Not per element or per tensor: AdamW's first step moves an element by up to
+# lr whatever its gradient's size, so a gradient near AdamW's eps turns
+# summation-order noise into most of a step (1.2e-4 on a few wk / wv
+# elements at lr 3e-4), and a tensor whose exact gradient is 0 (the key
+# bias's pass-through half, which softmax ignores) differs by its noise
+# alone (13% relative); both are reported.
+TP_AGREE = {"fp32": 1e-4,
+            "pallas": 5e-2}  # the loss only: one moved code cascades (PR 19's unfed gap)
+TP_LR = 3e-4  # a constant rate: the default schedule's step 0 has lr 0
+
+
+def tp_k1_checks(gen) -> tuple[list[dict], list[dict]]:
+    """K1's split entries (pass A, pass B over the given max) at
+    TP_K1_SHAPES with rounding bytes: with the operand's own max bit for bit
+    the one-call entry's and the plain version's; with a larger max (another
+    rank's) quantize_ref's with that max.  Each entry timed (CUDA events,
+    and its kernels alone) beside its byte bound, its plain version and,
+    for pass A, torch.linalg.vector_norm(x, inf), one PyTorch call of the
+    same max |x|."""
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import autotune, mls_quantize, rounding_bytes
+    from repro_torch.kernels.mls_quantize import (
+        quantize_launch, quantize_rows_split, rows_amax, rows_codes)
+    from repro_torch.kernels.ref import quantize_ref
+
+    checks, rows = [], []
+    for sname, (M, K) in TP_K1_SHAPES.items():
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        r = rounding_bytes((M, K), gen, x.device)
+        config = autotune.resolve_block_config("quantize", (M, K), FMT_IMAGENET, "nc",
+                                               k_block=128, device=x.device)
+        _, (_, _, width, variant, parts) = quantize_launch(M, K, 128, "nc", config)
+        one = mls_quantize(x, FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc", config=config)
+        split = quantize_rows_split(x, FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc", config)
+        plain = quantize_ref(x, FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc")
+        big = x.abs().amax() * 2.5
+        given = quantize_rows_split(x, FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc", config,
+                                    lambda a: torch.full_like(a, float(big)))
+        given_plain = quantize_ref(x, FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc", amax=big)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(a, b) and torch.equal(a, c)
+                    for a, b, c in zip(split, one, plain))
+                and all(torch.equal(a, b) for a, b in zip(given, given_plain)))
+        err = max(max_abs_err(a, b) for a, b in zip((*split, *given), (*plain, *given_plain)))
+        checks.append(dict(kernel="mls_quantize_rows_amax+codes", shape=sname, identical=same,
+                           max_abs_err=err))
+        amax = rows_amax(x, parts)
+        n = M * K
+        for name, fn, plain_fn, lib_fn, nbytes in (
+                ("mls_quantize_rows_amax", lambda: rows_amax(x, parts),
+                 lambda: x.abs().amax(), lambda: torch.linalg.vector_norm(x, float("inf")),
+                 4 * n + 4 * parts + 4),
+                ("mls_quantize_rows_codes",
+                 lambda: rows_codes(x, r, amax, FMT_IMAGENET, width, variant),
+                 lambda: quantize_ref(x, FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc", amax=amax),
+                 None, 4 * n + n + n + 4 * (n // width) + 8)):
+            rows.append(dict(
+                name=name, shape=f"{sname} nc stochastic, {variant}, {parts} partials",
+                ms=cuda_ms(fn), kernel_ms=kernel_ms(fn, DEVICE_KERNELS[name]),
+                plain_ms=cuda_ms(plain_fn, iters=5),
+                library_ms=None if lib_fn is None else cuda_ms(lib_fn),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
+                max_abs_err=err))
+        del x, r, one, split, plain, given, given_plain, amax
+        torch.cuda.empty_cache()
+    return checks, rows
+
+
+def _tp_configs():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    q = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS, quant_backend="pallas")
+    # unquantized in fp32, as JAX holds its own mesh: with bf16 activations
+    # AdamW's first step turns rounding noise in tiny gradients into whole
+    # steps of the other sign (a zero-initialised bias moved 18% apart)
+    return {"fp32": dataclasses.replace(q, quant=False, compute_dtype="float32"), "pallas": q}
+
+
+def _tp_linear_checks(ref, records, layout, tp) -> list[dict]:
+    """Each recorded linear of the unsharded step (its x, g and key) run
+    by this rank's tensor-parallel linear against the unsharded linear on
+    the same inputs: x in fp32 (the bf16 values; the quantizer reads fp32
+    either way), so that the data gradient comes back unrounded and its sum
+    over the ranks is held to fp32's group-order bound."""
+    import torch
+
+    from repro_torch.models import nn as L
+    from repro_torch.parallel.tensor import TPLinear, copy_to_tp
+
+    eps = torch.finfo(torch.float32).eps
+    params = dict(ref.named_parameters())
+    out = []
+    for rec in records:
+        name, x = rec["name"], rec["x"].float()
+        sp = layout[f"{name}.w"]
+        a, b = sp.bounds[tp.rank]
+        kind = "column" if sp.dim == 1 else "row"
+        x0 = x.clone().requires_grad_()
+        w0 = params[f"{name}.w"].detach().requires_grad_()
+        bias = params.get(f"{name}.b")
+        y = L.linear(x0, w0, bias, rec["qcfg"], rec["key"])
+        dx, dw = torch.autograd.grad(y, (x0, w0), rec["g"])
+        lin = TPLinear(kind, a, sp.full, tp)
+        if kind == "column":
+            x1 = x.clone().requires_grad_()
+            w1 = w0.detach()[:, a:b].contiguous().requires_grad_()
+            bt = None if bias is None else bias.detach()[a:b]
+            yt = lin(L.linear, copy_to_tp(x1, tp), w1, bt, rec["qcfg"], rec["key"], None)
+            dxt, dwt = torch.autograd.grad(yt, (x1, w1), rec["g"][..., a:b].contiguous())
+            exact = torch.equal(yt, y[..., a:b]) and torch.equal(dwt, dw[:, a:b])
+            summed, want = dxt, dx
+        else:
+            x1 = x[..., a:b].contiguous().requires_grad_()
+            w1 = w0.detach()[a:b].contiguous().requires_grad_()
+            yt = lin(L.linear, x1, w1, None if bias is None else bias.detach(), rec["qcfg"],
+                     rec["key"], None)
+            dxt, dwt = torch.autograd.grad(yt, (x1, w1), rec["g"])
+            exact = torch.equal(dxt, dx[..., a:b]) and torch.equal(dwt, dw[a:b])
+            summed, want = yt, y
+        groups = -(-(b - a) // 128)
+        err = (summed.float() - want.float()).abs().max().item()
+        tol = (groups + 1) * eps * want.float().abs().max().item()
+        out.append(dict(linear=name, kind=kind, cols=(a, b), slices_bit_identical=exact,
+                        sum_err=err, sum_tol=tol, ok=exact and err <= tol))
+    return out
+
+
+def _tp_record_linears(model):
+    """Forward hooks on every linear of the model's layers: each call's x,
+    config and key, and the gradient of its output once backward reaches
+    it (the recomputed forward of remat gets no gradient: dropped)."""
+    records, handles = [], []
+    for name, mod in model.named_modules():
+        if name.startswith("layers.") and type(mod).__name__ == "Linear":
+            def hook(m, args, kwargs, out, name=name):
+                rec = dict(name=name, x=args[0].detach(), qcfg=args[1], key=args[2])
+                out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+                records.append(rec)
+            handles.append(mod.register_forward_hook(hook, with_kwargs=True))
+    return records, handles
+
+
+def _tp_rank_work(rank: int) -> dict:
+    """One rank of the model axis: the tensor-parallel step of each config
+    (counts set to 0 just before the quantized one and read just after),
+    then the unsharded step (fp32) or loss (pallas, its linears recorded)
+    on the same card as the reference."""
+    import torch
+
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.core import fold_in
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import init_lm
+    from repro_torch.parallel.tensor import TensorParallel, tensor_parallel
+    from repro_torch.train import make_train_step
+
+    tp = TensorParallel.of()
+    out = {"rank": rank}
+    for tag, cfg in _tp_configs().items():
+        run = RunConfig(model=cfg, shape=SHAPES["train_4k"])
+        step_fn, opt_init = make_train_step(run, lr_fn=lambda step: TP_LR)
+        batch = next(lm_train_data(cfg, TP_BATCH, TP_SEQ))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = tensor_parallel(init_lm(cfg, seed=0, device="cuda"), tp)
+        opt = opt_init(model)
+        layout = model.tp_layout
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        model, opt, m = step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        r = dict(first_step_ms=(time.perf_counter() - t0) * 1e3, launches=launch_counts(),
+                 loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        mine = {k: p.detach().clone() for k, p in model.named_parameters()}
+        t0 = time.perf_counter()  # a second step, warm, for its time alone
+        model, opt, m = step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        r.update(step_ms=(time.perf_counter() - t0) * 1e3,
+                 peak_memory_bytes=torch.cuda.max_memory_allocated())
+        del model, opt, m
+        ref = init_lm(cfg, seed=0, device="cuda")
+        if tag == "fp32":
+            ropt = opt_init(ref)
+            ref, ropt, rm = step_fn(ref, ropt, batch)
+            r.update(ref_loss=float(rm["loss"]), ref_grad_norm=float(rm["grad_norm"]))
+            worst_abs, worst_rel, sq_diff, sq_want = (0.0, None), (0.0, None), 0.0, 0.0
+            for k, p in ref.named_parameters():
+                want = p.detach()
+                if k in layout:
+                    a, b = layout[k].bounds[rank]
+                    want = want.narrow(layout[k].dim, a, b - a)
+                diff = mine[k].double() - want.double()
+                worst_abs = max(worst_abs, (diff.abs().max().item(), k), key=lambda v: v[0])
+                rel = float(diff.norm() / max(float(want.double().norm()), 1e-30))
+                worst_rel = max(worst_rel, (rel, k), key=lambda v: v[0])
+                sq_diff += float(diff.square().sum())
+                sq_want += float(want.double().square().sum())
+            r.update(params_rel=math.sqrt(sq_diff / sq_want), params_worst_abs=worst_abs,
+                     params_worst_rel=worst_rel)
+            del ropt
+        else:
+            records, handles = _tp_record_linears(ref)
+            loss, _ = ref.loss(batch, fold_in(run.seed, 0))  # the step's key at step 0
+            loss.backward()
+            for h in handles:
+                h.remove()
+            r["ref_loss"] = loss.item()
+            r["linears"] = _tp_linear_checks(ref, [x for x in records if "g" in x], layout, tp)
+            del records
+        del ref, mine
+        torch.cuda.empty_cache()
+        out[tag] = r
+    return out
+
+
+def _tp_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of the 2-rank model axis on cuda:0 over gloo (NCCL takes one
+    card a rank)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.runtime import resolve_device
+
+    torch.cuda.set_device(0)
+    resolve_device("cuda")  # TF32 off
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        torch.save(_tp_rank_work(rank), f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tensor(results: dict) -> tuple[dict[str, int], list[dict]]:
+    """Tensor parallelism over the model axis (module docstring, phase 15)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.sweep.record import nvidia_smi
+
+    smi = nvidia_smi()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    checks, rows = tp_k1_checks(gen)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "tp")
+        mp.spawn(_tp_rank, args=(TP_AXIS, _free_port(), out), nprocs=TP_AXIS, join=True)
+        ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(TP_AXIS)]
+    cfgs = _tp_configs()
+    want = lm_train_launches(cfgs["pallas"], model_axis=TP_AXIS)
+    res = dict(arch=TP_ARCH, cut=TP_CUT, batch=TP_BATCH, seq=TP_SEQ, model_axis=TP_AXIS,
+               nvidia_smi=smi, k1_checks=checks, ranks=ranks, expected_launches=want)
+    results["tensor"] = res
+    for row in rows:
+        print(json.dumps({"timing": row}))
+    for r in ranks:
+        for tag in ("fp32", "pallas"):
+            t = r[tag]
+            print(f"tensor rank {r['rank']} {tag} (gloo through the host on one card: not a "
+                  f"TP speed; {smi}): step 2 {t['step_ms']:.1f} ms (step 1 "
+                  f"{t['first_step_ms']:.1f}), peak {t['peak_memory_bytes'] / 2**30:.2f} GiB, "
+                  f"loss {t['loss']} vs unsharded {t['ref_loss']}")
+    bad = [c for c in checks if not c["identical"]]
+    bad = [f"K1's split entries differ: {bad}"] if bad else []
+    for r in ranks:
+        f, q = r["fp32"], r["pallas"]
+        for what, got, ref in (("loss", f["loss"], f["ref_loss"]),
+                               ("grad norm", f["grad_norm"], f["ref_grad_norm"])):
+            if abs(got - ref) > TP_AGREE["fp32"] * abs(ref):
+                bad.append(f"rank {r['rank']} fp32 {what} {got} vs {ref}")
+        if f["params_rel"] > TP_AGREE["fp32"]:
+            bad.append(f"rank {r['rank']} fp32 updated parameters {f['params_rel']}")
+        gap = abs(q["loss"] - q["ref_loss"]) / abs(q["ref_loss"])
+        q["loss_gap"] = gap
+        if not (math.isfinite(q["loss"]) and gap <= TP_AGREE["pallas"]):
+            bad.append(f"rank {r['rank']} quantized loss {q['loss']} vs {q['ref_loss']}")
+        wrong = [c for c in q["linears"] if not c["ok"]]
+        if wrong or len(q["linears"]) != 7 * TP_LAYERS:
+            bad.append(f"rank {r['rank']} linears {wrong} of {len(q['linears'])}")
+        got = {k: q["launches"][k] for k in want}
+        if got != want:
+            bad.append(f"rank {r['rank']} launches {got}, expected {want}")
+    print(f"tensor ({smi}): {TP_ARCH} {TP_CUT}, model axis {TP_AXIS} on cuda:0 over gloo: "
+          f"quantized loss gap {[r['pallas']['loss_gap'] for r in ranks]}, fp32 parameters "
+          f"{[r['fp32']['params_rel'] for r in ranks]} (worst element "
+          f"{[r['fp32']['params_worst_abs'] for r in ranks]}, worst tensor "
+          f"{[r['fp32']['params_worst_rel'] for r in ranks]}), launches {want} per rank")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return ranks[0]["pallas"]["launches"], rows
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -3103,12 +3484,14 @@ def main() -> int:
 
     rows, launches, serve_launches, lm_train_launches_, sweep_launches = [], {}, {}, {}, {}
     parallel_launches: dict = {}
+    tensor_launches: dict = {}
     for name, phase in (("kernels", phase_kernels), ("tune", phase_tune), ("train", phase_train),
                         ("trace", phase_trace), ("agree", phase_agree),
                         ("audit", phase_audit), ("zoo", phase_zoo),
                         ("fake_quant", phase_fakequant), ("driver", phase_driver),
                         ("serve", phase_serve), ("lm_train", phase_lm_train),
-                        ("sweep", phase_sweep), ("parallel", phase_parallel)):
+                        ("sweep", phase_sweep), ("parallel", phase_parallel),
+                        ("tensor", phase_tensor)):
         t = time.perf_counter()
         try:
             out = phase(results)
@@ -3127,6 +3510,11 @@ def main() -> int:
                 sweep_launches = out
             elif name == "parallel":
                 parallel_launches = out
+            elif name == "tensor":
+                tensor_launches, tensor_rows = out
+                rows += tensor_rows
+                # the split entries' path is the tensor phase's (per rank)
+                launches.update({k: tensor_launches[k] for k in TP_ENTRIES})
         except Exception:
             traceback.print_exc()
             failures.append(name)
@@ -3154,9 +3542,11 @@ def main() -> int:
                             sweep_launches={c: n.get(r["name"], 0)
                                             for c, n in sweep_launches.items()},
                             parallel_launches=parallel_launches.get(r["name"], 0),
+                            tensor_launches=tensor_launches.get(r["name"], 0),
                             max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=None, shape=r["shape"],
+                            bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+                            shape=r["shape"],
                             **{k: r[k] for k in ("im2col_ms", "kernel_ms") if k in r}))
     missing = [k for k in KERNELS if not any(r["name"] == k for r in kernels)]
     if missing or any(launches.get(k, 0) == 0 for k in KERNELS):

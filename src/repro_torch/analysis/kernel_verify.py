@@ -31,9 +31,10 @@ Entry points: :func:`verify_spec` (one launch), :func:`verify_entry` (a
 ``KERNEL_REGISTRY`` entry: every launch one forward, plus backward, makes),
 :func:`verify_candidate`, :func:`verify_quantize_candidate` and
 :func:`verify_implicit_conv_candidate` (legality oracles for an autotuner),
-and :func:`run_kernel_audit` (the ``--kernels`` section of
-``python -m repro_torch.analysis.audit``, with the ``--sabotage`` negative
-controls).
+:func:`tensor_parallel_specs` (K1's split entries at a tensor-parallel
+step's sharded operands), and :func:`run_kernel_audit` (the ``--kernels``
+section of ``python -m repro_torch.analysis.audit``, with the
+``--sabotage`` negative controls).
 """
 from __future__ import annotations
 
@@ -604,6 +605,54 @@ _SABOTAGE_BUILDERS = {
 }
 
 
+# the tensor-parallel step the audit proves K1's split entries at: chatglm3-6b
+# at a model axis of 2, 4096 tokens (batch 1 x 4096, the chip smoke's)
+TP_AUDIT = ("chatglm3-6b", 2, 4096)
+
+
+def tensor_parallel_specs(cfg, model_axis: int, tokens: int,
+                          device: str = "cpu") -> list[tuple[LaunchSpec, int]]:
+    """The launches of K1's split entries (pass A, then pass B over the
+    all-reduced max) on every sharded GEMM operand of one layer's linears
+    in a tensor-parallel training step of ``cfg`` (the quantized backend's
+    padded 2-D operands, ``tokens`` rows of activations), on the first and
+    the last rank of the model axis (the uneven splits differ), with the
+    tile cache's K1 choices."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.parallel.tensor import tp_layout
+
+    qcfg = dataclasses.replace(cfg, quant_backend="pallas").qcfg()
+    kb, fmt = qcfg.k_block, qcfg.fmt
+    full = {k: tuple(t.shape) for k, t in abstract_params(cfg).items()}
+    layout = tp_layout(cfg, full, model_axis)
+
+    def pad(n: int) -> int:
+        return -(-n // kb) * kb
+
+    shapes = collections.Counter()
+    for name, sp in layout.items():
+        if not name.startswith("layers.0.") or not name.endswith(".w"):
+            continue
+        d_in, d_out = full[name]
+        for a, b in {sp.bounds[0], sp.bounds[-1]}:
+            n = b - a
+            if sp.dim == 1:  # column-parallel: w^T, the error and its transpose
+                shapes.update([(n, pad(d_in)), (tokens, pad(n)), (d_in, pad(n)),
+                               (n, pad(tokens))])
+            else:  # row-parallel: x, w^T, w and x^T
+                shapes.update([(tokens, pad(n)), (d_out, pad(n)), (n, pad(d_out)),
+                               (n, pad(tokens))])
+    specs = collections.Counter()
+    for (rows, cols), k in shapes.items():
+        config = autotune.resolve_block_config("quantize", (rows, cols), fmt, "nc",
+                                               k_block=kb, device=device)
+        _, (_, _, width, variant, parts) = quantize_launch(rows, cols, kb, "nc", config)
+        specs.update({(("mls_quantize_rows_amax", device, rows * cols, parts)): k,
+                      (("mls_quantize_rows_codes", device, rows, cols, width, variant, 1)): k})
+    return recorded_specs(specs)
+
+
 def run_kernel_audit(sabotage: str | None = None, device: str = "cuda",
                      recorded: dict[str, list[tuple[LaunchSpec, int]]] | None = None) -> dict:
     """Verify every ``KERNEL_REGISTRY`` entry on ``device``, the launches
@@ -612,6 +661,12 @@ def run_kernel_audit(sabotage: str | None = None, device: str = "cuda",
     from repro_torch.kernels.registry import KERNEL_REGISTRY
 
     reports = {name: verify_entry(entry, device) for name, entry in KERNEL_REGISTRY.items()}
+    from repro_torch.configs import get_config
+
+    arch, m, tokens = TP_AUDIT
+    reports[f"tensor_parallel:{arch}@model{m}"] = verify_specs(
+        f"tensor_parallel:{arch}@model{m}",
+        tensor_parallel_specs(get_config(arch), m, tokens, device))
     for name, specs in (recorded or {}).items():
         reports[name] = verify_specs(name, specs)
     if sabotage is not None:

@@ -22,6 +22,13 @@ arithmetic the kernels assume:
   ``wire_fsdp_dim`` in {None, 0, 1}, and a warning for ``packed_wire``
   without ``wire_fsdp_dim``.
 
+* **Tensor parallelism** (:func:`lint_tensor_parallel`): a model config
+  trains under a model axis where it is of the dense family, the axis
+  divides its query heads and its vocabulary, each rank's query heads map
+  onto whole kv heads (kv heads the axis does not divide stay replicated:
+  a warning), and every split keeps its backend's scaling groups whole
+  (``parallel.tensor.tp_layout``).
+
 Pure Python on dataclass fields: it runs on any host.
 """
 from __future__ import annotations
@@ -37,6 +44,7 @@ __all__ = [
     "check_format_pair",
     "lint_quant_config",
     "lint_shipped_presets",
+    "lint_tensor_parallel",
 ]
 
 
@@ -134,3 +142,31 @@ def lint_shipped_presets() -> dict[str, LintResult]:
 
     return {f"train:mls{parse_fmt(s)}": lint_quant_config(preset(parse_fmt(s)))
             for s in DEFAULT_FMTS}
+
+
+def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
+    """Whether the LM config ``cfg`` trains tensor-parallel over a model
+    axis of ``model_axis`` (the module docstring); warnings name the kv
+    heads kept replicated and the dims split unevenly (in whole groups)."""
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.parallel.tensor import rank_heads, tp_layout
+
+    errors: list[str] = []
+    warnings: list[str] = []
+    try:
+        layout = tp_layout(cfg, {k: tuple(t.shape) for k, t in abstract_params(cfg).items()},
+                           model_axis)
+        for rank in range(model_axis):
+            rank_heads(cfg, model_axis, rank)
+    except (NotImplementedError, ValueError) as e:
+        return LintResult([str(e)], warnings)
+    if model_axis > 1 and cfg.n_kv_heads % model_axis:
+        warnings.append(f"{cfg.n_kv_heads} kv heads stay replicated over a model axis of "
+                        f"{model_axis}")
+    uneven = sorted({f"{name.split('.')[-2]} {sp.bounds[0][1] - sp.bounds[0][0]} / "
+                     f"{sp.bounds[-1][1] - sp.bounds[-1][0]}"
+                     for name, sp in layout.items()
+                     if len({b - a for a, b in sp.bounds}) > 1})
+    if uneven:
+        warnings.append(f"split unevenly in whole scaling groups: {uneven}")
+    return LintResult(errors, warnings)

@@ -24,10 +24,20 @@ which the JAX package runs under ``jax.vmap``), each with its own scales:
 The ``"quantized"`` backend (the port's main path) runs the same three
 GEMMs in the quantized domain on the CUDA kernels
 (:mod:`repro_torch.kernels.lowbit_conv`).
+
+Under tensor parallelism (:mod:`repro_torch.parallel.tensor`) a GEMM
+operand may be one rank's slice of the unsharded operand
+(:class:`Sharded`; a linear's three, :class:`LinearSplit`).  It is then
+quantized as the slice of the unsharded operand's quantization: its
+tensor scale is the max over every slice (an all-reduce MAX over the
+slices' ranks), its groups are its own (the split falls on group
+boundaries) and its rounding offsets are the slice of the offsets the
+unsharded operand draws from the same stream.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +56,9 @@ from .quantize import (
 __all__ = [
     "BACKENDS",
     "GROUPINGS",
+    "LinearSplit",
     "QuantConfig",
+    "Sharded",
     "fold_in",
     "lowbit_conv",
     "lowbit_matmul",
@@ -187,6 +199,89 @@ def rounding_generator(
 
 
 # ---------------------------------------------------------------------------
+# Operands sharded over ranks (tensor parallelism)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Sharded:
+    """A GEMM operand that is one rank's slice ``[start, start + n)`` along
+    ``dim`` of an operand whose ``dim`` has ``full`` elements; the other
+    slices lie on the other ranks of ``group`` (a ``torch.distributed``
+    process group; None: the default group)."""
+
+    dim: int
+    start: int
+    full: int
+    group: Any = dataclasses.field(default=None, compare=False)
+
+    def axis(self, ndim: int) -> int:
+        return self.dim % ndim
+
+    def full_shape(self, shape) -> tuple[int, ...]:
+        shape = list(shape)
+        shape[self.axis(len(shape))] = self.full
+        return tuple(shape)
+
+    def take(self, full: torch.Tensor, size: int) -> torch.Tensor:
+        """This rank's ``size`` elements of an unsharded tensor along ``dim``."""
+        return full.narrow(self.axis(full.ndim), self.start, size)
+
+    def transposed(self) -> Sharded:
+        """The same slice of the 2-D operand transposed."""
+        return dataclasses.replace(self, dim=1 - self.axis(2))
+
+    def padded(self, full: int) -> Sharded:
+        """The slice of the operand padded (at its end) to ``full``."""
+        return dataclasses.replace(self, full=full)
+
+    def tensor_max(self, x: torch.Tensor) -> torch.Tensor:
+        """max |x| over every slice: this slice's, all-reduced (MAX) over
+        ``group``; fp32, 0-dim."""
+        import torch.distributed as dist
+
+        m = x.detach().float().abs().amax().reshape(1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        return m[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearSplit:
+    """How one rank holds a linear ``x (..., K) @ w (K, N)`` under tensor
+    parallelism: the shards of the activation ``x``, the weight ``w`` and
+    the back-propagated error ``e`` (..., N), each None where the rank
+    holds the whole operand.  Column-parallel (``w[:, N_r]``): ``w`` on dim
+    1 and ``e`` on its last dim; row-parallel (``w[K_r, :]``): ``x`` on its
+    last dim and ``w`` on dim 0."""
+
+    x: Sharded | None
+    w: Sharded | None
+    e: Sharded | None
+
+    @staticmethod
+    def column(start: int, full: int, group=None) -> LinearSplit:
+        return LinearSplit(None, Sharded(1, start, full, group), Sharded(-1, start, full, group))
+
+    @staticmethod
+    def row(start: int, full: int, group=None) -> LinearSplit:
+        return LinearSplit(Sharded(-1, start, full, group), Sharded(0, start, full, group), None)
+
+
+def _full_shape(shape, shard: Sharded | None) -> tuple[int, ...]:
+    return tuple(shape) if shard is None else shard.full_shape(shape)
+
+
+def _check_split(spec: GroupSpec, shape, shard: Sharded) -> None:
+    """A slice's groups must be the unsharded operand's: the split falls
+    on group boundaries."""
+    full = shard.full_shape(shape)
+    b_local, b_full = spec.resolve(shape), spec.resolve(full)
+    ax = shard.axis(len(shape))
+    if b_local != b_full or shard.start % b_full[ax]:
+        raise ValueError(f"the slice [{shard.start}, {shard.start + shape[ax]}) of dim {ax} "
+                         f"of an operand {full} does not fall on its scaling groups "
+                         f"{b_full}: tensor parallelism splits in whole groups")
+
+
+# ---------------------------------------------------------------------------
 # The fake-quant backend
 # ---------------------------------------------------------------------------
 def _source(key: int | None, cfg: QuantConfig, idx: int, device, r) -> (
@@ -200,11 +295,15 @@ def _source(key: int | None, cfg: QuantConfig, idx: int, device, r) -> (
 
 
 def quantize_operand(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: int | None,
-                     idx: int, r=None, wire: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                     idx: int, r=None, wire: bool = False,
+                     shard: Sharded | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize -> ``(unit-scaled values, fp32 tensor scale)``: the tensor
     scale is factored out of the GEMM (paper Sec. V-B).  ``idx`` is the
     operand's rounding stream at the site (0: activation, 1: weight, 2:
     error); ``r`` gives the offsets instead (see :func:`lowbit_matmul`).
+    ``shard``: ``x`` is that slice of the operand (``spec`` groups the
+    unsharded one); it is quantized as the slice of the unsharded
+    operand's quantization (module docstring).
 
     With ``wire=True`` (a 2-D weight) and ``cfg.wire_fsdp_dim`` set, the
     values pass :func:`repro_torch.parallel.wire_pin` on that dim; with
@@ -213,7 +312,18 @@ def quantize_operand(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: in
     gather then moves 1 B an element.  The round trip is exact."""
     if not cfg.enabled:
         return x.to(torch.float32), torch.ones((), dtype=torch.float32, device=x.device)
-    t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt, _source(key, cfg, idx, x.device, r))
+    if shard is None:
+        t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt, _source(key, cfg, idx, x.device, r))
+    else:
+        if r is not None:
+            raise ValueError("a sharded operand draws its offsets from its stream, not r")
+        _check_split(spec, x.shape, shard)
+        gen = rounding_generator(key, cfg, idx, x.device)
+        offsets = None if gen is None else shard.take(torch.rand(
+            shard.full_shape(x.shape), generator=gen, device=gen.device,
+            dtype=torch.float32) - 0.5, x.shape[shard.axis(x.ndim)])
+        t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt, offsets,
+                         tensor_max=shard.tensor_max(x))
     pin = wire and cfg.wire_fsdp_dim is not None and x.ndim == 2
     if not pin:
         return t.unit_value(), t.s_t
@@ -229,43 +339,50 @@ def quantize_operand(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: in
     return wire_pin(t.unit_value(), cfg.wire_fsdp_dim), t.s_t
 
 
-def _error_spec(cfg: QuantConfig, g: torch.Tensor) -> GroupSpec:
-    """The matmul error's groups: per (row, k-block) for "nc"/"c", else one."""
+def _error_spec(cfg: QuantConfig, shape) -> GroupSpec:
+    """The groups of a matmul error of ``shape``: per (row, k-block) for
+    "nc"/"c", else one."""
     if cfg.grouping in ("nc", "c"):
-        return GroupSpec((1,) * (g.ndim - 1) + (min(cfg.k_block, g.shape[-1]),))
-    return GroupSpec.per_tensor(g.ndim)
+        return GroupSpec((1,) * (len(shape) - 1) + (min(cfg.k_block, shape[-1]),))
+    return GroupSpec.per_tensor(len(shape))
 
 
 class LowbitMatmul(torch.autograd.Function):
-    """``x (..., K) @ w (K, N)`` with MLS fake-quantized operands and error."""
+    """``x (..., K) @ w (K, N)`` with MLS fake-quantized operands and error;
+    with a :class:`LinearSplit`, one rank's part of a tensor-parallel
+    linear (its outputs, or partial sums where the split contracts)."""
 
     @staticmethod
-    def forward(ctx, x, w, key, cfg, r):
-        sx, sw = cfg.matmul_specs(x.shape, w.shape)
-        qx, stx = quantize_operand(x, cfg, sx, key, 0, r)
-        qw, stw = quantize_operand(w, cfg, sw, key, 1, r, wire=True)
+    def forward(ctx, x, w, key, cfg, r, split):
+        sp = split or LinearSplit(None, None, None)
+        sx, sw = cfg.matmul_specs(_full_shape(x.shape, sp.x), _full_shape(w.shape, sp.w))
+        qx, stx = quantize_operand(x, cfg, sx, key, 0, r, shard=sp.x)
+        qw, stw = quantize_operand(w, cfg, sw, key, 1, r, wire=True, shard=sp.w)
         ctx.save_for_backward(qx, stx, qw, stw)
-        ctx.conf = (key, cfg, r, x.dtype, w.dtype)
+        ctx.conf = (key, cfg, r, sp, x.dtype, w.dtype)
         return torch.matmul(qx, qw) * (stx * stw)
 
     @staticmethod
     def backward(ctx, g):
         qx, stx, qw, stw = ctx.saved_tensors
-        key, cfg, r, x_dtype, w_dtype = ctx.conf
-        ge, ste = quantize_operand(g.to(torch.float32), cfg, _error_spec(cfg, g), key, 2, r)
+        key, cfg, r, sp, x_dtype, w_dtype = ctx.conf
+        ge, ste = quantize_operand(g.to(torch.float32), cfg,
+                                   _error_spec(cfg, _full_shape(g.shape, sp.e)), key, 2, r,
+                                   shard=sp.e)
         dx = torch.matmul(ge, qw.t()) * (ste * stw)  # paper l.15: qE @ qW^T
         dw = torch.matmul(qx.reshape(-1, qx.shape[-1]).t(),
                           ge.reshape(-1, ge.shape[-1])) * (ste * stx)  # l.13: qX^T @ qE
-        return dx.to(x_dtype), dw.to(w_dtype), None, None, None
+        return dx.to(x_dtype), dw.to(w_dtype), None, None, None, None
 
 
 def lowbit_matmul(x: torch.Tensor, w: torch.Tensor, key: int | None,
-                  cfg: QuantConfig, r=None) -> torch.Tensor:
+                  cfg: QuantConfig, r=None, split: LinearSplit | None = None) -> torch.Tensor:
     """``x @ w`` with MLS-quantized operands; x: (..., K), w: (K, N).
     ``r``, where given, is ``(r_x, r_w, r_e)``: the rounding offsets of the
     activation, the weight and the error, each of its operand's shape, in
-    place of the streams of ``key``."""
-    return LowbitMatmul.apply(x, w, key, cfg, r)
+    place of the streams of ``key``.  ``split``: the operands are this
+    rank's shards of a tensor-parallel linear (:class:`LinearSplit`)."""
+    return LowbitMatmul.apply(x, w, key, cfg, r, split)
 
 
 # Elements one pass of quantize_stack codes at a time (whole experts): it
@@ -326,7 +443,7 @@ class LowbitMatmulStack(torch.autograd.Function):
         with torch.profiler.record_function(STACK_SPANS[1]):
             qx, stx, qw, stw = ctx.saved_tensors
             key, cfg, r, x_dtype, w_dtype = ctx.conf
-            ge, ste = quantize_stack(g.to(torch.float32), cfg, _error_spec(cfg, g[0]),
+            ge, ste = quantize_stack(g.to(torch.float32), cfg, _error_spec(cfg, g.shape[1:]),
                                      _source(key, cfg, 2, g.device, r))
             dx = torch.matmul(ge, qw.transpose(1, 2)) * (ste * stw)[:, None, None]
             dw = torch.matmul(qx.transpose(1, 2), ge) * (ste * stx)[:, None, None]

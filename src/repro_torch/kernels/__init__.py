@@ -55,6 +55,8 @@ _COUNTERS = (_mls_quantize_mod.LAUNCHES, _mls_matmul_mod.LAUNCHES,
 # C entry point -> its launch descriptors, from the recorded launch arguments
 _LAUNCH_SPECS = {
     "mls_quantize_rows": _mls_quantize_mod.launch_spec_rows,
+    "mls_quantize_rows_amax": _mls_quantize_mod.launch_spec_rows_amax,
+    "mls_quantize_rows_codes": _mls_quantize_mod.launch_spec_rows_codes,
     "mls_quantize_cols": _mls_quantize_mod.launch_spec_cols,
     "mls_quantize_given_sg": _mls_quantize_mod.launch_spec_given_sg,
     "mls_matmul": _mls_matmul_mod.launch_spec,

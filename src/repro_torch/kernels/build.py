@@ -40,6 +40,12 @@ _SIGNATURES = {
     # variant, e, m, e_min, gs_m, gs_emin, stream
     "mls_quantize_rows": [_P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
                           _P],
+    # x, partials, n_partials, amax, n, stream
+    "mls_quantize_rows_amax": [_P, _P, _I, _P, _LL, _P],
+    # x, r_u8, partials, n_partials, s_t, codes, s_g, M, K, group_width,
+    # variant, e, m, e_min, gs_m, gs_emin, stream
+    "mls_quantize_rows_codes": [_P, _P, _P, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I,
+                                _I, _P],
     # x, r_u8, part, n_part, gmax, s_t, codes, s_g, M, K, group_width, vec,
     # e, m, e_min, gs_m, gs_emin, stream
     "mls_quantize_cols": [_P, _P, _P, _LL, _P, _P, _P, _P, _LL, *[_I] * 8, _P],

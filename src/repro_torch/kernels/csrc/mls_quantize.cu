@@ -25,6 +25,12 @@
 //     group does not fit the block's registers, so it reads x twice, the
 //     second time mostly from L2.  Widths that are not a multiple of 4
 //     (or unaligned operands) take the same kernels with scalar accesses.
+// Under tensor parallelism a sharded operand's tensor scale is the max over
+// every rank's slice, so K1 also runs as two C calls with an all-reduce
+// between them: mls_quantize_rows_amax (pass A, then one block reduces the
+// partials to the slice's max |x|) and mls_quantize_rows_codes (pass B
+// reading given partials: the all-reduced max, n_partials 1).  Max is exact
+// in any order, so given the same max the codes are the one-call entry's.
 // K2 ("c": a group is k_block columns over all rows; "none": one group)
 // makes its scales on the card too, in one C call (mls_quantize_cols) and
 // no PyTorch op; the TPU computed them in XLA before its pallas_call:
@@ -97,6 +103,16 @@ __global__ void __launch_bounds__(kThreads) quantize_amax(const float* __restric
   }
   m = mls::block_max<kThreads>(m, red);
   if (threadIdx.x == 0) partials[blockIdx.x] = m;
+}
+
+// The split entry's reduction: *amax = max of the n partials (NaN kept).
+__global__ void __launch_bounds__(kThreads) quantize_partials_max(
+    const float* __restrict__ partials, int n, float* __restrict__ amax) {
+  __shared__ float red[kWarps + 1];
+  float m = 0.0f;
+  for (int i = threadIdx.x; i < n; i += kThreads) m = mls::nan_max(m, partials[i]);
+  m = mls::block_max<kThreads>(m, red);
+  if (threadIdx.x == 0) *amax = m;
 }
 
 // Pass B's prologue: s_t from pass A's partials (0 -> 1, NaN -> 1, as
@@ -410,22 +426,12 @@ extern "C" const char* mls_error_string(int code) {
 // group (quantize_groups_block, any width).  Max is exact in any order, so
 // every grid and variant gives the same bits.  r == nullptr rounds to
 // nearest (offset 0) and reads no bytes.
-extern "C" int mls_quantize_rows(const float* x, const uint8_t* r, float* partials,
-                                 int n_partials, float* s_t, uint8_t* codes, float* s_g,
-                                 long long M, long long K, int group_width, int variant,
-                                 int e, int m, int e_min, int gs_m, int gs_emin,
-                                 void* stream) {
-  const long long n = M * K;
-  if (group_width <= 0 || K % group_width || n_partials < 1 || n_partials > kAmaxBlocks)
-    return (int)cudaErrorInvalidValue;
-  if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
-  if (variant == 0 && group_width > kWarpGroupMax) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaGetLastError();
-  const mls::Fmt f = make_fmt(e, m, e_min, gs_m, gs_emin);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  quantize_amax<<<n_partials, kThreads, 0, s>>>(x, n, aligned(x, 16), partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+namespace {
+
+// Pass B of K1 over given partials (see mls_quantize_rows).
+int rows_codes(const float* x, const uint8_t* r, const float* partials, int n_partials,
+               float* s_t, uint8_t* codes, float* s_g, long long M, long long K,
+               int group_width, int variant, const mls::Fmt& f, cudaStream_t s) {
   const long long groups = M * (K / group_width);
   const bool vec = group_width % 4 == 0 && aligned(x, 16) && aligned(r, 4) &&
                    aligned(codes, 4);
@@ -446,6 +452,66 @@ extern "C" int mls_quantize_rows(const float* x, const uint8_t* r, float* partia
         x, r, partials, n_partials, s_t, codes, s_g, K, group_width, vec, f);
   }
   return (int)cudaGetLastError();
+}
+
+bool rows_args_ok(long long K, int group_width, int n_partials, int variant) {
+  return group_width > 0 && K % group_width == 0 && n_partials >= 1 &&
+         n_partials <= kAmaxBlocks && (variant == 0 || variant == 1) &&
+         !(variant == 0 && group_width > kWarpGroupMax);
+}
+
+}  // namespace
+
+// K1: pass A into `partials` (n_partials floats, 1 to kAmaxBlocks: pass
+// A's grid; the wrapper's default is min(kAmaxBlocks, ceil(M*K /
+// kAmaxChunk))), then pass B, which stores s_t, the codes and the (M, K /
+// group_width) group scales.  variant: 0 a warp per group
+// (quantize_groups_warp, group_width <= kWarpGroupMax), 1 a block per
+// group (quantize_groups_block, any width).  Max is exact in any order, so
+// every grid and variant gives the same bits.  r == nullptr rounds to
+// nearest (offset 0) and reads no bytes.
+extern "C" int mls_quantize_rows(const float* x, const uint8_t* r, float* partials,
+                                 int n_partials, float* s_t, uint8_t* codes, float* s_g,
+                                 long long M, long long K, int group_width, int variant,
+                                 int e, int m, int e_min, int gs_m, int gs_emin,
+                                 void* stream) {
+  const long long n = M * K;
+  if (!rows_args_ok(K, group_width, n_partials, variant)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  quantize_amax<<<n_partials, kThreads, 0, s>>>(x, n, aligned(x, 16), partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return rows_codes(x, r, partials, n_partials, s_t, codes, s_g, M, K, group_width, variant,
+                    make_fmt(e, m, e_min, gs_m, gs_emin), s);
+}
+
+// K1's pass A alone, for a slice of a sharded operand: quantize_amax into
+// `partials` (n_partials floats, as mls_quantize_rows), then one block of
+// quantize_partials_max stores their max, the slice's max |x|, in *amax.
+extern "C" int mls_quantize_rows_amax(const float* x, float* partials, int n_partials,
+                                      float* amax, long long n, void* stream) {
+  if (n <= 0 || n_partials < 1 || n_partials > kAmaxBlocks) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  quantize_amax<<<n_partials, kThreads, 0, s>>>(x, n, aligned(x, 16), partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  quantize_partials_max<<<1, kThreads, 0, s>>>(partials, n_partials, amax);
+  return (int)cudaGetLastError();
+}
+
+// K1's pass B alone: the codes, group scales and s_t of x against the max
+// in `partials` (n_partials floats; 1 after the caller's all-reduce), with
+// mls_quantize_rows' variants.
+extern "C" int mls_quantize_rows_codes(const float* x, const uint8_t* r, const float* partials,
+                                       int n_partials, float* s_t, uint8_t* codes,
+                                       float* s_g, long long M, long long K, int group_width,
+                                       int variant, int e, int m, int e_min, int gs_m,
+                                       int gs_emin, void* stream) {
+  if (!rows_args_ok(K, group_width, n_partials, variant) || M * K <= 0)
+    return (int)cudaErrorInvalidValue;
+  return rows_codes(x, r, partials, n_partials, s_t, codes, s_g, M, K, group_width, variant,
+                    make_fmt(e, m, e_min, gs_m, gs_emin), static_cast<cudaStream_t>(stream));
 }
 
 // K2, the scales and the codes of grouping "c" (group_width = k_block,

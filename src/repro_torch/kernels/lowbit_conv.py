@@ -28,14 +28,27 @@ Padding follows JAX's rule, which pads "SAME" asymmetrically at stride 2
 (lo 0, hi 1 on ResNet-20's 3x3/stride-2 convs): ``implicit_conv.conv_pads``
 resolves it and ``F.pad`` applies it, since ``F.unfold`` pads only
 symmetrically.
+
+Under tensor parallelism (:class:`~repro_torch.core.lowbit.LinearSplit`)
+each operand of a linear's three GEMMs that is one rank's slice of the
+unsharded operand is quantized as that slice of the unsharded operand's
+quantization: the rounding bytes are the slice of the bytes the unsharded
+operand draws from the same stream, and its tensor scale comes from the max
+|x| over every slice (K1 in two calls with an all-reduce MAX between them);
+the split falls on ``k_block`` boundaries, so its group scales are its own.
+A column-parallel linear's forward and weight gradient are then the slices
+of the unsharded ones bit for bit, and its data gradient a partial sum over
+its groups; a row-parallel linear's the other way round.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.formats import EMFormat
-from repro_torch.core.lowbit import QuantConfig, rounding_generator
+from repro_torch.core.lowbit import LinearSplit, QuantConfig, Sharded, rounding_generator
 
 from .implicit_conv import (
     conv_geometry,
@@ -72,6 +85,8 @@ def qd_gemm(
     gs_fmt: EMFormat,
     k_block: int,
     grouping: str,
+    x_shard: Sharded | None = None,
+    w_shard: Sharded | None = None,
 ) -> torch.Tensor:
     """Quantize ``x (M, K)`` / ``w (K, N)`` dynamically and contract.
 
@@ -82,7 +97,8 @@ def qd_gemm(
     views: exactly the GEMM-side compact layout for every grouping.  K3's
     plan resolves through the tile cache on the logical (M, K, N), as the
     JAX package's tiles do (:func:`_gemm_plan`); each quantizer on its own
-    operand.
+    operand.  ``x_shard`` / ``w_shard``: the operand is that slice of an
+    unsharded one (a dim of ``x2d`` / ``w2d``; module docstring).
     """
     M, K = x2d.shape
     if w2d.shape[0] != K:
@@ -91,11 +107,36 @@ def qd_gemm(
     pk = (-K) % k_block
     xp = F.pad(x2d.float(), (0, pk)).contiguous()
     wt = F.pad(w2d.float().t(), (0, pk)).contiguous()  # (N, K + pk)
-    xc, xsg, xst = mls_quantize(xp, fmt, k_block, gs_fmt,
-                                rounding_bytes(xp.shape, gen_x, xp.device), grouping)
-    wc, wsgT, wst = mls_quantize(wt, fmt, k_block, gs_fmt,
-                                 rounding_bytes(wt.shape, gen_w, wt.device), grouping)
+    xc, xsg, xst = _quantize(xp, K, x_shard, gen_x, fmt, k_block, gs_fmt, grouping)
+    wc, wsgT, wst = _quantize(wt, K, None if w_shard is None else w_shard.transposed(), gen_w,
+                              fmt, k_block, gs_fmt, grouping)
     return mls_matmul(xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, k_block, grouping, plan=plan)
+
+
+def _quantize(xp: torch.Tensor, K: int, shard: Sharded | None, gen, fmt, k_block: int,
+              gs_fmt, grouping: str):
+    """K1/K2 on ``qd_gemm``'s padded (rows, K + pad) operand; a slice of a
+    sharded one (``shard`` on dim 0, or on dim 1, the contraction, whose
+    unsharded width ``full`` pads to ``k_block`` as the unsharded operand
+    does) takes the slice of the unsharded operand's bytes and the
+    all-reduced tensor scale."""
+    if shard is None:
+        return mls_quantize(xp, fmt, k_block, gs_fmt, rounding_bytes(xp.shape, gen, xp.device),
+                            grouping)
+    if shard.axis(2) == 1:
+        if shard.start % k_block or (K % k_block and shard.start + K != shard.full):
+            raise ValueError(f"the contraction slice [{shard.start}, {shard.start + K}) of "
+                             f"{shard.full} does not fall on k_block={k_block} boundaries")
+        shard = shard.padded(shard.full + (-shard.full) % k_block)
+    if gen is None:
+        r = rounding_bytes(xp.shape, None, xp.device)
+    else:
+        r = shard.take(rounding_bytes(shard.full_shape(xp.shape), gen, xp.device),
+                       xp.shape[shard.axis(2)]).contiguous()
+    import torch.distributed as dist
+
+    return mls_quantize(xp, fmt, k_block, gs_fmt, r, grouping,
+                        group=dist.group.WORLD if shard.group is None else shard.group)
 
 
 def _gemm_plan(M: int, K: int, N: int, fmt: EMFormat, k_block: int, grouping: str, device):
@@ -238,41 +279,64 @@ def lowbit_conv_fused(x, w, key, stride, padding, cfg: QuantConfig) -> torch.Ten
 # ---------------------------------------------------------------------------
 # Fused matmul with the same three-GEMM quantized-domain training semantics
 # ---------------------------------------------------------------------------
-def _mm_fwd_impl(x, w, key, cfg: QuantConfig):
+_WHOLE = LinearSplit(None, None, None)
+
+
+def _2d(shard: Sharded | None) -> Sharded | None:
+    """A shard of the last dim of an (..., n) operand, on its 2-D (rows, n) view."""
+    return None if shard is None else dataclasses.replace(shard, dim=1)
+
+
+def _t(shard: Sharded | None) -> Sharded | None:
+    return None if shard is None else shard.transposed()
+
+
+def _mm_fwd_impl(x, w, key, cfg: QuantConfig, split: LinearSplit = _WHOLE):
     y2d = qd_gemm(
         x.reshape(-1, x.shape[-1]), w.float(),
         rounding_generator(key, cfg, 0, x.device), rounding_generator(key, cfg, 1, x.device),
-        **_gemm_kwargs(cfg),
+        **_gemm_kwargs(cfg), x_shard=_2d(split.x), w_shard=split.w,
     )
     return y2d.reshape(*x.shape[:-1], w.shape[1])
 
 
-def _mm_bwd_impl(x, w, g, key, cfg: QuantConfig):
+def _mm_bwd_impl(x, w, g, key, cfg: QuantConfig, split: LinearSplit = _WHOLE):
     x2d = x.reshape(-1, x.shape[-1]).float()
     e2d = g.reshape(-1, g.shape[-1]).float()
     gen = [rounding_generator(key, cfg, i, x.device) for i in range(2, 6)]
     kwargs = _gemm_kwargs(cfg)
-    dx2d = qd_gemm(e2d, w.float().t(), gen[0], gen[1], **kwargs)  # dX = qE @ qW^T
-    dw = qd_gemm(x2d.t(), e2d, gen[2], gen[3], **kwargs)  # dW = qX^T @ qE
+    e_sh = _2d(split.e)
+    # dX = qE @ qW^T
+    dx2d = qd_gemm(e2d, w.float().t(), gen[0], gen[1], **kwargs, x_shard=e_sh,
+                   w_shard=_t(split.w))
+    # dW = qX^T @ qE
+    dw = qd_gemm(x2d.t(), e2d, gen[2], gen[3], **kwargs, x_shard=_t(_2d(split.x)),
+                 w_shard=e_sh)
     return dx2d.reshape(x.shape), dw
 
 
 class LowbitMatmulQD(torch.autograd.Function):
     """``x (..., K) @ w (K, N)`` with all three training GEMMs in the MLS
-    quantized domain: the linear-layer analogue of :class:`LowbitConvFused`."""
+    quantized domain: the linear-layer analogue of :class:`LowbitConvFused`.
+    With a :class:`~repro_torch.core.lowbit.LinearSplit`, one rank's part of
+    a tensor-parallel linear (its outputs, or partial sums where the split
+    contracts)."""
 
     @staticmethod
-    def forward(ctx, x, w, key, cfg):
+    def forward(ctx, x, w, key, cfg, split):
         ctx.save_for_backward(x, w)
-        ctx.conf = (key, cfg)
-        return _mm_fwd_impl(x, w, key, cfg)
+        ctx.conf = (key, cfg, split or _WHOLE)
+        return _mm_fwd_impl(x, w, key, cfg, split or _WHOLE)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = _mm_bwd_impl(x, w, g, *ctx.conf)
-        return dx.to(x.dtype), dw.to(w.dtype), None, None
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None
 
 
-def lowbit_matmul_qd(x, w, key, cfg: QuantConfig) -> torch.Tensor:
-    return LowbitMatmulQD.apply(x, w, key, cfg)
+def lowbit_matmul_qd(x, w, key, cfg: QuantConfig, split: LinearSplit | None = None
+                     ) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` -> fp32 on K1 and K3 (:class:`LowbitMatmulQD`);
+    ``split``: this rank's shards of a tensor-parallel linear."""
+    return LowbitMatmulQD.apply(x, w, key, cfg, split)

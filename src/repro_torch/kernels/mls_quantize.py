@@ -11,13 +11,20 @@ passes make the tensor and group scales on the card before its code pass.
 On a CPU tensor it runs the plain version,
 :func:`repro_torch.kernels.ref.quantize_ref`.  :func:`quantize_given_scales`
 is K2's code pass alone, for callers that bring their scales (the
-implicit conv's code reuse).  :func:`launch_spec_rows`,
+implicit conv's code reuse).  Given a process ``group`` (tensor
+parallelism: ``x`` is one rank's slice of an operand split over the
+group's ranks), K1 runs as two C calls, its pass A
+(``mls_quantize_rows_amax``) and its pass B (``mls_quantize_rows_codes``),
+with an all-reduce MAX of the slice's max |x| between them, so that the
+tensor scale is the unsharded operand's.  :func:`launch_spec_rows`,
+:func:`launch_spec_rows_amax`, :func:`launch_spec_rows_codes`,
 :func:`launch_spec_cols` and :func:`launch_spec_given_sg` describe the
 launches for the static verifier.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -36,16 +43,23 @@ __all__ = [
     "launch_spec_cols",
     "launch_spec_given_sg",
     "launch_spec_rows",
+    "launch_spec_rows_amax",
+    "launch_spec_rows_codes",
     "mls_quantize",
     "quantize_launch",
     "quantize_given_scales",
+    "quantize_rows_split",
     "rounding_bytes",
+    "rows_amax",
+    "rows_codes",
 ]
 
 # Launches of each kernel, counted where its C entry point is called: K1
-# ("mls_quantize_rows") and K2 (both of its entry points, mls_quantize_cols
-# and mls_quantize_given_sg, under K2's name "mls_quantize_given_sg").
-LAUNCHES = {"mls_quantize_rows": 0, "mls_quantize_given_sg": 0}
+# ("mls_quantize_rows"), K1's two split entries under their own names, and
+# K2 (both of its entry points, mls_quantize_cols and
+# mls_quantize_given_sg, under K2's name "mls_quantize_given_sg").
+LAUNCHES = {"mls_quantize_rows": 0, "mls_quantize_rows_amax": 0, "mls_quantize_rows_codes": 0,
+            "mls_quantize_given_sg": 0}
 
 # csrc/mls_quantize.cu's launch constants (mls_quantize_constants)
 TILE = {"kThreads": 256, "kWarpGroupMax": 1024, "kAmaxBlocks": 2 * 132,
@@ -79,6 +93,7 @@ def mls_quantize(
     grouping: str = "nc",
     config: autotune.BlockConfig | None = None,
     exact_nearest: bool = False,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Quantize a contiguous float32 ``(M, K)`` operand to packed MLS codes.
 
@@ -93,10 +108,18 @@ def mls_quantize(
     (K1's groupings "nc" and "n", no ``r_u8``) rounds to nearest with no
     offset and reads no bytes: ``quantize_ref`` without bytes, the JAX
     package's ``core.mls_quantize`` without a key, where the constant byte
-    127 is its Pallas kernel's nearest.
+    127 is its Pallas kernel's nearest.  ``group`` (K1's groupings): ``x``
+    is one rank's slice of an operand split over the ranks of this
+    ``torch.distributed`` process group, and its tensor scale is made from
+    the max |x| over every slice (the module docstring); every rank of the
+    group must call this together.
     """
     if grouping not in GROUPINGS:
         raise ValueError(f"unknown grouping {grouping!r}; expected one of {GROUPINGS}")
+    if group is not None and (grouping not in ("nc", "n") or exact_nearest):
+        raise ValueError(f"a sharded operand takes K1's groupings 'nc' or 'n' with rounding "
+                         f"bytes, not {grouping!r} (exact_nearest={exact_nearest}): K2's "
+                         f"column groups would span the ranks")
     if fmt.element_bits > 8:
         raise ValueError(f"{fmt} does not fit an 8-bit code")
     if x.ndim != 2 or x.dtype != torch.float32 or not x.is_contiguous():
@@ -118,6 +141,9 @@ def mls_quantize(
     if config is None:
         config = autotune.resolve_block_config("quantize", (M, K), fmt, grouping,
                                                k_block=k_block, device=x.device)
+    if group is not None:
+        return quantize_rows_split(x, fmt, k_block, gs_fmt, r_u8, grouping, config,
+                                   functools.partial(_all_reduce_max, group=group))
     if x.device.type == "cpu":
         kernel, args = quantize_launch(M, K, k_block, grouping, config)  # what the card runs
         launch.record(kernel, "cpu", *args)
@@ -144,6 +170,96 @@ def mls_quantize(
         launch.record("mls_quantize_rows", "cuda", M, K, width, variant, parts)
         return codes, s_g, s_t
     return _quantize_cols(x, fmt, k_block if grouping == "c" else K, gs_fmt, r_u8)
+
+
+def quantize_rows_split(
+    x: torch.Tensor,
+    fmt: EMFormat,
+    k_block: int = 128,
+    gs_fmt: EMFormat = GS_FMT_DEFAULT,
+    r_u8: torch.Tensor | None = None,
+    grouping: str = "nc",
+    config: autotune.BlockConfig | None = None,
+    reduce_amax=None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 in two C calls: pass A (``mls_quantize_rows_amax``: the partial
+    maxima and their max, ``x``'s max |x|, a (1,) fp32 tensor), then
+    ``reduce_amax`` of that max (in place or returned: the max over every
+    slice of a sharded operand; None keeps ``x``'s own), then pass B
+    (``mls_quantize_rows_codes``) against it.  The arguments and results are
+    :func:`mls_quantize`'s (groupings "nc" and "n"; ``config`` K1's variant
+    and pass-A grid); with ``x``'s own max, its bits.  On a CPU tensor the
+    plain version, ``quantize_ref`` with the given max."""
+    if grouping not in ("nc", "n"):
+        raise ValueError(f"K1's split entries take groupings 'nc' or 'n', not {grouping!r}")
+    if (x.ndim != 2 or x.dtype != torch.float32 or not x.is_contiguous()
+            or x.shape[1] % k_block):
+        raise ValueError(f"quantize_rows_split takes a contiguous float32 (M, K) tensor with "
+                         f"K a multiple of k_block={k_block}, got {x.dtype} {tuple(x.shape)}")
+    M, K = x.shape
+    if r_u8 is None:
+        r_u8 = rounding_bytes((M, K), None, x.device)
+    if (r_u8.shape != x.shape or r_u8.dtype != torch.uint8 or r_u8.device != x.device
+            or not r_u8.is_contiguous()):
+        raise ValueError("r_u8 must be a contiguous uint8 tensor of x's shape and device")
+    if config is None:
+        config = autotune.resolve_block_config("quantize", (M, K), fmt, grouping,
+                                               k_block=k_block, device=x.device)
+    _, (_, _, width, variant, parts) = quantize_launch(M, K, k_block, grouping, config)
+    reduce_amax = reduce_amax or (lambda a: a)
+    if x.device.type == "cpu":
+        launch.record("mls_quantize_rows_amax", "cpu", M * K, parts)
+        launch.record("mls_quantize_rows_codes", "cpu", M, K, width, variant, 1)
+        with launch.plain_version():
+            amax = reduce_amax(x.abs().amax().reshape(1))
+            return quantize_ref(x, fmt, k_block, gs_fmt, r_u8, grouping, amax=amax)
+    if x.device.type != "cuda" or x.numel() == 0:
+        raise ValueError(f"quantize_rows_split runs on non-empty cuda or cpu tensors, not "
+                         f"{x.device} {tuple(x.shape)}")
+    amax = reduce_amax(rows_amax(x, parts))
+    return rows_codes(x, r_u8, amax, fmt, width, variant, gs_fmt)
+
+
+def rows_amax(x: torch.Tensor, parts: int) -> torch.Tensor:
+    """K1's split pass A on the card (``mls_quantize_rows_amax``): ``x``'s
+    max |x|, a (1,) fp32 tensor, through ``parts`` partial maxima."""
+    M, K = x.shape
+    partials = torch.empty((parts,), dtype=torch.float32, device=x.device)
+    amax = torch.empty((1,), dtype=torch.float32, device=x.device)
+    build.check(build.library().mls_quantize_rows_amax(
+        x.data_ptr(), partials.data_ptr(), parts, amax.data_ptr(), M * K,
+        torch.cuda.current_stream(x.device).cuda_stream), "mls_quantize_rows_amax")
+    LAUNCHES["mls_quantize_rows_amax"] += 1
+    launch.record("mls_quantize_rows_amax", "cuda", M * K, parts)
+    return amax
+
+
+def rows_codes(x: torch.Tensor, r_u8: torch.Tensor, amax: torch.Tensor, fmt: EMFormat,
+               width: int, variant: str, gs_fmt: EMFormat = GS_FMT_DEFAULT
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's split pass B on the card (``mls_quantize_rows_codes``): the
+    codes, group scales (``width``-wide groups, ``variant``) and tensor
+    scale of ``x`` against the max in ``amax`` (a (1,) fp32 tensor)."""
+    M, K = x.shape
+    dev = x.device
+    s_t = torch.empty((), dtype=torch.float32, device=dev)
+    codes = torch.empty((M, K), dtype=torch.uint8, device=dev)
+    s_g = torch.empty((M, K // width), dtype=torch.float32, device=dev)
+    build.check(build.library().mls_quantize_rows_codes(
+        x.data_ptr(), r_u8.data_ptr(), amax.data_ptr(), 1, s_t.data_ptr(), codes.data_ptr(),
+        s_g.data_ptr(), M, K, width, _ROW_VARIANTS.index(variant), *_fmt_args(fmt, gs_fmt),
+        torch.cuda.current_stream(dev).cuda_stream), "mls_quantize_rows_codes")
+    LAUNCHES["mls_quantize_rows_codes"] += 1
+    launch.record("mls_quantize_rows_codes", "cuda", M, K, width, variant, 1)
+    return codes, s_g, s_t
+
+
+def _all_reduce_max(amax: torch.Tensor, group) -> torch.Tensor:
+    """The max of a (1,) fp32 tensor over the ranks of ``group``, in place."""
+    import torch.distributed as dist
+
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    return amax
 
 
 def _vec(K: int, group_width: int, *tensors: torch.Tensor) -> int:
@@ -282,6 +398,30 @@ def _amax_spec(n: int, t: dict[str, int], parts: int | None = None) -> LaunchSpe
         active=lambda b, s: s * parts + b < chunks)
 
 
+def launch_spec_rows_amax(n: int, amax_blocks: int,
+                          device_type: str = "cpu") -> tuple[LaunchSpec, LaunchSpec]:
+    """K1's pass A alone on an operand of ``n`` elements
+    (``mls_quantize_rows_amax``), two launches: ``quantize_amax``
+    (:func:`_amax_spec`, ``amax_blocks`` partials), then one block of
+    ``quantize_partials_max`` that reads them all and writes their max."""
+    t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
+    amax = _amax_spec(n, t, amax_blocks)
+    reduce = LaunchSpec(
+        kernel="quantize_partials_max", grid=(("block", 1),), sequential=0,
+        operands=(Operand("outputs[0]", "partials", (amax_blocks,), (amax_blocks,),
+                          lambda b: (0,)),
+                  Operand("outputs[1]", "amax", (1,), (1,), lambda b: (0,), output=True)))
+    return amax, reduce
+
+
+def launch_spec_rows_codes(M: int, K: int, group_width: int, variant: str, n_partials: int,
+                           device_type: str = "cpu") -> LaunchSpec:
+    """K1's pass B alone (``mls_quantize_rows_codes``) over ``n_partials``
+    given partial maxima: the second launch of :func:`launch_spec_rows`."""
+    t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
+    return _rows_codes_spec(M, K, group_width, variant, n_partials, t)
+
+
 def launch_spec_rows(M: int, K: int, group_width: int, variant: str | None = None,
                      amax_blocks: int | None = None,
                      device_type: str = "cpu") -> tuple[LaunchSpec, LaunchSpec]:
@@ -303,8 +443,12 @@ def launch_spec_rows(M: int, K: int, group_width: int, variant: str | None = Non
     """
     t = launch.tile_constants("mls_quantize_constants", TILE, device_type)
     amax = _amax_spec(M * K, t, amax_blocks)
-    parts = amax.shape[0]
+    return amax, _rows_codes_spec(M, K, group_width, variant, amax.shape[0], t)
 
+
+def _rows_codes_spec(M: int, K: int, group_width: int, variant: str | None, parts: int,
+                     t: dict[str, int]) -> LaunchSpec:
+    """K1's pass B over ``parts`` partial maxima (:func:`launch_spec_rows`)."""
     ng = K // group_width
     groups = M * ng
     if variant is None:
@@ -329,7 +473,7 @@ def launch_spec_rows(M: int, K: int, group_width: int, variant: str | None = Non
         return g // ng, g % ng
 
     blk = (1, group_width)
-    codes = LaunchSpec(
+    return LaunchSpec(
         kernel=kernel, grid=grid, sequential=sequential,
         operands=(Operand("args[0]", "x", (M, K), blk, group),
                   Operand("args[1]", "r_u8", (M, K), blk, group),
@@ -337,7 +481,6 @@ def launch_spec_rows(M: int, K: int, group_width: int, variant: str | None = Non
                   Operand("outputs[2]", "codes", (M, K), blk, group, output=True),
                   Operand("outputs[3]", "s_g", (M, ng), (1, 1), group, output=True)),
         active=lambda *c: gid(*c) < groups)
-    return amax, codes
 
 
 @dataclasses.dataclass(frozen=True)

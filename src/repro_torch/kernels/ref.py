@@ -58,6 +58,7 @@ def quantize_ref(
     gs_fmt: EMFormat = GS_FMT_DEFAULT,
     r_u8: torch.Tensor | None = None,
     grouping: str = "nc",
+    amax: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dynamic quantization of a 2-D operand ``(M, K)`` (paper Alg. 2).
 
@@ -65,7 +66,9 @@ def quantize_ref(
     round-to-nearest).  Returns ``(codes u8 (M, K), s_g f32, s_t f32
     scalar)``: ``codes`` packs ``sign|exp|man``, ``s_g`` is in the
     grouping's compact layout (``"nc"`` (M, K/k_block), ``"c"``
-    (1, K/k_block), ``"n"`` (M, 1), ``"none"`` (1, 1)).
+    (1, K/k_block), ``"n"`` (M, 1), ``"none"`` (1, 1)).  ``amax``, where
+    given, is the max |x| the tensor scale is made from in place of
+    ``x``'s own (a shard's: the unsharded operand's).
     """
     if x.ndim != 2:
         raise ValueError(f"quantize_ref takes a 2-D operand, got {tuple(x.shape)}")
@@ -74,7 +77,7 @@ def quantize_ref(
     spec = grouping_spec(grouping, k_block)
     xf32 = x.to(torch.float32)
     s_r = group_reduce_max(xf32.abs(), spec)
-    s_t = torch.amax(s_r)
+    s_t = torch.amax(s_r) if amax is None else amax.reshape(()).to(torch.float32)
     s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
     s_g, _, _ = quantize_group_scale(s_r / s_t, gs_fmt)
     denom = s_t * broadcast_groups(s_g, spec, x.shape)

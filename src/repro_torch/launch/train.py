@@ -11,21 +11,26 @@ latest one, and straggler monitoring; it prints every 10 steps.  It runs
 on CUDA unless ``--device cpu`` is given.  ``--smoke`` trains the arch's
 reduced config (batch 8, seq 64 unless overridden), with no accumulation.
 
-Under ``torchrun`` (``WORLD_SIZE`` set) it trains data-parallel over the
-world: ``torchrun --nproc_per_node 8 -m repro_torch.launch.train --arch
-mamba2-370m [--multi-pod]``.  The mesh is ``(pods, world // pods, 1)``
-over ("pod", "data", "model"), ``pods`` 2 under ``--multi-pod`` and 1
-otherwise; every layer and then the model are sharded with FSDP2
-``fully_shard`` over the 2-D ("pod", "data") mesh (HSDP): parameters
-sharded over ``data`` and replicated across pods, the JAX package's layout
-(:mod:`repro_torch.parallel.specs`).  Each rank trains on its slice of the
-global batch, chosen by its ("pod", "data") coordinate; the gradient
-reduction averages over the world.  The JAX launcher's mesh is the fixed
-(2, 16, 16) of 512 TPU chips; the port sizes ``data`` from the world
-instead.  The ``model`` axis stays 1 (``--model-axis`` > 1 raises): tensor
-parallelism of the quantized linears is not ported (ROADMAP queue 1).
-Checkpoints under torchrun hold each rank's shards, in ``rank<r>/`` of
-``--ckpt-dir``.
+Under ``torchrun`` (``WORLD_SIZE`` set) it trains over the world:
+``torchrun --nproc_per_node 8 -m repro_torch.launch.train --arch
+chatglm3-6b [--multi-pod] [--model-axis 2]``.  The mesh is ``(pods, world
+// (pods * N), N)`` over ("pod", "data", "model"), ``pods`` 2 under
+``--multi-pod`` and 1 otherwise, ``N`` the ``--model-axis``.  With ``N`` >
+1 each model group trains the dense family tensor-parallel
+(:mod:`repro_torch.parallel.tensor`: Megatron-split linears, a
+vocab-parallel embedding, head and loss); the other families raise
+(ROADMAP queue 1).  Then every layer and the model are sharded with FSDP2
+``fully_shard`` over the 2-D ("pod", "data") mesh (HSDP), each rank's
+tensor-parallel parameters: sharded over ``data`` and replicated across
+pods, the JAX package's layout (:mod:`repro_torch.parallel.specs`).  Each
+rank trains on its slice of the global batch, chosen by its ("pod",
+"data") coordinate (all ranks of a model group take the same slice); the
+gradient reduction averages over ("pod", "data").  The JAX launcher's mesh
+is the fixed (2, 16, 16) of 512 TPU chips; the port sizes ``data`` from the
+world instead.  Checkpoints under torchrun hold each rank's shards, in
+``rank<r>/`` of ``--ckpt-dir``.  ``--smoke`` with ``--model-axis``
+widens the smoke config's heads and MLP (``TP_SMOKE``) so that the splits
+keep whole scaling groups.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from repro_torch.configs import shape_model_config
 from repro_torch.data import make_lm_iterator
 from repro_torch.models import lm
 from repro_torch.parallel.sharding import MeshShape, axis_sizes
+from repro_torch.parallel.tensor import NOT_PORTED, TensorParallel, tensor_parallel
 from repro_torch.runtime import resolve_device
 from repro_torch.train import CheckpointManager, StragglerMonitor, make_train_step
 from repro_torch.train.trainer import local_params
@@ -51,17 +57,22 @@ from .specs import choose_microbatch
 __all__ = ["hsdp_mesh", "local_batch", "main", "shard_model"]
 
 MESH_AXES = ("pod", "data", "model")
-_NO_TP = ("tensor parallelism over the 'model' axis is not ported (ROADMAP queue 1): "
-          "the model axis must be 1")
+# The smoke configs' 16-wide heads and 96-wide d_ff keep no 128-wide scaling
+# group whole on a rank: under --model-axis, --smoke trains them with
+# 128-wide heads, chatglm3-6b's 2 kv heads and a d_ff of 5 groups (an odd
+# count, split unevenly).
+TP_SMOKE = dict(head_dim=128, n_kv_heads=2, d_ff=5 * 128)
 
 
-def hsdp_mesh(world: int, multi_pod: bool = False, device_type: str | None = None):
-    """The launcher's ``(pods, world // pods, 1)`` mesh over ("pod", "data",
-    "model"), ``pods`` 2 under ``multi_pod``."""
+def hsdp_mesh(world: int, multi_pod: bool = False, device_type: str | None = None,
+              model: int = 1):
+    """The launcher's ``(pods, world // (pods * model), model)`` mesh over
+    ("pod", "data", "model"), ``pods`` 2 under ``multi_pod``."""
     pods = 2 if multi_pod else 1
-    if world % pods:
-        raise ValueError(f"--multi-pod splits the world into {pods} pods; {world} ranks do not")
-    return make_mesh((pods, world // pods, 1), MESH_AXES, device_type)
+    if model < 1 or world % (pods * model):
+        raise ValueError(f"{pods} pod(s) x a model axis of {model} do not divide a world of "
+                         f"{world} ranks")
+    return make_mesh((pods, world // (pods * model), model), MESH_AXES, device_type)
 
 
 def _dp_mesh(mesh):
@@ -69,18 +80,25 @@ def _dp_mesh(mesh):
 
 
 def shard_model(model: lm.LM, mesh) -> lm.LM:
-    """HSDP: FSDP2 ``fully_shard`` of every layer (and encoder layer), then
-    of the model, over the mesh's ("pod", "data") dims, and ``model.loss``
-    registered as a forward of the root, so that the trainer's loss runs
-    inside FSDP2's hooks.  The hybrid's shared block runs several times a
-    step and stays in the root's group (gathered for the whole step)."""
+    """Tensor parallelism over the mesh's ``model`` dim where it is above 1
+    (:func:`repro_torch.parallel.tensor.tensor_parallel`, this rank's
+    coordinate; the dense family only), then HSDP: FSDP2 ``fully_shard`` of
+    every layer (and encoder layer), then of the model, over the mesh's
+    ("pod", "data") dims, and ``model.loss`` registered as a forward of the
+    root, so that the trainer's loss runs inside FSDP2's hooks.  The
+    hybrid's shared block runs several times a step and stays in the root's
+    group (gathered for the whole step)."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
-    if axis_sizes(mesh).get("model", 1) != 1:
-        raise NotImplementedError(_NO_TP)
+    m = axis_sizes(mesh).get("model", 1)
+    if m > 1 and model.cfg.family != "dense":
+        raise NotImplementedError(NOT_PORTED.format(family=model.cfg.family))
     if model.cfg.param_gather_dtype != "float32":
         raise NotImplementedError("param_gather_dtype other than float32 under FSDP2: the "
                                   "2-byte gather is not ported (ROADMAP queue 1)")
+    if m > 1:
+        group = mesh.get_group("model")
+        tensor_parallel(model, TensorParallel(mesh.get_local_rank("model"), m, group))
     dp = _dp_mesh(mesh)
     for layer in [*model.layers, *(model.enc_layers or ())]:
         fully_shard(layer, mesh=dp)
@@ -125,7 +143,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--multi-pod", action="store_true",
                     help="under torchrun: two pods, parameters replicated across them")
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="the mesh's model axis (tensor parallelism): only 1 runs")
+                    help="under torchrun: the mesh's model axis (tensor parallelism of the "
+                         "dense family)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--batch", type=int, default=0, help="override batch")
@@ -134,17 +153,21 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    if args.model_axis != 1:
-        raise NotImplementedError(_NO_TP)
+    family = get_config(args.arch).family
+    if args.model_axis > 1 and family != "dense":
+        raise NotImplementedError(NOT_PORTED.format(family=family))
     mesh, rank = None, 0
     if int(os.environ.get("WORLD_SIZE", "0")):
         rank, world, device = _init_world(device)
-        mesh = hsdp_mesh(world, args.multi_pod, device.type)
-    elif args.multi_pod:
-        raise ValueError("--multi-pod trains across ranks: run it under torchrun")
+        mesh = hsdp_mesh(world, args.multi_pod, device.type, args.model_axis)
+    elif args.multi_pod or args.model_axis != 1:
+        raise ValueError("--multi-pod and --model-axis train across ranks: run them under "
+                         "torchrun")
     shape = SHAPES[args.shape]
     if args.smoke:
         cfg = get_smoke_config(args.arch)
+        if args.model_axis > 1:
+            cfg = dataclasses.replace(cfg, **TP_SMOKE)
         batch_size, seq = args.batch or 8, args.seq or 64
     else:
         cfg = shape_model_config(get_config(args.arch), shape)

@@ -48,6 +48,12 @@ cross-attention K/V are quantized in training (``wk``/``wv`` of the
 encoder's output) and not at prefill, which computes them once,
 unquantized, into the cache.
 
+Under tensor parallelism over the ``model`` axis
+(:func:`repro_torch.parallel.tensor.tensor_parallel`; the dense family,
+training only) ``model.tp`` is set: the embedding is a vocab-parallel
+lookup summed over the group, the unquantized LM head is column-parallel
+over vocab, and :func:`lm_loss` takes a vocab-parallel cross-entropy.
+
 A cache is a dict of tensors plus ``"pos"`` (a Python int, the next
 position).  :func:`decode_step` writes the KV caches in place (the JAX
 engine donates them) and returns a new dict with the new SSM states.  As
@@ -71,6 +77,7 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import QuantConfig, fold_in
 from repro_torch.kernels.launch import in_plain_version
+from repro_torch.parallel.tensor import copy_to_tp, reduce_from_tp, vocab_parallel_ce
 from repro_torch.runtime import resolve_device
 
 from . import nn as L
@@ -165,6 +172,7 @@ class LM(nn.Module):
         self.shared_attn = Block(cfg) if cfg.family == "hybrid" else None
         self.enc_layers = (nn.ModuleList(Block(cfg) for _ in range(cfg.enc_layers))
                            if cfg.family == "encdec" else None)
+        self.tp, self.tp_layout = None, {}  # tensor parallelism (parallel.tensor)
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> None:
@@ -191,6 +199,7 @@ class LM(nn.Module):
         """Teacher-forced logits of every position, fp32 (B, S, vocab), on
         the config's quantization with nearest rounding; ``window`` bounds
         the attention (the hybrid's ring buffer in a full-sequence pass)."""
+        _no_tp(self)
         cfg, qcfg = self.cfg, serve_qcfg(self.cfg)
         x = embed(self, batch)
         if cfg.family in ("dense", "moe"):
@@ -219,13 +228,32 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda"
 # ===========================================================================
 # embedding / head
 # ===========================================================================
+def _no_tp(model: LM) -> None:
+    if model.tp is not None:
+        raise NotImplementedError("a tensor-parallel model trains (lm_loss); its serving "
+                                  "path is not ported (ROADMAP queue 1)")
+
+
+def _vocab_start(model: LM, name: str) -> int:
+    return model.tp_layout[name].bounds[model.tp.rank][0]
+
+
 def embed(model: LM, batch: dict) -> torch.Tensor:
     """Token embeddings in the compute dtype; with a frontend, its
     projected embeddings (unquantized: the first layer) replace the first
-    positions."""
+    positions.  Tensor-parallel: each rank looks up the tokens of its
+    vocabulary slice, zeros for the rest, summed over the group."""
     cfg = model.cfg
     cdt = torch_dtype(cfg.compute_dtype)
-    x = model.emb[batch["tokens"]].to(cdt)
+    tokens = batch["tokens"]
+    if model.tp is None:
+        x = model.emb[tokens].to(cdt)
+    else:
+        v0, v = _vocab_start(model, "emb"), model.emb.shape[0]
+        mine = (tokens >= v0) & (tokens < v0 + v)
+        rows = model.emb[(tokens - v0).clamp(0, v - 1)]
+        x = reduce_from_tp(torch.where(mine[..., None], rows, torch.zeros_like(rows)),
+                           model.tp).to(cdt)
     if cfg.frontend != "none" and "frontend_emb" in batch:
         fe = model.frontend_proj(batch["frontend_emb"].to(cdt))
         f = fe.shape[1]
@@ -236,8 +264,11 @@ def embed(model: LM, batch: dict) -> torch.Tensor:
 def logits_fn(model: LM, x: torch.Tensor) -> torch.Tensor:
     """``x @ head.T`` -> fp32, unquantized (the last layer, paper Sec.
     VI-A): the head rounded to ``x``'s dtype, the products summed in fp32
-    (the JAX package's ``preferred_element_type=float32``)."""
+    (the JAX package's ``preferred_element_type=float32``).
+    Tensor-parallel: this rank's vocabulary slice of the logits."""
     head = model.emb if model.cfg.tie_embeddings else model.lm_head
+    if model.tp is not None:
+        x = copy_to_tp(x, model.tp)
     return x.float() @ head.to(x.dtype).float().t()
 
 
@@ -419,8 +450,12 @@ def lm_loss(model: LM, batch: dict, key: int | None = None
 
     targets = batch["tokens"][:, 1:]
     lg = logits[:, :-1].float()
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+    if model.tp is None:
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+    else:
+        head = "emb" if cfg.tie_embeddings else "lm_head"
+        lse, ll = vocab_parallel_ce(lg, targets, _vocab_start(model, head), model.tp)
     mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
     if cfg.frontend != "none" and cfg.frontend_len and cfg.family != "encdec":
         # no training on the frontend's positions (the encoder-decoder's
@@ -481,6 +516,7 @@ def prefill(model: LM, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
     (B, vocab), cache)``.  The encoder-decoder encodes ``batch["src_emb"]``
     and puts each decoder layer's cross K/V of it, unquantized, into the
     cache."""
+    _no_tp(model)
     cfg, qcfg = model.cfg, serve_qcfg(model.cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -512,6 +548,7 @@ def prefill(model: LM, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
 def decode_step(model: LM, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """One serving step: ``tokens`` (B, 1) -> ``(logits fp32 (B, vocab),
     cache)``, the cache one position further."""
+    _no_tp(model)
     cfg, qcfg = model.cfg, serve_qcfg(model.cfg)
     x = model.emb[tokens].to(torch_dtype(cfg.compute_dtype))
     pos = cache["pos"]

@@ -32,7 +32,13 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.core.lowbit import QuantConfig, conv2d_fp32, lowbit_conv, lowbit_matmul
+from repro_torch.core.lowbit import (
+    LinearSplit,
+    QuantConfig,
+    conv2d_fp32,
+    lowbit_conv,
+    lowbit_matmul,
+)
 from repro_torch.kernels.lowbit_conv import lowbit_conv_fused, lowbit_matmul_qd
 
 __all__ = [
@@ -88,7 +94,7 @@ def ew_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def linear(x, w, b=None, qcfg: QuantConfig | None = None, key=None,
-           wire: int | None = None) -> torch.Tensor:
+           wire: int | None = None, split: LinearSplit | None = None) -> torch.Tensor:
     """``x (..., d_in) @ w (d_in, d_out)`` -> fp32; the bias is added in
     fp32.  Unquantized, ``w`` is first rounded to ``x``'s dtype and the
     products summed in fp32, as the JAX package's ``dot_general`` with
@@ -97,16 +103,20 @@ def linear(x, w, b=None, qcfg: QuantConfig | None = None, key=None,
     that FSDP shards (0 for an in-projection, 1 for an out-projection),
     where the fake-quant backend pins the weight's gather
     (``QuantConfig.wire_fsdp_dim``); the quantized backend moves codes
-    already and ignores it, as the JAX package's does."""
+    already and ignores it, as the JAX package's does.  ``split``: ``x``,
+    ``w`` (and the error) are this rank's shards of a tensor-parallel
+    linear, quantized as slices of the unsharded operands (the result is
+    this rank's outputs or partial sums; ``parallel.tensor.TPLinear``)."""
     _trace("fc", d_in=w.shape[0], d_out=w.shape[1], rows=x.numel() // x.shape[-1],
            quantized=_quantized(qcfg))
     if _quantized(qcfg):
+        tp = {} if split is None else {"split": split}
         if qcfg.backend == "quantized":
-            y = lowbit_matmul_qd(x, w.float(), key, qcfg)
+            y = lowbit_matmul_qd(x, w.float(), key, qcfg, **tp)
         else:
             if wire is not None and qcfg.wire_fsdp_dim != wire:
                 qcfg = dataclasses.replace(qcfg, wire_fsdp_dim=wire)
-            y = lowbit_matmul(x, w.float(), key, qcfg)
+            y = lowbit_matmul(x, w.float(), key, qcfg, **tp)
     else:
         y = x.float() @ w.to(x.dtype).float()
     return y if b is None else y + b.float()
@@ -123,12 +133,15 @@ def trunc_normal(shape, std: float = 0.02, generator: torch.Generator | None = N
 
 class Linear(nn.Module):
     """A linear layer in the JAX package's ``init_linear`` layout: weight
-    ``w`` (d_in, d_out), optional bias ``b`` (d_out,), fp32."""
+    ``w`` (d_in, d_out), optional bias ``b`` (d_out,), fp32.  Under tensor
+    parallelism ``tp`` (a ``parallel.tensor.TPLinear``) says how this rank
+    holds and runs it; None: whole."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = False):
         super().__init__()
         self.w = nn.Parameter(torch.empty(d_in, d_out))
         self.b = nn.Parameter(torch.zeros(d_out)) if bias else None
+        self.tp = None
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator, std: float | None = None) -> None:
@@ -145,6 +158,8 @@ class Linear(nn.Module):
 
     def forward(self, x, qcfg: QuantConfig | None = None, key=None,
                 wire: int | None = None) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp(linear, x, self.w, self.b, qcfg, key, wire)
         return linear(x, self.w, self.b, qcfg, key, wire)
 
 

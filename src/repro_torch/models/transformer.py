@@ -10,6 +10,12 @@ own site tag, as in JAX: 0-3 for the attention projections, 10-12 for the
 MLP.  Dtypes follow the JAX package: the linears return fp32, rotary
 embeddings and attention run in fp32, the KV cache holds the compute dtype,
 and each residual add is in the input's dtype.
+
+Under tensor parallelism (``parallel.tensor.tensor_parallel``; training
+only) a rank holds its query heads (and kv heads, or all of them where
+they do not split) and its slice of the MLP's hidden dim: the input passes
+``copy_to_tp`` into the column-parallel ``wq``/``wk``/``wv``/``w_up``/
+``w_gate``, and the row-parallel ``wo``/``w_down`` sum over the group.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import QuantConfig, fold_in
+from repro_torch.parallel.tensor import copy_to_tp
 
 from . import nn as L
 
@@ -62,6 +69,12 @@ class Attention(nn.Module):
         self.wk = L.Linear(d, cfg.n_kv_heads * hd, cfg.qkv_bias)
         self.wv = L.Linear(d, cfg.n_kv_heads * hd, cfg.qkv_bias)
         self.wo = L.Linear(cfg.n_heads * hd, d)
+        # tensor parallelism (parallel.tensor.tensor_parallel): the model
+        # group, this rank's query and kv heads, and [kv0, kv1) of the
+        # replicated kv heads its query heads map to (None: kv heads split)
+        self.tp = None
+        self.heads = (cfg.n_heads, cfg.n_kv_heads)
+        self.kv_take = None
 
     def init_(self, generator: torch.Generator) -> None:
         for lin in (self.wq, self.wk, self.wv, self.wo):
@@ -91,16 +104,31 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.hd
-        q = self.wq(x, qcfg, fold_in(key, 0), wire=0).reshape(b, s, cfg.n_heads, hd)
+        hq, hkv = self.heads
+        xq = x
+        if self.tp is not None:
+            if cache is not None or kv is not None or cross_cache is not None:
+                raise NotImplementedError("tensor-parallel attention trains causal "
+                                          "self-attention only (ROADMAP queue 1)")
+            xq = copy_to_tp(x, self.tp)
+        q = self.wq(xq, qcfg, fold_in(key, 0), wire=0).reshape(b, s, hq, hd)
         q_chunk = 1024 if s > 4096 else None
         if cross_cache is not None:
             out = L.gqa_attention(q, *cross_cache, causal=False, q_chunk=q_chunk)
-            out = out.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
+            out = out.reshape(b, s, hq * hd).to(x.dtype)
             return self.wo(out, qcfg, fold_in(key, 3), wire=1)
-        xkv = x if kv is None else kv
+        xkv = xq if kv is None else kv
+        if self.kv_take is not None:
+            xkv = x  # replicated wk/wv: their data gradient is whole on every rank
         sk = xkv.shape[1]
-        k = self.wk(xkv, qcfg, fold_in(key, 1), wire=0).reshape(b, sk, cfg.n_kv_heads, hd)
-        v = self.wv(xkv, qcfg, fold_in(key, 2), wire=0).reshape(b, sk, cfg.n_kv_heads, hd)
+        k = self.wk(xkv, qcfg, fold_in(key, 1), wire=0)
+        v = self.wv(xkv, qcfg, fold_in(key, 2), wire=0)
+        if self.kv_take is not None:
+            # each rank uses some kv heads: their gradients add over the group
+            kv0, kv1 = self.kv_take
+            k = copy_to_tp(k, self.tp).reshape(b, sk, -1, hd)[:, :, kv0:kv1]
+            v = copy_to_tp(v, self.tp).reshape(b, sk, -1, hd)[:, :, kv0:kv1]
+        k, v = k.reshape(b, sk, hkv, hd), v.reshape(b, sk, hkv, hd)
 
         if kv is None and cfg.rotary_pct > 0:
             rd = int(hd * cfg.rotary_pct)
@@ -127,7 +155,7 @@ class Attention(nn.Module):
             out = L.gqa_attention(q, k, v, causal=causal and kv is None, window=window,
                                   q_chunk=q_chunk)
 
-        out = out.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
+        out = out.reshape(b, s, hq * hd).to(x.dtype)
         return self.wo(out, qcfg, fold_in(key, 3), wire=1)
 
 
@@ -142,6 +170,7 @@ class MLP(nn.Module):
         self.w_up = L.Linear(d, f)
         self.w_down = L.Linear(f, d)
         self.w_gate = L.Linear(d, f) if cfg.gated_mlp else None
+        self.tp = None
 
     def init_(self, generator: torch.Generator) -> None:
         for lin in (self.w_up, self.w_down, self.w_gate):
@@ -149,6 +178,8 @@ class MLP(nn.Module):
                 lin.init_(generator, std=0.02)
 
     def forward(self, x, qcfg: QuantConfig | None, key: int | None) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
         up = self.w_up(x, qcfg, fold_in(key, 10), wire=0)
         if self.gated:
             h = F.silu(self.w_gate(x, qcfg, fold_in(key, 11), wire=0)) * up

@@ -57,17 +57,31 @@ def _named(params) -> dict[str, torch.Tensor]:
 
 
 def clip_by_global_norm(grads: Params, max_norm: float,
-                        reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
+                        reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                        model_sharded: tuple[set, Callable] | None = None
                         ) -> tuple[dict, torch.Tensor]:
     """``(grads * min(1, max_norm / max(gn, 1e-9)), gn)`` with ``gn`` the
     fp32 norm over every gradient; the scale is applied always (to each
     gradient in place).  ``reduce``, where given, sums the squared norm of
-    these (sharded) gradients over the ranks that hold the other shards."""
-    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
-    total = sum(sq[1:], sq[0]) if sq else _f32(0.0)
+    these (sharded) gradients over the ranks that hold the other shards.
+    ``model_sharded``, ``(names, reduce_model)``: the gradients of ``names``
+    are shards over a tensor-parallel group, whose squared norm
+    ``reduce_model`` sums over it; the others are whole on every rank of
+    that group and count once."""
+    sq = {k: torch.sum(torch.square(g.float())) for k, g in grads.items()}
+    if model_sharded is None:
+        total = _sum(list(sq.values()))
+    else:
+        names, reduce_model = model_sharded
+        total = (reduce_model(_sum([v for k, v in sq.items() if k in names]))
+                 + _sum([v for k, v in sq.items() if k not in names]))
     gn = torch.sqrt(reduce(total) if reduce is not None else total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return {k: g.mul_(scale) for k, g in grads.items()}, gn
+
+
+def _sum(sq: list[torch.Tensor]) -> torch.Tensor:
+    return sum(sq[1:], sq[0]) if sq else _f32(0.0)
 
 
 # ---------------------------------------------------------------------------

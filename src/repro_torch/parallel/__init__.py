@@ -1,7 +1,8 @@
 """Data and model parallelism of the port: logical-axis sharding rules on a
 ``DeviceMesh`` (:mod:`.sharding`), the parameter, batch and cache layouts
-(:mod:`.specs`), and the MLS-compressed cross-pod gradient ring
-(:mod:`.compress`), over ``torch.distributed``."""
+(:mod:`.specs`), the MLS-compressed cross-pod gradient ring
+(:mod:`.compress`) and the dense family's tensor parallelism over the
+``model`` axis (:mod:`.tensor`), over ``torch.distributed``."""
 from .sharding import (
     DEFAULT_RULES,
     SP_RULES,

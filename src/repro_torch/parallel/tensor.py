@@ -1,0 +1,333 @@
+"""Tensor parallelism over the mesh's ``model`` axis for the dense LM family.
+
+What GSPMD does for the JAX package on this family (its ``shard(...)``
+constraints place each op; the function computed is the unsharded one),
+done here by hand on per-rank local tensors, Megatron's way:
+
+* :func:`copy_to_tp`: identity forward, all-reduce SUM backward (the input
+  of a column-parallel linear: every rank holds it whole, and each adds a
+  partial data gradient);
+* :func:`reduce_from_tp`: all-reduce SUM forward, identity backward (the
+  output of a row-parallel linear: each rank holds a partial sum).
+
+The layout is the JAX package's (:func:`repro_torch.parallel.specs.param_shardings`
+on a mesh with a ``model`` axis names the dim of each parameter that
+``heads``, ``kv_heads``, ``mlp`` and ``vocab`` put on ``model``), with two
+rules of the port's own (:func:`tp_layout`):
+
+* a contraction dim is split in whole scaling groups of the width the
+  backend uses on it (``k_block`` on the quantized backend; on the
+  fake-quant one ``QuantConfig._aligned_kb`` and the error's
+  ``min(k_block, d)``), ⌈G/m⌉ groups to the first ``G % m`` ranks and
+  ⌊G/m⌋ to the rest: chatglm3-6b's d_ff 13696 (107 groups of 128) splits
+  6912 / 6784 at model 2, where JAX splits it evenly (6848 each) and lets
+  GSPMD regroup;
+* heads split whole: the query heads must divide by the model size; kv
+  heads that do not (chatglm3-6b's 2 at model 4) stay replicated, whatever
+  the dim's divisibility says, and each rank attends with the kv heads its
+  query heads map to.
+
+Quantized operands are quantized as slices of the unsharded operands
+(:class:`repro_torch.core.lowbit.LinearSplit`): the tensor scale is the
+max over the model group (all-reduce MAX), the group scales are local, the
+rounding bytes are the slice of the unsharded operand's.  So a
+column-parallel linear's outputs and weight gradient, and a row-parallel
+one's data and weight gradient, are the unsharded ones' slices bit for
+bit; the sums over the split (a column-parallel data gradient, a
+row-parallel output) differ from the unsharded ones in their order only.
+
+The embedding is a vocab-parallel lookup (the other ranks add zeros), the
+unquantized LM head column-parallel over vocab, and the loss a
+vocab-parallel cross-entropy.  Other families raise: their layouts
+(the ssm/hybrid ``in_proj``, MoE experts, encdec's cross-attention) wait
+for later work (ROADMAP queue 1).  The only collectives are
+``all_reduce`` (SUM, MAX), which gloo runs on CUDA tensors too.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Mapping
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.lowbit import LinearSplit
+
+from .sharding import MeshShape
+from .specs import logical_axes_for, param_shardings
+
+__all__ = ["NOT_PORTED", "Split", "TPLinear", "TensorParallel", "all_reduce_max", "copy_to_tp",
+           "rank_heads", "reduce_from_tp", "shard_state_dict", "tensor_parallel", "tp_layout",
+           "vocab_parallel_ce"]
+
+NOT_PORTED = ("tensor parallelism over the 'model' axis is ported for the dense family only; "
+              "the {family} family's layout waits (ROADMAP queue 1)")
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """One rank of a model group: ``rank`` of ``size``, the ``torch.distributed``
+    process ``group``."""
+
+    rank: int
+    size: int
+    group: object = dataclasses.field(default=None, compare=False)
+
+    @staticmethod
+    def of(group=None) -> TensorParallel:
+        """This rank of ``group`` (None: the whole world)."""
+        group = group or dist.group.WORLD
+        return TensorParallel(dist.get_rank(group), dist.get_world_size(group), group)
+
+
+# ---------------------------------------------------------------------------
+# the conjugate collectives
+# ---------------------------------------------------------------------------
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    t = t.contiguous().clone()
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Identity forward; the gradient summed over the model group."""
+    return _CopyToTP.apply(x, tp.group)
+
+
+def reduce_from_tp(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The sum over the model group; the gradient passed through."""
+    return _ReduceFromTP.apply(x, tp.group)
+
+
+def all_reduce_max(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The element-wise max over the model group (no gradient)."""
+    return _all_reduce(x.detach(), tp.group, dist.ReduceOp.MAX)
+
+
+# ---------------------------------------------------------------------------
+# the layout
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A parameter split along ``dim``: rank ``r`` holds ``[bounds[r][0],
+    bounds[r][1])``."""
+
+    dim: int
+    bounds: tuple[tuple[int, int], ...]
+
+    @property
+    def full(self) -> int:
+        return self.bounds[-1][1]
+
+
+def _group_width(qcfg, d: int) -> int:
+    """The width a split of a dim of ``d`` must keep whole: the scaling
+    group of every GEMM that contracts it (1 unquantized)."""
+    if qcfg is None or not qcfg.enabled:
+        return 1
+    if qcfg.grouping != "nc":
+        raise ValueError(f"tensor parallelism takes grouping 'nc', not {qcfg.grouping!r}: "
+                         f"K2's column groups would span the ranks")
+    if qcfg.backend == "quantized":
+        return qcfg.k_block
+    return math.lcm(qcfg._aligned_kb(d), min(qcfg.k_block, d))
+
+
+def _in_groups(d: int, unit: int, size: int) -> tuple[tuple[int, int], ...]:
+    """``d`` split in whole ``unit``s (the last may be ragged), the first
+    ``G % size`` ranks one unit more."""
+    groups = -(-d // unit)
+    if groups < size:
+        raise ValueError(f"a dim of {d} has {groups} groups of {unit}: fewer than the "
+                         f"{size} ranks of the model axis")
+    per, extra = divmod(groups, size)
+    bounds, g0 = [], 0
+    for r in range(size):
+        g1 = g0 + per + (r < extra)
+        bounds.append((min(g0 * unit, d), min(g1 * unit, d)))
+        g0 = g1
+    return tuple(bounds)
+
+
+def _even(d: int, size: int) -> tuple[tuple[int, int], ...]:
+    n = d // size
+    return tuple((r * n, (r + 1) * n) for r in range(size))
+
+
+def tp_layout(cfg, shapes: Mapping[str, tuple[int, ...]], size: int) -> dict[str, Split]:
+    """``{name: Split}`` of every parameter of a ``cfg`` model (``shapes``:
+    name -> unsharded shape) that the model axis of ``size`` splits; the
+    others are replicated.  The split dims are ``param_shardings``' on a
+    ``("model",)`` mesh; the bounds follow the module docstring's rules.
+    Raises on a family other than dense, on query heads the model size does
+    not divide, and on a split that cannot keep its groups whole."""
+    if cfg.family != "dense":
+        raise NotImplementedError(NOT_PORTED.format(family=cfg.family))
+    if size == 1:
+        return {}
+    qcfg = cfg.qcfg()
+    hd = cfg.hd
+    if cfg.n_heads % size:
+        raise ValueError(f"{cfg.n_heads} query heads do not split over a model axis of {size}")
+    kv_split = cfg.n_kv_heads % size == 0
+    mesh = MeshShape(("model",), (size,))
+    specs = param_shardings({k: torch.empty(s, device="meta") for k, s in shapes.items()}, mesh)
+    out = {}
+    for name, spec in specs.items():
+        dims = [d for d, e in enumerate(spec) if e == "model" or
+                (isinstance(e, tuple) and "model" in e)]
+        if not dims:
+            continue
+        dim = dims[0]
+        axis = logical_axes_for(name, len(shapes[name]))[dim]
+        d = shapes[name][dim]
+        if axis == "heads":
+            bounds = _even(d, size)
+            gw = _group_width(qcfg, d)
+        elif axis == "kv_heads":
+            if not kv_split:
+                continue  # replicated: each rank uses the kv heads its q heads map to
+            bounds = _even(d, size)
+            gw = _group_width(qcfg, d)
+        elif axis == "mlp":
+            gw = _group_width(qcfg, d)
+            bounds = _in_groups(d, gw, size)
+        elif axis == "vocab":
+            bounds, gw = _even(d, size), 1  # the embedding and the unquantized head
+        else:
+            raise NotImplementedError(f"{name}: the logical axis {axis!r} on 'model' is not "
+                                      f"ported (ROADMAP queue 1)")
+        if axis in ("heads", "kv_heads") and any(a % hd or a % gw for a, _ in bounds):
+            raise ValueError(f"{name}: heads of {hd} split at {bounds} do not keep the "
+                             f"{gw}-wide scaling groups whole")
+        out[name] = Split(dim, bounds)
+    heads = [k for k in ("emb", "lm_head") if k in shapes]
+    if any(k not in out for k in heads):
+        raise ValueError(f"a vocabulary of {cfg.vocab} does not split over a model axis of "
+                         f"{size}")
+    return out
+
+
+def rank_heads(cfg, size: int, rank: int) -> tuple[int, int, tuple[int, int] | None]:
+    """Rank ``rank``'s attention heads at a model axis of ``size``: ``(query
+    heads, kv heads, kv_take)``; ``kv_take`` is None where the kv heads split
+    (``n_kv / size`` each), else the ``[kv0, kv1)`` of the replicated kv
+    heads its query heads map to.  Raises where those query heads do not
+    map onto whole kv heads."""
+    hq = cfg.n_heads // size
+    if cfg.n_kv_heads % size == 0:
+        return hq, cfg.n_kv_heads // size, None
+    group = cfg.n_heads // cfg.n_kv_heads
+    h0 = rank * hq
+    kv0, kv1 = h0 // group, (h0 + hq - 1) // group + 1
+    if not (hq % group == 0 and h0 % group == 0) and kv1 - kv0 != 1:
+        raise ValueError(f"rank {rank}'s {hq} query heads do not map onto whole kv heads "
+                         f"({cfg.n_heads} over {cfg.n_kv_heads} at a model axis of {size})")
+    return hq, kv1 - kv0, (kv0, kv1)
+
+
+def shard_state_dict(state: Mapping[str, torch.Tensor], layout: Mapping[str, Split],
+                     rank: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s tensors of an unsharded state dict (e.g. a JAX
+    model's, :func:`repro_torch.convert.lm_params_from_jax`): each split
+    tensor's slice (a copy), the others as they are."""
+    out = {}
+    for k, t in state.items():
+        if k in layout:
+            a, b = layout[k].bounds[rank]
+            t = t.narrow(layout[k].dim, a, b - a).clone()
+        out[k] = t
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TPLinear:
+    """How a :class:`repro_torch.models.nn.Linear` runs on one rank:
+    ``"column"`` (``w[:, N_r]``: the input held whole, outputs ``N_r``) or
+    ``"row"`` (``w[K_r, :]``: the input's ``K_r``, the output summed over
+    the group, then the bias)."""
+
+    kind: str
+    start: int
+    full: int
+    tp: TensorParallel
+
+    @property
+    def split(self) -> LinearSplit:
+        make = LinearSplit.column if self.kind == "column" else LinearSplit.row
+        return make(self.start, self.full, self.tp.group)
+
+    def __call__(self, linear, x, w, b, qcfg, key, wire):
+        if self.kind == "column":
+            return linear(x, w, b, qcfg, key, wire, split=self.split)
+        y = reduce_from_tp(linear(x, w, None, qcfg, key, wire, split=self.split), self.tp)
+        return y if b is None else y + b.float()
+
+
+def tensor_parallel(model, tp: TensorParallel):
+    """Make ``model`` (an unsharded :class:`repro_torch.models.lm.LM`) rank
+    ``tp.rank``'s part of it, in place: each split parameter narrowed to
+    its slice, its linears marked column- or row-parallel, its attention
+    told its heads, and ``model.tp`` / ``model.tp_layout`` set.  Returns
+    the model."""
+    cfg = model.cfg
+    layout = tp_layout(cfg, {k: tuple(p.shape) for k, p in model.named_parameters()}, tp.size)
+    params = dict(model.named_parameters())
+    local = shard_state_dict({k: params[k].data for k in layout}, layout, tp.rank)
+    for name, t in local.items():
+        params[name].data = t
+    kinds = {"attn.wq": "column", "attn.wk": "column", "attn.wv": "column", "attn.wo": "row",
+             "mlp.w_up": "column", "mlp.w_gate": "column", "mlp.w_down": "row"}
+    for i, layer in enumerate(model.layers):
+        for sub, kind in kinds.items():
+            sp = layout.get(f"layers.{i}.{sub}.w")
+            if sp is not None:  # kv linears whose heads stay whole are replicated
+                layer.get_submodule(sub).tp = TPLinear(kind, sp.bounds[tp.rank][0], sp.full, tp)
+        hq, hkv, kv_take = rank_heads(cfg, tp.size, tp.rank)
+        layer.attn.tp, layer.attn.heads, layer.attn.kv_take = tp, (hq, hkv), kv_take
+        layer.mlp.tp = tp
+    model.tp, model.tp_layout = tp, layout
+    return model
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel loss
+# ---------------------------------------------------------------------------
+def vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, start: int,
+                      tp: TensorParallel) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(logsumexp, target logit)`` over the whole vocabulary from this
+    rank's fp32 logits of ``[start, start + V_r)``: the max all-reduced
+    (MAX), the sum of exps and the target logit (from the rank that holds
+    it, zeros elsewhere) all-reduced (SUM)."""
+    v = logits.shape[-1]
+    m = all_reduce_max(logits.amax(dim=-1), tp)
+    sumexp = reduce_from_tp(torch.exp(logits - m[..., None]).sum(dim=-1), tp)
+    mine = (targets >= start) & (targets < start + v)
+    local = torch.gather(logits, -1, (targets - start).clamp(0, v - 1)[..., None].long())[..., 0]
+    ll = reduce_from_tp(torch.where(mine, local, torch.zeros_like(local)), tp)
+    return m + torch.log(sumexp), ll

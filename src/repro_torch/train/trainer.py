@@ -18,7 +18,11 @@ method the launcher registers with FSDP2 when it shards the model
 gradients are DTensors: the step clips and updates this rank's shards
 (:func:`local_params`), the squared norm summed over the mesh dims that
 shard them, and the gradients come already averaged over the
-data-parallel ranks.  On a plain model it is the one-device step.  As in
+data-parallel ranks.  Under tensor parallelism (``model.tp``) the
+squares of the model-sharded gradients are summed over the model group
+too, and those of the parameters every model rank holds whole count once;
+AdamW updates each rank's shards.  On a plain model it is the one-device
+step.  As in
 the JAX package, ``run.grad_compression`` only tags the run: the step
 exchanges no compressed gradients (the ring is
 :func:`repro_torch.parallel.compress.crosspod_allreduce_mean`).
@@ -47,6 +51,21 @@ def local_params(model: torch.nn.Module) -> dict[str, torch.Tensor]:
     """The model's parameters by name; under FSDP2, this rank's shards (views
     that an in-place update writes through)."""
     return {k: _local(p) for k, p in model.named_parameters()}
+
+
+def _model_sharded(model) -> tuple[set, Callable] | None:
+    """Under tensor parallelism: the names of the model-sharded parameters
+    and the sum of a squared norm over the model group (None otherwise)."""
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return None
+
+    def reduce(sq: torch.Tensor) -> torch.Tensor:
+        sq = sq.clone()
+        dist.all_reduce(sq, group=tp.group)
+        return sq
+
+    return set(model.tp_layout), reduce
 
 
 def _norm_reducer(params: dict) -> Callable | None:
@@ -108,7 +127,8 @@ def make_train_step(run: RunConfig, lr_fn: Callable | None = None):
         if n > 1:
             grads = {k: g.div_(n) for k, g in grads.items()}
             loss, aux = loss / n, aux / n
-        grads, gnorm = clip_by_global_norm(grads, run.grad_clip, _norm_reducer(params))
+        grads, gnorm = clip_by_global_norm(grads, run.grad_clip, _norm_reducer(params),
+                                           _model_sharded(model))
         lr = lr_fn(step)
         opt_state = opt_update(grads, opt_state, local_params(model), lr)
         for p in params.values():

@@ -217,7 +217,8 @@ def test_conv_counts_six_quantize_and_three_gemm_launches(cuda):
     reset_launch_counts()
     lowbit_conv_fused(x, w, 5, (1, 1), "SAME", cfg).sum().backward()
     torch.cuda.synchronize()
-    assert launch_counts() == {"mls_quantize_rows": 6, "mls_quantize_given_sg": 0,
+    assert launch_counts() == {"mls_quantize_rows": 6, "mls_quantize_rows_amax": 0,
+                               "mls_quantize_rows_codes": 0, "mls_quantize_given_sg": 0,
                                "mls_matmul": 3, "implicit_conv": 0, "conv_tensor_scale": 0,
                                "sabotage_overlap": 0}
 
@@ -291,7 +292,8 @@ def test_implicit_conv_launch_counts(cuda, grouping, stochastic, want):
     reset_launch_counts()
     lowbit_conv_fused(x, w, 5, (1, 1), "SAME", cfg).sum().backward()
     torch.cuda.synchronize()
-    assert launch_counts() == {**want, "implicit_conv": 1, "sabotage_overlap": 0}
+    assert launch_counts() == {**want, "implicit_conv": 1, "sabotage_overlap": 0,
+                               "mls_quantize_rows_amax": 0, "mls_quantize_rows_codes": 0}
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -427,6 +429,45 @@ def test_k2_keeps_nan_like_the_plain_version(cuda, grouping):
     assert torch.equal(got[1], want[1])
     keep = ~torch.isnan(x)
     assert torch.equal(got[0][keep], want[0][keep])
+
+
+@pytest.mark.parametrize("variant", ["warp", "block"])
+@pytest.mark.parametrize("grouping", ["nc", "n"])
+@pytest.mark.parametrize("shape", [(37, 256), (300, 4096), (5, 2048)])
+def test_k1_split_entries_match_the_one_call_entry_and_plain(cuda, shape, grouping, variant):
+    """K1's two split entries (pass A, then pass B over the given max; the
+    tensor-parallel path) with the operand's own max give the one-call
+    entry's bits and the plain version's; with a larger given max (another
+    rank's), ``quantize_ref`` with that max.  One launch of each entry, none
+    of the one-call entry."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.mls_quantize import quantize_rows_split
+    from repro_torch.kernels.ref import quantize_ref
+
+    x, r = _operand(3, *shape)
+    width = 128 if grouping == "nc" else shape[1]
+    if variant == "warp" and width > 1024:
+        pytest.skip("a warp takes groups of at most 1024")
+    config = autotune.BlockConfig(variant=variant, amax_blocks=3)
+    xd, rd = x.to(cuda), r.to(cuda)
+    one = [t.cpu() for t in mls_quantize(xd, EMFormat(2, 4), 128, r_u8=rd, grouping=grouping,
+                                         config=config)]
+    reset_launch_counts()
+    split = [t.cpu() for t in quantize_rows_split(xd, EMFormat(2, 4), 128, r_u8=rd,
+                                                  grouping=grouping, config=config)]
+    assert {k: launch_counts()[k] for k in ("mls_quantize_rows", "mls_quantize_rows_amax",
+                                             "mls_quantize_rows_codes")} == {
+        "mls_quantize_rows": 0, "mls_quantize_rows_amax": 1, "mls_quantize_rows_codes": 1}
+    plain = quantize_ref(x, EMFormat(2, 4), 128, r_u8=r, grouping=grouping)
+    for a, b, c in zip(split, one, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    big = x.abs().amax() * 3.0
+    got = [t.cpu() for t in quantize_rows_split(
+        xd, EMFormat(2, 4), 128, r_u8=rd, grouping=grouping, config=config,
+        reduce_amax=lambda a: torch.full_like(a, float(big)))]
+    want = quantize_ref(x, EMFormat(2, 4), 128, r_u8=r, grouping=grouping, amax=big)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("grouping", ["nc", "n"])

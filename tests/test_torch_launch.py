@@ -20,8 +20,10 @@ launcher's HSDP step on a world of gloo processes on the CPU.
   tolerance is fp32's: the reduction adds the ranks' gradients in another
   order than the microbatch loop, 1e-5 of the largest gradient, 1e-6 on
   the parameters and losses (seen: below 1e-8).
-- ``--model-axis`` > 1, a mesh with a ``model`` axis > 1 and
-  ``--multi-pod`` without torchrun raise.
+- ``--model-axis`` > 1 on a family other than dense, a mesh with a
+  ``model`` axis > 1 for one, and ``--multi-pod`` or ``--model-axis``
+  without torchrun raise (the dense family's tensor parallelism is
+  ``tests/test_torch_tensor_parallel.py``'s).
 """
 import dataclasses
 import types
@@ -208,15 +210,21 @@ def test_launcher_hsdp_steps_match_microbatch_steps_and_pods_agree(hsdp):
 
 
 def test_launcher_refuses_tensor_parallelism_and_multi_pod_without_a_world(monkeypatch):
+    """Tensor parallelism is ported for the dense family: another family
+    under a model axis raises; a model axis or --multi-pod without a world
+    too."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     argv = ["--arch", "chatglm3-6b", "--smoke", "--device", "cpu", "--steps", "1"]
+    other = ["--arch", "mamba2-370m"] + argv[2:]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launcher.main(argv + ["--multi-pod", "--model-axis", "2"])
+        launcher.main(other + ["--multi-pod", "--model-axis", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launcher.shard_model(lm.init_lm(configs.get_smoke_config("chatglm3-6b"), device="cpu"),
+        launcher.shard_model(lm.init_lm(configs.get_smoke_config("mamba2-370m"), device="cpu"),
                              MeshShape(launcher.MESH_AXES, (2, 2, 2)))
     with pytest.raises(ValueError, match="torchrun"):
         launcher.main(argv + ["--multi-pod"])
+    with pytest.raises(ValueError, match="torchrun"):
+        launcher.main(argv + ["--model-axis", "2"])
     with pytest.raises(RuntimeError, match="needs 4 ranks"):
         from repro_torch.launch.mesh import make_mesh
 

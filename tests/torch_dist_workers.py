@@ -134,3 +134,187 @@ def hsdp_case(world: int, arch: str, quant: bool, remat: str):
         res["local"] = {k: p.to_local().clone() for k, p in out["model"].named_parameters()}
         res["params"] = {k: p.full_tensor() for k, p in out["model"].named_parameters()}
     return res
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+TP_BATCH, TP_SEQ, TP_KEY = 8, 16, 7
+TP_BACKENDS = ("off", "fake_quant", "pallas")
+# (linear, kind, d_in, d_out) of the narrowed smoke config
+TP_LINEARS = (("mlp.w_up", "column", 64, 640), ("mlp.w_down", "row", 640, 64),
+              ("attn.wq", "column", 64, 512), ("attn.wo", "row", 512, 64))
+
+
+def tp_config(backend: str, **over):
+    """chatglm3-6b's smoke config widened as the launcher widens it under a
+    model axis (``TP_SMOKE``: 128-wide heads, 2 kv heads, d_ff of 5
+    groups), fp32, quantization off or on ``backend``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import TP_SMOKE
+
+    cfg = dataclasses.replace(get_smoke_config("chatglm3-6b"), **TP_SMOKE, **over)
+    if backend == "off":
+        return dataclasses.replace(cfg, quant=False)
+    return dataclasses.replace(cfg, quant_backend=backend)
+
+
+def tp_batch(cfg, batch: int = TP_BATCH):
+    from repro_torch.data import make_lm_iterator
+
+    return next(make_lm_iterator(batch=batch, seq=TP_SEQ, vocab=cfg.vocab, device="cpu"))
+
+
+def _tp_linear_case(cfg, name: str, kind: str, d_in: int, d_out: int, layout, tp):
+    """One linear, unsharded and this rank's tensor-parallel part, on the
+    same seeded inputs: (ref y, dx, dw) and (y, dx, dw, bounds)."""
+    import numpy as np
+
+    from repro_torch.models import nn as L
+    from repro_torch.parallel.tensor import TPLinear, copy_to_tp
+
+    rng = np.random.default_rng(len(name) * 100 + d_out)
+    x = torch.from_numpy(rng.standard_normal((2, TP_SEQ, d_in)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((d_in, d_out)) * 0.05).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal((2, TP_SEQ, d_out)) * 1e-3).astype(np.float32))
+    qcfg = cfg.qcfg()
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = L.linear(xr, wr, None, qcfg, TP_KEY)
+    y.backward(g)
+    sp = layout[f"layers.0.{name}.w"]
+    a, b = sp.bounds[tp.rank]
+    lin = TPLinear(kind, a, sp.full, tp)
+    if kind == "column":
+        xt, wt = x.clone().requires_grad_(), w[:, a:b].clone().requires_grad_()
+        yt = lin(L.linear, copy_to_tp(xt, tp), wt, None, qcfg, TP_KEY, None)
+        yt.backward(g[..., a:b])
+    else:
+        xt, wt = x[..., a:b].clone().requires_grad_(), w[a:b].clone().requires_grad_()
+        yt = lin(L.linear, xt, wt, None, qcfg, TP_KEY, None)
+        yt.backward(g)
+    return ((y.detach(), xr.grad, wr.grad), (yt.detach(), xt.grad, wt.grad, (a, b)))
+
+
+def _tp_quantizers(tp):
+    """Sharded operands quantized as slices (K1's split path with the
+    group, the fake-quant quantize_operand with a shard) and the unsharded
+    operands quantized whole, on this rank's slices."""
+    import numpy as np
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT, GroupSpec, QuantConfig
+    from repro_torch.core.lowbit import Sharded, quantize_operand
+    from repro_torch.kernels import mls_quantize, quantize_ref
+
+    rng = np.random.default_rng(5)
+    out = {}
+    for dim, shape in ((1, (32, 640)), (0, (640, 256))):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        x[rng.integers(shape[0]), rng.integers(shape[1])] = 9.0  # one rank's max
+        r = torch.from_numpy(rng.integers(0, 256, shape).astype(np.uint8))
+        full = shape[dim]
+        a, b = (0, 384) if tp.rank == 0 else (384, full)
+        take = (slice(None), slice(a, b)) if dim == 1 else (slice(a, b), slice(None))
+        got = mls_quantize(x[take].contiguous(), FMT_IMAGENET, 128, GS_FMT_DEFAULT,
+                           r[take].contiguous(), "nc", group=tp.group)
+        want = quantize_ref(x, FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc")
+        qcfg = QuantConfig(fmt=FMT_IMAGENET, backend="fake_quant", k_block=128)
+        spec = GroupSpec((1, 128)) if dim == 1 else GroupSpec((128, 1))
+        gen_shard = Sharded(dim, a, full, tp.group)
+        fq = quantize_operand(x[take], qcfg, spec, TP_KEY, 1, shard=gen_shard)
+        fq_want = quantize_operand(x, qcfg, spec, TP_KEY, 1)
+        out[dim] = dict(take=(a, b), got=got, want=want, fq=fq, fq_want=fq_want)
+    return out
+
+
+def _tp_step(cfg, state, tp, key):
+    """This rank's tensor-parallel loss and gradients of ``state`` (an
+    unsharded state dict) and the unsharded model's, on one batch; the
+    launches recorded in the tensor-parallel step, by kernel."""
+    import collections
+
+    from repro_torch.kernels import launch
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import tensor_parallel
+
+    batch = tp_batch(cfg, 2)
+    full = lm.LM(cfg)
+    full.load_state_dict(state)
+    loss0, _ = full.loss(batch, key)
+    loss0.backward()
+    model = lm.LM(cfg)
+    model.load_state_dict(state)
+    tensor_parallel(model, tp)
+    before = collections.Counter(launch.RECORDED)
+    loss1, _ = model.loss(batch, key)
+    loss1.backward()
+    recs = collections.Counter()
+    for (kernel, *_), n in (collections.Counter(launch.RECORDED) - before).items():
+        recs[kernel] += n
+    return dict(loss=loss1.detach(), ref_loss=loss0.detach(), layout=model.tp_layout,
+                grads={k: p.grad for k, p in model.named_parameters()},
+                ref_grads={k: p.grad for k, p in full.named_parameters()}, launches=dict(recs))
+
+
+def _state(cfg, seed: int = 0):
+    from repro_torch.models import lm
+
+    return lm.init_lm(cfg, seed=seed, device="cpu").state_dict()
+
+
+def tp2_worker(rank: int, world: int, jax_state):
+    """World 2, model 2: the linears and quantizers of each backend, the
+    step of each backend against the unsharded port, the unquantized step
+    on the JAX package's parameters (``jax_state``), and two microbatch-2
+    steps of the launcher's train step on the global batch."""
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.data import make_lm_iterator
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import TensorParallel, tensor_parallel, tp_layout
+    from repro_torch.train import make_train_step
+
+    tp = TensorParallel.of()
+    res = {"linears": {}, "steps": {}}
+    for backend in TP_BACKENDS:
+        cfg = tp_config(backend)
+        layout = tp_layout(cfg, {k: tuple(t.shape) for k, t in _state(cfg).items()}, 2)
+        for name, kind, d_in, d_out in TP_LINEARS:
+            res["linears"][(backend, name)] = _tp_linear_case(cfg, name, kind, d_in, d_out,
+                                                              layout, tp)
+        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY)
+    res["quantizers"] = _tp_quantizers(tp)
+    res["jax"] = _tp_step(tp_config("off"), jax_state, tp, None)
+    cfg = tp_config("fake_quant")
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TP_BATCH, seq_len=TP_SEQ)
+    step, init = make_train_step(RunConfig(model=cfg, shape=shape, microbatch=2))
+    model = tensor_parallel(lm.init_lm(cfg, seed=0, device="cpu"), tp)
+    opt = init(model)
+    data = make_lm_iterator(batch=TP_BATCH, seq=TP_SEQ, vocab=cfg.vocab, device="cpu")
+    losses, gnorms = [], []
+    for _ in range(2):
+        model, opt, m = step(model, opt, next(data))
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+    res["microbatch"] = dict(losses=losses, gnorms=gnorms,
+                             params={k: p.detach().clone() for k, p in model.named_parameters()})
+    return res
+
+
+def tp4_worker(rank: int, world: int):
+    """World 4: two launcher steps at data 2 x model 2 (``--model-axis 2``,
+    HSDP over the data axis) and, at model 4 (the kv heads replicated), the
+    step of each backend against the unsharded port."""
+    from repro_torch.launch import train
+    from repro_torch.parallel.tensor import TensorParallel
+
+    out = train.main(["--arch", "chatglm3-6b", "--smoke", "--device", "cpu", "--steps", "2",
+                      "--model-axis", "2", "--batch", str(TP_BATCH), "--seq", str(TP_SEQ)])
+    model = out["model"]
+    mesh_coord = (rank // 2, rank % 2)  # (data, model) of the (1, 2, 2) mesh
+    res = {"coord": mesh_coord, "losses": out["losses"], "world": out["world"],
+           "params": {k: p.full_tensor() for k, p in model.named_parameters()},
+           "steps": {}}
+    tp = TensorParallel.of()
+    for backend in TP_BACKENDS:
+        cfg = tp_config(backend)
+        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY)
+    return res
