@@ -218,27 +218,38 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 (repro_torch.parallel.tensor).  K1's split entries
                 (mls_quantize_rows_amax, then mls_quantize_rows_codes over
                 the given max) at chatglm3-6b's training operands x (8192,
-                4096) and w^T (13696, 4096) with rounding bytes: bit for
-                bit the one-call entry's and the plain version's with the
-                operand's own max, and quantize_ref's with a larger given
-                max; each entry timed beside its byte bound (pass A also
-                beside torch.linalg.vector_norm(x, inf)).  Then the main
-                path (counts set to 0 just before, read just after, in each
-                rank): chatglm3-6b at full width cut to 2 layers, batch 1 x
-                4096, K1/K3, stochastic rounding, bf16, full remat, AdamW at
-                a constant lr 3e-4: one step of a 2-rank model axis in two
-                processes on cuda:0 over gloo (NCCL takes one card a rank),
-                and a second step for its time alone.
+                4096) and w^T (13696, 4096) and at zamba2-7b's rank shapes
+                (in_proj w^T (7408, 3584) on rank 0, with the tail, and
+                (7168, 3584) on rank 1; rank 0's in_proj error (4096,
+                7424), the ragged dt group padded) with rounding bytes: bit
+                for bit the one-call entry's and the plain version's with
+                the operand's own max, and quantize_ref's with a larger
+                given max; each entry timed beside its byte bound (pass A
+                also beside torch.linalg.vector_norm(x, inf)); K3 at
+                zamba2-7b's rank-0 in_proj and out_proj forwards
+                (TP_K3_SHAPES) bit for bit mls_matmul_ref's on both plans,
+                timed beside its int8-op bound.  Then the
+                main paths (TP_PATHS; counts set to 0 just before each
+                step, read just after, in each rank): chatglm3-6b at full
+                width cut to 2 layers, and zamba2-7b at full width cut to 7
+                (one segment of 6 Mamba2 layers split by heads with the
+                in_proj's tail on rank 0, the shared block once, one tail
+                layer), batch 1 x 4096, K1/K3, stochastic rounding, bf16,
+                full remat (the shared block never), AdamW at a constant lr
+                3e-4: one step of a 2-rank model axis in two processes on
+                cuda:0 over gloo (NCCL takes one card a rank), and a second
+                step for its time alone.
                 Each rank then runs the unsharded model on the same card as
                 the reference: quantized, the loss gap printed and held
-                within 5e-2, and every linear of the two layers given the
-                unsharded linear's recorded x, g and key (column-parallel
-                outputs and weight gradients, row-parallel data and weight
-                gradients bit for bit; the sums over the split within (G_r
-                + 1) eps max|ref|); unquantized (fp32 compute, as JAX holds
-                its own mesh), the loss and the grad norm within 1e-4
-                relative and the rank's updated parameters within 1e-4
-                (relative L2; TP_AGREE);
+                within 5e-2, and every linear of the layers and the shared
+                block given the unsharded linear's recorded x, g and key
+                (column-parallel outputs and weight gradients, row-parallel
+                data and weight gradients bit for bit, over all of a
+                rank's pieces; the sums over the split within (G_r + 1) eps
+                max|ref|); unquantized (fp32 compute, as JAX holds its own
+                mesh), the loss and the grad norm within 1e-4 relative and
+                the rank's updated parameters within 1e-4 (relative L2;
+                TP_AGREE);
                 K1 (one call and split) and K3 launches per rank equal to
                 the closed form (tp_train_launches); per-rank step ms and
                 peak memory printed (gloo through the host: not a TP speed).
@@ -249,8 +260,8 @@ overlap_write run; K1's split entries' on the tensor phase's main path),
 `lm_train_launches` per model of the lm_train phase's 4-step run,
 `sweep_launches` its launches per step in each "pallas" cell of the
 sweep's chip grid, `parallel_launches` its count on the parallel phase's
-main path and `tensor_launches` on the tensor phase's (rank 0's), each read
-from its own run.  The last line is
+main path and `tensor_launches` per path of the tensor phase (rank 0's),
+each read from its own run.  The last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
 """
@@ -1322,9 +1333,8 @@ def lm_train_launches(cfg, microbatch: int = 1, model_axis: int = 1) -> dict[str
     attention computes its K/V from the encoder's output, quantized, so a
     decoder layer has 8 attention linears.  Remat "dots" recomputes the
     forward too: K3 runs inside an autograd.Function that its policy does
-    not see.  Times the microbatches.  With a ``model_axis`` above 1 (the
-    dense family, tensor-parallel) the launches of one rank
-    (:func:`tp_train_launches`)."""
+    not see.  Times the microbatches.  With a ``model_axis`` above 1
+    (tensor-parallel) the launches of one rank (:func:`tp_train_launches`)."""
     if model_axis > 1:
         return tp_train_launches(cfg, model_axis, microbatch)
     per = 3 if cfg.remat == "none" else 4
@@ -1344,26 +1354,37 @@ def lm_train_launches(cfg, microbatch: int = 1, model_axis: int = 1) -> dict[str
 
 def tp_train_launches(cfg, model_axis: int, microbatch: int = 1) -> dict[str, int]:
     """One rank's K1 and K3 launches of a tensor-parallel LM training step
-    (parallel.tensor, the dense family): a GEMM operand held whole takes
-    K1's one call (mls_quantize_rows), a sharded one K1's two
-    (mls_quantize_rows_amax, then mls_quantize_rows_codes).  A
-    column-parallel linear (wq, w_up, w_gate, and wk / wv where the kv
-    heads split) holds x and x^T whole and shards w, the error and its
-    transpose: 2 whole and 4 sharded operands, and the recomputed forward
-    one more of each under remat.  A row-parallel one (wo, w_down) holds the
+    (parallel.tensor): a GEMM operand held whole takes K1's one call
+    (mls_quantize_rows), a sharded one K1's two (mls_quantize_rows_amax,
+    then mls_quantize_rows_codes).  A column-parallel linear (wq, w_up,
+    w_gate, wk / wv where the kv heads split, and a Mamba2 in_proj) holds x
+    and x^T whole and shards w, the error and its transpose: 2 whole and 4
+    sharded operands, and the recomputed forward one more of each under
+    remat.  A row-parallel one (wo, w_down, a Mamba2 out_proj) holds the
     error and its transpose whole: 2 and 4, and its recomputed forward 2
     sharded.  Replicated kv linears are whole: 6, and 2 under remat.  Each
-    linear runs K3 three times (four under remat)."""
-    if cfg.family != "dense":
-        raise ValueError(f"tensor parallelism is ported for the dense family, not {cfg.family}")
+    linear runs K3 three times (four under remat).  The hybrid's shared
+    block (after each full segment) is never remat'd."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
+        raise ValueError(f"tensor parallelism is not ported for the {cfg.family} family")
+
+    def block(r: int) -> tuple[int, int, int]:  # an attention+MLP block's (one, split, k3)
+        kv_split = cfg.n_kv_heads % model_axis == 0
+        cols = (2 if cfg.gated_mlp else 1) + 1 + (2 if kv_split else 0)
+        rows, whole = 2, (0 if kv_split else 2)
+        return (cols * (2 + r) + rows * 2 + whole * (6 + 2 * r),
+                cols * (4 + r) + rows * (4 + 2 * r), (cols + rows + whole) * (3 + r))
+
     r = 0 if cfg.remat == "none" else 1
-    kv_split = cfg.n_kv_heads % model_axis == 0
-    cols = (2 if cfg.gated_mlp else 1) + 1 + (2 if kv_split else 0)
-    rows, whole = 2, (0 if kv_split else 2)
-    one = cols * (2 + r) + rows * 2 + whole * (6 + 2 * r)
-    split = cols * (4 + r) + rows * (4 + 2 * r)
-    k3 = (cols + rows + whole) * (3 + r)
-    n = cfg.n_layers * microbatch
+    if cfg.family == "dense":
+        one, split, k3 = (v * cfg.n_layers for v in block(r))
+    else:  # Mamba2 layers: in_proj column-parallel, out_proj row-parallel
+        one, split, k3 = ((2 + r) + 2, (4 + r) + (4 + 2 * r), 2 * (3 + r))
+        one, split, k3 = (v * cfg.n_layers for v in (one, split, k3))
+        if cfg.family == "hybrid":
+            shared = cfg.n_layers // cfg.attn_every
+            one, split, k3 = (a + b * shared for a, b in zip((one, split, k3), block(0)))
+    n = microbatch
     return {"mls_quantize_rows": one * n, "mls_quantize_rows_amax": split * n,
             "mls_quantize_rows_codes": split * n, "mls_matmul": k3 * n}
 
@@ -3140,12 +3161,22 @@ def phase_parallel(results: dict) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 # phase 15: tensor parallelism over the model axis
 # ---------------------------------------------------------------------------
-TP_ARCH, TP_LAYERS, TP_BATCH, TP_SEQ, TP_AXIS = "chatglm3-6b", 2, 1, 4096, 2
+TP_BATCH, TP_SEQ, TP_AXIS = 1, 4096, 2
+# the paths (arch: layers, cut): chatglm3-6b (dense) and zamba2-7b (hybrid: one
+# full segment of 6 Mamba2 layers, the shared block once, one tail layer)
+TP_PATHS = {"chatglm3-6b": (2, "n_layers 28 -> 2; train_4k's global batch 256 -> 1 (seq 4096)"),
+            "zamba2-7b": (7, "n_layers 81 -> 7 (one segment of 6, the shared block once, one "
+                             "tail layer); train_4k's global batch 256 -> 1 (seq 4096)")}
 TP_ENTRIES = ("mls_quantize_rows_amax", "mls_quantize_rows_codes")  # K1's split entries
-TP_CUT = "n_layers 28 -> 2; train_4k's global batch 256 -> 1 (seq 4096)"
-# K1's split entries at chatglm3-6b's training operands: the activation of
-# a batch of 2 x 4096 and the MLP up-projection's weight, quantized as (N, K)
-TP_K1_SHAPES = {"x (8192, 4096)": (8192, 4096), "w^T (13696, 4096)": (13696, 4096)}
+# K1's split entries at training operands: chatglm3-6b's activation of a batch
+# of 2 x 4096 and MLP up-projection weight, quantized as (N, K); zamba2-7b's
+# rank shapes at a model axis of 2: the in_proj's w^T on rank 0 (z and x of 56
+# heads, 7168, and the 240-wide tail) and rank 1, and rank 0's in_proj error
+# (4096 tokens, the tail's ragged dt group padded: 7408 -> 7424)
+TP_K1_SHAPES = {"x (8192, 4096)": (8192, 4096), "w^T (13696, 4096)": (13696, 4096),
+                "zamba2 in_proj w^T rank 0 (7408, 3584)": (7408, 3584),
+                "zamba2 in_proj w^T rank 1 (7168, 3584)": (7168, 3584),
+                "zamba2 in_proj e rank 0 (4096, 7424)": (4096, 7424)}
 # fp32: JAX's own (data 2, model 2) mesh tolerance, relative on the loss, the
 # grad norm and the rank's updated parameters as one vector (relative L2).
 # Not per element or per tensor: AdamW's first step moves an element by up to
@@ -3218,12 +3249,65 @@ def tp_k1_checks(gen) -> tuple[list[dict], list[dict]]:
     return checks, rows
 
 
-def _tp_configs():
+# K3 at zamba2-7b's rank-0 GEMMs at a model axis of 2 (4096 tokens): the
+# in_proj forward over the rank's 7408 columns (z and x of 56 heads and the
+# tail), and the out_proj forward over its 3584 rows of din
+TP_K3_SHAPES = {"zamba2 in_proj fwd rank 0": (4096, 3584, 7408),
+                "zamba2 out_proj fwd rank 0": (4096, 3584, 3584)}
+
+
+def tp_k3_checks(gen) -> tuple[list[dict], list[dict]]:
+    """K3 at TP_K3_SHAPES on K1's codes of random operands (stochastic):
+    the plan matmul_plan picks and the other variant bit for bit
+    mls_matmul_ref's; the plan timed (CUDA events, and its kernels alone)
+    beside its int8-op bound and its plain version."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
+    from repro_torch.kernels import mls_matmul, mls_quantize, rounding_bytes
+    from repro_torch.kernels.mls_matmul import matmul_plan
+    from repro_torch.kernels.ref import mls_matmul_ref
+
+    fmt, kb = FMT_IMAGENET, K_BLOCK
+    checks, rows = [], []
+    for sname, (M, K, N) in TP_K3_SHAPES.items():
+        coded = []
+        for n in (M, N):
+            t = torch.randn((n, K), generator=gen, device="cuda")
+            coded.append(mls_quantize(t, fmt, kb, GS_FMT_DEFAULT,
+                                      rounding_bytes(t.shape, gen, t.device), "nc"))
+            del t
+        (xc, xsg, xst), (wc, wsg, wst) = coded
+        args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, kb)
+        want = mls_matmul_ref(*args)
+        plan = matmul_plan(M, N, K, kb, fmt)
+        other = dataclasses.replace(plan, variant="walk" if plan.variant == "split" else "split")
+        got = [mls_matmul(*args, "nc", plan=p) for p in (plan, other)]
+        torch.cuda.synchronize()
+        err = max(max_abs_err(g, want) for g in got)
+        checks.append(dict(kernel="mls_matmul", shape=sname, mkn=(M, K, N),
+                           plan=dataclasses.asdict(plan),
+                           identical=all(torch.equal(g, want) for g in got), max_abs_err=err))
+        run = lambda: mls_matmul(*args, "nc", plan=plan)  # noqa: E731
+        ops = 2 * M * N * K
+        rows.append(dict(name="mls_matmul", shape=f"{sname} ({M}x{K}x{N}) {plan.variant}",
+                         ms=cuda_ms(run), kernel_ms=kernel_ms(run, DEVICE_KERNELS["mls_matmul"]),
+                         plain_ms=cuda_ms(lambda: mls_matmul_ref(*args), iters=3, warmup=1),
+                         library_ms=None, bound_ms=ops / INT8_OPS_PER_S * 1e3,
+                         bound_by="operations", ops=ops, max_abs_err=err))
+        del coded, args, want, got
+        torch.cuda.empty_cache()
+    return checks, rows
+
+
+def _tp_configs(arch: str):
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    q = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS, quant_backend="pallas")
+    q = dataclasses.replace(get_config(arch), n_layers=TP_PATHS[arch][0], quant_backend="pallas")
     # unquantized in fp32, as JAX holds its own mesh: with bf16 activations
     # AdamW's first step turns rounding noise in tiny gradients into whole
     # steps of the other sign (a zero-initialised bias moved 18% apart)
@@ -3235,11 +3319,12 @@ def _tp_linear_checks(ref, records, layout, tp) -> list[dict]:
     by this rank's tensor-parallel linear against the unsharded linear on
     the same inputs: x in fp32 (the bf16 values; the quantizer reads fp32
     either way), so that the data gradient comes back unrounded and its sum
-    over the ranks is held to fp32's group-order bound."""
+    over the ranks is held to fp32's group-order bound.  A split of several
+    pieces (a Mamba2 in_proj's) takes them all."""
     import torch
 
     from repro_torch.models import nn as L
-    from repro_torch.parallel.tensor import TPLinear, copy_to_tp
+    from repro_torch.parallel.tensor import Split, TPLinear, copy_to_tp
 
     eps = torch.finfo(torch.float32).eps
     params = dict(ref.named_parameters())
@@ -3247,45 +3332,47 @@ def _tp_linear_checks(ref, records, layout, tp) -> list[dict]:
     for rec in records:
         name, x = rec["name"], rec["x"].float()
         sp = layout[f"{name}.w"]
-        a, b = sp.bounds[tp.rank]
+        pieces = sp.pieces[tp.rank]
+        last = Split(x.ndim - 1, (pieces,))  # the same pieces of an activation's last dim
         kind = "column" if sp.dim == 1 else "row"
         x0 = x.clone().requires_grad_()
         w0 = params[f"{name}.w"].detach().requires_grad_()
         bias = params.get(f"{name}.b")
         y = L.linear(x0, w0, bias, rec["qcfg"], rec["key"])
         dx, dw = torch.autograd.grad(y, (x0, w0), rec["g"])
-        lin = TPLinear(kind, a, sp.full, tp)
+        lin = TPLinear.of(kind, sp, tp)
+        w1 = sp.take(w0.detach(), tp.rank).contiguous().requires_grad_()
         if kind == "column":
             x1 = x.clone().requires_grad_()
-            w1 = w0.detach()[:, a:b].contiguous().requires_grad_()
-            bt = None if bias is None else bias.detach()[a:b]
+            bt = None if bias is None else Split(0, (pieces,)).take(bias.detach(), 0)
             yt = lin(L.linear, copy_to_tp(x1, tp), w1, bt, rec["qcfg"], rec["key"], None)
-            dxt, dwt = torch.autograd.grad(yt, (x1, w1), rec["g"][..., a:b].contiguous())
-            exact = torch.equal(yt, y[..., a:b]) and torch.equal(dwt, dw[:, a:b])
+            dxt, dwt = torch.autograd.grad(yt, (x1, w1), last.take(rec["g"], 0).contiguous())
+            exact = torch.equal(yt, last.take(y, 0)) and torch.equal(dwt, sp.take(dw, tp.rank))
             summed, want = dxt, dx
         else:
-            x1 = x[..., a:b].contiguous().requires_grad_()
-            w1 = w0.detach()[a:b].contiguous().requires_grad_()
+            x1 = last.take(x, 0).contiguous().requires_grad_()
             yt = lin(L.linear, x1, w1, None if bias is None else bias.detach(), rec["qcfg"],
                      rec["key"], None)
             dxt, dwt = torch.autograd.grad(yt, (x1, w1), rec["g"])
-            exact = torch.equal(dxt, dx[..., a:b]) and torch.equal(dwt, dw[a:b])
+            exact = torch.equal(dxt, last.take(dx, 0)) and torch.equal(dwt, sp.take(dw, tp.rank))
             summed, want = yt, y
-        groups = -(-(b - a) // 128)
+        groups = sum(-(-(b - a) // 128) for a, b in pieces)
         err = (summed.float() - want.float()).abs().max().item()
         tol = (groups + 1) * eps * want.float().abs().max().item()
-        out.append(dict(linear=name, kind=kind, cols=(a, b), slices_bit_identical=exact,
+        out.append(dict(linear=name, kind=kind, cols=pieces, slices_bit_identical=exact,
                         sum_err=err, sum_tol=tol, ok=exact and err <= tol))
+        del x0, w0, y, dx, dw, x1, w1, yt, dxt, dwt
     return out
 
 
 def _tp_record_linears(model):
-    """Forward hooks on every linear of the model's layers: each call's x,
-    config and key, and the gradient of its output once backward reaches
-    it (the recomputed forward of remat gets no gradient: dropped)."""
+    """Forward hooks on every linear of the model's layers and shared block:
+    each call's x, config and key, and the gradient of its output once
+    backward reaches it (the recomputed forward of remat gets no gradient:
+    dropped)."""
     records, handles = [], []
     for name, mod in model.named_modules():
-        if name.startswith("layers.") and type(mod).__name__ == "Linear":
+        if name.startswith(("layers.", "shared_attn.")) and type(mod).__name__ == "Linear":
             def hook(m, args, kwargs, out, name=name):
                 rec = dict(name=name, x=args[0].detach(), qcfg=args[1], key=args[2])
                 out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
@@ -3294,11 +3381,21 @@ def _tp_record_linears(model):
     return records, handles
 
 
+def tp_linears(cfg) -> int:
+    """The quantized linear calls of one forward of ``cfg``'s model: 7 a
+    dense layer or shared-block call (6 ungated), 2 a Mamba2 layer."""
+    block = 7 if cfg.gated_mlp else 6
+    if cfg.family == "dense":
+        return block * cfg.n_layers
+    return 2 * cfg.n_layers + (block * (cfg.n_layers // cfg.attn_every)
+                               if cfg.family == "hybrid" else 0)
+
+
 def _tp_rank_work(rank: int) -> dict:
-    """One rank of the model axis: the tensor-parallel step of each config
-    (counts set to 0 just before the quantized one and read just after),
-    then the unsharded step (fp32) or loss (pallas, its linears recorded)
-    on the same card as the reference."""
+    """One rank of the model axis, for each path of TP_PATHS: the
+    tensor-parallel step of each config (counts set to 0 just before the
+    step and read just after), then the unsharded step (fp32) or loss
+    (pallas, its linears recorded) on the same card as the reference."""
     import torch
 
     from repro_torch.configs import SHAPES, RunConfig
@@ -3310,61 +3407,66 @@ def _tp_rank_work(rank: int) -> dict:
 
     tp = TensorParallel.of()
     out = {"rank": rank}
-    for tag, cfg in _tp_configs().items():
-        run = RunConfig(model=cfg, shape=SHAPES["train_4k"])
-        step_fn, opt_init = make_train_step(run, lr_fn=lambda step: TP_LR)
-        batch = next(lm_train_data(cfg, TP_BATCH, TP_SEQ))
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        model = tensor_parallel(init_lm(cfg, seed=0, device="cuda"), tp)
-        opt = opt_init(model)
-        layout = model.tp_layout
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        model, opt, m = step_fn(model, opt, batch)
-        torch.cuda.synchronize()
-        r = dict(first_step_ms=(time.perf_counter() - t0) * 1e3, launches=launch_counts(),
-                 loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
-        mine = {k: p.detach().clone() for k, p in model.named_parameters()}
-        t0 = time.perf_counter()  # a second step, warm, for its time alone
-        model, opt, m = step_fn(model, opt, batch)
-        torch.cuda.synchronize()
-        r.update(step_ms=(time.perf_counter() - t0) * 1e3,
-                 peak_memory_bytes=torch.cuda.max_memory_allocated())
-        del model, opt, m
-        ref = init_lm(cfg, seed=0, device="cuda")
-        if tag == "fp32":
-            ropt = opt_init(ref)
-            ref, ropt, rm = step_fn(ref, ropt, batch)
-            r.update(ref_loss=float(rm["loss"]), ref_grad_norm=float(rm["grad_norm"]))
-            worst_abs, worst_rel, sq_diff, sq_want = (0.0, None), (0.0, None), 0.0, 0.0
-            for k, p in ref.named_parameters():
-                want = p.detach()
-                if k in layout:
-                    a, b = layout[k].bounds[rank]
-                    want = want.narrow(layout[k].dim, a, b - a)
-                diff = mine[k].double() - want.double()
-                worst_abs = max(worst_abs, (diff.abs().max().item(), k), key=lambda v: v[0])
-                rel = float(diff.norm() / max(float(want.double().norm()), 1e-30))
-                worst_rel = max(worst_rel, (rel, k), key=lambda v: v[0])
-                sq_diff += float(diff.square().sum())
-                sq_want += float(want.double().square().sum())
-            r.update(params_rel=math.sqrt(sq_diff / sq_want), params_worst_abs=worst_abs,
-                     params_worst_rel=worst_rel)
-            del ropt
-        else:
-            records, handles = _tp_record_linears(ref)
-            loss, _ = ref.loss(batch, fold_in(run.seed, 0))  # the step's key at step 0
-            loss.backward()
-            for h in handles:
-                h.remove()
-            r["ref_loss"] = loss.item()
-            r["linears"] = _tp_linear_checks(ref, [x for x in records if "g" in x], layout, tp)
-            del records
-        del ref, mine
-        torch.cuda.empty_cache()
-        out[tag] = r
+    for arch in TP_PATHS:
+        out[arch] = {}
+        for tag, cfg in _tp_configs(arch).items():
+            run = RunConfig(model=cfg, shape=SHAPES["train_4k"])
+            step_fn, opt_init = make_train_step(run, lr_fn=lambda step: TP_LR)
+            batch = next(lm_train_data(cfg, TP_BATCH, TP_SEQ))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = tensor_parallel(init_lm(cfg, seed=0, device="cuda"), tp)
+            opt = opt_init(model)
+            layout = model.tp_layout
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            model, opt, m = step_fn(model, opt, batch)
+            torch.cuda.synchronize()
+            r = dict(first_step_ms=(time.perf_counter() - t0) * 1e3, launches=launch_counts(),
+                     loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+            mine = {k: p.detach().clone() for k, p in model.named_parameters()}
+            t0 = time.perf_counter()  # a second step, warm, for its time alone
+            model, opt, m = step_fn(model, opt, batch)
+            torch.cuda.synchronize()
+            r.update(step_ms=(time.perf_counter() - t0) * 1e3,
+                     peak_memory_bytes=torch.cuda.max_memory_allocated())
+            del model, opt, m
+            torch.cuda.empty_cache()
+            ref = init_lm(cfg, seed=0, device="cuda")
+            if tag == "fp32":
+                ropt = opt_init(ref)
+                ref, ropt, rm = step_fn(ref, ropt, batch)
+                r.update(ref_loss=float(rm["loss"]), ref_grad_norm=float(rm["grad_norm"]))
+                worst_abs, worst_rel, sq_diff, sq_want = (0.0, None), (0.0, None), 0.0, 0.0
+                for k, p in ref.named_parameters():
+                    want = p.detach()
+                    if k in layout:
+                        want = layout[k].take(want, rank)
+                    diff = mine[k].double() - want.double()
+                    worst_abs = max(worst_abs, (diff.abs().max().item(), k), key=lambda v: v[0])
+                    rel = float(diff.norm() / max(float(want.double().norm()), 1e-30))
+                    worst_rel = max(worst_rel, (rel, k), key=lambda v: v[0])
+                    sq_diff += float(diff.square().sum())
+                    sq_want += float(want.double().square().sum())
+                r.update(params_rel=math.sqrt(sq_diff / sq_want), params_worst_abs=worst_abs,
+                         params_worst_rel=worst_rel)
+                del ropt
+            else:
+                records, handles = _tp_record_linears(ref)
+                loss, _ = ref.loss(batch, fold_in(run.seed, 0))  # the step's key at step 0
+                loss.backward()
+                for h in handles:
+                    h.remove()
+                r["ref_loss"] = loss.item()
+                del loss
+                ref.zero_grad(set_to_none=True)
+                r["linears"] = _tp_linear_checks(ref, [x for x in records if "g" in x], layout,
+                                                 tp)
+                del records
+            del ref, mine
+            torch.cuda.empty_cache()
+            out[arch][tag] = r
     return out
 
 
@@ -3387,8 +3489,9 @@ def _tp_rank(rank: int, world: int, port: int, out: str) -> None:
         dist.destroy_process_group()
 
 
-def phase_tensor(results: dict) -> tuple[dict[str, int], list[dict]]:
-    """Tensor parallelism over the model axis (module docstring, phase 15)."""
+def phase_tensor(results: dict) -> tuple[dict[str, dict[str, int]], list[dict]]:
+    """Tensor parallelism over the model axis (module docstring, phase 15);
+    returns each path's launches (rank 0's) and the timing rows."""
     import tempfile
 
     import torch
@@ -3399,53 +3502,59 @@ def phase_tensor(results: dict) -> tuple[dict[str, int], list[dict]]:
     smi = nvidia_smi()
     gen = torch.Generator(device="cuda").manual_seed(23)
     checks, rows = tp_k1_checks(gen)
+    k3_checks, k3_rows = tp_k3_checks(gen)
+    checks, rows = checks + k3_checks, rows + k3_rows
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "tp")
         mp.spawn(_tp_rank, args=(TP_AXIS, _free_port(), out), nprocs=TP_AXIS, join=True)
         ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(TP_AXIS)]
-    cfgs = _tp_configs()
-    want = lm_train_launches(cfgs["pallas"], model_axis=TP_AXIS)
-    res = dict(arch=TP_ARCH, cut=TP_CUT, batch=TP_BATCH, seq=TP_SEQ, model_axis=TP_AXIS,
-               nvidia_smi=smi, k1_checks=checks, ranks=ranks, expected_launches=want)
+    res = dict(batch=TP_BATCH, seq=TP_SEQ, model_axis=TP_AXIS, nvidia_smi=smi, k1_checks=checks,
+               ranks=ranks, paths={})
     results["tensor"] = res
     for row in rows:
         print(json.dumps({"timing": row}))
-    for r in ranks:
-        for tag in ("fp32", "pallas"):
-            t = r[tag]
-            print(f"tensor rank {r['rank']} {tag} (gloo through the host on one card: not a "
-                  f"TP speed; {smi}): step 2 {t['step_ms']:.1f} ms (step 1 "
-                  f"{t['first_step_ms']:.1f}), peak {t['peak_memory_bytes'] / 2**30:.2f} GiB, "
-                  f"loss {t['loss']} vs unsharded {t['ref_loss']}")
     bad = [c for c in checks if not c["identical"]]
     bad = [f"K1's split entries differ: {bad}"] if bad else []
-    for r in ranks:
-        f, q = r["fp32"], r["pallas"]
-        for what, got, ref in (("loss", f["loss"], f["ref_loss"]),
-                               ("grad norm", f["grad_norm"], f["ref_grad_norm"])):
-            if abs(got - ref) > TP_AGREE["fp32"] * abs(ref):
-                bad.append(f"rank {r['rank']} fp32 {what} {got} vs {ref}")
-        if f["params_rel"] > TP_AGREE["fp32"]:
-            bad.append(f"rank {r['rank']} fp32 updated parameters {f['params_rel']}")
-        gap = abs(q["loss"] - q["ref_loss"]) / abs(q["ref_loss"])
-        q["loss_gap"] = gap
-        if not (math.isfinite(q["loss"]) and gap <= TP_AGREE["pallas"]):
-            bad.append(f"rank {r['rank']} quantized loss {q['loss']} vs {q['ref_loss']}")
-        wrong = [c for c in q["linears"] if not c["ok"]]
-        if wrong or len(q["linears"]) != 7 * TP_LAYERS:
-            bad.append(f"rank {r['rank']} linears {wrong} of {len(q['linears'])}")
-        got = {k: q["launches"][k] for k in want}
-        if got != want:
-            bad.append(f"rank {r['rank']} launches {got}, expected {want}")
-    print(f"tensor ({smi}): {TP_ARCH} {TP_CUT}, model axis {TP_AXIS} on cuda:0 over gloo: "
-          f"quantized loss gap {[r['pallas']['loss_gap'] for r in ranks]}, fp32 parameters "
-          f"{[r['fp32']['params_rel'] for r in ranks]} (worst element "
-          f"{[r['fp32']['params_worst_abs'] for r in ranks]}, worst tensor "
-          f"{[r['fp32']['params_worst_rel'] for r in ranks]}), launches {want} per rank")
+    for arch, (layers, cut) in TP_PATHS.items():
+        cfgs = _tp_configs(arch)
+        want = lm_train_launches(cfgs["pallas"], model_axis=TP_AXIS)
+        res["paths"][arch] = dict(layers=layers, cut=cut, expected_launches=want)
+        for r in ranks:
+            for tag in ("fp32", "pallas"):
+                t = r[arch][tag]
+                print(f"tensor {arch} rank {r['rank']} {tag} (gloo through the host on one "
+                      f"card: not a TP speed; {smi}): step 2 {t['step_ms']:.1f} ms (step 1 "
+                      f"{t['first_step_ms']:.1f}), peak {t['peak_memory_bytes'] / 2**30:.2f} "
+                      f"GiB, loss {t['loss']} vs unsharded {t['ref_loss']}")
+        for r in ranks:
+            f, q = r[arch]["fp32"], r[arch]["pallas"]
+            for what, got, ref in (("loss", f["loss"], f["ref_loss"]),
+                                   ("grad norm", f["grad_norm"], f["ref_grad_norm"])):
+                if abs(got - ref) > TP_AGREE["fp32"] * abs(ref):
+                    bad.append(f"{arch} rank {r['rank']} fp32 {what} {got} vs {ref}")
+            if f["params_rel"] > TP_AGREE["fp32"]:
+                bad.append(f"{arch} rank {r['rank']} fp32 updated parameters {f['params_rel']}")
+            gap = abs(q["loss"] - q["ref_loss"]) / abs(q["ref_loss"])
+            q["loss_gap"] = gap
+            if not (math.isfinite(q["loss"]) and gap <= TP_AGREE["pallas"]):
+                bad.append(f"{arch} rank {r['rank']} quantized loss {q['loss']} vs "
+                           f"{q['ref_loss']}")
+            wrong = [c for c in q["linears"] if not c["ok"]]
+            if wrong or len(q["linears"]) != tp_linears(cfgs["pallas"]):
+                bad.append(f"{arch} rank {r['rank']} linears {wrong} of {len(q['linears'])}")
+            got = {k: q["launches"].get(k, 0) for k in want}
+            if got != want:
+                bad.append(f"{arch} rank {r['rank']} launches {got}, expected {want}")
+        print(f"tensor ({smi}): {arch} {cut}, model axis {TP_AXIS} on cuda:0 over gloo: "
+              f"quantized loss gap {[r[arch]['pallas']['loss_gap'] for r in ranks]}, fp32 "
+              f"parameters {[r[arch]['fp32']['params_rel'] for r in ranks]} (worst element "
+              f"{[r[arch]['fp32']['params_worst_abs'] for r in ranks]}, worst tensor "
+              f"{[r[arch]['fp32']['params_worst_rel'] for r in ranks]}), launches {want} per "
+              f"rank")
     if bad:
         raise AssertionError("; ".join(bad))
-    return ranks[0]["pallas"]["launches"], rows
+    return {arch: ranks[0][arch]["pallas"]["launches"] for arch in TP_PATHS}, rows
 
 
 def main() -> int:
@@ -3513,8 +3622,9 @@ def main() -> int:
             elif name == "tensor":
                 tensor_launches, tensor_rows = out
                 rows += tensor_rows
-                # the split entries' path is the tensor phase's (per rank)
-                launches.update({k: tensor_launches[k] for k in TP_ENTRIES})
+                # the split entries' path is the tensor phase's (per rank, both paths)
+                launches.update({k: sum(n.get(k, 0) for n in tensor_launches.values())
+                                 for k in TP_ENTRIES})
         except Exception:
             traceback.print_exc()
             failures.append(name)
@@ -3542,7 +3652,8 @@ def main() -> int:
                             sweep_launches={c: n.get(r["name"], 0)
                                             for c, n in sweep_launches.items()},
                             parallel_launches=parallel_launches.get(r["name"], 0),
-                            tensor_launches=tensor_launches.get(r["name"], 0),
+                            tensor_launches={a: n.get(r["name"], 0)
+                                             for a, n in tensor_launches.items()},
                             max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r.get("library_ms"),

@@ -605,9 +605,11 @@ _SABOTAGE_BUILDERS = {
 }
 
 
-# the tensor-parallel step the audit proves K1's split entries at: chatglm3-6b
-# at a model axis of 2, 4096 tokens (batch 1 x 4096, the chip smoke's)
+# the tensor-parallel steps the audit proves K1's split entries at: chatglm3-6b
+# and zamba2-7b at a model axis of 2, 4096 tokens (batch 1 x 4096, the chip
+# smoke's)
 TP_AUDIT = ("chatglm3-6b", 2, 4096)
+TP_AUDIT_HYBRID = ("zamba2-7b", 2, 4096)
 
 
 def tensor_parallel_specs(cfg, model_axis: int, tokens: int,
@@ -616,8 +618,9 @@ def tensor_parallel_specs(cfg, model_axis: int, tokens: int,
     all-reduced max) on every sharded GEMM operand of one layer's linears
     in a tensor-parallel training step of ``cfg`` (the quantized backend's
     padded 2-D operands, ``tokens`` rows of activations), on the first and
-    the last rank of the model axis (the uneven splits differ), with the
-    tile cache's K1 choices."""
+    the last rank of the model axis (the uneven splits differ, and the
+    first holds a Mamba2 in_proj's tail), with the tile cache's K1
+    choices; the hybrid's shared block too."""
     from repro_torch.kernels import autotune
     from repro_torch.launch.specs import abstract_params
     from repro_torch.parallel.tensor import tp_layout
@@ -632,11 +635,10 @@ def tensor_parallel_specs(cfg, model_axis: int, tokens: int,
 
     shapes = collections.Counter()
     for name, sp in layout.items():
-        if not name.startswith("layers.0.") or not name.endswith(".w"):
+        if not name.startswith(("layers.0.", "shared_attn.")) or not name.endswith(".w"):
             continue
         d_in, d_out = full[name]
-        for a, b in {sp.bounds[0], sp.bounds[-1]}:
-            n = b - a
+        for n in {sp.size(0), sp.size(len(sp.pieces) - 1)}:
             if sp.dim == 1:  # column-parallel: w^T, the error and its transpose
                 shapes.update([(n, pad(d_in)), (tokens, pad(n)), (d_in, pad(n)),
                                (n, pad(tokens))])
@@ -663,10 +665,10 @@ def run_kernel_audit(sabotage: str | None = None, device: str = "cuda",
     reports = {name: verify_entry(entry, device) for name, entry in KERNEL_REGISTRY.items()}
     from repro_torch.configs import get_config
 
-    arch, m, tokens = TP_AUDIT
-    reports[f"tensor_parallel:{arch}@model{m}"] = verify_specs(
-        f"tensor_parallel:{arch}@model{m}",
-        tensor_parallel_specs(get_config(arch), m, tokens, device))
+    for arch, m, tokens in (TP_AUDIT, TP_AUDIT_HYBRID):
+        reports[f"tensor_parallel:{arch}@model{m}"] = verify_specs(
+            f"tensor_parallel:{arch}@model{m}",
+            tensor_parallel_specs(get_config(arch), m, tokens, device))
     for name, specs in (recorded or {}).items():
         reports[name] = verify_specs(name, specs)
     if sabotage is not None:

@@ -147,26 +147,38 @@ def lint_shipped_presets() -> dict[str, LintResult]:
 def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
     """Whether the LM config ``cfg`` trains tensor-parallel over a model
     axis of ``model_axis`` (the module docstring); warnings name the kv
-    heads kept replicated and the dims split unevenly (in whole groups)."""
+    heads kept replicated, the Mamba2 tail held by one rank and the dims
+    split unevenly (in whole groups or units)."""
     from repro_torch.launch.specs import abstract_params
-    from repro_torch.parallel.tensor import rank_heads, tp_layout
+    from repro_torch.parallel.tensor import TAIL_RANK, mamba_heads, rank_heads, tp_layout
 
     errors: list[str] = []
     warnings: list[str] = []
     try:
         layout = tp_layout(cfg, {k: tuple(t.shape) for k, t in abstract_params(cfg).items()},
                            model_axis)
-        for rank in range(model_axis):
+        for rank in range(model_axis if cfg.n_heads else 0):
             rank_heads(cfg, model_axis, rank)
     except (NotImplementedError, ValueError) as e:
         return LintResult([str(e)], warnings)
-    if model_axis > 1 and cfg.n_kv_heads % model_axis:
+    if model_axis > 1 and cfg.n_heads and cfg.n_kv_heads % model_axis:
         warnings.append(f"{cfg.n_kv_heads} kv heads stay replicated over a model axis of "
                         f"{model_axis}")
-    uneven = sorted({f"{name.split('.')[-2]} {sp.bounds[0][1] - sp.bounds[0][0]} / "
-                     f"{sp.bounds[-1][1] - sp.bounds[-1][0]}"
-                     for name, sp in layout.items()
-                     if len({b - a for a, b in sp.bounds}) > 1})
+    mamba = model_axis > 1 and cfg.family in ("ssm", "hybrid")
+    if mamba:
+        sp = layout["layers.0.in_proj.w"]
+        a, b = sp.pieces[TAIL_RANK][-1]
+        warnings.append(f"rank {TAIL_RANK} holds each Mamba2 in_proj's tail [{a}, {b}) (B, C "
+                        f"and dt: {b - a} columns) and its conv channels, and broadcasts it")
+        heads = {h1 - h0 for h0, h1 in mamba_heads(cfg, model_axis)}
+        if len(heads) > 1:
+            warnings.append(f"Mamba2 heads split unevenly in whole units: "
+                            f"{max(heads)} / {min(heads)}")
+    # a Mamba2 layer's parts differ by the tail: their units are warned of above
+    grouped = {k: sp for k, sp in layout.items() if not (mamba and k.startswith("layers."))}
+    uneven = sorted({f"{name.split('.')[-2]} {sp.size(0)} / {sp.size(len(sp.pieces) - 1)}"
+                     for name, sp in grouped.items()
+                     if len({sp.size(r) for r in range(len(sp.pieces))}) > 1})
     if uneven:
         warnings.append(f"split unevenly in whole scaling groups: {uneven}")
     return LintResult(errors, warnings)

@@ -31,8 +31,11 @@ operand may be one rank's slice of the unsharded operand
 quantized as the slice of the unsharded operand's quantization: its
 tensor scale is the max over every slice (an all-reduce MAX over the
 slices' ranks), its groups are its own (the split falls on group
-boundaries) and its rounding offsets are the slice of the offsets the
-unsharded operand draws from the same stream.
+boundaries; on the fake-quant backend a dim that is one group, as a
+ragged dim is, shares each group's max over the ranks the same way) and
+its rounding offsets are the slice of the offsets the unsharded operand
+draws from the same stream.  A slice may be several pieces of the dim,
+concatenated (:class:`Sharded`'s ``pieces``).
 """
 from __future__ import annotations
 
@@ -203,18 +206,25 @@ def rounding_generator(
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Sharded:
-    """A GEMM operand that is one rank's slice ``[start, start + n)`` along
-    ``dim`` of an operand whose ``dim`` has ``full`` elements; the other
-    slices lie on the other ranks of ``group`` (a ``torch.distributed``
-    process group; None: the default group)."""
+    """A GEMM operand that is one rank's slice along ``dim`` of an operand
+    whose ``dim`` has ``full`` elements: the ordered ``pieces`` ``[a, b)``
+    of that dim, concatenated (one piece where the rank holds a contiguous
+    slice); the other slices lie on the other ranks of ``group`` (a
+    ``torch.distributed`` process group; None: the default group)."""
 
     dim: int
-    start: int
+    pieces: tuple[tuple[int, int], ...]
     full: int
     group: Any = dataclasses.field(default=None, compare=False)
 
     def axis(self, ndim: int) -> int:
         return self.dim % ndim
+
+    def spans(self, size: int) -> tuple[tuple[int, int], ...]:
+        """The pieces, checked to hold a slice of ``size`` elements."""
+        if sum(b - a for a, b in self.pieces) != size:
+            raise ValueError(f"the pieces {self.pieces} do not hold {size} elements")
+        return self.pieces
 
     def full_shape(self, shape) -> tuple[int, ...]:
         shape = list(shape)
@@ -222,25 +232,44 @@ class Sharded:
         return tuple(shape)
 
     def take(self, full: torch.Tensor, size: int) -> torch.Tensor:
-        """This rank's ``size`` elements of an unsharded tensor along ``dim``."""
-        return full.narrow(self.axis(full.ndim), self.start, size)
+        """This rank's ``size`` elements of an unsharded tensor along ``dim``:
+        its pieces, concatenated."""
+        ax = self.axis(full.ndim)
+        parts = [full.narrow(ax, a, b - a) for a, b in self.spans(size)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=ax)
 
     def transposed(self) -> Sharded:
         """The same slice of the 2-D operand transposed."""
         return dataclasses.replace(self, dim=1 - self.axis(2))
 
     def padded(self, full: int) -> Sharded:
-        """The slice of the operand padded (at its end) to ``full``."""
-        return dataclasses.replace(self, full=full)
+        """The slice of the operand padded (at its end) to ``full``: a piece
+        that ends at the old end runs to the new one."""
+        pieces = tuple((a, full if b == self.full else b) for a, b in self.pieces)
+        return dataclasses.replace(self, full=full, pieces=pieces)
+
+    def check_groups(self, size: int, block: int) -> None:
+        """Each piece of a slice of ``size`` falls on ``block``-wide group
+        boundaries of the unsharded dim; a ragged piece (the dim's ragged
+        last group) ends the dim."""
+        for a, b in self.spans(size):
+            if a % block or ((b - a) % block and b != self.full):
+                raise ValueError(f"the slice {self.spans(size)} of a dim of {self.full} does "
+                                 f"not fall on its {block}-wide scaling groups: tensor "
+                                 f"parallelism splits in whole groups")
+
+    def reduce_max(self, m: torch.Tensor) -> torch.Tensor:
+        """The element-wise max of ``m`` over ``group`` (fp32, a copy)."""
+        import torch.distributed as dist
+
+        m = m.detach().float().contiguous().clone()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
+        return m
 
     def tensor_max(self, x: torch.Tensor) -> torch.Tensor:
         """max |x| over every slice: this slice's, all-reduced (MAX) over
         ``group``; fp32, 0-dim."""
-        import torch.distributed as dist
-
-        m = x.detach().float().abs().amax().reshape(1)
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
-        return m[0]
+        return self.reduce_max(x.detach().float().abs().amax().reshape(1))[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,35 +279,41 @@ class LinearSplit:
     the back-propagated error ``e`` (..., N), each None where the rank
     holds the whole operand.  Column-parallel (``w[:, N_r]``): ``w`` on dim
     1 and ``e`` on its last dim; row-parallel (``w[K_r, :]``): ``x`` on its
-    last dim and ``w`` on dim 0."""
+    last dim and ``w`` on dim 0; ``pieces``, the rank's ``[a, b)`` of N
+    (column) or K (row), concatenated."""
 
     x: Sharded | None
     w: Sharded | None
     e: Sharded | None
 
     @staticmethod
-    def column(start: int, full: int, group=None) -> LinearSplit:
-        return LinearSplit(None, Sharded(1, start, full, group), Sharded(-1, start, full, group))
+    def column(pieces, full: int, group=None) -> LinearSplit:
+        return LinearSplit(None, Sharded(1, pieces, full, group), Sharded(-1, pieces, full, group))
 
     @staticmethod
-    def row(start: int, full: int, group=None) -> LinearSplit:
-        return LinearSplit(Sharded(-1, start, full, group), Sharded(0, start, full, group), None)
+    def row(pieces, full: int, group=None) -> LinearSplit:
+        return LinearSplit(Sharded(-1, pieces, full, group), Sharded(0, pieces, full, group), None)
 
 
 def _full_shape(shape, shard: Sharded | None) -> tuple[int, ...]:
     return tuple(shape) if shard is None else shard.full_shape(shape)
 
 
-def _check_split(spec: GroupSpec, shape, shard: Sharded) -> None:
-    """A slice's groups must be the unsharded operand's: the split falls
-    on group boundaries."""
+def _check_split(spec: GroupSpec, shape, shard: Sharded) -> bool:
+    """A slice's groups must be the unsharded operand's: each piece falls
+    on group boundaries.  Returns True where one group spans the whole
+    split dim (its ranks then share each such group's max), False where
+    the slice holds whole groups of its own."""
     full = shard.full_shape(shape)
-    b_local, b_full = spec.resolve(shape), spec.resolve(full)
+    b_full = spec.resolve(full)
     ax = shard.axis(len(shape))
-    if b_local != b_full or shard.start % b_full[ax]:
-        raise ValueError(f"the slice [{shard.start}, {shard.start + shape[ax]}) of dim {ax} "
-                         f"of an operand {full} does not fall on its scaling groups "
-                         f"{b_full}: tensor parallelism splits in whole groups")
+    if b_full[ax] == full[ax] and shape[ax] < full[ax]:
+        return True
+    shard.check_groups(shape[ax], b_full[ax])
+    if spec.resolve(shape) != b_full:
+        raise ValueError(f"a slice of {shape[ax]} of dim {ax} of an operand {full} does not "
+                         f"hold whole {b_full[ax]}-wide scaling groups")
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -317,13 +352,18 @@ def quantize_operand(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: in
     else:
         if r is not None:
             raise ValueError("a sharded operand draws its offsets from its stream, not r")
-        _check_split(spec, x.shape, shard)
+        spanning = _check_split(spec, x.shape, shard)
         gen = rounding_generator(key, cfg, idx, x.device)
         offsets = None if gen is None else shard.take(torch.rand(
             shard.full_shape(x.shape), generator=gen, device=gen.device,
             dtype=torch.float32) - 0.5, x.shape[shard.axis(x.ndim)])
+        if spanning:  # the slice's part of each group; the group's max over the ranks
+            block = list(spec.block)
+            block[shard.axis(x.ndim)] = None
+            spec = GroupSpec(tuple(block))
         t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt, offsets,
-                         tensor_max=shard.tensor_max(x))
+                         tensor_max=shard.tensor_max(x),
+                         group_max=shard.reduce_max if spanning else None)
     pin = wire and cfg.wire_fsdp_dim is not None and x.ndim == 2
     if not pin:
         return t.unit_value(), t.s_t

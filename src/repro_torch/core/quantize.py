@@ -244,6 +244,7 @@ def _offsets(r: torch.Tensor | torch.Generator | None, x: torch.Tensor) -> torch
 def normalize_slices(
     x: torch.Tensor, spec: GroupSpec, gs_fmt: EMFormat = GS_FMT_DEFAULT,
     tensor_max: torch.Tensor | None = None,
+    group_max=None,
 ) -> tuple[torch.Tensor, ...]:
     """Paper Alg. 2 lines 1-8 over a stack of independent slices ``x[i]``
     (fp32 (n, ...); ``spec`` has block 1 on axis 0): each slice's signs,
@@ -252,11 +253,15 @@ def normalize_slices(
     exp_g, man_g, scale, x_f)``, ``scale`` the group scales broadcast to
     ``x``'s shape; a zero slice gets tensor scale 1.  ``tensor_max`` (n,),
     where given, replaces each slice's max |x| as the tensor scale's source
-    (the max over a larger operand this slice is part of)."""
+    (the max over a larger operand this slice is part of); ``group_max``,
+    where given, maps the group maxima to those of the larger groups each
+    slice's groups are part of."""
     n = x.shape[0]
     sign = torch.sign(x).to(torch.int8)
     absx = x.abs()
     s_r = group_reduce_max(absx, spec)  # group maxima
+    if group_max is not None:
+        s_r = group_max(s_r)
     s_t = (torch.amax(s_r.reshape(n, -1), dim=1) if tensor_max is None
            else tensor_max.reshape(n).to(torch.float32))  # tensor scales
     s_t = torch.where(s_t > 0, s_t, torch.ones_like(s_t))
@@ -276,18 +281,20 @@ def mls_quantize(
     gs_fmt: EMFormat = GS_FMT_DEFAULT,
     r: torch.Tensor | torch.Generator | None = None,
     tensor_max: torch.Tensor | None = None,
+    group_max=None,
 ) -> MLSTensor:
     """Full dynamic quantization, paper Alg. 2.  ``spec`` defaults to one
     group over the whole tensor; ``r`` is the stochastic-rounding source
     (``None``: round to nearest); ``tensor_max``, where given, is the max
     |x| the tensor scale is made from in place of ``x``'s own (a shard's:
-    the unsharded operand's)."""
+    the unsharded operand's); ``group_max`` maps the group maxima to those
+    of the unsharded operand's groups that ``x``'s are parts of."""
     x = x.to(torch.float32)
     if spec is None:
         spec = GroupSpec.per_tensor(x.ndim)
     sign, s_t, s_g, exp_g, man_g, _, x_f = normalize_slices(
         x[None], GroupSpec((1,) + tuple(spec.block)), gs_fmt,
-        None if tensor_max is None else tensor_max.reshape(1))
+        None if tensor_max is None else tensor_max.reshape(1), group_max)
     xbar, exp_x, man_x = quantize_elements(x_f[0], fmt, _offsets(r, x))
     return MLSTensor(sign=sign[0], s_t=s_t[0], s_g=s_g[0], exp_g=exp_g[0], man_g=man_g[0],
                      xbar=xbar, exp_x=exp_x, man_x=man_x, fmt=fmt, gs_fmt=gs_fmt, spec=spec)

@@ -118,15 +118,14 @@ def _quantize(xp: torch.Tensor, K: int, shard: Sharded | None, gen, fmt, k_block
     """K1/K2 on ``qd_gemm``'s padded (rows, K + pad) operand; a slice of a
     sharded one (``shard`` on dim 0, or on dim 1, the contraction, whose
     unsharded width ``full`` pads to ``k_block`` as the unsharded operand
-    does) takes the slice of the unsharded operand's bytes and the
-    all-reduced tensor scale."""
+    does; each piece of a slice of several on group boundaries, a ragged
+    last group at the dim's end) takes the slice of the unsharded operand's
+    bytes and the all-reduced tensor scale."""
     if shard is None:
         return mls_quantize(xp, fmt, k_block, gs_fmt, rounding_bytes(xp.shape, gen, xp.device),
                             grouping)
     if shard.axis(2) == 1:
-        if shard.start % k_block or (K % k_block and shard.start + K != shard.full):
-            raise ValueError(f"the contraction slice [{shard.start}, {shard.start + K}) of "
-                             f"{shard.full} does not fall on k_block={k_block} boundaries")
+        shard.check_groups(K, k_block)
         shard = shard.padded(shard.full + (-shard.full) % k_block)
     if gen is None:
         r = rounding_bytes(xp.shape, None, xp.device)

@@ -16,11 +16,12 @@ Under ``torchrun`` (``WORLD_SIZE`` set) it trains over the world:
 chatglm3-6b [--multi-pod] [--model-axis 2]``.  The mesh is ``(pods, world
 // (pods * N), N)`` over ("pod", "data", "model"), ``pods`` 2 under
 ``--multi-pod`` and 1 otherwise, ``N`` the ``--model-axis``.  With ``N`` >
-1 each model group trains the dense family tensor-parallel
-(:mod:`repro_torch.parallel.tensor`: Megatron-split linears, a
-vocab-parallel embedding, head and loss); the other families raise
-(ROADMAP queue 1).  Then every layer and the model are sharded with FSDP2
-``fully_shard`` over the 2-D ("pod", "data") mesh (HSDP), each rank's
+1 each model group trains the dense, ssm and hybrid families
+tensor-parallel (:mod:`repro_torch.parallel.tensor`: Megatron-split
+linears, Mamba2 layers split by heads, a vocab-parallel embedding, head
+and loss); moe and encdec raise (ROADMAP queue 1).  Then every layer and
+the model are sharded with FSDP2 ``fully_shard`` over the 2-D ("pod",
+"data") mesh (HSDP), each rank's
 tensor-parallel parameters: sharded over ``data`` and replicated across
 pods, the JAX package's layout (:mod:`repro_torch.parallel.specs`).  Each
 rank trains on its slice of the global batch, chosen by its ("pod",
@@ -29,8 +30,8 @@ gradient reduction averages over ("pod", "data").  The JAX launcher's mesh
 is the fixed (2, 16, 16) of 512 TPU chips; the port sizes ``data`` from the
 world instead.  Checkpoints under torchrun hold each rank's shards, in
 ``rank<r>/`` of ``--ckpt-dir``.  ``--smoke`` with ``--model-axis``
-widens the smoke config's heads and MLP (``TP_SMOKE``) so that the splits
-keep whole scaling groups.
+widens the smoke config (:func:`tp_smoke`: the heads and MLP, and the
+Mamba2 layers' din) so that the splits keep whole scaling groups.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ from repro_torch.configs import shape_model_config
 from repro_torch.data import make_lm_iterator
 from repro_torch.models import lm
 from repro_torch.parallel.sharding import MeshShape, axis_sizes
-from repro_torch.parallel.tensor import NOT_PORTED, TensorParallel, tensor_parallel
+from repro_torch.parallel.tensor import NOT_PORTED, PORTED, TensorParallel, tensor_parallel
 from repro_torch.runtime import resolve_device
 from repro_torch.train import CheckpointManager, StragglerMonitor, make_train_step
 from repro_torch.train.trainer import local_params
@@ -54,7 +55,7 @@ from repro_torch.train.trainer import local_params
 from .mesh import make_mesh
 from .specs import choose_microbatch
 
-__all__ = ["hsdp_mesh", "local_batch", "main", "shard_model"]
+__all__ = ["hsdp_mesh", "local_batch", "main", "shard_model", "tp_smoke"]
 
 MESH_AXES = ("pod", "data", "model")
 # The smoke configs' 16-wide heads and 96-wide d_ff keep no 128-wide scaling
@@ -62,6 +63,20 @@ MESH_AXES = ("pod", "data", "model")
 # 128-wide heads, chatglm3-6b's 2 kv heads and a d_ff of 5 groups (an odd
 # count, split unevenly).
 TP_SMOKE = dict(head_dim=128, n_kv_heads=2, d_ff=5 * 128)
+# ... and their Mamba2 layers' din of 128 is one group: d_model 256 gives a
+# din of 4 groups, 16 heads of 32 (the hybrid takes TP_SMOKE's attention too)
+TP_SMOKE_SSM = dict(d_model=256, ssm_headdim=32)
+
+
+def tp_smoke(cfg):
+    """A smoke config widened for a model axis: ``TP_SMOKE`` where it has
+    attention, ``TP_SMOKE_SSM`` where it has Mamba2 layers."""
+    over = {}
+    if cfg.n_heads:
+        over.update(TP_SMOKE)
+    if cfg.family in ("ssm", "hybrid"):
+        over.update(TP_SMOKE_SSM)
+    return dataclasses.replace(cfg, **over)
 
 
 def hsdp_mesh(world: int, multi_pod: bool = False, device_type: str | None = None,
@@ -82,7 +97,7 @@ def _dp_mesh(mesh):
 def shard_model(model: lm.LM, mesh) -> lm.LM:
     """Tensor parallelism over the mesh's ``model`` dim where it is above 1
     (:func:`repro_torch.parallel.tensor.tensor_parallel`, this rank's
-    coordinate; the dense family only), then HSDP: FSDP2 ``fully_shard`` of
+    coordinate; the dense, ssm and hybrid families), then HSDP: FSDP2 ``fully_shard`` of
     every layer (and encoder layer), then of the model, over the mesh's
     ("pod", "data") dims, and ``model.loss`` registered as a forward of the
     root, so that the trainer's loss runs inside FSDP2's hooks.  The
@@ -91,7 +106,7 @@ def shard_model(model: lm.LM, mesh) -> lm.LM:
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
     m = axis_sizes(mesh).get("model", 1)
-    if m > 1 and model.cfg.family != "dense":
+    if m > 1 and model.cfg.family not in PORTED:
         raise NotImplementedError(NOT_PORTED.format(family=model.cfg.family))
     if model.cfg.param_gather_dtype != "float32":
         raise NotImplementedError("param_gather_dtype other than float32 under FSDP2: the "
@@ -144,7 +159,7 @@ def main(argv: list[str] | None = None) -> dict:
                     help="under torchrun: two pods, parameters replicated across them")
     ap.add_argument("--model-axis", type=int, default=1,
                     help="under torchrun: the mesh's model axis (tensor parallelism of the "
-                         "dense family)")
+                         "dense, ssm and hybrid families)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--batch", type=int, default=0, help="override batch")
@@ -154,7 +169,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     device = resolve_device(args.device)
     family = get_config(args.arch).family
-    if args.model_axis > 1 and family != "dense":
+    if args.model_axis > 1 and family not in PORTED:
         raise NotImplementedError(NOT_PORTED.format(family=family))
     mesh, rank = None, 0
     if int(os.environ.get("WORLD_SIZE", "0")):
@@ -167,7 +182,7 @@ def main(argv: list[str] | None = None) -> dict:
     if args.smoke:
         cfg = get_smoke_config(args.arch)
         if args.model_axis > 1:
-            cfg = dataclasses.replace(cfg, **TP_SMOKE)
+            cfg = tp_smoke(cfg)
         batch_size, seq = args.batch or 8, args.seq or 64
     else:
         cfg = shape_model_config(get_config(args.arch), shape)

@@ -10,6 +10,14 @@ length gives chunk 1); decode (one token with a state) is the O(1)
 recurrence.  The state is ``(conv_state (B, K-1, C), ssm_state (B, H, P,
 N))``: the SSM state is fp32, and the conv state is the last ``K-1`` rows
 of the conv input, which comes out of the fp32 projection.
+
+Under tensor parallelism (``parallel.tensor.tensor_parallel``; training
+only) a block holds its heads ``heads = (h0, h1)``: ``in_proj`` is
+column-parallel over its pieces (``z`` and ``x`` of those heads, and on
+``TAIL_RANK`` the tail ``B``, ``C``, ``dt``), the conv and the SSD run on
+the rank's heads, ``TAIL_RANK`` broadcasts ``silu(conv(B, C))`` and the
+raw ``dt``, ``out_norm`` sums its squares over the model group, and
+``out_proj`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import QuantConfig, fold_in
+from repro_torch.parallel.tensor import TAIL_RANK, broadcast_from_tp, copy_to_tp, sum_over_tp
 
 from . import nn as L
 from .transformer import RMSNorm
@@ -136,6 +145,10 @@ class Mamba2Block(nn.Module):
         self.dt_bias = nn.Parameter(torch.empty(h))
         self.out_norm = RMSNorm(din)
         self.out_proj = L.Linear(din, d)
+        # tensor parallelism (parallel.tensor.tensor_parallel): the model
+        # group and this rank's [h0, h1) of the heads
+        self.tp = None
+        self.heads = (0, h)
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> None:
@@ -153,6 +166,11 @@ class Mamba2Block(nn.Module):
         """Full sequence (train/prefill) or stateful (decode).  Returns ``(y,
         new_state)``; ``new_state`` is None unless ``state`` was given or
         S == 1."""
+        if self.tp is not None:
+            if state is not None:
+                raise NotImplementedError("a tensor-parallel Mamba2 layer trains; its serving "
+                                          "path is not ported (ROADMAP queue 1)")
+            return self._forward_tp(x, qcfg, key), None
         cfg = self.cfg
         b, s, _ = x.shape
         din, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
@@ -187,3 +205,41 @@ class Mamba2Block(nn.Module):
         out = self.out_proj(y.to(x.dtype), qcfg, fold_in(key, 1), wire=1)
         new_state = (new_conv_state, new_ssm) if state is not None or s == 1 else None
         return x + out.to(x.dtype), new_state
+
+    def _forward_tp(self, x: torch.Tensor, qcfg: QuantConfig | None, key: int | None):
+        """The full-sequence forward of this rank's heads (module docstring)."""
+        cfg, tp = self.cfg, self.tp
+        b, s, _ = x.shape
+        n, h, p = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim  # one B/C group
+        h0, h1 = self.heads
+        dr = (h1 - h0) * p
+        zxbcdt = self.in_proj(copy_to_tp(self.ln(x), tp), qcfg, fold_in(key, 0), wire=0)
+        # the rank's z and x, and on TAIL_RANK the tail's B, C (conv channels) and dt
+        nt = h if tp.rank == TAIL_RANK else 0
+        z, xbc, dt = torch.split(zxbcdt, [dr, zxbcdt.shape[-1] - dr - nt, nt], dim=-1)
+        xbc, _ = _causal_conv(xbc, self.conv_w, self.conv_b)
+        xbc = F.silu(xbc)
+        tail = torch.cat([xbc[..., dr:], dt.float()], dim=-1) if tp.rank == TAIL_RANK else None
+        tail = broadcast_from_tp(tail, ((b, s, 2 * n + h), torch.float32), zxbcdt, tp)
+        bm, cm, dt = torch.split(tail, [n, n, h], dim=-1)
+        bm, cm = bm.reshape(b, s, 1, n), cm.reshape(b, s, 1, n)
+        xin = xbc[..., :dr].reshape(b, s, h1 - h0, p)
+        dt = dt[..., h0:h1] + self.dt_bias
+        dt = torch.logaddexp(dt, torch.zeros_like(dt))  # softplus, (B, S, H_r)
+        a = -torch.exp(self.A_log)  # (H_r,)
+        xdt = xin.float() * dt[..., None]
+        y, _ = ssd_chunked(xdt, a * dt, bm, cm, ssd_chunk(s, cfg.ssm_chunk))
+        y = y + self.D[:, None] * xin.float()
+        y = _rmsnorm_tp(y.reshape(b, s, dr) * F.silu(z.float()), self.out_norm.gamma,
+                        cfg.d_inner, tp)
+        out = self.out_proj(y.to(x.dtype), qcfg, fold_in(key, 1), wire=1)
+        return x + out.to(x.dtype)
+
+
+def _rmsnorm_tp(x: torch.Tensor, gamma: torch.Tensor, d: int, tp, eps: float = 1e-6):
+    """``models.nn.rmsnorm`` over a last axis of ``d`` split over the model
+    group (``x`` and ``gamma``: this rank's part): the fp32 sum of squares
+    summed over the group, forward and backward."""
+    x32 = x.float()
+    ms = sum_over_tp(x32.square().sum(dim=-1, keepdim=True), tp) / d
+    return (x32 * torch.rsqrt(ms + eps) * gamma).to(x.dtype)

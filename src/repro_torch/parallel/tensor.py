@@ -38,10 +38,33 @@ row-parallel output) differ from the unsharded ones in their order only.
 
 The embedding is a vocab-parallel lookup (the other ranks add zeros), the
 unquantized LM head column-parallel over vocab, and the loss a
-vocab-parallel cross-entropy.  Other families raise: their layouts
-(the ssm/hybrid ``in_proj``, MoE experts, encdec's cross-attention) wait
-for later work (ROADMAP queue 1).  The only collectives are
-``all_reduce`` (SUM, MAX), which gloo runs on CUDA tensors too.
+vocab-parallel cross-entropy.
+
+The ssm and hybrid families' Mamba2 layers split by parts, where JAX
+splits ``in_proj``'s packed output dim (``z``, ``x``, ``B``, ``C``,
+``dt``) evenly and GSPMD regroups (:func:`mamba_heads`):
+
+* ``z``, ``x`` and ``out_proj``'s rows split by heads, in whole units of
+  ``lcm(group width, ssm_headdim)`` (⌈U/m⌉ units to the first ranks), and
+  the ``x`` channels of ``conv_w`` / ``conv_b`` with them;
+* the tail ``[2 din, N)`` (``B``, ``C``, ``dt``; its ``dt`` is a ragged
+  scaling group on the quantized backend, which a split by heads would
+  cut) stays whole on rank 0 with its conv channels: rank 0 computes
+  ``silu(conv(B, C))`` and the raw ``dt`` and :func:`broadcast_from_tp`
+  sends them to every rank, which takes the ``dt`` of its heads.  Every
+  ``in_proj`` column lives on one rank, so the column-parallel data
+  gradient adds each term once;
+* ``A_log``, ``D``, ``dt_bias`` and ``out_norm``'s gain, replicated in
+  JAX, split by heads here (a port rule: no gradient of them is summed
+  over the group, and the grad norm counts each element once);
+* ``out_norm``, an RMSNorm over the whole ``din``, sums its squares over
+  the group with :func:`sum_over_tp` (SUM forward and SUM backward).
+
+The hybrid's shared attention+MLP block splits by the dense rules.  The
+encdec and moe families raise: their layouts (MoE experts, encdec's
+cross-attention) wait for later work (ROADMAP queue 1).  The only
+collectives are ``all_reduce`` (SUM, MAX), which gloo runs on CUDA
+tensors too.
 """
 from __future__ import annotations
 
@@ -57,12 +80,15 @@ from repro_torch.core.lowbit import LinearSplit
 from .sharding import MeshShape
 from .specs import logical_axes_for, param_shardings
 
-__all__ = ["NOT_PORTED", "Split", "TPLinear", "TensorParallel", "all_reduce_max", "copy_to_tp",
-           "rank_heads", "reduce_from_tp", "shard_state_dict", "tensor_parallel", "tp_layout",
+__all__ = ["NOT_PORTED", "PORTED", "TAIL_RANK", "Split", "TPLinear", "TensorParallel",
+           "all_reduce_max", "broadcast_from_tp", "copy_to_tp", "mamba_heads", "rank_heads",
+           "reduce_from_tp", "shard_state_dict", "sum_over_tp", "tensor_parallel", "tp_layout",
            "vocab_parallel_ce"]
 
-NOT_PORTED = ("tensor parallelism over the 'model' axis is ported for the dense family only; "
-              "the {family} family's layout waits (ROADMAP queue 1)")
+PORTED = ("dense", "ssm", "hybrid")
+NOT_PORTED = ("tensor parallelism over the 'model' axis is ported for the dense, ssm and "
+              "hybrid families; the {family} family's layout waits (ROADMAP queue 1)")
+TAIL_RANK = 0  # the rank that holds a Mamba2 in_proj's tail (B, C, dt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +137,29 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+class _SumOverTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _BroadcastFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, anchor, group, is_root):
+        ctx.group, ctx.is_root = group, is_root
+        return _all_reduce(x, group)  # the other ranks send zeros
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_reduce(g, ctx.group)
+        return (g if ctx.is_root else None), None, None, None
+
+
 def copy_to_tp(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """Identity forward; the gradient summed over the model group."""
     return _CopyToTP.apply(x, tp.group)
@@ -119,6 +168,28 @@ def copy_to_tp(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
 def reduce_from_tp(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """The sum over the model group; the gradient passed through."""
     return _ReduceFromTP.apply(x, tp.group)
+
+
+def sum_over_tp(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The sum over the model group where every rank's output depends on
+    every rank's input (a norm's sum of squares): the gradient summed over
+    the group too."""
+    return _SumOverTP.apply(x, tp.group)
+
+
+def broadcast_from_tp(x: torch.Tensor | None, like: tuple, anchor: torch.Tensor,
+                      tp: TensorParallel, root: int = TAIL_RANK) -> torch.Tensor:
+    """Rank ``root``'s ``x`` on every rank (``like``: its ``(shape, dtype)``,
+    which the other ranks, whose ``x`` is None, receive); the gradient
+    summed over the group and handed to ``root``.  ``anchor``, a tensor of
+    the graph on every rank, makes every rank run the backward's
+    collective where ``root``'s does."""
+    if tp.rank == root:
+        if x is None or (tuple(x.shape), x.dtype) != (tuple(like[0]), like[1]):
+            raise ValueError(f"rank {root} broadcasts a tensor of {like}")
+    else:
+        x = torch.zeros(like[0], dtype=like[1], device=anchor.device)
+    return _BroadcastFromTP.apply(x, anchor, tp.group, tp.rank == root)
 
 
 def all_reduce_max(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
@@ -131,15 +202,36 @@ def all_reduce_max(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Split:
-    """A parameter split along ``dim``: rank ``r`` holds ``[bounds[r][0],
-    bounds[r][1])``."""
+    """A parameter split along ``dim``: rank ``r`` holds the ``[a, b)`` of
+    ``pieces[r]``, concatenated in that order."""
 
     dim: int
-    bounds: tuple[tuple[int, int], ...]
+    pieces: tuple[tuple[tuple[int, int], ...], ...]
+
+    @staticmethod
+    def of_bounds(dim: int, bounds) -> Split:
+        """One piece a rank: rank ``r`` holds ``bounds[r]``."""
+        return Split(dim, tuple(((a, b),) for a, b in bounds))
+
+    @property
+    def bounds(self) -> tuple[tuple[int, int], ...]:
+        """Rank ``r``'s ``[a, b)`` where each rank holds one piece."""
+        if any(len(p) != 1 for p in self.pieces):
+            raise ValueError(f"a rank holds several pieces: {self.pieces}")
+        return tuple(p[0] for p in self.pieces)
 
     @property
     def full(self) -> int:
-        return self.bounds[-1][1]
+        return max(b for p in self.pieces for _, b in p)
+
+    def size(self, rank: int) -> int:
+        return sum(b - a for a, b in self.pieces[rank])
+
+    def take(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """Rank ``rank``'s part of the unsharded ``t`` (a view where it is one
+        piece)."""
+        parts = [t.narrow(self.dim, a, b - a) for a, b in self.pieces[rank]]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=self.dim)
 
 
 def _group_width(qcfg, d: int) -> int:
@@ -176,26 +268,75 @@ def _even(d: int, size: int) -> tuple[tuple[int, int], ...]:
     return tuple((r * n, (r + 1) * n) for r in range(size))
 
 
+_MAMBA_PARTS = ("in_proj.w", "out_proj.w", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+                "out_norm.gamma")
+
+
+def mamba_heads(cfg, size: int) -> tuple[tuple[int, int], ...]:
+    """Each rank's ``[h0, h1)`` of a Mamba2 layer's heads at a model axis of
+    ``size``: whole units of ``lcm(group width, ssm_headdim)`` channels of
+    ``din``, ⌈U/m⌉ units to the first ranks.  Raises where the heads read
+    several B/C groups (both Mamba2 configs have one), where ``din`` is not
+    whole units, or where it has fewer units than ranks."""
+    din, hd = cfg.d_inner, cfg.ssm_headdim
+    if cfg.ssm_groups != 1:
+        raise ValueError(f"a Mamba2 layer splits by heads with one B/C group, not "
+                         f"{cfg.ssm_groups}")
+    unit = math.lcm(_group_width(cfg.qcfg(), din), hd)
+    if din % unit:
+        raise ValueError(f"a Mamba2 din of {din} is not whole units of {unit} (scaling groups "
+                         f"and heads of {hd})")
+    return tuple((a // hd, b // hd) for a, b in _in_groups(din, unit, size))
+
+
+def _mamba_layout(cfg, shapes: Mapping[str, tuple[int, ...]], size: int) -> dict[str, Split]:
+    """The Mamba2 layers' splits (module docstring): by heads, the in_proj's
+    and conv's tail on :data:`TAIL_RANK`."""
+    din, hd, gn = cfg.d_inner, cfg.ssm_headdim, cfg.ssm_state
+    heads = mamba_heads(cfg, size)
+    cols = [((h0 * hd, h1 * hd),) for h0, h1 in heads]
+    out = {}
+    for name, shape in shapes.items():
+        part = next((p for p in _MAMBA_PARTS if name.endswith("." + p)), None)
+        if not name.startswith("layers.") or part is None:
+            continue
+        if part == "in_proj.w":
+            n = shape[1]
+            pieces = [((a, b), (din + a, din + b)) + (((2 * din, n),) if r == TAIL_RANK else ())
+                      for r, ((a, b),) in enumerate(cols)]
+            out[name] = Split(1, tuple(pieces))
+        elif part in ("conv_w", "conv_b"):
+            out[name] = Split(0, tuple(c + (((din, din + 2 * gn),) if r == TAIL_RANK else ())
+                                       for r, c in enumerate(cols)))
+        elif part in ("out_proj.w", "out_norm.gamma"):
+            out[name] = Split(0, tuple(cols))
+        else:  # A_log, D, dt_bias: one per head
+            out[name] = Split.of_bounds(0, heads)
+    return out
+
+
 def tp_layout(cfg, shapes: Mapping[str, tuple[int, ...]], size: int) -> dict[str, Split]:
     """``{name: Split}`` of every parameter of a ``cfg`` model (``shapes``:
     name -> unsharded shape) that the model axis of ``size`` splits; the
     others are replicated.  The split dims are ``param_shardings``' on a
-    ``("model",)`` mesh; the bounds follow the module docstring's rules.
-    Raises on a family other than dense, on query heads the model size does
-    not divide, and on a split that cannot keep its groups whole."""
-    if cfg.family != "dense":
+    ``("model",)`` mesh (and, of a Mamba2 layer, the heads' dims of
+    ``A_log``, ``D``, ``dt_bias`` and ``out_norm``); the bounds follow the
+    module docstring's rules.  Raises on a family not ported, on query
+    heads the model size does not divide, and on a split that cannot keep
+    its groups whole."""
+    if cfg.family not in PORTED:
         raise NotImplementedError(NOT_PORTED.format(family=cfg.family))
     if size == 1:
         return {}
     qcfg = cfg.qcfg()
-    hd = cfg.hd
+    hd = cfg.hd if cfg.n_heads else 0
     if cfg.n_heads % size:
         raise ValueError(f"{cfg.n_heads} query heads do not split over a model axis of {size}")
     kv_split = cfg.n_kv_heads % size == 0
+    out = _mamba_layout(cfg, shapes, size) if cfg.family in ("ssm", "hybrid") else {}
     mesh = MeshShape(("model",), (size,))
-    specs = param_shardings({k: torch.empty(s, device="meta") for k, s in shapes.items()}, mesh)
-    out = {}
-    for name, spec in specs.items():
+    rest = {k: torch.empty(s, device="meta") for k, s in shapes.items() if k not in out}
+    for name, spec in param_shardings(rest, mesh).items():
         dims = [d for d, e in enumerate(spec) if e == "model" or
                 (isinstance(e, tuple) and "model" in e)]
         if not dims:
@@ -222,7 +363,7 @@ def tp_layout(cfg, shapes: Mapping[str, tuple[int, ...]], size: int) -> dict[str
         if axis in ("heads", "kv_heads") and any(a % hd or a % gw for a, _ in bounds):
             raise ValueError(f"{name}: heads of {hd} split at {bounds} do not keep the "
                              f"{gw}-wide scaling groups whole")
-        out[name] = Split(dim, bounds)
+        out[name] = Split.of_bounds(dim, bounds)
     heads = [k for k in ("emb", "lm_head") if k in shapes]
     if any(k not in out for k in heads):
         raise ValueError(f"a vocabulary of {cfg.vocab} does not split over a model axis of "
@@ -252,14 +393,8 @@ def shard_state_dict(state: Mapping[str, torch.Tensor], layout: Mapping[str, Spl
                      rank: int) -> dict[str, torch.Tensor]:
     """Rank ``rank``'s tensors of an unsharded state dict (e.g. a JAX
     model's, :func:`repro_torch.convert.lm_params_from_jax`): each split
-    tensor's slice (a copy), the others as they are."""
-    out = {}
-    for k, t in state.items():
-        if k in layout:
-            a, b = layout[k].bounds[rank]
-            t = t.narrow(layout[k].dim, a, b - a).clone()
-        out[k] = t
-    return out
+    tensor's part (a copy), the others as they are."""
+    return {k: layout[k].take(t, rank).clone() if k in layout else t for k, t in state.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -270,17 +405,23 @@ class TPLinear:
     """How a :class:`repro_torch.models.nn.Linear` runs on one rank:
     ``"column"`` (``w[:, N_r]``: the input held whole, outputs ``N_r``) or
     ``"row"`` (``w[K_r, :]``: the input's ``K_r``, the output summed over
-    the group, then the bias)."""
+    the group, then the bias); ``N_r`` (``K_r``) is the ``pieces`` of the
+    dim of ``full``, concatenated."""
 
     kind: str
-    start: int
+    pieces: tuple[tuple[int, int], ...]
     full: int
     tp: TensorParallel
+
+    @staticmethod
+    def of(kind: str, split: Split, tp: TensorParallel) -> TPLinear:
+        """Rank ``tp.rank``'s linear of a weight split ``split``."""
+        return TPLinear(kind, split.pieces[tp.rank], split.full, tp)
 
     @property
     def split(self) -> LinearSplit:
         make = LinearSplit.column if self.kind == "column" else LinearSplit.row
-        return make(self.start, self.full, self.tp.group)
+        return make(self.pieces, self.full, self.tp.group)
 
     def __call__(self, linear, x, w, b, qcfg, key, wire):
         if self.kind == "column":
@@ -289,28 +430,44 @@ class TPLinear:
         return y if b is None else y + b.float()
 
 
+_BLOCK_KINDS = {"attn.wq": "column", "attn.wk": "column", "attn.wv": "column", "attn.wo": "row",
+                "mlp.w_up": "column", "mlp.w_gate": "column", "mlp.w_down": "row"}
+
+
+def _mark_block(block, prefix: str, layout: Mapping[str, Split], tp: TensorParallel) -> None:
+    """A dense attention+MLP block (``prefix`` its name) run tensor-parallel:
+    its linears column- or row-parallel, its attention told its heads."""
+    for sub, kind in _BLOCK_KINDS.items():
+        sp = layout.get(f"{prefix}{sub}.w")
+        if sp is not None:  # kv linears whose heads stay whole are replicated
+            block.get_submodule(sub).tp = TPLinear.of(kind, sp, tp)
+    hq, hkv, kv_take = rank_heads(block.attn.cfg, tp.size, tp.rank)
+    block.attn.tp, block.attn.heads, block.attn.kv_take = tp, (hq, hkv), kv_take
+    block.mlp.tp = tp
+
+
 def tensor_parallel(model, tp: TensorParallel):
     """Make ``model`` (an unsharded :class:`repro_torch.models.lm.LM`) rank
     ``tp.rank``'s part of it, in place: each split parameter narrowed to
-    its slice, its linears marked column- or row-parallel, its attention
-    told its heads, and ``model.tp`` / ``model.tp_layout`` set.  Returns
-    the model."""
+    its part, its linears marked column- or row-parallel, its attention
+    told its heads and its Mamba2 layers theirs, and ``model.tp`` /
+    ``model.tp_layout`` set.  Returns the model."""
     cfg = model.cfg
     layout = tp_layout(cfg, {k: tuple(p.shape) for k, p in model.named_parameters()}, tp.size)
     params = dict(model.named_parameters())
     local = shard_state_dict({k: params[k].data for k in layout}, layout, tp.rank)
     for name, t in local.items():
         params[name].data = t
-    kinds = {"attn.wq": "column", "attn.wk": "column", "attn.wv": "column", "attn.wo": "row",
-             "mlp.w_up": "column", "mlp.w_gate": "column", "mlp.w_down": "row"}
+    heads = mamba_heads(cfg, tp.size)[tp.rank] if cfg.family in ("ssm", "hybrid") else None
     for i, layer in enumerate(model.layers):
-        for sub, kind in kinds.items():
-            sp = layout.get(f"layers.{i}.{sub}.w")
-            if sp is not None:  # kv linears whose heads stay whole are replicated
-                layer.get_submodule(sub).tp = TPLinear(kind, sp.bounds[tp.rank][0], sp.full, tp)
-        hq, hkv, kv_take = rank_heads(cfg, tp.size, tp.rank)
-        layer.attn.tp, layer.attn.heads, layer.attn.kv_take = tp, (hq, hkv), kv_take
-        layer.mlp.tp = tp
+        if heads is None:
+            _mark_block(layer, f"layers.{i}.", layout, tp)
+            continue
+        layer.in_proj.tp = TPLinear.of("column", layout[f"layers.{i}.in_proj.w"], tp)
+        layer.out_proj.tp = TPLinear.of("row", layout[f"layers.{i}.out_proj.w"], tp)
+        layer.tp, layer.heads = tp, heads
+    if model.shared_attn is not None:
+        _mark_block(model.shared_attn, "shared_attn.", layout, tp)
     model.tp, model.tp_layout = tp, layout
     return model
 

@@ -470,6 +470,48 @@ def test_k1_split_entries_match_the_one_call_entry_and_plain(cuda, shape, groupi
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_k1_split_entries_on_a_multi_piece_shard_match_plain(cuda, arch):
+    """K1's split entries on one rank's in_proj error at a model axis of 2
+    (its z and x pieces and, on rank 0, the tail whose dt ends in a ragged
+    group), padded as qd_gemm pads it, with the rounding bytes of the
+    unsharded operand's pieces and the unsharded operand's max: the codes
+    and group scales are the pieces of the unsharded operand's (the plain
+    version of the whole), and the plain version of the pieces agrees."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lowbit import Sharded
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.kernels.mls_quantize import quantize_rows_split
+    from repro_torch.kernels.ref import quantize_ref
+    from repro_torch.parallel.tensor import tp_layout
+
+    cfg = get_config(arch)
+    shapes = {k: tuple(t.shape) for k, t in abstract_params(cfg).items()}
+    sp = tp_layout(cfg, shapes, 2)["layers.0.in_proj.w"]
+    n = sp.full
+    x, r = _operand(12, 48, n + (-n) % 128)
+    x[:, n:] = 0.0  # the unsharded operand's padding
+    want = quantize_ref(x, EMFormat(2, 4), 128, r_u8=r, grouping="nc")
+    for rank in range(2):
+        shard = Sharded(1, sp.pieces[rank], n).padded(x.shape[1])
+        size = sum(b - a for a, b in shard.spans(sp.size(rank) + (-sp.size(rank)) % 128))
+        xs, rs = shard.take(x, size).contiguous(), shard.take(r, size).contiguous()
+        amax = lambda a: torch.full_like(a, float(x.abs().amax()))  # noqa: E731
+        reset_launch_counts()
+        got = [t.cpu() for t in quantize_rows_split(xs.to(cuda), EMFormat(2, 4), 128,
+                                                    r_u8=rs.to(cuda), reduce_amax=amax)]
+        assert launch_counts()["mls_quantize_rows_amax"] == 1
+        assert launch_counts()["mls_quantize_rows_codes"] == 1
+        plain = quantize_rows_split(xs, EMFormat(2, 4), 128, r_u8=rs, reduce_amax=amax)
+        gpieces = Sharded(1, tuple((a // 128, b // 128) for a, b in shard.spans(size)),
+                          want[1].shape[1])
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
+        assert torch.equal(got[0], shard.take(want[0], size))
+        assert torch.equal(got[1], gpieces.take(want[1], size // 128))
+        assert float(got[2]) == float(want[2])
+
+
 @pytest.mark.parametrize("grouping", ["nc", "n"])
 def test_k1_keeps_nan_like_the_plain_version(cuda, grouping):
     """K1's group scale of a NaN max is made through mls::scale_ratio, so

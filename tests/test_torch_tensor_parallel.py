@@ -30,7 +30,9 @@ plain versions), stochastic rounding from one key.
   --model-axis 2`` (HSDP over the data axis) equal two microbatch-2 steps
   of the model-only world 2 on the same global batch (losses within 1e-6,
   parameters within 1e-6; seen equal bit for bit).
-- A family other than dense under a model axis raises, naming ROADMAP.
+- A family other than dense, ssm and hybrid (moe, encdec) under a model
+  axis raises, naming ROADMAP (``tests/test_torch_tensor_parallel_ssm.py``
+  holds the ssm and hybrid families).
 """
 import dataclasses
 import importlib.util
@@ -221,17 +223,26 @@ def test_layout_follows_param_shardings_in_whole_groups_and_heads():
 @pytest.mark.parametrize("arch,model_axis,ok", [
     ("chatglm3-6b", 2, True), ("chatglm3-6b", 16, True), ("qwen2-72b", 8, True),
     ("yi-34b", 8, True), ("yi-34b", 16, False), ("pixtral-12b", 16, True),
-    ("mamba2-370m", 2, False), ("moonshot-v1-16b-a3b", 2, False)])
+    ("mamba2-370m", 2, True), ("mamba2-370m", 8, True), ("mamba2-370m", 16, False),
+    ("zamba2-7b", 2, True), ("zamba2-7b", 8, False), ("zamba2-7b", 16, False),
+    ("moonshot-v1-16b-a3b", 2, False)])
 def test_lint_tensor_parallel(arch, model_axis, ok):
     res = lint_tensor_parallel(configs.get_config(arch), model_axis)
     assert res.ok == ok, res.errors
     if arch == "chatglm3-6b" and model_axis == 16:
         assert any("kv heads stay replicated" in w for w in res.warnings)
         assert any("896 / 768" in w for w in res.warnings)
+    if arch in ("mamba2-370m", "zamba2-7b") and ok:
+        tail = "[4096, 4384)" if arch == "mamba2-370m" else "[14336, 14576)"
+        assert any(f"in_proj's tail {tail}" in w for w in res.warnings), res.warnings
+    if arch == "mamba2-370m" and model_axis == 16:
+        assert any("vocabulary of 50280" in e for e in res.errors)
+    if arch == "zamba2-7b" and not ok:
+        assert any("heads of 112" in e for e in res.errors)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b", "moonshot-v1-16b-a3b",
-                                  "llama4-scout-17b-a16e", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e",
+                                  "seamless-m4t-medium"])
 def test_model_axis_on_a_non_dense_family_raises(arch, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):

@@ -8,6 +8,7 @@ on one torch thread each and returns every rank's saved result.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import socket
@@ -168,12 +169,22 @@ def tp_batch(cfg, batch: int = TP_BATCH):
 def _tp_linear_case(cfg, name: str, kind: str, d_in: int, d_out: int, layout, tp):
     """One linear, unsharded and this rank's tensor-parallel part, on the
     same seeded inputs: (ref y, dx, dw) and (y, dx, dw, bounds)."""
+    ref, (yt, dxt, dwt, pieces) = _linear_case(cfg, layout[f"layers.0.{name}.w"], kind, d_in,
+                                               d_out, tp, len(name) * 100 + d_out)
+    (a, b), = pieces
+    return ref, (yt, dxt, dwt, (a, b))
+
+
+def _linear_case(cfg, sp, kind: str, d_in: int, d_out: int, tp, seed: int):
+    """A linear of weight split ``sp``, unsharded and this rank's
+    tensor-parallel part, on the same seeded inputs: (ref y, dx, dw) and
+    (y, dx, dw, the rank's pieces)."""
     import numpy as np
 
     from repro_torch.models import nn as L
-    from repro_torch.parallel.tensor import TPLinear, copy_to_tp
+    from repro_torch.parallel.tensor import Split, TPLinear, copy_to_tp
 
-    rng = np.random.default_rng(len(name) * 100 + d_out)
+    rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((2, TP_SEQ, d_in)).astype(np.float32))
     w = torch.from_numpy((rng.standard_normal((d_in, d_out)) * 0.05).astype(np.float32))
     g = torch.from_numpy((rng.standard_normal((2, TP_SEQ, d_out)) * 1e-3).astype(np.float32))
@@ -181,18 +192,18 @@ def _tp_linear_case(cfg, name: str, kind: str, d_in: int, d_out: int, layout, tp
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     y = L.linear(xr, wr, None, qcfg, TP_KEY)
     y.backward(g)
-    sp = layout[f"layers.0.{name}.w"]
-    a, b = sp.bounds[tp.rank]
-    lin = TPLinear(kind, a, sp.full, tp)
+    lin = TPLinear.of(kind, sp, tp)
+    last = Split(-1, sp.pieces)  # the same pieces of an activation's last dim
     if kind == "column":
-        xt, wt = x.clone().requires_grad_(), w[:, a:b].clone().requires_grad_()
+        xt, wt = x.clone().requires_grad_(), sp.take(w, tp.rank).clone().requires_grad_()
         yt = lin(L.linear, copy_to_tp(xt, tp), wt, None, qcfg, TP_KEY, None)
-        yt.backward(g[..., a:b])
+        yt.backward(last.take(g, tp.rank))
     else:
-        xt, wt = x[..., a:b].clone().requires_grad_(), w[a:b].clone().requires_grad_()
+        xt = last.take(x, tp.rank).clone().requires_grad_()
+        wt = sp.take(w, tp.rank).clone().requires_grad_()
         yt = lin(L.linear, xt, wt, None, qcfg, TP_KEY, None)
         yt.backward(g)
-    return ((y.detach(), xr.grad, wr.grad), (yt.detach(), xt.grad, wt.grad, (a, b)))
+    return ((y.detach(), xr.grad, wr.grad), (yt.detach(), xt.grad, wt.grad, sp.pieces[tp.rank]))
 
 
 def _tp_quantizers(tp):
@@ -219,19 +230,20 @@ def _tp_quantizers(tp):
         want = quantize_ref(x, FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc")
         qcfg = QuantConfig(fmt=FMT_IMAGENET, backend="fake_quant", k_block=128)
         spec = GroupSpec((1, 128)) if dim == 1 else GroupSpec((128, 1))
-        gen_shard = Sharded(dim, a, full, tp.group)
+        gen_shard = Sharded(dim, ((a, b),), full, tp.group)
         fq = quantize_operand(x[take], qcfg, spec, TP_KEY, 1, shard=gen_shard)
         fq_want = quantize_operand(x, qcfg, spec, TP_KEY, 1)
         out[dim] = dict(take=(a, b), got=got, want=want, fq=fq, fq_want=fq_want)
     return out
 
 
-def _tp_step(cfg, state, tp, key):
+def _tp_step(cfg, state, tp, key, fed: bool = False):
     """This rank's tensor-parallel loss and gradients of ``state`` (an
     unsharded state dict) and the unsharded model's, on one batch; the
-    launches recorded in the tensor-parallel step, by kernel."""
-    import collections
-
+    launches recorded in the tensor-parallel step, by kernel.  ``fed``:
+    each linear of the tensor-parallel step is fed the unsharded step's
+    input and output gradient (this rank's part), so that every quantizer
+    sees the unsharded operand's values (:func:`_linear_feed`)."""
     from repro_torch.kernels import launch
     from repro_torch.models import lm
     from repro_torch.parallel.tensor import tensor_parallel
@@ -239,11 +251,14 @@ def _tp_step(cfg, state, tp, key):
     batch = tp_batch(cfg, 2)
     full = lm.LM(cfg)
     full.load_state_dict(state)
+    records = _linear_feed(full) if fed else None
     loss0, _ = full.loss(batch, key)
     loss0.backward()
     model = lm.LM(cfg)
     model.load_state_dict(state)
     tensor_parallel(model, tp)
+    if fed:
+        _linear_feed(model, records)
     before = collections.Counter(launch.RECORDED)
     loss1, _ = model.loss(batch, key)
     loss1.backward()
@@ -253,6 +268,62 @@ def _tp_step(cfg, state, tp, key):
     return dict(loss=loss1.detach(), ref_loss=loss0.detach(), layout=model.tp_layout,
                 grads={k: p.grad for k, p in model.named_parameters()},
                 ref_grads={k: p.grad for k, p in full.named_parameters()}, launches=dict(recs))
+
+
+class _Feed(torch.autograd.Function):
+    """``value`` in place of ``x``; the gradient passed to ``x``."""
+
+    @staticmethod
+    def forward(ctx, x, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _linear_feed(model, records: dict | None = None) -> dict:
+    """Hooks on every linear of the layers and the shared block: with no
+    ``records``, record each call's input and output gradient by (name,
+    call); with them (an unsharded model's), feed each call of this
+    tensor-parallel model the recorded input and output gradient, its
+    rank's part (column-parallel: the output's pieces; row-parallel: the
+    input's).  Returns the records."""
+    from repro_torch.parallel.tensor import Split
+
+    out = {} if records is None else records
+    calls: collections.Counter = collections.Counter()
+    for name, mod in model.named_modules():
+        if not name.startswith(("layers.", "shared_attn.")) or type(mod).__name__ != "Linear":
+            continue
+
+        def pre(m, args, kwargs, name=name):
+            key = (name, calls[name])
+            calls[name] += 1
+            if records is None:
+                out[key] = {"x": args[0].detach()}
+                m._feed_key = key
+                return None
+            x = records[key]["x"]
+            if m.tp is not None and m.tp.kind == "row":
+                x = Split(x.ndim - 1, (m.tp.pieces,)).take(x, 0)
+            m._feed_key = key
+            return (_Feed.apply(args[0], x),) + tuple(args[1:]), kwargs
+
+        def post(m, args, kwargs, y, name=name):
+            rec = out[m._feed_key]
+            if records is None:
+                y.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+                return None
+            g = rec["g"]
+            if m.tp is not None and m.tp.kind == "column":
+                g = Split(g.ndim - 1, (m.tp.pieces,)).take(g, 0)
+            y.register_hook(lambda _: g)
+            return None
+
+        mod.register_forward_pre_hook(pre, with_kwargs=True)
+        mod.register_forward_hook(post, with_kwargs=True)
+    return out
 
 
 def _state(cfg, seed: int = 0):
@@ -317,4 +388,141 @@ def tp4_worker(rank: int, world: int):
     for backend in TP_BACKENDS:
         cfg = tp_config(backend)
         res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism of the ssm and hybrid families
+# ---------------------------------------------------------------------------
+SSM_ARCHS = ("mamba2-370m", "zamba2-7b")
+
+
+def ssm_tp_config(arch: str, backend: str, **over):
+    """``arch``'s smoke config widened as the launcher widens it under a
+    model axis (``launch.train.tp_smoke``: d_model 256, 16 heads of 32 in a
+    din of 4 scaling groups; the hybrid's attention as ``TP_SMOKE``), fp32,
+    quantization off or on ``backend``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import tp_smoke
+
+    cfg = dataclasses.replace(tp_smoke(get_smoke_config(arch)), **over)
+    if backend == "off":
+        return dataclasses.replace(cfg, quant=False)
+    return dataclasses.replace(cfg, quant_backend=backend)
+
+
+def _ssm_linears(cfg, tp):
+    """in_proj (column-parallel, several pieces; the tail on rank 0) and
+    out_proj (row-parallel) of ``cfg``'s layer 0, by name."""
+    from repro_torch.parallel.tensor import tp_layout
+
+    shapes = {k: tuple(t.shape) for k, t in _state(cfg).items()}
+    layout = tp_layout(cfg, shapes, tp.size)
+    out = {}
+    for name, kind in (("in_proj", "column"), ("out_proj", "row")):
+        sp = layout[f"layers.0.{name}.w"]
+        d_in, d_out = shapes[f"layers.0.{name}.w"]
+        out[name] = _linear_case(cfg, sp, kind, d_in, d_out, tp, 31 + d_out)
+    return out
+
+
+def _ssm_quantizers(tp, cfg):
+    """The in_proj's sharded operands of several pieces quantized as slices
+    of the unsharded ones: its error (rows, N) along N with the ragged
+    ``dt`` group on rank 0 through qd_gemm's K1 path (padded to k_block, the
+    unsharded operand's bytes), its w^T (N, K) along the rows, and both on
+    the fake-quant quantizer (the error's one group a row, ragged N, shared
+    over the ranks)."""
+    import numpy as np
+
+    from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT, GroupSpec, QuantConfig
+    from repro_torch.core.lowbit import Sharded, quantize_operand
+    from repro_torch.kernels import quantize_ref, rounding_bytes
+    from repro_torch.kernels.lowbit_conv import _quantize
+    from repro_torch.parallel.tensor import tp_layout
+
+    sp = tp_layout(cfg, {k: tuple(t.shape) for k, t in _state(cfg).items()},
+                   tp.size)["layers.0.in_proj.w"]
+    pieces, n = sp.pieces[tp.rank], sp.full
+    rng = np.random.default_rng(9)
+    out = {"pieces": pieces, "full": n}
+    fq = QuantConfig(fmt=FMT_IMAGENET, backend="fake_quant", k_block=128)
+    for dim, shape in ((1, (32, n)), (0, (n, 256))):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        x[rng.integers(shape[0]), rng.integers(shape[1])] = 9.0  # one rank's max
+        shard = Sharded(dim, pieces, n, tp.group)
+        local = shard.take(x, sum(b - a for a, b in pieces))
+        pad = (-n) % 128 if dim == 1 else (-shape[1]) % 128
+        lpad = (-local.shape[1]) % 128
+        gen = torch.Generator().manual_seed(3)
+        got = _quantize(torch.nn.functional.pad(local, (0, lpad)).contiguous(), local.shape[1],
+                        shard, gen, FMT_IMAGENET, 128, GS_FMT_DEFAULT, "nc")
+        xp = torch.nn.functional.pad(x, (0, pad)).contiguous()
+        r = rounding_bytes(xp.shape, torch.Generator().manual_seed(3), xp.device)
+        want = quantize_ref(xp, FMT_IMAGENET, 128, GS_FMT_DEFAULT, r, "nc")
+        spec = GroupSpec((1, 128)) if dim == 1 else GroupSpec((128, 1))
+        fq_got = quantize_operand(local, fq, spec, TP_KEY, 2, shard=shard)
+        fq_want = quantize_operand(x, fq, spec, TP_KEY, 2)
+        out[dim] = dict(got=got, want=want, fq=fq_got, fq_want=fq_want)
+    return out
+
+
+def ssm_tp2_worker(rank: int, world: int, jax_states):
+    """World 2, model 2, for each ssm/hybrid arch: the in_proj and out_proj
+    of each backend, the in_proj's quantizers, the step of each backend
+    against the unsharded port (quantized: fed its operands), the
+    unquantized step on the JAX package's parameters (``jax_states``, by
+    arch), and two microbatch-2 steps of the launcher's train step on the
+    global batch."""
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.data import make_lm_iterator
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import TensorParallel, tensor_parallel
+    from repro_torch.train import make_train_step
+
+    tp = TensorParallel.of()
+    res = {"linears": {}, "steps": {}, "jax": {}, "microbatch": {}}
+    for arch in SSM_ARCHS:
+        for backend in TP_BACKENDS:
+            for name, case in _ssm_linears(ssm_tp_config(arch, backend), tp).items():
+                res["linears"][(arch, backend, name)] = case
+            cfg = ssm_tp_config(arch, backend)
+            res["steps"][(arch, backend)] = _tp_step(cfg, _state(cfg), tp, TP_KEY,
+                                                     fed=backend != "off")
+        res["jax"][arch] = _tp_step(ssm_tp_config(arch, "off"), jax_states[arch], tp, None)
+        cfg = ssm_tp_config(arch, "fake_quant")
+        shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TP_BATCH, seq_len=TP_SEQ)
+        step, init = make_train_step(RunConfig(model=cfg, shape=shape, microbatch=2))
+        model = tensor_parallel(lm.init_lm(cfg, seed=0, device="cpu"), tp)
+        opt = init(model)
+        data = make_lm_iterator(batch=TP_BATCH, seq=TP_SEQ, vocab=cfg.vocab, device="cpu")
+        losses = []
+        for _ in range(2):
+            model, opt, m = step(model, opt, next(data))
+            losses.append(m["loss"].item())
+        res["microbatch"][arch] = dict(losses=losses, params={
+            k: p.detach().clone() for k, p in model.named_parameters()})
+    res["quantizers"] = _ssm_quantizers(tp, ssm_tp_config("zamba2-7b", "pallas"))
+    return res
+
+
+def ssm_tp4_worker(rank: int, world: int):
+    """World 4: two launcher steps of each ssm/hybrid arch at data 2 x model 2
+    (``--model-axis 2``, HSDP over the data axis) and mamba2's step of each
+    backend at model 4 against the unsharded port (quantized: fed its
+    operands)."""
+    from repro_torch.launch import train
+    from repro_torch.parallel.tensor import TensorParallel
+
+    res = {"coord": (rank // 2, rank % 2), "launcher": {}, "steps": {}}
+    for arch in SSM_ARCHS:
+        out = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                          "--model-axis", "2", "--batch", str(TP_BATCH), "--seq", str(TP_SEQ)])
+        res["launcher"][arch] = dict(
+            losses=out["losses"], world=out["world"],
+            params={k: p.full_tensor() for k, p in out["model"].named_parameters()})
+    tp = TensorParallel.of()
+    for backend in TP_BACKENDS:
+        cfg = ssm_tp_config("mamba2-370m", backend)
+        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY, fed=backend != "off")
     return res
