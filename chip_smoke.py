@@ -226,30 +226,43 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 the operand's own max, and quantize_ref's with a larger
                 given max; each entry timed beside its byte bound (pass A
                 also beside torch.linalg.vector_norm(x, inf)); K3 at
-                zamba2-7b's rank-0 in_proj and out_proj forwards
-                (TP_K3_SHAPES) bit for bit mls_matmul_ref's on both plans,
-                timed beside its int8-op bound.  Then the
+                zamba2-7b's rank-0 in_proj and out_proj forwards, and at
+                moonshot-v1-16b-a3b's and seamless-m4t-medium's rank GEMMs
+                (TP_K1_SHAPES, TP_K3_SHAPES) bit for bit mls_matmul_ref's
+                on both plans, timed beside its int8-op bound.  Then the
                 main paths (TP_PATHS; counts set to 0 just before each
                 step, read just after, in each rank): chatglm3-6b at full
-                width cut to 2 layers, and zamba2-7b at full width cut to 7
+                width cut to 2 layers; zamba2-7b at full width cut to 7
                 (one segment of 6 Mamba2 layers split by heads with the
                 in_proj's tail on rank 0, the shared block once, one tail
-                layer), batch 1 x 4096, K1/K3, stochastic rounding, bf16,
-                full remat (the shared block never), AdamW at a constant lr
-                3e-4: one step of a 2-rank model axis in two processes on
-                cuda:0 over gloo (NCCL takes one card a rank), and a second
-                step for its time alone.
+                layer); moonshot-v1-16b-a3b at full width cut to 2 MoE
+                layers (64 experts, 32 a rank, top 6; the outputs gathered
+                over the group); seamless-m4t-medium at full width and
+                depth (12 + 12 layers, the cross-attention's K/V
+                column-parallel over 4096 source frames); batch 1 x 4096,
+                K1/K3, stochastic rounding, bf16, full remat (the shared
+                block never), AdamW at a constant lr 3e-4: one step of a
+                2-rank model axis in two processes on cuda:0 over gloo
+                (NCCL takes one card a rank), and a second step for its
+                time alone.
                 Each rank then runs the unsharded model on the same card as
-                the reference: quantized, the loss gap printed and held
-                within 5e-2, and every linear of the layers and the shared
-                block given the unsharded linear's recorded x, g and key
-                (column-parallel outputs and weight gradients, row-parallel
-                data and weight gradients bit for bit, over all of a
-                rank's pieces; the sums over the split within (G_r + 1) eps
-                max|ref|); unquantized (fp32 compute, as JAX holds its own
-                mesh), the loss and the grad norm within 1e-4 relative and
-                the rank's updated parameters within 1e-4 (relative L2;
-                TP_AGREE);
+                the reference (moonshot's, 29 GB with AdamW, one rank at a
+                time: TP_TURNS): quantized, the loss gap printed and held
+                within 5e-2, and every linear of the layers, the encoder's
+                layers and the shared block given the unsharded linear's
+                recorded x, g and key (column-parallel outputs and weight
+                gradients, row-parallel data and weight gradients bit for
+                bit, over all of a rank's pieces; the sums over the split
+                within (G_r + 1) eps max|ref|), and each MoE layer's expert
+                stack given the unsharded call's buffer xe and output
+                gradient (this rank's outputs and weight gradients the
+                unsharded stack's slices, the gathered outputs and the
+                buffer's gradient whole, bit for bit); unquantized (fp32
+                compute, as JAX holds its own mesh), the loss and the grad
+                norm within 1e-4 relative and the rank's updated
+                parameters within 1e-4 (relative L2; TP_AGREE); the tokens
+                an MoE router sends to other experts than the unsharded
+                step's printed (a near-tie may flip: not held);
                 K1 (one call and split) and K3 launches per rank equal to
                 the closed form (tp_train_launches); per-rank step ms and
                 peak memory printed (gloo through the host: not a TP speed).
@@ -1364,20 +1377,37 @@ def tp_train_launches(cfg, model_axis: int, microbatch: int = 1) -> dict[str, in
     error and its transpose whole: 2 and 4, and its recomputed forward 2
     sharded.  Replicated kv linears are whole: 6, and 2 under remat.  Each
     linear runs K3 three times (four under remat).  The hybrid's shared
-    block (after each full segment) is never remat'd."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise ValueError(f"tensor parallelism is not ported for the {cfg.family} family")
+    block (after each full segment) is never remat'd.  An MoE layer's
+    quantized linears are its attention's and its shared expert's (the
+    routed experts reach no kernel), an encoder layer's a dense block's,
+    a decoder layer's its self- and cross-attention's and its MLP's."""
+    kv_split = cfg.n_kv_heads % model_axis == 0
 
-    def block(r: int) -> tuple[int, int, int]:  # an attention+MLP block's (one, split, k3)
-        kv_split = cfg.n_kv_heads % model_axis == 0
-        cols = (2 if cfg.gated_mlp else 1) + 1 + (2 if kv_split else 0)
-        rows, whole = 2, (0 if kv_split else 2)
+    def linears(cols: int, rows: int, whole: int, r: int) -> tuple[int, int, int]:
         return (cols * (2 + r) + rows * 2 + whole * (6 + 2 * r),
                 cols * (4 + r) + rows * (4 + 2 * r), (cols + rows + whole) * (3 + r))
+
+    def attention(r: int) -> tuple[int, int, int]:  # wq (wk, wv) column, wo row
+        return linears(3, 1, 0, r) if kv_split else linears(1, 1, 2, r)
+
+    def mlp(r: int) -> tuple[int, int, int]:  # w_up (w_gate) column, w_down row
+        return linears(2 if cfg.gated_mlp else 1, 1, 0, r)
+
+    def add(*parts) -> tuple[int, int, int]:
+        return tuple(sum(v) for v in zip(*parts))
+
+    def block(r: int) -> tuple[int, int, int]:  # an attention+MLP block's (one, split, k3)
+        return add(attention(r), mlp(r))
 
     r = 0 if cfg.remat == "none" else 1
     if cfg.family == "dense":
         one, split, k3 = (v * cfg.n_layers for v in block(r))
+    elif cfg.family == "moe":
+        layer = add(attention(r), *([mlp(r)] if cfg.n_shared_experts else []))
+        one, split, k3 = (v * cfg.n_layers for v in layer)
+    elif cfg.family == "encdec":
+        one, split, k3 = add(*[block(r)] * cfg.enc_layers,
+                             *[add(attention(r), attention(r), mlp(r))] * cfg.n_layers)
     else:  # Mamba2 layers: in_proj column-parallel, out_proj row-parallel
         one, split, k3 = ((2 + r) + 2, (4 + r) + (4 + 2 * r), 2 * (3 + r))
         one, split, k3 = (v * cfg.n_layers for v in (one, split, k3))
@@ -3166,7 +3196,15 @@ TP_BATCH, TP_SEQ, TP_AXIS = 1, 4096, 2
 # full segment of 6 Mamba2 layers, the shared block once, one tail layer)
 TP_PATHS = {"chatglm3-6b": (2, "n_layers 28 -> 2; train_4k's global batch 256 -> 1 (seq 4096)"),
             "zamba2-7b": (7, "n_layers 81 -> 7 (one segment of 6, the shared block once, one "
-                             "tail layer); train_4k's global batch 256 -> 1 (seq 4096)")}
+                             "tail layer); train_4k's global batch 256 -> 1 (seq 4096)"),
+            "moonshot-v1-16b-a3b": (2, "n_layers 48 -> 2 (both MoE layers: 64 experts, 32 a "
+                                       "rank, top 6, capacity 385 at 4096 tokens); train_4k's "
+                                       "global batch 256 -> 1 (seq 4096)"),
+            "seamless-m4t-medium": (12, "full depth (12 + 12 layers); train_4k's global batch "
+                                        "256 -> 1 (seq 4096, 4096 source frames)")}
+# paths whose unsharded references (1.81 G parameters: 29 GB with AdamW's
+# state, fp32) the ranks run one at a time, behind a barrier
+TP_TURNS = ("moonshot-v1-16b-a3b",)
 TP_ENTRIES = ("mls_quantize_rows_amax", "mls_quantize_rows_codes")  # K1's split entries
 # K1's split entries at training operands: chatglm3-6b's activation of a batch
 # of 2 x 4096 and MLP up-projection weight, quantized as (N, K); zamba2-7b's
@@ -3176,7 +3214,16 @@ TP_ENTRIES = ("mls_quantize_rows_amax", "mls_quantize_rows_codes")  # K1's split
 TP_K1_SHAPES = {"x (8192, 4096)": (8192, 4096), "w^T (13696, 4096)": (13696, 4096),
                 "zamba2 in_proj w^T rank 0 (7408, 3584)": (7408, 3584),
                 "zamba2 in_proj w^T rank 1 (7168, 3584)": (7168, 3584),
-                "zamba2 in_proj e rank 0 (4096, 7424)": (4096, 7424)}
+                "zamba2 in_proj e rank 0 (4096, 7424)": (4096, 7424),
+                # moonshot-v1-16b-a3b at model 2: wq's w^T (1024 of 2048 columns)
+                # and wo's x (4096 tokens, 1024 of 2048 rows); seamless-m4t-medium:
+                # w_up's w^T (2048 of d_ff 4096), w_down's x and the cross
+                # attention's K/V error over 4096 source frames (512 of 1024)
+                "moonshot wq w^T rank (1024, 2048)": (1024, 2048),
+                "moonshot wo x rank (4096, 1024)": (4096, 1024),
+                "seamless w_up w^T rank (2048, 1024)": (2048, 1024),
+                "seamless w_down x rank (4096, 2048)": (4096, 2048),
+                "seamless xattn wk e rank (4096, 512)": (4096, 512)}
 # fp32: JAX's own (data 2, model 2) mesh tolerance, relative on the loss, the
 # grad norm and the rank's updated parameters as one vector (relative L2).
 # Not per element or per tensor: AdamW's first step moves an element by up to
@@ -3251,9 +3298,14 @@ def tp_k1_checks(gen) -> tuple[list[dict], list[dict]]:
 
 # K3 at zamba2-7b's rank-0 GEMMs at a model axis of 2 (4096 tokens): the
 # in_proj forward over the rank's 7408 columns (z and x of 56 heads and the
-# tail), and the out_proj forward over its 3584 rows of din
+# tail), and the out_proj forward over its 3584 rows of din; moonshot's wq
+# and seamless's w_up, w_down and cross-attention wk forwards of a rank
 TP_K3_SHAPES = {"zamba2 in_proj fwd rank 0": (4096, 3584, 7408),
-                "zamba2 out_proj fwd rank 0": (4096, 3584, 3584)}
+                "zamba2 out_proj fwd rank 0": (4096, 3584, 3584),
+                "moonshot wq fwd rank": (4096, 2048, 1024),
+                "seamless w_up fwd rank": (4096, 1024, 2048),
+                "seamless w_down fwd rank": (4096, 2048, 1024),
+                "seamless xattn wk fwd rank": (4096, 1024, 512)}
 
 
 def tp_k3_checks(gen) -> tuple[list[dict], list[dict]]:
@@ -3365,41 +3417,210 @@ def _tp_linear_checks(ref, records, layout, tp) -> list[dict]:
     return out
 
 
+class _Unspy:
+    """A handle whose ``remove`` drops an instance attribute that shadows a
+    method (a spy)."""
+
+    def __init__(self, obj, attr: str):
+        self.obj, self.attr = obj, attr
+
+    def remove(self) -> None:
+        delattr(self.obj, self.attr)
+
+
 def _tp_record_linears(model):
-    """Forward hooks on every linear of the model's layers and shared block:
-    each call's x, config and key, and the gradient of its output once
-    backward reaches it (the recomputed forward of remat gets no gradient:
-    dropped)."""
-    records, handles = [], []
+    """Forward hooks on every quantized linear of the model's layers, its
+    encoder's layers and its shared block (an MoE's router, called with no
+    config, is not): each call's x, config and key, and the gradient of its
+    output once backward reaches it (the recomputed forward of remat gets
+    no gradient: dropped).  On each MoE layer, its experts' calls
+    (``MoE._experts``): the buffer xe, config and key, the gathered outputs
+    and their gradient, likewise."""
+    records, experts, handles = [], [], []
     for name, mod in model.named_modules():
-        if name.startswith(("layers.", "shared_attn.")) and type(mod).__name__ == "Linear":
+        if not name.startswith(("layers.", "enc_layers.", "shared_attn.")):
+            continue
+        if type(mod).__name__ == "MoE":
+            def spy(xe, qcfg, key, name=name, real=mod._experts):
+                ye = real(xe, qcfg, key)
+                rec = dict(name=name, xe=xe.detach(), qcfg=qcfg, key=key, ye=ye.detach())
+                ye.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+                experts.append(rec)
+                return ye
+            mod._experts = spy
+            handles.append(_Unspy(mod, "_experts"))
+        elif type(mod).__name__ == "Linear":
             def hook(m, args, kwargs, out, name=name):
+                if len(args) < 2 or args[1] is None:
+                    return
                 rec = dict(name=name, x=args[0].detach(), qcfg=args[1], key=args[2])
                 out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
                 records.append(rec)
             handles.append(mod.register_forward_hook(hook, with_kwargs=True))
-    return records, handles
+    return records, experts, handles
+
+
+def _tp_record_routing(model):
+    """Forward hooks on every MoE router: each token's top-k experts
+    (sorted) at its first call (remat's recomputed forward adds nothing)."""
+    import torch
+
+    routes, handles = {}, []
+    for name, mod in model.named_modules():
+        if name.endswith(".moe.router"):
+            def hook(m, args, out, name=name):
+                if name not in routes:
+                    top = torch.topk(torch.softmax(out.detach().float(), dim=-1),
+                                     model.cfg.top_k, dim=-1).indices
+                    routes[name] = top.sort(dim=-1).values.cpu()
+            handles.append(mod.register_forward_hook(hook))
+    return routes, handles
+
+
+def _route_flips(got: dict, ref: dict) -> dict[str, int]:
+    """Tokens whose top-k experts differ between two runs, by router."""
+    return {k: int((got[k] != ref[k]).any(dim=-1).sum()) for k in ref}
+
+
+def _tp_unsharded_experts(ref, experts) -> list[dict]:
+    """Each recorded MoE call's expert stack run unsharded on the recorded
+    buffer and output gradient: the outputs, the buffer's gradient and the
+    three weight gradients (before the model is made tensor-parallel)."""
+    import torch
+
+    out = []
+    for rec in experts:
+        moe = ref.get_submodule(rec["name"])
+        xe = rec["xe"].clone().requires_grad_()
+        ws = [moe.w_gate, moe.w_up, moe.w_down]
+        ye = moe._stack(xe, rec["qcfg"], rec["key"], None)
+        grads = torch.autograd.grad(ye, [xe, *ws], rec["g"])
+        out.append(dict(ye=ye.detach(), dxe=grads[0], dws=grads[1:],
+                        same_as_run=torch.equal(ye.detach(), rec["ye"])))
+        del ye, grads, xe
+    return out
+
+
+def _tp_expert_checks(model, experts, full) -> list[dict]:
+    """Each recorded MoE call's expert stack run by this rank's
+    tensor-parallel MoE (``model`` made tensor-parallel, the ranks in step)
+    on the unsharded call's buffer and output gradient, against the
+    unsharded stack's (``full``, :func:`_tp_unsharded_experts`): this
+    rank's outputs and weight gradients its slices, the gathered outputs
+    and the buffer's gradient summed over the group whole, bit for bit."""
+    import torch
+
+    out = []
+    for rec, want in zip(experts, full):
+        moe = model.get_submodule(rec["name"])
+        e0, e1 = moe.experts
+        local = {}
+
+        def spy(xe, qcfg, key, span, real=moe._stack):
+            y = real(xe, qcfg, key, span)
+            local["y"] = y.detach()
+            return y
+
+        moe._stack = spy
+        xe = rec["xe"].clone().requires_grad_()
+        ws = [moe.w_gate, moe.w_up, moe.w_down]
+        ye = moe._experts(xe, rec["qcfg"], rec["key"])
+        grads = torch.autograd.grad(ye, [xe, *ws], rec["g"])
+        _Unspy(moe, "_stack").remove()
+        checks = dict(outputs=torch.equal(local["y"], want["ye"][e0:e1]),
+                      weight_grads=all(torch.equal(g, w[e0:e1])
+                                       for g, w in zip(grads[1:], want["dws"])),
+                      gathered=torch.equal(ye.detach(), want["ye"]),
+                      buffer_grad=torch.equal(grads[0], want["dxe"]),
+                      run=want["same_as_run"])
+        out.append(dict(layer=rec["name"], experts=(e0, e1), **checks, ok=all(checks.values())))
+        del ye, grads, xe, local
+    return out
 
 
 def tp_linears(cfg) -> int:
     """The quantized linear calls of one forward of ``cfg``'s model: 7 a
-    dense layer or shared-block call (6 ungated), 2 a Mamba2 layer."""
-    block = 7 if cfg.gated_mlp else 6
+    dense layer or shared-block call (6 ungated), 2 a Mamba2 layer, 4 an
+    MoE layer's attention and 3 its shared expert's MLP (2 ungated), a
+    dense block an encoder layer, and 4 more a decoder layer (its
+    cross-attention)."""
+    mlp = 3 if cfg.gated_mlp else 2
+    block = 4 + mlp
     if cfg.family == "dense":
         return block * cfg.n_layers
+    if cfg.family == "moe":
+        return (4 + (mlp if cfg.n_shared_experts else 0)) * cfg.n_layers
+    if cfg.family == "encdec":
+        return block * cfg.enc_layers + (4 + block) * cfg.n_layers
     return 2 * cfg.n_layers + (block * (cfg.n_layers // cfg.attn_every)
                                if cfg.family == "hybrid" else 0)
+
+
+def _tp_reference(r: dict, tag: str, cfg, run, step_fn, opt_init, batch, layout, mine,
+                  routes, rank: int):
+    """The unsharded reference of one path and config on this rank's card,
+    with no collective: the fp32 step (the rank's updated parameters held
+    to it) or the quantized loss and backward (every linear's call and
+    each MoE call recorded; each MoE call's stack run unsharded); the
+    routing flips against the tensor-parallel step's.  Returns, quantized,
+    the model, its linear records, its MoE records and their unsharded
+    runs (fp32: None and nothing)."""
+    from repro_torch.core import fold_in
+    from repro_torch.models.lm import init_lm
+
+    ref = init_lm(cfg, seed=0, device="cuda")
+    ref_routes, route_handles = _tp_record_routing(ref)
+    records, experts, full = [], [], []
+    if tag == "fp32":
+        ropt = opt_init(ref)
+        ref, ropt, rm = step_fn(ref, ropt, batch)
+        r.update(ref_loss=float(rm["loss"]), ref_grad_norm=float(rm["grad_norm"]))
+        worst_abs, worst_rel, sq_diff, sq_want = (0.0, None), (0.0, None), 0.0, 0.0
+        for k, p in ref.named_parameters():
+            want = p.detach()
+            if k in layout:
+                want = layout[k].take(want, rank)
+            diff = mine[k].double() - want.double()
+            worst_abs = max(worst_abs, (diff.abs().max().item(), k), key=lambda v: v[0])
+            rel = float(diff.norm() / max(float(want.double().norm()), 1e-30))
+            worst_rel = max(worst_rel, (rel, k), key=lambda v: v[0])
+            sq_diff += float(diff.square().sum())
+            sq_want += float(want.double().square().sum())
+        r.update(params_rel=math.sqrt(sq_diff / sq_want), params_worst_abs=worst_abs,
+                 params_worst_rel=worst_rel)
+        del ropt, ref
+        ref = None
+    else:
+        records, experts, handles = _tp_record_linears(ref)
+        loss, _ = ref.loss(batch, fold_in(run.seed, 0))  # the step's key at step 0
+        loss.backward()
+        for h in handles:
+            h.remove()
+        r["ref_loss"] = loss.item()
+        del loss
+        ref.zero_grad(set_to_none=True)
+        records = [x for x in records if "g" in x]
+        experts = [x for x in experts if "g" in x]
+        full = _tp_unsharded_experts(ref, experts)
+    for h in route_handles:
+        h.remove()
+    r["route_flips"] = _route_flips(routes, ref_routes)
+    return ref, records, experts, full
 
 
 def _tp_rank_work(rank: int) -> dict:
     """One rank of the model axis, for each path of TP_PATHS: the
     tensor-parallel step of each config (counts set to 0 just before the
     step and read just after), then the unsharded step (fp32) or loss
-    (pallas, its linears recorded) on the same card as the reference."""
+    (pallas, its linears and experts recorded) on the same card as the
+    reference, side by side or, on TP_TURNS' paths, one rank at a time;
+    quantized, the ranks in step then run each recorded linear
+    tensor-parallel and each MoE layer's stack by the rank's
+    tensor-parallel MoE on the reference's recorded buffer."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs import SHAPES, RunConfig
-    from repro_torch.core import fold_in
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.lm import init_lm
     from repro_torch.parallel.tensor import TensorParallel, tensor_parallel
@@ -3418,6 +3639,7 @@ def _tp_rank_work(rank: int) -> dict:
             model = tensor_parallel(init_lm(cfg, seed=0, device="cuda"), tp)
             opt = opt_init(model)
             layout = model.tp_layout
+            routes, handles = _tp_record_routing(model)
             torch.cuda.synchronize()
             reset_launch_counts()
             t0 = time.perf_counter()
@@ -3425,6 +3647,8 @@ def _tp_rank_work(rank: int) -> dict:
             torch.cuda.synchronize()
             r = dict(first_step_ms=(time.perf_counter() - t0) * 1e3, launches=launch_counts(),
                      loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+            for h in handles:
+                h.remove()
             mine = {k: p.detach().clone() for k, p in model.named_parameters()}
             t0 = time.perf_counter()  # a second step, warm, for its time alone
             model, opt, m = step_fn(model, opt, batch)
@@ -3433,38 +3657,22 @@ def _tp_rank_work(rank: int) -> dict:
                      peak_memory_bytes=torch.cuda.max_memory_allocated())
             del model, opt, m
             torch.cuda.empty_cache()
-            ref = init_lm(cfg, seed=0, device="cuda")
-            if tag == "fp32":
-                ropt = opt_init(ref)
-                ref, ropt, rm = step_fn(ref, ropt, batch)
-                r.update(ref_loss=float(rm["loss"]), ref_grad_norm=float(rm["grad_norm"]))
-                worst_abs, worst_rel, sq_diff, sq_want = (0.0, None), (0.0, None), 0.0, 0.0
-                for k, p in ref.named_parameters():
-                    want = p.detach()
-                    if k in layout:
-                        want = layout[k].take(want, rank)
-                    diff = mine[k].double() - want.double()
-                    worst_abs = max(worst_abs, (diff.abs().max().item(), k), key=lambda v: v[0])
-                    rel = float(diff.norm() / max(float(want.double().norm()), 1e-30))
-                    worst_rel = max(worst_rel, (rel, k), key=lambda v: v[0])
-                    sq_diff += float(diff.square().sum())
-                    sq_want += float(want.double().square().sum())
-                r.update(params_rel=math.sqrt(sq_diff / sq_want), params_worst_abs=worst_abs,
-                         params_worst_rel=worst_rel)
-                del ropt
-            else:
-                records, handles = _tp_record_linears(ref)
-                loss, _ = ref.loss(batch, fold_in(run.seed, 0))  # the step's key at step 0
-                loss.backward()
-                for h in handles:
-                    h.remove()
-                r["ref_loss"] = loss.item()
-                del loss
-                ref.zero_grad(set_to_none=True)
-                r["linears"] = _tp_linear_checks(ref, [x for x in records if "g" in x], layout,
-                                                 tp)
-                del records
-            del ref, mine
+            t0 = time.perf_counter()
+            turns = range(tp.size) if arch in TP_TURNS else (rank,)
+            for turn in turns:
+                if turn == rank:
+                    ref, records, experts, full = _tp_reference(
+                        r, tag, cfg, run, step_fn, opt_init, batch, layout, mine, routes, rank)
+                    torch.cuda.empty_cache()
+                if len(turns) > 1:
+                    dist.barrier()
+            r["reference_s"] = time.perf_counter() - t0
+            if ref is not None:  # the ranks in step: the split linears' collectives
+                r["linears"] = _tp_linear_checks(ref, records, layout, tp)
+            if experts:
+                tensor_parallel(ref, tp)
+                r["experts"] = _tp_expert_checks(ref, experts, full)
+            del ref, mine, records, experts, full
             torch.cuda.empty_cache()
             out[arch][tag] = r
     return out
@@ -3543,6 +3751,10 @@ def phase_tensor(results: dict) -> tuple[dict[str, dict[str, int]], list[dict]]:
             wrong = [c for c in q["linears"] if not c["ok"]]
             if wrong or len(q["linears"]) != tp_linears(cfgs["pallas"]):
                 bad.append(f"{arch} rank {r['rank']} linears {wrong} of {len(q['linears'])}")
+            if cfgs["pallas"].family == "moe":
+                stacks = q.get("experts", [])
+                if len(stacks) != cfgs["pallas"].n_layers or not all(c["ok"] for c in stacks):
+                    bad.append(f"{arch} rank {r['rank']} expert stacks {stacks}")
             got = {k: q["launches"].get(k, 0) for k in want}
             if got != want:
                 bad.append(f"{arch} rank {r['rank']} launches {got}, expected {want}")
@@ -3552,6 +3764,12 @@ def phase_tensor(results: dict) -> tuple[dict[str, dict[str, int]], list[dict]]:
               f"{[r[arch]['fp32']['params_worst_abs'] for r in ranks]}, worst tensor "
               f"{[r[arch]['fp32']['params_worst_rel'] for r in ranks]}), launches {want} per "
               f"rank")
+        if cfgs["pallas"].family == "moe":  # reported, not held: a near-tie may flip
+            print(f"tensor ({smi}): {arch} tokens routed otherwise than unsharded, by rank: "
+                  f"fp32 {[r[arch]['fp32']['route_flips'] for r in ranks]}, quantized "
+                  f"{[r[arch]['pallas']['route_flips'] for r in ranks]}; expert stacks "
+                  f"{[[c['ok'] for c in r[arch]['pallas']['experts']] for r in ranks]} "
+                  f"(outputs, weight gradients, gather, buffer gradient bit for bit)")
     if bad:
         raise AssertionError("; ".join(bad))
     return {arch: ranks[0][arch]["pallas"]["launches"] for arch in TP_PATHS}, rows

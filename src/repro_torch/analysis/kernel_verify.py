@@ -605,11 +605,15 @@ _SABOTAGE_BUILDERS = {
 }
 
 
-# the tensor-parallel steps the audit proves K1's split entries at: chatglm3-6b
-# and zamba2-7b at a model axis of 2, 4096 tokens (batch 1 x 4096, the chip
-# smoke's)
+# the tensor-parallel steps the audit proves K1's split entries and K3 at:
+# chatglm3-6b, zamba2-7b, moonshot-v1-16b-a3b and seamless-m4t-medium (its
+# cross-attention over 4096 source frames) at a model axis of 2, 4096 tokens
+# (batch 1 x 4096, the chip smoke's)
 TP_AUDIT = ("chatglm3-6b", 2, 4096)
 TP_AUDIT_HYBRID = ("zamba2-7b", 2, 4096)
+TP_AUDIT_MOE = ("moonshot-v1-16b-a3b", 2, 4096)
+TP_AUDIT_ENCDEC = ("seamless-m4t-medium", 2, 4096)
+TP_AUDITS = (TP_AUDIT, TP_AUDIT_HYBRID, TP_AUDIT_MOE, TP_AUDIT_ENCDEC)
 
 
 def tensor_parallel_specs(cfg, model_axis: int, tokens: int,
@@ -617,11 +621,15 @@ def tensor_parallel_specs(cfg, model_axis: int, tokens: int,
     """The launches of K1's split entries (pass A, then pass B over the
     all-reduced max) on every sharded GEMM operand of one layer's linears
     in a tensor-parallel training step of ``cfg`` (the quantized backend's
-    padded 2-D operands, ``tokens`` rows of activations), on the first and
-    the last rank of the model axis (the uneven splits differ, and the
-    first holds a Mamba2 in_proj's tail), with the tile cache's K1
-    choices; the hybrid's shared block too."""
+    padded 2-D operands, ``tokens`` rows of activations, the encoder's
+    output too), and of K3 on each such linear's three GEMMs (forward,
+    data and weight gradient), on the first and the last rank of the
+    model axis (the uneven splits differ, and the first holds a Mamba2
+    in_proj's tail), with the tile cache's choices; the hybrid's shared
+    block and the encoder's first layer too.  The routed experts reach no
+    kernel."""
     from repro_torch.kernels import autotune
+    from repro_torch.kernels.lowbit_conv import _gemm_plan
     from repro_torch.launch.specs import abstract_params
     from repro_torch.parallel.tensor import tp_layout
 
@@ -633,19 +641,25 @@ def tensor_parallel_specs(cfg, model_axis: int, tokens: int,
     def pad(n: int) -> int:
         return -(-n // kb) * kb
 
-    shapes = collections.Counter()
+    shapes, gemms = collections.Counter(), collections.Counter()
     for name, sp in layout.items():
-        if not name.startswith(("layers.0.", "shared_attn.")) or not name.endswith(".w"):
+        if (not name.startswith(("layers.0.", "enc_layers.0.", "shared_attn."))
+                or not name.endswith(".w")):
             continue
         d_in, d_out = full[name]
         for n in {sp.size(0), sp.size(len(sp.pieces) - 1)}:
             if sp.dim == 1:  # column-parallel: w^T, the error and its transpose
                 shapes.update([(n, pad(d_in)), (tokens, pad(n)), (d_in, pad(n)),
                                (n, pad(tokens))])
+                gemms.update([(tokens, d_in, n), (tokens, n, d_in), (d_in, tokens, n)])
             else:  # row-parallel: x, w^T, w and x^T
                 shapes.update([(tokens, pad(n)), (d_out, pad(n)), (n, pad(d_out)),
                                (n, pad(tokens))])
+                gemms.update([(tokens, n, d_out), (tokens, d_out, n), (n, tokens, d_out)])
     specs = collections.Counter()
+    for (m, k, n), c in gemms.items():  # (M, K, N) of x (M, K) @ w (K, N)
+        specs[("mls_matmul", device, m, n, pad(k), kb, "nc", fmt,
+               _gemm_plan(m, k, n, fmt, kb, "nc", device))] += c
     for (rows, cols), k in shapes.items():
         config = autotune.resolve_block_config("quantize", (rows, cols), fmt, "nc",
                                                k_block=kb, device=device)
@@ -665,7 +679,7 @@ def run_kernel_audit(sabotage: str | None = None, device: str = "cuda",
     reports = {name: verify_entry(entry, device) for name, entry in KERNEL_REGISTRY.items()}
     from repro_torch.configs import get_config
 
-    for arch, m, tokens in (TP_AUDIT, TP_AUDIT_HYBRID):
+    for arch, m, tokens in TP_AUDITS:
         reports[f"tensor_parallel:{arch}@model{m}"] = verify_specs(
             f"tensor_parallel:{arch}@model{m}",
             tensor_parallel_specs(get_config(arch), m, tokens, device))

@@ -22,12 +22,14 @@ arithmetic the kernels assume:
   ``wire_fsdp_dim`` in {None, 0, 1}, and a warning for ``packed_wire``
   without ``wire_fsdp_dim``.
 
-* **Tensor parallelism** (:func:`lint_tensor_parallel`): a model config
-  trains under a model axis where it is of the dense family, the axis
-  divides its query heads and its vocabulary, each rank's query heads map
-  onto whole kv heads (kv heads the axis does not divide stay replicated:
-  a warning), and every split keeps its backend's scaling groups whole
-  (``parallel.tensor.tp_layout``).
+* **Tensor parallelism** (:func:`lint_tensor_parallel`): an LM config of
+  any family trains under a model axis where the axis divides its query
+  heads and its vocabulary, each rank's query heads map onto whole kv
+  heads (kv heads the axis does not divide stay replicated: a warning),
+  and every split keeps its backend's scaling groups whole
+  (``parallel.tensor.tp_layout``); an MoE's experts split whole (a
+  warning names the experts a rank, or the stacks kept replicated where
+  the axis does not divide them).
 
 Pure Python on dataclass fields: it runs on any host.
 """
@@ -147,8 +149,9 @@ def lint_shipped_presets() -> dict[str, LintResult]:
 def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
     """Whether the LM config ``cfg`` trains tensor-parallel over a model
     axis of ``model_axis`` (the module docstring); warnings name the kv
-    heads kept replicated, the Mamba2 tail held by one rank and the dims
-    split unevenly (in whole groups or units)."""
+    heads kept replicated, the Mamba2 tail held by one rank, the experts a
+    rank (or the expert stacks kept replicated) and the dims split
+    unevenly (in whole groups or units)."""
     from repro_torch.launch.specs import abstract_params
     from repro_torch.parallel.tensor import TAIL_RANK, mamba_heads, rank_heads, tp_layout
 
@@ -174,6 +177,15 @@ def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
         if len(heads) > 1:
             warnings.append(f"Mamba2 heads split unevenly in whole units: "
                             f"{max(heads)} / {min(heads)}")
+    if model_axis > 1 and cfg.family == "moe":
+        e = cfg.n_experts
+        if "layers.0.moe.w_gate" in layout:
+            warnings.append(f"{e // model_axis} of {e} experts a rank; each MoE layer gathers "
+                            f"their outputs over the model group (an all-reduce of the whole "
+                            f"(E, B*cap, d) buffer each way)")
+        else:
+            warnings.append(f"{e} experts do not split over a model axis of {model_axis}: the "
+                            f"expert stacks stay replicated, every rank runs them all")
     # a Mamba2 layer's parts differ by the tail: their units are warned of above
     grouped = {k: sp for k, sp in layout.items() if not (mamba and k.startswith("layers."))}
     uneven = sorted({f"{name.split('.')[-2]} {sp.size(0)} / {sp.size(len(sp.pieces) - 1)}"

@@ -40,6 +40,7 @@ concatenated (:class:`Sharded`'s ``pieces``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -69,6 +70,7 @@ __all__ = [
     "quantize_operand",
     "quantize_stack",
     "rounding_generator",
+    "stack_offsets",
 ]
 
 GROUPINGS = ("nc", "c", "n", "none")  # scaling-group layouts, paper Table IV
@@ -431,6 +433,12 @@ def lowbit_matmul(x: torch.Tensor, w: torch.Tensor, key: int | None,
 STACK_CHUNK = 1 << 27
 
 
+def _stack_chunk(shape) -> int:
+    """Whole slices of a stack of ``shape`` that one quantizer pass codes
+    (and draws the offsets of) at a time."""
+    return max(1, STACK_CHUNK // max(1, math.prod(shape[1:])))
+
+
 def quantize_stack(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec,
                    r: torch.Tensor | torch.Generator | None) -> tuple[torch.Tensor, torch.Tensor]:
     """Each slice ``x[i]`` of a stack quantized with its own tensor and
@@ -447,7 +455,7 @@ def quantize_stack(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec,
     full = GroupSpec((1,) + tuple(spec.block))
     unit = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     s_t = torch.empty(n, dtype=torch.float32, device=x.device)
-    per = max(1, STACK_CHUNK // max(1, x[0].numel()))
+    per = _stack_chunk(x.shape)
     for lo in range(0, n, per):
         xs = x[lo:lo + per].to(torch.float32)
         if isinstance(r, torch.Generator):
@@ -457,6 +465,36 @@ def quantize_stack(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec,
         sign, s_t[lo:lo + per], _, _, _, scale, x_f = normalize_slices(xs, full, cfg.gs_fmt)
         unit[lo:lo + per] = sign.to(torch.float32) * scale * quantize_grid(x_f, cfg.fmt, rs)
     return unit, s_t
+
+
+def stack_offsets(gen: torch.Generator, shape, first: int, n: int) -> torch.Tensor:
+    """The rounding offsets of slices ``[first, first + n)`` of a stack of
+    ``shape`` that :func:`quantize_stack` draws from ``gen``: the whole
+    stack's draws, made chunk by chunk as the unsharded stack makes them,
+    kept where they fall in the range (a rank's experts of a stack split
+    over a model axis)."""
+    shape = tuple(shape)
+    per = _stack_chunk(shape)
+    out = torch.empty((n,) + shape[1:], dtype=torch.float32, device=gen.device)
+    for lo in range(0, first + n, per):
+        hi = min(lo + per, shape[0])
+        d = torch.rand((hi - lo,) + shape[1:], generator=gen, device=gen.device,
+                       dtype=torch.float32) - 0.5
+        a, b = max(lo, first), min(hi, first + n)
+        if a < b:
+            out[a - first:b - first] = d[a - lo:b - lo]
+    return out
+
+
+def _stack_source(key, cfg: QuantConfig, idx: int, shape, device, r, experts):
+    """Operand ``idx``'s rounding source in a stack of ``shape``; with
+    ``experts = (first, full)`` the stack is slices ``[first, first +
+    shape[0])`` of one of ``full``, whose stream's offsets it takes."""
+    src = _source(key, cfg, idx, device, r)
+    if experts is None or not isinstance(src, torch.Generator):
+        return src
+    first, full = experts
+    return stack_offsets(src, (full,) + tuple(shape[1:]), first, shape[0])
 
 
 # torch.profiler spans of the stacked GEMM's forward and backward (what a
@@ -469,35 +507,42 @@ class LowbitMatmulStack(torch.autograd.Function):
     each operand of the stack quantized at once (:func:`quantize_stack`)."""
 
     @staticmethod
-    def forward(ctx, x, w, key, cfg, r):
+    def forward(ctx, x, w, key, cfg, r, experts):
         with torch.profiler.record_function(STACK_SPANS[0]):
             sx, sw = cfg.matmul_specs(x.shape[1:], w.shape[1:])
-            qx, stx = quantize_stack(x, cfg, sx, _source(key, cfg, 0, x.device, r))
-            qw, stw = quantize_stack(w, cfg, sw, _source(key, cfg, 1, x.device, r))
+            qx, stx = quantize_stack(x, cfg, sx,
+                                     _stack_source(key, cfg, 0, x.shape, x.device, r, experts))
+            qw, stw = quantize_stack(w, cfg, sw,
+                                     _stack_source(key, cfg, 1, w.shape, x.device, r, experts))
             ctx.save_for_backward(qx, stx, qw, stw)
-            ctx.conf = (key, cfg, r, x.dtype, w.dtype)
+            ctx.conf = (key, cfg, r, experts, x.dtype, w.dtype)
             return torch.matmul(qx, qw) * (stx * stw)[:, None, None]
 
     @staticmethod
     def backward(ctx, g):
         with torch.profiler.record_function(STACK_SPANS[1]):
             qx, stx, qw, stw = ctx.saved_tensors
-            key, cfg, r, x_dtype, w_dtype = ctx.conf
+            key, cfg, r, experts, x_dtype, w_dtype = ctx.conf
             ge, ste = quantize_stack(g.to(torch.float32), cfg, _error_spec(cfg, g.shape[1:]),
-                                     _source(key, cfg, 2, g.device, r))
+                                     _stack_source(key, cfg, 2, g.shape, g.device, r, experts))
             dx = torch.matmul(ge, qw.transpose(1, 2)) * (ste * stw)[:, None, None]
             dw = torch.matmul(qx.transpose(1, 2), ge) * (ste * stx)[:, None, None]
-            return dx.to(x_dtype), dw.to(w_dtype), None, None, None
+            return dx.to(x_dtype), dw.to(w_dtype), None, None, None, None
 
 
 def lowbit_matmul_stack(x: torch.Tensor, w: torch.Tensor, key: int | None,
-                        cfg: QuantConfig, r=None) -> torch.Tensor:
+                        cfg: QuantConfig, r=None,
+                        experts: tuple[int, int] | None = None) -> torch.Tensor:
     """``x (E, R, K) @ w (E, K, N)`` -> fp32 (E, R, N): for each ``e``,
     :func:`lowbit_matmul` of ``x[e]`` and ``w[e]`` (its own tensor and group
     scales), in some 40 operations per operand for the whole stack.  The
     rounding offsets of each operand come from one stream of ``key`` for
-    the whole stack, or from ``r = (r_x, r_w, r_e)`` of the stacked shapes."""
-    return LowbitMatmulStack.apply(x, w, key, cfg, r)
+    the whole stack, or from ``r = (r_x, r_w, r_e)`` of the stacked shapes.
+    ``experts = (first, full)``: the operands are slices ``[first, first +
+    E)`` of a stack of ``full`` (a rank's experts), each quantized bit for
+    bit as in the whole stack: the streams are drawn at the whole stack's
+    shape (:func:`stack_offsets`), and no scale spans two slices."""
+    return LowbitMatmulStack.apply(x, w, key, cfg, r, experts)
 
 
 def conv_pads(hw, ksize, stride, padding) -> tuple[tuple[int, int], tuple[int, int]]:

@@ -16,10 +16,11 @@ Under ``torchrun`` (``WORLD_SIZE`` set) it trains over the world:
 chatglm3-6b [--multi-pod] [--model-axis 2]``.  The mesh is ``(pods, world
 // (pods * N), N)`` over ("pod", "data", "model"), ``pods`` 2 under
 ``--multi-pod`` and 1 otherwise, ``N`` the ``--model-axis``.  With ``N`` >
-1 each model group trains the dense, ssm and hybrid families
-tensor-parallel (:mod:`repro_torch.parallel.tensor`: Megatron-split
-linears, Mamba2 layers split by heads, a vocab-parallel embedding, head
-and loss); moe and encdec raise (ROADMAP queue 1).  Then every layer and
+1 each model group trains every family tensor-parallel
+(:mod:`repro_torch.parallel.tensor`: Megatron-split linears, Mamba2
+layers split by heads, MoE experts split whole with their outputs
+gathered, column-parallel cross-attention K/V, a vocab-parallel
+embedding, head and loss).  Then every layer and
 the model are sharded with FSDP2 ``fully_shard`` over the 2-D ("pod",
 "data") mesh (HSDP), each rank's
 tensor-parallel parameters: sharded over ``data`` and replicated across
@@ -30,8 +31,11 @@ gradient reduction averages over ("pod", "data").  The JAX launcher's mesh
 is the fixed (2, 16, 16) of 512 TPU chips; the port sizes ``data`` from the
 world instead.  Checkpoints under torchrun hold each rank's shards, in
 ``rank<r>/`` of ``--ckpt-dir``.  ``--smoke`` with ``--model-axis``
-widens the smoke config (:func:`tp_smoke`: the heads and MLP, and the
-Mamba2 layers' din) so that the splits keep whole scaling groups.
+widens the smoke config (:func:`tp_smoke`: the heads and MLP, the MoE's
+expert width and the Mamba2 layers' din) so that the splits keep whole
+scaling groups.  As in the JAX launcher, the data stream carries no
+``src_emb``, so the encoder-decoder does not train here: drive it through
+:func:`shard_model` and ``make_train_step`` on batches that carry it.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ from repro_torch.configs import shape_model_config
 from repro_torch.data import make_lm_iterator
 from repro_torch.models import lm
 from repro_torch.parallel.sharding import MeshShape, axis_sizes
-from repro_torch.parallel.tensor import NOT_PORTED, PORTED, TensorParallel, tensor_parallel
+from repro_torch.parallel.tensor import TensorParallel, tensor_parallel
 from repro_torch.runtime import resolve_device
 from repro_torch.train import CheckpointManager, StragglerMonitor, make_train_step
 from repro_torch.train.trainer import local_params
@@ -66,16 +70,22 @@ TP_SMOKE = dict(head_dim=128, n_kv_heads=2, d_ff=5 * 128)
 # ... and their Mamba2 layers' din of 128 is one group: d_model 256 gives a
 # din of 4 groups, 16 heads of 32 (the hybrid takes TP_SMOKE's attention too)
 TP_SMOKE_SSM = dict(d_model=256, ssm_headdim=32)
+# ... and an MoE's shared expert of d_ff moe_d_ff 64 is one group: 5 groups
+# split whole at a model axis of 2 and 4 (the routed experts split whole)
+TP_SMOKE_MOE = dict(moe_d_ff=5 * 128)
 
 
 def tp_smoke(cfg):
     """A smoke config widened for a model axis: ``TP_SMOKE`` where it has
-    attention, ``TP_SMOKE_SSM`` where it has Mamba2 layers."""
+    attention, ``TP_SMOKE_SSM`` where it has Mamba2 layers,
+    ``TP_SMOKE_MOE`` where it has experts."""
     over = {}
     if cfg.n_heads:
         over.update(TP_SMOKE)
     if cfg.family in ("ssm", "hybrid"):
         over.update(TP_SMOKE_SSM)
+    if cfg.family == "moe":
+        over.update(TP_SMOKE_MOE)
     return dataclasses.replace(cfg, **over)
 
 
@@ -97,7 +107,7 @@ def _dp_mesh(mesh):
 def shard_model(model: lm.LM, mesh) -> lm.LM:
     """Tensor parallelism over the mesh's ``model`` dim where it is above 1
     (:func:`repro_torch.parallel.tensor.tensor_parallel`, this rank's
-    coordinate; the dense, ssm and hybrid families), then HSDP: FSDP2 ``fully_shard`` of
+    coordinate), then HSDP: FSDP2 ``fully_shard`` of
     every layer (and encoder layer), then of the model, over the mesh's
     ("pod", "data") dims, and ``model.loss`` registered as a forward of the
     root, so that the trainer's loss runs inside FSDP2's hooks.  The
@@ -106,8 +116,6 @@ def shard_model(model: lm.LM, mesh) -> lm.LM:
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
     m = axis_sizes(mesh).get("model", 1)
-    if m > 1 and model.cfg.family not in PORTED:
-        raise NotImplementedError(NOT_PORTED.format(family=model.cfg.family))
     if model.cfg.param_gather_dtype != "float32":
         raise NotImplementedError("param_gather_dtype other than float32 under FSDP2: the "
                                   "2-byte gather is not ported (ROADMAP queue 1)")
@@ -158,8 +166,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--multi-pod", action="store_true",
                     help="under torchrun: two pods, parameters replicated across them")
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="under torchrun: the mesh's model axis (tensor parallelism of the "
-                         "dense, ssm and hybrid families)")
+                    help="under torchrun: the mesh's model axis (tensor parallelism of "
+                         "every family)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--batch", type=int, default=0, help="override batch")
@@ -168,9 +176,6 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    family = get_config(args.arch).family
-    if args.model_axis > 1 and family not in PORTED:
-        raise NotImplementedError(NOT_PORTED.format(family=family))
     mesh, rank = None, 0
     if int(os.environ.get("WORLD_SIZE", "0")):
         rank, world, device = _init_world(device)

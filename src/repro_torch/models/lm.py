@@ -49,13 +49,14 @@ encoder's output) and not at prefill, which computes them once,
 unquantized, into the cache.
 
 Under tensor parallelism over the ``model`` axis
-(:func:`repro_torch.parallel.tensor.tensor_parallel`; the dense, ssm and
-hybrid families, training only) ``model.tp`` is set: the embedding is a
-vocab-parallel lookup summed over the group, the unquantized LM head is
-column-parallel over vocab (mamba2-370m's tied head too: the slice of
-``emb``), and :func:`lm_loss` takes a vocab-parallel cross-entropy; the
-layers (Mamba2 layers, and the hybrid's shared block by the dense rules)
-hold their heads.
+(:func:`repro_torch.parallel.tensor.tensor_parallel`; every family,
+training only) ``model.tp`` is set: the embedding is a vocab-parallel
+lookup summed over the group, the unquantized LM head is column-parallel
+over vocab (mamba2-370m's tied head too: the slice of ``emb``), and
+:func:`lm_loss` takes a vocab-parallel cross-entropy; the layers (Mamba2
+layers, the hybrid's shared block, the encoder's and the decoder's
+blocks with their cross-attention by the dense rules) hold their heads,
+and an MoE layer its experts (:mod:`repro_torch.models.moe`).
 
 A cache is a dict of tensors plus ``"pos"`` (a Python int, the next
 position).  :func:`decode_step` writes the KV caches in place (the JAX

@@ -20,6 +20,23 @@ expert order starting from 0.0, the order in which the JAX package's
 ``.at[tok].add`` visits its sorted slots: the combine is a gather and
 ``k`` adds, deterministic on the card (``index_add_`` there adds with
 atomics in no fixed order).
+
+Under tensor parallelism (``parallel.tensor.tensor_parallel``; training
+only) the expert stacks split over the model axis in whole experts, the
+JAX package's ``expert -> model`` (``MoE.experts``: this rank's ``[e0,
+e1)``; None where the stacks stay replicated).  Every rank holds the
+MoE's input whole and computes the routing, the aux loss, the dispatch
+and the buffer ``xe``, as GSPMD does, sharding them only over the batch.
+A rank runs its experts on its slice of ``xe`` (after ``copy_to_tp``:
+the buffer's gradient summed over the group, the other ranks adding
+zeros), and the outputs are gathered whole by an all-reduce SUM to which
+the other ranks send zeros (``reduce_from_tp``: the gradient handed back
+as the rank's slice).  The combine then runs on every rank and gives the
+unsharded one bit for bit; the router's gradient and the aux loss come
+out whole.  A rank's experts draw their rounding offsets at the whole
+stack's shape (``lowbit_matmul_stack``'s ``experts``), so they quantize
+as in the unsharded stack.  The shared expert is an :class:`MLP` split by
+the dense rules.
 """
 from __future__ import annotations
 
@@ -32,6 +49,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import QuantConfig, fold_in
 from repro_torch.core.lowbit import lowbit_matmul_stack
+from repro_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 
 from . import nn as L
 from .transformer import MLP
@@ -78,6 +96,9 @@ class MoE(nn.Module):
         self.w_down = nn.Parameter(torch.empty(e, f, d))
         self.shared = (MLP(cfg, d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
                        if cfg.n_shared_experts else None)
+        # tensor parallelism: the model group and this rank's [e0, e1) of
+        # the experts (None: the stacks whole, as on one device)
+        self.tp, self.experts = None, None
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> None:
@@ -144,13 +165,24 @@ class MoE(nn.Module):
     def _experts(self, xe, qcfg, key):
         """The expert FFN over the stack: silu(x W_gate) * (x W_up), cast to
         the compute dtype, then W_down; the fake-quant GEMMs of site keys
-        ``fold_in(key, 0/1/2)`` where quantized, else in the compute dtype."""
+        ``fold_in(key, 0/1/2)`` where quantized, else in the compute dtype.
+        Tensor-parallel: this rank's experts of ``xe``, the outputs gathered
+        over the group (module docstring)."""
+        if self.experts is None:
+            return self._stack(xe, qcfg, key, None)
+        e0, e1 = self.experts
+        ye = self._stack(copy_to_tp(xe, self.tp)[e0:e1], qcfg, key, (e0, xe.shape[0]))
+        pad = ye.shape[1:]
+        return reduce_from_tp(torch.cat([ye.new_zeros((e0,) + pad), ye,
+                                         ye.new_zeros((xe.shape[0] - e1,) + pad)]), self.tp)
+
+    def _stack(self, xe, qcfg, key, experts):
         wg, wu, wd = self.w_gate, self.w_up, self.w_down
         if qcfg is not None and qcfg.enabled:
-            g = lowbit_matmul_stack(xe, wg, fold_in(key, 0), qcfg)
-            u = lowbit_matmul_stack(xe, wu, fold_in(key, 1), qcfg)
+            g = lowbit_matmul_stack(xe, wg, fold_in(key, 0), qcfg, experts=experts)
+            u = lowbit_matmul_stack(xe, wu, fold_in(key, 1), qcfg, experts=experts)
             h = (F.silu(g) * u).to(xe.dtype)
-            return lowbit_matmul_stack(h, wd, fold_in(key, 2), qcfg)
+            return lowbit_matmul_stack(h, wd, fold_in(key, 2), qcfg, experts=experts)
         g = torch.matmul(xe, wg.to(xe.dtype))
         u = torch.matmul(xe, wu.to(xe.dtype))
         h = (F.silu(g) * u).to(xe.dtype)

@@ -16,6 +16,9 @@ only) a rank holds its query heads (and kv heads, or all of them where
 they do not split) and its slice of the MLP's hidden dim: the input passes
 ``copy_to_tp`` into the column-parallel ``wq``/``wk``/``wv``/``w_up``/
 ``w_gate``, and the row-parallel ``wo``/``w_down`` sum over the group.
+Cross-attention's ``wk``/``wv`` are column-parallel over the kv heads on
+``copy_to_tp(kv)`` (each rank's heads add a part of the source's
+gradient), or replicated on ``kv`` where the kv heads do not split.
 """
 from __future__ import annotations
 
@@ -107,9 +110,9 @@ class Attention(nn.Module):
         hq, hkv = self.heads
         xq = x
         if self.tp is not None:
-            if cache is not None or kv is not None or cross_cache is not None:
-                raise NotImplementedError("tensor-parallel attention trains causal "
-                                          "self-attention only (ROADMAP queue 1)")
+            if cache is not None or cross_cache is not None:
+                raise NotImplementedError("tensor-parallel attention trains: its KV caches "
+                                          "are not ported (ROADMAP queue 1)")
             xq = copy_to_tp(x, self.tp)
         q = self.wq(xq, qcfg, fold_in(key, 0), wire=0).reshape(b, s, hq, hd)
         q_chunk = 1024 if s > 4096 else None
@@ -119,7 +122,9 @@ class Attention(nn.Module):
             return self.wo(out, qcfg, fold_in(key, 3), wire=1)
         xkv = xq if kv is None else kv
         if self.kv_take is not None:
-            xkv = x  # replicated wk/wv: their data gradient is whole on every rank
+            xkv = x if kv is None else kv  # replicated wk/wv: a whole data gradient
+        elif kv is not None and self.tp is not None:
+            xkv = copy_to_tp(kv, self.tp)
         sk = xkv.shape[1]
         k = self.wk(xkv, qcfg, fold_in(key, 1), wire=0)
         v = self.wv(xkv, qcfg, fold_in(key, 2), wire=0)

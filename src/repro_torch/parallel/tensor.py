@@ -1,4 +1,4 @@
-"""Tensor parallelism over the mesh's ``model`` axis for the dense LM family.
+"""Tensor parallelism over the mesh's ``model`` axis for the LM families.
 
 What GSPMD does for the JAX package on this family (its ``shard(...)``
 constraints place each op; the function computed is the unsharded one),
@@ -60,11 +60,24 @@ splits ``in_proj``'s packed output dim (``z``, ``x``, ``B``, ``C``,
 * ``out_norm``, an RMSNorm over the whole ``din``, sums its squares over
   the group with :func:`sum_over_tp` (SUM forward and SUM backward).
 
-The hybrid's shared attention+MLP block splits by the dense rules.  The
-encdec and moe families raise: their layouts (MoE experts, encdec's
-cross-attention) wait for later work (ROADMAP queue 1).  The only
-collectives are ``all_reduce`` (SUM, MAX), which gloo runs on CUDA
-tensors too.
+The hybrid's shared attention+MLP block splits by the dense rules.
+
+The moe family's expert stacks (``moe.w_gate``, ``moe.w_up``,
+``moe.w_down``; logical axis ``expert``, which JAX binds to ``model``)
+split along their expert dim, ``E / m`` whole experts a rank; where ``m``
+does not divide ``E`` they stay replicated, as JAX's ``spec_for`` drops an
+axis that does not divide.  No contraction dim of an expert is split, so
+no scaling group straddles ranks, and each expert has its own tensor
+scale: no MAX all-reduce.  The router stays replicated, the shared expert
+splits by the dense MLP rules, and the experts' outputs are gathered
+whole before the combine (:mod:`repro_torch.models.moe`).  The encdec
+family's encoder blocks, self-attention, cross-attention and MLPs split
+by the dense rules (cross-attention's ``wk``/``wv`` column-parallel over
+the encoder's output); ``frontend_proj`` stays replicated.
+
+Training only: serving a tensor-parallel model raises (its KV and
+cross-attention caches wait, ROADMAP queue 1).  The only collectives are
+``all_reduce`` (SUM, MAX), which gloo runs on CUDA tensors too.
 """
 from __future__ import annotations
 
@@ -85,9 +98,9 @@ __all__ = ["NOT_PORTED", "PORTED", "TAIL_RANK", "Split", "TPLinear", "TensorPara
            "reduce_from_tp", "shard_state_dict", "sum_over_tp", "tensor_parallel", "tp_layout",
            "vocab_parallel_ce"]
 
-PORTED = ("dense", "ssm", "hybrid")
-NOT_PORTED = ("tensor parallelism over the 'model' axis is ported for the dense, ssm and "
-              "hybrid families; the {family} family's layout waits (ROADMAP queue 1)")
+PORTED = ("dense", "moe", "ssm", "hybrid", "encdec")
+NOT_PORTED = ("tensor parallelism over the 'model' axis takes the LM families " + ", ".join(PORTED)
+              + ", not {family!r}")
 TAIL_RANK = 0  # the rank that holds a Mamba2 in_proj's tail (B, C, dt)
 
 
@@ -357,6 +370,8 @@ def tp_layout(cfg, shapes: Mapping[str, tuple[int, ...]], size: int) -> dict[str
             bounds = _in_groups(d, gw, size)
         elif axis == "vocab":
             bounds, gw = _even(d, size), 1  # the embedding and the unquantized head
+        elif axis == "expert":
+            bounds, gw = _even(d, size), 1  # whole experts, each with its own scales
         else:
             raise NotImplementedError(f"{name}: the logical axis {axis!r} on 'model' is not "
                                       f"ported (ROADMAP queue 1)")
@@ -430,28 +445,51 @@ class TPLinear:
         return y if b is None else y + b.float()
 
 
-_BLOCK_KINDS = {"attn.wq": "column", "attn.wk": "column", "attn.wv": "column", "attn.wo": "row",
-                "mlp.w_up": "column", "mlp.w_gate": "column", "mlp.w_down": "row"}
+_KINDS = {"wq": "column", "wk": "column", "wv": "column", "wo": "row",
+          "w_up": "column", "w_gate": "column", "w_down": "row"}
+
+
+def _mark_linears(module, prefix: str, layout: Mapping[str, Split], tp: TensorParallel) -> None:
+    """The split linears of an attention or MLP (``prefix`` its name) made
+    column- or row-parallel; kv linears whose heads stay whole stay
+    replicated."""
+    for name, kind in _KINDS.items():
+        sp = layout.get(f"{prefix}{name}.w")
+        if sp is not None:
+            getattr(module, name).tp = TPLinear.of(kind, sp, tp)
+    module.tp = tp
 
 
 def _mark_block(block, prefix: str, layout: Mapping[str, Split], tp: TensorParallel) -> None:
-    """A dense attention+MLP block (``prefix`` its name) run tensor-parallel:
-    its linears column- or row-parallel, its attention told its heads."""
-    for sub, kind in _BLOCK_KINDS.items():
-        sp = layout.get(f"{prefix}{sub}.w")
-        if sp is not None:  # kv linears whose heads stay whole are replicated
-            block.get_submodule(sub).tp = TPLinear.of(kind, sp, tp)
-    hq, hkv, kv_take = rank_heads(block.attn.cfg, tp.size, tp.rank)
-    block.attn.tp, block.attn.heads, block.attn.kv_take = tp, (hq, hkv), kv_take
-    block.mlp.tp = tp
+    """A transformer block (``prefix`` its name) run tensor-parallel: a dense
+    or encoder :class:`Block`, an ``MoEBlock`` (its attention, its shared
+    expert's MLP, its experts) or an ``XDecBlock`` (self- and
+    cross-attention, MLP); each attention told its heads."""
+    for sub in ("attn", "xattn"):
+        attn = getattr(block, sub, None)
+        if attn is None:
+            continue
+        _mark_linears(attn, f"{prefix}{sub}.", layout, tp)
+        hq, hkv, attn.kv_take = rank_heads(attn.cfg, tp.size, tp.rank)
+        attn.heads = (hq, hkv)
+    moe = getattr(block, "moe", None)
+    if moe is None:
+        _mark_linears(block.mlp, f"{prefix}mlp.", layout, tp)
+        return
+    if moe.shared is not None:
+        _mark_linears(moe.shared, f"{prefix}moe.shared.", layout, tp)
+    sp = layout.get(f"{prefix}moe.w_gate")
+    if sp is not None:  # experts the model axis does not divide stay replicated
+        moe.tp, moe.experts = tp, sp.bounds[tp.rank]
 
 
 def tensor_parallel(model, tp: TensorParallel):
     """Make ``model`` (an unsharded :class:`repro_torch.models.lm.LM`) rank
     ``tp.rank``'s part of it, in place: each split parameter narrowed to
     its part, its linears marked column- or row-parallel, its attention
-    told its heads and its Mamba2 layers theirs, and ``model.tp`` /
-    ``model.tp_layout`` set.  Returns the model."""
+    told its heads, its Mamba2 layers theirs and its MoE layers their
+    experts, and ``model.tp`` / ``model.tp_layout`` set.  Returns the
+    model."""
     cfg = model.cfg
     layout = tp_layout(cfg, {k: tuple(p.shape) for k, p in model.named_parameters()}, tp.size)
     params = dict(model.named_parameters())
@@ -459,6 +497,8 @@ def tensor_parallel(model, tp: TensorParallel):
     for name, t in local.items():
         params[name].data = t
     heads = mamba_heads(cfg, tp.size)[tp.rank] if cfg.family in ("ssm", "hybrid") else None
+    for i, layer in enumerate(model.enc_layers or ()):
+        _mark_block(layer, f"enc_layers.{i}.", layout, tp)
     for i, layer in enumerate(model.layers):
         if heads is None:
             _mark_block(layer, f"layers.{i}.", layout, tp)

@@ -210,18 +210,19 @@ def test_launcher_hsdp_steps_match_microbatch_steps_and_pods_agree(hsdp):
 
 
 def test_launcher_refuses_tensor_parallelism_and_multi_pod_without_a_world(monkeypatch):
-    """Tensor parallelism is ported for the dense, ssm and hybrid families:
-    another family under a model axis raises; a model axis or --multi-pod
-    without a world too."""
+    """A model axis or --multi-pod without a world raises, for every family
+    (each trains tensor-parallel under torchrun); a 2-byte parameter gather
+    under FSDP2 is not ported and raises, naming ROADMAP."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     argv = ["--arch", "chatglm3-6b", "--smoke", "--device", "cpu", "--steps", "1"]
     other = ["--arch", "moonshot-v1-16b-a3b"] + argv[2:]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torchrun"):
         launcher.main(other + ["--multi-pod", "--model-axis", "2"])
+    bf16 = dataclasses.replace(configs.get_smoke_config("moonshot-v1-16b-a3b"),
+                               param_gather_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launcher.shard_model(
-            lm.init_lm(configs.get_smoke_config("moonshot-v1-16b-a3b"), device="cpu"),
-            MeshShape(launcher.MESH_AXES, (2, 2, 2)))
+        launcher.shard_model(lm.init_lm(bf16, device="cpu"),
+                             MeshShape(launcher.MESH_AXES, (2, 2, 2)))
     with pytest.raises(ValueError, match="torchrun"):
         launcher.main(argv + ["--multi-pod"])
     with pytest.raises(ValueError, match="torchrun"):

@@ -86,7 +86,7 @@ def jax_ref():
     and its parameters, each as the port's state dict."""
     out = {}
     for arch in ARCHS:
-        cfg = workers.ssm_tp_config(arch, "off")
+        cfg = workers.smoke_tp_config(arch, "off")
         over = {k: getattr(cfg, k) for k in ("d_model", "ssm_headdim", "head_dim",
                                              "n_kv_heads", "d_ff")}
         jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), **over, quant=False)
@@ -207,7 +207,7 @@ def test_mamba2_at_model_4_matches_the_unsharded_port(tp4, backend):
 @pytest.mark.parametrize("arch,model_axis", [("mamba2-370m", 2), ("mamba2-370m", 4),
                                              ("zamba2-7b", 2)])
 def test_tp_launches_per_rank_equal_the_closed_form(tp2, tp4, arch, model_axis):
-    cfg = workers.ssm_tp_config(arch, "pallas")
+    cfg = workers.smoke_tp_config(arch, "pallas")
     want = _chip_smoke().lm_train_launches(cfg, model_axis=model_axis)
     steps = ([r["steps"][(arch, "pallas")] for r in tp2] if model_axis == 2 else
              [r["steps"]["pallas"] for r in tp4])
@@ -286,7 +286,7 @@ def test_split_k1_launch_specs_prove_at_zamba2_tensor_parallel_shapes():
 
 def test_serving_a_tensor_parallel_ssm_model_raises():
     for arch in ARCHS:
-        cfg = workers.ssm_tp_config(arch, "off")
+        cfg = workers.smoke_tp_config(arch, "off")
         model = tensor_parallel(lm.init_lm(cfg, device="cpu"), TensorParallel(0, 2))
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             model({"tokens": torch.zeros((1, 4), dtype=torch.long)})

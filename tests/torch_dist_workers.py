@@ -160,10 +160,22 @@ def tp_config(backend: str, **over):
     return dataclasses.replace(cfg, quant_backend=backend)
 
 
-def tp_batch(cfg, batch: int = TP_BATCH):
+TP_SRC = 12  # the encoder-decoder's source frames
+
+
+def tp_batches(cfg, batch: int = TP_BATCH):
+    """The test stream of global batches; the encoder-decoder's carry
+    ``src_emb`` (TP_SRC frames)."""
     from repro_torch.data import make_lm_iterator
 
-    return next(make_lm_iterator(batch=batch, seq=TP_SEQ, vocab=cfg.vocab, device="cpu"))
+    extras = ((("src_emb", (batch, TP_SRC, cfg.frontend_dim)),) if cfg.family == "encdec"
+              else ())
+    return make_lm_iterator(batch=batch, seq=TP_SEQ, vocab=cfg.vocab, extras=extras,
+                            device="cpu")
+
+
+def tp_batch(cfg, batch: int = TP_BATCH):
+    return next(tp_batches(cfg, batch))
 
 
 def _tp_linear_case(cfg, name: str, kind: str, d_in: int, d_out: int, layout, tp):
@@ -283,21 +295,25 @@ class _Feed(torch.autograd.Function):
 
 
 def _linear_feed(model, records: dict | None = None) -> dict:
-    """Hooks on every linear of the layers and the shared block: with no
-    ``records``, record each call's input and output gradient by (name,
-    call); with them (an unsharded model's), feed each call of this
-    tensor-parallel model the recorded input and output gradient, its
-    rank's part (column-parallel: the output's pieces; row-parallel: the
-    input's).  Returns the records."""
+    """Hooks on every linear of the layers, the encoder's layers and the
+    shared block, and on every MoE layer: with no ``records``, record each
+    call's input and output gradient by (name, call); with them (an
+    unsharded model's), feed each call of this tensor-parallel model the
+    recorded input and output gradient, its rank's part (column-parallel:
+    the output's pieces; row-parallel: the input's; an MoE's are whole).
+    Returns the records."""
     from repro_torch.parallel.tensor import Split
 
     out = {} if records is None else records
     calls: collections.Counter = collections.Counter()
     for name, mod in model.named_modules():
-        if not name.startswith(("layers.", "shared_attn.")) or type(mod).__name__ != "Linear":
+        if (not name.startswith(("layers.", "enc_layers.", "shared_attn."))
+                or type(mod).__name__ not in ("Linear", "MoE")):
             continue
 
-        def pre(m, args, kwargs, name=name):
+        linear = type(mod).__name__ == "Linear"
+
+        def pre(m, args, kwargs, name=name, linear=linear):
             key = (name, calls[name])
             calls[name] += 1
             if records is None:
@@ -305,18 +321,19 @@ def _linear_feed(model, records: dict | None = None) -> dict:
                 m._feed_key = key
                 return None
             x = records[key]["x"]
-            if m.tp is not None and m.tp.kind == "row":
+            if linear and m.tp is not None and m.tp.kind == "row":
                 x = Split(x.ndim - 1, (m.tp.pieces,)).take(x, 0)
             m._feed_key = key
             return (_Feed.apply(args[0], x),) + tuple(args[1:]), kwargs
 
-        def post(m, args, kwargs, y, name=name):
+        def post(m, args, kwargs, y, name=name, linear=linear):
             rec = out[m._feed_key]
+            y = y if linear else y[0]  # an MoE returns (y, aux)
             if records is None:
                 y.register_hook(lambda g: rec.__setitem__("g", g.detach()))
                 return None
             g = rec["g"]
-            if m.tp is not None and m.tp.kind == "column":
+            if linear and m.tp is not None and m.tp.kind == "column":
                 g = Split(g.ndim - 1, (m.tp.pieces,)).take(g, 0)
             y.register_hook(lambda _: g)
             return None
@@ -351,7 +368,7 @@ def tp2_worker(rank: int, world: int, jax_state):
         for name, kind, d_in, d_out in TP_LINEARS:
             res["linears"][(backend, name)] = _tp_linear_case(cfg, name, kind, d_in, d_out,
                                                               layout, tp)
-        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY)
+        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY, fed=backend != "off")
     res["quantizers"] = _tp_quantizers(tp)
     res["jax"] = _tp_step(tp_config("off"), jax_state, tp, None)
     cfg = tp_config("fake_quant")
@@ -387,7 +404,7 @@ def tp4_worker(rank: int, world: int):
     tp = TensorParallel.of()
     for backend in TP_BACKENDS:
         cfg = tp_config(backend)
-        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY)
+        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY, fed=backend != "off")
     return res
 
 
@@ -397,11 +414,12 @@ def tp4_worker(rank: int, world: int):
 SSM_ARCHS = ("mamba2-370m", "zamba2-7b")
 
 
-def ssm_tp_config(arch: str, backend: str, **over):
+def smoke_tp_config(arch: str, backend: str, **over):
     """``arch``'s smoke config widened as the launcher widens it under a
-    model axis (``launch.train.tp_smoke``: d_model 256, 16 heads of 32 in a
-    din of 4 scaling groups; the hybrid's attention as ``TP_SMOKE``), fp32,
-    quantization off or on ``backend``."""
+    model axis (``launch.train.tp_smoke``: attention as ``TP_SMOKE``; a
+    Mamba2 layer's d_model 256, 16 heads of 32 in a din of 4 scaling
+    groups; an MoE's moe_d_ff 640), fp32, quantization off or on
+    ``backend``."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.train import tp_smoke
 
@@ -409,6 +427,27 @@ def ssm_tp_config(arch: str, backend: str, **over):
     if backend == "off":
         return dataclasses.replace(cfg, quant=False)
     return dataclasses.replace(cfg, quant_backend=backend)
+
+
+def _microbatch_steps(cfg, tp, steps: int = 2) -> dict:
+    """``steps`` microbatch-2 steps of the launcher's train step on the
+    global batches, this rank's model tensor-parallel over the whole
+    world: the losses and the parameters after them."""
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import tensor_parallel
+    from repro_torch.train import make_train_step
+
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TP_BATCH, seq_len=TP_SEQ)
+    step, init = make_train_step(RunConfig(model=cfg, shape=shape, microbatch=2))
+    model = tensor_parallel(lm.init_lm(cfg, seed=0, device="cpu"), tp)
+    opt = init(model)
+    data = tp_batches(cfg)
+    losses = []
+    for _ in range(steps):
+        model, opt, m = step(model, opt, next(data))
+        losses.append(m["loss"].item())
+    return dict(losses=losses, params={k: p.detach().clone() for k, p in model.named_parameters()})
 
 
 def _ssm_linears(cfg, tp):
@@ -474,35 +513,20 @@ def ssm_tp2_worker(rank: int, world: int, jax_states):
     unquantized step on the JAX package's parameters (``jax_states``, by
     arch), and two microbatch-2 steps of the launcher's train step on the
     global batch."""
-    from repro_torch.configs import SHAPES, RunConfig
-    from repro_torch.data import make_lm_iterator
-    from repro_torch.models import lm
-    from repro_torch.parallel.tensor import TensorParallel, tensor_parallel
-    from repro_torch.train import make_train_step
+    from repro_torch.parallel.tensor import TensorParallel
 
     tp = TensorParallel.of()
     res = {"linears": {}, "steps": {}, "jax": {}, "microbatch": {}}
     for arch in SSM_ARCHS:
         for backend in TP_BACKENDS:
-            for name, case in _ssm_linears(ssm_tp_config(arch, backend), tp).items():
+            for name, case in _ssm_linears(smoke_tp_config(arch, backend), tp).items():
                 res["linears"][(arch, backend, name)] = case
-            cfg = ssm_tp_config(arch, backend)
+            cfg = smoke_tp_config(arch, backend)
             res["steps"][(arch, backend)] = _tp_step(cfg, _state(cfg), tp, TP_KEY,
                                                      fed=backend != "off")
-        res["jax"][arch] = _tp_step(ssm_tp_config(arch, "off"), jax_states[arch], tp, None)
-        cfg = ssm_tp_config(arch, "fake_quant")
-        shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TP_BATCH, seq_len=TP_SEQ)
-        step, init = make_train_step(RunConfig(model=cfg, shape=shape, microbatch=2))
-        model = tensor_parallel(lm.init_lm(cfg, seed=0, device="cpu"), tp)
-        opt = init(model)
-        data = make_lm_iterator(batch=TP_BATCH, seq=TP_SEQ, vocab=cfg.vocab, device="cpu")
-        losses = []
-        for _ in range(2):
-            model, opt, m = step(model, opt, next(data))
-            losses.append(m["loss"].item())
-        res["microbatch"][arch] = dict(losses=losses, params={
-            k: p.detach().clone() for k, p in model.named_parameters()})
-    res["quantizers"] = _ssm_quantizers(tp, ssm_tp_config("zamba2-7b", "pallas"))
+        res["jax"][arch] = _tp_step(smoke_tp_config(arch, "off"), jax_states[arch], tp, None)
+        res["microbatch"][arch] = _microbatch_steps(smoke_tp_config(arch, "fake_quant"), tp)
+    res["quantizers"] = _ssm_quantizers(tp, smoke_tp_config("zamba2-7b", "pallas"))
     return res
 
 
@@ -523,6 +547,198 @@ def ssm_tp4_worker(rank: int, world: int):
             params={k: p.full_tensor() for k, p in out["model"].named_parameters()})
     tp = TensorParallel.of()
     for backend in TP_BACKENDS:
-        cfg = ssm_tp_config("mamba2-370m", backend)
+        cfg = smoke_tp_config("mamba2-370m", backend)
+        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY, fed=backend != "off")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism of the moe and encdec families
+# ---------------------------------------------------------------------------
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-scout-17b-a16e")
+ENCDEC_ARCH = "seamless-m4t-medium"
+
+
+def _moe_layer_case(cfg, tp) -> list[dict]:
+    """Layer 0's MoE, unsharded and this rank's tensor-parallel part, on the
+    same seeded input and output gradient (the aux loss's gradient 1): by
+    run, its output, aux loss, input gradient and parameter gradients, the
+    gathered expert outputs ``ye``, the stack's own outputs (this rank's
+    experts), the buffer's gradient and the rank's experts."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import tensor_parallel
+
+    state = _state(cfg)
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((2, TP_SEQ, cfg.d_model)).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal((2, TP_SEQ, cfg.d_model)) * 1e-2).astype(np.float32))
+    out = []
+    for sharded in (False, True):
+        model = lm.LM(cfg)
+        model.load_state_dict(state)
+        if sharded:
+            tensor_parallel(model, tp)
+        moe, rec = model.layers[0].moe, {}
+        experts, stack = moe._experts, moe._stack
+
+        def spy_experts(xe, qcfg, key, experts=experts, rec=rec):
+            xe.register_hook(lambda grad: rec.__setitem__("xe_grad", grad))
+            ye = experts(xe, qcfg, key)
+            rec["ye"] = ye.detach()
+            return ye
+
+        def spy_stack(xe, qcfg, key, span, stack=stack, rec=rec):
+            y = stack(xe, qcfg, key, span)
+            rec["local"] = y.detach()
+            return y
+
+        moe._experts, moe._stack = spy_experts, spy_stack
+        xr = x.clone().requires_grad_()
+        y, aux = moe(xr, cfg.qcfg(), TP_KEY)
+        (torch.sum(y * g) + aux).backward()
+        rec.update(y=y.detach(), aux=aux.detach(), dx=xr.grad, experts=moe.experts,
+                   grads={k: p.grad for k, p in moe.named_parameters()})
+        out.append(rec)
+    return out
+
+
+def moe_tp2_worker(rank: int, world: int, jax_states):
+    """World 2, model 2, for each moe arch: layer 0's MoE of each backend
+    (:func:`_moe_layer_case`), the step of each backend against the
+    unsharded port (quantized: fed its operands, each MoE layer's input and
+    output gradient too), the unquantized step on the JAX package's
+    parameters (``jax_states``, by arch), and two microbatch-2 steps of the
+    launcher's train step on the global batch."""
+    from repro_torch.parallel.tensor import TensorParallel
+
+    tp = TensorParallel.of()
+    res = {"layers": {}, "steps": {}, "jax": {}, "microbatch": {}}
+    for arch in MOE_ARCHS:
+        for backend in TP_BACKENDS:
+            cfg = smoke_tp_config(arch, backend)
+            res["layers"][(arch, backend)] = _moe_layer_case(cfg, tp)
+            res["steps"][(arch, backend)] = _tp_step(cfg, _state(cfg), tp, TP_KEY,
+                                                     fed=backend != "off")
+        res["jax"][arch] = _tp_step(smoke_tp_config(arch, "off"), jax_states[arch], tp, None)
+        res["microbatch"][arch] = _microbatch_steps(smoke_tp_config(arch, "fake_quant"), tp)
+    return res
+
+
+def moe_tp4_worker(rank: int, world: int):
+    """World 4: two launcher steps of each moe arch at data 2 x model 2
+    (``--model-axis 2``, HSDP over the data axis) and moonshot's step of
+    each backend at model 4 (one of its 4 experts a rank) against the
+    unsharded port (quantized: fed)."""
+    from repro_torch.launch import train
+    from repro_torch.parallel.tensor import TensorParallel
+
+    res = {"coord": (rank // 2, rank % 2), "launcher": {}, "steps": {}}
+    for arch in MOE_ARCHS:
+        out = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                          "--model-axis", "2", "--batch", str(TP_BATCH), "--seq", str(TP_SEQ)])
+        res["launcher"][arch] = dict(
+            losses=out["losses"], world=out["world"],
+            params={k: p.full_tensor() for k, p in out["model"].named_parameters()})
+    tp = TensorParallel.of()
+    for backend in TP_BACKENDS:
+        cfg = smoke_tp_config(MOE_ARCHS[0], backend)
+        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY, fed=backend != "off")
+    return res
+
+
+def _xattn_linear_cases(cfg, tp) -> dict:
+    """Layer 0's cross-attention ``wk`` and ``wv`` on a source of TP_SRC
+    frames, unsharded and this rank's column-parallel part over
+    ``copy_to_tp`` of the source (:func:`_linear_case`), by name."""
+    import numpy as np
+
+    from repro_torch.models import nn as L
+    from repro_torch.parallel.tensor import Split, TPLinear, copy_to_tp, tp_layout
+
+    shapes = {k: tuple(t.shape) for k, t in _state(cfg).items()}
+    layout = tp_layout(cfg, shapes, tp.size)
+    out = {}
+    for name in ("wk", "wv"):
+        sp = layout[f"layers.0.xattn.{name}.w"]
+        d_in, d_out = shapes[f"layers.0.xattn.{name}.w"]
+        rng = np.random.default_rng(len(name) + d_out)
+        mem = torch.from_numpy(rng.standard_normal((2, TP_SRC, d_in)).astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal((d_in, d_out)) * 0.05).astype(np.float32))
+        g = torch.from_numpy((rng.standard_normal((2, TP_SRC, d_out)) * 1e-3).astype(np.float32))
+        qcfg = cfg.qcfg()
+        mr, wr = mem.clone().requires_grad_(), w.clone().requires_grad_()
+        y = L.linear(mr, wr, None, qcfg, TP_KEY)
+        y.backward(g)
+        mt, wt = mem.clone().requires_grad_(), sp.take(w, tp.rank).clone().requires_grad_()
+        yt = TPLinear.of("column", sp, tp)(L.linear, copy_to_tp(mt, tp), wt, None, qcfg,
+                                          TP_KEY, None)
+        yt.backward(Split(-1, sp.pieces).take(g, tp.rank))
+        out[name] = ((y.detach(), mr.grad, wr.grad),
+                     (yt.detach(), mt.grad, wt.grad, sp.pieces[tp.rank]))
+    return out
+
+
+def _hsdp_steps(cfg, mesh, steps: int = 2) -> dict:
+    """``steps`` steps of the launcher's train step (no accumulation) on
+    this rank's slice of the global batches, the model sharded by
+    ``launch.train.shard_model`` over ``mesh``: the global losses (the mean
+    over the world) and the full parameters after them."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.train import make_train_step
+
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TP_BATCH, seq_len=TP_SEQ)
+    step, init = make_train_step(RunConfig(model=cfg, shape=shape, microbatch=0))
+    model = train.shard_model(lm.init_lm(cfg, seed=0, device="cpu"), mesh)
+    opt = init(model)
+    data = tp_batches(cfg)
+    losses = []
+    for _ in range(steps):
+        model, opt, m = step(model, opt, train.local_batch(next(data), mesh))
+        loss = m["loss"].detach().clone()
+        dist.all_reduce(loss)
+        losses.append(loss.item() / dist.get_world_size())
+    return dict(losses=losses, world=dist.get_world_size(),
+                params={k: p.full_tensor() for k, p in model.named_parameters()})
+
+
+def encdec_tp2_worker(rank: int, world: int, jax_state):
+    """World 2, model 2: the cross-attention's wk and wv of each backend,
+    the step of each backend against the unsharded port (quantized: fed its
+    operands), the unquantized step on the JAX package's parameters
+    (``jax_state``), and two microbatch-2 steps of the launcher's train
+    step on the global batch."""
+    from repro_torch.parallel.tensor import TensorParallel
+
+    tp = TensorParallel.of()
+    res = {"xattn": {}, "steps": {}}
+    for backend in TP_BACKENDS:
+        cfg = smoke_tp_config(ENCDEC_ARCH, backend)
+        res["xattn"][backend] = _xattn_linear_cases(cfg, tp)
+        res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY, fed=backend != "off")
+    res["jax"] = _tp_step(smoke_tp_config(ENCDEC_ARCH, "off"), jax_state, tp, None)
+    res["microbatch"] = _microbatch_steps(smoke_tp_config(ENCDEC_ARCH, "fake_quant"), tp)
+    return res
+
+
+def encdec_tp4_worker(rank: int, world: int):
+    """World 4: two steps at data 2 x model 2 through ``shard_model`` and
+    the train step (the launcher's stream carries no ``src_emb``), and the
+    step of each backend at model 4 (the kv heads replicated) against the
+    unsharded port (quantized: fed)."""
+    from repro_torch.launch import train
+    from repro_torch.parallel.tensor import TensorParallel
+
+    mesh = train.hsdp_mesh(world, device_type="cpu", model=2)
+    res = {"coord": (rank // 2, rank % 2), "steps": {},
+           "hsdp": _hsdp_steps(smoke_tp_config(ENCDEC_ARCH, "fake_quant"), mesh)}
+    tp = TensorParallel.of()
+    for backend in TP_BACKENDS:
+        cfg = smoke_tp_config(ENCDEC_ARCH, backend)
         res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY, fed=backend != "off")
     return res
