@@ -73,7 +73,8 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 of a twice-written block is bit-identical to one of its two
                 writers' ordered fp32 sums (the race picks which), and the
                 store probe counts [2, 0, 2, 0] by block column, the table
-                the verifier derives from K5's launch spec; timed.  Then
+                the verifier derives from K5's launch spec; timed.  Then,
+                in six worker processes side by side,
                 `python -m repro_torch.analysis.audit --graph train
                 --kernels --gate` at full width (one step at k_block 128,
                 one at 144): it must pass, with quantized fraction >= 0.99
@@ -178,6 +179,30 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 (key None) on the card against the CPU (LM_TRAIN_AGREE),
                 as run and with every quantizer fed the CPU run's
                 operands (fed_operands).
+  12b. dryrun - the dry run (repro_torch.launch.dryrun) on fake cuda
+                tensors.  Calibration: each lm_train model (its cut, batch
+                and quant_backend "pallas") traced unsharded: K1 and K3
+                per step (recorded by their shape-only path on fake
+                operands) equal to lm_train_launches, and the predicted
+                step peak, plus the tensors the lm_train run held beside
+                its steps (watched weights' copies, the checkpointed
+                model's), within 5% of the peak that run measured over its
+                4 steps (max_memory_allocated; the models are not run
+                again); each ratio printed with nvidia-smi's line.  Then
+                run_cell (a fake process group of 256 / 512 ranks, the
+                launcher's tensor-parallel + FSDP2 layout, rank 0 traced)
+                on chatglm3-6b at 16x16 and moonshot-v1-16b-a3b at
+                2x16x16, train_4k at full depth: records printed and
+                written to chiprun_out/torch_dryrun/.  The seven traces
+                run side by side in worker processes, none of which
+                launches a kernel (their counts stay 0); the card's
+                total_memory printed beside the modelled card's
+                (roofline.HBM_BYTES, which fits reads).  Then
+                chatglm3-6b cut to 1 layer, K1/K3, batch 2 x 4096, one
+                step for real on the card under the dry run's counter: its
+                peak (with the counter's model of ops' own scratch,
+                trace_counts.workspace_bytes) within 2% of
+                max_memory_allocated over the step.
   13. sweep   - the frontier sweep's chip grid (repro_torch.sweep.chip_grid:
                 ResNet-20 at full width, CIFAR 32x32, batch 128, lr 0.05,
                 40 SGD-momentum steps; fp32, <2,4>, <2,1> and <0,4> on
@@ -2049,6 +2074,11 @@ def lm_train_model(name: str, smi: str) -> dict:
             step3 = (losses[-1], {k: p.detach().clone() for k, p in params.items()})
     torch.cuda.synchronize()
     launched = launch_counts()
+    # the steps' peak, and what the run holds beside them there: the watched
+    # weights' copies and, from step 3 on, the checkpointed model's
+    steps_peak = torch.cuda.max_memory_allocated()
+    held = [*before_run.values(), *(step3[1].values() if step3 is not None else ())]
+    held_bytes = sum(t.numel() * t.element_size() for t in held)
 
     model, opt, trace = traced_train_step(step_fn, model, opt, next(data))
     r = dict(config={k: getattr(cfg, k) for k in ("n_layers", "d_model", "n_heads",
@@ -2058,6 +2088,7 @@ def lm_train_model(name: str, smi: str) -> dict:
              batch=batch, seq=seq, tokens_per_step=batch * seq, losses=losses,
              grad_norms=gnorms, lrs=lrs, steps_ms=steps_ms, data_ms=data_ms,
              median_step_ms=statistics.median(steps_ms[1:]), launches_per_step=per_step,
+             steps_peak_memory_bytes=steps_peak, held_beside_steps_bytes=held_bytes,
              expected_per_step=want, launches=launched, weights_moved=moved, trace=trace,
              nvidia_smi=smi)
     if name == "chatglm3-6b":  # the same run, one step at microbatch 2
@@ -2442,6 +2473,147 @@ def phase_lm_train(results: dict) -> dict[str, dict[str, int]]:
     return {name: r["launches"] for name, r in trained.items()}
 
 
+# The dry run's production cells (phase dryrun): the dense arch on one pod,
+# the MoE on two, at full depth.
+DRYRUN_CELLS = (("chatglm3-6b", False), ("moonshot-v1-16b-a3b", True))
+# predicted against measured peak, relative: sound readings are within 2%;
+# without the counter's model of the softmax backward's scratch chatglm3-6b
+# read 0.850 and zamba2-7b 0.900
+DRYRUN_PEAK_TOL = 0.05
+# one real step on the card under the dry run's counter (K1/K3, as the
+# lm_train models), its peak (with the counter's workspace model) against
+# the allocator's
+DRYRUN_REAL = ("chatglm3-6b", {"n_layers": 1, "quant_backend": "pallas"}, 2, 4096)
+DRYRUN_REAL_TOL = 0.02
+
+
+def dryrun_blind_spot() -> dict:
+    """DRYRUN_REAL run for real on the card under the dry run's counter
+    (trace_step(fake=False)): the counter's peak, which models the scratch
+    of the ops listed in trace_counts.workspace_bytes, against
+    max_memory_allocated over the same step (model built, step taken)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    name, over, batch, seq = DRYRUN_REAL
+    cfg = dataclasses.replace(get_config(name), **over)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = dryrun.trace_step(cfg, batch, seq, 0, device="cuda", fake=False)
+    torch.cuda.synchronize()
+    r = dict(config=f"{name} {over} at {batch} x {seq}", counter_peak_bytes=got["peak_bytes"],
+             workspace_bytes=got["peak_by_kind"].get("Workspace", 0),
+             cuda_peak_bytes=torch.cuda.max_memory_allocated() - base)
+    r["ratio"] = r["counter_peak_bytes"] / r["cuda_peak_bytes"]
+    torch.cuda.empty_cache()
+    return r
+
+
+def _dryrun_job(job: tuple) -> tuple[dict, dict]:
+    """One trace of the dryrun phase, in a worker process: ("lm_train",
+    name) traces that LM_TRAIN_MODELS entry (its cut, batch and
+    quant_backend "pallas") unsharded on fake cuda tensors; ("cell", arch,
+    multi_pod) runs run_cell at train_4k.  Returns the result and the
+    kernels the worker launched (none: fake operands launch nothing)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import dryrun
+
+    if job[0] == "lm_train":
+        over, batch, seq = LM_TRAIN_MODELS[job[1]]
+        cfg = dataclasses.replace(get_config(job[1]), quant_backend="pallas", **over)
+        out = dryrun.trace_cell(cfg, batch, seq, 0, device="cuda")
+    else:
+        out = dryrun.run_cell(job[1], "train_4k", job[2],
+                              out_dir=str(ROOT / "chiprun_out" / "torch_dryrun"))
+    return out, {k: n for k, n in launch_counts().items() if n}
+
+
+def phase_dryrun(results: dict) -> None:
+    """The dry run (repro_torch.launch.dryrun) on the card, its traces in
+    worker processes side by side (a trace is host Python; _dryrun_job).
+    Calibration: each of LM_TRAIN_MODELS traced unsharded on fake cuda
+    tensors; its K1 and K3 launches per step (recorded by their shape-only
+    path) equal to lm_train_launches, and its predicted step peak, plus
+    what the lm_train run held beside its steps, within DRYRUN_PEAK_TOL of
+    the peak the run measured over its steps (lm_train_model's
+    steps_peak_memory_bytes; not run again).  Then run_cell on
+    DRYRUN_CELLS at train_4k: a fake world of 256 / 512 ranks, the
+    launcher's layout, rank 0's record (chiprun_out/torch_dryrun/).  No
+    worker launches a kernel.  Then dryrun_blind_spot: a real step (K1/K3)
+    under the counter against the allocator."""
+    import concurrent.futures
+    import dataclasses
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.autotune import modelled_card
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    smi = results["nvidia_smi"]
+    measured = results["lm_train"]["models"]
+    jobs = [("cell", arch, multi) for arch, multi in DRYRUN_CELLS]
+    jobs += [("lm_train", name) for name in LM_TRAIN_MODELS]
+    with concurrent.futures.ProcessPoolExecutor(len(jobs),
+                                                mp_context=mp.get_context("spawn")) as pool:
+        done = dict(zip(jobs, pool.map(_dryrun_job, jobs)))
+    launched = {job[1:]: n for job, (_, n) in done.items() if n}
+    calibration, bad = {}, []
+    for name, (over, batch, seq) in LM_TRAIN_MODELS.items():
+        cfg = dataclasses.replace(get_config(name), quant_backend="pallas", **over)
+        got = done[("lm_train", name)][0]
+        run = measured[name]
+        predicted = got["peak_bytes"] + run["held_beside_steps_bytes"]
+        c = dict(traced=got["traced"], trace_s=got["seconds"], launches=got["launches"],
+                 expected=lm_train_launches(cfg), step_peak_bytes=got["peak_bytes"],
+                 peak_by_kind=got["peak_by_kind"], held_bytes=run["held_beside_steps_bytes"],
+                 predicted_bytes=predicted, measured_bytes=run["steps_peak_memory_bytes"],
+                 ratio=predicted / run["steps_peak_memory_bytes"],
+                 dot_flops=got["hlo"]["dot_flops"], nvidia_smi=smi)
+        calibration[name] = c
+        print(f"dryrun calibration {name} ({smi}): predicted {predicted / 2**30:.3f} GiB "
+              f"(step {got['peak_bytes'] / 2**30:.3f} + held {c['held_bytes'] / 2**30:.3f}) "
+              f"against measured {c['measured_bytes'] / 2**30:.3f} GiB: ratio "
+              f"{c['ratio']:.4f}; launches {c['launches']} (closed form {c['expected']}); "
+              f"traced {c['traced']} in {c['trace_s']:.1f} s")
+        if c["launches"] != c["expected"]:
+            bad.append(f"{name}: launches {c['launches']}, closed form {c['expected']}")
+        if abs(c["ratio"] - 1) > DRYRUN_PEAK_TOL:
+            bad.append(f"{name}: predicted peak {predicted} against {c['measured_bytes']}")
+    cells = {}
+    for arch, multi in DRYRUN_CELLS:
+        rec = done[("cell", arch, multi)][0]
+        print(json.dumps({"dryrun_cell": rec}))
+        cells[f"{arch}_{rec['mesh']}"] = rec
+        if rec["status"] != "ran" or not (rec["hlo"]["dot_flops"] > 0
+                                          and rec["hlo"]["coll_bytes"] > 0):
+            bad.append(f"{arch} {rec['mesh']}: {rec['status']} {rec.get('reason')}")
+    if launched:
+        bad.append(f"the dry run launched kernels: {launched}")
+    card_memory = torch.cuda.get_device_properties(0).total_memory
+    print(f"dryrun fits against the modelled card's {HBM_BYTES} B "
+          f"({modelled_card()}); this card ({smi}) has {card_memory} B")
+    real = dryrun_blind_spot()
+    print(f"dryrun real step ({smi}): {json.dumps(real)}")
+    if abs(real["ratio"] - 1) > DRYRUN_REAL_TOL:
+        bad.append(f"the counter's peak of a real step is off the allocator's: {real}")
+    results["dryrun"] = dict(calibration=calibration, cells=cells, real_step=real,
+                             card_memory_bytes=card_memory, modelled_memory_bytes=HBM_BYTES,
+                             launched={str(k): n for k, n in launched.items()})
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 # one spec of each kind re-tuned with --force: K3 at the stage-1 weight
 # gradient, K1 at the stage-1 forward operand, K4 at the stage-1 conv
 TUNE_FORCE = ("gemm:144x131072x16:e2m4:nc", "quantize:131072x256:e2m4:nc",
@@ -2476,8 +2648,24 @@ def resnet_step_with(cache, qcfg) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launched = {k: v - before[k] for k, v in launch_counts().items()}
-    return dict(loss=loss.detach(), grads=[p.grad.clone() for p in state.model.parameters()],
+    names, params = zip(*state.model.named_parameters())
+    return dict(loss=loss.detach(), grads=[p.grad.clone() for p in params], names=names,
                 launches=launched, ms=ms)
+
+
+def step_differences(u: dict, v: dict) -> list[str]:
+    """The tensors in which two of resnet_step_with's steps differ (loss
+    and each parameter's gradient, compared bit for bit): name, how many
+    elements differ and the largest difference."""
+    import torch
+
+    out = []
+    for name, x, y in zip(("loss",) + u["names"], [u["loss"]] + u["grads"],
+                          [v["loss"]] + v["grads"]):
+        if not torch.equal(x, y):
+            out.append(f"{name}: {int((x != y).sum())} of {x.numel()} differ, max |d| "
+                       f"{float((x - y).abs().max()):.6g}")
+    return out
 
 
 def phase_tune(results: dict) -> None:
@@ -2557,18 +2745,21 @@ def phase_tune(results: dict) -> None:
     steps = [resnet_step_with(cache, qcfg)  # in turns; the first pair is cold
              for _ in range(RESNET_PAIRS) for cache in (at.get_cache(), empty)]
 
-    def equal(u, v):
-        return torch.equal(u["loss"], v["loss"]) and all(
-            torch.equal(x, y) for x, y in zip(u["grads"], v["grads"]))
-
+    # each step against the first with its cache (even: seed, odd: empty), and the two firsts
+    differing = {f"step {i} vs step {i % 2}": d for i in range(2, len(steps))
+                 if (d := step_differences(steps[i % 2], steps[i]))}
+    repeats = not differing
+    between = step_differences(steps[0], steps[1])
+    same = not between
+    if between:
+        differing["step 1 (empty cache) vs step 0 (seed cache)"] = between
     a, b = steps[0], steps[1]
-    repeats = all(equal(a, u) for u in steps[2::2]) and all(equal(b, u) for u in steps[3::2])
-    same = equal(a, b)
     seed_ms, empty_ms = [u["ms"] for u in steps[::2]], [u["ms"] for u in steps[1::2]]
     want = {"mls_quantize_rows": 120, "mls_matmul": 60}
     r["resnet_step"] = dict(identical=same, repeats=repeats, loss=float(a["loss"]),
                             seed_ms=seed_ms, empty_ms=empty_ms,
-                            seed_launches=a["launches"], empty_launches=b["launches"])
+                            seed_launches=a["launches"], empty_launches=b["launches"],
+                            losses=[float(u["loss"]) for u in steps], differing=differing)
     print(f"tune: ResNet-20 step with the seed cache {statistics.median(seed_ms[1:]):.2f} ms, "
           f"with an empty cache {statistics.median(empty_ms[1:]):.2f} ms (medians of "
           f"{RESNET_PAIRS - 1} warm steps in turns; all {seed_ms} / {empty_ms}); loss and "
@@ -2582,7 +2773,8 @@ def phase_tune(results: dict) -> None:
         bad.append(f"cached winners differ: {[w['key'] for w in winners if not w['identical']]}")
     if not (same and repeats):
         bad.append(f"the ResNet-20 step with the seed and an empty cache: identical {same}, "
-                   f"each repeated {repeats}")
+                   f"each repeated {repeats}; steps' losses {r['resnet_step']['losses']}; "
+                   f"differing: {json.dumps(differing)}")
     for launched in (a["launches"], b["launches"]):
         if {k: launched[k] for k in want} != want:
             bad.append(f"ResNet-20 step launches {launched}, expected {want}")
@@ -2790,19 +2982,54 @@ def expected_device_kernels(k_block: int) -> list[str]:
     return sorted(names)
 
 
-def phase_audit(results: dict) -> tuple[dict, int]:
-    """K5 checked; the clean audit at full width; the four sabotage modes.
-    Returns K5's timing row and its launches in the overlap_write run."""
+# the sabotage modes of the audit phase: mode, graph, the failures it must name
+AUDIT_SABOTAGE = (
+    ("overlap_write", "none", ("overlap violation at outputs[0]", "gap violation at outputs[0]")),
+    ("deep_k", "none", ("overflow violation",)),
+    ("drop_halo", "none", ("oob violation at window_grid",)),
+    ("fp32_gemm", "train", ("train:resnet20: quantized fraction",
+                            "train:resnet20@kb144: quantized fraction")))
+
+
+def _audit_job(args: list[str]) -> tuple[int, float, dict[str, int]]:
+    """One ``repro_torch.analysis.audit`` run in a worker process (TF32 off,
+    as main() sets it): its exit code, its seconds and the kernels it
+    launched (the counts set to 0 just before it)."""
     from repro_torch.analysis import audit
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import resolve_device
+
+    resolve_device("cuda")
+    reset_launch_counts()
+    t = time.perf_counter()
+    rc = audit.main(args)
+    return rc, time.perf_counter() - t, launch_counts()
+
+
+def phase_audit(results: dict) -> tuple[dict, int]:
+    """K5 checked; then, in worker processes side by side (each audit is
+    host work around a few launches: _audit_job), the clean audit at full
+    width, the serve graph's and the four sabotage modes (AUDIT_SABOTAGE).
+    Returns K5's timing row and its launches in the overlap_write run."""
+    import concurrent.futures
+
+    import torch.multiprocessing as mp
 
     k5 = k5_checks()
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    t = time.perf_counter()
     path = out_dir / "AUDIT_torch_report.json"
-    rc = audit.main(["--graph", "train", "--kernels", "--gate", "--out", str(path)])
-    seconds = time.perf_counter() - t
+    jobs = {"clean": ["--graph", "train", "--kernels", "--gate", "--out", str(path)],
+            "serve": ["--graph", "serve", "--kernels", "--gate", "--out",
+                      str(out_dir / "AUDIT_torch_serve.json")]}
+    for mode, graph, _ in AUDIT_SABOTAGE:
+        jobs[mode] = ["--graph", graph, "--gate", "--sabotage", mode, "--out",
+                      str(out_dir / f"AUDIT_torch_{mode}.json")] + (
+                          ["--kernels"] if graph == "none" else [])
+    with concurrent.futures.ProcessPoolExecutor(len(jobs),
+                                                mp_context=mp.get_context("spawn")) as pool:
+        done = dict(zip(jobs, pool.map(_audit_job, jobs.values())))
+    rc, seconds, _ = done["clean"]
     report = json.loads(path.read_text())
     graphs = report["graphs"]
     recorded = {name: report["kernels"]["kernels"][name] for name in graphs}
@@ -2853,9 +3080,8 @@ def phase_audit(results: dict) -> tuple[dict, int]:
     # the serve graph: one quantized decode step of qwen2-72b's smoke config
     # (batch 4, cache 128); its fraction is the closed form of
     # tests/test_torch_analysis.py
-    path = out_dir / "AUDIT_torch_serve.json"
-    rc = audit.main(["--graph", "serve", "--kernels", "--gate", "--out", str(path)])
-    serve = json.loads(path.read_text())
+    rc = done["serve"][0]
+    serve = json.loads((out_dir / "AUDIT_torch_serve.json").read_text())
     entry = serve["graphs"]["serve:qwen2-72b"]
     summary["serve_graph"] = dict(rc=rc, gate_pass=serve["gate"]["pass"],
                                   quantized_fraction=entry["coverage"]["quantized_fraction"],
@@ -2867,23 +3093,11 @@ def phase_audit(results: dict) -> tuple[dict, int]:
             or entry["launches"] != 42):
         bad.append(f"serve audit: {summary['serve_graph']}, {serve['gate']['failures']}")
     sabotage = {}
-    k5_launches = 0
-    for mode, graph, named in (
-            ("overlap_write", "none", ("overlap violation at outputs[0]",
-                                       "gap violation at outputs[0]")),
-            ("deep_k", "none", ("overflow violation",)),
-            ("drop_halo", "none", ("oob violation at window_grid",)),
-            ("fp32_gemm", "train", ("train:resnet20: quantized fraction",
-                                    "train:resnet20@kb144: quantized fraction"))):
-        path = out_dir / f"AUDIT_torch_{mode}.json"
-        args = ["--graph", graph, "--gate", "--sabotage", mode, "--out", str(path)]
-        if graph == "none":
-            args.append("--kernels")
-        reset_launch_counts()  # overlap_write: K5's launches in this run
-        rc = audit.main(args)
-        if mode == "overlap_write":
-            k5_launches = launch_counts()["sabotage_overlap"]
-        failures = json.loads(path.read_text())["gate"]["failures"]
+    k5_launches = done["overlap_write"][2]["sabotage_overlap"]  # K5's launches in that run
+    for mode, _, named in AUDIT_SABOTAGE:
+        rc = done[mode][0]
+        failures = json.loads((out_dir / f"AUDIT_torch_{mode}.json").read_text())["gate"][
+            "failures"]
         named_ok = all(any(n in f for f in failures) for n in named)
         sabotage[mode] = dict(rc=rc, named=named_ok, failures=failures[:4])
         if rc != 1 or not named_ok:
@@ -3817,8 +4031,8 @@ def main() -> int:
                         ("audit", phase_audit), ("zoo", phase_zoo),
                         ("fake_quant", phase_fakequant), ("driver", phase_driver),
                         ("serve", phase_serve), ("lm_train", phase_lm_train),
-                        ("sweep", phase_sweep), ("parallel", phase_parallel),
-                        ("tensor", phase_tensor)):
+                        ("dryrun", phase_dryrun), ("sweep", phase_sweep),
+                        ("parallel", phase_parallel), ("tensor", phase_tensor)):
         t = time.perf_counter()
         try:
             out = phase(results)

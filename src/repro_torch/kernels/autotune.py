@@ -49,7 +49,10 @@ departs from JAX: its ``gemm_candidates`` also searches neighbouring
 Hot-path resolution (:func:`resolve_block_config`) never times or proves:
 **explicit > cache hit for this device > default**, memoized on its key.
 A cache made on another device, or on the CPU, is ignored for resolution
-(with a load warning), so CPU runs keep the defaults.  There is no
+(with a load warning), so CPU runs keep the defaults.  A call planned for
+a card by name (``card``: a fake operand's, the dry run's) resolves
+through the committed seed cache alone, on any device:
+:func:`modelled_card` is the card that cache was tuned on.  There is no
 fallback: a cached config that cannot launch makes the call raise.
 
 CLI::
@@ -95,11 +98,13 @@ __all__ = [
     "gemm_candidates",
     "get_cache",
     "invalidate_cache",
+    "modelled_card",
     "override_cache",
     "path_specs",
     "quantize_candidates",
     "registry_specs",
     "resolve_block_config",
+    "seed_cache",
     "time_config",
     "tune",
     "tune_all",
@@ -339,6 +344,19 @@ def get_cache() -> TuneCache:
             merged.device = here
         _CACHE = merged
     return _CACHE
+
+
+@functools.lru_cache(maxsize=1)
+def seed_cache() -> TuneCache:
+    """The committed seed cache alone, loaded once (the cache a call
+    planned for :func:`modelled_card` resolves through)."""
+    return TuneCache.load(SEED_CACHE_PATH)
+
+
+def modelled_card() -> str:
+    """The card a fake operand stands for: the one the seed cache was tuned
+    on (an H100), whatever device the trace runs on."""
+    return seed_cache().device
 
 
 def invalidate_cache() -> None:
@@ -824,24 +842,26 @@ def check_cache(cache: TuneCache, specs: Iterable[TuneSpec] | None = None,
 # ---------------------------------------------------------------------------
 def resolve_block_config(kind: str, shape: tuple[int, ...], fmt: EMFormat,
                          grouping: str = "nc", *, k_block: int, cache: TuneCache | None = None,
-                         device=None, **explicit) -> BlockConfig:
+                         device=None, card: str | None = None, **explicit) -> BlockConfig:
     """The launch choice of one kernel call: a pure lookup, never timed or
     proven.  Field by field, an explicit non-``None`` ``variant`` / ``bn``
     / ``amax_blocks`` overrides the cached winner, which (when ``cache``,
     default :func:`get_cache`, was tuned on ``device``'s card, see
     :func:`device_name`; never on the CPU; and tuned at this
-    ``k_block``) overrides :func:`default_block_config`.  Memoized on the
-    call's key while the process-wide cache is used."""
+    ``k_block``) overrides :func:`default_block_config`.  ``card``: plan
+    for that card by name instead of ``device``'s, through
+    :func:`seed_cache` unless ``cache`` is given.  Memoized on the call's
+    key while the process-wide cache is used."""
     over = tuple(sorted((k, v) for k, v in explicit.items() if v is not None))
     if any(k not in ("variant", "bn", "amax_blocks") for k, _ in over):
         raise TypeError(f"unknown BlockConfig field in {explicit}")
-    here = device_name(device)
-    memo = (kind, tuple(shape), fmt, grouping, k_block, here, over)
+    here = card or device_name(device)
+    memo = (kind, tuple(shape), fmt, grouping, k_block, here, card is not None, over)
     if cache is None:
         hit = _RESOLVED.get(memo)
         if hit is not None:
             return hit
-    c = cache if cache is not None else get_cache()
+    c = cache if cache is not None else seed_cache() if card else get_cache()
     config = (c.get(cache_key(kind, shape, fmt, grouping), k_block)
               if here != "cpu" and c.device == here else None)
     if config is None:

@@ -395,6 +395,7 @@ def covered_tensor_scale(x: torch.Tensor, geom: ConvGeom) -> tuple[torch.Tensor,
     """``(s_t, x_padded)``: the forward tensor scale, the abs-max over the
     pixels some patch covers (on CUDA K4's pass A, ``conv_tensor_scale``),
     and the padded input whose codes the caller gathers."""
+    launch.refuse_shape_only("K4's pass A (conv_tensor_scale)", x)
     xp = _pad(x, geom)
     if x.device.type == "cpu":
         launch.record("conv_tensor_scale", "cpu", geom)
@@ -467,6 +468,7 @@ def implicit_conv_forward(
     """
     if grouping not in GROUPINGS:
         raise ValueError(f"unknown grouping {grouping!r}; expected one of {GROUPINGS}")
+    launch.refuse_shape_only("K4 (implicit_conv)", x, w, r_x, r_w)
     geom = conv_geometry(x.shape, w.shape, stride, padding)
     ok, reason = implicit_compatible(geom, k_block)
     if not ok:

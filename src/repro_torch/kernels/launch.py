@@ -18,6 +18,13 @@ binary) and from the module's own copy on the CPU.
 The wrappers :func:`record` each launch's arguments, on either device:
 host-side tuples, counted in :data:`RECORDED`, turned into specs by
 :func:`repro_torch.kernels.recorded_specs`.
+
+A fake operand (``torch._subclasses.fake_tensor``: shapes and no data,
+the dry run's trace, :mod:`repro_torch.launch.dryrun`) is
+:func:`shape_only`: K1's and K3's wrappers then allocate what the card's
+launch allocates and record the launch as the card's, and call no kernel
+(their ``LAUNCHES`` count only kernels launched); K2's and K4's refuse it
+(:func:`refuse_shape_only`).
 """
 from __future__ import annotations
 
@@ -37,7 +44,10 @@ __all__ = [
     "Window",
     "in_plain_version",
     "plain_version",
+    "plan_for",
     "record",
+    "refuse_shape_only",
+    "shape_only",
     "tile_constants",
 ]
 
@@ -139,6 +149,36 @@ def plain_version():
 
 def in_plain_version() -> bool:
     return _plain_depth > 0
+
+
+def shape_only(*tensors) -> bool:
+    """Whether any of ``tensors`` is a fake tensor: it has a shape, a dtype
+    and a device but no data, so a wrapper allocates its launch's outputs
+    and launches nothing (on either device: a fake operand stands for the
+    card's).  Never true of a real tensor."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return any(t is not None and is_fake(t) for t in tensors)
+
+
+def refuse_shape_only(name: str, *tensors) -> None:
+    """Raise on fake operands of a kernel that has no shape-only path."""
+    if shape_only(*tensors):
+        raise NotImplementedError(
+            f"{name} takes no fake operands: the dry run (repro_torch.launch.dryrun) traces the "
+            f"LM training path, whose kernels are K1 and K3; this kernel is not on it")
+
+
+def plan_for(t) -> dict:
+    """``autotune.resolve_block_config``'s keywords for a call on ``t``: its
+    device, or for a fake operand the card the dry run models
+    (``autotune.modelled_card``, through the committed seed cache), on a
+    card and on the CPU alike, so that a trace plans as that card does."""
+    if not shape_only(t):
+        return {"device": t.device}
+    from . import autotune
+
+    return {"card": autotune.modelled_card()}
 
 
 def tile_constants(query: str, python: dict[str, int], device_type: str) -> dict[str, int]:

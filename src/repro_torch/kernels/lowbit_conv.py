@@ -58,7 +58,7 @@ from .implicit_conv import (
     patches_u8,
     resolve_conv_impl,
 )
-from . import autotune
+from . import autotune, launch
 from .mls_matmul import mls_matmul, tuned_plan
 from .mls_quantize import mls_quantize, rounding_bytes
 from .ref import Pads, im2col
@@ -103,7 +103,7 @@ def qd_gemm(
     M, K = x2d.shape
     if w2d.shape[0] != K:
         raise ValueError(f"contraction mismatch {tuple(x2d.shape)} @ {tuple(w2d.shape)}")
-    plan = _gemm_plan(M, K, w2d.shape[1], fmt, k_block, grouping, x2d.device)
+    plan = _gemm_plan(M, K, w2d.shape[1], fmt, k_block, grouping, **launch.plan_for(x2d))
     pk = (-K) % k_block
     xp = F.pad(x2d.float(), (0, pk)).contiguous()
     wt = F.pad(w2d.float().t(), (0, pk)).contiguous()  # (N, K + pk)
@@ -138,12 +138,14 @@ def _quantize(xp: torch.Tensor, K: int, shard: Sharded | None, gen, fmt, k_block
                         group=dist.group.WORLD if shard.group is None else shard.group)
 
 
-def _gemm_plan(M: int, K: int, N: int, fmt: EMFormat, k_block: int, grouping: str, device):
+def _gemm_plan(M: int, K: int, N: int, fmt: EMFormat, k_block: int, grouping: str,
+               device=None, card: str | None = None):
     """K3's plan for ``qd_gemm``'s (M, K) @ (K, N): the tile cache's choice
-    for the logical shape on ``device``'s card (default: ``matmul_plan``'s),
-    on K padded to ``k_block``.  A cached choice K3 cannot run raises."""
+    for the logical shape on ``device``'s card, or on ``card`` by name (a
+    fake operand's, ``launch.plan_for``) (default: ``matmul_plan``'s), on
+    K padded to ``k_block``.  A cached choice K3 cannot run raises."""
     config = autotune.resolve_block_config("gemm", (M, K, N), fmt, grouping, k_block=k_block,
-                                           device=device)
+                                           device=device, card=card)
     return tuned_plan(config.variant, config.bn, M, N, -(-K // k_block) * k_block, k_block,
                       fmt)
 

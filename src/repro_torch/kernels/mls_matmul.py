@@ -9,7 +9,11 @@ groups inside each output tile, or an ordered split (every group's term in
 parallel, then a pass that adds them in k order), on int8 tensor cores or,
 for formats whose fractions exceed int8, an int32 body.  On a CPU tensor it
 runs the plain version, :func:`repro_torch.kernels.ref.mls_matmul_ref`.
-:func:`launch_spec` describes its launches for the static verifier.
+On fake operands (a dry run's trace, ``launch.shape_only``) it allocates
+what the card's launch allocates (the output and the ordered split's
+workspace), records the launch as the card's (``launch.record``), and
+calls no kernel and counts no launch.  :func:`launch_spec` describes its
+launches for the static verifier.
 """
 from __future__ import annotations
 
@@ -153,30 +157,31 @@ def mls_matmul(
     if any(t.device != x_codes.device for t in tensors):
         raise ValueError("mls_matmul operands must share one device")
     plan = _checked_plan(plan, M, N, K, k_block, fmt)
-    if x_codes.device.type == "cpu":
+    fake = launch.shape_only(*tensors)
+    if x_codes.device.type == "cpu" and not fake:
         launch.record("mls_matmul", "cpu", M, N, K, k_block, grouping, fmt, plan)
         with launch.plain_version():
             return mls_matmul_ref(x_codes, x_sg, x_st.reshape(()), w_codes, w_sg,
                                   w_st.reshape(()), fmt, k_block)
-    if x_codes.device.type != "cuda":
+    if x_codes.device.type != "cuda" and not fake:
         raise ValueError(f"mls_matmul runs on cuda or cpu tensors, not {x_codes.device}")
 
-    lib = build.library()
     x_st = x_st.contiguous()
     w_st = w_st.contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=x_codes.device)
     split = plan.variant == "split"
     terms = (torch.empty((K // k_block, M, N), dtype=torch.float32, device=x_codes.device)
              if split else None)
-    unit = 2.0 ** (2 * (fmt.e_min - fmt.m))
-    build.check(lib.mls_matmul(
-        x_codes.data_ptr(), *_strides(x_codes), x_sg.data_ptr(), *_strides(x_sg),
-        w_codes.data_ptr(), *_strides(w_codes), w_sg.data_ptr(), *_strides(w_sg),
-        x_st.data_ptr(), w_st.data_ptr(), unit, out.data_ptr(),
-        terms.data_ptr() if split else None, M, N, K, k_block, fmt.e, fmt.m, plan.bn,
-        _BODIES.index(plan.body), int(split),
-        torch.cuda.current_stream(x_codes.device).cuda_stream), "mls_matmul")
-    LAUNCHES["mls_matmul"] += 1
+    if not fake:
+        unit = 2.0 ** (2 * (fmt.e_min - fmt.m))
+        build.check(build.library().mls_matmul(
+            x_codes.data_ptr(), *_strides(x_codes), x_sg.data_ptr(), *_strides(x_sg),
+            w_codes.data_ptr(), *_strides(w_codes), w_sg.data_ptr(), *_strides(w_sg),
+            x_st.data_ptr(), w_st.data_ptr(), unit, out.data_ptr(),
+            terms.data_ptr() if split else None, M, N, K, k_block, fmt.e, fmt.m, plan.bn,
+            _BODIES.index(plan.body), int(split),
+            torch.cuda.current_stream(x_codes.device).cuda_stream), "mls_matmul")
+        LAUNCHES["mls_matmul"] += 1
     launch.record("mls_matmul", "cuda", M, N, K, k_block, grouping, fmt, plan)
     return out
 

@@ -16,10 +16,14 @@ parallelism: ``x`` is one rank's slice of an operand split over the
 group's ranks), K1 runs as two C calls, its pass A
 (``mls_quantize_rows_amax``) and its pass B (``mls_quantize_rows_codes``),
 with an all-reduce MAX of the slice's max |x| between them, so that the
-tensor scale is the unsharded operand's.  :func:`launch_spec_rows`,
-:func:`launch_spec_rows_amax`, :func:`launch_spec_rows_codes`,
-:func:`launch_spec_cols` and :func:`launch_spec_given_sg` describe the
-launches for the static verifier.
+tensor scale is the unsharded operand's.  On a fake operand (a dry
+run's trace, ``launch.shape_only``) K1's entries allocate what the card's
+launch allocates and record it as the card's (``launch.record``), and
+call no kernel and count no launch; K2's refuse one.
+:func:`launch_spec_rows`, :func:`launch_spec_rows_amax`,
+:func:`launch_spec_rows_codes`, :func:`launch_spec_cols` and
+:func:`launch_spec_given_sg` describe the launches for the static
+verifier.
 """
 from __future__ import annotations
 
@@ -140,16 +144,17 @@ def mls_quantize(
         raise ValueError("r_u8 must be a contiguous uint8 tensor of x's shape and device")
     if config is None:
         config = autotune.resolve_block_config("quantize", (M, K), fmt, grouping,
-                                               k_block=k_block, device=x.device)
+                                               k_block=k_block, **launch.plan_for(x))
     if group is not None:
         return quantize_rows_split(x, fmt, k_block, gs_fmt, r_u8, grouping, config,
                                    functools.partial(_all_reduce_max, group=group))
-    if x.device.type == "cpu":
+    fake = launch.shape_only(x, r_u8)
+    if x.device.type == "cpu" and not fake:
         kernel, args = quantize_launch(M, K, k_block, grouping, config)  # what the card runs
         launch.record(kernel, "cpu", *args)
         with launch.plain_version():
             return quantize_ref(x, fmt, k_block, gs_fmt, r_u8, grouping)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not fake:
         raise ValueError(f"mls_quantize runs on cuda or cpu tensors, not {x.device}")
 
     if x.numel() == 0:
@@ -161,12 +166,13 @@ def mls_quantize(
         s_t = torch.empty((), dtype=torch.float32, device=dev)
         codes = torch.empty((M, K), dtype=torch.uint8, device=dev)
         s_g = torch.empty((M, K // width), dtype=torch.float32, device=dev)
-        build.check(build.library().mls_quantize_rows(
-            x.data_ptr(), None if r_u8 is None else r_u8.data_ptr(), partials.data_ptr(),
-            parts, s_t.data_ptr(), codes.data_ptr(), s_g.data_ptr(), M, K, width,
-            _ROW_VARIANTS.index(variant), *_fmt_args(fmt, gs_fmt),
-            torch.cuda.current_stream(dev).cuda_stream), "mls_quantize_rows")
-        LAUNCHES["mls_quantize_rows"] += 1
+        if not fake:
+            build.check(build.library().mls_quantize_rows(
+                x.data_ptr(), None if r_u8 is None else r_u8.data_ptr(), partials.data_ptr(),
+                parts, s_t.data_ptr(), codes.data_ptr(), s_g.data_ptr(), M, K, width,
+                _ROW_VARIANTS.index(variant), *_fmt_args(fmt, gs_fmt),
+                torch.cuda.current_stream(dev).cuda_stream), "mls_quantize_rows")
+            LAUNCHES["mls_quantize_rows"] += 1
         launch.record("mls_quantize_rows", "cuda", M, K, width, variant, parts)
         return codes, s_g, s_t
     return _quantize_cols(x, fmt, k_block if grouping == "c" else K, gs_fmt, r_u8)
@@ -204,16 +210,17 @@ def quantize_rows_split(
         raise ValueError("r_u8 must be a contiguous uint8 tensor of x's shape and device")
     if config is None:
         config = autotune.resolve_block_config("quantize", (M, K), fmt, grouping,
-                                               k_block=k_block, device=x.device)
+                                               k_block=k_block, **launch.plan_for(x))
     _, (_, _, width, variant, parts) = quantize_launch(M, K, k_block, grouping, config)
     reduce_amax = reduce_amax or (lambda a: a)
-    if x.device.type == "cpu":
+    fake = launch.shape_only(x, r_u8)
+    if x.device.type == "cpu" and not fake:
         launch.record("mls_quantize_rows_amax", "cpu", M * K, parts)
         launch.record("mls_quantize_rows_codes", "cpu", M, K, width, variant, 1)
         with launch.plain_version():
             amax = reduce_amax(x.abs().amax().reshape(1))
             return quantize_ref(x, fmt, k_block, gs_fmt, r_u8, grouping, amax=amax)
-    if x.device.type != "cuda" or x.numel() == 0:
+    if (x.device.type != "cuda" and not fake) or x.numel() == 0:
         raise ValueError(f"quantize_rows_split runs on non-empty cuda or cpu tensors, not "
                          f"{x.device} {tuple(x.shape)}")
     amax = reduce_amax(rows_amax(x, parts))
@@ -222,14 +229,16 @@ def quantize_rows_split(
 
 def rows_amax(x: torch.Tensor, parts: int) -> torch.Tensor:
     """K1's split pass A on the card (``mls_quantize_rows_amax``): ``x``'s
-    max |x|, a (1,) fp32 tensor, through ``parts`` partial maxima."""
+    max |x|, a (1,) fp32 tensor, through ``parts`` partial maxima (on a
+    fake ``x``, unwritten and uncounted: recorded only)."""
     M, K = x.shape
     partials = torch.empty((parts,), dtype=torch.float32, device=x.device)
     amax = torch.empty((1,), dtype=torch.float32, device=x.device)
-    build.check(build.library().mls_quantize_rows_amax(
-        x.data_ptr(), partials.data_ptr(), parts, amax.data_ptr(), M * K,
-        torch.cuda.current_stream(x.device).cuda_stream), "mls_quantize_rows_amax")
-    LAUNCHES["mls_quantize_rows_amax"] += 1
+    if not launch.shape_only(x):
+        build.check(build.library().mls_quantize_rows_amax(
+            x.data_ptr(), partials.data_ptr(), parts, amax.data_ptr(), M * K,
+            torch.cuda.current_stream(x.device).cuda_stream), "mls_quantize_rows_amax")
+        LAUNCHES["mls_quantize_rows_amax"] += 1
     launch.record("mls_quantize_rows_amax", "cuda", M * K, parts)
     return amax
 
@@ -239,17 +248,20 @@ def rows_codes(x: torch.Tensor, r_u8: torch.Tensor, amax: torch.Tensor, fmt: EMF
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's split pass B on the card (``mls_quantize_rows_codes``): the
     codes, group scales (``width``-wide groups, ``variant``) and tensor
-    scale of ``x`` against the max in ``amax`` (a (1,) fp32 tensor)."""
+    scale of ``x`` against the max in ``amax`` (a (1,) fp32 tensor; on fake
+    operands, unwritten and uncounted: recorded only)."""
     M, K = x.shape
     dev = x.device
     s_t = torch.empty((), dtype=torch.float32, device=dev)
     codes = torch.empty((M, K), dtype=torch.uint8, device=dev)
     s_g = torch.empty((M, K // width), dtype=torch.float32, device=dev)
-    build.check(build.library().mls_quantize_rows_codes(
-        x.data_ptr(), r_u8.data_ptr(), amax.data_ptr(), 1, s_t.data_ptr(), codes.data_ptr(),
-        s_g.data_ptr(), M, K, width, _ROW_VARIANTS.index(variant), *_fmt_args(fmt, gs_fmt),
-        torch.cuda.current_stream(dev).cuda_stream), "mls_quantize_rows_codes")
-    LAUNCHES["mls_quantize_rows_codes"] += 1
+    if not launch.shape_only(x, r_u8, amax):
+        build.check(build.library().mls_quantize_rows_codes(
+            x.data_ptr(), r_u8.data_ptr(), amax.data_ptr(), 1, s_t.data_ptr(),
+            codes.data_ptr(), s_g.data_ptr(), M, K, width, _ROW_VARIANTS.index(variant),
+            *_fmt_args(fmt, gs_fmt), torch.cuda.current_stream(dev).cuda_stream),
+            "mls_quantize_rows_codes")
+        LAUNCHES["mls_quantize_rows_codes"] += 1
     launch.record("mls_quantize_rows_codes", "cuda", M, K, width, variant, 1)
     return codes, s_g, s_t
 
@@ -275,6 +287,7 @@ def _quantize_cols(x: torch.Tensor, fmt: EMFormat, group_width: int, gs_fmt: EMF
     """K2 with its scales made on the card ("c": ``group_width`` =
     k_block; "none": ``group_width`` = K): one C call, outputs and scratch
     from ``torch.empty``."""
+    launch.refuse_shape_only("K2 (mls_quantize_cols)", x, r_u8)
     M, K = x.shape
     dev = x.device
     G = K // group_width
@@ -315,6 +328,7 @@ def quantize_given_scales(
         raise ValueError(f"group scales {tuple(s_g.shape)} do not fit K={K}, "
                          f"k_block={k_block}")
     sg_stride = 0 if s_g.numel() == 1 else 1
+    launch.refuse_shape_only("K2 (mls_quantize_given_sg)", x, r_u8, s_t, s_g)
     if x.device.type == "cpu":
         launch.record("mls_quantize_given_sg", "cpu", M, K, k_block, sg_stride,
                       int(K % 4 == 0 and k_block % 4 == 0))

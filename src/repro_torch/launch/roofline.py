@@ -8,10 +8,15 @@ package's ``launch/roofline.py``.
 The model FLOPs, their expected compiled count and the HBM traffic model
 are JAX's formulas.  The compute and collective byte counts come from the
 caller's ``record`` (``record["hlo"]["dot_flops"]`` and ``["coll_bytes"]``),
-as in JAX, where an HLO parse fills them; the port has no HLO and does not
-port that parse.
+as in JAX, where an HLO parse fills them; in the port the dry run
+(:mod:`repro_torch.launch.dryrun`) fills them from a fake-tensor trace of
+the step (:mod:`repro_torch.launch.trace_counts`).
 
-Hardware constants: the NVIDIA H100 SXM5 80 GB data sheet.
+Hardware constants: the NVIDIA H100 SXM5 80 GB data sheet, but for
+``HBM_BYTES``, the memory a cell's peak must fit in (the dry run's
+``fits``): the card's ``total_memory`` as CUDA reports it on an H100 80GB
+HBM3 (the data sheet's 80 GiB less what the driver keeps; read by
+``chip_smoke.py``'s dryrun phase).
 """
 from __future__ import annotations
 
@@ -21,11 +26,12 @@ from typing import Any
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.parallel.sharding import axis_sizes
 
-__all__ = ["HBM_BW", "LINK_BW", "PEAK_FLOPS", "expected_hlo_flops", "hbm_bytes", "model_flops",
-           "roofline_terms"]
+__all__ = ["HBM_BW", "HBM_BYTES", "LINK_BW", "PEAK_FLOPS", "expected_hlo_flops", "hbm_bytes",
+           "model_flops", "roofline_terms"]
 
 PEAK_FLOPS = 989e12  # dense bf16 tensor-core FLOP/s (H100 SXM data sheet)
 HBM_BW = 3.35e12  # HBM3 bytes/s (H100 SXM data sheet)
+HBM_BYTES = 85017493504  # device memory CUDA reports on an H100 80GB HBM3
 LINK_BW = 450e9  # NVLink bytes/s in one direction (900 GB/s both, H100 SXM data sheet)
 
 

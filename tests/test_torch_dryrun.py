@@ -1,0 +1,396 @@
+"""The dry run (``repro_torch.launch.dryrun``): train cells of the
+production meshes traced on fake tensors under a fake process group, with
+rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
+``launch/dryrun.py`` and against closed forms.
+
+- **Against JAX.**  JAX's ``run_cell`` runs in a subprocess (its XLA device
+  count is fixed at import), on mamba2-370m and chatglm3-6b at train_4k,
+  16x16, two layers; mamba2-370m's vocabulary is 50304 there, since the
+  port's lint refuses its 50280 over a model axis of 16 (JAX keeps that
+  vocabulary replicated).  ``microbatch``, ``n_devices`` and ``mesh`` are
+  equal.  The raw ratios are printed.  The port's rank 0 runs dots and
+  holds tensors a JAX device does not, by design, each named with its
+  closed form (:func:`by_design`): the kv heads a model axis of 16 does
+  not divide stay whole on every rank (JAX splits their columns); the
+  port's group-aligned split gives rank 0 the extra scaling groups (and,
+  of a Mamba2 layer, the in_proj's tail); PyTorch's full remat recomputes
+  each residual branch's last GEMM, whose output no backward rule reads
+  (XLA drops it).  Less those, ``dot_flops`` is within 5% of JAX's and
+  ``argument_bytes`` within 10% (seen: 0.0-1.3% and 0.1-5.5%).
+- **Closed forms.**  ``argument_bytes`` is the sum of rank 0's shards
+  (``tp_layout``, then FSDP2's dim-0 split, in 512-byte blocks) for the
+  parameters and both AdamW moments, plus the batch, exactly; the wire
+  bytes of a two-layer toy (FSDP2 over data, a Megatron all-reduce over
+  model, a broadcast, a functional all-reduce) are the JAX parse's ring
+  formulas (``analysis/hlo_parser.py``) in closed form, each on its mesh dim.
+- **Fake against real.**  On smoke configs with fake-quant on the CPU,
+  under a fake world of 4 (data 2 x model 2), the fake run's counts and
+  tracked peak equal a run of the same step on real CPU tensors.
+- **The shape-only branch.**  On fake ``cuda`` operands K1 (one call and
+  split entries) and K3 allocate the card branch's outputs (shapes,
+  dtypes, device), K3's ordered-split workspace included, and record the
+  card's launches; they never reach ``build.library()`` or ``data_ptr()``
+  and count no launch (``LAUNCHES`` counts kernels launched).  A real CPU
+  tensor still takes the plain version; K2's and K4's wrappers refuse
+  fake operands.
+- **Cells not run** are recorded: yi-34b at 16x16 ``"refused"`` with the
+  lint's message, a decode cell ``"not_ported"``; ``seq_shard`` raises.
+
+``tests/test_torch_dryrun_extension.py`` holds the depth and microbatch
+extension equal to whole traces.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+import torch.nn as nn  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.core.formats import FMT_IMAGENET, GS_FMT_DEFAULT  # noqa: E402
+from repro_torch.kernels import autotune, build, launch, launch_counts  # noqa: E402
+from repro_torch.kernels.implicit_conv import implicit_conv_forward  # noqa: E402
+from repro_torch.kernels.mls_matmul import matmul_plan, mls_matmul  # noqa: E402
+from repro_torch.kernels.mls_quantize import (  # noqa: E402
+    mls_quantize, quantize_given_scales, quantize_rows_split)
+from repro_torch.kernels.ref import quantize_ref  # noqa: E402
+from repro_torch.kernels.lowbit_conv import qd_gemm  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.specs import abstract_params  # noqa: E402
+from repro_torch.launch.trace_counts import StepCounter, mesh_dims  # noqa: E402
+from repro_torch.launch.train import tp_smoke  # noqa: E402
+from repro_torch.parallel import MeshShape  # noqa: E402
+from repro_torch.parallel.specs import param_shardings  # noqa: E402
+from repro_torch.parallel.tensor import (  # noqa: E402
+    TensorParallel, copy_to_tp, reduce_from_tp, tp_layout)
+
+ROOT = Path(__file__).resolve().parents[1]
+FMT = FMT_IMAGENET
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# against the JAX package's dry run
+# ---------------------------------------------------------------------------
+CROSS = {"mamba2-370m": {"n_layers": 2, "vocab": 50304}, "chatglm3-6b": {"n_layers": 2}}
+ROWS, SEQ = 16, 4096  # train_4k's 256 sequences over 16 data ranks
+# each residual branch's last GEMM: its output feeds only the residual add
+RESIDUAL_LAST = ("attn.wo.w", "mlp.w_down.w", "out_proj.w")
+
+_JAX_SCRIPT = r"""
+import json, sys
+from repro.launch.dryrun import run_cell
+out = {}
+for arch, upd in json.loads(sys.argv[1]).items():
+    r = run_cell(arch, "train_4k", False, out_dir=sys.argv[2], verbose=False, cfg_updates=upd)
+    out[arch] = {k: r[k] for k in ("microbatch", "n_devices", "mesh")}
+    out[arch].update(dot_flops=r["hlo"]["dot_flops"],
+                     argument_bytes=r["memory_analysis"]["argument_bytes"])
+print("JAX_RECORDS" + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_records(tmp_path_factory):
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": os.environ.get("PATH", ""),
+           "HOME": os.environ.get("HOME", str(tmp_path_factory.getbasetemp())),
+           "JAX_PLATFORMS": "cpu"}
+    r = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, json.dumps(CROSS),
+                        str(tmp_path_factory.mktemp("jax_dryrun"))],
+                       capture_output=True, text=True, timeout=900, env=env, cwd=ROOT)
+    line = [s for s in r.stdout.splitlines() if s.startswith("JAX_RECORDS")]
+    assert line, (r.stdout[-2000:], r.stderr[-4000:])
+    return json.loads(line[0][len("JAX_RECORDS"):])
+
+
+@pytest.fixture(scope="module")
+def port_records(tmp_path_factory):
+    out = tmp_path_factory.mktemp("torch_dryrun")
+    return {arch: dryrun.run_cell(arch, "train_4k", False, out_dir=str(out), verbose=False,
+                                  cfg_updates=upd)
+            for arch, upd in CROSS.items()}, out
+
+
+def _cfg(arch):
+    import dataclasses
+
+    return dataclasses.replace(configs.get_config(arch), **CROSS[arch])
+
+
+def by_design(cfg, tokens: int, model: int = 16, data: int = 16) -> dict[str, tuple]:
+    """``{name: (dot FLOPs, argument bytes, why)}``: what rank 0 of the port
+    runs and holds beyond a JAX device, per layer weight.  A linear of
+    ``p0`` local weights on rank 0 and ``pe`` on a JAX device runs 4 GEMMs
+    of ``2 T p`` FLOPs in the port (forward, remat recompute, data and
+    weight gradients) and 4 in JAX, 3 for a residual branch's last linear;
+    its weight and both moments are 12 B an element over the data axis."""
+    shapes = {k: tuple(t.shape) for k, t in abstract_params(cfg).items()}
+    layout = tp_layout(cfg, shapes, model)
+    jax_specs = param_shardings(abstract_params(cfg), MeshShape(("model",), (model,)))
+    out = {}
+    for name, shape in shapes.items():
+        if not (name.startswith("layers.") and name.endswith(".w") and len(shape) == 2):
+            continue
+        n = math.prod(shape)
+        split = layout.get(name)
+        p0 = n // shape[split.dim] * split.size(0) if split is not None else n
+        pe = n // model if any(e is not None for e in jax_specs[name]) else n
+        last = name.endswith(RESIDUAL_LAST)
+        flops = 2.0 * tokens * (4 * (p0 - pe) + last * pe)
+        why = []
+        if p0 > pe:
+            why.append("whole on every model rank (JAX splits it)" if split is None
+                       else f"rank 0 holds {p0} of {n} (JAX {pe}): whole scaling groups")
+        if last:
+            why.append("its forward recomputed under full remat (XLA drops it)")
+        if flops or p0 != pe:
+            out[name] = (flops, 12.0 * (p0 - pe) / data, "; ".join(why))
+    return out
+
+
+@pytest.mark.parametrize("arch", sorted(CROSS))
+def test_cell_agrees_with_jax_dryrun(arch, jax_records, port_records):
+    j, p = jax_records[arch], port_records[0][arch]
+    for k in ("microbatch", "n_devices", "mesh"):
+        assert p[k] == j[k], (k, p[k], j[k])
+    terms = by_design(_cfg(arch), ROWS * SEQ)
+    extra_flops = sum(t[0] for t in terms.values())
+    extra_bytes = sum(t[1] for t in terms.values())
+    flops, args = p["hlo"]["dot_flops"], p["memory_analysis"]["argument_bytes"]
+    raw = (flops / j["dot_flops"], args / j["argument_bytes"])
+    net = ((flops - extra_flops) / j["dot_flops"], (args - extra_bytes) / j["argument_bytes"])
+    named = "\n".join(f"  {k}: +{f:.4g} FLOPs, +{b:.4g} B ({why})"
+                      for k, (f, b, why) in terms.items())
+    print(f"{arch}: dot_flops port/JAX {raw[0]:.4f} raw, {net[0]:.4f} less the named dots; "
+          f"argument_bytes {raw[1]:.4f} raw, {net[1]:.4f} less the named tensors\n{named}")
+    assert abs(net[0] - 1) <= 0.05, (arch, raw, net, named)
+    assert abs(net[1] - 1) <= 0.10, (arch, raw, net, named)
+
+
+def test_argument_bytes_are_rank_0_shards_in_closed_form(port_records):
+    cfg = _cfg("chatglm3-6b")
+    rec = port_records[0]["chatglm3-6b"]
+    shapes = {k: tuple(t.shape) for k, t in abstract_params(cfg).items()}
+    layout = tp_layout(cfg, shapes, 16)
+
+    def blocks(n):
+        return -(-n // 512) * 512
+
+    total = 0
+    for name, shape in shapes.items():
+        shape = list(shape)
+        if name in layout:
+            shape[layout[name].dim] = layout[name].size(0)  # tensor parallelism: rank 0
+        shape[0] = -(-shape[0] // 16)  # FSDP2: rank 0's chunk of dim 0 over data
+        total += 3 * blocks(4 * math.prod(shape))  # fp32 weight, mu, nu
+    total += ROWS * SEQ * 8  # int64 tokens
+    assert rec["memory_analysis"]["argument_bytes"] == total
+
+
+def test_records_hold_counts_roofline_and_fit(port_records):
+    recs, out = port_records
+    for arch, r in recs.items():
+        assert r["status"] == "ran" and r["hlo"]["counted_by"] == "fake-tensor trace"
+        assert r["hlo"]["dot_flops"] > 0 and r["hlo"]["coll_bytes"] > 0
+        assert set(r["hlo"]["coll_by_dim"]) <= {"data", "model"}
+        assert r["roofline"]["bottleneck"] in ("compute", "memory", "collective")
+        assert r["roofline"]["hlo_flops_per_device"] == r["hlo"]["dot_flops"]
+        assert r["peak_bytes"] == (r["memory_analysis"]["argument_bytes"]
+                                   + r["memory_analysis"]["temp_bytes"])
+        assert r["peak_bytes"] == sum(r["memory_by_kind"].values())
+        assert r["fits"] == (r["peak_bytes"] <= r["device_memory_bytes"])
+        # the card modelled, not the device that traced: the tile cache's H100
+        assert r["modelled_device"] == autotune.modelled_card() == "NVIDIA H100 80GB HBM3"
+        assert r["device_memory_bytes"] == roofline.HBM_BYTES
+        assert r["compile_s"] is None and r["memory_analysis"]["alias_bytes"] is None
+        assert json.loads((out / f"{arch}_train_4k_16x16.json").read_text()) == r
+
+
+# ---------------------------------------------------------------------------
+# wire bytes and the fake/real peak
+# ---------------------------------------------------------------------------
+class _Toy(nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.a, self.b = nn.Linear(d, d), nn.Linear(d, d)
+
+    def forward(self, x, tp):
+        return self.b(reduce_from_tp(self.a(copy_to_tp(x, tp)), tp))
+
+
+def test_wire_bytes_of_a_two_layer_toy_are_the_ring_formulas():
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.fsdp import fully_shard
+
+    d, rows, data, model = 64, 8, 4, 2
+    with dryrun.fake_world(data * model):
+        mesh = make_mesh((data, model), ("data", "model"), "cpu")
+        tp = TensorParallel(mesh.get_local_rank("model"), model, mesh.get_group("model"))
+        with FakeTensorMode():
+            toy = _Toy(d)
+            for m in (toy.a, toy.b, toy):
+                fully_shard(m, mesh=mesh["data"])
+            x = torch.zeros(rows, d, requires_grad=True)
+            counter = StepCounter(mesh_dims(mesh))
+            with counter:
+                toy(x, tp).sum().backward()
+                dist.broadcast(torch.zeros(5, 3), 0, group=mesh.get_group("model"))
+                fc.wait_tensor(fc.all_reduce(torch.zeros(7), "sum", mesh.get_group("data")))
+    hlo = counter.hlo()
+    shard = (d * d + d) // data * 4  # one linear's fp32 shard on a data rank
+    gather = shard * data * (data - 1) / data  # all-gather: out (g-1)/g
+    scatter = shard * (data - 1)  # reduce-scatter: out (g-1)
+    act = 2 * rows * d * 4 * (model - 1) / model  # all-reduce: 2 out (g-1)/g
+    small = 2 * 7 * 4 * (data - 1) / data
+    want = {"all-gather": 4 * gather,  # each layer: forward, and again for its backward
+            "reduce-scatter": 2 * scatter, "all-reduce": 2 * act + small,
+            "broadcast": 5 * 3 * 4.0}
+    assert {k: v for k, v in hlo["coll_breakdown"].items() if ":" not in k} == want
+    assert hlo["coll_counts"] == {"all-gather": 4, "reduce-scatter": 2, "all-reduce": 3,
+                                  "broadcast": 1}
+    assert hlo["coll_by_dim"] == {"data": 4 * gather + 2 * scatter + small,
+                                  "model": 2 * act + 60.0}
+    assert hlo["coll_bytes"] == sum(want.values())
+    assert hlo["dot_flops"] == 2 * 3 * 2 * rows * d * d  # 2 linears: forward, dx, dW
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "mamba2-370m"])
+def test_fake_trace_equals_a_real_cpu_run(arch):
+    cfg = tp_smoke(configs.get_smoke_config(arch))
+    with dryrun.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        fake = dryrun.trace_step(cfg, 4, 32, 2, mesh, "cpu", fake=True)
+        real = dryrun.trace_step(cfg, 4, 32, 2, mesh, "cpu", fake=False)
+    for k in ("peak_bytes", "peak_by_kind", "argument_bytes", "output_bytes", "hlo"):
+        assert fake[k] == real[k], (k, fake[k], real[k])
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 on fake operands
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def no_kernel(monkeypatch):
+    """Fail on any reach for a kernel or a device pointer."""
+    def library():
+        raise AssertionError("build.library() called on fake operands")
+
+    def data_ptr(self):
+        raise AssertionError("data_ptr() called on a fake operand")
+
+    monkeypatch.setattr(build, "library", library)
+    monkeypatch.setattr(FakeTensor, "data_ptr", data_ptr)
+
+
+def test_shape_only_k1_and_k3_allocate_and_record_the_card_launch(no_kernel):
+    launch.RECORDED.clear()
+    before = launch_counts()
+    M, K, N, kb = 64, 4096, 1024, 128
+    plan = matmul_plan(M, N, K, kb, FMT)
+    assert plan.variant == "split"  # 16 tiles < 132 SMs: the ordered split
+    counter = StepCounter()
+    with FakeTensorMode():
+        x = torch.empty(M, K, device="cuda")
+        w = torch.empty(N, K, device="cuda")
+        with counter:
+            xc, xsg, xst = mls_quantize(x, FMT, kb)
+            wc, wsg, wst = mls_quantize(w, FMT, kb)
+            base = counter.current()
+            y = mls_matmul(xc, xsg, xst, wc.t(), wsg.t(), wst, FMT, kb, "nc")
+        sc, ssg, sst = quantize_rows_split(x, FMT, kb)
+    assert (xc.shape, xc.dtype, xsg.shape, xst.shape) == ((M, K), torch.uint8, (M, K // kb), ())
+    assert (wsg.shape, xc.device.type, y.device.type) == ((N, K // kb), "cuda", "cuda")
+    assert (y.shape, y.dtype) == ((M, N), torch.float32)
+    assert (sc.shape, ssg.shape, sst.shape) == ((M, K), (M, K // kb), ())
+    # K3's output and the (G, M, N) fp32 split workspace, both alive at its peak
+    assert counter.peak - base == 512 * -(-M * N * 4 // 512) + plan.workspace_bytes
+    assert launch_counts() == before  # no kernel launched, none counted
+    got = {}
+    for key, n in launch.RECORDED.items():
+        assert key[1] == "cuda", key  # the card's launch arguments
+        got[key[0]] = got.get(key[0], 0) + n
+    assert got == {"mls_quantize_rows": 2, "mls_matmul": 1, "mls_quantize_rows_amax": 1,
+                   "mls_quantize_rows_codes": 1}
+    assert ("mls_matmul", "cuda", M, N, K, kb, "nc", FMT, plan) in launch.RECORDED
+    assert ("mls_quantize_rows", "cuda", M, K, kb, "warp", M * K // 4096) in launch.RECORDED
+    assert ("mls_quantize_rows", "cuda", N, K, kb, "warp", 264) in launch.RECORDED
+
+
+def test_fake_operands_plan_as_the_modelled_card(no_kernel):
+    # a seed-cache entry whose winner is not the default: (256, 512, 256)
+    # "nc" at k_block 128, split with 16-wide tiles on the H100 (default 64)
+    M, K, N, kb = 256, 512, 256, 128
+    tuned = autotune.seed_cache().get(autotune.cache_key("gemm", (M, K, N), FMT, "nc"), kb)
+    default = autotune.default_block_config(autotune.TuneSpec("gemm", (M, K, N), FMT, kb, "nc"))
+    assert tuned is not None and tuned != default
+    real = torch.zeros(M, K)
+    assert autotune.resolve_block_config("gemm", (M, K, N), FMT, "nc", k_block=kb,
+                                         **launch.plan_for(real)) == default
+    launch.RECORDED.clear()
+    with FakeTensorMode():
+        x, w = torch.empty(M, K), torch.empty(K, N)
+        assert autotune.resolve_block_config("gemm", (M, K, N), FMT, "nc", k_block=kb,
+                                             **launch.plan_for(x)) == tuned
+        qd_gemm(x, w, None, None, fmt=FMT, gs_fmt=GS_FMT_DEFAULT, k_block=kb, grouping="nc")
+    plans = [key[-1] for key in launch.RECORDED if key[0] == "mls_matmul"]
+    assert [(p.variant, p.bn) for p in plans] == [(tuned.variant, tuned.bn)]
+
+
+def test_real_cpu_tensor_takes_the_plain_version(no_kernel):
+    gen = np.random.default_rng(0)
+    x = torch.from_numpy(gen.standard_normal((8, 256)).astype(np.float32))
+    r = torch.from_numpy(gen.integers(0, 256, (8, 256), dtype=np.uint8))
+    launch.RECORDED.clear()
+    got = mls_quantize(x, FMT, 128, r_u8=r)
+    want = quantize_ref(x, FMT, 128, r_u8=r)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert list(launch.RECORDED) == [("mls_quantize_rows", "cpu", 8, 256, 128, "warp", 1)]
+
+
+def test_k2_and_k4_refuse_fake_operands(no_kernel):
+    with FakeTensorMode():
+        x = torch.empty(64, 256, device="cuda")
+        r = torch.empty(64, 256, dtype=torch.uint8, device="cuda")
+        with pytest.raises(NotImplementedError, match="dry run"):
+            mls_quantize(x, FMT, 128, r_u8=r, grouping="c")
+        with pytest.raises(NotImplementedError, match="dry run"):
+            quantize_given_scales(x, FMT, torch.ones((), device="cuda"),
+                                  torch.ones(1, 2, device="cuda"), 128, r)
+        with pytest.raises(NotImplementedError, match="dry run"):
+            implicit_conv_forward(torch.empty(2, 16, 8, 8, device="cuda"),
+                                  torch.empty(16, 16, 3, 3, device="cuda"), None, None, 1, 1,
+                                  fmt=FMT, k_block=144)
+
+
+# ---------------------------------------------------------------------------
+# cells the port does not run
+# ---------------------------------------------------------------------------
+def test_refused_and_not_ported_cells_are_recorded(tmp_path, capsys):
+    r = dryrun.run_cell("yi-34b", "train_4k", False, out_dir=str(tmp_path), verbose=False)
+    assert r["status"] == "refused" and "56 query heads" in r["reason"]
+    r = dryrun.run_cell("chatglm3-6b", "decode_32k", True, out_dir=str(tmp_path),
+                        verbose=False)
+    assert r["status"] == "not_ported" and "ROADMAP queue 1" in r["reason"]
+    assert json.loads((tmp_path / "chatglm3-6b_decode_32k_2x16x16.json").read_text()) == r
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        dryrun.run_cell("chatglm3-6b", "train_4k", False, out_dir=str(tmp_path),
+                        seq_shard=True)
+    assert dryrun.main(["--arch", "glm4-9b", "--shape", "prefill_32k", "--mesh", "both",
+                        "--out", str(tmp_path)]) == 0
+    assert "0 ran, 0 refused, 2 not ported, 0 failed, of 2 cells" in capsys.readouterr().out
