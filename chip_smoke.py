@@ -192,10 +192,18 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 run_cell (a fake process group of 256 / 512 ranks, the
                 launcher's tensor-parallel + FSDP2 layout, rank 0 traced)
                 on chatglm3-6b at 16x16 and moonshot-v1-16b-a3b at
-                2x16x16, train_4k at full depth: records printed and
-                written to chiprun_out/torch_dryrun/.  The seven traces
-                run side by side in worker processes, none of which
-                launches a kernel (their counts stay 0); the card's
+                2x16x16, train_4k at full depth, and chatglm3-6b's
+                prefill_32k and decode_32k at 16x16 (serving under the
+                model axis: each rank's cache, DRYRUN_SERVE_CELLS), each
+                serve cell traced on fake cuda and on fake cpu tensors
+                and its two records equal but for lower_s: records
+                printed and written to chiprun_out/torch_dryrun/.  The
+                serve phase's chatglm3-6b decode (batch 4, its cache)
+                traced unsharded: launches the closed form and its
+                predicted peak within 5% of the serve phase's measured
+                max_memory_allocated.  The twelve traces run side by side
+                in worker processes, none of which launches a kernel
+                (their counts stay 0); the card's
                 total_memory printed beside the modelled card's
                 (roofline.HBM_BYTES, which fits reads).  Then
                 chatglm3-6b cut to 1 layer, K1/K3, batch 2 x 4096, one
@@ -254,7 +262,8 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 zamba2-7b's rank-0 in_proj and out_proj forwards, and at
                 moonshot-v1-16b-a3b's and seamless-m4t-medium's rank GEMMs
                 (TP_K1_SHAPES, TP_K3_SHAPES) bit for bit mls_matmul_ref's
-                on both plans, timed beside its int8-op bound.  Then the
+                on both plans, timed beside its bound (int8 ops or bytes,
+                the larger).  Then the
                 main paths (TP_PATHS; counts set to 0 just before each
                 step, read just after, in each rank): chatglm3-6b at full
                 width cut to 2 layers; zamba2-7b at full width cut to 7
@@ -291,6 +300,24 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 K1 (one call and split) and K3 launches per rank equal to
                 the closed form (tp_train_launches); per-rank step ms and
                 peak memory printed (gloo through the host: not a TP speed).
+                Then each rank serves each path through ServeEngine, fp32
+                and on K1/K3 (bf16, nearest): a prefill of 4 prompts of
+                512 tokens (seamless over 1024 frames) and 16 decode steps
+                teacher-forced on the unsharded engine's greedy tokens
+                (same weights, the rank's card): every step's whole
+                logits within 1e-4 (relative L2) of the unsharded
+                engine's, fp32 and quantized with each linear and MoE
+                layer fed the unsharded run's input and each
+                row-parallel output held within (G_r + 1) eps max|ref|
+                of the unsharded one and replaced by it (the unfed gap
+                printed), the greedy tokens the same on both ranks, rank
+                0's launches of the prefill and of each decode step the
+                closed form (serve_launches; counts set to 0 just before
+                the unfed run, read just after); prefill and decode ms per
+                rank printed.  K1's split entries and K3 also at
+                chatglm3-6b's rank-0 decode shapes (w_up's w^T (6912,
+                4096), w_down's x (4, 6912); 4 x 4096 x 6912, 4 x 6912 x
+                4096).
 The line before the last is {"kernels": [...]}: each kernel's `launches`
 are its count on the training path (phase train; K5's in the audit's
 overlap_write run; K1's split entries' on the tensor phase's main path),
@@ -298,7 +325,8 @@ overlap_write run; K1's split entries' on the tensor phase's main path),
 `lm_train_launches` per model of the lm_train phase's 4-step run,
 `sweep_launches` its launches per step in each "pallas" cell of the
 sweep's chip grid, `parallel_launches` its count on the parallel phase's
-main path and `tensor_launches` per path of the tensor phase (rank 0's),
+main path and `tensor_launches` per path of the tensor phase (rank 0's:
+"<arch>" its training step, "<arch> serve" its quantized serving run),
 each read from its own run.  The last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
@@ -1444,6 +1472,45 @@ def tp_train_launches(cfg, model_axis: int, microbatch: int = 1) -> dict[str, in
             "mls_quantize_rows_codes": split * n, "mls_matmul": k3 * n}
 
 
+def serve_launches(cfg, model_axis: int = 1, prefill: bool = False) -> dict[str, int]:
+    """K1 and K3 launches of one serving step (decode, or with ``prefill``
+    the prefill; :func:`serve_linears`).  With a ``model_axis`` above 1
+    (parallel.tensor) one rank's: a column-parallel linear (wq, w_up,
+    w_gate, wk / wv where the kv heads split, a Mamba2 in_proj) holds x
+    whole (K1's one call) and shards w (K1's two: mls_quantize_rows_amax,
+    then mls_quantize_rows_codes); a row-parallel one (wo, w_down, a
+    Mamba2 out_proj) shards both; replicated kv linears hold both whole.
+    Each runs K3 once.  A decoder layer's cross attention runs wq and wo
+    (its K/V, cached at prefill, are unquantized)."""
+    if model_axis == 1:
+        n = serve_linears(cfg, prefill)
+        return {"mls_quantize_rows": 2 * n, "mls_matmul": n}
+    kv_split = cfg.n_kv_heads % model_axis == 0
+    mlp = (2 if cfg.gated_mlp else 1, 1, 0)  # (column, row, whole) linears
+    attn = (3, 1, 0) if kv_split else (1, 1, 2)
+    cross = (1, 1, 0)
+
+    def times(n, *parts):
+        return tuple(n * sum(v) for v in zip(*parts))
+
+    if cfg.family == "dense":
+        col, row, whole = times(cfg.n_layers, attn, mlp)
+    elif cfg.family == "moe":
+        col, row, whole = times(cfg.n_layers, attn, mlp if cfg.n_shared_experts else (0, 0, 0))
+    elif cfg.family == "encdec":
+        col, row, whole = times(cfg.n_layers, attn, cross, mlp)
+        if prefill:
+            col, row, whole = (a + b for a, b in zip((col, row, whole),
+                                                     times(cfg.enc_layers, attn, mlp)))
+    else:  # Mamba2 layers: in_proj column-parallel, out_proj row-parallel
+        col, row, whole = times(cfg.n_layers, (1, 1, 0))
+        if cfg.family == "hybrid":
+            col, row, whole = (a + b for a, b in zip(
+                (col, row, whole), times(cfg.n_layers // cfg.attn_every, attn, mlp)))
+    return {"mls_quantize_rows": col + 2 * whole, "mls_quantize_rows_amax": col + 2 * row,
+            "mls_quantize_rows_codes": col + 2 * row, "mls_matmul": col + row + whole}
+
+
 def traced_decode(engine, cache, tok) -> dict:
     """One decode step under torch.profiler: device busy (the sum of kernel
     times), K1's and K3's kernel time, the MoE experts' fake-quant
@@ -2476,6 +2543,13 @@ def phase_lm_train(results: dict) -> dict[str, dict[str, int]]:
 # The dry run's production cells (phase dryrun): the dense arch on one pod,
 # the MoE on two, at full depth.
 DRYRUN_CELLS = (("chatglm3-6b", False), ("moonshot-v1-16b-a3b", True))
+# ... and serving under the model axis: chatglm3-6b's prefill and decode at
+# 16x16, traced on fake cuda tensors and on fake cpu ones (equal records)
+DRYRUN_SERVE_CELLS = (("chatglm3-6b", "prefill_32k"), ("chatglm3-6b", "decode_32k"))
+# the serve phase's chatglm3-6b decode (SERVE_MODELS: batch 4, a cache of
+# its prompt and SERVE_NEW tokens) traced unsharded: its predicted peak
+# against the serve phase's measured one, within DRYRUN_PEAK_TOL
+DRYRUN_SERVE_CALIBRATION = "chatglm3-6b"
 # predicted against measured peak, relative: sound readings are within 2%;
 # without the counter's model of the softmax backward's scratch chatglm3-6b
 # read 0.850 and zamba2-7b 0.900
@@ -2518,9 +2592,13 @@ def dryrun_blind_spot() -> dict:
 def _dryrun_job(job: tuple) -> tuple[dict, dict]:
     """One trace of the dryrun phase, in a worker process: ("lm_train",
     name) traces that LM_TRAIN_MODELS entry (its cut, batch and
-    quant_backend "pallas") unsharded on fake cuda tensors; ("cell", arch,
-    multi_pod) runs run_cell at train_4k.  Returns the result and the
-    kernels the worker launched (none: fake operands launch nothing)."""
+    quant_backend "pallas") unsharded on fake cuda tensors; ("serve", name)
+    that SERVE_MODELS entry's decode step (quant_backend "pallas", batch
+    SERVE_BATCH, a cache of its prompt and SERVE_NEW tokens); ("cell",
+    arch, multi_pod) runs run_cell at train_4k; ("serve_cell", arch, shape,
+    device) run_cell at 16x16 on fake tensors of that device.  Returns the
+    result and the kernels the worker launched (none: fake operands launch
+    nothing)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2531,6 +2609,14 @@ def _dryrun_job(job: tuple) -> tuple[dict, dict]:
         over, batch, seq = LM_TRAIN_MODELS[job[1]]
         cfg = dataclasses.replace(get_config(job[1]), quant_backend="pallas", **over)
         out = dryrun.trace_cell(cfg, batch, seq, 0, device="cuda")
+    elif job[0] == "serve":
+        over, prompt_len = SERVE_MODELS[job[1]]
+        cfg = dataclasses.replace(get_config(job[1]), quant_backend="pallas", **over)
+        out = dryrun.trace_cell(cfg, SERVE_BATCH, prompt_len + SERVE_NEW, 0, device="cuda",
+                                kind="decode")
+    elif job[0] == "serve_cell":
+        out = dryrun.run_cell(job[1], job[2], False, device=job[3], out_dir=str(
+            ROOT / "chiprun_out" / ("torch_dryrun" if job[3] == "cuda" else "torch_dryrun_cpu")))
     else:
         out = dryrun.run_cell(job[1], "train_4k", job[2],
                               out_dir=str(ROOT / "chiprun_out" / "torch_dryrun"))
@@ -2563,7 +2649,10 @@ def phase_dryrun(results: dict) -> None:
     smi = results["nvidia_smi"]
     measured = results["lm_train"]["models"]
     jobs = [("cell", arch, multi) for arch, multi in DRYRUN_CELLS]
+    jobs += [("serve_cell", arch, shape, dev) for arch, shape in DRYRUN_SERVE_CELLS
+             for dev in ("cuda", "cpu")]
     jobs += [("lm_train", name) for name in LM_TRAIN_MODELS]
+    jobs += [("serve", DRYRUN_SERVE_CALIBRATION)]
     with concurrent.futures.ProcessPoolExecutor(len(jobs),
                                                 mp_context=mp.get_context("spawn")) as pool:
         done = dict(zip(jobs, pool.map(_dryrun_job, jobs)))
@@ -2598,6 +2687,37 @@ def phase_dryrun(results: dict) -> None:
         if rec["status"] != "ran" or not (rec["hlo"]["dot_flops"] > 0
                                           and rec["hlo"]["coll_bytes"] > 0):
             bad.append(f"{arch} {rec['mesh']}: {rec['status']} {rec.get('reason')}")
+    for arch, shape in DRYRUN_SERVE_CELLS:
+        rec, cpu = (done[("serve_cell", arch, shape, d)][0] for d in ("cuda", "cpu"))
+        print(json.dumps({"dryrun_cell": rec}))
+        cells[f"{arch}_{shape}_{rec['mesh']}"] = rec
+        same = ({k: v for k, v in rec.items() if k != "lower_s"}
+                == {k: v for k, v in cpu.items() if k != "lower_s"})
+        print(f"dryrun {arch} {shape} {rec['mesh']}: {rec['status']}, rows {rec.get('rows')}, "
+              f"cache {rec.get('cache_bytes')} B (JAX's layout {rec.get('cache_bytes_jax_layout')}"
+              f"), peak {rec.get('peak_bytes')} B, fits {rec.get('fits')}; record equal to the "
+              f"CPU's but for lower_s: {same}")
+        if rec["status"] != "ran" or not same or not rec["hlo"]["dot_flops"] > 0:
+            bad.append(f"{arch} {shape}: {rec['status']}, equal to the CPU's record {same}")
+    name = DRYRUN_SERVE_CALIBRATION
+    got = done[("serve", name)][0]
+    over, prompt_len = SERVE_MODELS[name]
+    cfg = dataclasses.replace(get_config(name), quant_backend="pallas", **over)
+    measured_serve = results["serve"]["models"][name]["peak_memory_bytes"]
+    c = dict(traced=got["traced"], trace_s=got["seconds"], launches=got["launches"],
+             expected=serve_launches(cfg), predicted_bytes=got["peak_bytes"],
+             peak_by_kind=got["peak_by_kind"], measured_bytes=measured_serve,
+             ratio=got["peak_bytes"] / measured_serve, nvidia_smi=smi)
+    calibration[f"{name} serve decode"] = c
+    print(f"dryrun calibration {name} serve decode ({smi}): predicted "
+          f"{c['predicted_bytes'] / 2**30:.3f} GiB against the serve phase's measured "
+          f"{measured_serve / 2**30:.3f} GiB: ratio {c['ratio']:.4f}; launches {c['launches']} "
+          f"(closed form {c['expected']})")
+    if c["launches"] != c["expected"]:
+        bad.append(f"{name} serve decode: launches {c['launches']}, closed form {c['expected']}")
+    if abs(c["ratio"] - 1) > DRYRUN_PEAK_TOL:
+        bad.append(f"{name} serve decode: predicted peak {c['predicted_bytes']} against "
+                   f"{measured_serve}")
     if launched:
         bad.append(f"the dry run launched kernels: {launched}")
     card_memory = torch.cuda.get_device_properties(0).total_memory
@@ -3437,7 +3557,12 @@ TP_K1_SHAPES = {"x (8192, 4096)": (8192, 4096), "w^T (13696, 4096)": (13696, 409
                 "moonshot wo x rank (4096, 1024)": (4096, 1024),
                 "seamless w_up w^T rank (2048, 1024)": (2048, 1024),
                 "seamless w_down x rank (4096, 2048)": (4096, 2048),
-                "seamless xattn wk e rank (4096, 512)": (4096, 512)}
+                "seamless xattn wk e rank (4096, 512)": (4096, 512),
+                # serving chatglm3-6b at model 2 (a decode step of 4 rows):
+                # rank 0's w_up w^T (6912 of d_ff 13696, whole groups) and
+                # its w_down x (4 rows, 6912 of 13696)
+                "chatglm3 w_up w^T decode rank 0 (6912, 4096)": (6912, 4096),
+                "chatglm3 w_down x decode rank 0 (4, 6912)": (4, 6912)}
 # fp32: JAX's own (data 2, model 2) mesh tolerance, relative on the loss, the
 # grad norm and the rank's updated parameters as one vector (relative L2).
 # Not per element or per tensor: AdamW's first step moves an element by up to
@@ -3519,14 +3644,20 @@ TP_K3_SHAPES = {"zamba2 in_proj fwd rank 0": (4096, 3584, 7408),
                 "moonshot wq fwd rank": (4096, 2048, 1024),
                 "seamless w_up fwd rank": (4096, 1024, 2048),
                 "seamless w_down fwd rank": (4096, 2048, 1024),
-                "seamless xattn wk fwd rank": (4096, 1024, 512)}
+                "seamless xattn wk fwd rank": (4096, 1024, 512),
+                # serving chatglm3-6b at model 2: a decode step's (4 rows) rank-0
+                # w_up and w_down
+                "chatglm3 w_up decode rank 0": (4, 4096, 6912),
+                "chatglm3 w_down decode rank 0": (4, 6912, 4096)}
 
 
 def tp_k3_checks(gen) -> tuple[list[dict], list[dict]]:
     """K3 at TP_K3_SHAPES on K1's codes of random operands (stochastic):
     the plan matmul_plan picks and the other variant bit for bit
     mls_matmul_ref's; the plan timed (CUDA events, and its kernels alone)
-    beside its int8-op bound and its plain version."""
+    beside its bound (the larger of its int8 ops and its bytes: both
+    operands' codes and group scales read, the output written) and its
+    plain version."""
     import dataclasses
 
     import torch
@@ -3558,11 +3689,15 @@ def tp_k3_checks(gen) -> tuple[list[dict], list[dict]]:
                            identical=all(torch.equal(g, want) for g in got), max_abs_err=err))
         run = lambda: mls_matmul(*args, "nc", plan=plan)  # noqa: E731
         ops = 2 * M * N * K
+        # codes and group scales of both operands read, the output written
+        nbytes = M * K + N * K + 4 * (xsg.numel() + wsg.numel()) + 4 * M * N + 8
+        bound_ops, bound_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         rows.append(dict(name="mls_matmul", shape=f"{sname} ({M}x{K}x{N}) {plan.variant}",
                          ms=cuda_ms(run), kernel_ms=kernel_ms(run, DEVICE_KERNELS["mls_matmul"]),
                          plain_ms=cuda_ms(lambda: mls_matmul_ref(*args), iters=3, warmup=1),
-                         library_ms=None, bound_ms=ops / INT8_OPS_PER_S * 1e3,
-                         bound_by="operations", ops=ops, max_abs_err=err))
+                         library_ms=None, bound_ms=max(bound_ops, bound_bytes),
+                         bound_by="operations" if bound_ops >= bound_bytes else "bytes", ops=ops,
+                         bytes=nbytes, max_abs_err=err))
         del coded, args, want, got
         torch.cuda.empty_cache()
     return checks, rows
@@ -3889,6 +4024,190 @@ def _tp_rank_work(rank: int) -> dict:
             del ref, mine, records, experts, full
             torch.cuda.empty_cache()
             out[arch][tag] = r
+    t0 = time.perf_counter()
+    out["serve"] = _tp_serve_work(rank, tp)
+    out["serve_s"] = time.perf_counter() - t0
+    return out
+
+
+# Serving each TP_PATHS path at a model axis of 2 (after its training
+# checks): TP_SERVE_BATCH prompts of TP_SERVE_PROMPT tokens (the
+# encoder-decoder's over TP_SERVE_SRC frames), then TP_SERVE_STEPS decode
+# steps teacher-forced on the unsharded engine's greedy tokens, same weights;
+# fp32 and "pallas" (K1/K3, bf16, nearest rounding).  TP_SERVE_AGREE: every
+# step's logits against the unsharded engine's, relative L2, fp32 and
+# "pallas" with each quantized linear (and MoE layer) fed the unsharded
+# run's input and each row-parallel output held and replaced (_tp_feed);
+# the unfed "pallas" gap is reported, not held (one ulp of a row-parallel
+# sum before a quantizer moves a code).  Feeding the inputs alone left
+# the bf16 residual stream to carry the row-parallel sums' ulps, which
+# now and then round to the other bf16 neighbour: 2.2e-4 over seamless's
+# 36 layers on the H100.
+TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_SRC, TP_SERVE_STEPS = 4, 512, 1024, 16
+TP_SERVE_AGREE = 1e-4
+
+
+_ROW_LINEARS = (".wo", ".w_down", ".out_proj")  # row-parallel under tensor parallelism
+
+
+def _tp_feed(model, records: dict | None = None):
+    """Hooks on every linear of the layers, the encoder's layers and the
+    shared block, and on every MoE layer.  With no ``records``: each
+    call's input, and each row-parallel linear's output, by (name, call)
+    into a new dict.  With them (an unsharded run's), each call of this
+    tensor-parallel model takes the recorded input in place of its own (a
+    row-parallel linear its rank's pieces), and each row-parallel linear's
+    output, its sum over the group, is held against the recorded output
+    within (G_r + 1) eps max|ref| (G_r: the rank's scaling groups, the
+    bound of the training checks, _tp_linear_checks) and replaced by it,
+    so that its ulps do not reach the bf16 residual stream.  Returns the
+    records, the hooks' handles and the held outputs' checks."""
+    import collections
+
+    import torch
+
+    from repro_torch.parallel.tensor import Split
+
+    out = {} if records is None else records
+    calls: collections.Counter = collections.Counter()
+    handles, checks = [], []
+    eps = torch.finfo(torch.float32).eps
+    for name, mod in model.named_modules():
+        if (not name.startswith(("layers.", "enc_layers.", "shared_attn."))
+                or type(mod).__name__ not in ("Linear", "MoE")):
+            continue
+
+        def pre(m, args, name=name):
+            key = (name, calls[name])
+            calls[name] += 1
+            m._feed_key = key
+            if records is None:
+                out[key] = args[0].detach().clone()
+                return None
+            x = records[key]
+            tp = getattr(m, "tp", None)
+            if type(m).__name__ == "Linear" and tp is not None and tp.kind == "row":
+                x = Split(x.ndim - 1, (tp.pieces,)).take(x, 0)
+            return (x,) + tuple(args[1:])
+
+        def post(m, args, y, name=name):
+            key = (name, "out", m._feed_key[1])
+            if records is None:
+                out[key] = y.detach().clone()
+                return None
+            want = records[key]
+            groups = sum(-(-(b - a) // 128) for a, b in m.tp.pieces)
+            err = (y.float() - want.float()).abs().max().item()
+            tol = (groups + 1) * eps * want.float().abs().max().item()
+            checks.append(dict(linear=name, call=key[2], err=err, tol=tol, ok=err <= tol))
+            return want
+        handles.append(mod.register_forward_pre_hook(pre))
+        if name.endswith(_ROW_LINEARS) and (records is None or getattr(mod, "tp", None)):
+            handles.append(mod.register_forward_hook(post))
+    return out, handles, checks
+
+
+def _tp_serve_run(engine, batch, forced) -> dict:
+    """A prefill of ``batch`` and one decode step per column of ``forced``
+    (B, n) through ``engine``: each step's fp32 logits (B, vocab) stacked,
+    its greedy tokens, its host-clock ms after a device sync, and its K1 /
+    K3 launches by entry point."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+
+    logits, ms, launched = [], [], []
+    with torch.inference_mode():
+        for i in range(forced.shape[1] + 1):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                lg, cache = engine.prefill(batch)
+            else:
+                lg, cache = engine.decode(cache, forced[:, i - 1:i])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            now = launch_counts()
+            launched.append({k: now[k] - before.get(k, 0) for k in now if now[k] != before.get(k, 0)})
+            logits.append(lg.float())
+    logits = torch.stack(logits)
+    return dict(logits=logits, tokens=logits.argmax(dim=-1), ms=ms, launches=launched)
+
+
+def _step_rel(got, want) -> list[float]:
+    """Each step's relative L2 distance of ``got`` from ``want`` (steps on
+    dim 0)."""
+    d = (got.double() - want.double()).flatten(1).norm(dim=1)
+    return (d / want.double().flatten(1).norm(dim=1).clamp_min(1e-30)).tolist()
+
+
+def _tp_serve_work(rank: int, tp) -> dict:
+    """One rank's serving of each TP_PATHS path (module docstring, phase
+    15): per config, the unsharded engine's greedy run on the rank's card
+    (quantized, its linears' inputs and row-parallel outputs recorded,
+    _tp_feed), then the tensor-parallel engine teacher-forced on its
+    tokens, unfed (counts set to 0 just before, read just after) and,
+    quantized, fed; the logits' gaps per step, the tokens, the step times
+    and launches, and the held row-parallel outputs."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import init_lm
+    from repro_torch.parallel.tensor import tensor_parallel
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for arch in TP_PATHS:
+        out[arch] = {}
+        for tag, cfg in _tp_configs(arch).items():
+            gen = torch.Generator(device="cuda").manual_seed(29)
+            tokens = torch.randint(0, cfg.vocab, (TP_SERVE_BATCH, TP_SERVE_PROMPT), generator=gen,
+                                   device="cuda")
+            batch = lm_inputs(cfg, tokens, gen, TP_SERVE_SRC)
+            max_len = TP_SERVE_PROMPT + TP_SERVE_STEPS + 1
+            torch.cuda.empty_cache()
+            full = init_lm(cfg, seed=0, device="cuda")
+            records, handles, _ = _tp_feed(full) if tag == "pallas" else (None, [], [])
+            # the unsharded engine's greedy tokens, one decode step at a time
+            engine = ServeEngine(cfg, full, max_len=max_len, device="cuda")
+            with torch.inference_mode():
+                lg, cache = engine.prefill(batch)
+                greedy, ref_logits = [lg.argmax(dim=-1)[:, None]], [lg.float()]
+                for _ in range(TP_SERVE_STEPS):
+                    lg, cache = engine.decode(cache, greedy[-1])
+                    greedy.append(lg.argmax(dim=-1)[:, None])
+                    ref_logits.append(lg.float())
+            for h in handles:
+                h.remove()
+            forced = torch.cat(greedy[:-1], dim=1)
+            ref_logits = torch.stack(ref_logits)
+            del full, engine, cache, lg
+            torch.cuda.empty_cache()
+            model = tensor_parallel(init_lm(cfg, seed=0, device="cuda"), tp)
+            engine = ServeEngine(cfg, model, max_len=max_len)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            run = _tp_serve_run(engine, batch, forced)
+            launches = launch_counts()
+            r = dict(launches={k: n for k, n in launches.items() if n},
+                     step_launches=run["launches"], prefill_ms=run["ms"][0],
+                     decode_ms=run["ms"][1:], gap=_step_rel(run["logits"], ref_logits),
+                     tokens=run["tokens"].tolist(), forced=forced.tolist(),
+                     greedy_equal=float((run["tokens"][:-1].t() == forced).float().mean()),
+                     finite=bool(torch.isfinite(run["logits"]).all()))
+            if tag == "pallas":
+                _, handles, held = _tp_feed(model, records)
+                fed = _tp_serve_run(engine, batch, forced)
+                for h in handles:
+                    h.remove()
+                r["fed_gap"] = _step_rel(fed["logits"], ref_logits)
+                r["fed_rows"] = dict(calls=len(held), bad=[c for c in held if not c["ok"]],
+                                     worst=max(c["err"] / max(c["tol"], 1e-30) for c in held))
+                del fed, held
+            out[arch][tag] = r
+            del model, engine, run, records, ref_logits
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3984,9 +4303,59 @@ def phase_tensor(results: dict) -> tuple[dict[str, dict[str, int]], list[dict]]:
                   f"{[r[arch]['pallas']['route_flips'] for r in ranks]}; expert stacks "
                   f"{[[c['ok'] for c in r[arch]['pallas']['experts']] for r in ranks]} "
                   f"(outputs, weight gradients, gather, buffer gradient bit for bit)")
+    served = _tp_serve_checks(ranks, smi, bad)
+    res["serve_s"] = [r["serve_s"] for r in ranks]
     if bad:
         raise AssertionError("; ".join(bad))
-    return {arch: ranks[0][arch]["pallas"]["launches"] for arch in TP_PATHS}, rows
+    return {**{arch: ranks[0][arch]["pallas"]["launches"] for arch in TP_PATHS}, **served}, rows
+
+
+def _tp_serve_checks(ranks: list, smi: str, bad: list) -> dict[str, dict[str, int]]:
+    """The tensor phase's serving (:func:`_tp_serve_work`) held: every
+    step's logits within TP_SERVE_AGREE of the unsharded engine's, fp32
+    and quantized fed (the unfed gap printed), finite, the greedy tokens
+    the same on both ranks, and rank 0's K1 / K3 launches of the prefill
+    and of each decode step the closed form (serve_launches; none
+    unquantized).  Prints each rank's prefill and decode ms.  Returns rank
+    0's launches of each path's quantized serving run, by "<arch> serve"."""
+    out = {}
+    for arch in TP_PATHS:
+        q = _tp_configs(arch)["pallas"]
+        want = [serve_launches(q, model_axis=TP_AXIS, prefill=True)] + [
+            serve_launches(q, model_axis=TP_AXIS)] * TP_SERVE_STEPS
+        want = [{k: n for k, n in w.items() if n} for w in want]
+        for r in ranks:
+            for tag in ("fp32", "pallas"):
+                t = r["serve"][arch][tag]
+                fed = (f", fed {max(t['fed_gap']):.3g} ({t['fed_rows']['calls']} row-parallel "
+                       f"outputs held, worst err / tol {t['fed_rows']['worst']:.3g})"
+                       if "fed_gap" in t else "")
+                print(f"tensor serve {arch} rank {r['rank']} {tag} (gloo through the host on one "
+                      f"card: not a TP speed; {smi}): prefill {TP_SERVE_BATCH} x "
+                      f"{TP_SERVE_PROMPT} {t['prefill_ms']:.1f} ms, decode "
+                      f"{statistics.median(t['decode_ms']):.2f} ms/step median "
+                      f"({TP_SERVE_STEPS} steps); logits gap to unsharded max "
+                      f"{max(t['gap']):.3g}{fed}; greedy tokens equal to unsharded "
+                      f"{t['greedy_equal']:.3f}")
+                held = t["gap"] if tag == "fp32" else t["fed_gap"]
+                if not (t["finite"] and max(held) <= TP_SERVE_AGREE):
+                    bad.append(f"serve {arch} rank {r['rank']} {tag}: logits gap {max(held)} "
+                               f"(finite {t['finite']})")
+                if tag == "pallas" and (t["fed_rows"]["bad"] or not t["fed_rows"]["calls"]):
+                    bad.append(f"serve {arch} rank {r['rank']}: row-parallel outputs off the "
+                               f"unsharded ones {t['fed_rows']['bad'][:3]}")
+                if t["tokens"] != ranks[0]["serve"][arch][tag]["tokens"]:
+                    bad.append(f"serve {arch} {tag}: rank {r['rank']}'s tokens differ from rank "
+                               f"0's")
+        r0 = ranks[0]["serve"][arch]
+        if r0["pallas"]["step_launches"] != want:
+            bad.append(f"serve {arch} launches per step {r0['pallas']['step_launches']}, "
+                       f"expected {want}")
+        if r0["fp32"]["launches"]:
+            bad.append(f"serve {arch} fp32 launched {r0['fp32']['launches']}")
+        out[f"{arch} serve"] = r0["pallas"]["launches"]
+    return out
+
 
 
 def main() -> int:

@@ -9,7 +9,15 @@ collectives return at once and move nothing), on fake tensors
 (``FakeTensorMode``: shapes, dtypes and devices, no data, no memory), in
 the launcher's own layout: tensor parallelism over ``model`` and FSDP2
 over ("pod", "data") (``launch.train.shard_model``), the microbatches of
-``choose_microbatch`` and rank 0's slice of the batch.  Rank 0 holds the
+``choose_microbatch`` and rank 0's slice of the batch.  A train cell runs
+``make_train_step``'s step; a serve cell (JAX's ``make_prefill_step`` and
+``make_serve_step``) runs ``lm.prefill`` of ``max(1, B // dp)`` prompts
+of ``seq_len`` tokens into a cache of ``seq_len`` (the encoder-decoder's
+over as many source frames), or ``lm.decode_step`` of one token a row
+against a full cache of ``seq_len`` (the encoder-decoder's cross cache
+over ``SRC_LEN_DECODE`` frames), the rank's part of the cache
+(``lm.cache_spec(..., tp=...)``: its kv heads, not JAX's ``cache_seq``
+over ``model``).  Rank 0 holds the
 largest shard under the port's splits (the first ranks take the extra
 scaling groups; the Mamba2 tail sits on rank 0).  K1 and K3 take their
 shape-only path on fake operands (``kernels.launch.shape_only``).
@@ -17,8 +25,14 @@ shape-only path on fake operands (``kernels.launch.shape_only``).
 For each cell the record (``experiments/torch_dryrun/``) holds, on rank 0:
 
 * ``memory_analysis``: ``argument_bytes`` (parameters, optimizer state
-  and batch), ``output_bytes`` (parameters, optimizer state and metrics
-  after the step), ``temp_bytes`` (the peak less the arguments);
+  and batch; serving: parameters, batch and, decoding, the cache, which
+  JAX donates), ``output_bytes`` (parameters, optimizer state and metrics
+  after the step; serving: the logits and the cache), ``temp_bytes`` (the
+  peak less the arguments);
+* serve cells: ``cache_bytes``, the rank's cache, beside
+  ``cache_bytes_jax_layout``, JAX's per-device cache in closed form
+  (``roofline.cache_bytes_jax_layout``); the roofline's memory term reads
+  the rank's own;
   ``memory_by_kind`` at the peak, and ``peak_bytes`` / ``fits`` against
   the modelled card's memory (:mod:`.trace_counts` counts every storage);
 * ``hlo``: dot FLOPs (total and by operand dtype) and collective wire
@@ -41,23 +55,25 @@ per op whatever the shapes, and a full-depth cell runs up to 10^6 ops.
 So a cell deeper than ``WHOLE_UP_TO`` depth
 units is traced at 2 and 3 units, one with more microbatches at 2 and 3
 microbatches (``POINTS``), and every count is carried to the cell's depth
-and microbatch count: each depth unit adds the same ops, and each
-microbatch the same ops as the one before.  A depth unit is one layer
+and microbatch count: each depth unit adds the same ops (and, serving, the same cache
+bytes), and each microbatch the same ops as the one before.  A depth unit is one layer
 (dense, moe, ssm), one segment of ``attn_every`` Mamba2 layers with its
 shared-block use (hybrid, the tail kept), or an encoder and a decoder
 layer (encdec with equal stacks).  Counts are carried linearly in both;
 the peak linearly in the depth at the last microbatch count traced, then
 each further microbatch adds its input rows.  The points skip the first
 unit and the first two microbatches, whose peaks are not on the line.
-The record names its traces (``hlo.traced``).  ``trace_cell(...,
+A stacked cache tensor's bytes are whole allocator blocks, which are
+not linear in the depth: an extended serve cell's byte counts lie within
+512 B per cache tensor of a whole trace's.  The record names its traces
+(``hlo.traced``).  ``trace_cell(...,
 extend=False)`` traces a cell whole: ``tests/test_torch_dryrun_extension.py``
 holds the extension equal to it, exactly, for every family.
 
-Cells the port does not run are recorded, not crashed on: serve shapes
-(``"not_ported"``: serving under a model axis, ROADMAP queue 1) and
-layouts ``analysis.lint.lint_tensor_parallel`` refuses at model 16
-(``"refused"``, its message: heads, scaling groups or a vocabulary the
-axis does not divide).
+Cells whose layout ``analysis.lint.lint_tensor_parallel`` refuses at
+model 16 are recorded, not crashed on (``"refused"``, its message: heads,
+scaling groups or a vocabulary the axis does not divide), train and serve
+cells alike.
 
 Usage::
 
@@ -90,17 +106,14 @@ from repro_torch.parallel import DEFAULT_RULES, MeshShape
 
 from . import roofline as rf
 from .mesh import PRODUCTION_SHAPES, make_production_mesh
-from .specs import choose_microbatch
+from .specs import SRC_LEN_DECODE, choose_microbatch
 from .trace_counts import StepCounter, mesh_dims
 
-__all__ = ["OUT_DIR", "SERVE_NOT_PORTED", "SEQ_SHARD_NOT_PORTED", "depth_units", "run_cell",
-           "trace_step"]
+__all__ = ["OUT_DIR", "SEQ_SHARD_NOT_PORTED", "depth_units", "run_cell", "trace_cell",
+           "trace_serve", "trace_step"]
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
                        "torch_dryrun")
-SERVE_NOT_PORTED = ("serving under a model axis is not ported (ROADMAP queue 1: "
-                    "models/lm.py _no_tp raises on a tensor-parallel model's prefill and "
-                    "decode)")
 SEQ_SHARD_NOT_PORTED = ("sequence parallelism (SP_RULES, seq_shard=True) is not ported "
                         "(ROADMAP queue 1): the port's tensor-parallel layers keep the "
                         "residual stream whole on every rank")
@@ -151,7 +164,8 @@ def _extend(traces: dict[tuple[int, int], dict], units: int, parts: int) -> dict
     keys = [(k, m) for m in ms for k in ks]
     weights = [wk[ks.index(k)] * wm[ms.index(m)] for k, m in keys]
     out = {name: _combine([traces[key][name] for key in keys], weights)
-           for name in ("hlo", "argument_bytes", "output_bytes", "launches", "inputs_bytes")}
+           for name in ("hlo", "argument_bytes", "output_bytes", "launches", "inputs_bytes",
+                        "cache_bytes")}
     # the peak: linear in the depth at the last microbatch count traced,
     # then each further microbatch adds its input rows
     last = ms[-1]
@@ -186,13 +200,36 @@ def _batch(cfg: ModelConfig, rows: int, seq: int, device: str) -> dict[str, torc
     return out
 
 
+def _laid_out(cfg: ModelConfig, device: str, fake: bool, mesh):
+    """A model of ``cfg`` on ``device`` (under the active fake mode, or real
+    from seed 0), laid out by ``shard_model`` over ``mesh`` where given."""
+    from repro_torch.models import lm
+
+    from .train import shard_model
+
+    if fake:
+        with torch.device(device):
+            model = lm.LM(cfg)
+    else:
+        model = lm.init_lm(cfg, seed=0, device=device)
+    if mesh is not None:
+        shard_model(model, mesh)
+    return model
+
+
+def _register_parameters(counter: StepCounter, model) -> None:
+    from repro_torch.train.trainer import local_params
+
+    counter.register(list(local_params(model).values()) + list(model.buffers()), "Parameter")
+
+
 def trace_step(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None,
                device: str | None = None, fake: bool = True) -> dict[str, Any]:
     """One ``make_train_step`` step of a model of ``cfg`` on ``rows`` fake
     sequences of ``seq`` tokens in ``microbatch`` parts (0 or 1: one),
     counted by :class:`~.trace_counts.StepCounter`: ``{"hlo",
-    "argument_bytes", "output_bytes", "inputs_bytes", "peak_bytes",
-    "peak_by_kind", "launches", "seconds"}``.  With ``mesh`` (a
+    "argument_bytes", "output_bytes", "inputs_bytes", "cache_bytes" (0),
+    "peak_bytes", "peak_by_kind", "launches", "seconds"}``.  With ``mesh`` (a
     ``DeviceMesh`` over a fake process group) the model is laid out as the
     launcher lays it out (``shard_model``); without, unsharded, as one
     card trains it.  ``device``: the fake tensors' ("cuda" when a card is
@@ -201,11 +238,7 @@ def trace_step(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels import launch
-    from repro_torch.models import lm
     from repro_torch.train import make_train_step
-    from repro_torch.train.trainer import local_params
-
-    from .train import shard_model
 
     device = device or _fake_device()
     run = RunConfig(model=cfg, shape=ShapeConfig("dryrun", seq, rows, "train"),
@@ -215,17 +248,10 @@ def trace_step(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None
     recorded0 = collections.Counter(launch.RECORDED)
     counter = StepCounter(mesh_dims(mesh) if mesh is not None else None)
     with FakeTensorMode() if fake else contextlib.nullcontext():
-        if fake:
-            with torch.device(device):
-                model = lm.LM(cfg)
-        else:
-            model = lm.init_lm(cfg, seed=0, device=device)
-        if mesh is not None:
-            shard_model(model, mesh)
+        model = _laid_out(cfg, device, fake, mesh)
         batch = _batch(cfg, rows, seq, device)
         with counter:
-            counter.register(list(local_params(model).values()) + list(model.buffers()),
-                             "Parameter")
+            _register_parameters(counter, model)
             counter.register(list(batch.values()), "Inputs")
             opt = opt_init(model)  # an argument of the step, as JAX's eval_shape(opt_init)
             counter.register([*opt.mu.values(), *opt.nu.values()], "Optstate")
@@ -234,14 +260,68 @@ def trace_step(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None
             model, opt, metrics = train_step(model, opt, batch)
             outputs = counter.live["Parameter"] + counter.live["Optstate"] + sum(
                 counter.storage_bytes(t) for t in metrics.values())
+    return _counts(counter, recorded0, arguments, outputs, inputs, 0, t0)
+
+
+def _counts(counter: StepCounter, recorded0, arguments: int, outputs: int, inputs: int,
+            cache: int, t0: float) -> dict[str, Any]:
+    from repro_torch.kernels import launch
+
     recorded = launch.RECORDED - recorded0
     launches: collections.Counter = collections.Counter()
     for key, n in recorded.items():
         launches[key[0]] += n
     return {"hlo": counter.hlo(recorded), "argument_bytes": arguments,
-            "output_bytes": outputs, "inputs_bytes": inputs, "peak_bytes": counter.peak,
-            "peak_by_kind": dict(counter.peak_by_kind), "launches": dict(launches),
-            "seconds": time.time() - t0}
+            "output_bytes": outputs, "inputs_bytes": inputs, "cache_bytes": cache,
+            "peak_bytes": counter.peak, "peak_by_kind": dict(counter.peak_by_kind),
+            "launches": dict(launches), "seconds": time.time() - t0}
+
+
+def trace_serve(cfg: ModelConfig, rows: int, seq: int, kind: str, mesh=None,
+                device: str | None = None, fake: bool = True) -> dict[str, Any]:
+    """One serving step of a model of ``cfg``, counted as :func:`trace_step`
+    counts a train step: ``kind`` "prefill", ``lm.prefill`` of ``rows``
+    prompts of ``seq`` tokens (the encoder-decoder's over ``seq`` source
+    frames) into a new cache of ``seq`` positions; "decode",
+    ``lm.decode_step`` of one token a row against a full cache of ``seq``
+    positions (its last slot written; the encoder-decoder's cross K/V of
+    ``SRC_LEN_DECODE`` frames), the cache an argument (kind ``"Cache"``).
+    Laid out as :func:`trace_step` lays a model out; ``cache_bytes``: the
+    rank's cache, exactly."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import launch
+    from repro_torch.models import lm
+
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"a serving step is a prefill or a decode, not {kind!r}")
+    device = device or _fake_device()
+    t0 = time.time()
+    recorded0 = collections.Counter(launch.RECORDED)
+    counter = StepCounter(mesh_dims(mesh) if mesh is not None else None)
+    with FakeTensorMode() if fake else contextlib.nullcontext():
+        model = _laid_out(cfg, device, fake, mesh)
+        if kind == "prefill":
+            batch, cache = _batch(cfg, rows, seq, device), {}
+        else:
+            batch = {"tokens": torch.zeros((rows, 1), dtype=torch.int64, device=device)}
+            cache = lm.init_cache(cfg, rows, seq, device, SRC_LEN_DECODE, model.tp)
+            cache["pos"] = seq - 1
+        with counter:
+            _register_parameters(counter, model)
+            counter.register(list(batch.values()), "Inputs")
+            tensors = [t for t in cache.values() if isinstance(t, torch.Tensor)]
+            counter.register(tensors, "Cache")
+            arguments = counter.current()
+            inputs = counter.live["Inputs"]
+            if kind == "prefill":
+                logits, cache = lm.prefill(model, batch, seq)
+            else:
+                logits, cache = lm.decode_step(model, cache, batch["tokens"])
+            tensors = [t for t in cache.values() if isinstance(t, torch.Tensor)]
+            outputs = sum(counter.storage_bytes(t) for t in [logits, *tensors])
+    cache_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    return _counts(counter, recorded0, arguments, outputs, inputs, cache_bytes, t0)
 
 
 # The depth units and microbatch counts an extended dim is traced at: past
@@ -254,9 +334,11 @@ WHOLE_UP_TO = sum(POINTS)
 
 
 def trace_cell(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None,
-               extend: bool = True, device: str | None = None) -> dict[str, Any]:
-    """:func:`trace_step` of the whole cell, or (``extend``) its counts
-    carried from traces at ``POINTS`` depth units and microbatches
+               extend: bool = True, device: str | None = None,
+               kind: str = "train") -> dict[str, Any]:
+    """:func:`trace_step` (``kind`` "train") or :func:`trace_serve` ("prefill",
+    "decode"; no microbatches) of the whole cell, or (``extend``) its
+    counts carried from traces at ``POINTS`` depth units and microbatches
     (module docstring); ``traced``: the ``[n_layers, microbatches]`` of
     each trace, ``extended``: whether it was carried."""
     parts = max(1, microbatch)
@@ -269,8 +351,11 @@ def trace_cell(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None
     for m in ms:
         for k in ks:
             c = cfg if k == units else at(k)
-            traces[(k, m)] = trace_step(c, rows // parts * m, seq, m if m > 1 else 0, mesh,
-                                        device)
+            if kind == "train":
+                traces[(k, m)] = trace_step(c, rows // parts * m, seq, m if m > 1 else 0, mesh,
+                                            device)
+            else:
+                traces[(k, m)] = trace_serve(c, rows, seq, kind, mesh, device)
             traces[(k, m)]["cfg"] = c
     out = _extend(traces, units, parts)
     out["traced"] = [[t["cfg"].n_layers, m] for (k, m), t in sorted(traces.items())]
@@ -309,13 +394,14 @@ def run_cell(
     verbose: bool = True,
     cfg_updates: dict[str, Any] | None = None,
     seq_shard: bool = False,
+    device: str | None = None,
 ) -> dict[str, Any]:
     """Trace one cell; returns (and writes) its record (module docstring).
 
     ``cfg_updates``: ModelConfig field overrides.  ``rules``: the layout's
     rule table (only ``DEFAULT_RULES``: the launcher's).  ``seq_shard``
     raises ``NotImplementedError`` (sequence parallelism, ROADMAP queue
-    1)."""
+    1).  ``device``: the fake tensors' (:func:`trace_step`)."""
     from repro_torch.analysis.lint import lint_tensor_parallel
 
     if seq_shard:
@@ -335,20 +421,23 @@ def run_cell(
         "n_devices": n_dev, "tag": tag,
     }
     model_axis = dict(zip(axes, sizes))["model"]
-    lint = lint_tensor_parallel(cfg, model_axis) if shape.kind == "train" else None
-    if lint is None:
-        record.update(status="not_ported", reason=SERVE_NOT_PORTED)
-    elif not lint.ok:
+    lint = lint_tensor_parallel(cfg, model_axis)
+    if not lint.ok:
         record.update(status="refused", reason="; ".join(lint.errors))
     else:
-        mb = (choose_microbatch(cfg, shape, mesh_shape) if microbatch is None
-              else microbatch)
+        mb = 0
+        if shape.kind == "train":
+            mb = (choose_microbatch(cfg, shape, mesh_shape) if microbatch is None
+                  else microbatch)
+            record["microbatch"] = mb
         dp = n_dev // model_axis
         rows = max(1, shape.global_batch // dp)
+        device = device or _fake_device()
         with fake_world(n_dev):
-            mesh = make_production_mesh(multi_pod=multi_pod, device_type=_fake_device())
-            counts = trace_cell(cfg, rows, shape.seq_len, mb, mesh)
-        record.update(status="ran", microbatch=mb, lint_warnings=lint.warnings)
+            mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
+            counts = trace_cell(cfg, rows, shape.seq_len, mb, mesh, device=device,
+                                kind=shape.kind)
+        record.update(status="ran", rows=rows, lint_warnings=lint.warnings)
         _fill(record, counts, cfg, shape, mesh_shape)
     if verbose:
         _say(record)
@@ -376,6 +465,9 @@ def _fill(record: dict, counts: dict, cfg: ModelConfig, shape: ShapeConfig, mesh
                                "bytes_accessed_raw": None}
     record["lower_s"] = round(counts["seconds"], 2)
     record["compile_s"] = None
+    if shape.kind != "train":
+        record["cache_bytes"] = counts["cache_bytes"]
+        record["cache_bytes_jax_layout"] = rf.cache_bytes_jax_layout(cfg, shape, mesh)
     record["roofline"] = rf.roofline_terms(cfg, shape, mesh, record)
     record["peak_bytes"] = peak
     record["modelled_device"] = modelled_card()
@@ -390,7 +482,9 @@ def _say(record: dict) -> None:
         print(f"{head}: {record['status']}: {record['reason']}", flush=True)
         return
     r = record["roofline"]
-    print(f"{head}: trace {record['lower_s']}s, mb {record['microbatch']}, peak "
+    mb = f"mb {record['microbatch']}" if "microbatch" in record else (
+        f"cache {record['cache_bytes'] / 2**30:.2f} GiB")
+    print(f"{head}: trace {record['lower_s']}s, {mb}, peak "
           f"{record['peak_bytes'] / 2**30:.2f} GiB (fits {record['fits']}), "
           f"compute {r['compute_s']:.2e}s mem {r['memory_s']:.2e}s "
           f"coll {r['collective_s']:.2e}s -> {r['bottleneck']} "
@@ -424,8 +518,8 @@ def main(argv: list[str] | None = None) -> int:
             except Exception as e:  # noqa: BLE001 -- a failed cell is a bug
                 traceback.print_exc()
                 failures.append((arch, shape, mp, repr(e)))
-    print(f"\n{status['ran']} ran, {status['refused']} refused, {status['not_ported']} not "
-          f"ported, {len(failures)} failed, of {len(cells) * len(meshes)} cells")
+    print(f"\n{status['ran']} ran, {status['refused']} refused, {len(failures)} failed, of "
+          f"{len(cells) * len(meshes)} cells")
     for f in failures:
         print("  FAILED", f)
     return 1 if failures else 0

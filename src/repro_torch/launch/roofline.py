@@ -26,8 +26,8 @@ from typing import Any
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.parallel.sharding import axis_sizes
 
-__all__ = ["HBM_BW", "HBM_BYTES", "LINK_BW", "PEAK_FLOPS", "expected_hlo_flops", "hbm_bytes",
-           "model_flops", "roofline_terms"]
+__all__ = ["HBM_BW", "HBM_BYTES", "LINK_BW", "PEAK_FLOPS", "cache_bytes_jax_layout",
+           "expected_hlo_flops", "hbm_bytes", "model_flops", "roofline_terms"]
 
 PEAK_FLOPS = 989e12  # dense bf16 tensor-core FLOP/s (H100 SXM data sheet)
 HBM_BW = 3.35e12  # HBM3 bytes/s (H100 SXM data sheet)
@@ -54,7 +54,8 @@ def expected_hlo_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     return mf
 
 
-def hbm_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh, microbatch: int = 0) -> float:
+def hbm_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh, microbatch: int = 0,
+              cache_bytes: float | None = None) -> float:
     """Per-device HBM traffic model (bytes a step), JAX's:
 
     train : params {2 B forward read + 2 B backward read + 4 B gradient
@@ -62,7 +63,10 @@ def hbm_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh, microbatch: int = 0) -
             FSDP x TP shards, the residual carry written and read in the
             forward and again in the backward, and the logits twice;
     decode: params read (2 B) + the cache;
-    prefill: params read + activations + the cache written."""
+    prefill: params read + activations + the cache written.
+
+    ``cache_bytes``: the device's cache (the port's rank's, as the dry run
+    traced it); None: JAX's layout (:func:`cache_bytes_jax_layout`)."""
     sizes = axis_sizes(mesh)
     dp = sizes.get("data", 1) * sizes.get("pod", 1)
     param_shards = sizes.get("data", 1) * sizes.get("model", 1)  # FSDP x TP
@@ -76,15 +80,19 @@ def hbm_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh, microbatch: int = 0) -
         act_bytes = act * layers * 4
         logits = b_loc * shape.seq_len * cfg.vocab * 4 / sizes.get("model", 1)
         return params_bytes + act_bytes + 2 * logits
+    cache = cache_bytes_jax_layout(cfg, shape, mesh) if cache_bytes is None else cache_bytes
     if shape.kind == "prefill":
         params_bytes = n / param_shards * 2
         act_bytes = b_loc * shape.seq_len * d * 2 * layers * 2
-        return params_bytes + act_bytes + _cache_bytes(cfg, shape, mesh)
-    return n / param_shards * 2 + _cache_bytes(cfg, shape, mesh)
+        return params_bytes + act_bytes + cache
+    return n / param_shards * 2 + cache
 
 
-def _cache_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh) -> float:
-    """The decode cache's bytes per device (read once a step)."""
+def cache_bytes_jax_layout(cfg: ModelConfig, shape: ShapeConfig, mesh) -> float:
+    """The decode cache's bytes per device in JAX's layout (read once a
+    step): the whole cache over every device, as ``cache_seq`` on
+    ``model`` and ``batch`` on ("pod", "data") spread it (JAX's
+    ``_cache_bytes``)."""
     n_dev = math.prod(axis_sizes(mesh).values())
     b = shape.global_batch
     if cfg.family in ("dense", "moe", "encdec"):
@@ -108,7 +116,8 @@ def roofline_terms(cfg: ModelConfig, shape: ShapeConfig, mesh,
     n_dev = math.prod(axis_sizes(mesh).values())
     flops_dev = record["hlo"]["dot_flops"]
     coll_bytes_dev = record["hlo"]["coll_bytes"]
-    mem_bytes_dev = hbm_bytes(cfg, shape, mesh, record.get("microbatch", 0))
+    mem_bytes_dev = hbm_bytes(cfg, shape, mesh, record.get("microbatch", 0),
+                              record.get("cache_bytes"))
     compute_s = flops_dev / PEAK_FLOPS
     memory_s = mem_bytes_dev / HBM_BW
     collective_s = coll_bytes_dev / LINK_BW

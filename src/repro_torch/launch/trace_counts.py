@@ -22,7 +22,8 @@ counts, on this rank:
   ``UntypedStorage.resize_`` (FSDP2 frees an unsharded parameter by
   resizing its storage to 0) is followed while the counter is active.
   Kinds are the ``torch.distributed._tools`` trackers' names: tensors
-  the caller registers (``"Parameter"``, ``"Optstate"``, ``"Inputs"``),
+  the caller registers (``"Parameter"``, ``"Optstate"``, ``"Inputs"``,
+  and a serving step's ``"Cache"``),
   FSDP2's all-gather outputs (``"All Gather"``), and what ops make
   outside a backward (``"Activation"``: the forward, the clip, the
   update) or inside one (``"Temp"``).  An op's own scratch, which no
@@ -49,7 +50,8 @@ __all__ = ["BLOCK", "KINDS", "StepCounter", "dtype_name", "kernel_dot_flops", "m
            "wire_bytes", "workspace_bytes"]
 
 BLOCK = 512  # bytes: the CUDA caching allocator's rounding of a block
-KINDS = ("Parameter", "Optstate", "Inputs", "All Gather", "Activation", "Temp", "Workspace")
+KINDS = ("Parameter", "Optstate", "Inputs", "Cache", "All Gather", "Activation", "Temp",
+         "Workspace")
 
 
 def _blocks(n: int) -> int:

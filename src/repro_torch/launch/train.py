@@ -109,10 +109,12 @@ def shard_model(model: lm.LM, mesh) -> lm.LM:
     (:func:`repro_torch.parallel.tensor.tensor_parallel`, this rank's
     coordinate), then HSDP: FSDP2 ``fully_shard`` of
     every layer (and encoder layer), then of the model, over the mesh's
-    ("pod", "data") dims, and ``model.loss`` registered as a forward of the
-    root, so that the trainer's loss runs inside FSDP2's hooks.  The
-    hybrid's shared block runs several times a step and stays in the root's
-    group (gathered for the whole step)."""
+    ("pod", "data") dims, and ``model.loss``, ``model.prefill`` and
+    ``model.decode_step`` registered as forwards of the root (and an
+    encoder-decoder's ``cross_kv`` of each decoder layer), so that the
+    trainer's loss and serving run inside FSDP2's hooks.  The hybrid's
+    shared block runs several times a step and stays in the root's group
+    (gathered for the whole step)."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
     m = axis_sizes(mesh).get("model", 1)
@@ -126,7 +128,11 @@ def shard_model(model: lm.LM, mesh) -> lm.LM:
     for layer in [*model.layers, *(model.enc_layers or ())]:
         fully_shard(layer, mesh=dp)
     fully_shard(model, mesh=dp)
-    register_fsdp_forward_method(model, "loss")
+    for name in ("loss", "prefill", "decode_step"):
+        register_fsdp_forward_method(model, name)
+    if model.cfg.family == "encdec":
+        for layer in model.layers:
+            register_fsdp_forward_method(layer, "cross_kv")
     return model
 
 

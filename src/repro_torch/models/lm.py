@@ -49,14 +49,23 @@ encoder's output) and not at prefill, which computes them once,
 unquantized, into the cache.
 
 Under tensor parallelism over the ``model`` axis
-(:func:`repro_torch.parallel.tensor.tensor_parallel`; every family,
-training only) ``model.tp`` is set: the embedding is a vocab-parallel
-lookup summed over the group, the unquantized LM head is column-parallel
-over vocab (mamba2-370m's tied head too: the slice of ``emb``), and
-:func:`lm_loss` takes a vocab-parallel cross-entropy; the layers (Mamba2
-layers, the hybrid's shared block, the encoder's and the decoder's
-blocks with their cross-attention by the dense rules) hold their heads,
-and an MoE layer its experts (:mod:`repro_torch.models.moe`).
+(:func:`repro_torch.parallel.tensor.tensor_parallel`; every family)
+``model.tp`` is set: the embedding is a vocab-parallel lookup summed over
+the group, the unquantized LM head is column-parallel over vocab
+(mamba2-370m's tied head too: the slice of ``emb``), and :func:`lm_loss`
+takes a vocab-parallel cross-entropy; the layers (Mamba2 layers, the
+hybrid's shared block, the encoder's and the decoder's blocks with their
+cross-attention by the dense rules) hold their heads, and an MoE layer
+its experts (:mod:`repro_torch.models.moe`).  Serving (:func:`prefill`,
+:func:`decode_step`, ``LM.forward``) a rank holds its part of the cache
+(:func:`cache_spec` with ``tp``: the kv heads its query heads read, its
+Mamba2 heads' conv channels and SSM states, its heads of the cross K/V),
+and every rank returns the whole fp32 logits: its vocabulary slice placed
+in zeros and summed over the group (:func:`whole_logits`; exact, ``x + 0
+== x``).  Prefill and decode run as methods of :class:`LM`
+(``LM.prefill``, ``LM.decode_step``), which ``launch.train.shard_model``
+registers as FSDP2 forwards, so that a sharded model's root parameters
+are gathered around them; the module's functions call them.
 
 A cache is a dict of tensors plus ``"pos"`` (a Python int, the next
 position).  :func:`decode_step` writes the KV caches in place (the JAX
@@ -81,7 +90,8 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import QuantConfig, fold_in
 from repro_torch.kernels.launch import in_plain_version
-from repro_torch.parallel.tensor import copy_to_tp, reduce_from_tp, vocab_parallel_ce
+from repro_torch.parallel.tensor import (
+    TAIL_RANK, copy_to_tp, mamba_heads, rank_heads, reduce_from_tp, vocab_parallel_ce)
 from repro_torch.runtime import resolve_device
 
 from . import nn as L
@@ -90,7 +100,8 @@ from .moe import MoE
 from .transformer import MLP, Attention, Block, norm_init
 
 __all__ = ["LM", "MoEBlock", "XDecBlock", "cache_spec", "decode_step", "embed", "gather_view",
-           "init_cache", "init_lm", "lm_loss", "logits_fn", "prefill", "serve_qcfg"]
+           "init_cache", "init_lm", "lm_loss", "logits_fn", "prefill", "serve_qcfg",
+           "whole_logits"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 SRC_LEN = 4096  # encoder positions a cache holds unless told otherwise
@@ -150,6 +161,12 @@ class XDecBlock(nn.Module):
         h = self.mlp(self.ln2(x), qcfg, key)
         return x + h.to(x.dtype)
 
+    def cross_kv(self, memory):
+        """The cross-attention's serving cache of ``memory``
+        (``Attention.cross_kv``): the method a sharded layer's FSDP2 hooks
+        run around (``launch.train.shard_model``)."""
+        return self.xattn.cross_kv(memory)
+
 
 _LAYERS = {"dense": Block, "moe": MoEBlock, "ssm": Mamba2Block, "hybrid": Mamba2Block,
            "encdec": XDecBlock}
@@ -196,14 +213,23 @@ class LM(nn.Module):
 
     def loss(self, batch: dict, key: int | None = None):
         """:func:`lm_loss` of this model: the method a sharded model's FSDP2
-        hooks run around (``launch.train.shard_model``)."""
+        hooks run around (``launch.train.shard_model``), as are
+        :meth:`prefill` and :meth:`decode_step`."""
         return lm_loss(self, batch, key)
+
+    def prefill(self, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
+        """:func:`prefill` of this model."""
+        return _prefill(self, batch, max_len)
+
+    def decode_step(self, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """:func:`decode_step` of this model."""
+        return _decode_step(self, cache, tokens)
 
     def forward(self, batch: dict, window: int | None = None) -> torch.Tensor:
         """Teacher-forced logits of every position, fp32 (B, S, vocab), on
         the config's quantization with nearest rounding; ``window`` bounds
-        the attention (the hybrid's ring buffer in a full-sequence pass)."""
-        _no_tp(self)
+        the attention (the hybrid's ring buffer in a full-sequence pass).
+        Tensor-parallel: the whole vocabulary on every rank."""
         cfg, qcfg = self.cfg, serve_qcfg(self.cfg)
         x = embed(self, batch)
         if cfg.family in ("dense", "moe"):
@@ -214,7 +240,7 @@ class LM(nn.Module):
             x, _ = _hybrid(self, x, qcfg, None, window=window)
         else:
             x = _xdec(self, x, qcfg, None, _encoder(self, batch, qcfg, None))
-        return logits_fn(self, self.final_norm(x))
+        return whole_logits(self, logits_fn(self, self.final_norm(x)))
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda") -> LM:
@@ -232,12 +258,6 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda"
 # ===========================================================================
 # embedding / head
 # ===========================================================================
-def _no_tp(model: LM) -> None:
-    if model.tp is not None:
-        raise NotImplementedError("a tensor-parallel model trains (lm_loss); its serving "
-                                  "path is not ported (ROADMAP queue 1)")
-
-
 def _vocab_start(model: LM, name: str) -> int:
     return model.tp_layout[name].bounds[model.tp.rank][0]
 
@@ -274,6 +294,18 @@ def logits_fn(model: LM, x: torch.Tensor) -> torch.Tensor:
     if model.tp is not None:
         x = copy_to_tp(x, model.tp)
     return x.float() @ head.to(x.dtype).float().t()
+
+
+def whole_logits(model: LM, logits: torch.Tensor) -> torch.Tensor:
+    """The whole vocabulary's logits from :func:`logits_fn`'s: as they are
+    on one device; tensor-parallel, this rank's slice placed in zeros and
+    summed over the model group (exact: every other rank adds zeros), so
+    that every rank holds them whole."""
+    if model.tp is None:
+        return logits
+    v0 = _vocab_start(model, "emb" if model.cfg.tie_embeddings else "lm_head")
+    pad = (v0, model.cfg.vocab - v0 - logits.shape[-1])
+    return reduce_from_tp(torch.nn.functional.pad(logits, pad), model.tp)
 
 
 # ===========================================================================
@@ -473,23 +505,34 @@ def lm_loss(model: LM, batch: dict, key: int | None = None
 # ===========================================================================
 # caches / serving
 # ===========================================================================
-def cache_spec(cfg: ModelConfig, batch: int, max_len: int, src_len: int = SRC_LEN
-               ) -> dict[str, tuple]:
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int, src_len: int = SRC_LEN,
+               tp=None) -> dict[str, tuple]:
     """``{name: (shape, dtype)}`` of the decode cache's tensors; the
     encoder-decoder's also holds the cross-attention K/V ``xk``/``xv`` of
-    ``src_len`` encoder positions."""
+    ``src_len`` encoder positions.  ``tp`` (a ``parallel.tensor.
+    TensorParallel``: its ``rank`` of ``size``): that rank's part under
+    tensor parallelism, the kv heads its query heads read
+    (``rank_heads``), and of a Mamba2 layer its heads' SSM states and the
+    conv channels of their ``x`` (on ``TAIL_RANK`` also ``B``, ``C``)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown LM family {cfg.family!r}; expected one of {FAMILIES}")
     dt = torch_dtype(cfg.compute_dtype)
     hd, kv, n = cfg.hd, cfg.n_kv_heads, cfg.n_layers
+    heads, bc = cfg.ssm_heads, 2 * cfg.ssm_groups * cfg.ssm_state
+    if tp is not None and tp.size > 1:
+        if cfg.n_heads:
+            kv = rank_heads(cfg, tp.size, tp.rank)[1]
+        if cfg.family in ("ssm", "hybrid"):
+            h0, h1 = mamba_heads(cfg, tp.size)[tp.rank]
+            heads, bc = h1 - h0, bc if tp.rank == TAIL_RANK else 0
     if cfg.family in ("dense", "moe", "encdec"):
         spec = {"k": ((n, batch, max_len, kv, hd), dt), "v": ((n, batch, max_len, kv, hd), dt)}
         if cfg.family == "encdec":
             spec.update(xk=((n, batch, src_len, kv, hd), dt), xv=((n, batch, src_len, kv, hd), dt))
         return spec
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    conv_dim = heads * cfg.ssm_headdim + bc
     spec = {"conv": ((n, batch, cfg.ssm_conv - 1, conv_dim), dt),
-            "ssm": ((n, batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state), torch.float32)}
+            "ssm": ((n, batch, heads, cfg.ssm_headdim, cfg.ssm_state), torch.float32)}
     if cfg.family == "hybrid":
         alen = min(max_len, cfg.window) if cfg.window else max_len
         shape = (n // cfg.attn_every, batch, alen, kv, hd)
@@ -498,10 +541,12 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int, src_len: int = SRC_LE
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: str | torch.device = "cuda", src_len: int = SRC_LEN) -> dict:
-    """A zero cache at position 0 on ``device``."""
+               device: str | torch.device = "cuda", src_len: int = SRC_LEN, tp=None) -> dict:
+    """A zero cache at position 0 on ``device`` (``tp``: a rank's part,
+    :func:`cache_spec`)."""
     cache: dict = {name: torch.zeros(shape, dtype=dt, device=device)
-                   for name, (shape, dt) in cache_spec(cfg, batch, max_len, src_len).items()}
+                   for name, (shape, dt) in cache_spec(cfg, batch, max_len, src_len,
+                                                       tp).items()}
     cache["pos"] = 0
     return cache
 
@@ -513,19 +558,23 @@ def serve_qcfg(cfg: ModelConfig) -> QuantConfig | None:
     return None if qcfg is None else dataclasses.replace(qcfg, stochastic=False)
 
 
-@torch.no_grad()
 def prefill(model: LM, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
     """Run the whole prompt ``batch["tokens"]`` (B, S), filling a new cache
     of ``max_len`` positions; returns ``(logits of the last position fp32
     (B, vocab), cache)``.  The encoder-decoder encodes ``batch["src_emb"]``
     and puts each decoder layer's cross K/V of it, unquantized, into the
-    cache."""
-    _no_tp(model)
+    cache.  Tensor-parallel: this rank's cache, the whole logits (module
+    docstring).  Runs ``model.prefill``."""
+    return model.prefill(batch, max_len)
+
+
+@torch.no_grad()
+def _prefill(model: LM, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
     cfg, qcfg = model.cfg, serve_qcfg(model.cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     src_len = batch["src_emb"].shape[1] if "src_emb" in batch else SRC_LEN
-    cache = init_cache(cfg, b, max_len, tokens.device, src_len)
+    cache = init_cache(cfg, b, max_len, tokens.device, src_len, model.tp)
     x = embed(model, batch)
     if cfg.family in ("dense", "moe"):
         x, _ = _dense(model, x, qcfg, None, caches=(cache["k"], cache["v"]))
@@ -538,23 +587,26 @@ def prefill(model: LM, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
             attn_caches=(cache["ak"], cache["av"]))
     else:
         memory = _encoder(model, batch, qcfg, None)
-        kv, hd = cfg.n_kv_heads, cfg.hd
         for i, layer in enumerate(model.layers):  # the cross K/V, once, unquantized
-            cache["xk"][i] = layer.xattn.wk(memory).reshape(b, -1, kv, hd)
-            cache["xv"][i] = layer.xattn.wv(memory).reshape(b, -1, kv, hd)
+            cache["xk"][i], cache["xv"][i] = layer.cross_kv(memory)
         x = _xdec(model, x, qcfg, None, caches=(cache["k"], cache["v"]),
                   cross=(cache["xk"], cache["xv"]))
     cache["pos"] = s
-    return logits_fn(model, model.final_norm(x[:, -1:]))[:, 0], cache
+    return whole_logits(model, logits_fn(model, model.final_norm(x[:, -1:])))[:, 0], cache
+
+
+def decode_step(model: LM, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One serving step: ``tokens`` (B, 1) -> ``(logits fp32 (B, vocab),
+    cache)``, the cache one position further.  Tensor-parallel: this
+    rank's cache, the whole logits (module docstring).  Runs
+    ``model.decode_step``."""
+    return model.decode_step(cache, tokens)
 
 
 @torch.no_grad()
-def decode_step(model: LM, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """One serving step: ``tokens`` (B, 1) -> ``(logits fp32 (B, vocab),
-    cache)``, the cache one position further."""
-    _no_tp(model)
+def _decode_step(model: LM, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     cfg, qcfg = model.cfg, serve_qcfg(model.cfg)
-    x = model.emb[tokens].to(torch_dtype(cfg.compute_dtype))
+    x = embed(model, {"tokens": tokens})
     pos = cache["pos"]
     new_cache = dict(cache)
     if cfg.family in ("dense", "moe"):
@@ -577,4 +629,4 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor) -> tuple[torch.Ten
             attn_caches=(cache["ak"], cache["av"]), cache_pos=wpos, kv_valid=kv_valid,
             positions=positions)  # the ring buffer already bounds the window
     new_cache["pos"] = pos + 1
-    return logits_fn(model, model.final_norm(x))[:, 0], new_cache
+    return whole_logits(model, logits_fn(model, model.final_norm(x)))[:, 0], new_cache

@@ -11,13 +11,16 @@ recurrence.  The state is ``(conv_state (B, K-1, C), ssm_state (B, H, P,
 N))``: the SSM state is fp32, and the conv state is the last ``K-1`` rows
 of the conv input, which comes out of the fp32 projection.
 
-Under tensor parallelism (``parallel.tensor.tensor_parallel``; training
-only) a block holds its heads ``heads = (h0, h1)``: ``in_proj`` is
-column-parallel over its pieces (``z`` and ``x`` of those heads, and on
-``TAIL_RANK`` the tail ``B``, ``C``, ``dt``), the conv and the SSD run on
-the rank's heads, ``TAIL_RANK`` broadcasts ``silu(conv(B, C))`` and the
-raw ``dt``, ``out_norm`` sums its squares over the model group, and
-``out_proj`` is row-parallel.
+Under tensor parallelism (``parallel.tensor.tensor_parallel``) a block
+holds its heads ``heads = (h0, h1)``: ``in_proj`` is column-parallel over
+its pieces (``z`` and ``x`` of those heads, and on ``TAIL_RANK`` the tail
+``B``, ``C``, ``dt``), the conv and the SSD run on the rank's heads,
+``TAIL_RANK`` broadcasts ``silu(conv(B, C))`` and the raw ``dt`` (at every
+step when serving), ``out_norm`` sums its squares over the model group,
+and ``out_proj`` is row-parallel.  Serving, a rank's state is its part:
+the conv state holds the conv channels of its heads' ``x`` (and on
+``TAIL_RANK`` the ``B``, ``C`` channels), the SSM state its heads, ``(B,
+h1 - h0, P, N)`` fp32.
 """
 from __future__ import annotations
 
@@ -100,6 +103,22 @@ def ssd_chunk(s: int, ssm_chunk: int) -> int:
     return chunk
 
 
+def _ssm_scan(xdt, adt, bm, cm, state, ssm_chunk: int):
+    """The SSM over ``xdt`` (B, S, H, P) with log decays ``adt`` (B, S, H)
+    and ``bm``, ``cm`` (B, S, G, N) from ``state`` (B, H, P, N) or zero:
+    ``(y (B, S, H, P), final state)``.  One token with a state is the O(1)
+    decode recurrence, ``state = exp(a dt) * state + B ⊗ x dt; y = C ·
+    state``; anything else the chunked SSD."""
+    s, h = xdt.shape[1], xdt.shape[2]
+    if s != 1 or state is None:
+        return ssd_chunked(xdt, adt, bm, cm, ssd_chunk(s, ssm_chunk), state)
+    da = torch.exp(adt[:, 0])  # (B, H)
+    bmh = bm[:, 0].repeat_interleave(h // bm.shape[2], dim=1)  # (B, H, N)
+    cmh = cm[:, 0].repeat_interleave(h // cm.shape[2], dim=1)
+    new = da[:, :, None, None] * state + torch.einsum("bhn,bhp->bhpn", bmh, xdt[:, 0])
+    return torch.einsum("bhpn,bhn->bhp", new, cmh)[:, None], new
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Depthwise causal conv over the sequence: x (B, S, C), w (C, K) ->
@@ -167,10 +186,7 @@ class Mamba2Block(nn.Module):
         new_state)``; ``new_state`` is None unless ``state`` was given or
         S == 1."""
         if self.tp is not None:
-            if state is not None:
-                raise NotImplementedError("a tensor-parallel Mamba2 layer trains; its serving "
-                                          "path is not ported (ROADMAP queue 1)")
-            return self._forward_tp(x, qcfg, key), None
+            return self._forward_tp(x, qcfg, key, state)
         cfg = self.cfg
         b, s, _ = x.shape
         din, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
@@ -188,26 +204,19 @@ class Mamba2Block(nn.Module):
         xdt = xin.float() * dt[..., None]
         adt = a * dt  # (B, S, H), negative
 
-        ssm_state = state[1] if state is not None else None
-        if s == 1 and state is not None:
-            # O(1) decode: state = exp(a dt) * state + B ⊗ x dt; y = C · state
-            da = torch.exp(adt[:, 0])  # (B, H)
-            bmh = bm[:, 0].repeat_interleave(h // g, dim=1)  # (B, H, N)
-            cmh = cm[:, 0].repeat_interleave(h // g, dim=1)
-            new_ssm = da[:, :, None, None] * ssm_state + torch.einsum(
-                "bhn,bhp->bhpn", bmh, xdt[:, 0])
-            y = torch.einsum("bhpn,bhn->bhp", new_ssm, cmh)[:, None]  # (B, 1, H, P)
-        else:
-            y, new_ssm = ssd_chunked(xdt, adt, bm, cm, ssd_chunk(s, cfg.ssm_chunk), ssm_state)
-
+        y, new_ssm = _ssm_scan(xdt, adt, bm, cm, state[1] if state is not None else None,
+                               cfg.ssm_chunk)
         y = y + self.D[:, None] * xin.float()
         y = self.out_norm(y.reshape(b, s, din) * F.silu(z.float()))
         out = self.out_proj(y.to(x.dtype), qcfg, fold_in(key, 1), wire=1)
         new_state = (new_conv_state, new_ssm) if state is not None or s == 1 else None
         return x + out.to(x.dtype), new_state
 
-    def _forward_tp(self, x: torch.Tensor, qcfg: QuantConfig | None, key: int | None):
-        """The full-sequence forward of this rank's heads (module docstring)."""
+    def _forward_tp(self, x: torch.Tensor, qcfg: QuantConfig | None, key: int | None,
+                    state: tuple[torch.Tensor, torch.Tensor] | None = None):
+        """:meth:`forward` on this rank's heads (module docstring): the
+        full sequence, or with ``state`` (this rank's conv and SSM states)
+        prefill or S == 1 decode."""
         cfg, tp = self.cfg, self.tp
         b, s, _ = x.shape
         n, h, p = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim  # one B/C group
@@ -217,7 +226,8 @@ class Mamba2Block(nn.Module):
         # the rank's z and x, and on TAIL_RANK the tail's B, C (conv channels) and dt
         nt = h if tp.rank == TAIL_RANK else 0
         z, xbc, dt = torch.split(zxbcdt, [dr, zxbcdt.shape[-1] - dr - nt, nt], dim=-1)
-        xbc, _ = _causal_conv(xbc, self.conv_w, self.conv_b)
+        xbc, new_conv_state = _causal_conv(xbc, self.conv_w, self.conv_b,
+                                           state[0] if state is not None else None)
         xbc = F.silu(xbc)
         tail = torch.cat([xbc[..., dr:], dt.float()], dim=-1) if tp.rank == TAIL_RANK else None
         tail = broadcast_from_tp(tail, ((b, s, 2 * n + h), torch.float32), zxbcdt, tp)
@@ -228,12 +238,14 @@ class Mamba2Block(nn.Module):
         dt = torch.logaddexp(dt, torch.zeros_like(dt))  # softplus, (B, S, H_r)
         a = -torch.exp(self.A_log)  # (H_r,)
         xdt = xin.float() * dt[..., None]
-        y, _ = ssd_chunked(xdt, a * dt, bm, cm, ssd_chunk(s, cfg.ssm_chunk))
+        y, new_ssm = _ssm_scan(xdt, a * dt, bm, cm, state[1] if state is not None else None,
+                               cfg.ssm_chunk)
         y = y + self.D[:, None] * xin.float()
         y = _rmsnorm_tp(y.reshape(b, s, dr) * F.silu(z.float()), self.out_norm.gamma,
                         cfg.d_inner, tp)
         out = self.out_proj(y.to(x.dtype), qcfg, fold_in(key, 1), wire=1)
-        return x + out.to(x.dtype)
+        new_state = (new_conv_state, new_ssm) if state is not None or s == 1 else None
+        return x + out.to(x.dtype), new_state
 
 
 def _rmsnorm_tp(x: torch.Tensor, gamma: torch.Tensor, d: int, tp, eps: float = 1e-6):

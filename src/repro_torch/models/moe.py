@@ -21,8 +21,8 @@ expert order starting from 0.0, the order in which the JAX package's
 ``k`` adds, deterministic on the card (``index_add_`` there adds with
 atomics in no fixed order).
 
-Under tensor parallelism (``parallel.tensor.tensor_parallel``; training
-only) the expert stacks split over the model axis in whole experts, the
+Under tensor parallelism (``parallel.tensor.tensor_parallel``) the
+expert stacks split over the model axis in whole experts, the
 JAX package's ``expert -> model`` (``MoE.experts``: this rank's ``[e0,
 e1)``; None where the stacks stay replicated).  Every rank holds the
 MoE's input whole and computes the routing, the aux loss, the dispatch
@@ -35,7 +35,8 @@ as the rank's slice).  The combine then runs on every rank and gives the
 unsharded one bit for bit; the router's gradient and the aux loss come
 out whole.  A rank's experts draw their rounding offsets at the whole
 stack's shape (``lowbit_matmul_stack``'s ``experts``), so they quantize
-as in the unsharded stack.  The shared expert is an :class:`MLP` split by
+as in the unsharded stack.  Serving, the same path runs on a prefill's
+rows and on a decode step's (one token a row, the unsharded capacity).  The shared expert is an :class:`MLP` split by
 the dense rules.
 """
 from __future__ import annotations

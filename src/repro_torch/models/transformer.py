@@ -11,14 +11,18 @@ MLP.  Dtypes follow the JAX package: the linears return fp32, rotary
 embeddings and attention run in fp32, the KV cache holds the compute dtype,
 and each residual add is in the input's dtype.
 
-Under tensor parallelism (``parallel.tensor.tensor_parallel``; training
-only) a rank holds its query heads (and kv heads, or all of them where
-they do not split) and its slice of the MLP's hidden dim: the input passes
+Under tensor parallelism (``parallel.tensor.tensor_parallel``) a rank
+holds its query heads (and kv heads, or all of them where they do not
+split) and its slice of the MLP's hidden dim: the input passes
 ``copy_to_tp`` into the column-parallel ``wq``/``wk``/``wv``/``w_up``/
 ``w_gate``, and the row-parallel ``wo``/``w_down`` sum over the group.
 Cross-attention's ``wk``/``wv`` are column-parallel over the kv heads on
 ``copy_to_tp(kv)`` (each rank's heads add a part of the source's
 gradient), or replicated on ``kv`` where the kv heads do not split.
+Serving, a rank's KV cache and cross-attention cache hold only the kv
+heads its query heads read (``heads[1]`` of them: the rank's split, or
+the ``kv_take`` slice of the replicated ones), written after the
+column-parallel ``wk``/``wv`` (and the slice).
 """
 from __future__ import annotations
 
@@ -110,9 +114,6 @@ class Attention(nn.Module):
         hq, hkv = self.heads
         xq = x
         if self.tp is not None:
-            if cache is not None or cross_cache is not None:
-                raise NotImplementedError("tensor-parallel attention trains: its KV caches "
-                                          "are not ported (ROADMAP queue 1)")
             xq = copy_to_tp(x, self.tp)
         q = self.wq(xq, qcfg, fold_in(key, 0), wire=0).reshape(b, s, hq, hd)
         q_chunk = 1024 if s > 4096 else None
@@ -162,6 +163,18 @@ class Attention(nn.Module):
 
         out = out.reshape(b, s, hq * hd).to(x.dtype)
         return self.wo(out, qcfg, fold_in(key, 3), wire=1)
+
+    def cross_kv(self, memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The cross-attention K/V of the encoder's output ``memory`` (B,
+        Sk, d), unquantized, (B, Sk, KV, hd) each: this rank's kv heads
+        under tensor parallelism (a serving cache's ``cross_cache``)."""
+        b, sk, _ = memory.shape
+        hd = self.cfg.hd
+        k, v = self.wk(memory), self.wv(memory)
+        if self.kv_take is not None:
+            kv0, kv1 = self.kv_take
+            k, v = k.reshape(b, sk, -1, hd)[:, :, kv0:kv1], v.reshape(b, sk, -1, hd)[:, :, kv0:kv1]
+        return k.reshape(b, sk, self.heads[1], hd), v.reshape(b, sk, self.heads[1], hd)
 
 
 class MLP(nn.Module):

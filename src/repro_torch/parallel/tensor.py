@@ -75,8 +75,11 @@ family's encoder blocks, self-attention, cross-attention and MLPs split
 by the dense rules (cross-attention's ``wk``/``wv`` column-parallel over
 the encoder's output); ``frontend_proj`` stays replicated.
 
-Training only: serving a tensor-parallel model raises (its KV and
-cross-attention caches wait, ROADMAP queue 1).  The only collectives are
+Serving, a rank holds its part of the caches (``models.lm.cache_spec``
+with ``tp``: the kv heads its query heads read, its Mamba2 heads' states,
+its heads of the cross-attention K/V), and the logits are gathered whole
+on every rank by an all-reduce SUM of each rank's vocabulary slice placed
+in zeros (``models.lm.whole_logits``; exact).  The only collectives are
 ``all_reduce`` (SUM, MAX), which gloo runs on CUDA tensors too.
 """
 from __future__ import annotations

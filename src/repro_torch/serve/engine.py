@@ -5,6 +5,13 @@ nearest (no stochastic-rounding key), per :func:`repro_torch.models.lm.
 decode_step`.  Sampling is greedy (argmax) or, given a ``torch.Generator``,
 at a temperature; the JAX engine's ``categorical(fold_in(key, i))`` stream
 cannot be reproduced, so sampled tokens differ from its tokens.
+
+A tensor-parallel model (``parallel.tensor.tensor_parallel``, or
+``launch.train.shard_model``) is served as it is placed: every rank runs
+the engine on its part, and every rank's logits are the whole
+vocabulary's, equal on every rank, so greedy decoding gives the same
+tokens on every rank; sampling at a temperature does where every rank
+seeds its generator alike.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ __all__ = ["ServeEngine"]
 class ServeEngine:
     """Serves ``model`` (an :class:`~repro_torch.models.lm.LM` of ``cfg``)
     on ``device``, CUDA unless the caller asks for the CPU; the model is
-    moved there."""
+    moved there, unless it is tensor-parallel or sharded by FSDP2: then it
+    stays where it was placed and ``device`` is its own."""
 
     cfg: ModelConfig
     model: lm.LM
@@ -34,8 +42,13 @@ class ServeEngine:
         if self.model.cfg != self.cfg:
             raise ValueError(f"the model was built for {self.model.cfg.name}, not "
                              f"{self.cfg.name} as configured")
-        self.device = resolve_device(self.device)
-        self.model = self.model.to(self.device)
+        from torch.distributed.fsdp import FSDPModule
+
+        if self.model.tp is not None or isinstance(self.model, FSDPModule):
+            self.device = next(self.model.parameters()).device
+        else:
+            self.device = resolve_device(self.device)
+            self.model = self.model.to(self.device)
 
     def prefill(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """``(last-position logits (B, vocab), cache)`` of the prompts."""

@@ -1,13 +1,14 @@
-"""The dry run (``repro_torch.launch.dryrun``): train cells of the
-production meshes traced on fake tensors under a fake process group, with
-rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
+"""The dry run (``repro_torch.launch.dryrun``): train and serve cells of
+the production meshes traced on fake tensors under a fake process group,
+with rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
 ``launch/dryrun.py`` and against closed forms.
 
 - **Against JAX.**  JAX's ``run_cell`` runs in a subprocess (its XLA device
-  count is fixed at import), on mamba2-370m and chatglm3-6b at train_4k,
-  16x16, two layers; mamba2-370m's vocabulary is 50304 there, since the
-  port's lint refuses its 50280 over a model axis of 16 (JAX keeps that
-  vocabulary replicated).  ``microbatch``, ``n_devices`` and ``mesh`` are
+  count is fixed at import), on mamba2-370m and chatglm3-6b at train_4k
+  and on chatglm3-6b at prefill_32k and decode_32k, 16x16, two layers;
+  mamba2-370m's vocabulary is 50304 there, since the port's lint refuses
+  its 50280 over a model axis of 16 (JAX keeps that vocabulary
+  replicated).  ``microbatch`` (train), ``n_devices`` and ``mesh`` are
   equal.  The raw ratios are printed.  The port's rank 0 runs dots and
   holds tensors a JAX device does not, by design, each named with its
   closed form (:func:`by_design`): the kv heads a model axis of 16 does
@@ -15,8 +16,11 @@ rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
   port's group-aligned split gives rank 0 the extra scaling groups (and,
   of a Mamba2 layer, the in_proj's tail); PyTorch's full remat recomputes
   each residual branch's last GEMM, whose output no backward rule reads
-  (XLA drops it).  Less those, ``dot_flops`` is within 5% of JAX's and
-  ``argument_bytes`` within 10% (seen: 0.0-1.3% and 0.1-5.5%).
+  (XLA drops it); serving, a rank's cache holds the kv heads its query
+  heads read over the whole sequence, where JAX splits the cache's
+  sequence over ``model`` (:func:`cache_by_design`).  Less those,
+  ``dot_flops`` is within 5% of JAX's and ``argument_bytes`` within 10%
+  (seen: 0.0-1.3% and 0.1-5.5% train, 0.0% and 0.2-1.2% serving).
 - **Closed forms.**  ``argument_bytes`` is the sum of rank 0's shards
   (``tp_layout``, then FSDP2's dim-0 split, in 512-byte blocks) for the
   parameters and both AdamW moments, plus the batch, exactly; the wire
@@ -25,7 +29,8 @@ rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
   formulas (``analysis/hlo_parser.py``) in closed form, each on its mesh dim.
 - **Fake against real.**  On smoke configs with fake-quant on the CPU,
   under a fake world of 4 (data 2 x model 2), the fake run's counts and
-  tracked peak equal a run of the same step on real CPU tensors.
+  tracked peak equal a run of the same step on real CPU tensors, a train
+  step, a prefill and a decode step alike.
 - **The shape-only branch.**  On fake ``cuda`` operands K1 (one call and
   split entries) and K3 allocate the card branch's outputs (shapes,
   dtypes, device), K3's ordered-split workspace included, and record the
@@ -34,7 +39,8 @@ rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
   tensor still takes the plain version; K2's and K4's wrappers refuse
   fake operands.
 - **Cells not run** are recorded: yi-34b at 16x16 ``"refused"`` with the
-  lint's message, a decode cell ``"not_ported"``; ``seq_shard`` raises.
+  lint's message, at train_4k and at decode_32k; a serve cell of an arch
+  the lint admits ``"ran"``; ``seq_shard`` raises.
 
 ``tests/test_torch_dryrun_extension.py`` holds the depth and microbatch
 extension equal to whole traces.
@@ -68,6 +74,7 @@ from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.specs import abstract_params  # noqa: E402
 from repro_torch.launch.trace_counts import StepCounter, mesh_dims  # noqa: E402
 from repro_torch.launch.train import tp_smoke  # noqa: E402
+from repro_torch.models.lm import cache_spec as lm_cache_spec  # noqa: E402
 from repro_torch.parallel import MeshShape  # noqa: E402
 from repro_torch.parallel.specs import param_shardings  # noqa: E402
 from repro_torch.parallel.tensor import (  # noqa: E402
@@ -90,6 +97,10 @@ def one_thread():
 # ---------------------------------------------------------------------------
 CROSS = {"mamba2-370m": {"n_layers": 2, "vocab": 50304}, "chatglm3-6b": {"n_layers": 2}}
 ROWS, SEQ = 16, 4096  # train_4k's 256 sequences over 16 data ranks
+# serve cells against JAX: (arch, shape), and rank 0's tokens a step
+SERVE_CROSS = {("chatglm3-6b", "decode_32k"): 128 // 16, ("chatglm3-6b", "prefill_32k"):
+               32 // 16 * 32768}
+CELLS = [(arch, "train_4k") for arch in CROSS] + list(SERVE_CROSS)
 # each residual branch's last GEMM: its output feeds only the residual add
 RESIDUAL_LAST = ("attn.wo.w", "mlp.w_down.w", "out_proj.w")
 
@@ -97,11 +108,12 @@ _JAX_SCRIPT = r"""
 import json, sys
 from repro.launch.dryrun import run_cell
 out = {}
-for arch, upd in json.loads(sys.argv[1]).items():
-    r = run_cell(arch, "train_4k", False, out_dir=sys.argv[2], verbose=False, cfg_updates=upd)
-    out[arch] = {k: r[k] for k in ("microbatch", "n_devices", "mesh")}
-    out[arch].update(dot_flops=r["hlo"]["dot_flops"],
-                     argument_bytes=r["memory_analysis"]["argument_bytes"])
+for arch, shape, upd in json.loads(sys.argv[1]):
+    r = run_cell(arch, shape, False, out_dir=sys.argv[2], verbose=False, cfg_updates=upd)
+    rec = {k: r[k] for k in ("microbatch", "n_devices", "mesh") if k in r}
+    rec.update(dot_flops=r["hlo"]["dot_flops"],
+               argument_bytes=r["memory_analysis"]["argument_bytes"])
+    out[arch + "/" + shape] = rec
 print("JAX_RECORDS" + json.dumps(out))
 """
 
@@ -111,7 +123,8 @@ def jax_records(tmp_path_factory):
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": os.environ.get("PATH", ""),
            "HOME": os.environ.get("HOME", str(tmp_path_factory.getbasetemp())),
            "JAX_PLATFORMS": "cpu"}
-    r = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, json.dumps(CROSS),
+    cells = [(arch, shape, CROSS[arch]) for arch, shape in CELLS]
+    r = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, json.dumps(cells),
                         str(tmp_path_factory.mktemp("jax_dryrun"))],
                        capture_output=True, text=True, timeout=900, env=env, cwd=ROOT)
     line = [s for s in r.stdout.splitlines() if s.startswith("JAX_RECORDS")]
@@ -122,9 +135,9 @@ def jax_records(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port_records(tmp_path_factory):
     out = tmp_path_factory.mktemp("torch_dryrun")
-    return {arch: dryrun.run_cell(arch, "train_4k", False, out_dir=str(out), verbose=False,
-                                  cfg_updates=upd)
-            for arch, upd in CROSS.items()}, out
+    return {f"{arch}/{shape}": dryrun.run_cell(arch, shape, False, out_dir=str(out),
+                                               verbose=False, cfg_updates=CROSS[arch])
+            for arch, shape in CELLS}, out
 
 
 def _cfg(arch):
@@ -133,13 +146,16 @@ def _cfg(arch):
     return dataclasses.replace(configs.get_config(arch), **CROSS[arch])
 
 
-def by_design(cfg, tokens: int, model: int = 16, data: int = 16) -> dict[str, tuple]:
+def by_design(cfg, tokens: int, model: int = 16, data: int = 16,
+              train: bool = True) -> dict[str, tuple]:
     """``{name: (dot FLOPs, argument bytes, why)}``: what rank 0 of the port
     runs and holds beyond a JAX device, per layer weight.  A linear of
     ``p0`` local weights on rank 0 and ``pe`` on a JAX device runs 4 GEMMs
     of ``2 T p`` FLOPs in the port (forward, remat recompute, data and
     weight gradients) and 4 in JAX, 3 for a residual branch's last linear;
-    its weight and both moments are 12 B an element over the data axis."""
+    its weight and both moments are 12 B an element over the data axis.
+    Serving (``train`` False) each runs its forward, and holds its weight:
+    4 B an element."""
     shapes = {k: tuple(t.shape) for k, t in abstract_params(cfg).items()}
     layout = tp_layout(cfg, shapes, model)
     jax_specs = param_shardings(abstract_params(cfg), MeshShape(("model",), (model,)))
@@ -151,8 +167,8 @@ def by_design(cfg, tokens: int, model: int = 16, data: int = 16) -> dict[str, tu
         split = layout.get(name)
         p0 = n // shape[split.dim] * split.size(0) if split is not None else n
         pe = n // model if any(e is not None for e in jax_specs[name]) else n
-        last = name.endswith(RESIDUAL_LAST)
-        flops = 2.0 * tokens * (4 * (p0 - pe) + last * pe)
+        last = train and name.endswith(RESIDUAL_LAST)
+        flops = 2.0 * tokens * ((4 if train else 1) * (p0 - pe) + last * pe)
         why = []
         if p0 > pe:
             why.append("whole on every model rank (JAX splits it)" if split is None
@@ -160,16 +176,36 @@ def by_design(cfg, tokens: int, model: int = 16, data: int = 16) -> dict[str, tu
         if last:
             why.append("its forward recomputed under full remat (XLA drops it)")
         if flops or p0 != pe:
-            out[name] = (flops, 12.0 * (p0 - pe) / data, "; ".join(why))
+            out[name] = (flops, (12.0 if train else 4.0) * (p0 - pe) / data, "; ".join(why))
     return out
 
 
-@pytest.mark.parametrize("arch", sorted(CROSS))
-def test_cell_agrees_with_jax_dryrun(arch, jax_records, port_records):
-    j, p = jax_records[arch], port_records[0][arch]
+def cache_by_design(cfg, shape, rows: int, model: int = 16, n_dev: int = 256) -> tuple:
+    """``(0 FLOPs, argument bytes, why)`` of a decode cell's cache: rank 0
+    holds ``rows`` rows of the whole sequence for the kv heads its query
+    heads read (``n_kv / m``, or one where the kv heads do not divide),
+    bf16 K and V a layer; a JAX device the whole cache over every device
+    (``cache_seq`` on ``model``)."""
+    kv = cfg.n_kv_heads // model if cfg.n_kv_heads % model == 0 else 1
+    per_row = shape.seq_len * cfg.n_layers * 2 * cfg.hd * 2
+    port = rows * kv * per_row
+    jax_dev = shape.global_batch * cfg.n_kv_heads * per_row / n_dev
+    return (0.0, port - jax_dev, f"the cache: rank 0 {port} B ({kv} kv head(s) over the whole "
+                                 f"sequence), a JAX device {jax_dev:.0f} B (cache_seq on model)")
+
+
+@pytest.mark.parametrize("arch,shape", CELLS, ids=lambda v: str(v))
+def test_cell_agrees_with_jax_dryrun(arch, shape, jax_records, port_records):
+    j, p = jax_records[f"{arch}/{shape}"], port_records[0][f"{arch}/{shape}"]
     for k in ("microbatch", "n_devices", "mesh"):
-        assert p[k] == j[k], (k, p[k], j[k])
-    terms = by_design(_cfg(arch), ROWS * SEQ)
+        assert p.get(k) == j.get(k), (k, p.get(k), j.get(k))
+    if shape == "train_4k":
+        terms = by_design(_cfg(arch), ROWS * SEQ)
+    else:
+        terms = by_design(_cfg(arch), SERVE_CROSS[(arch, shape)], train=False)
+        if shape.startswith("decode"):  # the cache, an argument (JAX donates it)
+            terms["cache"] = cache_by_design(_cfg(arch), configs.SHAPES[shape], p["rows"])
+            assert p["cache_bytes"] == terms["cache"][1] + p["cache_bytes_jax_layout"]
     extra_flops = sum(t[0] for t in terms.values())
     extra_bytes = sum(t[1] for t in terms.values())
     flops, args = p["hlo"]["dot_flops"], p["memory_analysis"]["argument_bytes"]
@@ -185,7 +221,7 @@ def test_cell_agrees_with_jax_dryrun(arch, jax_records, port_records):
 
 def test_argument_bytes_are_rank_0_shards_in_closed_form(port_records):
     cfg = _cfg("chatglm3-6b")
-    rec = port_records[0]["chatglm3-6b"]
+    rec = port_records[0]["chatglm3-6b/train_4k"]
     shapes = {k: tuple(t.shape) for k, t in abstract_params(cfg).items()}
     layout = tp_layout(cfg, shapes, 16)
 
@@ -205,7 +241,8 @@ def test_argument_bytes_are_rank_0_shards_in_closed_form(port_records):
 
 def test_records_hold_counts_roofline_and_fit(port_records):
     recs, out = port_records
-    for arch, r in recs.items():
+    for cell, r in recs.items():
+        arch, shape = cell.split("/")
         assert r["status"] == "ran" and r["hlo"]["counted_by"] == "fake-tensor trace"
         assert r["hlo"]["dot_flops"] > 0 and r["hlo"]["coll_bytes"] > 0
         assert set(r["hlo"]["coll_by_dim"]) <= {"data", "model"}
@@ -219,7 +256,13 @@ def test_records_hold_counts_roofline_and_fit(port_records):
         assert r["modelled_device"] == autotune.modelled_card() == "NVIDIA H100 80GB HBM3"
         assert r["device_memory_bytes"] == roofline.HBM_BYTES
         assert r["compile_s"] is None and r["memory_analysis"]["alias_bytes"] is None
-        assert json.loads((out / f"{arch}_train_4k_16x16.json").read_text()) == r
+        assert json.loads((out / f"{arch}_{shape}_16x16.json").read_text()) == r
+        if shape != "train_4k":  # the roofline's memory term reads the rank's cache
+            assert r["roofline"]["hbm_bytes_per_device"] == roofline.hbm_bytes(
+                _cfg(arch), configs.SHAPES[shape], MeshShape(("data", "model"), (16, 16)),
+                cache_bytes=r["cache_bytes"])
+            assert r["cache_bytes_jax_layout"] == roofline.cache_bytes_jax_layout(
+                _cfg(arch), configs.SHAPES[shape], MeshShape(("data", "model"), (16, 16)))
 
 
 # ---------------------------------------------------------------------------
@@ -272,13 +315,23 @@ def test_wire_bytes_of_a_two_layer_toy_are_the_ring_formulas():
 
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "mamba2-370m"])
-def test_fake_trace_equals_a_real_cpu_run(arch):
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_fake_trace_equals_a_real_cpu_run(arch, kind):
     cfg = tp_smoke(configs.get_smoke_config(arch))
     with dryrun.fake_world(4):
         mesh = make_mesh((2, 2), ("data", "model"), "cpu")
-        fake = dryrun.trace_step(cfg, 4, 32, 2, mesh, "cpu", fake=True)
-        real = dryrun.trace_step(cfg, 4, 32, 2, mesh, "cpu", fake=False)
-    for k in ("peak_bytes", "peak_by_kind", "argument_bytes", "output_bytes", "hlo"):
+        if kind == "train":
+            fake = dryrun.trace_step(cfg, 4, 32, 2, mesh, "cpu", fake=True)
+            real = dryrun.trace_step(cfg, 4, 32, 2, mesh, "cpu", fake=False)
+        else:
+            fake = dryrun.trace_serve(cfg, 2, 32, kind, mesh, "cpu", fake=True)
+            real = dryrun.trace_serve(cfg, 2, 32, kind, mesh, "cpu", fake=False)
+            if cfg.family == "dense":  # rank 0's K/V: one of the 2 kv heads
+                spec = lm_cache_spec(cfg, 2, 32, tp=TensorParallel(0, 2))
+                assert fake["cache_bytes"] == sum(math.prod(s) * dt.itemsize
+                                                  for s, dt in spec.values())
+    for k in ("peak_bytes", "peak_by_kind", "argument_bytes", "output_bytes", "hlo",
+              "cache_bytes"):
         assert fake[k] == real[k], (k, fake[k], real[k])
 
 
@@ -381,16 +434,18 @@ def test_k2_and_k4_refuse_fake_operands(no_kernel):
 # ---------------------------------------------------------------------------
 # cells the port does not run
 # ---------------------------------------------------------------------------
-def test_refused_and_not_ported_cells_are_recorded(tmp_path, capsys):
-    r = dryrun.run_cell("yi-34b", "train_4k", False, out_dir=str(tmp_path), verbose=False)
-    assert r["status"] == "refused" and "56 query heads" in r["reason"]
+def test_refused_and_served_cells_are_recorded(tmp_path, capsys):
+    for shape in ("train_4k", "decode_32k"):
+        r = dryrun.run_cell("yi-34b", shape, False, out_dir=str(tmp_path), verbose=False)
+        assert r["status"] == "refused" and "56 query heads" in r["reason"]
     r = dryrun.run_cell("chatglm3-6b", "decode_32k", True, out_dir=str(tmp_path),
-                        verbose=False)
-    assert r["status"] == "not_ported" and "ROADMAP queue 1" in r["reason"]
+                        verbose=False, cfg_updates={"n_layers": 2})
+    assert r["status"] == "ran" and r["rows"] == 128 // 32 and "microbatch" not in r
+    assert r["cache_bytes"] > r["cache_bytes_jax_layout"] > 0 and r["fits"]
     assert json.loads((tmp_path / "chatglm3-6b_decode_32k_2x16x16.json").read_text()) == r
     with pytest.raises(NotImplementedError, match="sequence parallelism"):
         dryrun.run_cell("chatglm3-6b", "train_4k", False, out_dir=str(tmp_path),
                         seq_shard=True)
-    assert dryrun.main(["--arch", "glm4-9b", "--shape", "prefill_32k", "--mesh", "both",
+    assert dryrun.main(["--arch", "yi-34b", "--shape", "prefill_32k", "--mesh", "both",
                         "--out", str(tmp_path)]) == 0
-    assert "0 ran, 0 refused, 2 not ported, 0 failed, of 2 cells" in capsys.readouterr().out
+    assert "0 ran, 2 refused, 0 failed, of 2 cells" in capsys.readouterr().out

@@ -112,7 +112,7 @@ def test_roofline_terms_match_jax_with_the_constants_factored_out(name, monkeypa
                                                                                          jshape)
         for ours, ref in _meshes():
             assert roofline.hbm_bytes(cfg, shape, ours) == jroofline.hbm_bytes(jcfg, jshape, ref)
-            assert roofline._cache_bytes(cfg, shape, ours) == \
+            assert roofline.cache_bytes_jax_layout(cfg, shape, ours) == \
                 jroofline._cache_bytes(jcfg, jshape, ref)
             record = {"hlo": {"dot_flops": 3.5e15, "coll_bytes": 2.0e10}, "microbatch": 0}
             got = roofline.roofline_terms(cfg, shape, ours, record)

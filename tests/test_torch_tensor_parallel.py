@@ -36,10 +36,10 @@ plain versions), stochastic rounding from one key.
   --model-axis 2`` (HSDP over the data axis) equal two microbatch-2 steps
   of the model-only world 2 on the same global batch (losses within 1e-6,
   parameters within 1e-6; seen equal bit for bit).
-- What still raises for the moe and encdec archs: ``--model-axis``
-  outside ``torchrun``, and serving a tensor-parallel model, naming
-  ROADMAP (``tests/test_torch_tensor_parallel_ssm.py``, ``_moe.py`` and
-  ``_encdec.py`` hold the other families' tensor parallelism).
+- ``--model-axis`` outside ``torchrun`` raises for the moe and encdec
+  archs (``tests/test_torch_tensor_parallel_ssm.py``, ``_moe.py`` and
+  ``_encdec.py`` hold the other families' tensor parallelism, and
+  ``_serve.py`` serving a tensor-parallel model of every family).
 """
 import dataclasses
 import importlib.util
@@ -61,8 +61,7 @@ from repro_torch.analysis.lint import lint_tensor_parallel  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.launch import train as launcher  # noqa: E402
 from repro_torch.launch.specs import abstract_params  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
-from repro_torch.parallel.tensor import tensor_parallel, TensorParallel, tp_layout  # noqa: E402
+from repro_torch.parallel.tensor import tp_layout  # noqa: E402
 
 EPS = float(np.finfo(np.float32).eps)
 TP_SMOKE = launcher.TP_SMOKE
@@ -255,19 +254,10 @@ def test_lint_tensor_parallel(arch, model_axis, ok):
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e",
                                   "seamless-m4t-medium"])
-def test_serving_or_a_model_axis_outside_torchrun_raises(arch, monkeypatch):
+def test_a_model_axis_outside_torchrun_raises(arch, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(ValueError, match="torchrun"):
         launcher.main(["--arch", arch, "--smoke", "--device", "cpu", "--model-axis", "2"])
-    cfg = launcher.tp_smoke(configs.get_smoke_config(arch))
-    model = tensor_parallel(lm.init_lm(cfg, device="cpu"), TensorParallel(0, 2))
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    if cfg.family == "encdec":
-        batch["src_emb"] = torch.zeros((1, 3, cfg.frontend_dim))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        model(batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        lm.prefill(model, batch, 8)
 
 
 def test_split_k1_launch_specs_prove_at_chatglm3_tensor_parallel_shapes():

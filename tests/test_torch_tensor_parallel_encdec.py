@@ -38,8 +38,9 @@ plain versions), stochastic rounding from one key; every batch carries
 - ``tp_layout`` of the full config at model 2 (vocabulary 256206 as
   128103 a rank, ``frontend_proj`` replicated) and its vocabulary raising
   at model 4; K1's split entries and K3 proved at its rank shapes (the
-  cross-attention's over 4096 source frames); serving a tensor-parallel
-  encoder-decoder raises.
+  cross-attention's over 4096 source frames)
+  (``tests/test_torch_tensor_parallel_serve.py`` serves a tensor-parallel
+  encoder-decoder).
 """
 import dataclasses
 import importlib.util
@@ -59,8 +60,7 @@ from repro.models import lm as jlm  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.launch.specs import abstract_params  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
-from repro_torch.parallel.tensor import TensorParallel, tensor_parallel, tp_layout  # noqa: E402
+from repro_torch.parallel.tensor import tp_layout  # noqa: E402
 
 EPS = float(np.finfo(np.float32).eps)
 ARCH = workers.ENCDEC_ARCH
@@ -215,17 +215,3 @@ def test_split_k1_and_k3_launch_specs_prove_at_seamless_tensor_parallel_shapes()
     shapes = {s.operands[0].shape for s, _ in specs if s.kernel.startswith("quantize_groups")}
     # w_up's w^T (2048 of d_ff 4096 a rank), w_down's x, the K/V error over 4096 frames
     assert {(2048, 1024), (4096, 2048), (4096, 512)} <= shapes
-
-
-def test_serving_a_tensor_parallel_encdec_model_raises():
-    cfg = workers.smoke_tp_config(ARCH, "off")
-    model = tensor_parallel(lm.init_lm(cfg, device="cpu"), TensorParallel(0, 2))
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
-             "src_emb": torch.zeros((1, 3, cfg.frontend_dim))}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        model(batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        lm.prefill(model, batch, 8)
-    kv = (torch.zeros((1, 3, 1, cfg.hd)), torch.zeros((1, 3, 1, cfg.hd)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        model.layers[0].xattn(torch.zeros((1, 1, cfg.d_model)), None, None, cross_cache=kv)

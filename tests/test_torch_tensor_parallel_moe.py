@@ -42,8 +42,9 @@ rounding from one key.
 - ``tp_layout`` of the full configs (moonshot's 64 experts as 32 a rank,
   llama4-scout's 16 as 8 with the shared expert's d_ff of 8192 split in
   whole groups; stacks the axis does not divide stay replicated); K1's
-  split entries and K3 proved at moonshot's rank shapes; serving a
-  tensor-parallel MoE model raises.
+  split entries and K3 proved at moonshot's rank shapes
+  (``tests/test_torch_tensor_parallel_serve.py`` serves a tensor-parallel
+  MoE model).
 """
 import dataclasses
 import importlib.util
@@ -64,8 +65,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.analysis.lint import lint_tensor_parallel  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.launch.specs import abstract_params  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
-from repro_torch.parallel.tensor import TensorParallel, tensor_parallel, tp_layout  # noqa: E402
+from repro_torch.parallel.tensor import tp_layout  # noqa: E402
 
 EPS = float(np.finfo(np.float32).eps)
 ARCHS = workers.MOE_ARCHS
@@ -261,15 +261,3 @@ def test_split_k1_and_k3_launch_specs_prove_at_moonshot_tensor_parallel_shapes()
     shapes = {s.operands[0].shape for s, _ in specs if s.kernel.startswith("quantize_groups")}
     # the attention's w^T (1024 of 2048 columns a rank) and the errors of 4096 tokens
     assert {(1024, 2048), (4096, 1024)} <= shapes
-
-
-def test_serving_a_tensor_parallel_moe_model_raises():
-    for arch in ARCHS:
-        cfg = workers.smoke_tp_config(arch, "off")
-        model = tensor_parallel(lm.init_lm(cfg, device="cpu"), TensorParallel(0, 2))
-        assert model.layers[0].moe.experts == (0, 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            model({"tokens": torch.zeros((1, 4), dtype=torch.long)})
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            lm.decode_step(model, lm.init_cache(cfg, 1, 8, "cpu"),
-                           torch.zeros((1, 1), dtype=torch.long))

@@ -42,7 +42,8 @@ plain versions), stochastic rounding from one key.
   parameters within 1e-6).
 - ``tp_layout`` of the full configs on group and head boundaries, the
   tail [2 din, N) on rank 0; K1's split entries' launch specs proved at
-  zamba2-7b's rank shapes; serving a tensor-parallel model raises.
+  zamba2-7b's rank shapes (``tests/test_torch_tensor_parallel_serve.py``
+  serves a tensor-parallel model).
 """
 import dataclasses
 import importlib.util
@@ -64,9 +65,8 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.core.lowbit import Sharded  # noqa: E402
 from repro_torch.launch.specs import abstract_params  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
 from repro_torch.parallel.tensor import (  # noqa: E402
-    TAIL_RANK, Split, TensorParallel, mamba_heads, tensor_parallel, tp_layout)
+    TAIL_RANK, Split, mamba_heads, tp_layout)
 
 EPS = float(np.finfo(np.float32).eps)
 ARCHS = workers.SSM_ARCHS
@@ -282,14 +282,3 @@ def test_split_k1_launch_specs_prove_at_zamba2_tensor_parallel_shapes():
     shapes = {s.operands[0].shape for s, _ in specs if s.kernel.startswith("quantize_groups")}
     # rank 0's in_proj w^T and error (the tail's ragged group padded), rank 1's w^T
     assert {(7408, 3584), (4096, 7424), (7168, 3584)} <= shapes
-
-
-def test_serving_a_tensor_parallel_ssm_model_raises():
-    for arch in ARCHS:
-        cfg = workers.smoke_tp_config(arch, "off")
-        model = tensor_parallel(lm.init_lm(cfg, device="cpu"), TensorParallel(0, 2))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            model({"tokens": torch.zeros((1, 4), dtype=torch.long)})
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            model.layers[0](torch.zeros((1, 1, cfg.d_model)), None, None,
-                            (torch.zeros(1), torch.zeros(1)))

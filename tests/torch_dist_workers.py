@@ -329,6 +329,8 @@ def _linear_feed(model, records: dict | None = None) -> dict:
         def post(m, args, kwargs, y, name=name, linear=linear):
             rec = out[m._feed_key]
             y = y if linear else y[0]  # an MoE returns (y, aux)
+            if not y.requires_grad:  # serving: no gradient to record or feed
+                return None
             if records is None:
                 y.register_hook(lambda g: rec.__setitem__("g", g.detach()))
                 return None
@@ -741,4 +743,178 @@ def encdec_tp4_worker(rank: int, world: int):
     for backend in TP_BACKENDS:
         cfg = smoke_tp_config(ENCDEC_ARCH, backend)
         res["steps"][backend] = _tp_step(cfg, _state(cfg), tp, TP_KEY, fed=backend != "off")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# serving a tensor-parallel model
+# ---------------------------------------------------------------------------
+SERVE_ARCHS = ("chatglm3-6b", "moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "mamba2-370m",
+               "zamba2-7b", "seamless-m4t-medium")
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX = 2, 8, 4, 16
+
+
+def serve_config(arch: str, backend: str):
+    """The arch's smoke config widened for a model axis: chatglm3-6b's as
+    :func:`tp_config` widens it, the others' as :func:`smoke_tp_config`."""
+    return tp_config(backend) if arch == "chatglm3-6b" else smoke_tp_config(arch, backend)
+
+
+def serve_inputs(cfg):
+    """The prompts (SERVE_BATCH x SERVE_PROMPT tokens; the encoder-decoder's
+    with TP_SRC source frames) and the SERVE_STEPS teacher-forced decode
+    tokens, from numpy's seeded generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)))}
+    if cfg.family == "encdec":
+        batch["src_emb"] = torch.from_numpy(
+            rng.standard_normal((SERVE_BATCH, TP_SRC, cfg.frontend_dim)).astype(np.float32))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_STEPS)))
+    return batch, steps
+
+
+def _serve_run(model, cfg) -> dict:
+    """A prefill of :func:`serve_inputs`' prompts and SERVE_STEPS decode
+    steps teacher-forced on its tokens: every step's logits, layer 0's
+    cache tensors after the prefill, and the launches of the last decode
+    step by kernel."""
+    from repro_torch.kernels import launch
+    from repro_torch.models import lm
+
+    batch, steps = serve_inputs(cfg)
+    logits, cache = lm.prefill(model, batch, SERVE_MAX)
+    out = {"logits": [logits], "cache0": {k: v[0].clone() for k, v in cache.items() if k != "pos"}}
+    for i in range(SERVE_STEPS):
+        before = collections.Counter(launch.RECORDED)
+        logits, cache = lm.decode_step(model, cache, steps[:, i:i + 1])
+        out["logits"].append(logits)
+    recs = collections.Counter()
+    for (kernel, *_), n in (collections.Counter(launch.RECORDED) - before).items():
+        recs[kernel] += n
+    out["logits"], out["decode_launches"] = torch.stack(out["logits"]), dict(recs)
+    return out
+
+
+def _rank_cache_slices(model, cache0: dict, rank: int) -> dict:
+    """This rank's slice of an unsharded model's layer-0 cache tensors:
+    the kv heads its attention reads (K/V, the hybrid's ring buffer, the
+    cross K/V), its Mamba2 heads' conv channels and SSM states."""
+    out = {}
+    attn = None
+    if model.cfg.family == "hybrid":
+        attn = model.shared_attn.attn
+    elif model.cfg.n_heads and model.cfg.family != "ssm":
+        attn = model.layers[0].attn
+    for name, t in cache0.items():
+        if name in ("k", "v", "ak", "av", "xk", "xv"):
+            hkv = attn.heads[1]
+            kv0, kv1 = attn.kv_take or (rank * hkv, (rank + 1) * hkv)
+            out[name] = t[:, :, kv0:kv1]
+        elif name == "conv":
+            pieces = model.tp_layout["layers.0.conv_w"].pieces[rank]
+            out[name] = torch.cat([t[..., a:b] for a, b in pieces], dim=-1)
+        else:  # ssm
+            h0, h1 = model.layers[0].heads
+            out[name] = t[:, h0:h1]
+    return out
+
+
+def serve_case(arch: str, backend: str, tp, state=None) -> dict:
+    """``arch`` served unsharded and as this rank's tensor-parallel part, on
+    the same weights (``state``, else seed 0's) and inputs; quantized, each
+    linear (and MoE layer) of the tensor-parallel run fed the unsharded
+    run's input (:func:`_linear_feed`).  Returns both runs' logits, whether
+    layer 0's cache after the prefill is the rank's slice of the unsharded
+    one bit for bit (by tensor) and its relative L2 distance from it, the
+    rank's cache shapes against
+    ``cache_spec(..., tp=...)``, the tensor-parallel run's launches of a
+    decode step, and, unquantized, both engines' greedy tokens."""
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import tensor_parallel
+    from repro_torch.serve import ServeEngine
+
+    cfg = serve_config(arch, backend)
+    state = _state(cfg) if state is None else state
+    fed = backend != "off"
+    full = lm.LM(cfg)
+    full.load_state_dict(state)
+    records = _linear_feed(full) if fed else None
+    ref = _serve_run(full, cfg)
+    model = lm.LM(cfg)
+    model.load_state_dict(state)
+    tensor_parallel(model, tp)
+    if fed:
+        _linear_feed(model, records)
+    got = _serve_run(model, cfg)
+    want = _rank_cache_slices(model, ref["cache0"], tp.rank)
+    spec = lm.cache_spec(cfg, SERVE_BATCH, SERVE_MAX, TP_SRC, tp)
+    res = dict(logits=got["logits"], ref_logits=ref["logits"],
+               cache_exact={k: torch.equal(got["cache0"][k], want[k]) for k in want},
+               cache_rel={k: float((got["cache0"][k].double() - want[k].double()).norm()
+                                   / max(float(want[k].double().norm()), 1e-30)) for k in want},
+               cache_shapes={k: (tuple(v.shape), tuple(spec[k][0][1:]))
+                             for k, v in got["cache0"].items()},
+               decode_launches=got["decode_launches"], ref_launches=ref["decode_launches"])
+    if not fed:
+        batch, _ = serve_inputs(cfg)
+        res["tokens"] = ServeEngine(cfg, model, max_len=SERVE_MAX).generate(batch, 6)
+        res["ref_tokens"] = ServeEngine(cfg, full, max_len=SERVE_MAX, device="cpu").generate(
+            batch, 6)
+    return res
+
+
+def serve_tp2_worker(rank: int, world: int, jax_states):
+    """World 2, model 2: :func:`serve_case` of every SERVE_ARCHS arch on
+    each backend, the teacher-forced logits of the unquantized
+    tensor-parallel run on the JAX package's parameters (``jax_states``,
+    by arch), and the forward's whole logits against the unsharded
+    forward's."""
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import TensorParallel, tensor_parallel
+
+    tp = TensorParallel.of()
+    res = {"cases": {}, "jax": {}, "forward": {}}
+    for arch in SERVE_ARCHS:
+        for backend in TP_BACKENDS:
+            res["cases"][(arch, backend)] = serve_case(arch, backend, tp)
+        if arch in jax_states:
+            cfg = serve_config(arch, "off")
+            model = lm.LM(cfg)
+            model.load_state_dict(jax_states[arch])
+            tensor_parallel(model, tp)
+            res["jax"][arch] = _serve_run(model, cfg)["logits"]
+        cfg = serve_config(arch, "off")
+        batch, _ = serve_inputs(cfg)
+        full = lm.LM(cfg)
+        full.load_state_dict(_state(cfg))
+        model = lm.LM(cfg)
+        model.load_state_dict(_state(cfg))
+        tensor_parallel(model, tp)
+        with torch.no_grad():
+            res["forward"][arch] = (model(batch), full(batch))
+    return res
+
+
+def serve_tp4_worker(rank: int, world: int):
+    """World 4: chatglm3-6b at model 4 (its 2 kv heads replicated, a rank's
+    cache the one its query heads read), :func:`serve_case` on each
+    backend; then the dense model served through ``launch.train.
+    shard_model`` at data 2 x model 2 (FSDP2 over the data axis, the
+    prefill and decode run as registered forwards), each data rank on its
+    half of the prompts: its greedy tokens and logits."""
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import TensorParallel
+    from repro_torch.serve import ServeEngine
+
+    tp = TensorParallel.of()
+    res = {"cases": {b: serve_case("chatglm3-6b", b, tp) for b in TP_BACKENDS}}
+    cfg = serve_config("chatglm3-6b", "off")
+    mesh = train.hsdp_mesh(world, device_type="cpu", model=2)
+    model = train.shard_model(lm.init_lm(cfg, seed=0, device="cpu"), mesh)
+    batch = train.local_batch(serve_inputs(cfg)[0], mesh)
+    res["hsdp"] = dict(coord=(rank // 2, rank % 2), logits=lm.prefill(model, batch, SERVE_MAX)[0],
+                       tokens=ServeEngine(cfg, model, max_len=SERVE_MAX).generate(batch, 6))
     return res
