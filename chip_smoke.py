@@ -113,18 +113,18 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 and depth (320-token prompts: SSD chunk 160 by the divisor
                 rule), zamba2-7b at full width cut to 12 layers with a
                 window of 136 (the ring buffer wraps), the MoEs at full
-                width, moonshot-v1-16b-a3b cut to 16 layers (64 experts,
+                width, moonshot-v1-16b-a3b cut to 8 layers (64 experts,
                 top 6: tokens drop at prefill's capacity 13) and
-                llama4-scout-17b-a16e to 4 (top 1 and a shared expert),
+                llama4-scout-17b-a16e to 2 (top 1 and a shared expert),
                 and seamless-m4t-medium at full width and depth (its
                 encoder over 1024 random frontend frames per prompt).
                 Every logit finite; the launches of a whole generate, and
                 of each prefill and decode step, equal the closed form
                 (serve_linears: 196 K3 / 392 K1 per step on chatglm3-6b,
-                96 / 192 on mamba2-370m, 38 / 76 on the cut zamba2-7b, 64
-                / 128 on the cut moonshot (attention only: the routed
-                experts run fake-quant GEMMs, as in the JAX package), 28 /
-                56 on the cut llama4-scout, 96 / 192 per decode step and
+                96 / 192 on mamba2-370m, 38 / 76 on the cut zamba2-7b, 32
+                / 64 on the cut moonshot (attention only: the routed
+                experts run fake-quant GEMMs, as in the JAX package), 14 /
+                28 on the cut llama4-scout, 96 / 192 per decode step and
                 168 / 336 per prefill on seamless); prefill ms, decode ms
                 per step (median) and tokens/s, one decode step traced
                 (device busy, idle share, K1 and K3 ms, the routed experts'
@@ -259,8 +259,9 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 the operand's own max, and quantize_ref's with a larger
                 given max; each entry timed beside its byte bound (pass A
                 also beside torch.linalg.vector_norm(x, inf)); K3 at
-                zamba2-7b's rank-0 in_proj and out_proj forwards, and at
+                zamba2-7b's rank-0 in_proj and out_proj forwards, at
                 moonshot-v1-16b-a3b's and seamless-m4t-medium's rank GEMMs
+                and at yi-34b's model-16 rank-0 and rank-15 wq and wo
                 (TP_K1_SHAPES, TP_K3_SHAPES) bit for bit mls_matmul_ref's
                 on both plans, timed beside its bound (int8 ops or bytes,
                 the larger).  Then the
@@ -271,9 +272,9 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 in_proj's tail on rank 0, the shared block once, one tail
                 layer); moonshot-v1-16b-a3b at full width cut to 2 MoE
                 layers (64 experts, 32 a rank, top 6; the outputs gathered
-                over the group); seamless-m4t-medium at full width and
-                depth (12 + 12 layers, the cross-attention's K/V
-                column-parallel over 4096 source frames); batch 1 x 4096,
+                over the group); seamless-m4t-medium at full width cut to
+                2 + 2 layers (the cross-attention's K/V column-parallel
+                over 4096 source frames); batch 1 x 4096,
                 K1/K3, stochastic rounding, bf16, full remat (the shared
                 block never), AdamW at a constant lr 3e-4: one step of a
                 2-rank model axis in two processes on cuda:0 over gloo
@@ -302,7 +303,7 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 peak memory printed (gloo through the host: not a TP speed).
                 Then each rank serves each path through ServeEngine, fp32
                 and on K1/K3 (bf16, nearest): a prefill of 4 prompts of
-                512 tokens (seamless over 1024 frames) and 16 decode steps
+                512 tokens (seamless over 1024 frames) and 8 decode steps
                 teacher-forced on the unsharded engine's greedy tokens
                 (same weights, the rank's card): every step's whole
                 logits within 1e-4 (relative L2) of the unsharded
@@ -318,6 +319,27 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 chatglm3-6b's rank-0 decode shapes (w_up's w^T (6912,
                 4096), w_down's x (4, 6912); 4 x 4096 x 6912, 4 x 6912 x
                 4096).
+                Then the production model axis of 16 (TP16_PATHS): 16 gloo
+                processes on cuda:0, spawned once, at full width, 1 x 512
+                tokens: yi-34b cut to 1 layer (56 query heads split 4 / 3
+                in whole heads, the kv heads replicated and read through
+                an irregular map), seamless-m4t-medium cut to 1 + 1 over
+                512 frames, 1 x 128 tokens (its attention and vocabulary
+                replicated; the vocabulary one copy on the card, shared
+                and frozen) and
+                mamba2-370m cut to 2 layers (its tied vocabulary
+                replicated).  This process runs the unsharded references
+                once, a path at a time, and hands them, with the unsharded
+                weights, to the ranks (CUDA IPC, through a queue); each
+                rank builds its shards only.  Per
+                path, fp32 and K1/K3: the loss and backward (no optimizer
+                update) against the unsharded loss, grad norm and
+                gradients (TP_AGREE), each quantized linear call as above
+                (the linears whole on every rank bit for bit), then a
+                prefill of 2 prompts of 128 tokens and 4 decode steps
+                teacher-forced as above; the greedy tokens equal on all 16
+                ranks; the launches of ranks 0 and 15 the closed forms
+                (lm_train_launches, serve_launches at a model axis of 16).
 The line before the last is {"kernels": [...]}: each kernel's `launches`
 are its count on the training path (phase train; K5's in the audit's
 overlap_write run; K1's split entries' on the tensor phase's main path),
@@ -326,7 +348,8 @@ overlap_write run; K1's split entries' on the tensor phase's main path),
 `sweep_launches` its launches per step in each "pallas" cell of the
 sweep's chip grid, `parallel_launches` its count on the parallel phase's
 main path and `tensor_launches` per path of the tensor phase (rank 0's:
-"<arch>" its training step, "<arch> serve" its quantized serving run),
+"<arch>" its training step, "<arch> serve" its quantized serving run, and
+"<arch> model 16" / "<arch> serve model 16" those of the model axis of 16),
 each read from its own run.  The last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
@@ -335,6 +358,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -1340,14 +1364,16 @@ SERVE_MODELS = {
     "chatglm3-6b": ({}, 128),
     "mamba2-370m": ({}, 320),
     "zamba2-7b": ({"n_layers": 12, "window": 136}, 128),
-    "moonshot-v1-16b-a3b": ({"n_layers": 16}, 128),
-    "llama4-scout-17b-a16e": ({"n_layers": 4}, 128),
+    "moonshot-v1-16b-a3b": ({"n_layers": 8}, 128),
+    "llama4-scout-17b-a16e": ({"n_layers": 2}, 128),
     "seamless-m4t-medium": ({}, 128),
 }
 SERVE_CUTS = {
     "zamba2-7b": "n_layers 81 -> 12 (2 shared-block applications), window 136",
-    "moonshot-v1-16b-a3b": "n_layers 48 -> 16 (all 48 are 112 GB of fp32 weights)",
-    "llama4-scout-17b-a16e": "n_layers 48 -> 4 (8.8 GB of fp32 weights per layer)",
+    "moonshot-v1-16b-a3b": "n_layers 48 -> 8 (all 48 are 112 GB of fp32 weights; 16 until "
+                           "the model-16 world took the time)",
+    "llama4-scout-17b-a16e": "n_layers 48 -> 2 (8.8 GB of fp32 weights per layer; 4 until the "
+                             "model-16 world took the time)",
 }
 
 
@@ -1418,6 +1444,21 @@ def lm_train_launches(cfg, microbatch: int = 1, model_axis: int = 1) -> dict[str
     return {"mls_quantize_rows": 2 * k3 * microbatch, "mls_matmul": k3 * microbatch}
 
 
+def tp_attention(cfg, model_axis: int) -> tuple[int, int, int]:
+    """An attention's (column-parallel, row-parallel, whole) quantized
+    linears on one rank at a model axis of ``model_axis``
+    (parallel.tensor): wq, wk, wv column and wo row where the heads split
+    with their kv heads (evenly); wq column, wo row and the replicated wk,
+    wv whole where the kv heads stay replicated (an uneven split in whole
+    units, or kv heads the axis does not divide); all four whole where the
+    attention has fewer units than ranks and stays replicated."""
+    from repro_torch.parallel.tensor import attention_heads, rank_heads
+
+    if attention_heads(cfg, model_axis) is None:
+        return (0, 0, 4)
+    return (1, 1, 2) if rank_heads(cfg, model_axis, 0)[2] is not None else (3, 1, 0)
+
+
 def tp_train_launches(cfg, model_axis: int, microbatch: int = 1) -> dict[str, int]:
     """One rank's K1 and K3 launches of a tensor-parallel LM training step
     (parallel.tensor): a GEMM operand held whole takes K1's one call
@@ -1428,20 +1469,22 @@ def tp_train_launches(cfg, model_axis: int, microbatch: int = 1) -> dict[str, in
     sharded operands, and the recomputed forward one more of each under
     remat.  A row-parallel one (wo, w_down, a Mamba2 out_proj) holds the
     error and its transpose whole: 2 and 4, and its recomputed forward 2
-    sharded.  Replicated kv linears are whole: 6, and 2 under remat.  Each
-    linear runs K3 three times (four under remat).  The hybrid's shared
-    block (after each full segment) is never remat'd.  An MoE layer's
-    quantized linears are its attention's and its shared expert's (the
-    routed experts reach no kernel), an encoder layer's a dense block's,
-    a decoder layer's its self- and cross-attention's and its MLP's."""
-    kv_split = cfg.n_kv_heads % model_axis == 0
+    sharded.  Replicated kv linears, and every linear of an attention that
+    stays replicated (:func:`tp_attention`), are whole: 6, and 2 under
+    remat.  Each linear runs K3 three times (four under remat).  The
+    hybrid's shared block (after each full segment) is never remat'd.  An
+    MoE layer's quantized linears are its attention's and its shared
+    expert's (the routed experts reach no kernel), an encoder layer's a
+    dense block's, a decoder layer's its self- and cross-attention's and
+    its MLP's.  Uneven heads launch as even ones."""
+    attn = tp_attention(cfg, model_axis) if cfg.n_heads else (0, 0, 0)
 
     def linears(cols: int, rows: int, whole: int, r: int) -> tuple[int, int, int]:
         return (cols * (2 + r) + rows * 2 + whole * (6 + 2 * r),
                 cols * (4 + r) + rows * (4 + 2 * r), (cols + rows + whole) * (3 + r))
 
-    def attention(r: int) -> tuple[int, int, int]:  # wq (wk, wv) column, wo row
-        return linears(3, 1, 0, r) if kv_split else linears(1, 1, 2, r)
+    def attention(r: int) -> tuple[int, int, int]:
+        return linears(*attn, r)
 
     def mlp(r: int) -> tuple[int, int, int]:  # w_up (w_gate) column, w_down row
         return linears(2 if cfg.gated_mlp else 1, 1, 0, r)
@@ -1479,16 +1522,16 @@ def serve_launches(cfg, model_axis: int = 1, prefill: bool = False) -> dict[str,
     w_gate, wk / wv where the kv heads split, a Mamba2 in_proj) holds x
     whole (K1's one call) and shards w (K1's two: mls_quantize_rows_amax,
     then mls_quantize_rows_codes); a row-parallel one (wo, w_down, a
-    Mamba2 out_proj) shards both; replicated kv linears hold both whole.
-    Each runs K3 once.  A decoder layer's cross attention runs wq and wo
-    (its K/V, cached at prefill, are unquantized)."""
+    Mamba2 out_proj) shards both; replicated kv linears, and the linears of
+    an attention that stays replicated (:func:`tp_attention`), hold both
+    whole.  Each runs K3 once.  A decoder layer's cross attention runs wq
+    and wo (its K/V, cached at prefill, are unquantized)."""
     if model_axis == 1:
         n = serve_linears(cfg, prefill)
         return {"mls_quantize_rows": 2 * n, "mls_matmul": n}
-    kv_split = cfg.n_kv_heads % model_axis == 0
     mlp = (2 if cfg.gated_mlp else 1, 1, 0)  # (column, row, whole) linears
-    attn = (3, 1, 0) if kv_split else (1, 1, 2)
-    cross = (1, 1, 0)
+    attn = tp_attention(cfg, model_axis) if cfg.n_heads else (0, 0, 0)
+    cross = (0, 0, 2) if attn == (0, 0, 4) else (1, 1, 0)
 
     def times(n, *parts):
         return tuple(n * sum(v) for v in zip(*parts))
@@ -3534,8 +3577,9 @@ TP_PATHS = {"chatglm3-6b": (2, "n_layers 28 -> 2; train_4k's global batch 256 ->
             "moonshot-v1-16b-a3b": (2, "n_layers 48 -> 2 (both MoE layers: 64 experts, 32 a "
                                        "rank, top 6, capacity 385 at 4096 tokens); train_4k's "
                                        "global batch 256 -> 1 (seq 4096)"),
-            "seamless-m4t-medium": (12, "full depth (12 + 12 layers); train_4k's global batch "
-                                        "256 -> 1 (seq 4096, 4096 source frames)")}
+            "seamless-m4t-medium": (2, "12 + 12 layers -> 2 + 2 (the model-16 world's time); "
+                                       "train_4k's global batch 256 -> 1 (seq 4096, 4096 "
+                                       "source frames)")}
 # paths whose unsharded references (1.81 G parameters: 29 GB with AdamW's
 # state, fp32) the ranks run one at a time, behind a barrier
 TP_TURNS = ("moonshot-v1-16b-a3b",)
@@ -3562,7 +3606,13 @@ TP_K1_SHAPES = {"x (8192, 4096)": (8192, 4096), "w^T (13696, 4096)": (13696, 409
                 # rank 0's w_up w^T (6912 of d_ff 13696, whole groups) and
                 # its w_down x (4 rows, 6912 of 13696)
                 "chatglm3 w_up w^T decode rank 0 (6912, 4096)": (6912, 4096),
-                "chatglm3 w_down x decode rank 0 (4, 6912)": (4, 6912)}
+                "chatglm3 w_down x decode rank 0 (4, 6912)": (4, 6912),
+                # yi-34b at model 16 (1 x 512 tokens, TP16_PATHS): wq's w^T on rank 0
+                # (4 heads of 128) and rank 15 (3), and wo's x on both
+                "yi wq w^T rank 0 (512, 7168)": (512, 7168),
+                "yi wq w^T rank 15 (384, 7168)": (384, 7168),
+                "yi wo x rank 0 (512, 512)": (512, 512),
+                "yi wo x rank 15 (512, 384)": (512, 384)}
 # fp32: JAX's own (data 2, model 2) mesh tolerance, relative on the loss, the
 # grad norm and the rank's updated parameters as one vector (relative L2).
 # Not per element or per tensor: AdamW's first step moves an element by up to
@@ -3648,7 +3698,13 @@ TP_K3_SHAPES = {"zamba2 in_proj fwd rank 0": (4096, 3584, 7408),
                 # serving chatglm3-6b at model 2: a decode step's (4 rows) rank-0
                 # w_up and w_down
                 "chatglm3 w_up decode rank 0": (4, 4096, 6912),
-                "chatglm3 w_down decode rank 0": (4, 6912, 4096)}
+                "chatglm3 w_down decode rank 0": (4, 6912, 4096),
+                # yi-34b at model 16, 512 tokens: wq's and wo's forwards on rank 0
+                # (4 heads) and rank 15 (3)
+                "yi wq fwd rank 0": (512, 7168, 512),
+                "yi wq fwd rank 15": (512, 7168, 384),
+                "yi wo fwd rank 0": (512, 512, 7168),
+                "yi wo fwd rank 15": (512, 384, 7168)}
 
 
 def tp_k3_checks(gen) -> tuple[list[dict], list[dict]]:
@@ -3708,61 +3764,93 @@ def _tp_configs(arch: str):
 
     from repro_torch.configs import get_config
 
-    q = dataclasses.replace(get_config(arch), n_layers=TP_PATHS[arch][0], quant_backend="pallas")
+    cfg, layers = get_config(arch), TP_PATHS[arch][0]
+    depth = {"n_layers": layers, **({"enc_layers": layers} if cfg.enc_layers else {})}
+    q = dataclasses.replace(cfg, **depth, quant_backend="pallas")
     # unquantized in fp32, as JAX holds its own mesh: with bf16 activations
     # AdamW's first step turns rounding noise in tiny gradients into whole
     # steps of the other sign (a zero-initialised bias moved 18% apart)
     return {"fp32": dataclasses.replace(q, quant=False, compute_dtype="float32"), "pallas": q}
 
 
-def _tp_linear_checks(ref, records, layout, tp) -> list[dict]:
-    """Each recorded linear of the unsharded step (its x, g and key) run
-    by this rank's tensor-parallel linear against the unsharded linear on
-    the same inputs: x in fp32 (the bf16 values; the quantizer reads fp32
-    either way), so that the data gradient comes back unrounded and its sum
-    over the ranks is held to fp32's group-order bound.  A split of several
-    pieces (a Mamba2 in_proj's) takes them all."""
+def _tp_unsharded_linears(params: dict, records: list) -> None:
+    """Each recorded linear call of an unsharded step (its x, g and key) run
+    unsharded on the model's ``params``, in place: the record gains its
+    fp32 input ``x`` (the bf16 values; the quantizer reads fp32 either
+    way, and the data gradient comes back unrounded), output ``y`` and
+    gradients ``dx`` and ``dw``."""
+    import torch
+
+    from repro_torch.models import nn as L
+
+    for rec in records:
+        name, x = rec["name"], rec["x"].float()
+        x0 = x.clone().requires_grad_()
+        w0 = params[f"{name}.w"].detach().requires_grad_()
+        bias = params.get(f"{name}.b")
+        y = L.linear(x0, w0, None if bias is None else bias.detach(), rec["qcfg"], rec["key"])
+        dx, dw = torch.autograd.grad(y, (x0, w0), rec["g"])
+        rec.update(x=x, y=y.detach(), dx=dx, dw=dw)
+        del x0, w0, y
+
+
+def _tp_linear_checks(params: dict, records: list, layout, tp) -> list[dict]:
+    """Each recorded linear call (:func:`_tp_unsharded_linears` filled in its
+    unsharded ``y``, ``dx``, ``dw``) run by this rank's tensor-parallel
+    linear on the same inputs, the unsharded weights ``params``: a split
+    linear's slices bit for bit, its sum over the ranks within fp32's
+    group-order bound (G_r + 1) eps max|ref|; a linear that stays whole (a
+    replicated kv or attention linear) the unsharded one bit for bit.  A
+    split of several pieces (a Mamba2 in_proj's) takes them all."""
     import torch
 
     from repro_torch.models import nn as L
     from repro_torch.parallel.tensor import Split, TPLinear, copy_to_tp
 
     eps = torch.finfo(torch.float32).eps
-    params = dict(ref.named_parameters())
     out = []
     for rec in records:
-        name, x = rec["name"], rec["x"].float()
-        sp = layout[f"{name}.w"]
+        name, x = rec["name"], rec["x"]
+        w = params[f"{name}.w"].detach()
+        bias = params.get(f"{name}.b")
+        bias = None if bias is None else bias.detach()
+        sp = layout.get(f"{name}.w")
+        if sp is None:  # whole on every rank
+            x1, w1 = x.clone().requires_grad_(), w.clone().requires_grad_()
+            yt = L.linear(x1, w1, bias, rec["qcfg"], rec["key"])
+            dxt, dwt = torch.autograd.grad(yt, (x1, w1), rec["g"])
+            exact = (torch.equal(yt, rec["y"]) and torch.equal(dxt, rec["dx"])
+                     and torch.equal(dwt, rec["dw"]))
+            out.append(dict(linear=name, kind="whole", slices_bit_identical=exact, sum_err=0.0,
+                            sum_tol=0.0, ok=exact))
+            del x1, w1, yt, dxt, dwt
+            continue
         pieces = sp.pieces[tp.rank]
         last = Split(x.ndim - 1, (pieces,))  # the same pieces of an activation's last dim
         kind = "column" if sp.dim == 1 else "row"
-        x0 = x.clone().requires_grad_()
-        w0 = params[f"{name}.w"].detach().requires_grad_()
-        bias = params.get(f"{name}.b")
-        y = L.linear(x0, w0, bias, rec["qcfg"], rec["key"])
-        dx, dw = torch.autograd.grad(y, (x0, w0), rec["g"])
         lin = TPLinear.of(kind, sp, tp)
-        w1 = sp.take(w0.detach(), tp.rank).contiguous().requires_grad_()
+        w1 = sp.take(w, tp.rank).contiguous().requires_grad_()
         if kind == "column":
             x1 = x.clone().requires_grad_()
-            bt = None if bias is None else Split(0, (pieces,)).take(bias.detach(), 0)
+            bt = None if bias is None else Split(0, (pieces,)).take(bias, 0)
             yt = lin(L.linear, copy_to_tp(x1, tp), w1, bt, rec["qcfg"], rec["key"], None)
             dxt, dwt = torch.autograd.grad(yt, (x1, w1), last.take(rec["g"], 0).contiguous())
-            exact = torch.equal(yt, last.take(y, 0)) and torch.equal(dwt, sp.take(dw, tp.rank))
-            summed, want = dxt, dx
+            exact = (torch.equal(yt, last.take(rec["y"], 0))
+                     and torch.equal(dwt, sp.take(rec["dw"], tp.rank)))
+            summed, want = dxt, rec["dx"]
         else:
             x1 = last.take(x, 0).contiguous().requires_grad_()
-            yt = lin(L.linear, x1, w1, None if bias is None else bias.detach(), rec["qcfg"],
-                     rec["key"], None)
+            yt = lin(L.linear, x1, w1, bias, rec["qcfg"], rec["key"], None)
             dxt, dwt = torch.autograd.grad(yt, (x1, w1), rec["g"])
-            exact = torch.equal(dxt, last.take(dx, 0)) and torch.equal(dwt, sp.take(dw, tp.rank))
-            summed, want = yt, y
+            exact = (torch.equal(dxt, last.take(rec["dx"], 0))
+                     and torch.equal(dwt, sp.take(rec["dw"], tp.rank)))
+            summed, want = yt, rec["y"]
         groups = sum(-(-(b - a) // 128) for a, b in pieces)
         err = (summed.float() - want.float()).abs().max().item()
         tol = (groups + 1) * eps * want.float().abs().max().item()
         out.append(dict(linear=name, kind=kind, cols=pieces, slices_bit_identical=exact,
                         sum_err=err, sum_tol=tol, ok=exact and err <= tol))
-        del x0, w0, y, dx, dw, x1, w1, yt, dxt, dwt
+        del x1, w1, yt, dxt, dwt
     return out
 
 
@@ -4017,7 +4105,11 @@ def _tp_rank_work(rank: int) -> dict:
                     dist.barrier()
             r["reference_s"] = time.perf_counter() - t0
             if ref is not None:  # the ranks in step: the split linears' collectives
-                r["linears"] = _tp_linear_checks(ref, records, layout, tp)
+                params, r["linears"] = dict(ref.named_parameters()), []
+                for rec in records:  # one at a time: each holds a weight's gradient
+                    _tp_unsharded_linears(params, [rec])
+                    r["linears"] += _tp_linear_checks(params, [rec], layout, tp)
+                    rec.clear()
             if experts:
                 tensor_parallel(ref, tp)
                 r["experts"] = _tp_expert_checks(ref, experts, full)
@@ -4043,7 +4135,7 @@ def _tp_rank_work(rank: int) -> dict:
 # the bf16 residual stream to carry the row-parallel sums' ulps, which
 # now and then round to the other bf16 neighbour: 2.2e-4 over seamless's
 # 36 layers on the H100.
-TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_SRC, TP_SERVE_STEPS = 4, 512, 1024, 16
+TP_SERVE_BATCH, TP_SERVE_PROMPT, TP_SERVE_SRC, TP_SERVE_STEPS = 4, 512, 1024, 8
 TP_SERVE_AGREE = 1e-4
 
 
@@ -4142,20 +4234,74 @@ def _step_rel(got, want) -> list[float]:
     return (d / want.double().flatten(1).norm(dim=1).clamp_min(1e-30)).tolist()
 
 
-def _tp_serve_work(rank: int, tp) -> dict:
-    """One rank's serving of each TP_PATHS path (module docstring, phase
-    15): per config, the unsharded engine's greedy run on the rank's card
-    (quantized, its linears' inputs and row-parallel outputs recorded,
-    _tp_feed), then the tensor-parallel engine teacher-forced on its
-    tokens, unfed (counts set to 0 just before, read just after) and,
-    quantized, fed; the logits' gaps per step, the tokens, the step times
-    and launches, and the held row-parallel outputs."""
+def _tp_unsharded_serve(cfg, full, batch, max_len: int, steps: int, tag: str) -> dict:
+    """The unsharded engine's greedy run of ``full`` (its prefill of
+    ``batch``, then ``steps`` decode steps, one at a time): the tokens to
+    force on a tensor-parallel engine, every step's fp32 logits and,
+    quantized, its linears' inputs and row-parallel outputs (_tp_feed)."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    records, handles, _ = _tp_feed(full) if tag == "pallas" else (None, [], [])
+    engine = ServeEngine(cfg, full, max_len=max_len, device="cuda")
+    with torch.inference_mode():
+        lg, cache = engine.prefill(batch)
+        greedy, ref_logits = [lg.argmax(dim=-1)[:, None]], [lg.float()]
+        for _ in range(steps):
+            lg, cache = engine.decode(cache, greedy[-1])
+            greedy.append(lg.argmax(dim=-1)[:, None])
+            ref_logits.append(lg.float())
+    for h in handles:
+        h.remove()
+    return dict(forced=torch.cat(greedy[:-1], dim=1), logits=torch.stack(ref_logits),
+                records=records)
+
+
+def _tp_serve_case(cfg, model, batch, ref: dict, max_len: int, tag: str) -> dict:
+    """This rank's tensor-parallel engine of ``model`` teacher-forced on the
+    unsharded run ``ref``'s tokens (:func:`_tp_unsharded_serve`), unfed
+    (counts set to 0 just before, read just after) and, quantized, fed:
+    the logits' gaps per step, the tokens, the step times and launches,
+    and the held row-parallel outputs."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(cfg, model, max_len=max_len)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    run = _tp_serve_run(engine, batch, ref["forced"])
+    launches = launch_counts()
+    r = dict(launches={k: n for k, n in launches.items() if n},
+             step_launches=run["launches"], prefill_ms=run["ms"][0],
+             decode_ms=run["ms"][1:], gap=_step_rel(run["logits"], ref["logits"]),
+             tokens=run["tokens"].tolist(), forced=ref["forced"].tolist(),
+             greedy_equal=float((run["tokens"][:-1].t() == ref["forced"]).float().mean()),
+             finite=bool(torch.isfinite(run["logits"]).all()))
+    if tag == "pallas":
+        _, handles, held = _tp_feed(model, ref["records"])
+        fed = _tp_serve_run(engine, batch, ref["forced"])
+        for h in handles:
+            h.remove()
+        r["fed_gap"] = _step_rel(fed["logits"], ref["logits"])
+        r["fed_rows"] = dict(calls=len(held), bad=[c for c in held if not c["ok"]],
+                             worst=max(c["err"] / max(c["tol"], 1e-30) for c in held))
+        del fed, held
+    del engine, run
+    return r
+
+
+def _tp_serve_work(rank: int, tp) -> dict:
+    """One rank's serving of each TP_PATHS path (module docstring, phase
+    15): per config, the unsharded engine's greedy run on the rank's card
+    (:func:`_tp_unsharded_serve`), then the tensor-parallel engine
+    teacher-forced on its tokens (:func:`_tp_serve_case`)."""
+    import torch
+
     from repro_torch.models.lm import init_lm
     from repro_torch.parallel.tensor import tensor_parallel
-    from repro_torch.serve import ServeEngine
 
     out = {}
     for arch in TP_PATHS:
@@ -4168,45 +4314,12 @@ def _tp_serve_work(rank: int, tp) -> dict:
             max_len = TP_SERVE_PROMPT + TP_SERVE_STEPS + 1
             torch.cuda.empty_cache()
             full = init_lm(cfg, seed=0, device="cuda")
-            records, handles, _ = _tp_feed(full) if tag == "pallas" else (None, [], [])
-            # the unsharded engine's greedy tokens, one decode step at a time
-            engine = ServeEngine(cfg, full, max_len=max_len, device="cuda")
-            with torch.inference_mode():
-                lg, cache = engine.prefill(batch)
-                greedy, ref_logits = [lg.argmax(dim=-1)[:, None]], [lg.float()]
-                for _ in range(TP_SERVE_STEPS):
-                    lg, cache = engine.decode(cache, greedy[-1])
-                    greedy.append(lg.argmax(dim=-1)[:, None])
-                    ref_logits.append(lg.float())
-            for h in handles:
-                h.remove()
-            forced = torch.cat(greedy[:-1], dim=1)
-            ref_logits = torch.stack(ref_logits)
-            del full, engine, cache, lg
+            ref = _tp_unsharded_serve(cfg, full, batch, max_len, TP_SERVE_STEPS, tag)
+            del full
             torch.cuda.empty_cache()
             model = tensor_parallel(init_lm(cfg, seed=0, device="cuda"), tp)
-            engine = ServeEngine(cfg, model, max_len=max_len)
-            torch.cuda.synchronize()
-            reset_launch_counts()
-            run = _tp_serve_run(engine, batch, forced)
-            launches = launch_counts()
-            r = dict(launches={k: n for k, n in launches.items() if n},
-                     step_launches=run["launches"], prefill_ms=run["ms"][0],
-                     decode_ms=run["ms"][1:], gap=_step_rel(run["logits"], ref_logits),
-                     tokens=run["tokens"].tolist(), forced=forced.tolist(),
-                     greedy_equal=float((run["tokens"][:-1].t() == forced).float().mean()),
-                     finite=bool(torch.isfinite(run["logits"]).all()))
-            if tag == "pallas":
-                _, handles, held = _tp_feed(model, records)
-                fed = _tp_serve_run(engine, batch, forced)
-                for h in handles:
-                    h.remove()
-                r["fed_gap"] = _step_rel(fed["logits"], ref_logits)
-                r["fed_rows"] = dict(calls=len(held), bad=[c for c in held if not c["ok"]],
-                                     worst=max(c["err"] / max(c["tol"], 1e-30) for c in held))
-                del fed, held
-            out[arch][tag] = r
-            del model, engine, run, records, ref_logits
+            out[arch][tag] = _tp_serve_case(cfg, model, batch, ref, max_len, tag)
+            del model, ref
             torch.cuda.empty_cache()
     return out
 
@@ -4305,9 +4418,14 @@ def phase_tensor(results: dict) -> tuple[dict[str, dict[str, int]], list[dict]]:
                   f"(outputs, weight gradients, gather, buffer gradient bit for bit)")
     served = _tp_serve_checks(ranks, smi, bad)
     res["serve_s"] = [r["serve_s"] for r in ranks]
+    t = time.perf_counter()
+    res["model16"] = tensor16(smi, bad)
+    res["model16_s"] = time.perf_counter() - t
     if bad:
         raise AssertionError("; ".join(bad))
-    return {**{arch: ranks[0][arch]["pallas"]["launches"] for arch in TP_PATHS}, **served}, rows
+    launches = {**{arch: ranks[0][arch]["pallas"]["launches"] for arch in TP_PATHS}, **served}
+    launches.update({f"{a} model 16": n for a, n in res["model16"]["launches"].items()})
+    return launches, rows
 
 
 def _tp_serve_checks(ranks: list, smi: str, bad: list) -> dict[str, dict[str, int]]:
@@ -4356,6 +4474,380 @@ def _tp_serve_checks(ranks: list, smi: str, bad: list) -> dict[str, dict[str, in
         out[f"{arch} serve"] = r0["pallas"]["launches"]
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phase 15, part 2: the production model axis of 16 on one card
+# ---------------------------------------------------------------------------
+# 16 gloo processes on cuda:0, the three layouts the axis forces at full
+# width, 1 x 512 tokens (seamless-m4t-medium 128).  This process runs each
+# path's unsharded references once, a path at a time, and hands them to the
+# ranks with the unsharded weights (CUDA IPC: one copy on the card); a rank
+# builds its shards only (its model made on the meta device).
+# A rank runs the step's loss and backward, no optimizer update (AdamW's
+# state is not part of the layout), held to the unsharded loss, gradient
+# norm and gradients.
+TP16_AXIS, TP16_BATCH, TP16_SEQ, TP16_KEY = 16, 1, 512, 7
+TP16_PATHS = {  # path: (config overrides, training tokens, cut)
+    "yi-34b": ({"n_layers": 1}, TP16_SEQ,
+               "n_layers 60 -> 1: 56 query heads of 128 split 4 / 3 in whole heads (8 ranks "
+               "each), the 8 kv heads whole on every rank, each rank's heads reading theirs "
+               "(rank 1's heads 4-7: kv 0, 0, 0, 1); train_4k's global batch 256 x 4096 -> 1 "
+               "x 512"),
+    "seamless-m4t-medium": ({"n_layers": 1, "enc_layers": 1}, 128,
+                            "12 + 12 layers -> 1 + 1, over 512 frames: heads of 64 in 8 units "
+                            "of 128, fewer than 16 ranks, so the self- and cross-attention stay "
+                            "whole; the vocabulary of 256206 whole, emb and lm_head shared by "
+                            "the 16 ranks from one copy and frozen in training (16 copies with "
+                            "their gradients, 67 GB, do not fit one card), and 1 x 128 tokens "
+                            "trained (16 ranks' whole logits of 512 tokens and their backward, "
+                            "~2 GB a rank, did not fit beside 16 CUDA contexts)"),
+    "mamba2-370m": ({"n_layers": 2}, TP16_SEQ,
+                    "48 layers -> 2: the tied vocabulary of 50280 whole on every rank (16 does "
+                    "not divide it); 1 x 512"),
+}
+TP16_SHARED = {"seamless-m4t-medium": ("emb", "lm_head")}  # one copy on the card, frozen
+TP16_SERVE_BATCH, TP16_SERVE_PROMPT, TP16_SERVE_STEPS = 2, 128, 4
+TP16_HELD = (0, TP16_AXIS - 1)  # the ranks whose launches are held to the closed forms
+
+
+def _tp16_configs(arch: str) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    q = dataclasses.replace(get_config(arch), **TP16_PATHS[arch][0], quant_backend="pallas")
+    return {"fp32": dataclasses.replace(q, quant=False, compute_dtype="float32"), "pallas": q}
+
+
+def _tp16_reference(arch: str) -> dict:
+    """One TP16 path's unsharded references, on this process's card: the
+    weights (seed 0), the batch, per config the loss and (fp32) every
+    gradient or (quantized) each recorded linear call with its unsharded
+    y, dx and dw (:func:`_tp_unsharded_linears`), and the unsharded
+    engine's greedy serving of TP16_SERVE_BATCH prompts
+    (:func:`_tp_unsharded_serve`)."""
+    import torch
+
+    from repro_torch.models.lm import init_lm
+
+    cfgs = _tp16_configs(arch)
+    out = {"cfgs": cfgs, "shared": TP16_SHARED.get(arch, ()),
+           "batch": next(lm_train_data(cfgs["fp32"], TP16_BATCH, TP16_PATHS[arch][1]))}
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    if "src_emb" in out["batch"]:  # the encoder over TP16_SEQ frames
+        out["batch"] = lm_inputs(cfgs["fp32"], out["batch"]["tokens"], gen, TP16_SEQ)
+    tokens = torch.randint(0, cfgs["fp32"].vocab, (TP16_SERVE_BATCH, TP16_SERVE_PROMPT),
+                           generator=gen, device="cuda")
+    out["serve_batch"] = lm_inputs(cfgs["fp32"], tokens, gen, TP16_SEQ)
+    for tag, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        model = init_lm(cfg, seed=0, device="cuda")  # the same weights for both configs
+        if "state" in out:
+            for k, p in model.named_parameters():
+                p.data = out["state"][k]
+        out["state"] = {k: p.detach() for k, p in model.named_parameters()}
+        records, _, handles = _tp_record_linears(model) if tag == "pallas" else ([], [], [])
+        loss, _ = model.loss(out["batch"], TP16_KEY)
+        loss.backward()
+        for h in handles:
+            h.remove()
+        ref = {"loss": loss.item()}
+        if tag == "fp32":
+            ref["grads"] = {k: p.grad for k, p in model.named_parameters()}
+        else:
+            model.zero_grad(set_to_none=True)
+            ref["linears"] = [rec for rec in records if "g" in rec]
+            _tp_unsharded_linears(out["state"], ref["linears"])
+        del loss
+        ref["serve"] = _tp_unsharded_serve(cfg, model, out["serve_batch"],
+                                           TP16_SERVE_PROMPT + TP16_SERVE_STEPS + 1,
+                                           TP16_SERVE_STEPS, tag)
+        ref["seconds"] = time.perf_counter() - t0
+        out[tag] = ref
+        del model
+    torch.cuda.synchronize()
+    return out
+
+
+def _tp16_model(cfg, state: dict, shared: tuple, tp):
+    """This rank's tensor-parallel model of ``cfg``, made on the meta device
+    and given its shards of the unsharded ``state`` on the card; the
+    ``shared`` parameters are ``state``'s own tensors (one copy on the
+    card), frozen."""
+    import torch
+
+    from repro_torch.models.lm import LM
+    from repro_torch.parallel.tensor import tensor_parallel
+
+    with torch.device("meta"):
+        model = tensor_parallel(LM(cfg), tp)
+    layout = model.tp_layout
+    with torch.no_grad():
+        for k, _ in list(model.named_parameters()):
+            owner, _, attr = k.rpartition(".")
+            if k in shared:
+                t = state[k]
+            else:
+                t = layout[k].take(state[k], tp.rank) if k in layout else state[k]
+                t = t.clone(memory_format=torch.contiguous_format)
+            setattr(model.get_submodule(owner), attr,
+                    torch.nn.Parameter(t, requires_grad=k not in shared))
+    return model
+
+
+def _tp16_grad_sums(model, grads: dict, rank: int) -> dict:
+    """This rank's gradients against the unsharded ones (their slices),
+    as sums of squares by split (a sharded parameter's part of the whole
+    gradient) and whole (replicated: counted once, from one rank): the
+    difference, the reference and the rank's own, and the worst tensor."""
+    sums = {f"{kind}_{what}": 0.0 for kind in ("split", "whole")
+            for what in ("diff", "want", "got")}
+    worst = (0.0, None)
+    for k, p in model.named_parameters():
+        if p.grad is None:  # frozen
+            continue
+        split = model.tp_layout.get(k)
+        want = grads[k] if split is None else split.take(grads[k], rank)
+        kind = "whole" if split is None else "split"
+        diff = float((p.grad.double() - want.double()).square().sum())
+        sq = float(want.double().square().sum())
+        sums[f"{kind}_diff"] += diff
+        sums[f"{kind}_want"] += sq
+        sums[f"{kind}_got"] += float(p.grad.double().square().sum())
+        worst = max(worst, ((diff / max(sq, 1e-60)) ** 0.5, k), key=lambda v: v[0])
+    return dict(sums, worst=worst)
+
+
+def _tp16_rank_work(rank: int, refs: dict) -> dict:
+    """One rank of the 16, on one path's references ``refs`` (``{arch:
+    ...}``, :func:`_tp16_reference`): for each config, its model
+    (:func:`_tp16_model`), the loss and backward (counts set to 0 just
+    before, read just after) against the unsharded references (fp32: the
+    gradients' sums of squares; quantized: each recorded linear by this
+    rank's tensor-parallel linear), then the same model served,
+    teacher-forced on the unsharded engine's tokens (:func:`_tp_serve_case`)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel.tensor import TensorParallel
+
+    tp = TensorParallel.of()
+    out = {}
+    for arch, ref in refs.items():
+        out[arch] = {}
+        for tag, cfg in ref["cfgs"].items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = _tp16_model(cfg, ref["state"], ref["shared"], tp)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, _ = model.loss(ref["batch"], TP16_KEY)
+            loss.backward()
+            torch.cuda.synchronize()
+            r = dict(step_ms=(time.perf_counter() - t0) * 1e3, build_s=build_s,
+                     launches=launch_counts(),
+                     loss=loss.item(), ref_loss=ref[tag]["loss"],
+                     peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                     card_used_bytes=torch.cuda.mem_get_info()[1] - torch.cuda.mem_get_info()[0])
+            del loss
+            if tag == "fp32":
+                r["grads"] = _tp16_grad_sums(model, ref["fp32"]["grads"], rank)
+            model.zero_grad(set_to_none=True)
+            t0 = time.perf_counter()
+            if tag == "pallas":
+                r["linears"] = _tp_linear_checks(ref["state"], ref["pallas"]["linears"],
+                                                 model.tp_layout, tp)
+            r["checks_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+            r["serve"] = _tp_serve_case(cfg, model, ref["serve_batch"], ref[tag]["serve"],
+                                        TP16_SERVE_PROMPT + TP16_SERVE_STEPS + 1, tag)
+            r["serve_s"] = time.perf_counter() - t0
+            out[arch][tag] = r
+            del model
+    return out
+
+
+def _tp16_rank(rank: int, world: int, port: int, out: str, jobs: list, done) -> None:
+    """One rank of the 16-rank model axis on cuda:0 over gloo: each path's
+    references from ``jobs[rank]`` in turn (None: the end), released
+    before the rank reports the path ``done``; its results saved at the
+    end."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.runtime import resolve_device
+
+    torch.cuda.set_device(0)
+    resolve_device("cuda")  # TF32 off
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    results = {"rank": rank, "ready": time.time()}
+    try:
+        while (refs := jobs[rank].get()) is not None:
+            results.update(_tp16_rank_work(rank, refs))
+            refs.clear()  # release the shared tensors, then report the path done
+            del refs
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            done.put(rank)
+        torch.save(results, f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def tensor16(smi: str, bad: list) -> dict:
+    """The model axis of 16 (TP16_PATHS): the 16 ranks spawned once; a
+    path at a time, its unsharded references run here and handed to every
+    rank, released once every rank reports the path done (one path's
+    references on the card at a time); then each rank held: fp32 loss, grad
+    norm and gradients (one vector, relative L2) within TP_AGREE["fp32"] of
+    the unsharded ones; the quantized loss within TP_AGREE["pallas"]; each
+    quantized linear call's slices bit for bit and its sums within their
+    bound, every linear whole on every rank the unsharded one bit for
+    bit; serving every step's logits within TP_SERVE_AGREE (quantized:
+    fed), the greedy tokens equal on all 16 ranks; and the launches of
+    ranks TP16_HELD the closed forms (lm_train_launches, serve_launches at
+    a model axis of 16).  Appends what fails to ``bad``; returns the
+    record (timings, launches of rank 0)."""
+    import queue
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    jobs, done = [ctx.SimpleQueue() for _ in range(TP16_AXIS)], ctx.Queue()
+    rec = dict(model_axis=TP16_AXIS, batch=TP16_BATCH, reference_s={}, launches={}, paths={})
+    n_linears = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "tp16")
+        spawned, t1 = time.time(), time.perf_counter()
+        world = mp.start_processes(_tp16_rank, args=(TP16_AXIS, _free_port(), out, jobs, done),
+                                   nprocs=TP16_AXIS, join=False, start_method="spawn")
+        try:
+            for arch in TP16_PATHS:  # a path at a time: one path's references on the card
+                t0 = time.perf_counter()
+                refs = {arch: _tp16_reference(arch)}
+                rec["reference_s"][arch] = time.perf_counter() - t0
+                n_linears[arch] = len(refs[arch]["pallas"]["linears"])
+                for q in jobs:
+                    q.put(refs)
+                finished = 0
+                while finished < TP16_AXIS:
+                    try:
+                        done.get(timeout=5)
+                        finished += 1
+                    except queue.Empty:
+                        world.join(timeout=0)  # raises where a rank failed
+                del refs
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
+            for q in jobs:
+                q.put(None)
+            while not world.join():
+                pass
+        finally:
+            for proc in world.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        rec["spawn_s"] = time.perf_counter() - t1
+        ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(TP16_AXIS)]
+    rec["startup_s"] = max(r["ready"] for r in ranks) - spawned
+    print(f"tensor model 16 ({smi}): {TP16_AXIS} ranks on cuda:0 over gloo "
+          f"{rec['spawn_s']:.1f} s, of which startup (spawn to the last rank's process "
+          f"group) {rec['startup_s']:.1f} s; unsharded references "
+          f"{ {a: round(t, 1) for a, t in rec['reference_s'].items()} } s")
+    for arch in TP16_PATHS:
+        cfgs = _tp16_configs(arch)
+        path = rec["paths"][arch] = dict(cut=TP16_PATHS[arch][2])
+        for tag in ("fp32", "pallas"):
+            rs = [r[arch][tag] for r in ranks]
+            gaps = [abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"]) for r in rs]
+            tol = TP_AGREE[tag]
+            if not all(math.isfinite(r["loss"]) for r in rs) or max(gaps) > tol:
+                bad.append(f"model 16 {arch} {tag}: loss gaps {gaps}")
+            row = dict(loss_gap=max(gaps), step_ms=[r["step_ms"] for r in rs],
+                       seconds={k: max(r[k] for r in rs) for k in ("build_s", "checks_s",
+                                                                    "serve_s")},
+                       peak_memory_bytes=max(r["peak_memory_bytes"] for r in rs),
+                       card_used_bytes=max(r["card_used_bytes"] for r in rs))
+            if tag == "fp32":
+                g = [r["grads"] for r in rs]
+                diff = sum(x["split_diff"] for x in g) + g[0]["whole_diff"]
+                want = sum(x["split_want"] for x in g) + g[0]["whole_want"]
+                got = sum(x["split_got"] for x in g) + g[0]["whole_got"]
+                whole = [(x["whole_diff"] / max(x["whole_want"], 1e-60)) ** 0.5 for x in g]
+                row.update(grads_rel=math.sqrt(diff / want),
+                           grad_norm_rel=abs(math.sqrt(got) - math.sqrt(want)) / math.sqrt(want),
+                           whole_grads_rel=max(whole), worst=max(x["worst"] for x in g))
+                for what in ("grads_rel", "grad_norm_rel", "whole_grads_rel"):
+                    if row[what] > tol:
+                        bad.append(f"model 16 {arch} fp32 {what} {row[what]}")
+            else:
+                lin = [c for r in rs for c in r["linears"]]
+                wrong = [c for c in lin if not c["ok"]]
+                n = n_linears[arch]
+                row.update(linears=len(lin),
+                           linears_whole=sum(c["kind"] == "whole" for c in lin),
+                           linears_worst=max(c["sum_err"] / max(c["sum_tol"], 1e-30)
+                                             for c in lin))
+                if wrong or n != tp_linears(cfgs["pallas"]) or len(lin) != n * TP16_AXIS:
+                    bad.append(f"model 16 {arch} linears {wrong[:3]} ({len(lin)} of {n} x 16)")
+                want = lm_train_launches(cfgs["pallas"], model_axis=TP16_AXIS)
+                for i in TP16_HELD:
+                    got = {k: rs[i]["launches"].get(k, 0) for k in want}
+                    if got != want:
+                        bad.append(f"model 16 {arch} rank {i} launches {got}, expected {want}")
+                row["expected_launches"] = want
+                rec["launches"][arch] = rs[0]["launches"]
+            s = [r["serve"] for r in rs]
+            held = [max(x["gap"] if tag == "fp32" else x["fed_gap"]) for x in s]
+            row.update(serve_gap=max(held), serve_unfed_gap=max(max(x["gap"]) for x in s),
+                       greedy_equal=min(x["greedy_equal"] for x in s),
+                       prefill_ms=[x["prefill_ms"] for x in s],
+                       decode_ms=[statistics.median(x["decode_ms"]) for x in s])
+            if not all(x["finite"] for x in s) or max(held) > TP_SERVE_AGREE:
+                bad.append(f"model 16 serve {arch} {tag}: logits gaps {held}")
+            if any(x["tokens"] != s[0]["tokens"] for x in s):
+                bad.append(f"model 16 serve {arch} {tag}: the ranks' tokens differ")
+            if tag == "pallas":
+                rows = [x["fed_rows"] for x in s]
+                row["fed_rows_worst"] = max(x["worst"] for x in rows)
+                if any(x["bad"] or not x["calls"] for x in rows):
+                    bad.append(f"model 16 serve {arch}: row-parallel outputs off the unsharded "
+                               f"ones {[x['bad'][:2] for x in rows][:3]}")
+                want = [serve_launches(cfgs["pallas"], model_axis=TP16_AXIS, prefill=True)] + [
+                    serve_launches(cfgs["pallas"], model_axis=TP16_AXIS)] * TP16_SERVE_STEPS
+                want = [{k: n for k, n in w.items() if n} for w in want]
+                for i in TP16_HELD:
+                    if s[i]["step_launches"] != want:
+                        bad.append(f"model 16 serve {arch} rank {i} launches per step "
+                                   f"{s[i]['step_launches']}, expected {want}")
+                rec["launches"][f"{arch} serve"] = s[0]["launches"]
+            elif any(x["launches"] for x in s):
+                bad.append(f"model 16 serve {arch} fp32 launched {s[0]['launches']}")
+            path[tag] = row
+            print(f"tensor model 16 {arch} {tag} ({smi}; gloo through the host on one card: "
+                  f"not a TP speed): loss gap {row['loss_gap']:.3g}"
+                  + (f", gradients {row['grads_rel']:.3g} (whole ones "
+                     f"{row['whole_grads_rel']:.3g}, grad norm {row['grad_norm_rel']:.3g})"
+                     if tag == "fp32" else
+                     f", {row['linears']} linear calls checked ({row['linears_whole']} whole), "
+                     f"worst sum {row['linears_worst']:.3g} of its bound")
+                  + f"; step ms rank 0 / {TP16_AXIS - 1} {row['step_ms'][0]:.1f} / "
+                  f"{row['step_ms'][-1]:.1f}; "
+                  f"peak {row['peak_memory_bytes'] / 2**30:.2f} GiB a rank, card "
+                  f"{row['card_used_bytes'] / 2**30:.1f} GiB used; serving gap "
+                  f"{row['serve_gap']:.3g} (unfed {row['serve_unfed_gap']:.3g}), greedy "
+                  f"{row['greedy_equal']:.3f}, prefill {row['prefill_ms'][0]:.1f} ms, decode "
+                  f"{row['decode_ms'][0]:.2f} ms/step; seconds (slowest rank) "
+                  f"{ {k: round(v, 1) for k, v in row['seconds'].items()} }")
+    return rec
 
 
 def main() -> int:

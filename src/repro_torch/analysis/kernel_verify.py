@@ -607,13 +607,15 @@ _SABOTAGE_BUILDERS = {
 
 # the tensor-parallel steps the audit proves K1's split entries and K3 at:
 # chatglm3-6b, zamba2-7b, moonshot-v1-16b-a3b and seamless-m4t-medium (its
-# cross-attention over 4096 source frames) at a model axis of 2, 4096 tokens
-# (batch 1 x 4096, the chip smoke's)
+# cross-attention over 4096 source frames) at a model axis of 2, and yi-34b
+# at 16 (56 query heads split 4 / 3: rank 0's wq of 512 columns and wo of 512
+# rows, rank 15's of 384), 4096 tokens (batch 1 x 4096, the chip smoke's)
 TP_AUDIT = ("chatglm3-6b", 2, 4096)
 TP_AUDIT_HYBRID = ("zamba2-7b", 2, 4096)
 TP_AUDIT_MOE = ("moonshot-v1-16b-a3b", 2, 4096)
 TP_AUDIT_ENCDEC = ("seamless-m4t-medium", 2, 4096)
-TP_AUDITS = (TP_AUDIT, TP_AUDIT_HYBRID, TP_AUDIT_MOE, TP_AUDIT_ENCDEC)
+TP_AUDIT_UNEVEN = ("yi-34b", 16, 4096)
+TP_AUDITS = (TP_AUDIT, TP_AUDIT_HYBRID, TP_AUDIT_MOE, TP_AUDIT_ENCDEC, TP_AUDIT_UNEVEN)
 
 
 def tensor_parallel_specs(cfg, model_axis: int, tokens: int,

@@ -23,13 +23,13 @@ arithmetic the kernels assume:
   without ``wire_fsdp_dim``.
 
 * **Tensor parallelism** (:func:`lint_tensor_parallel`): an LM config of
-  any family trains under a model axis where the axis divides its query
-  heads and its vocabulary, each rank's query heads map onto whole kv
-  heads (kv heads the axis does not divide stay replicated: a warning),
-  and every split keeps its backend's scaling groups whole
-  (``parallel.tensor.tp_layout``); an MoE's experts split whole (a
-  warning names the experts a rank, or the stacks kept replicated where
-  the axis does not divide them).
+  a ported family with grouping "nc" trains under any model axis
+  (``parallel.tensor.tp_layout``): every split keeps its backend's
+  scaling groups and whole heads, and what cannot split stays replicated,
+  each case a warning that names it: query heads split unevenly in whole
+  units, kv heads kept replicated, an attention with fewer units than
+  ranks kept whole, a vocabulary the axis does not divide kept whole, the
+  experts a rank (or the stacks kept replicated).
 
 Pure Python on dataclass fields: it runs on any host.
 """
@@ -148,24 +148,38 @@ def lint_shipped_presets() -> dict[str, LintResult]:
 
 def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
     """Whether the LM config ``cfg`` trains tensor-parallel over a model
-    axis of ``model_axis`` (the module docstring); warnings name the kv
-    heads kept replicated, the Mamba2 tail held by one rank, the experts a
-    rank (or the expert stacks kept replicated) and the dims split
-    unevenly (in whole groups or units)."""
+    axis of ``model_axis`` (the module docstring): errors on a family not
+    ported, on grouping other than "nc" and on a hidden dim with fewer
+    scaling groups than ranks; warnings name the query heads split
+    unevenly, the kv heads, attention or vocabulary kept replicated, the
+    Mamba2 tail held by one rank, the experts a rank (or the expert stacks
+    kept replicated) and the other dims split unevenly (in whole groups or
+    units)."""
     from repro_torch.launch.specs import abstract_params
-    from repro_torch.parallel.tensor import TAIL_RANK, mamba_heads, rank_heads, tp_layout
+    from repro_torch.parallel.tensor import (
+        TAIL_RANK, attention_heads, mamba_heads, rank_heads, tp_layout)
 
     errors: list[str] = []
     warnings: list[str] = []
     try:
         layout = tp_layout(cfg, {k: tuple(t.shape) for k, t in abstract_params(cfg).items()},
                            model_axis)
-        for rank in range(model_axis if cfg.n_heads else 0):
-            rank_heads(cfg, model_axis, rank)
     except (NotImplementedError, ValueError) as e:
         return LintResult([str(e)], warnings)
-    if model_axis > 1 and cfg.n_heads and cfg.n_kv_heads % model_axis:
-        warnings.append(f"{cfg.n_kv_heads} kv heads stay replicated over a model axis of "
+    heads = attention_heads(cfg, model_axis) if model_axis > 1 and cfg.n_heads else None
+    if model_axis > 1 and cfg.n_heads and heads is None:
+        warnings.append(f"attention heads of {cfg.hd} do not split in whole scaling groups "
+                        f"over {model_axis} ranks: the attention stays replicated")
+    if heads is not None:
+        sizes = {h1 - h0 for h0, h1 in heads}
+        if len(sizes) > 1:
+            warnings.append(f"query heads split unevenly in whole units: {max(sizes)} / "
+                            f"{min(sizes)}")
+        if rank_heads(cfg, model_axis, 0)[2] is not None:
+            warnings.append(f"{cfg.n_kv_heads} kv heads stay replicated over a model axis of "
+                            f"{model_axis}")
+    if model_axis > 1 and "emb" not in layout:
+        warnings.append(f"a vocabulary of {cfg.vocab} stays replicated over a model axis of "
                         f"{model_axis}")
     mamba = model_axis > 1 and cfg.family in ("ssm", "hybrid")
     if mamba:
@@ -173,10 +187,10 @@ def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
         a, b = sp.pieces[TAIL_RANK][-1]
         warnings.append(f"rank {TAIL_RANK} holds each Mamba2 in_proj's tail [{a}, {b}) (B, C "
                         f"and dt: {b - a} columns) and its conv channels, and broadcasts it")
-        heads = {h1 - h0 for h0, h1 in mamba_heads(cfg, model_axis)}
-        if len(heads) > 1:
+        units = {h1 - h0 for h0, h1 in mamba_heads(cfg, model_axis)}
+        if len(units) > 1:
             warnings.append(f"Mamba2 heads split unevenly in whole units: "
-                            f"{max(heads)} / {min(heads)}")
+                            f"{max(units)} / {min(units)}")
     if model_axis > 1 and cfg.family == "moe":
         e = cfg.n_experts
         if "layers.0.moe.w_gate" in layout:
@@ -186,8 +200,11 @@ def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
         else:
             warnings.append(f"{e} experts do not split over a model axis of {model_axis}: the "
                             f"expert stacks stay replicated, every rank runs them all")
-    # a Mamba2 layer's parts differ by the tail: their units are warned of above
-    grouped = {k: sp for k, sp in layout.items() if not (mamba and k.startswith("layers."))}
+    # a Mamba2 layer's parts differ by the tail, and query heads by whole
+    # units: both are warned of above
+    grouped = {k: sp for k, sp in layout.items()
+               if not (mamba and k.startswith("layers."))
+               and not k.endswith(("wq.w", "wq.b", "wo.w"))}
     uneven = sorted({f"{name.split('.')[-2]} {sp.size(0)} / {sp.size(len(sp.pieces) - 1)}"
                      for name, sp in grouped.items()
                      if len({sp.size(r) for r in range(len(sp.pieces))}) > 1})

@@ -70,10 +70,12 @@ not linear in the depth: an extended serve cell's byte counts lie within
 extend=False)`` traces a cell whole: ``tests/test_torch_dryrun_extension.py``
 holds the extension equal to it, exactly, for every family.
 
-Cells whose layout ``analysis.lint.lint_tensor_parallel`` refuses at
-model 16 are recorded, not crashed on (``"refused"``, its message: heads,
-scaling groups or a vocabulary the axis does not divide), train and serve
-cells alike.
+Cells whose layout ``analysis.lint.lint_tensor_parallel`` refuses are
+recorded, not crashed on (``"refused"``, its message: a family not
+ported, grouping other than "nc"), train and serve cells alike; every
+production cell runs (what the model axis does not divide stays
+replicated, ``parallel.tensor``), and whether it fits is its trace's
+result.
 
 Usage::
 

@@ -53,9 +53,12 @@ Under tensor parallelism over the ``model`` axis
 ``model.tp`` is set: the embedding is a vocab-parallel lookup summed over
 the group, the unquantized LM head is column-parallel over vocab
 (mamba2-370m's tied head too: the slice of ``emb``), and :func:`lm_loss`
-takes a vocab-parallel cross-entropy; the layers (Mamba2 layers, the
-hybrid's shared block, the encoder's and the decoder's blocks with their
-cross-attention by the dense rules) hold their heads, and an MoE layer
+takes a vocab-parallel cross-entropy, except where the model size does
+not divide the vocabulary (mamba2-370m's 50280 at model 16), which stays
+whole on every rank (a plain lookup, head and loss); the layers (Mamba2
+layers, the hybrid's shared block, the encoder's and the decoder's blocks
+with their cross-attention by the dense rules) hold their heads (an
+attention with fewer units than ranks all of them), and an MoE layer
 its experts (:mod:`repro_torch.models.moe`).  Serving (:func:`prefill`,
 :func:`decode_step`, ``LM.forward``) a rank holds its part of the cache
 (:func:`cache_spec` with ``tp``: the kv heads its query heads read, its
@@ -258,6 +261,13 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda"
 # ===========================================================================
 # embedding / head
 # ===========================================================================
+def _vocab_split(model: LM) -> bool:
+    """Whether the vocabulary splits over the model group (tensor-parallel,
+    and the model size divides it; else ``emb`` and ``lm_head`` stay whole
+    on every rank, as JAX's ``spec_for`` keeps them)."""
+    return model.tp is not None and "emb" in model.tp_layout
+
+
 def _vocab_start(model: LM, name: str) -> int:
     return model.tp_layout[name].bounds[model.tp.rank][0]
 
@@ -265,12 +275,13 @@ def _vocab_start(model: LM, name: str) -> int:
 def embed(model: LM, batch: dict) -> torch.Tensor:
     """Token embeddings in the compute dtype; with a frontend, its
     projected embeddings (unquantized: the first layer) replace the first
-    positions.  Tensor-parallel: each rank looks up the tokens of its
-    vocabulary slice, zeros for the rest, summed over the group."""
+    positions.  Tensor-parallel over a split vocabulary: each rank looks up
+    the tokens of its vocabulary slice, zeros for the rest, summed over the
+    group."""
     cfg = model.cfg
     cdt = torch_dtype(cfg.compute_dtype)
     tokens = batch["tokens"]
-    if model.tp is None:
+    if not _vocab_split(model):
         x = model.emb[tokens].to(cdt)
     else:
         v0, v = _vocab_start(model, "emb"), model.emb.shape[0]
@@ -289,19 +300,21 @@ def logits_fn(model: LM, x: torch.Tensor) -> torch.Tensor:
     """``x @ head.T`` -> fp32, unquantized (the last layer, paper Sec.
     VI-A): the head rounded to ``x``'s dtype, the products summed in fp32
     (the JAX package's ``preferred_element_type=float32``).
-    Tensor-parallel: this rank's vocabulary slice of the logits."""
+    Tensor-parallel over a split vocabulary: this rank's slice of the
+    logits."""
     head = model.emb if model.cfg.tie_embeddings else model.lm_head
-    if model.tp is not None:
+    if _vocab_split(model):
         x = copy_to_tp(x, model.tp)
     return x.float() @ head.to(x.dtype).float().t()
 
 
 def whole_logits(model: LM, logits: torch.Tensor) -> torch.Tensor:
     """The whole vocabulary's logits from :func:`logits_fn`'s: as they are
-    on one device; tensor-parallel, this rank's slice placed in zeros and
-    summed over the model group (exact: every other rank adds zeros), so
-    that every rank holds them whole."""
-    if model.tp is None:
+    on one device or where the vocabulary stays whole; over a split
+    vocabulary, this rank's slice placed in zeros and summed over the
+    model group (exact: every other rank adds zeros), so that every rank
+    holds them whole."""
+    if not _vocab_split(model):
         return logits
     v0 = _vocab_start(model, "emb" if model.cfg.tie_embeddings else "lm_head")
     pad = (v0, model.cfg.vocab - v0 - logits.shape[-1])
@@ -486,7 +499,7 @@ def lm_loss(model: LM, batch: dict, key: int | None = None
 
     targets = batch["tokens"][:, 1:]
     lg = logits[:, :-1].float()
-    if model.tp is None:
+    if not _vocab_split(model):
         lse = torch.logsumexp(lg, dim=-1)
         ll = torch.gather(lg, -1, targets[..., None].long())[..., 0]
     else:
@@ -512,7 +525,8 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int, src_len: int = SRC_LE
     ``src_len`` encoder positions.  ``tp`` (a ``parallel.tensor.
     TensorParallel``: its ``rank`` of ``size``): that rank's part under
     tensor parallelism, the kv heads its query heads read
-    (``rank_heads``), and of a Mamba2 layer its heads' SSM states and the
+    (``rank_heads``: all of them where the attention stays replicated),
+    and of a Mamba2 layer its heads' SSM states and the
     conv channels of their ``x`` (on ``TAIL_RANK`` also ``B``, ``C``)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown LM family {cfg.family!r}; expected one of {FAMILIES}")

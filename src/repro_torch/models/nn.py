@@ -270,12 +270,19 @@ def gqa_attention(
     window: int | None = None,  # sliding-window size (None = full)
     kv_len: int | None = None,  # number of valid cache slots
     q_chunk: int | None = None,  # memory-efficient query chunking
+    kv_map: tuple[int, ...] | None = None,  # the kv head each query head reads
 ) -> torch.Tensor:
     """Grouped-query attention -> fp32 (B, Sq, Hq, D).  With ``q_chunk``
     (when it divides Sq and Sq exceeds it) the queries run in blocks, each
     with an exact softmax over the full key range, so the score matrix
-    never exceeds (B, H, q_chunk, Sk)."""
+    never exceeds (B, H, q_chunk, Sk).  ``kv_map``: query head ``h`` reads
+    kv head ``kv_map[h]`` (a rank's irregular share of the heads under
+    tensor parallelism): k and v are gathered to the query heads; None:
+    each kv head serves ``Hq / Hkv`` consecutive query heads."""
     b, sq, hq, d = q.shape
+    if kv_map is not None:
+        idx = torch.tensor(kv_map, dtype=torch.long, device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     hkv = k.shape[2]
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")

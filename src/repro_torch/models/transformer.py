@@ -19,10 +19,14 @@ split) and its slice of the MLP's hidden dim: the input passes
 Cross-attention's ``wk``/``wv`` are column-parallel over the kv heads on
 ``copy_to_tp(kv)`` (each rank's heads add a part of the source's
 gradient), or replicated on ``kv`` where the kv heads do not split.
-Serving, a rank's KV cache and cross-attention cache hold only the kv
-heads its query heads read (``heads[1]`` of them: the rank's split, or
-the ``kv_take`` slice of the replicated ones), written after the
-column-parallel ``wk``/``wv`` (and the slice).
+Where a rank's query heads do not map onto its kv heads in equal
+consecutive groups (an uneven split), ``kv_map`` names the kv head each
+reads.  An attention that stays replicated is not marked: it runs whole
+on every rank, with no collective.  Serving, a rank's KV cache
+and cross-attention cache hold only the kv heads its query heads read
+(``heads[1]`` of them: the rank's split, or the ``kv_take`` slice of the
+replicated ones), written after the column-parallel ``wk``/``wv`` (and
+the slice).
 """
 from __future__ import annotations
 
@@ -78,10 +82,12 @@ class Attention(nn.Module):
         self.wo = L.Linear(cfg.n_heads * hd, d)
         # tensor parallelism (parallel.tensor.tensor_parallel): the model
         # group, this rank's query and kv heads, and [kv0, kv1) of the
-        # replicated kv heads its query heads map to (None: kv heads split)
+        # replicated kv heads its query heads map to (None: kv heads split),
+        # and the local kv head each query head reads (None: grouped)
         self.tp = None
         self.heads = (cfg.n_heads, cfg.n_kv_heads)
         self.kv_take = None
+        self.kv_map = None
 
     def init_(self, generator: torch.Generator) -> None:
         for lin in (self.wq, self.wk, self.wv, self.wo):
@@ -118,7 +124,8 @@ class Attention(nn.Module):
         q = self.wq(xq, qcfg, fold_in(key, 0), wire=0).reshape(b, s, hq, hd)
         q_chunk = 1024 if s > 4096 else None
         if cross_cache is not None:
-            out = L.gqa_attention(q, *cross_cache, causal=False, q_chunk=q_chunk)
+            out = L.gqa_attention(q, *cross_cache, causal=False, q_chunk=q_chunk,
+                                  kv_map=self.kv_map)
             out = out.reshape(b, s, hq * hd).to(x.dtype)
             return self.wo(out, qcfg, fold_in(key, 3), wire=1)
         xkv = xq if kv is None else kv
@@ -153,13 +160,15 @@ class Attention(nn.Module):
             cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
             if kv_valid is not None:
                 # ring buffer: slot order is arbitrary; rope carries positions
-                out = L.gqa_attention(q, ck, cv, causal=False, kv_len=kv_valid, q_chunk=q_chunk)
+                out = L.gqa_attention(q, ck, cv, causal=False, kv_len=kv_valid, q_chunk=q_chunk,
+                                      kv_map=self.kv_map)
             else:
                 out = L.gqa_attention(q, ck, cv, causal=causal, q_offset=cache_pos,
-                                      window=window, kv_len=cache_pos + s, q_chunk=q_chunk)
+                                      window=window, kv_len=cache_pos + s, q_chunk=q_chunk,
+                                      kv_map=self.kv_map)
         else:
             out = L.gqa_attention(q, k, v, causal=causal and kv is None, window=window,
-                                  q_chunk=q_chunk)
+                                  q_chunk=q_chunk, kv_map=self.kv_map)
 
         out = out.reshape(b, s, hq * hd).to(x.dtype)
         return self.wo(out, qcfg, fold_in(key, 3), wire=1)

@@ -12,8 +12,10 @@ done here by hand on per-rank local tensors, Megatron's way:
 
 The layout is the JAX package's (:func:`repro_torch.parallel.specs.param_shardings`
 on a mesh with a ``model`` axis names the dim of each parameter that
-``heads``, ``kv_heads``, ``mlp`` and ``vocab`` put on ``model``), with two
-rules of the port's own (:func:`tp_layout`):
+``heads``, ``kv_heads``, ``mlp`` and ``vocab`` put on ``model``, and
+leaves replicated what the axis does not divide), with rules of the
+port's own that keep whole heads and whole scaling groups
+(:func:`tp_layout`):
 
 * a contraction dim is split in whole scaling groups of the width the
   backend uses on it (``k_block`` on the quantized backend; on the
@@ -22,10 +24,23 @@ rules of the port's own (:func:`tp_layout`):
   ⌊G/m⌋ to the rest: chatglm3-6b's d_ff 13696 (107 groups of 128) splits
   6912 / 6784 at model 2, where JAX splits it evenly (6848 each) and lets
   GSPMD regroup;
-* heads split whole: the query heads must divide by the model size; kv
-  heads that do not (chatglm3-6b's 2 at model 4) stay replicated, whatever
-  the dim's divisibility says, and each rank attends with the kv heads its
-  query heads map to.
+* an attention's query heads split in whole units of ``u = lcm(hd, gw) /
+  hd`` heads (whole heads and whole scaling groups), ⌈U/m⌉ of its ``U``
+  units to the first ``U % m`` ranks and ⌊U/m⌋ to the rest
+  (:func:`attention_heads`): yi-34b's 56 heads split 4 / 3 at model 16,
+  where JAX splits their columns evenly (3.5 heads a device).  The kv
+  heads split with them only where both split evenly in whole groups;
+  else (chatglm3-6b's 2 at model 4, any uneven split) they stay
+  replicated and each rank attends with the kv heads its query heads map
+  to, ``[h0 // g, (h1 - 1) // g + 1)`` (:func:`rank_heads`), query head
+  ``h`` reading local kv head ``h // g - kv0`` (:func:`kv_map`);
+* an attention with fewer units than ranks (seamless-m4t-medium's heads
+  of 64 at model 16, zamba2-7b's shared block's of 112 at 8) stays
+  replicated whole, ``wq``, ``wk``, ``wv``, ``wo`` and their biases, as
+  JAX's experts do where the axis does not divide them: every rank
+  computes every head, with no collective, its quantized operands on K1's
+  one-call entry (the unsharded layer's outputs, bit for bit), its weight
+  gradients whole on every rank, like a norm's.
 
 Quantized operands are quantized as slices of the unsharded operands
 (:class:`repro_torch.core.lowbit.LinearSplit`): the tensor scale is the
@@ -38,7 +53,9 @@ row-parallel output) differ from the unsharded ones in their order only.
 
 The embedding is a vocab-parallel lookup (the other ranks add zeros), the
 unquantized LM head column-parallel over vocab, and the loss a
-vocab-parallel cross-entropy.
+vocab-parallel cross-entropy; a vocabulary the model size does not divide
+(mamba2-370m's 50280 at model 16) stays replicated, as JAX's ``spec_for``
+keeps it: a plain lookup, head and loss on every rank.
 
 The ssm and hybrid families' Mamba2 layers split by parts, where JAX
 splits ``in_proj``'s packed output dim (``z``, ``x``, ``B``, ``C``,
@@ -93,13 +110,13 @@ import torch.distributed as dist
 
 from repro_torch.core.lowbit import LinearSplit
 
-from .sharding import MeshShape
-from .specs import logical_axes_for, param_shardings
+from .sharding import DEFAULT_RULES
+from .specs import logical_axes_for
 
 __all__ = ["NOT_PORTED", "PORTED", "TAIL_RANK", "Split", "TPLinear", "TensorParallel",
-           "all_reduce_max", "broadcast_from_tp", "copy_to_tp", "mamba_heads", "rank_heads",
-           "reduce_from_tp", "shard_state_dict", "sum_over_tp", "tensor_parallel", "tp_layout",
-           "vocab_parallel_ce"]
+           "all_reduce_max", "attention_heads", "broadcast_from_tp", "copy_to_tp", "kv_map",
+           "mamba_heads", "rank_heads", "reduce_from_tp", "shard_state_dict", "sum_over_tp",
+           "tensor_parallel", "tp_layout", "vocab_parallel_ce"]
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "encdec")
 NOT_PORTED = ("tensor parallelism over the 'model' axis takes the LM families " + ", ".join(PORTED)
@@ -331,80 +348,116 @@ def _mamba_layout(cfg, shapes: Mapping[str, tuple[int, ...]], size: int) -> dict
     return out
 
 
+def attention_heads(cfg, size: int) -> tuple[tuple[int, int], ...] | None:
+    """Each rank's ``[h0, h1)`` of an attention's query heads at a model axis
+    of ``size``: whole units of ``lcm(hd, gw) / hd`` heads (``gw`` the
+    scaling group of the heads' dim), ⌈U/m⌉ units to the first ``U % m``
+    ranks; None where the units are fewer than the ranks (the attention
+    stays replicated)."""
+    hd = cfg.hd
+    d = cfg.n_heads * hd
+    unit = math.lcm(hd, _group_width(cfg.qcfg(), d))
+    if -(-d // unit) < size:
+        return None
+    return tuple((a // hd, b // hd) for a, b in _in_groups(d, unit, size))
+
+
+def _kv_split(cfg, heads, size: int) -> bool:
+    """Whether the kv heads split with the query heads ``heads``: both
+    evenly, ``n_kv / size`` kv heads a rank in whole scaling groups."""
+    if heads is None or cfg.n_kv_heads % size or cfg.n_heads % size:
+        return False
+    if any(h1 - h0 != cfg.n_heads // size for h0, h1 in heads):
+        return False
+    d = cfg.n_kv_heads * cfg.hd
+    return (d // size) % _group_width(cfg.qcfg(), d) == 0
+
+
+_MODEL_AXES = {a for a, e in DEFAULT_RULES.rules if e == "model"}
+
+
 def tp_layout(cfg, shapes: Mapping[str, tuple[int, ...]], size: int) -> dict[str, Split]:
     """``{name: Split}`` of every parameter of a ``cfg`` model (``shapes``:
     name -> unsharded shape) that the model axis of ``size`` splits; the
-    others are replicated.  The split dims are ``param_shardings``' on a
-    ``("model",)`` mesh (and, of a Mamba2 layer, the heads' dims of
-    ``A_log``, ``D``, ``dt_bias`` and ``out_norm``); the bounds follow the
-    module docstring's rules.  Raises on a family not ported, on query
-    heads the model size does not divide, and on a split that cannot keep
-    its groups whole."""
+    others are replicated.  The split dims are those whose logical axis
+    (``logical_axes_for``) the rules put on ``model`` (and, of a Mamba2
+    layer, the heads' dims of ``A_log``, ``D``, ``dt_bias`` and
+    ``out_norm``); the bounds follow the module docstring's rules: heads
+    in whole units (an attention with fewer units than ranks replicated),
+    hidden dims in whole groups, a vocabulary or an expert stack the model
+    size does not divide replicated, as ``param_shardings`` drops the
+    axis.  Raises on a family not ported, on grouping other than "nc" and
+    on a hidden dim with fewer scaling groups than ranks."""
     if cfg.family not in PORTED:
         raise NotImplementedError(NOT_PORTED.format(family=cfg.family))
     if size == 1:
         return {}
     qcfg = cfg.qcfg()
-    hd = cfg.hd if cfg.n_heads else 0
-    if cfg.n_heads % size:
-        raise ValueError(f"{cfg.n_heads} query heads do not split over a model axis of {size}")
-    kv_split = cfg.n_kv_heads % size == 0
+    heads = attention_heads(cfg, size) if cfg.n_heads else None
+    kv_split = _kv_split(cfg, heads, size)
     out = _mamba_layout(cfg, shapes, size) if cfg.family in ("ssm", "hybrid") else {}
-    mesh = MeshShape(("model",), (size,))
-    rest = {k: torch.empty(s, device="meta") for k, s in shapes.items() if k not in out}
-    for name, spec in param_shardings(rest, mesh).items():
-        dims = [d for d, e in enumerate(spec) if e == "model" or
-                (isinstance(e, tuple) and "model" in e)]
+    for name, shape in shapes.items():
+        if name in out:
+            continue
+        logical = logical_axes_for(name, len(shape))
+        dims = [d for d, a in enumerate(logical) if a in _MODEL_AXES]
         if not dims:
             continue
         dim = dims[0]
-        axis = logical_axes_for(name, len(shapes[name]))[dim]
-        d = shapes[name][dim]
+        axis, d = logical[dim], shape[dim]
         if axis == "heads":
-            bounds = _even(d, size)
-            gw = _group_width(qcfg, d)
+            if heads is None:
+                continue  # fewer units than ranks: the attention stays replicated
+            bounds = tuple((h0 * cfg.hd, h1 * cfg.hd) for h0, h1 in heads)
         elif axis == "kv_heads":
             if not kv_split:
                 continue  # replicated: each rank uses the kv heads its q heads map to
             bounds = _even(d, size)
-            gw = _group_width(qcfg, d)
         elif axis == "mlp":
-            gw = _group_width(qcfg, d)
-            bounds = _in_groups(d, gw, size)
-        elif axis == "vocab":
-            bounds, gw = _even(d, size), 1  # the embedding and the unquantized head
-        elif axis == "expert":
-            bounds, gw = _even(d, size), 1  # whole experts, each with its own scales
+            bounds = _in_groups(d, _group_width(qcfg, d), size)
+        elif axis in ("vocab", "expert"):
+            if d % size:
+                continue  # JAX's spec_for drops the axis: replicated
+            bounds = _even(d, size)  # the embedding and head; whole experts
         else:
             raise NotImplementedError(f"{name}: the logical axis {axis!r} on 'model' is not "
                                       f"ported (ROADMAP queue 1)")
-        if axis in ("heads", "kv_heads") and any(a % hd or a % gw for a, _ in bounds):
-            raise ValueError(f"{name}: heads of {hd} split at {bounds} do not keep the "
-                             f"{gw}-wide scaling groups whole")
         out[name] = Split.of_bounds(dim, bounds)
-    heads = [k for k in ("emb", "lm_head") if k in shapes]
-    if any(k not in out for k in heads):
-        raise ValueError(f"a vocabulary of {cfg.vocab} does not split over a model axis of "
-                         f"{size}")
     return out
 
 
 def rank_heads(cfg, size: int, rank: int) -> tuple[int, int, tuple[int, int] | None]:
     """Rank ``rank``'s attention heads at a model axis of ``size``: ``(query
     heads, kv heads, kv_take)``; ``kv_take`` is None where the kv heads split
-    (``n_kv / size`` each), else the ``[kv0, kv1)`` of the replicated kv
-    heads its query heads map to.  Raises where those query heads do not
-    map onto whole kv heads."""
-    hq = cfg.n_heads // size
-    if cfg.n_kv_heads % size == 0:
-        return hq, cfg.n_kv_heads // size, None
+    (``n_kv / size`` each) or the attention stays replicated (all heads),
+    else the ``[kv0, kv1)`` of the replicated kv heads its query heads
+    ``[h0, h1)`` map to, ``[h0 // g, (h1 - 1) // g + 1)`` with ``g =
+    n_heads / n_kv``."""
+    heads = attention_heads(cfg, size)
+    if heads is None:
+        return cfg.n_heads, cfg.n_kv_heads, None
+    h0, h1 = heads[rank]
+    if _kv_split(cfg, heads, size):
+        return h1 - h0, cfg.n_kv_heads // size, None
     group = cfg.n_heads // cfg.n_kv_heads
-    h0 = rank * hq
-    kv0, kv1 = h0 // group, (h0 + hq - 1) // group + 1
-    if not (hq % group == 0 and h0 % group == 0) and kv1 - kv0 != 1:
-        raise ValueError(f"rank {rank}'s {hq} query heads do not map onto whole kv heads "
-                         f"({cfg.n_heads} over {cfg.n_kv_heads} at a model axis of {size})")
-    return hq, kv1 - kv0, (kv0, kv1)
+    kv0, kv1 = h0 // group, (h1 - 1) // group + 1
+    return h1 - h0, kv1 - kv0, (kv0, kv1)
+
+
+def kv_map(cfg, size: int, rank: int) -> tuple[int, ...] | None:
+    """The local kv head each of rank ``rank``'s query heads reads (query head
+    ``h`` kv head ``h // g - kv0``), or None where the grouped layout reads
+    them (each kv head read by the same number of consecutive query
+    heads)."""
+    hq, hkv, take = rank_heads(cfg, size, rank)
+    if take is None:
+        return None
+    h0 = attention_heads(cfg, size)[rank][0]
+    group = cfg.n_heads // cfg.n_kv_heads
+    local = tuple(h // group - take[0] for h in range(h0, h0 + hq))
+    if hq % hkv == 0 and local == tuple(i // (hq // hkv) for i in range(hq)):
+        return None
+    return local
 
 
 def shard_state_dict(state: Mapping[str, torch.Tensor], layout: Mapping[str, Split],
@@ -452,29 +505,38 @@ _KINDS = {"wq": "column", "wk": "column", "wv": "column", "wo": "row",
           "w_up": "column", "w_gate": "column", "w_down": "row"}
 
 
-def _mark_linears(module, prefix: str, layout: Mapping[str, Split], tp: TensorParallel) -> None:
+def _mark_linears(module, prefix: str, layout: Mapping[str, Split], tp: TensorParallel) -> bool:
     """The split linears of an attention or MLP (``prefix`` its name) made
-    column- or row-parallel; kv linears whose heads stay whole stay
-    replicated."""
+    column- or row-parallel, and the module told its group; kv linears
+    whose heads stay whole stay replicated.  An attention none of whose
+    linears split stays replicated whole (no group).  Returns whether it
+    split."""
+    split = False
     for name, kind in _KINDS.items():
         sp = layout.get(f"{prefix}{name}.w")
         if sp is not None:
             getattr(module, name).tp = TPLinear.of(kind, sp, tp)
-    module.tp = tp
+            split = True
+    if split:
+        module.tp = tp
+    return split
 
 
 def _mark_block(block, prefix: str, layout: Mapping[str, Split], tp: TensorParallel) -> None:
     """A transformer block (``prefix`` its name) run tensor-parallel: a dense
     or encoder :class:`Block`, an ``MoEBlock`` (its attention, its shared
     expert's MLP, its experts) or an ``XDecBlock`` (self- and
-    cross-attention, MLP); each attention told its heads."""
+    cross-attention, MLP).  Each attention is told its heads: split (its
+    query and kv heads), uneven (its query heads, the ``kv_take`` of the
+    replicated kv heads and, where the grouped layout does not read them,
+    the ``kv_map``) or replicated (left whole: no group, every head)."""
     for sub in ("attn", "xattn"):
         attn = getattr(block, sub, None)
-        if attn is None:
+        if attn is None or not _mark_linears(attn, f"{prefix}{sub}.", layout, tp):
             continue
-        _mark_linears(attn, f"{prefix}{sub}.", layout, tp)
         hq, hkv, attn.kv_take = rank_heads(attn.cfg, tp.size, tp.rank)
         attn.heads = (hq, hkv)
+        attn.kv_map = kv_map(attn.cfg, tp.size, tp.rank)
     moe = getattr(block, "moe", None)
     if moe is None:
         _mark_linears(block.mlp, f"{prefix}mlp.", layout, tp)

@@ -4,17 +4,18 @@ with rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
 ``launch/dryrun.py`` and against closed forms.
 
 - **Against JAX.**  JAX's ``run_cell`` runs in a subprocess (its XLA device
-  count is fixed at import), on mamba2-370m and chatglm3-6b at train_4k
-  and on chatglm3-6b at prefill_32k and decode_32k, 16x16, two layers;
-  mamba2-370m's vocabulary is 50304 there, since the port's lint refuses
-  its 50280 over a model axis of 16 (JAX keeps that vocabulary
-  replicated).  ``microbatch`` (train), ``n_devices`` and ``mesh`` are
-  equal.  The raw ratios are printed.  The port's rank 0 runs dots and
-  holds tensors a JAX device does not, by design, each named with its
-  closed form (:func:`by_design`): the kv heads a model axis of 16 does
-  not divide stay whole on every rank (JAX splits their columns); the
-  port's group-aligned split gives rank 0 the extra scaling groups (and,
-  of a Mamba2 layer, the in_proj's tail); PyTorch's full remat recomputes
+  count is fixed at import), on mamba2-370m, chatglm3-6b and yi-34b at
+  train_4k and on chatglm3-6b at prefill_32k and decode_32k, 16x16, two
+  layers; mamba2-370m's vocabulary of 50280 stays replicated over the
+  model axis of 16 in both.  ``microbatch`` (train), ``n_devices`` and
+  ``mesh`` are equal.  The raw ratios are printed.  The port's rank 0
+  runs dots and holds tensors a JAX device does not, by design, each
+  named with its closed form (:func:`by_design`): the kv heads a model
+  axis of 16 does not divide, or that an uneven split of the query heads
+  leaves whole, stay whole on every rank (JAX splits their columns); the
+  port's split in whole groups and heads gives rank 0 the extra scaling
+  groups and heads (yi-34b's 4 query heads of 56 where a JAX device holds
+  3.5; and, of a Mamba2 layer, the in_proj's tail); PyTorch's full remat recomputes
   each residual branch's last GEMM, whose output no backward rule reads
   (XLA drops it); serving, a rank's cache holds the kv heads its query
   heads read over the whole sequence, where JAX splits the cache's
@@ -38,9 +39,10 @@ with rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
   and count no launch (``LAUNCHES`` counts kernels launched).  A real CPU
   tensor still takes the plain version; K2's and K4's wrappers refuse
   fake operands.
-- **Cells not run** are recorded: yi-34b at 16x16 ``"refused"`` with the
-  lint's message, at train_4k and at decode_32k; a serve cell of an arch
-  the lint admits ``"ran"``; ``seq_shard`` raises.
+- **Cells not run** are recorded: a family the lint does not admit
+  ``"refused"`` with its message, at train_4k and at decode_32k; a serve
+  cell ``"ran"``, and yi-34b's prefill on both meshes (refused before its
+  query heads split unevenly); ``seq_shard`` raises.
 
 ``tests/test_torch_dryrun_extension.py`` holds the depth and microbatch
 extension equal to whole traces.
@@ -95,7 +97,7 @@ def one_thread():
 # ---------------------------------------------------------------------------
 # against the JAX package's dry run
 # ---------------------------------------------------------------------------
-CROSS = {"mamba2-370m": {"n_layers": 2, "vocab": 50304}, "chatglm3-6b": {"n_layers": 2}}
+CROSS = {"mamba2-370m": {"n_layers": 2}, "chatglm3-6b": {"n_layers": 2}, "yi-34b": {"n_layers": 2}}
 ROWS, SEQ = 16, 4096  # train_4k's 256 sequences over 16 data ranks
 # serve cells against JAX: (arch, shape), and rank 0's tokens a step
 SERVE_CROSS = {("chatglm3-6b", "decode_32k"): 128 // 16, ("chatglm3-6b", "prefill_32k"):
@@ -155,11 +157,20 @@ def by_design(cfg, tokens: int, model: int = 16, data: int = 16,
     weight gradients) and 4 in JAX, 3 for a residual branch's last linear;
     its weight and both moments are 12 B an element over the data axis.
     Serving (``train`` False) each runs its forward, and holds its weight:
-    4 B an element."""
+    4 B an element.  A vocabulary the model axis does not divide stays
+    whole in both, but GSPMD still splits the LM head's dot over ``model``
+    while every port rank runs it whole: ``(m - 1) / m`` of its 3 GEMMs
+    (forward, data and weight gradients; serving its forward) more."""
     shapes = {k: tuple(t.shape) for k, t in abstract_params(cfg).items()}
     layout = tp_layout(cfg, shapes, model)
     jax_specs = param_shardings(abstract_params(cfg), MeshShape(("model",), (model,)))
     out = {}
+    head = "emb" if cfg.tie_embeddings else "lm_head"
+    if head not in layout:
+        n = math.prod(shapes[head])
+        out[head] = (2.0 * tokens * (3 if train else 1) * n * (model - 1) / model, 0.0,
+                     "the LM head over a vocabulary the model axis does not divide: whole on "
+                     "every model rank (GSPMD splits its dot over model)")
     for name, shape in shapes.items():
         if not (name.startswith("layers.") and name.endswith(".w") and len(shape) == 2):
             continue
@@ -172,7 +183,8 @@ def by_design(cfg, tokens: int, model: int = 16, data: int = 16,
         why = []
         if p0 > pe:
             why.append("whole on every model rank (JAX splits it)" if split is None
-                       else f"rank 0 holds {p0} of {n} (JAX {pe}): whole scaling groups")
+                       else f"rank 0 holds {p0} of {n} (JAX {pe}): whole scaling groups "
+                            f"and heads")
         if last:
             why.append("its forward recomputed under full remat (XLA drops it)")
         if flops or p0 != pe:
@@ -217,6 +229,23 @@ def test_cell_agrees_with_jax_dryrun(arch, shape, jax_records, port_records):
           f"argument_bytes {raw[1]:.4f} raw, {net[1]:.4f} less the named tensors\n{named}")
     assert abs(net[0] - 1) <= 0.05, (arch, raw, net, named)
     assert abs(net[1] - 1) <= 0.10, (arch, raw, net, named)
+
+
+def test_yi_34b_rank_0_extra_attention_dots_in_closed_form():
+    """yi-34b at model 16: rank 0 holds 4 of the 56 query heads of 128 where
+    a JAX device holds 3.5, so its wq and wo each run half a head's
+    columns more in each of their 4 GEMMs (forward, remat's recompute,
+    data and weight gradient; wo also recomputes its 3.5 heads' forward,
+    which XLA drops); its 8 kv heads stay whole (JAX: half a head a
+    device)."""
+    cfg, tokens, d, hd = _cfg("yi-34b"), ROWS * SEQ, 7168, 128
+    terms = by_design(cfg, tokens)
+    half = 2.0 * tokens * (4 - 3.5) * hd * d  # one GEMM over half a head's columns
+    assert terms["layers.0.attn.wq.w"][0] == 4 * half
+    assert terms["layers.0.attn.wo.w"][0] == 4 * half + 2.0 * tokens * 3.5 * hd * d
+    for kv in ("wk", "wv"):
+        assert terms[f"layers.0.attn.{kv}.w"][0] == 4 * 2.0 * tokens * (8 - 0.5) * hd * d
+    assert "whole scaling groups and heads" in terms["layers.0.attn.wq.w"][2]
 
 
 def test_argument_bytes_are_rank_0_shards_in_closed_form(port_records):
@@ -436,8 +465,9 @@ def test_k2_and_k4_refuse_fake_operands(no_kernel):
 # ---------------------------------------------------------------------------
 def test_refused_and_served_cells_are_recorded(tmp_path, capsys):
     for shape in ("train_4k", "decode_32k"):
-        r = dryrun.run_cell("yi-34b", shape, False, out_dir=str(tmp_path), verbose=False)
-        assert r["status"] == "refused" and "56 query heads" in r["reason"]
+        r = dryrun.run_cell("yi-34b", shape, False, out_dir=str(tmp_path), verbose=False,
+                            cfg_updates={"family": "vision"})
+        assert r["status"] == "refused" and "'vision'" in r["reason"]
     r = dryrun.run_cell("chatglm3-6b", "decode_32k", True, out_dir=str(tmp_path),
                         verbose=False, cfg_updates={"n_layers": 2})
     assert r["status"] == "ran" and r["rows"] == 128 // 32 and "microbatch" not in r
@@ -448,4 +478,4 @@ def test_refused_and_served_cells_are_recorded(tmp_path, capsys):
                         seq_shard=True)
     assert dryrun.main(["--arch", "yi-34b", "--shape", "prefill_32k", "--mesh", "both",
                         "--out", str(tmp_path)]) == 0
-    assert "0 ran, 2 refused, 0 failed, of 2 cells" in capsys.readouterr().out
+    assert "2 ran, 0 refused, 0 failed, of 2 cells" in capsys.readouterr().out

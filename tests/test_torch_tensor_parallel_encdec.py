@@ -36,8 +36,8 @@ plain versions), stochastic rounding from one key; every batch carries
   equal two microbatch-2 steps of the model-only world 2 on the same
   global batches (losses and parameters within 1e-6).
 - ``tp_layout`` of the full config at model 2 (vocabulary 256206 as
-  128103 a rank, ``frontend_proj`` replicated) and its vocabulary raising
-  at model 4; K1's split entries and K3 proved at its rank shapes (the
+  128103 a rank, ``frontend_proj`` replicated) and at model 4, where the
+  vocabulary stays replicated (4 does not divide it); K1's split entries and K3 proved at its rank shapes (the
   cross-attention's over 4096 source frames)
   (``tests/test_torch_tensor_parallel_serve.py`` serves a tensor-parallel
   encoder-decoder).
@@ -199,8 +199,10 @@ def test_full_config_layout_at_model_2_and_the_vocabulary_at_4():
         assert two[f"{prefix}mlp.w_down.w"].dim == 0
     assert two["layers.0.xattn.wk.w"].bounds == ((0, 512), (512, 1024))
     assert two["layers.0.xattn.wo.w"].dim == 0
-    with pytest.raises(ValueError, match="vocabulary of 256206"):
-        tp_layout(cfg, shapes, 4)
+    four = tp_layout(cfg, shapes, 4)  # 256206 over 4: the vocabulary stays whole
+    assert "emb" not in four and "lm_head" not in four
+    assert four["layers.0.attn.wq.w"].bounds == ((0, 256), (256, 512), (512, 768), (768, 1024))
+    assert four["layers.0.mlp.w_up.w"].bounds[3] == (3072, 4096)
 
 
 def test_split_k1_and_k3_launch_specs_prove_at_seamless_tensor_parallel_shapes():

@@ -808,7 +808,9 @@ def _rank_cache_slices(model, cache0: dict, rank: int) -> dict:
     elif model.cfg.n_heads and model.cfg.family != "ssm":
         attn = model.layers[0].attn
     for name, t in cache0.items():
-        if name in ("k", "v", "ak", "av", "xk", "xv"):
+        if name in ("k", "v", "ak", "av", "xk", "xv") and attn.tp is None:
+            out[name] = t  # a replicated attention caches every kv head
+        elif name in ("k", "v", "ak", "av", "xk", "xv"):
             hkv = attn.heads[1]
             kv0, kv1 = attn.kv_take or (rank * hkv, (rank + 1) * hkv)
             out[name] = t[:, :, kv0:kv1]
@@ -821,7 +823,7 @@ def _rank_cache_slices(model, cache0: dict, rank: int) -> dict:
     return out
 
 
-def serve_case(arch: str, backend: str, tp, state=None) -> dict:
+def serve_case(arch: str, backend: str, tp, state=None, cfg=None) -> dict:
     """``arch`` served unsharded and as this rank's tensor-parallel part, on
     the same weights (``state``, else seed 0's) and inputs; quantized, each
     linear (and MoE layer) of the tensor-parallel run fed the unsharded
@@ -830,12 +832,13 @@ def serve_case(arch: str, backend: str, tp, state=None) -> dict:
     one bit for bit (by tensor) and its relative L2 distance from it, the
     rank's cache shapes against
     ``cache_spec(..., tp=...)``, the tensor-parallel run's launches of a
-    decode step, and, unquantized, both engines' greedy tokens."""
+    decode step, and, unquantized, both engines' greedy tokens.  ``cfg``:
+    another config than :func:`serve_config`'s."""
     from repro_torch.models import lm
     from repro_torch.parallel.tensor import tensor_parallel
     from repro_torch.serve import ServeEngine
 
-    cfg = serve_config(arch, backend)
+    cfg = cfg or serve_config(arch, backend)
     state = _state(cfg) if state is None else state
     fed = backend != "off"
     full = lm.LM(cfg)
@@ -917,4 +920,97 @@ def serve_tp4_worker(rank: int, world: int):
     batch = train.local_batch(serve_inputs(cfg)[0], mesh)
     res["hsdp"] = dict(coord=(rank // 2, rank % 2), logits=lm.prefill(model, batch, SERVE_MAX)[0],
                        tokens=ServeEngine(cfg, model, max_len=SERVE_MAX).generate(batch, 6))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# what the model axis does not divide: uneven heads, replicated attention
+# and vocabulary
+# ---------------------------------------------------------------------------
+# case: (arch, overrides of its widened smoke config); every case at model 4
+UNEVEN_CASES = {
+    # 10 query heads of 128 over 2 kv heads (5 a kv head): 3 / 3 / 2 / 2,
+    # rank 1's heads 3, 4, 5 reading kv heads 0, 0, 1
+    "uneven": ("chatglm3-6b", dict(n_heads=10, n_kv_heads=2)),
+    # 2 heads of 32, one scaling group of 128 between them: fewer units than
+    # ranks, the attention whole on every rank (unquantized too: 2 < 4)
+    "attn_dense": ("chatglm3-6b", dict(n_heads=2, n_kv_heads=1, head_dim=32)),
+    "attn_encdec": ("seamless-m4t-medium", dict(n_heads=2, n_kv_heads=2, head_dim=32)),
+    "attn_hybrid": ("zamba2-7b", dict(n_heads=2, n_kv_heads=2, head_dim=32)),
+    # a vocabulary of 101 over 4 ranks: emb and lm_head whole on every rank
+    "vocab_untied": ("chatglm3-6b", dict(vocab=101)),
+    "vocab_tied": ("mamba2-370m", dict(vocab=101)),
+}
+UNEVEN_AXIS = 4
+
+
+def uneven_config(case: str, backend: str):
+    """The case's widened smoke config (:func:`serve_config`) with its
+    overrides, quantization off or on ``backend``."""
+    arch, over = UNEVEN_CASES[case]
+    return dataclasses.replace(serve_config(arch, backend), **over)
+
+
+def _attention_cases(cfg, tp) -> dict:
+    """Each attention of layer 0 (and the encoder's, and the hybrid's
+    shared block's), unsharded and as this rank runs it, on one seeded
+    input, cross-attention source and output gradient: by name, each run's
+    output, input and source gradients and weight gradients, and whether
+    the rank's attention stayed replicated (no group)."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import tensor_parallel
+
+    state = _state(cfg)
+    runs = []
+    for sharded in (False, True):
+        model = lm.LM(cfg)
+        model.load_state_dict(state)
+        if sharded:
+            tensor_parallel(model, tp)
+        out = {}
+        for name, attn in model.named_modules():
+            if (type(attn).__name__ != "Attention"
+                    or not name.startswith(("layers.0.", "enc_layers.0.", "shared_attn."))):
+                continue
+            rng = np.random.default_rng(len(name))
+            x = torch.from_numpy(rng.standard_normal((2, TP_SEQ, cfg.d_model)).astype(np.float32))
+            mem = torch.from_numpy(rng.standard_normal((2, TP_SRC, cfg.d_model)).astype(np.float32))
+            g = torch.from_numpy((rng.standard_normal((2, TP_SEQ, cfg.d_model)) * 1e-2)
+                                 .astype(np.float32))
+            xr, mr = x.clone().requires_grad_(), mem.clone().requires_grad_()
+            cross = name.endswith("xattn")
+            y = attn(xr, cfg.qcfg(), TP_KEY, kv=mr if cross else None,
+                     causal=not name.startswith("enc_layers."))
+            y.backward(g)
+            out[name] = dict(y=y.detach(), dx=xr.grad, dmem=mr.grad if cross else None,
+                             grads={k: p.grad for k, p in attn.named_parameters()},
+                             replicated=attn.tp is None)
+        runs.append(out)
+    return dict(ref=runs[0], got=runs[1])
+
+
+def uneven_tp4_worker(rank: int, world: int, jax_states):
+    """World 4, model 4, each UNEVEN_CASES case: the step of each backend
+    against the unsharded port (quantized: fed its operands), the
+    unquantized step on the JAX package's parameters (``jax_states``, by
+    case), each attention of the replicated-attention cases against the
+    unsharded one (:func:`_attention_cases`), and :func:`serve_case` of
+    each backend; also each rank's heads and kv map of the uneven case."""
+    from repro_torch.parallel.tensor import TensorParallel, kv_map, rank_heads
+
+    tp = TensorParallel.of()
+    res = {"steps": {}, "jax": {}, "attention": {}, "serve": {}}
+    for case, (arch, _) in UNEVEN_CASES.items():
+        for backend in TP_BACKENDS:
+            cfg = uneven_config(case, backend)
+            res["steps"][(case, backend)] = _tp_step(cfg, _state(cfg), tp, TP_KEY,
+                                                     fed=backend != "off")
+            if case.startswith("attn_"):
+                res["attention"][(case, backend)] = _attention_cases(cfg, tp)
+            res["serve"][(case, backend)] = serve_case(arch, backend, tp, cfg=cfg)
+        res["jax"][case] = _tp_step(uneven_config(case, "off"), jax_states[case], tp, None)
+    cfg = uneven_config("uneven", "pallas")
+    res["heads"] = (rank_heads(cfg, tp.size, tp.rank), kv_map(cfg, tp.size, tp.rank))
     return res
