@@ -113,7 +113,7 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 and depth (320-token prompts: SSD chunk 160 by the divisor
                 rule), zamba2-7b at full width cut to 12 layers with a
                 window of 136 (the ring buffer wraps), the MoEs at full
-                width, moonshot-v1-16b-a3b cut to 8 layers (64 experts,
+                width, moonshot-v1-16b-a3b cut to 4 layers (64 experts,
                 top 6: tokens drop at prefill's capacity 13) and
                 llama4-scout-17b-a16e to 2 (top 1 and a shared expert),
                 and seamless-m4t-medium at full width and depth (its
@@ -121,8 +121,8 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 Every logit finite; the launches of a whole generate, and
                 of each prefill and decode step, equal the closed form
                 (serve_linears: 196 K3 / 392 K1 per step on chatglm3-6b,
-                96 / 192 on mamba2-370m, 38 / 76 on the cut zamba2-7b, 32
-                / 64 on the cut moonshot (attention only: the routed
+                96 / 192 on mamba2-370m, 38 / 76 on the cut zamba2-7b, 16
+                / 32 on the cut moonshot (attention only: the routed
                 experts run fake-quant GEMMs, as in the JAX package), 14 /
                 28 on the cut llama4-scout, 96 / 192 per decode step and
                 168 / 336 per prefill on seamless); prefill ms, decode ms
@@ -144,20 +144,20 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 weight-gradient GEMM of every linear, and once more for the
                 forward that full remat recomputes), stochastic rounding,
                 AdamW with the default cosine schedule, random weights, bf16
-                compute, 4 steps each: chatglm3-6b at full width cut to 8 of
+                compute, 4 steps each: chatglm3-6b at full width cut to 4 of
                 its 28 layers at batch 2 x 4096 (train_4k's sequence),
                 mamba2-370m at full width and depth at batch 4 x 1024,
                 zamba2-7b at full width cut to 12 layers at batch 2 x 4096
                 (the shared block runs twice, not remat'd),
-                moonshot-v1-16b-a3b at full width cut to 4 layers at batch
-                1 x 4096, and seamless-m4t-medium at full width and depth
-                at batch 2 x 4096 over 4096 source frames.  Losses and grad
+                moonshot-v1-16b-a3b at full width cut to 2 layers at batch
+                1 x 4096, and seamless-m4t-medium at full width cut to 6 +
+                6 layers at batch 2 x 4096 over 4096 source frames.  Losses and grad
                 norms finite; the weights unchanged by step 1 (lr 0) and
                 moved by step 2; the launches of each step and of the run
-                equal the closed form (lm_train_launches: 224 K3 / 448 K1
+                equal the closed form (lm_train_launches: 112 K3 / 224 K1
                 per step on chatglm3-6b, 384 / 768 on mamba2-370m, 138 /
-                276 on the cut zamba2-7b, 64 / 128 on the cut moonshot,
-                768 / 1536 on seamless); one step traced (device busy,
+                276 on the cut zamba2-7b, 32 / 64 on the cut moonshot,
+                384 / 768 on seamless); one step traced (device busy,
                 idle share, K1, K3, copies, the routed experts'
                 fake-quant), peak memory, the attention, the LM head and
                 an MoE layer's experts timed alone at the step's shapes;
@@ -340,6 +340,41 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 teacher-forced as above; the greedy tokens equal on all 16
                 ranks; the launches of ranks 0 and 15 the closed forms
                 (lm_train_launches, serve_launches at a model axis of 16).
+                Sequence parallelism (tensor_parallel(..., seq_shard=
+                True), JAX's SP_RULES): in the model-2 world, after the
+                paths and before serving, chatglm3-6b (SP_ARCH, 2 layers,
+                1 x 4096, fp32 and K1/K3): its loss and backward under SP
+                against the DEFAULT layout's on the same ranks (the loss
+                and every split gradient bit for bit, the replicated
+                ones, summed over the group from each rank's tokens,
+                within 1e-6 relative), against the unsharded model on the
+                rank's card (fp32 the loss and the gradients within 1e-4,
+                quantized the loss within 1e-4 and each linear call fed
+                the unsharded operands as the SP step made it: the split
+                slices bit for bit, a row exit's rows of the
+                reduce-scattered sum within their bound), K1 / K3 launches the
+                closed form (counts set to 0 just before, read just
+                after), each rank's peak printed beside the DEFAULT
+                one's, a 4 x 512 prefill against the DEFAULT prefill
+                (logits and caches bit for bit), and one SP AdamW step's
+                peak on rank 0 against the dry run's trace of the same
+                step (trace_step(..., seq_shard=True) in a worker process)
+                within DRYRUN_PEAK_TOL.  At the model axis of 16
+                (TP16_SP_PATHS, 1 x 2048, after TP16_PATHS): mamba2-370m
+                (2 layers, its tied vocabulary whole: head and loss on
+                each rank's 128 tokens) and seamless-m4t-medium (1 + 1
+                over 512 frames: its attention and vocabulary whole on
+                the rank's tokens, K/V gathered; on K1/K3 the encoder's
+                32 frames a rank stay whole), each rank's loss and
+                backward against the unsharded references (fp32 the loss,
+                grad norm and gradients, quantized the loss, SP_AGREE;
+                quantized, each linear call fed as above, a linear kept
+                whole on the rank's tokens its rows bit for bit and its
+                weight gradient summed over the ranks within its bound)
+                and ranks 0 and 15's launches the closed form with the
+                sequences the step split.  K1's split entries and K3 also
+                at seamless's token slices (x (128, 1024), x^T (1024,
+                128); 128 x 1024 x 1024, 1024 x 128 x 1024).
 The line before the last is {"kernels": [...]}: each kernel's `launches`
 are its count on the training path (phase train; K5's in the audit's
 overlap_write run; K1's split entries' on the tensor phase's main path),
@@ -348,8 +383,9 @@ overlap_write run; K1's split entries' on the tensor phase's main path),
 `sweep_launches` its launches per step in each "pallas" cell of the
 sweep's chip grid, `parallel_launches` its count on the parallel phase's
 main path and `tensor_launches` per path of the tensor phase (rank 0's:
-"<arch>" its training step, "<arch> serve" its quantized serving run, and
-"<arch> model 16" / "<arch> serve model 16" those of the model axis of 16),
+"<arch>" its training step, "<arch> serve" its quantized serving run,
+"<arch> model 16" / "<arch> serve model 16" those of the model axis of 16,
+"chatglm3-6b sp" / "<arch> sp model 16" the sequence-parallel steps),
 each read from its own run.  The last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json
 and the audit reports to chiprun_out/AUDIT_torch_*.json.
@@ -1354,9 +1390,9 @@ def phase_driver(results: dict) -> None:
 # twice) and its window set to 136, under 128 + 15, so that the ring
 # buffer wraps during decode.  The MoE configs are cut in depth to what one
 # card holds in fp32 beside the experts' fake-quant temporaries:
-# moonshot-v1-16b-a3b to 16 of 48 layers (0.571 G parameters, 2.28 GB, per
-# layer; the embedding and head 2.68 GB: 39.2 GB), llama4-scout-17b-a16e to
-# 4 of 48 (8.81 GB per layer, embedding and head 8.28 GB: 43.5 GB).
+# moonshot-v1-16b-a3b to 4 of 48 layers (0.571 G parameters, 2.28 GB, per
+# layer; the embedding and head 2.68 GB), llama4-scout-17b-a16e to 2 of 48
+# (8.81 GB per layer, embedding and head 8.28 GB): SERVE_CUTS.
 # seamless-m4t-medium runs whole, its encoder over SERVE_SRC_LEN frames of
 # random frontend embeddings per prompt.
 SERVE_BATCH, SERVE_NEW, SERVE_SRC_LEN = 4, 16, 1024
@@ -1364,14 +1400,14 @@ SERVE_MODELS = {
     "chatglm3-6b": ({}, 128),
     "mamba2-370m": ({}, 320),
     "zamba2-7b": ({"n_layers": 12, "window": 136}, 128),
-    "moonshot-v1-16b-a3b": ({"n_layers": 8}, 128),
+    "moonshot-v1-16b-a3b": ({"n_layers": 4}, 128),
     "llama4-scout-17b-a16e": ({"n_layers": 2}, 128),
     "seamless-m4t-medium": ({}, 128),
 }
 SERVE_CUTS = {
     "zamba2-7b": "n_layers 81 -> 12 (2 shared-block applications), window 136",
-    "moonshot-v1-16b-a3b": "n_layers 48 -> 8 (all 48 are 112 GB of fp32 weights; 16 until "
-                           "the model-16 world took the time)",
+    "moonshot-v1-16b-a3b": "n_layers 48 -> 4 (all 48 are 112 GB of fp32 weights; 16 until "
+                           "the model-16 world, 8 until sequence parallelism took the time)",
     "llama4-scout-17b-a16e": "n_layers 48 -> 2 (8.8 GB of fp32 weights per layer; 4 until the "
                              "model-16 world took the time)",
 }
@@ -1416,7 +1452,8 @@ def serve_linears(cfg, prefill: bool = False) -> int:
     return 2 * cfg.n_layers + (4 + mlp) * (cfg.n_layers // cfg.attn_every)
 
 
-def lm_train_launches(cfg, microbatch: int = 1, model_axis: int = 1) -> dict[str, int]:
+def lm_train_launches(cfg, microbatch: int = 1, model_axis: int = 1,
+                      seq_split: tuple[bool, bool] = (False, False)) -> dict[str, int]:
     """K1 and K3 launches of one LM training step (lm_loss forward and
     backward): each quantized linear runs qd_gemm for its forward, its data
     gradient and its weight gradient (K1 on both operands, then K3), and
@@ -1426,9 +1463,10 @@ def lm_train_launches(cfg, microbatch: int = 1, model_axis: int = 1) -> dict[str
     decoder layer has 8 attention linears.  Remat "dots" recomputes the
     forward too: K3 runs inside an autograd.Function that its policy does
     not see.  Times the microbatches.  With a ``model_axis`` above 1
-    (tensor-parallel) the launches of one rank (:func:`tp_train_launches`)."""
+    (tensor-parallel) the launches of one rank (:func:`tp_train_launches`;
+    ``seq_split``: under sequence parallelism, the sequences split)."""
     if model_axis > 1:
-        return tp_train_launches(cfg, model_axis, microbatch)
+        return tp_train_launches(cfg, model_axis, microbatch, seq_split)
     per = 3 if cfg.remat == "none" else 4
     mlp = 3 if cfg.gated_mlp else 2
     if cfg.family == "dense":
@@ -1444,22 +1482,31 @@ def lm_train_launches(cfg, microbatch: int = 1, model_axis: int = 1) -> dict[str
     return {"mls_quantize_rows": 2 * k3 * microbatch, "mls_matmul": k3 * microbatch}
 
 
-def tp_attention(cfg, model_axis: int) -> tuple[int, int, int]:
+def tp_attention(cfg, model_axis: int, q_split: bool = False,
+                 kv_split: bool = False) -> tuple[int, int, int]:
     """An attention's (column-parallel, row-parallel, whole) quantized
     linears on one rank at a model axis of ``model_axis``
     (parallel.tensor): wq, wk, wv column and wo row where the heads split
     with their kv heads (evenly); wq column, wo row and the replicated wk,
     wv whole where the kv heads stay replicated (an uneven split in whole
     units, or kv heads the axis does not divide); all four whole where the
-    attention has fewer units than ranks and stays replicated."""
+    attention has fewer units than ranks and stays replicated.  Under
+    sequence parallelism, a whole linear on a split sequence (``q_split``:
+    the queries' wq and wo; ``kv_split``: the keys' wk and wv) runs on the
+    rank's tokens, its x and error token slices: it launches as a
+    column-parallel one (x and x^T sharded where a column linear holds w
+    and the error sharded), so it counts with them."""
     from repro_torch.parallel.tensor import attention_heads, rank_heads
 
+    kv = 2 if kv_split else 0
     if attention_heads(cfg, model_axis) is None:
-        return (0, 0, 4)
-    return (1, 1, 2) if rank_heads(cfg, model_axis, 0)[2] is not None else (3, 1, 0)
+        q = 2 if q_split else 0
+        return (q + kv, 0, 4 - q - kv)
+    return (1 + kv, 1, 2 - kv) if rank_heads(cfg, model_axis, 0)[2] is not None else (3, 1, 0)
 
 
-def tp_train_launches(cfg, model_axis: int, microbatch: int = 1) -> dict[str, int]:
+def tp_train_launches(cfg, model_axis: int, microbatch: int = 1,
+                      seq_split: tuple[bool, bool] = (False, False)) -> dict[str, int]:
     """One rank's K1 and K3 launches of a tensor-parallel LM training step
     (parallel.tensor): a GEMM operand held whole takes K1's one call
     (mls_quantize_rows), a sharded one K1's two (mls_quantize_rows_amax,
@@ -1476,15 +1523,17 @@ def tp_train_launches(cfg, model_axis: int, microbatch: int = 1) -> dict[str, in
     MoE layer's quantized linears are its attention's and its shared
     expert's (the routed experts reach no kernel), an encoder layer's a
     dense block's, a decoder layer's its self- and cross-attention's and
-    its MLP's.  Uneven heads launch as even ones."""
-    attn = tp_attention(cfg, model_axis) if cfg.n_heads else (0, 0, 0)
+    its MLP's.  Uneven heads launch as even ones.  ``seq_split``: under
+    sequence parallelism, whether the step split the decoder's and the
+    encoder's sequence (``model.seq_split``; :func:`tp_attention`)."""
+    dec, enc = seq_split
 
     def linears(cols: int, rows: int, whole: int, r: int) -> tuple[int, int, int]:
         return (cols * (2 + r) + rows * 2 + whole * (6 + 2 * r),
                 cols * (4 + r) + rows * (4 + 2 * r), (cols + rows + whole) * (3 + r))
 
-    def attention(r: int) -> tuple[int, int, int]:
-        return linears(*attn, r)
+    def attention(r: int, q: bool = dec, kv: bool = dec) -> tuple[int, int, int]:
+        return linears(*tp_attention(cfg, model_axis, q, kv), r) if cfg.n_heads else (0, 0, 0)
 
     def mlp(r: int) -> tuple[int, int, int]:  # w_up (w_gate) column, w_down row
         return linears(2 if cfg.gated_mlp else 1, 1, 0, r)
@@ -1501,9 +1550,10 @@ def tp_train_launches(cfg, model_axis: int, microbatch: int = 1) -> dict[str, in
     elif cfg.family == "moe":
         layer = add(attention(r), *([mlp(r)] if cfg.n_shared_experts else []))
         one, split, k3 = (v * cfg.n_layers for v in layer)
-    elif cfg.family == "encdec":
-        one, split, k3 = add(*[block(r)] * cfg.enc_layers,
-                             *[add(attention(r), attention(r), mlp(r))] * cfg.n_layers)
+    elif cfg.family == "encdec":  # the cross-attention's keys on the encoder's sequence
+        one, split, k3 = add(*[add(attention(r, enc, enc), mlp(r))] * cfg.enc_layers,
+                             *[add(attention(r), attention(r, dec, enc), mlp(r))]
+                             * cfg.n_layers)
     else:  # Mamba2 layers: in_proj column-parallel, out_proj row-parallel
         one, split, k3 = ((2 + r) + 2, (4 + r) + (4 + 2 * r), 2 * (3 + r))
         one, split, k3 = (v * cfg.n_layers for v in (one, split, k3))
@@ -1947,24 +1997,27 @@ def phase_serve(results: dict) -> dict[str, dict[str, int]]:
 # name: (config overrides, batch, seq)
 LM_TRAIN_STEPS = 4
 LM_TRAIN_MODELS = {
-    "chatglm3-6b": ({"n_layers": 8}, 2, 4096),
+    "chatglm3-6b": ({"n_layers": 4}, 2, 4096),
     "mamba2-370m": ({}, 4, 1024),
     "zamba2-7b": ({"n_layers": 12}, 2, 4096),
-    "moonshot-v1-16b-a3b": ({"n_layers": 4}, 1, 4096),
-    "seamless-m4t-medium": ({}, 2, 4096),
+    "moonshot-v1-16b-a3b": ({"n_layers": 2}, 1, 4096),
+    "seamless-m4t-medium": ({"n_layers": 6, "enc_layers": 6}, 2, 4096),
 }
 LM_TRAIN_CUTS = {
-    "chatglm3-6b": "n_layers 28 -> 8 (all 28 with AdamW's state take ~100 GB); train_4k's "
-                   "global batch 256 -> 2 (seq 4096)",
+    "chatglm3-6b": "n_layers 28 -> 4 (all 28 with AdamW's state take ~100 GB; 8 until "
+                   "sequence parallelism took the time); train_4k's global batch 256 -> 2 "
+                   "(seq 4096)",
     "mamba2-370m": "train_4k's global batch 256 -> 4, seq 4096 -> 1024",
     "zamba2-7b": "n_layers 81 -> 12 (2 shared-block applications); train_4k's global batch "
                  "256 -> 2 (seq 4096)",
-    "moonshot-v1-16b-a3b": "n_layers 48 -> 4 (2.95 G parameters: 47 GB with AdamW's 16 B "
-                           "each); train_4k's global batch 256 -> 1 (seq 4096): at 2 the fp32 "
+    "moonshot-v1-16b-a3b": "n_layers 48 -> 2 (at 4, 2.95 G parameters: 47 GB with AdamW's "
+                           "16 B each; 4 until sequence parallelism took the time); "
+                           "train_4k's global batch 256 -> 1 (seq 4096): at 2 the fp32 "
                            "logits over its 163840-word vocabulary (5.4 GB a copy, about 4 "
                            "live) would take the card past 80 GB",
     "seamless-m4t-medium": "train_4k's global batch 256 -> 2 (seq 4096, 4096 source frames); "
-                           "full depth (12 + 12 layers)",
+                           "12 + 12 layers -> 6 + 6 (whole until sequence parallelism took "
+                           "the time)",
 }
 # the model whose run is checkpointed after step 2 and resumed
 LM_TRAIN_CKPT = "mamba2-370m"
@@ -2657,6 +2710,14 @@ def _dryrun_job(job: tuple) -> tuple[dict, dict]:
         cfg = dataclasses.replace(get_config(job[1]), quant_backend="pallas", **over)
         out = dryrun.trace_cell(cfg, SERVE_BATCH, prompt_len + SERVE_NEW, 0, device="cuda",
                                 kind="decode")
+    elif job[0] == "sp_step":  # the model-2 world's SP step, laid out as its ranks lay it out
+        from repro_torch.launch.mesh import make_mesh
+
+        cfg = _tp_configs(SP_ARCH)["pallas"]
+        with dryrun.fake_world(TP_AXIS):
+            mesh = make_mesh((1, 1, TP_AXIS), ("pod", "data", "model"), "cuda")
+            out = dryrun.trace_step(cfg, TP_BATCH, TP_SEQ, 0, mesh, device="cuda",
+                                    seq_shard=True, fsdp=False)
     elif job[0] == "serve_cell":
         out = dryrun.run_cell(job[1], job[2], False, device=job[3], out_dir=str(
             ROOT / "chiprun_out" / ("torch_dryrun" if job[3] == "cuda" else "torch_dryrun_cpu")))
@@ -3612,7 +3673,12 @@ TP_K1_SHAPES = {"x (8192, 4096)": (8192, 4096), "w^T (13696, 4096)": (13696, 409
                 "yi wq w^T rank 0 (512, 7168)": (512, 7168),
                 "yi wq w^T rank 15 (384, 7168)": (384, 7168),
                 "yi wo x rank 0 (512, 512)": (512, 512),
-                "yi wo x rank 15 (512, 384)": (512, 384)}
+                "yi wo x rank 15 (512, 384)": (512, 384),
+                # sequence parallelism at model 16 (TP16_SP_PATHS): seamless-m4t-medium's
+                # whole attention on a rank's 128 of 2048 tokens, wq's x and the
+                # weight gradient's x^T (the contraction over the tokens, one group)
+                "seamless wq x own tokens (128, 1024)": (128, 1024),
+                "seamless wq x^T own tokens (1024, 128)": (1024, 128)}
 # fp32: JAX's own (data 2, model 2) mesh tolerance, relative on the loss, the
 # grad norm and the rank's updated parameters as one vector (relative L2).
 # Not per element or per tensor: AdamW's first step moves an element by up to
@@ -3704,7 +3770,11 @@ TP_K3_SHAPES = {"zamba2 in_proj fwd rank 0": (4096, 3584, 7408),
                 "yi wq fwd rank 0": (512, 7168, 512),
                 "yi wq fwd rank 15": (512, 7168, 384),
                 "yi wo fwd rank 0": (512, 512, 7168),
-                "yi wo fwd rank 15": (512, 384, 7168)}
+                "yi wo fwd rank 15": (512, 384, 7168),
+                # sequence parallelism at model 16: seamless's whole wq on a rank's
+                # 128 tokens, forward and weight gradient (contracting the tokens)
+                "seamless wq fwd own tokens": (128, 1024, 1024),
+                "seamless wq wgrad own tokens": (1024, 128, 1024)}
 
 
 def tp_k3_checks(gen) -> tuple[list[dict], list[dict]]:
@@ -3794,27 +3864,50 @@ def _tp_unsharded_linears(params: dict, records: list) -> None:
         del x0, w0, y
 
 
-def _tp_linear_checks(params: dict, records: list, layout, tp) -> list[dict]:
+def _tp_linear_checks(params: dict, records: list, layout, tp, seqs=None) -> list[dict]:
     """Each recorded linear call (:func:`_tp_unsharded_linears` filled in its
     unsharded ``y``, ``dx``, ``dw``) run by this rank's tensor-parallel
     linear on the same inputs, the unsharded weights ``params``: a split
     linear's slices bit for bit, its sum over the ranks within fp32's
     group-order bound (G_r + 1) eps max|ref|; a linear that stays whole (a
     replicated kv or attention linear) the unsharded one bit for bit.  A
-    split of several pieces (a Mamba2 in_proj's) takes them all."""
+    split of several pieces (a Mamba2 in_proj's) takes them all.
+    ``seqs``: each call's sequence split under sequence parallelism (None:
+    whole), as the model made the call: a row-parallel output is then the
+    rank's tokens of the sum (reduce-scattered), within the same bound; a
+    linear kept whole runs on the rank's tokens (token slices of the
+    unsharded operands): its outputs and data gradient the unsharded rows
+    bit for bit, its weight gradient summed over the ranks within
+    (G + 1) eps max|ref|, G the scaling groups of the tokens."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch.models import nn as L
     from repro_torch.parallel.tensor import Split, TPLinear, copy_to_tp
 
     eps = torch.finfo(torch.float32).eps
     out = []
-    for rec in records:
+    for rec, seq in zip(records, seqs or [None] * len(records)):
         name, x = rec["name"], rec["x"]
         w = params[f"{name}.w"].detach()
         bias = params.get(f"{name}.b")
         bias = None if bias is None else bias.detach()
         sp = layout.get(f"{name}.w")
+        if sp is None and seq is not None:  # whole, run on the rank's tokens
+            x1 = seq.take(x).contiguous().requires_grad_()
+            w1 = w.clone().requires_grad_()
+            yt = L.linear(x1, w1, bias, rec["qcfg"], rec["key"], None, seq.split())
+            dxt, dwt = torch.autograd.grad(yt, (x1, w1), seq.take(rec["g"]).contiguous())
+            exact = (torch.equal(yt, seq.take(rec["y"]))
+                     and torch.equal(dxt, seq.take(rec["dx"])))
+            dist.all_reduce(dwt, group=tp.group)
+            groups = -(-x.shape[0] * x.shape[1] // 128)
+            err = (dwt - rec["dw"]).abs().max().item()
+            tol = (groups + 1) * eps * rec["dw"].abs().max().item()
+            out.append(dict(linear=name, kind="tokens", slices_bit_identical=exact,
+                            sum_err=err, sum_tol=tol, ok=exact and err <= tol))
+            del x1, w1, yt, dxt, dwt
+            continue
         if sp is None:  # whole on every rank
             x1, w1 = x.clone().requires_grad_(), w.clone().requires_grad_()
             yt = L.linear(x1, w1, bias, rec["qcfg"], rec["key"])
@@ -3840,11 +3933,12 @@ def _tp_linear_checks(params: dict, records: list, layout, tp) -> list[dict]:
             summed, want = dxt, rec["dx"]
         else:
             x1 = last.take(x, 0).contiguous().requires_grad_()
-            yt = lin(L.linear, x1, w1, bias, rec["qcfg"], rec["key"], None)
-            dxt, dwt = torch.autograd.grad(yt, (x1, w1), rec["g"])
+            yt = lin(L.linear, x1, w1, bias, rec["qcfg"], rec["key"], None, seq)
+            g = rec["g"] if seq is None else seq.take(rec["g"]).contiguous()
+            dxt, dwt = torch.autograd.grad(yt, (x1, w1), g)
             exact = (torch.equal(dxt, last.take(rec["dx"], 0))
                      and torch.equal(dwt, sp.take(rec["dw"], tp.rank)))
-            summed, want = yt, rec["y"]
+            summed, want = yt, rec["y"] if seq is None else seq.take(rec["y"])
         groups = sum(-(-(b - a) // 128) for a, b in pieces)
         err = (summed.float() - want.float()).abs().max().item()
         tol = (groups + 1) * eps * want.float().abs().max().item()
@@ -3868,12 +3962,13 @@ class _Unspy:
 def _tp_record_linears(model):
     """Forward hooks on every quantized linear of the model's layers, its
     encoder's layers and its shared block (an MoE's router, called with no
-    config, is not): each call's x, config and key, and the gradient of its
-    output once backward reaches it (the recomputed forward of remat gets
-    no gradient: dropped).  On each MoE layer, its experts' calls
-    (``MoE._experts``): the buffer xe, config and key, the gathered outputs
-    and their gradient, likewise."""
+    config, is not): each call's x, config, key and index among the
+    linear's calls, and the gradient of its output once backward reaches
+    it (the recomputed forward of remat gets no gradient: dropped).  On
+    each MoE layer, its experts' calls (``MoE._experts``): the buffer xe,
+    config and key, the gathered outputs and their gradient, likewise."""
     records, experts, handles = [], [], []
+    calls = collections.Counter()
     for name, mod in model.named_modules():
         if not name.startswith(("layers.", "enc_layers.", "shared_attn.")):
             continue
@@ -3890,12 +3985,28 @@ def _tp_record_linears(model):
             def hook(m, args, kwargs, out, name=name):
                 if len(args) < 2 or args[1] is None:
                     return
-                rec = dict(name=name, x=args[0].detach(), qcfg=args[1], key=args[2])
+                rec = dict(name=name, x=args[0].detach(), qcfg=args[1], key=args[2],
+                           call=calls[name])
+                calls[name] += 1
                 out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
                 records.append(rec)
             handles.append(mod.register_forward_hook(hook, with_kwargs=True))
     return records, experts, handles
 
+
+def _sp_record_seqs(model):
+    """Forward pre-hooks on the linears :func:`_tp_record_linears` records:
+    each quantized call's sequence split (``seq``; None: whole), by linear
+    in call order."""
+    seqs, handles = collections.defaultdict(list), []
+    for name, mod in model.named_modules():
+        if (name.startswith(("layers.", "enc_layers.", "shared_attn."))
+                and type(mod).__name__ == "Linear"):
+            def hook(m, args, kwargs, name=name):
+                if len(args) >= 2 and args[1] is not None:
+                    seqs[name].append(kwargs.get("seq"))
+            handles.append(mod.register_forward_pre_hook(hook, with_kwargs=True))
+    return seqs, handles
 
 def _tp_record_routing(model):
     """Forward hooks on every MoE router: each token's top-k experts
@@ -4117,9 +4228,221 @@ def _tp_rank_work(rank: int) -> dict:
             torch.cuda.empty_cache()
             out[arch][tag] = r
     t0 = time.perf_counter()
+    out["sp"] = _sp_rank_work(rank, tp)
+    out["sp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out["serve"] = _tp_serve_work(rank, tp)
     out["serve_s"] = time.perf_counter() - t0
     return out
+
+
+# Sequence parallelism in the model-2 world (tensor_parallel(..., seq_shard=True),
+# JAX's SP_RULES): SP_ARCH at TP_PATHS' cut, 1 x 4096, fp32 and K1/K3.  The SP
+# loss and backward against the DEFAULT layout's on the same ranks: the loss and
+# every split gradient bit for bit, the replicated ones (summed over the group
+# from each rank's tokens) within SP_REPLICATED_TOL relative; against the
+# unsharded model on the rank's card: fp32 the loss and the gradients (one
+# vector, relative L2) within SP_AGREE["fp32"], quantized the loss within
+# SP_AGREE["pallas"] and each recorded linear call fed the unsharded operands
+# as the SP step made it (_tp_linear_checks with its sequence split: a
+# row-parallel exit's rows of the reduce-scattered sum); a prefill of
+# SP_PREFILL prompts against the DEFAULT prefill, logits and caches bit for bit;
+# and one whole SP train step's peak against the dry run's prediction of it
+# (DRYRUN_PEAK_TOL).
+SP_ARCH = "chatglm3-6b"
+SP_REPLICATED_TOL = 1e-6
+# the SP loss against the unsharded one; quantized, tighter than TP_AGREE's
+# unfed bound: seen on an H100, 6.85e-6 (SP_ARCH, model 2), 4.3e-7 and 0
+# (TP16_SP_PATHS)
+SP_AGREE = {"fp32": TP_AGREE["fp32"], "pallas": 1e-4}
+SP_PREFILL = (4, 512)  # prompts, tokens
+SP_KEY = 7
+
+
+def _sp_grads(model) -> dict:
+    """The model's gradients by name, the partial ones summed over the
+    model group as the trainer sums them."""
+    from repro_torch.train.trainer import sum_partial_grads
+
+    return sum_partial_grads(model, {k: p.grad for k, p in model.named_parameters()
+                                     if p.grad is not None})
+
+
+def _sp_rank_work(rank: int, tp) -> dict:
+    """This rank's sequence-parallel checks of SP_ARCH (see above): per
+    config, the loss and backward under SP and DEFAULT (counts set to 0
+    just before the SP one, read just after), their comparison, the
+    prefills, the unsharded reference (quantized: its linear calls
+    recorded, then fed to the SP step's linears one at a time); quantized,
+    first a whole SP train step (AdamW) for its peak memory."""
+    import torch
+
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.lm import init_lm
+    from repro_torch.parallel.tensor import tensor_parallel
+    from repro_torch.train import make_train_step
+
+    out = {}
+    for tag, cfg in _tp_configs(SP_ARCH).items():
+        batch = next(lm_train_data(cfg, TP_BATCH, TP_SEQ))
+        r = {}
+        if tag == "pallas":  # the dry run's prediction holds the step alone on the card
+            gc.collect()
+            torch.cuda.empty_cache()
+            step_fn, opt_init = make_train_step(RunConfig(model=cfg, shape=SHAPES["train_4k"]),
+                                                lr_fn=lambda step: TP_LR)
+            model = tensor_parallel(init_lm(cfg, seed=0, device="cuda"), tp, seq_shard=True)
+            opt = opt_init(model)
+            # the step's arguments (parameters, AdamW's moments, the batch), as the
+            # dry run counts them; anything else alive is held beside the step
+            args = sum(t.untyped_storage().nbytes() for t in (
+                *model.parameters(), *opt.mu.values(), *opt.nu.values(), *batch.values()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() - args
+            t0 = time.perf_counter()
+            model, opt, m = step_fn(model, opt, batch)
+            torch.cuda.synchronize()
+            r.update(step_ms=(time.perf_counter() - t0) * 1e3, step_loss=float(m["loss"]),
+                     step_peak_bytes=torch.cuda.max_memory_allocated() - held,
+                     step_held_bytes=held)
+            del model, opt, m
+            gc.collect()
+            torch.cuda.empty_cache()
+        runs = {}
+        for sp in (False, True):  # each peak above what the run found alive (DEFAULT's model)
+            model = tensor_parallel(init_lm(cfg, seed=0, device="cuda"), tp, seq_shard=sp)
+            if sp:
+                seqs, handles = _sp_record_seqs(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = model.loss(batch, SP_KEY)[0]  # no metrics kept: they hold the graph
+            loss.backward()
+            torch.cuda.synchronize()
+            runs[sp] = dict(model=model, loss=loss.detach(), grads=_sp_grads(model),
+                            launches=launch_counts(), ms=(time.perf_counter() - t0) * 1e3,
+                            peak=torch.cuda.max_memory_allocated() - start,
+                            split=dict(model.seq_split))
+            del loss, model
+        for h in handles:
+            h.remove()
+        d, p = runs[False], runs[True]
+        layout = d["model"].tp_layout
+        r.update(loss=p["loss"].item(), default_loss=d["loss"].item(),
+                 loss_equal=bool(torch.equal(p["loss"], d["loss"])), launches=p["launches"],
+                 split=p["split"], ms=p["ms"], default_ms=d["ms"], peak_bytes=p["peak"],
+                 default_peak_bytes=d["peak"],
+                 split_differ=[k for k in layout if not torch.equal(p["grads"][k], d["grads"][k])])
+        rel = {k: float((p["grads"][k].double() - g.double()).norm()
+                        / max(float(g.double().norm()), 1e-30))
+               for k, g in d["grads"].items() if k not in layout}
+        r["replicated_worst"] = max(((v, k) for k, v in rel.items()), default=(0.0, None))
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        prompts = {"tokens": torch.randint(0, cfg.vocab, SP_PREFILL, generator=gen,
+                                           device="cuda")}
+        pre = [runs[sp]["model"].prefill(prompts, SP_PREFILL[1]) for sp in (False, True)]
+        r["prefill_equal"] = bool(torch.equal(pre[0][0], pre[1][0]) and all(
+            torch.equal(pre[0][1][k], pre[1][1][k]) for k in pre[0][1] if k != "pos"))
+        r["prefill_gap"] = float((pre[1][0] - pre[0][0]).abs().max())
+        grads = p["grads"]
+        del runs, d, p, pre
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = init_lm(cfg, seed=0, device="cuda")
+        records, _, handles = _tp_record_linears(ref) if tag == "pallas" else ([], [], [])
+        loss = ref.loss(batch, SP_KEY)[0]
+        loss.backward()
+        for h in handles:
+            h.remove()
+        r["ref_loss"] = loss.item()
+        if tag == "pallas":  # the ranks in step: the linears' collectives
+            params, r["linears"] = dict(ref.named_parameters()), []
+            for rec in records:  # one at a time: each holds a weight's gradient
+                if "g" not in rec:
+                    continue
+                _tp_unsharded_linears(params, [rec])
+                r["linears"] += _tp_linear_checks(params, [rec], layout, tp,
+                                                  [seqs[rec["name"]][rec["call"]]])
+                rec.clear()
+            del params, records
+        if tag == "fp32":
+            diff = want = 0.0
+            for k, q in ref.named_parameters():
+                g = q.grad if k not in layout else layout[k].take(q.grad, rank)
+                diff += float((grads[k].double() - g.double()).square().sum())
+                want += float(g.double().square().sum())
+            r["grads_rel"] = math.sqrt(diff / want)
+            del q, g
+        del ref, loss, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag] = r
+    return out
+
+
+def _sp_checks(ranks: list, predicted: int, smi: str, bad: list) -> dict:
+    """The model-2 world's sequence-parallel results held (see
+    _sp_rank_work); returns the record and prints each rank's numbers."""
+    cfgs = _tp_configs(SP_ARCH)
+    want = lm_train_launches(cfgs["pallas"], model_axis=TP_AXIS)
+    rec = {}
+    for r in ranks:
+        for tag in ("fp32", "pallas"):
+            t = r["sp"][tag]
+            if not t["loss_equal"] or t["split_differ"]:
+                bad.append(f"sp {tag} rank {r['rank']}: loss {t['loss']} vs DEFAULT "
+                           f"{t['default_loss']}, split gradients differ {t['split_differ'][:4]}")
+            if t["replicated_worst"][0] > SP_REPLICATED_TOL:
+                bad.append(f"sp {tag} rank {r['rank']}: replicated {t['replicated_worst']}")
+            if t["split"] != {"dec": True, "enc": False}:
+                bad.append(f"sp {tag} rank {r['rank']}: sequence not split {t['split']}")
+            gap = abs(t["loss"] - t["ref_loss"]) / abs(t["ref_loss"])
+            t["ref_gap"] = gap
+            if not math.isfinite(t["loss"]) or gap > SP_AGREE[tag]:
+                bad.append(f"sp {tag} rank {r['rank']}: loss {t['loss']} vs unsharded "
+                           f"{t['ref_loss']}")
+            if tag == "fp32" and t["grads_rel"] > SP_AGREE["fp32"]:
+                bad.append(f"sp fp32 rank {r['rank']}: gradients {t['grads_rel']} off unsharded")
+            if tag == "pallas":
+                wrong = [c for c in t["linears"] if not c["ok"]]
+                if wrong or len(t["linears"]) != tp_linears(cfgs["pallas"]):
+                    bad.append(f"sp pallas rank {r['rank']}: linears {wrong[:3]} of "
+                               f"{len(t['linears'])}")
+            if not t["prefill_equal"]:
+                bad.append(f"sp {tag} rank {r['rank']}: prefill differs from DEFAULT's "
+                           f"({t['prefill_gap']})")
+            got = {k: t["launches"].get(k, 0) for k in want} if tag == "pallas" else (
+                {k: n for k, n in t["launches"].items() if n})
+            if got != (want if tag == "pallas" else {}):
+                bad.append(f"sp {tag} rank {r['rank']} launches {got}, expected {want}")
+            print(f"tensor sp {SP_ARCH} rank {r['rank']} {tag} ({smi}; gloo through the host on "
+                  f"one card: not an SP speed): loss {t['loss']} (DEFAULT {t['default_loss']}, "
+                  f"equal {t['loss_equal']}; unsharded gap {gap:.3g}"
+                  + (f", gradients {t['grads_rel']:.3g}" if tag == "fp32" else
+                     f", {len(t['linears'])} linear calls fed, worst sum "
+                     f"{max(c['sum_err'] / max(c['sum_tol'], 1e-30) for c in t['linears']):.3g}"
+                     f" of its bound")
+                  + f"), replicated worst {t['replicated_worst']}, loss+backward "
+                  f"{t['ms']:.1f} ms (DEFAULT {t['default_ms']:.1f}), peak above what it found "
+                  f"alive {t['peak_bytes'] / 2**30:.3f} GiB (DEFAULT "
+                  f"{t['default_peak_bytes'] / 2**30:.3f}), prefill equal {t['prefill_equal']}")
+    step = ranks[0]["sp"]["pallas"]
+    measured = step["step_peak_bytes"]
+    err = abs(predicted - measured) / measured
+    if err > DRYRUN_PEAK_TOL:
+        bad.append(f"sp step peak predicted {predicted} vs measured {measured} ({err:.3g})")
+    print(f"tensor sp {SP_ARCH} ({smi}): one SP train step's peak on rank 0 "
+          f"{measured / 2**30:.3f} GiB (less {step['step_held_bytes'] / 2**30:.3f} GiB held "
+          f"beside its arguments), the dry run's prediction (trace_step, seq_shard) "
+          f"{predicted / 2**30:.3f} GiB: {err:.3%} (tolerance {DRYRUN_PEAK_TOL:.0%}); step "
+          f"{step['step_ms']:.1f} ms")
+    rec.update(expected_launches=want, predicted_peak_bytes=predicted,
+               measured_peak_bytes=measured, held_bytes=step["step_held_bytes"], peak_err=err)
+    return rec
 
 
 # Serving each TP_PATHS path at a model axis of 2 (after its training
@@ -4346,6 +4669,7 @@ def _tp_rank(rank: int, world: int, port: int, out: str) -> None:
 def phase_tensor(results: dict) -> tuple[dict[str, dict[str, int]], list[dict]]:
     """Tensor parallelism over the model axis (module docstring, phase 15);
     returns each path's launches (rank 0's) and the timing rows."""
+    import concurrent.futures
     import tempfile
 
     import torch
@@ -4359,13 +4683,19 @@ def phase_tensor(results: dict) -> tuple[dict[str, dict[str, int]], list[dict]]:
     k3_checks, k3_rows = tp_k3_checks(gen)
     checks, rows = checks + k3_checks, rows + k3_rows
     torch.cuda.empty_cache()
+    # the dry run's prediction of the SP step, traced beside the ranks' work
+    trace = concurrent.futures.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+    predicted = trace.submit(_dryrun_job, ("sp_step",))
     with tempfile.TemporaryDirectory() as tmp:
         out = str(Path(tmp) / "tp")
         mp.spawn(_tp_rank, args=(TP_AXIS, _free_port(), out), nprocs=TP_AXIS, join=True)
         ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(TP_AXIS)]
+    predicted, trace_launched = predicted.result()
+    trace.shutdown()
     res = dict(batch=TP_BATCH, seq=TP_SEQ, model_axis=TP_AXIS, nvidia_smi=smi, k1_checks=checks,
                ranks=ranks, paths={})
     results["tensor"] = res
+    res["timing"] = rows  # K1's split entries and K3 at the paths' rank shapes
     for row in rows:
         print(json.dumps({"timing": row}))
     bad = [c for c in checks if not c["identical"]]
@@ -4416,6 +4746,10 @@ def phase_tensor(results: dict) -> tuple[dict[str, dict[str, int]], list[dict]]:
                   f"{[r[arch]['pallas']['route_flips'] for r in ranks]}; expert stacks "
                   f"{[[c['ok'] for c in r[arch]['pallas']['experts']] for r in ranks]} "
                   f"(outputs, weight gradients, gather, buffer gradient bit for bit)")
+    if trace_launched:
+        bad.append(f"the SP step's trace launched {trace_launched}")
+    res["sp"] = _sp_checks(ranks, predicted["peak_bytes"], smi, bad)
+    res["sp_s"] = [r["sp_s"] for r in ranks]
     served = _tp_serve_checks(ranks, smi, bad)
     res["serve_s"] = [r["serve_s"] for r in ranks]
     t = time.perf_counter()
@@ -4423,7 +4757,8 @@ def phase_tensor(results: dict) -> tuple[dict[str, dict[str, int]], list[dict]]:
     res["model16_s"] = time.perf_counter() - t
     if bad:
         raise AssertionError("; ".join(bad))
-    launches = {**{arch: ranks[0][arch]["pallas"]["launches"] for arch in TP_PATHS}, **served}
+    launches = {**{arch: ranks[0][arch]["pallas"]["launches"] for arch in TP_PATHS}, **served,
+                f"{SP_ARCH} sp": ranks[0]["sp"]["pallas"]["launches"]}
     launches.update({f"{a} model 16": n for a, n in res["model16"]["launches"].items()})
     return launches, rows
 
@@ -4506,17 +4841,36 @@ TP16_PATHS = {  # path: (config overrides, training tokens, cut)
                     "48 layers -> 2: the tied vocabulary of 50280 whole on every rank (16 does "
                     "not divide it); 1 x 512"),
 }
+# sequence parallelism at the model axis of 16 (tensor_parallel(..., seq_shard=
+# True)): path -> (config overrides, tokens, source frames, cut).  Each rank's
+# SP loss and backward against the unsharded one: fp32 the loss, the grad norm
+# and the gradients (the partial ones summed over the group), quantized the
+# loss, within SP_AGREE, and each recorded linear call fed as the SP step made
+# it (_tp_linear_checks with its sequence split); the launches of ranks
+# TP16_HELD the closed form with the sequences the step split.
+TP16_SP_PATHS = {
+    "mamba2-370m": ({"n_layers": 2}, 2048, 0,
+                    "48 layers -> 2; 1 x 2048, 128 tokens a rank; the tied vocabulary of "
+                    "50280 whole on every rank, its head and loss on the rank's tokens"),
+    "seamless-m4t-medium": ({"n_layers": 1, "enc_layers": 1}, 2048, 512,
+                            "12 + 12 layers -> 1 + 1; 1 x 2048 over 512 frames: the attention "
+                            "(heads of 64, too few units for 16 ranks) whole, run on the "
+                            "rank's 128 tokens with K/V gathered; on K1/K3 the encoder's 32 "
+                            "frames a rank are not a scaling group, so its sequence stays "
+                            "whole (fp32: split); the vocabulary of 256206 whole, shared and "
+                            "frozen as above, its head and loss on the rank's tokens"),
+}
 TP16_SHARED = {"seamless-m4t-medium": ("emb", "lm_head")}  # one copy on the card, frozen
 TP16_SERVE_BATCH, TP16_SERVE_PROMPT, TP16_SERVE_STEPS = 2, 128, 4
 TP16_HELD = (0, TP16_AXIS - 1)  # the ranks whose launches are held to the closed forms
 
 
-def _tp16_configs(arch: str) -> dict:
+def _tp16_configs(arch: str, paths: dict = TP16_PATHS) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    q = dataclasses.replace(get_config(arch), **TP16_PATHS[arch][0], quant_backend="pallas")
+    q = dataclasses.replace(get_config(arch), **paths[arch][0], quant_backend="pallas")
     return {"fp32": dataclasses.replace(q, quant=False, compute_dtype="float32"), "pallas": q}
 
 
@@ -4570,18 +4924,102 @@ def _tp16_reference(arch: str) -> dict:
     return out
 
 
-def _tp16_model(cfg, state: dict, shared: tuple, tp):
-    """This rank's tensor-parallel model of ``cfg``, made on the meta device
-    and given its shards of the unsharded ``state`` on the card; the
-    ``shared`` parameters are ``state``'s own tensors (one copy on the
-    card), frozen."""
+def _sp16_reference(arch: str) -> dict:
+    """One TP16_SP_PATHS path's unsharded references on this process's
+    card: the weights (seed 0), the batch, per config the loss and (fp32)
+    every gradient or (quantized) each recorded linear call with its
+    unsharded y, dx and dw (:func:`_tp_unsharded_linears`)."""
+    import torch
+
+    from repro_torch.models.lm import init_lm
+
+    _, tokens, frames, _ = TP16_SP_PATHS[arch]
+    cfgs = _tp16_configs(arch, TP16_SP_PATHS)
+    batch = next(lm_train_data(cfgs["fp32"], TP16_BATCH, tokens))
+    if frames:
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        batch = lm_inputs(cfgs["fp32"], batch["tokens"], gen, frames)
+    out = {"cfgs": cfgs, "shared": TP16_SHARED.get(arch, ()), "batch": batch,
+           "seq_shard": True}
+    for tag, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        model = init_lm(cfg, seed=0, device="cuda")
+        if "state" in out:
+            for k, p in model.named_parameters():
+                p.data = out["state"][k]
+        out["state"] = {k: p.detach() for k, p in model.named_parameters()}
+        records, _, handles = _tp_record_linears(model) if tag == "pallas" else ([], [], [])
+        loss = model.loss(batch, TP16_KEY)[0]
+        loss.backward()
+        for h in handles:
+            h.remove()
+        ref = {"loss": loss.item(), "seconds": 0.0}
+        if tag == "fp32":
+            ref["grads"] = {k: p.grad for k, p in model.named_parameters()}
+        else:
+            ref["linears"] = [rec for rec in records if "g" in rec]
+            _tp_unsharded_linears(out["state"], ref["linears"])
+        del loss, model, records
+        ref["seconds"] = time.perf_counter() - t0
+        out[tag] = ref
+    torch.cuda.synchronize()
+    return out
+
+
+def _sp16_rank_work(rank: int, ref: dict, tp) -> dict:
+    """One rank's sequence-parallel loss and backward of a TP16_SP_PATHS
+    path, per config (counts set to 0 just before, read just after), the
+    partial gradients summed over the group, held to the unsharded ones
+    (fp32: :func:`_tp16_grad_sums`; quantized: each recorded linear call
+    run as the SP step ran it, :func:`_tp_linear_checks` with its
+    sequence split)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+    for tag, cfg in ref["cfgs"].items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = _tp16_model(cfg, ref["state"], ref["shared"], tp, seq_shard=True)
+        seqs, handles = _sp_record_seqs(model)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = model.loss(ref["batch"], TP16_KEY)[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        r = dict(step_ms=(time.perf_counter() - t0) * 1e3, launches=launch_counts(),
+                 loss=loss.item(), ref_loss=ref[tag]["loss"], split=dict(model.seq_split),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated())
+        for h in handles:
+            h.remove()
+        del loss
+        _sp_grads(model)  # in place: p.grad whole where it was partial
+        if tag == "fp32":
+            r["grads"] = _tp16_grad_sums(model, ref["fp32"]["grads"], rank)
+        else:
+            model.zero_grad(set_to_none=True)
+            recs = ref["pallas"]["linears"]
+            r["linears"] = _tp_linear_checks(ref["state"], recs, model.tp_layout, tp,
+                                             [seqs[rec["name"]][rec["call"]] for rec in recs])
+        out[tag] = r
+        del model
+    return out
+
+
+def _tp16_model(cfg, state: dict, shared: tuple, tp, seq_shard: bool = False):
+    """This rank's tensor-parallel model of ``cfg`` (``seq_shard``: with
+    sequence parallelism), made on the meta device and given its shards of
+    the unsharded ``state`` on the card; the ``shared`` parameters are
+    ``state``'s own tensors (one copy on the card), frozen."""
     import torch
 
     from repro_torch.models.lm import LM
     from repro_torch.parallel.tensor import tensor_parallel
 
     with torch.device("meta"):
-        model = tensor_parallel(LM(cfg), tp)
+        model = tensor_parallel(LM(cfg), tp, seq_shard=seq_shard)
     layout = model.tp_layout
     with torch.no_grad():
         for k, _ in list(model.named_parameters()):
@@ -4635,6 +5073,9 @@ def _tp16_rank_work(rank: int, refs: dict) -> dict:
     tp = TensorParallel.of()
     out = {}
     for arch, ref in refs.items():
+        if ref.get("seq_shard"):
+            out[arch] = _sp16_rank_work(rank, ref, tp)
+            continue
         out[arch] = {}
         for tag, cfg in ref["cfgs"].items():
             torch.cuda.empty_cache()
@@ -4730,11 +5171,14 @@ def tensor16(smi: str, bad: list) -> dict:
         world = mp.start_processes(_tp16_rank, args=(TP16_AXIS, _free_port(), out, jobs, done),
                                    nprocs=TP16_AXIS, join=False, start_method="spawn")
         try:
-            for arch in TP16_PATHS:  # a path at a time: one path's references on the card
+            paths = [*TP16_PATHS, *(f"{a} sp" for a in TP16_SP_PATHS)]
+            for arch in paths:  # a path at a time: one path's references on the card
                 t0 = time.perf_counter()
-                refs = {arch: _tp16_reference(arch)}
+                sp = arch.endswith(" sp")
+                refs = {arch: _sp16_reference(arch[:-3]) if sp else _tp16_reference(arch)}
                 rec["reference_s"][arch] = time.perf_counter() - t0
-                n_linears[arch] = len(refs[arch]["pallas"]["linears"])
+                if not sp:
+                    n_linears[arch] = len(refs[arch]["pallas"]["linears"])
                 for q in jobs:
                     q.put(refs)
                 finished = 0
@@ -4847,7 +5291,72 @@ def tensor16(smi: str, bad: list) -> dict:
                   f"{row['greedy_equal']:.3f}, prefill {row['prefill_ms'][0]:.1f} ms, decode "
                   f"{row['decode_ms'][0]:.2f} ms/step; seconds (slowest rank) "
                   f"{ {k: round(v, 1) for k, v in row['seconds'].items()} }")
+    for arch in TP16_SP_PATHS:
+        rec["paths"][f"{arch} sp"] = _sp16_checks(arch, [r[f"{arch} sp"] for r in ranks], smi,
+                                                  bad, rec["launches"])
     return rec
+
+
+def _sp16_checks(arch: str, rs: list, smi: str, bad: list, launches: dict) -> dict:
+    """A TP16_SP_PATHS path's 16 ranks held (see there); rank 0's quantized
+    launches go to ``launches`` as "<arch> sp"."""
+    from repro_torch.parallel.tensor import attention_heads
+
+    cut, path = TP16_SP_PATHS[arch][3], {}
+    for tag in ("fp32", "pallas"):
+        cfg = _tp16_configs(arch, TP16_SP_PATHS)[tag]
+        t = [r[tag] for r in rs]
+        gaps = [abs(x["loss"] - x["ref_loss"]) / abs(x["ref_loss"]) for x in t]
+        row = dict(loss_gap=max(gaps), split=t[0]["split"], step_ms=[x["step_ms"] for x in t],
+                   peak_memory_bytes=max(x["peak_memory_bytes"] for x in t))
+        if not all(math.isfinite(x["loss"]) for x in t) or max(gaps) > SP_AGREE[tag]:
+            bad.append(f"model 16 sp {arch} {tag}: loss gaps {gaps}")
+        if any(x["split"] != t[0]["split"] for x in t) or not t[0]["split"]["dec"]:
+            bad.append(f"model 16 sp {arch} {tag}: sequences split {[x['split'] for x in t]}")
+        if tag == "fp32":
+            g = [x["grads"] for x in t]
+            diff = sum(x["split_diff"] for x in g) + g[0]["whole_diff"]
+            want = sum(x["split_want"] for x in g) + g[0]["whole_want"]
+            got = sum(x["split_got"] for x in g) + g[0]["whole_got"]
+            whole = [(x["whole_diff"] / max(x["whole_want"], 1e-60)) ** 0.5 for x in g]
+            row.update(grads_rel=math.sqrt(diff / want),
+                       grad_norm_rel=abs(math.sqrt(got) - math.sqrt(want)) / math.sqrt(want),
+                       whole_grads_rel=max(whole), worst=max(x["worst"] for x in g))
+            for what in ("grads_rel", "grad_norm_rel", "whole_grads_rel"):
+                if row[what] > TP_AGREE["fp32"]:
+                    bad.append(f"model 16 sp {arch} fp32 {what} {row[what]}")
+        else:
+            lin = [c for x in t for c in x["linears"]]
+            wrong = [c for c in lin if not c["ok"]]
+            tokens = sum(c["kind"] == "tokens" for c in t[0]["linears"])
+            row.update(linears=len(lin), linears_tokens=tokens,
+                       linears_worst=max((c["sum_err"] / max(c["sum_tol"], 1e-30) for c in lin),
+                                         default=0.0))
+            # a whole attention runs its linears on the rank's tokens: they must be fed
+            whole_attn = bool(cfg.n_heads) and attention_heads(cfg, TP16_AXIS) is None
+            if (wrong or not lin or len(lin) != len(t[0]["linears"]) * TP16_AXIS
+                    or bool(tokens) != whole_attn):
+                bad.append(f"model 16 sp {arch}: linears {wrong[:3]} of {len(lin)} "
+                           f"({tokens} on the rank's tokens a rank)")
+            split = (t[0]["split"]["dec"], t[0]["split"]["enc"])
+            want = lm_train_launches(cfg, model_axis=TP16_AXIS, seq_split=split)
+            for i in TP16_HELD:
+                got = {k: t[i]["launches"].get(k, 0) for k in want}
+                if got != want:
+                    bad.append(f"model 16 sp {arch} rank {i} launches {got}, expected {want}")
+            row["expected_launches"] = want
+            launches[f"{arch} sp"] = t[0]["launches"]
+        path[tag] = row
+        print(f"tensor model 16 sp {arch} {tag} ({smi}; gloo through the host on one card: not "
+              f"an SP speed): {cut}; sequences split {row['split']}; loss gap "
+              f"{row['loss_gap']:.3g}"
+              + (f", gradients {row['grads_rel']:.3g} (whole ones {row['whole_grads_rel']:.3g}, "
+                 f"grad norm {row['grad_norm_rel']:.3g})" if tag == "fp32" else
+                 f", {row['linears']} linear calls fed ({row['linears_tokens']} a rank on its "
+                 f"tokens), worst sum {row['linears_worst']:.3g} of its bound")
+              + f"; loss+backward ms rank 0 / {TP16_AXIS - 1} {row['step_ms'][0]:.1f} / "
+              f"{row['step_ms'][-1]:.1f}; peak {row['peak_memory_bytes'] / 2**30:.2f} GiB a rank")
+    return path
 
 
 def main() -> int:

@@ -29,7 +29,12 @@ arithmetic the kernels assume:
   each case a warning that names it: query heads split unevenly in whole
   units, kv heads kept replicated, an attention with fewer units than
   ranks kept whole, a vocabulary the axis does not divide kept whole, the
-  experts a rank (or the stacks kept replicated).
+  experts a rank (or the stacks kept replicated).  With ``seq_shard``
+  (sequence parallelism) it also names a sequence that stays whole (the
+  axis does not divide it, or a rank's slice is not whole scaling groups
+  where a token slice is quantized on K1/K3) and what runs on each rank's
+  own tokens: an attention kept whole, replicated kv linears, a
+  vocabulary kept whole.
 
 Pure Python on dataclass fields: it runs on any host.
 """
@@ -146,7 +151,8 @@ def lint_shipped_presets() -> dict[str, LintResult]:
             for s in DEFAULT_FMTS}
 
 
-def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
+def lint_tensor_parallel(cfg, model_axis: int, seq_shard: bool = False,
+                         seq_len: int | None = None) -> LintResult:
     """Whether the LM config ``cfg`` trains tensor-parallel over a model
     axis of ``model_axis`` (the module docstring): errors on a family not
     ported, on grouping other than "nc" and on a hidden dim with fewer
@@ -154,7 +160,9 @@ def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
     unevenly, the kv heads, attention or vocabulary kept replicated, the
     Mamba2 tail held by one rank, the experts a rank (or the expert stacks
     kept replicated) and the other dims split unevenly (in whole groups or
-    units)."""
+    units).  ``seq_shard``: under sequence parallelism, also what runs on
+    each rank's own tokens and, given ``seq_len``, a sequence of that
+    length that stays whole (the module docstring)."""
     from repro_torch.launch.specs import abstract_params
     from repro_torch.parallel.tensor import (
         TAIL_RANK, attention_heads, mamba_heads, rank_heads, tp_layout)
@@ -210,4 +218,30 @@ def lint_tensor_parallel(cfg, model_axis: int) -> LintResult:
                      if len({sp.size(r) for r in range(len(sp.pieces))}) > 1})
     if uneven:
         warnings.append(f"split unevenly in whole scaling groups: {uneven}")
+    if seq_shard and model_axis > 1:
+        warnings += _seq_warnings(cfg, model_axis, layout, heads, seq_len)
     return LintResult(errors, warnings)
+
+
+def _seq_warnings(cfg, model_axis: int, layout, heads, seq_len: int | None) -> list[str]:
+    """:func:`lint_tensor_parallel`'s warnings of sequence parallelism."""
+    from repro_torch.parallel.tensor import TensorParallel, rank_heads, seq_unit, split_seq
+
+    out = []
+    if cfg.n_heads and heads is None:
+        out.append("the whole attention runs wq, wk, wv and wo on each rank's own tokens, "
+                   "K and V gathered along the sequence")
+    elif cfg.n_heads and rank_heads(cfg, model_axis, 0)[2] is not None:
+        out.append("the replicated kv linears run on each rank's own tokens, K and V gathered "
+                   "along the sequence")
+    if "emb" not in layout:
+        out.append("the whole vocabulary's head and loss run on each rank's own tokens, the "
+                   "loss's token sums all-reduced")
+    unit = seq_unit(cfg, model_axis)
+    if seq_len is not None and split_seq(TensorParallel(0, model_axis), seq_len, unit) is None:
+        why = (f"{model_axis} does not divide it" if seq_len % model_axis else
+               f"a rank's {seq_len // model_axis} positions are not whole scaling groups of "
+               f"{unit}")
+        out.append(f"a sequence of {seq_len} stays whole over a model axis of {model_axis} "
+                   f"({why}): that call runs the DEFAULT layout")
+    return out

@@ -282,7 +282,8 @@ class LinearSplit:
     holds the whole operand.  Column-parallel (``w[:, N_r]``): ``w`` on dim
     1 and ``e`` on its last dim; row-parallel (``w[K_r, :]``): ``x`` on its
     last dim and ``w`` on dim 0; ``pieces``, the rank's ``[a, b)`` of N
-    (column) or K (row), concatenated."""
+    (column) or K (row), concatenated; token-split (:meth:`tokens`): ``x``
+    and ``e`` on their token dim."""
 
     x: Sharded | None
     w: Sharded | None
@@ -295,6 +296,14 @@ class LinearSplit:
     @staticmethod
     def row(pieces, full: int, group=None) -> LinearSplit:
         return LinearSplit(Sharded(-1, pieces, full, group), Sharded(0, pieces, full, group), None)
+
+    @staticmethod
+    def tokens(pieces, full: int, group=None) -> LinearSplit:
+        """A whole weight on this rank's tokens (sequence parallelism): ``x``
+        (..., S_r, K) and the error (..., S_r, N) token slices of a
+        sequence of ``full`` (dim -2, the same pieces in every row).  The
+        weight gradient contracts the tokens: this rank's part of the sum."""
+        return LinearSplit(Sharded(-2, pieces, full, group), None, Sharded(-2, pieces, full, group))
 
 
 def _full_shape(shape, shard: Sharded | None) -> tuple[int, ...]:

@@ -38,11 +38,18 @@ operand draws from the same stream, and its tensor scale comes from the max
 the split falls on ``k_block`` boundaries, so its group scales are its own.
 A column-parallel linear's forward and weight gradient are then the slices
 of the unsharded ones bit for bit, and its data gradient a partial sum over
-its groups; a row-parallel linear's the other way round.
+its groups; a row-parallel linear's the other way round.  A token-split
+linear (sequence parallelism: a whole weight on a rank's tokens) holds the
+rows of ``x`` and the error that its tokens cover in every batch row (one
+piece a row of the flattened operand); its forward and data gradient are
+the unsharded rows bit for bit, and its weight gradient contracts its
+tokens in whole ``k_block`` groups of the padded contraction, a partial
+sum over the group.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -283,9 +290,21 @@ def lowbit_conv_fused(x, w, key, stride, padding, cfg: QuantConfig) -> torch.Ten
 _WHOLE = LinearSplit(None, None, None)
 
 
-def _2d(shard: Sharded | None) -> Sharded | None:
-    """A shard of the last dim of an (..., n) operand, on its 2-D (rows, n) view."""
-    return None if shard is None else dataclasses.replace(shard, dim=1)
+def _2d(shard: Sharded | None, shape) -> Sharded | None:
+    """A shard of an operand of ``shape`` (..., n), on its 2-D (rows, n)
+    view: of the last dim, that dim; of the token dim (-2; a sequence of
+    ``full`` positions), the rows its pieces cover in every leading index,
+    ``lead * full`` rows in all."""
+    if shard is None:
+        return None
+    if shard.axis(len(shape)) == len(shape) - 1:
+        return dataclasses.replace(shard, dim=1)
+    if shard.axis(len(shape)) != len(shape) - 2:
+        raise ValueError(f"a shard of dim {shard.dim} of {tuple(shape)}: a linear's operand "
+                         f"splits on its last dim or its tokens")
+    lead, s = math.prod(shape[:-2]), shard.full
+    pieces = tuple((i * s + a, i * s + b) for i in range(lead) for a, b in shard.pieces)
+    return Sharded(0, pieces, lead * s, shard.group)
 
 
 def _t(shard: Sharded | None) -> Sharded | None:
@@ -296,7 +315,7 @@ def _mm_fwd_impl(x, w, key, cfg: QuantConfig, split: LinearSplit = _WHOLE):
     y2d = qd_gemm(
         x.reshape(-1, x.shape[-1]), w.float(),
         rounding_generator(key, cfg, 0, x.device), rounding_generator(key, cfg, 1, x.device),
-        **_gemm_kwargs(cfg), x_shard=_2d(split.x), w_shard=split.w,
+        **_gemm_kwargs(cfg), x_shard=_2d(split.x, x.shape), w_shard=split.w,
     )
     return y2d.reshape(*x.shape[:-1], w.shape[1])
 
@@ -306,12 +325,12 @@ def _mm_bwd_impl(x, w, g, key, cfg: QuantConfig, split: LinearSplit = _WHOLE):
     e2d = g.reshape(-1, g.shape[-1]).float()
     gen = [rounding_generator(key, cfg, i, x.device) for i in range(2, 6)]
     kwargs = _gemm_kwargs(cfg)
-    e_sh = _2d(split.e)
+    e_sh = _2d(split.e, g.shape)
     # dX = qE @ qW^T
     dx2d = qd_gemm(e2d, w.float().t(), gen[0], gen[1], **kwargs, x_shard=e_sh,
                    w_shard=_t(split.w))
     # dW = qX^T @ qE
-    dw = qd_gemm(x2d.t(), e2d, gen[2], gen[3], **kwargs, x_shard=_t(_2d(split.x)),
+    dw = qd_gemm(x2d.t(), e2d, gen[2], gen[3], **kwargs, x_shard=_t(_2d(split.x, x.shape)),
                  w_shard=e_sh)
     return dx2d.reshape(x.shape), dw
 

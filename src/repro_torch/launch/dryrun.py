@@ -77,6 +77,13 @@ production cell runs (what the model axis does not divide stays
 replicated, ``parallel.tensor``), and whether it fits is its trace's
 result.
 
+**Sequence parallelism.**  ``run_cell(..., seq_shard=True)`` binds the
+port's ``SP_RULES`` as JAX's binds its own: the microbatch of
+``choose_microbatch(..., seq_shard=True)`` and the layout of
+``shard_model(..., seq_shard=True)`` (``parallel.tensor``: the residual
+stream split over ``model``), recorded with ``"rules": "sp"`` (else
+``"default"``); the lint names a sequence that stays whole.
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-72b \\
@@ -104,21 +111,17 @@ from repro_torch.configs import ARCHS, SHAPES, RunConfig, get_config, runnable_s
 from repro_torch.configs import shape_model_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.autotune import modelled_card
-from repro_torch.parallel import DEFAULT_RULES, MeshShape
+from repro_torch.parallel import DEFAULT_RULES, SP_RULES, MeshShape
 
 from . import roofline as rf
 from .mesh import PRODUCTION_SHAPES, make_production_mesh
 from .specs import SRC_LEN_DECODE, choose_microbatch
 from .trace_counts import StepCounter, mesh_dims
 
-__all__ = ["OUT_DIR", "SEQ_SHARD_NOT_PORTED", "depth_units", "run_cell", "trace_cell",
-           "trace_serve", "trace_step"]
+__all__ = ["OUT_DIR", "depth_units", "run_cell", "trace_cell", "trace_serve", "trace_step"]
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
                        "torch_dryrun")
-SEQ_SHARD_NOT_PORTED = ("sequence parallelism (SP_RULES, seq_shard=True) is not ported "
-                        "(ROADMAP queue 1): the port's tensor-parallel layers keep the "
-                        "residual stream whole on every rank")
 
 
 # ---------------------------------------------------------------------------
@@ -202,10 +205,15 @@ def _batch(cfg: ModelConfig, rows: int, seq: int, device: str) -> dict[str, torc
     return out
 
 
-def _laid_out(cfg: ModelConfig, device: str, fake: bool, mesh):
+def _laid_out(cfg: ModelConfig, device: str, fake: bool, mesh, seq_shard: bool = False,
+              fsdp: bool = True):
     """A model of ``cfg`` on ``device`` (under the active fake mode, or real
-    from seed 0), laid out by ``shard_model`` over ``mesh`` where given."""
+    from seed 0), laid out by ``shard_model`` over ``mesh`` where given
+    (``seq_shard``: with sequence parallelism); ``fsdp=False``: by
+    ``tensor_parallel`` over the mesh's ``model`` group alone (a world
+    that is one model group, as a card's runs lay it out)."""
     from repro_torch.models import lm
+    from repro_torch.parallel.tensor import TensorParallel, tensor_parallel
 
     from .train import shard_model
 
@@ -214,8 +222,12 @@ def _laid_out(cfg: ModelConfig, device: str, fake: bool, mesh):
             model = lm.LM(cfg)
     else:
         model = lm.init_lm(cfg, seed=0, device=device)
-    if mesh is not None:
-        shard_model(model, mesh)
+    if mesh is not None and fsdp:
+        shard_model(model, mesh, seq_shard)
+    elif mesh is not None:
+        tp = TensorParallel(mesh.get_local_rank("model"), mesh.size(mesh.mesh_dim_names.index(
+            "model")), mesh.get_group("model"))
+        tensor_parallel(model, tp, seq_shard=seq_shard)
     return model
 
 
@@ -226,7 +238,8 @@ def _register_parameters(counter: StepCounter, model) -> None:
 
 
 def trace_step(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None,
-               device: str | None = None, fake: bool = True) -> dict[str, Any]:
+               device: str | None = None, fake: bool = True, seq_shard: bool = False,
+               fsdp: bool = True) -> dict[str, Any]:
     """One ``make_train_step`` step of a model of ``cfg`` on ``rows`` fake
     sequences of ``seq`` tokens in ``microbatch`` parts (0 or 1: one),
     counted by :class:`~.trace_counts.StepCounter`: ``{"hlo",
@@ -236,7 +249,8 @@ def trace_step(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None
     launcher lays it out (``shard_model``); without, unsharded, as one
     card trains it.  ``device``: the fake tensors' ("cuda" when a card is
     present, else "cpu").  ``fake=False`` runs the same step on real
-    tensors (random weights, zero tokens), counted the same way."""
+    tensors (random weights, zero tokens), counted the same way.
+    ``seq_shard``, ``fsdp``: the layout's (:func:`_laid_out`)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels import launch
@@ -250,7 +264,7 @@ def trace_step(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None
     recorded0 = collections.Counter(launch.RECORDED)
     counter = StepCounter(mesh_dims(mesh) if mesh is not None else None)
     with FakeTensorMode() if fake else contextlib.nullcontext():
-        model = _laid_out(cfg, device, fake, mesh)
+        model = _laid_out(cfg, device, fake, mesh, seq_shard, fsdp)
         batch = _batch(cfg, rows, seq, device)
         with counter:
             _register_parameters(counter, model)
@@ -280,7 +294,8 @@ def _counts(counter: StepCounter, recorded0, arguments: int, outputs: int, input
 
 
 def trace_serve(cfg: ModelConfig, rows: int, seq: int, kind: str, mesh=None,
-                device: str | None = None, fake: bool = True) -> dict[str, Any]:
+                device: str | None = None, fake: bool = True,
+                seq_shard: bool = False) -> dict[str, Any]:
     """One serving step of a model of ``cfg``, counted as :func:`trace_step`
     counts a train step: ``kind`` "prefill", ``lm.prefill`` of ``rows``
     prompts of ``seq`` tokens (the encoder-decoder's over ``seq`` source
@@ -288,8 +303,9 @@ def trace_serve(cfg: ModelConfig, rows: int, seq: int, kind: str, mesh=None,
     ``lm.decode_step`` of one token a row against a full cache of ``seq``
     positions (its last slot written; the encoder-decoder's cross K/V of
     ``SRC_LEN_DECODE`` frames), the cache an argument (kind ``"Cache"``).
-    Laid out as :func:`trace_step` lays a model out; ``cache_bytes``: the
-    rank's cache, exactly."""
+    Laid out as :func:`trace_step` lays a model out (``seq_shard``: with
+    sequence parallelism, which a decode step's one token leaves whole);
+    ``cache_bytes``: the rank's cache, exactly."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels import launch
@@ -302,7 +318,7 @@ def trace_serve(cfg: ModelConfig, rows: int, seq: int, kind: str, mesh=None,
     recorded0 = collections.Counter(launch.RECORDED)
     counter = StepCounter(mesh_dims(mesh) if mesh is not None else None)
     with FakeTensorMode() if fake else contextlib.nullcontext():
-        model = _laid_out(cfg, device, fake, mesh)
+        model = _laid_out(cfg, device, fake, mesh, seq_shard)
         if kind == "prefill":
             batch, cache = _batch(cfg, rows, seq, device), {}
         else:
@@ -337,12 +353,13 @@ WHOLE_UP_TO = sum(POINTS)
 
 def trace_cell(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None,
                extend: bool = True, device: str | None = None,
-               kind: str = "train") -> dict[str, Any]:
+               kind: str = "train", seq_shard: bool = False) -> dict[str, Any]:
     """:func:`trace_step` (``kind`` "train") or :func:`trace_serve` ("prefill",
     "decode"; no microbatches) of the whole cell, or (``extend``) its
     counts carried from traces at ``POINTS`` depth units and microbatches
     (module docstring); ``traced``: the ``[n_layers, microbatches]`` of
-    each trace, ``extended``: whether it was carried."""
+    each trace, ``extended``: whether it was carried; ``seq_shard``: laid
+    out with sequence parallelism."""
     parts = max(1, microbatch)
     if rows % parts:
         raise ValueError(f"microbatch {microbatch} does not divide {rows} rows")
@@ -355,9 +372,10 @@ def trace_cell(cfg: ModelConfig, rows: int, seq: int, microbatch: int, mesh=None
             c = cfg if k == units else at(k)
             if kind == "train":
                 traces[(k, m)] = trace_step(c, rows // parts * m, seq, m if m > 1 else 0, mesh,
-                                            device)
+                                            device, seq_shard=seq_shard)
             else:
-                traces[(k, m)] = trace_serve(c, rows, seq, kind, mesh, device)
+                traces[(k, m)] = trace_serve(c, rows, seq, kind, mesh, device,
+                                             seq_shard=seq_shard)
             traces[(k, m)]["cfg"] = c
     out = _extend(traces, units, parts)
     out["traced"] = [[t["cfg"].n_layers, m] for (k, m), t in sorted(traces.items())]
@@ -401,16 +419,19 @@ def run_cell(
     """Trace one cell; returns (and writes) its record (module docstring).
 
     ``cfg_updates``: ModelConfig field overrides.  ``rules``: the layout's
-    rule table (only ``DEFAULT_RULES``: the launcher's).  ``seq_shard``
-    raises ``NotImplementedError`` (sequence parallelism, ROADMAP queue
-    1).  ``device``: the fake tensors' (:func:`trace_step`)."""
+    rule table, ``DEFAULT_RULES`` (the launcher's) or ``SP_RULES``
+    (sequence parallelism).  ``seq_shard``: bind ``SP_RULES`` where no
+    rules are given, and size the microbatch as JAX does under them
+    (module docstring).  ``device``: the fake tensors' (:func:`trace_step`)."""
     from repro_torch.analysis.lint import lint_tensor_parallel
 
-    if seq_shard:
-        raise NotImplementedError(SEQ_SHARD_NOT_PORTED)
-    if rules is not None and rules != DEFAULT_RULES:
-        raise NotImplementedError("the dry run lays a cell out as the launcher does "
-                                  "(DEFAULT_RULES); other rule tables are not ported")
+    if seq_shard and rules is None:
+        rules = SP_RULES
+    rules = rules or DEFAULT_RULES
+    if rules not in (DEFAULT_RULES, SP_RULES):
+        raise NotImplementedError("the dry run lays a cell out by DEFAULT_RULES (the "
+                                  "launcher's) or SP_RULES; other rule tables are not ported")
+    sp = rules.get("seq") == "model"
     shape = SHAPES[shape_name]
     cfg = shape_model_config(get_config(arch), shape)
     if cfg_updates:
@@ -420,16 +441,17 @@ def run_cell(
     n_dev = math.prod(sizes)
     record: dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": "x".join(map(str, sizes)),
-        "n_devices": n_dev, "tag": tag,
+        "n_devices": n_dev, "tag": tag, "rules": "sp" if sp else "default",
     }
     model_axis = dict(zip(axes, sizes))["model"]
-    lint = lint_tensor_parallel(cfg, model_axis)
+    lint = lint_tensor_parallel(cfg, model_axis, seq_shard=sp,
+                                seq_len=shape.seq_len if shape.kind != "decode" else 1)
     if not lint.ok:
         record.update(status="refused", reason="; ".join(lint.errors))
     else:
         mb = 0
         if shape.kind == "train":
-            mb = (choose_microbatch(cfg, shape, mesh_shape) if microbatch is None
+            mb = (choose_microbatch(cfg, shape, mesh_shape, seq_shard) if microbatch is None
                   else microbatch)
             record["microbatch"] = mb
         dp = n_dev // model_axis
@@ -438,7 +460,7 @@ def run_cell(
         with fake_world(n_dev):
             mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
             counts = trace_cell(cfg, rows, shape.seq_len, mb, mesh, device=device,
-                                kind=shape.kind)
+                                kind=shape.kind, seq_shard=sp)
         record.update(status="ran", rows=rows, lint_warnings=lint.warnings)
         _fill(record, counts, cfg, shape, mesh_shape)
     if verbose:
@@ -479,7 +501,9 @@ def _fill(record: dict, counts: dict, cfg: ModelConfig, shape: ShapeConfig, mesh
 
 
 def _say(record: dict) -> None:
-    head = f"[dryrun] {record['arch']} x {record['shape']} x {record['mesh']}{record['tag']}"
+    rules = " (sp)" if record.get("rules") == "sp" else ""
+    head = (f"[dryrun] {record['arch']} x {record['shape']} x {record['mesh']}{record['tag']}"
+            f"{rules}")
     if record["status"] != "ran":
         print(f"{head}: {record['status']}: {record['reason']}", flush=True)
         return

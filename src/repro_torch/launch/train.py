@@ -104,10 +104,11 @@ def _dp_mesh(mesh):
     return mesh[tuple(n for n in ("pod", "data") if n in mesh.mesh_dim_names)]
 
 
-def shard_model(model: lm.LM, mesh) -> lm.LM:
+def shard_model(model: lm.LM, mesh, seq_shard: bool = False) -> lm.LM:
     """Tensor parallelism over the mesh's ``model`` dim where it is above 1
     (:func:`repro_torch.parallel.tensor.tensor_parallel`, this rank's
-    coordinate), then HSDP: FSDP2 ``fully_shard`` of
+    coordinate; ``seq_shard``: with sequence parallelism, JAX's
+    ``SP_RULES``, which the launcher itself does not bind), then HSDP: FSDP2 ``fully_shard`` of
     every layer (and encoder layer), then of the model, over the mesh's
     ("pod", "data") dims, and ``model.loss``, ``model.prefill`` and
     ``model.decode_step`` registered as forwards of the root (and an
@@ -123,7 +124,8 @@ def shard_model(model: lm.LM, mesh) -> lm.LM:
                                   "2-byte gather is not ported (ROADMAP queue 1)")
     if m > 1:
         group = mesh.get_group("model")
-        tensor_parallel(model, TensorParallel(mesh.get_local_rank("model"), m, group))
+        tensor_parallel(model, TensorParallel(mesh.get_local_rank("model"), m, group),
+                        seq_shard=seq_shard)
     dp = _dp_mesh(mesh)
     for layer in [*model.layers, *(model.enc_layers or ())]:
         fully_shard(layer, mesh=dp)

@@ -70,6 +70,21 @@ in zeros and summed over the group (:func:`whole_logits`; exact, ``x + 0
 registers as FSDP2 forwards, so that a sharded model's root parameters
 are gathered around them; the module's functions call them.
 
+Under sequence parallelism (``tensor_parallel(..., seq_shard=True)``,
+``model.seq_shard``) each call splits its sequence over the model group
+where the axis divides it (``parallel.tensor.split_seq``; the encoder's
+source frames on their own): the residual stream holds the rank's tokens
+from the embedding (a split vocabulary's lookup reduce-scattered, a whole
+one looked up on the rank's tokens, a frontend's prefix built whole and
+sliced) to the final norm.  A split vocabulary gathers the final hidden
+state and runs the head and the vocab-parallel loss as above; a whole
+one runs them on the rank's tokens, the loss's token sums all-reduced
+before the mean.  The loss records which sequences it split
+(``model.seq_split``), which the trainer reads (``parallel.tensor.
+partial_grads``).  Prefill gathers the encoder's output for the cross K/V
+cache and the final hidden state for the last position's logits; the
+caches hold what they hold without it.
+
 A cache is a dict of tensors plus ``"pos"`` (a Python int, the next
 position).  :func:`decode_step` writes the KV caches in place (the JAX
 engine donates them) and returns a new dict with the new SSM states.  As
@@ -94,7 +109,8 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import QuantConfig, fold_in
 from repro_torch.kernels.launch import in_plain_version
 from repro_torch.parallel.tensor import (
-    TAIL_RANK, copy_to_tp, mamba_heads, rank_heads, reduce_from_tp, vocab_parallel_ce)
+    TAIL_RANK, copy_to_tp, gather_seq, mamba_heads, rank_heads, reduce_from_tp, scatter_seq,
+    seq_unit, split_seq, vocab_parallel_ce)
 from repro_torch.runtime import resolve_device
 
 from . import nn as L
@@ -125,10 +141,11 @@ class MoEBlock(nn.Module):
         self.attn.init_(generator)
         self.moe.init_(generator)
 
-    def forward(self, x, qcfg, key, *, cache=None, cache_pos: int = 0, window=None):
-        h = self.attn(self.ln1(x), qcfg, key, cache=cache, cache_pos=cache_pos, window=window)
+    def forward(self, x, qcfg, key, *, cache=None, cache_pos: int = 0, window=None, seq=None):
+        h = self.attn(self.ln1(x), qcfg, key, cache=cache, cache_pos=cache_pos, window=window,
+                      seq=seq)
         x = x + h.to(x.dtype)
-        h, aux = self.moe(self.ln2(x), qcfg, fold_in(key, 1000))
+        h, aux = self.moe(self.ln2(x), qcfg, fold_in(key, 1000), seq=seq)
         return x + h.to(x.dtype), aux
 
 
@@ -153,15 +170,17 @@ class XDecBlock(nn.Module):
         self.mlp.init_(generator)
 
     def forward(self, x, qcfg, key, *, memory=None, cache=None, cross_cache=None,
-                cache_pos: int = 0):
-        h = self.attn(self.ln1(x), qcfg, key, cache=cache, cache_pos=cache_pos)
+                cache_pos: int = 0, seq=None, mem_seq=None):
+        h = self.attn(self.ln1(x), qcfg, key, cache=cache, cache_pos=cache_pos, seq=seq)
         x = x + h.to(x.dtype)
         if cross_cache is not None:
-            h = self.xattn(self.lnx(x), qcfg, fold_in(key, 500), cross_cache=cross_cache)
+            h = self.xattn(self.lnx(x), qcfg, fold_in(key, 500), cross_cache=cross_cache,
+                           seq=seq)
         else:
-            h = self.xattn(self.lnx(x), qcfg, fold_in(key, 500), kv=memory, causal=False)
+            h = self.xattn(self.lnx(x), qcfg, fold_in(key, 500), kv=memory, causal=False,
+                           seq=seq, mem_seq=mem_seq)
         x = x + h.to(x.dtype)
-        h = self.mlp(self.ln2(x), qcfg, key)
+        h = self.mlp(self.ln2(x), qcfg, key, seq=seq)
         return x + h.to(x.dtype)
 
     def cross_kv(self, memory):
@@ -197,6 +216,8 @@ class LM(nn.Module):
         self.enc_layers = (nn.ModuleList(Block(cfg) for _ in range(cfg.enc_layers))
                            if cfg.family == "encdec" else None)
         self.tp, self.tp_layout = None, {}  # tensor parallelism (parallel.tensor)
+        # sequence parallelism: on, and which sequences the last loss split
+        self.seq_shard, self.seq_split = False, {}
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> None:
@@ -234,16 +255,19 @@ class LM(nn.Module):
         the attention (the hybrid's ring buffer in a full-sequence pass).
         Tensor-parallel: the whole vocabulary on every rank."""
         cfg, qcfg = self.cfg, serve_qcfg(self.cfg)
-        x = embed(self, batch)
+        seq, mem_seq = _seq_splits(self, batch)
+        x = embed(self, batch, seq)
         if cfg.family in ("dense", "moe"):
-            x, _ = _dense(self, x, qcfg, None, window=window)
+            x, _ = _dense(self, x, qcfg, None, window=window, seq=seq)
         elif cfg.family == "ssm":
-            x, _ = _ssm(self, x, qcfg, None)
+            x, _ = _ssm(self, x, qcfg, None, seq=seq)
         elif cfg.family == "hybrid":
-            x, _ = _hybrid(self, x, qcfg, None, window=window)
+            x, _ = _hybrid(self, x, qcfg, None, window=window, seq=seq)
         else:
-            x = _xdec(self, x, qcfg, None, _encoder(self, batch, qcfg, None))
-        return whole_logits(self, logits_fn(self, self.final_norm(x)))
+            x = _xdec(self, x, qcfg, None, _encoder(self, batch, qcfg, None, seq=mem_seq),
+                      seq=seq, mem_seq=mem_seq)
+        h = self.final_norm(x)
+        return whole_logits(self, logits_fn(self, h if seq is None else gather_seq(h, seq)))
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda") -> LM:
@@ -272,39 +296,43 @@ def _vocab_start(model: LM, name: str) -> int:
     return model.tp_layout[name].bounds[model.tp.rank][0]
 
 
-def embed(model: LM, batch: dict) -> torch.Tensor:
+def embed(model: LM, batch: dict, seq=None) -> torch.Tensor:
     """Token embeddings in the compute dtype; with a frontend, its
     projected embeddings (unquantized: the first layer) replace the first
     positions.  Tensor-parallel over a split vocabulary: each rank looks up
     the tokens of its vocabulary slice, zeros for the rest, summed over the
-    group."""
+    group.  ``seq``: this rank's tokens (the sum reduce-scattered to them; a
+    whole vocabulary looks up only them; the frontend's prefix is built
+    whole and sliced)."""
     cfg = model.cfg
     cdt = torch_dtype(cfg.compute_dtype)
     tokens = batch["tokens"]
     if not _vocab_split(model):
-        x = model.emb[tokens].to(cdt)
+        x = model.emb[tokens if seq is None else seq.take(tokens)].to(cdt)
     else:
         v0, v = _vocab_start(model, "emb"), model.emb.shape[0]
         mine = (tokens >= v0) & (tokens < v0 + v)
         rows = model.emb[(tokens - v0).clamp(0, v - 1)]
-        x = reduce_from_tp(torch.where(mine[..., None], rows, torch.zeros_like(rows)),
-                           model.tp).to(cdt)
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        x = (reduce_from_tp(rows, model.tp) if seq is None else scatter_seq(rows, seq)).to(cdt)
     if cfg.frontend != "none" and "frontend_emb" in batch:
-        fe = model.frontend_proj(batch["frontend_emb"].to(cdt))
-        f = fe.shape[1]
-        x = torch.cat([fe.to(cdt), x[:, f:]], dim=1)
+        fe = model.frontend_proj(batch["frontend_emb"].to(cdt)).to(cdt)
+        a = 0 if seq is None else seq.start  # x's first position
+        f = min(fe.shape[1], a + x.shape[1])
+        if f > a:
+            x = torch.cat([fe[:, a:f], x[:, f - a:]], dim=1)
     return x
 
 
-def logits_fn(model: LM, x: torch.Tensor) -> torch.Tensor:
+def logits_fn(model: LM, x: torch.Tensor, seq=None) -> torch.Tensor:
     """``x @ head.T`` -> fp32, unquantized (the last layer, paper Sec.
     VI-A): the head rounded to ``x``'s dtype, the products summed in fp32
     (the JAX package's ``preferred_element_type=float32``).
     Tensor-parallel over a split vocabulary: this rank's slice of the
-    logits."""
+    logits (``seq``: of every token, ``x`` the rank's tokens, gathered)."""
     head = model.emb if model.cfg.tie_embeddings else model.lm_head
     if _vocab_split(model):
-        x = copy_to_tp(x, model.tp)
+        x = copy_to_tp(x, model.tp) if seq is None else gather_seq(x, seq)
     return x.float() @ head.to(x.dtype).float().t()
 
 
@@ -364,7 +392,7 @@ def _sub(view: dict | None, prefix: str) -> dict | None:
 
 
 def _dense(model: LM, x, qcfg, key, *, caches=None, cache_pos: int = 0, window=None,
-           view=None, remat="none"):
+           view=None, remat="none", seq=None):
     """The dense or MoE stack, threading the stacked KV caches ``(k, v)``
     (L, B, M, KV, hd) when given (written in place); returns ``(x, aux)``,
     aux the mean of the MoE layers' load-balance losses (0 for dense)."""
@@ -373,7 +401,7 @@ def _dense(model: LM, x, qcfg, key, *, caches=None, cache_pos: int = 0, window=N
     for i, layer in enumerate(model.layers):
         cache = (caches[0][i], caches[1][i]) if caches is not None else None
         x = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i),
-                   cache=cache, cache_pos=cache_pos, window=window)
+                   cache=cache, cache_pos=cache_pos, window=window, seq=seq)
         if moe:
             x, aux = x
             auxes.append(aux)
@@ -382,20 +410,21 @@ def _dense(model: LM, x, qcfg, key, *, caches=None, cache_pos: int = 0, window=N
     return x, torch.stack(auxes).mean()
 
 
-def _encoder(model: LM, batch: dict, qcfg, key, *, view=None, remat="none"):
+def _encoder(model: LM, batch: dict, qcfg, key, *, view=None, remat="none", seq=None):
     """The encoder: its bidirectional blocks over ``frontend_proj(src_emb)``
     (unquantized: the first layer), layer ``i`` on ``fold_in(key, 20_000 +
-    i)``."""
+    i)``; ``seq``: on this rank's source frames."""
     cdt = torch_dtype(model.cfg.compute_dtype)
-    x = model.frontend_proj(batch["src_emb"].to(cdt)).to(cdt)
+    src = batch["src_emb"] if seq is None else seq.take(batch["src_emb"])
+    x = model.frontend_proj(src.to(cdt)).to(cdt)
     for i, layer in enumerate(model.enc_layers):
         x = _layer(layer, _sub(view, f"enc_layers.{i}."), remat, x, qcfg,
-                   fold_in(key, 20_000 + i), causal=False)
+                   fold_in(key, 20_000 + i), causal=False, seq=seq)
     return x
 
 
 def _xdec(model: LM, x, qcfg, key, memory=None, *, caches=None, cross=None,
-          cache_pos: int = 0, view=None, remat="none"):
+          cache_pos: int = 0, view=None, remat="none", seq=None, mem_seq=None):
     """The decoder stack: cross-attention over ``memory`` (the encoder's
     output) or, serving, over the stacked cross K/V ``cross`` (L, B, Sk,
     KV, hd) x2; self-attention threads the KV caches ``caches`` when
@@ -404,17 +433,19 @@ def _xdec(model: LM, x, qcfg, key, memory=None, *, caches=None, cross=None,
         cache = (caches[0][i], caches[1][i]) if caches is not None else None
         xc = (cross[0][i], cross[1][i]) if cross is not None else None
         x = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i),
-                   memory=memory, cache=cache, cross_cache=xc, cache_pos=cache_pos)
+                   memory=memory, cache=cache, cross_cache=xc, cache_pos=cache_pos, seq=seq,
+                   mem_seq=mem_seq)
     return x
 
 
-def _ssm(model: LM, x, qcfg, key, *, states=None, view=None, remat="none"):
+def _ssm(model: LM, x, qcfg, key, *, states=None, view=None, remat="none", seq=None):
     """The Mamba2 stack; with ``states`` (conv (L, B, K-1, C), ssm (L, B, H,
     P, N)) returns the new ones."""
     conv, ssm = [], []
     for i, layer in enumerate(model.layers):
         st = (states[0][i], states[1][i]) if states is not None else None
-        x, ns = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i), st)
+        x, ns = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i), st,
+                       seq=seq)
         if states is not None:
             conv.append(ns[0])
             ssm.append(ns[1])
@@ -422,7 +453,7 @@ def _ssm(model: LM, x, qcfg, key, *, states=None, view=None, remat="none"):
 
 
 def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos: int = 0,
-            kv_valid=None, positions=None, window=None, view=None, remat="none"):
+            kv_valid=None, positions=None, window=None, view=None, remat="none", seq=None):
     """Zamba2: Mamba2 segments of ``attn_every`` layers, the shared block
     after every full segment (instance ``si`` uses KV cache ``si``), then the
     tail of ``n_layers % attn_every`` layers.  KV caches are written in
@@ -433,7 +464,8 @@ def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos
     conv, ssm = [], []
     for i, layer in enumerate(model.layers):
         st = (states[0][i], states[1][i]) if states is not None else None
-        x, ns = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i), st)
+        x, ns = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i), st,
+                       seq=seq)
         if states is not None:
             conv.append(ns[0])
             ssm.append(ns[1])
@@ -444,7 +476,7 @@ def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos
                      if attn_caches is not None else None)
             x = _layer(model.shared_attn, _sub(view, "shared_attn."), "none", x, qcfg,
                        fold_in(key, 10_000 + si), cache=cache, cache_pos=cache_pos,
-                       kv_valid=kv_valid, positions=positions, window=window)
+                       kv_valid=kv_valid, positions=positions, window=window, seq=seq)
     return x, ((torch.stack(conv), torch.stack(ssm)) if states is not None else None)
 
 
@@ -482,10 +514,13 @@ def lm_loss(model: LM, batch: dict, key: int | None = None
     if cfg.remat not in REMATS:
         raise ValueError(f"remat {cfg.remat!r}: expected one of {REMATS}")
     qcfg, view = cfg.qcfg(), gather_view(model)
-    kw = dict(view=view, remat=cfg.remat)
-    memory = (_encoder(model, batch, qcfg, fold_in(key, 1), **kw)
+    seq, mem_seq = _seq_splits(model, batch)
+    model.seq_split = {"dec": seq is not None, "enc": mem_seq is not None}
+    kw = dict(view=view, remat=cfg.remat, seq=seq)
+    memory = (_encoder(model, batch, qcfg, fold_in(key, 1), view=view, remat=cfg.remat,
+                       seq=mem_seq)
               if cfg.family == "encdec" else None)
-    x = embed(model, batch)
+    x = embed(model, batch, seq)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "moe"):
         x, aux = _dense(model, x, qcfg, fold_in(key, 2), **kw)
@@ -494,25 +529,52 @@ def lm_loss(model: LM, batch: dict, key: int | None = None
     elif cfg.family == "hybrid":
         x, _ = _hybrid(model, x, qcfg, fold_in(key, 2), **kw)
     else:
-        x = _xdec(model, x, qcfg, fold_in(key, 2), memory, **kw)
-    logits = logits_fn(model, model.final_norm(x))
+        x = _xdec(model, x, qcfg, fold_in(key, 2), memory, mem_seq=mem_seq, **kw)
+    logits = logits_fn(model, model.final_norm(x), seq)
 
-    targets = batch["tokens"][:, 1:]
-    lg = logits[:, :-1].float()
+    tokens = batch["tokens"]
+    own = seq is not None and not _vocab_split(model)  # the head on the rank's tokens
+    if own:  # position p's target is token p + 1; the sequence's last has none
+        pos = torch.arange(seq.start, seq.start + seq.n, device=x.device)
+        targets = seq.take(torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1))
+        lg = logits.float()
+        valid = (pos < tokens.shape[1] - 1)[None, :].expand(targets.shape)
+    else:
+        targets = tokens[:, 1:]
+        lg = logits[:, :-1].float()
+        pos = torch.arange(targets.shape[1], device=x.device)
+        valid = torch.ones(targets.shape, dtype=torch.bool, device=x.device)
     if not _vocab_split(model):
         lse = torch.logsumexp(lg, dim=-1)
         ll = torch.gather(lg, -1, targets[..., None].long())[..., 0]
     else:
         head = "emb" if cfg.tie_embeddings else "lm_head"
         lse, ll = vocab_parallel_ce(lg, targets, _vocab_start(model, head), model.tp)
-    mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
+    mask = valid.float()
     if cfg.frontend != "none" and cfg.frontend_len and cfg.family != "encdec":
         # no training on the frontend's positions (the encoder-decoder's
         # frontend feeds its encoder, not these positions)
-        pos = torch.arange(targets.shape[1], device=x.device)
         mask = mask * (pos[None, :] >= cfg.frontend_len)
-    ce = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total, count = torch.sum((lse - ll) * mask), torch.sum(mask)
+    if own:  # the token sums of every rank
+        total, count = reduce_from_tp(total, model.tp), reduce_from_tp(count, model.tp)
+    ce = total / torch.clamp(count, min=1.0)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def _seq_splits(model: LM, batch: dict):
+    """``(seq, mem_seq)``: the splits of this call's sequence and (the
+    encoder-decoder's) source frames over the model group under sequence
+    parallelism (``parallel.tensor.split_seq``), None where they stay
+    whole or without it."""
+    if not model.seq_shard:
+        return None, None
+    unit = seq_unit(model.cfg, model.tp.size)
+    seq = split_seq(model.tp, batch["tokens"].shape[1], unit)
+    mem = None
+    if model.cfg.family == "encdec" and "src_emb" in batch:
+        mem = split_seq(model.tp, batch["src_emb"].shape[1], unit)
+    return seq, mem
 
 
 # ===========================================================================
@@ -589,23 +651,28 @@ def _prefill(model: LM, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
     b, s = tokens.shape
     src_len = batch["src_emb"].shape[1] if "src_emb" in batch else SRC_LEN
     cache = init_cache(cfg, b, max_len, tokens.device, src_len, model.tp)
-    x = embed(model, batch)
+    seq, mem_seq = _seq_splits(model, batch)
+    x = embed(model, batch, seq)
     if cfg.family in ("dense", "moe"):
-        x, _ = _dense(model, x, qcfg, None, caches=(cache["k"], cache["v"]))
+        x, _ = _dense(model, x, qcfg, None, caches=(cache["k"], cache["v"]), seq=seq)
     elif cfg.family == "ssm":
         x, (cache["conv"], cache["ssm"]) = _ssm(model, x, qcfg, None,
-                                                 states=(cache["conv"], cache["ssm"]))
+                                                 states=(cache["conv"], cache["ssm"]), seq=seq)
     elif cfg.family == "hybrid":
         x, (cache["conv"], cache["ssm"]) = _hybrid(
             model, x, qcfg, None, states=(cache["conv"], cache["ssm"]),
-            attn_caches=(cache["ak"], cache["av"]))
+            attn_caches=(cache["ak"], cache["av"]), seq=seq)
     else:
-        memory = _encoder(model, batch, qcfg, None)
+        memory = _encoder(model, batch, qcfg, None, seq=mem_seq)
+        if mem_seq is not None:
+            memory = gather_seq(memory, mem_seq)
         for i, layer in enumerate(model.layers):  # the cross K/V, once, unquantized
             cache["xk"][i], cache["xv"][i] = layer.cross_kv(memory)
         x = _xdec(model, x, qcfg, None, caches=(cache["k"], cache["v"]),
-                  cross=(cache["xk"], cache["xv"]))
+                  cross=(cache["xk"], cache["xv"]), seq=seq)
     cache["pos"] = s
+    if seq is not None:
+        x = gather_seq(x, seq)
     return whole_logits(model, logits_fn(model, model.final_norm(x[:, -1:])))[:, 0], cache
 
 

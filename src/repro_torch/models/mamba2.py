@@ -20,7 +20,11 @@ step when serving), ``out_norm`` sums its squares over the model group,
 and ``out_proj`` is row-parallel.  Serving, a rank's state is its part:
 the conv state holds the conv channels of its heads' ``x`` (and on
 ``TAIL_RANK`` the ``B``, ``C`` channels), the SSM state its heads, ``(B,
-h1 - h0, P, N)`` fp32.
+h1 - h0, P, N)`` fp32.  Under sequence parallelism (``seq``, a
+``parallel.tensor.SeqShard``) the block's input and output are the rank's
+tokens: ``in_proj`` gathers the sequence at its entry (``gather_seq``),
+the conv and the SSD run over the whole sequence on the rank's heads as
+above, and ``out_proj`` reduce-scatters its sums to the rank's tokens.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import QuantConfig, fold_in
-from repro_torch.parallel.tensor import TAIL_RANK, broadcast_from_tp, copy_to_tp, sum_over_tp
+from repro_torch.parallel.tensor import (
+    TAIL_RANK, broadcast_from_tp, copy_to_tp, gather_seq, sum_over_tp)
 
 from . import nn as L
 from .transformer import RMSNorm
@@ -181,12 +186,15 @@ class Mamba2Block(nn.Module):
         self.out_proj.init_(generator, std=0.02)
 
     def forward(self, x: torch.Tensor, qcfg: QuantConfig | None, key: int | None,
-                state: tuple[torch.Tensor, torch.Tensor] | None = None):
+                state: tuple[torch.Tensor, torch.Tensor] | None = None, seq=None):
         """Full sequence (train/prefill) or stateful (decode).  Returns ``(y,
         new_state)``; ``new_state`` is None unless ``state`` was given or
-        S == 1."""
+        S == 1.  ``seq``: ``x`` and ``y`` are this rank's tokens (sequence
+        parallelism; tensor-parallel only)."""
         if self.tp is not None:
-            return self._forward_tp(x, qcfg, key, state)
+            return self._forward_tp(x, qcfg, key, state, seq)
+        if seq is not None:
+            raise ValueError("sequence parallelism splits a Mamba2 layer's heads too")
         cfg = self.cfg
         b, s, _ = x.shape
         din, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
@@ -213,16 +221,18 @@ class Mamba2Block(nn.Module):
         return x + out.to(x.dtype), new_state
 
     def _forward_tp(self, x: torch.Tensor, qcfg: QuantConfig | None, key: int | None,
-                    state: tuple[torch.Tensor, torch.Tensor] | None = None):
+                    state: tuple[torch.Tensor, torch.Tensor] | None = None, seq=None):
         """:meth:`forward` on this rank's heads (module docstring): the
         full sequence, or with ``state`` (this rank's conv and SSM states)
-        prefill or S == 1 decode."""
+        prefill or S == 1 decode; ``seq``: on the rank's tokens."""
         cfg, tp = self.cfg, self.tp
-        b, s, _ = x.shape
         n, h, p = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim  # one B/C group
         h0, h1 = self.heads
         dr = (h1 - h0) * p
-        zxbcdt = self.in_proj(copy_to_tp(self.ln(x), tp), qcfg, fold_in(key, 0), wire=0)
+        xn = self.ln(x)
+        xn = copy_to_tp(xn, tp) if seq is None else gather_seq(xn, seq)
+        b, s, _ = xn.shape
+        zxbcdt = self.in_proj(xn, qcfg, fold_in(key, 0), wire=0)
         # the rank's z and x, and on TAIL_RANK the tail's B, C (conv channels) and dt
         nt = h if tp.rank == TAIL_RANK else 0
         z, xbc, dt = torch.split(zxbcdt, [dr, zxbcdt.shape[-1] - dr - nt, nt], dim=-1)
@@ -243,7 +253,7 @@ class Mamba2Block(nn.Module):
         y = y + self.D[:, None] * xin.float()
         y = _rmsnorm_tp(y.reshape(b, s, dr) * F.silu(z.float()), self.out_norm.gamma,
                         cfg.d_inner, tp)
-        out = self.out_proj(y.to(x.dtype), qcfg, fold_in(key, 1), wire=1)
+        out = self.out_proj(y.to(x.dtype), qcfg, fold_in(key, 1), wire=1, seq=seq)
         new_state = (new_conv_state, new_ssm) if state is not None or s == 1 else None
         return x + out.to(x.dtype), new_state
 

@@ -38,6 +38,17 @@ stack's shape (``lowbit_matmul_stack``'s ``experts``), so they quantize
 as in the unsharded stack.  Serving, the same path runs on a prefill's
 rows and on a decode step's (one token a row, the unsharded capacity).  The shared expert is an :class:`MLP` split by
 the dense rules.
+
+Under sequence parallelism (``seq``: the MoE's input and output are the
+rank's tokens) the routed experts run as above on the whole sequence,
+gathered by ``gather_whole`` (its gradient handed back as the rank's
+slice), and the rank keeps its tokens of the combined output by
+``take_seq`` (its gradient all-gathered): every rank then holds the
+combined output's gradient whole, and the routing, the aux loss, the
+dispatch and the experts take the DEFAULT layout's gradients on every
+rank.  The shared expert runs on the rank's tokens with its own entry and
+exit (the dense rules).  JAX's ``SP_RULES`` lay the dispatch rows over
+every mesh axis (``moe_rows``): a GSPMD layout of the same function.
 """
 from __future__ import annotations
 
@@ -50,7 +61,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import QuantConfig, fold_in
 from repro_torch.core.lowbit import lowbit_matmul_stack
-from repro_torch.parallel.tensor import copy_to_tp, reduce_from_tp
+from repro_torch.parallel.tensor import copy_to_tp, gather_whole, reduce_from_tp, take_seq
 
 from . import nn as L
 from .transformer import MLP
@@ -112,24 +123,40 @@ class MoE(nn.Module):
         if self.shared is not None:
             self.shared.init_(generator)
 
-    def forward(self, x: torch.Tensor, qcfg: QuantConfig | None, key: int | None
+    def forward(self, x: torch.Tensor, qcfg: QuantConfig | None, key: int | None, seq=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """x (B, S, d) -> ``(y in x's dtype, fp32 load-balance aux loss)``."""
+        """x (B, S, d) -> ``(y in x's dtype, fp32 load-balance aux loss)``;
+        ``seq``: x and y are this rank's tokens (module docstring)."""
+        xs, xr = x, x
+        if seq is not None:
+            xr = gather_whole(xs, seq)
+            # the dispatch's own copy (no collective): the router's, the dispatch's
+            # and the shared expert's gradients then add at xs in DEFAULT's order
+            x = gather_whole(xs, seq, xr.detach())
         b, s, d = x.shape
         n = self.cfg.moe_dispatch_chunks
         if n > 1 and s % n == 0:
-            y, aux = self._rows(x.reshape(b * n, s // n, d), qcfg, key)
-            return y.reshape(b, s, d), aux
-        return self._rows(x, qcfg, key)
+            rows = (b * n, s // n, d)
+            y, aux = self._rows(x.reshape(rows), qcfg, key, seq is None, xr.reshape(rows))
+            y = y.reshape(b, s, d)
+        else:
+            y, aux = self._rows(x, qcfg, key, seq is None, xr)
+        if seq is not None:
+            y = take_seq(y, seq)
+            if self.shared is not None:
+                y = y + self.shared(xs, qcfg, fold_in(key, 9999), seq=seq).to(y.dtype)
+        return y, aux
 
-    def _rows(self, x, qcfg, key):
+    def _rows(self, x, qcfg, key, shared: bool = True, xr=None):
+        """The routed experts (and, with ``shared``, the shared one) over
+        rows ``x``; ``xr``: the router's input (None: ``x``)."""
         cfg = self.cfg
         b, s, d = x.shape
         e, k = cfg.n_experts, cfg.top_k
         cap = int(s * k / e * cfg.capacity_factor + 1)
 
         # routing: fp32, unquantized
-        probs = torch.softmax(self.router(x.float()), dim=-1)  # (B, S, E)
+        probs = torch.softmax(self.router((x if xr is None else xr).float()), dim=-1)
         topw, topi = torch.topk(probs, k, dim=-1)
         topw = topw / topw.sum(dim=-1, keepdim=True)
         me = probs.mean(dim=(0, 1))  # the mean router probability per expert
@@ -159,7 +186,7 @@ class MoE(nn.Module):
         y = torch.zeros((b, s, d), dtype=flat.dtype, device=x.device)
         for j in range(k):
             y = y + vals[rows, slot[..., j]]
-        if self.shared is not None:
+        if self.shared is not None and shared:
             y = y + self.shared(x, qcfg, fold_in(key, 9999))
         return y.to(x.dtype), aux
 

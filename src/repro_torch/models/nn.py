@@ -135,7 +135,11 @@ class Linear(nn.Module):
     """A linear layer in the JAX package's ``init_linear`` layout: weight
     ``w`` (d_in, d_out), optional bias ``b`` (d_out,), fp32.  Under tensor
     parallelism ``tp`` (a ``parallel.tensor.TPLinear``) says how this rank
-    holds and runs it; None: whole."""
+    holds and runs it; None: whole.  Under sequence parallelism the call's
+    ``seq`` (a ``parallel.tensor.SeqShard``) says that its output lies on
+    this rank's tokens: a row-parallel linear reduce-scatters its sums to
+    them, and a whole one runs on them (its input the rank's tokens, its
+    quantized operands token slices, ``SeqShard.split``)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = False):
         super().__init__()
@@ -157,10 +161,10 @@ class Linear(nn.Module):
             self.b.zero_()
 
     def forward(self, x, qcfg: QuantConfig | None = None, key=None,
-                wire: int | None = None) -> torch.Tensor:
+                wire: int | None = None, seq=None) -> torch.Tensor:
         if self.tp is not None:
-            return self.tp(linear, x, self.w, self.b, qcfg, key, wire)
-        return linear(x, self.w, self.b, qcfg, key, wire)
+            return self.tp(linear, x, self.w, self.b, qcfg, key, wire, seq)
+        return linear(x, self.w, self.b, qcfg, key, wire, None if seq is None else seq.split())
 
 
 def conv2d(x, w, stride=1, padding="SAME", qcfg: QuantConfig | None = None,

@@ -27,6 +27,22 @@ and cross-attention cache hold only the kv heads its query heads read
 (``heads[1]`` of them: the rank's split, or the ``kv_take`` slice of the
 replicated ones), written after the column-parallel ``wk``/``wv`` (and
 the slice).
+
+Under sequence parallelism (``tensor_parallel(..., seq_shard=True)``) a
+call's ``seq`` (a ``parallel.tensor.SeqShard``) says that ``x`` holds this
+rank's tokens of the sequence, and the output does too.  A split
+attention or MLP gathers ``x`` at its column-parallel entry
+(``gather_seq``, in place of ``copy_to_tp``) and reduce-scatters at its
+row-parallel exit (``wo``/``w_down``).  An attention kept whole runs
+``wq``, ``wk``, ``wv`` and ``wo`` on the rank's tokens, gathers K and V
+along the sequence and attends with its own queries (rope at their
+absolute positions, the causal mask offset by the rank's first one);
+replicated kv linears (uneven heads) run on the rank's tokens the same
+way and are gathered before their slice.  Cross-attention reads the
+encoder's output split by ``mem_seq`` (its K/V gathered) or whole
+(``mem_seq`` None: the DEFAULT column-parallel entry, and a whole or
+replicated ``wk``/``wv`` computed on every rank, the gradient of its K/V
+summed over the group).
 """
 from __future__ import annotations
 
@@ -36,7 +52,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import QuantConfig, fold_in
-from repro_torch.parallel.tensor import copy_to_tp
+from repro_torch.parallel.tensor import copy_to_tp, gather_seq
 
 from . import nn as L
 
@@ -107,71 +123,103 @@ class Attention(nn.Module):
         causal: bool = True,
         kv: torch.Tensor | None = None,  # cross-attention source (B, Sk, d)
         cross_cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # read-only K/V
+        seq=None,  # sequence parallelism: x's and the output's split (None: whole)
+        mem_seq=None,  # ... and the cross-attention source's
     ) -> torch.Tensor:
         """fp32 (B, S, d).  The cache is written in place at ``cache_pos``:
         where ``cache_pos + S`` passes its end this raises (the JAX
         package's ``dynamic_update_slice`` would clamp the start and
         overwrite the last slots).  Cross-attention (``kv`` or
         ``cross_cache``) has no rotary embedding and no mask;
-        ``cross_cache`` (B, Sk, KV, hd) x2 is read, never written."""
+        ``cross_cache`` (B, Sk, KV, hd) x2 is read, never written.  Under
+        sequence parallelism (``seq``) ``x`` and the output are this rank's
+        tokens, ``kv`` its source frames where ``mem_seq`` is given (module
+        docstring)."""
         cfg = self.cfg
-        b, s, _ = x.shape
+        b = x.shape[0]
         hd = cfg.hd
         hq, hkv = self.heads
+        own = seq is not None and self.tp is None  # a whole attention on its own queries
         xq = x
         if self.tp is not None:
-            xq = copy_to_tp(x, self.tp)
-        q = self.wq(xq, qcfg, fold_in(key, 0), wire=0).reshape(b, s, hq, hd)
-        q_chunk = 1024 if s > 4096 else None
+            xq = copy_to_tp(x, self.tp) if seq is None else gather_seq(x, seq)
+        sq = xq.shape[1]
+        q = self.wq(xq, qcfg, fold_in(key, 0), wire=0, seq=seq if own else None)
+        q = q.reshape(b, sq, hq, hd)
+        q_chunk = 1024 if sq > 4096 else None
         if cross_cache is not None:
             out = L.gqa_attention(q, *cross_cache, causal=False, q_chunk=q_chunk,
                                   kv_map=self.kv_map)
-            out = out.reshape(b, s, hq * hd).to(x.dtype)
-            return self.wo(out, qcfg, fold_in(key, 3), wire=1)
-        xkv = xq if kv is None else kv
-        if self.kv_take is not None:
-            xkv = x if kv is None else kv  # replicated wk/wv: a whole data gradient
-        elif kv is not None and self.tp is not None:
-            xkv = copy_to_tp(kv, self.tp)
-        sk = xkv.shape[1]
-        k = self.wk(xkv, qcfg, fold_in(key, 1), wire=0)
-        v = self.wv(xkv, qcfg, fold_in(key, 2), wire=0)
-        if self.kv_take is not None:
-            # each rank uses some kv heads: their gradients add over the group
-            kv0, kv1 = self.kv_take
-            k = copy_to_tp(k, self.tp).reshape(b, sk, -1, hd)[:, :, kv0:kv1]
-            v = copy_to_tp(v, self.tp).reshape(b, sk, -1, hd)[:, :, kv0:kv1]
+            out = out.reshape(b, sq, hq * hd).to(x.dtype)
+            return self.wo(out, qcfg, fold_in(key, 3), wire=1, seq=seq)
+        k, v = self._kv(x if kv is None else kv, xq if kv is None else None, qcfg, key,
+                        seq if kv is None else mem_seq, seq)
+        sk = k.shape[1]
         k, v = k.reshape(b, sk, hkv, hd), v.reshape(b, sk, hkv, hd)
 
+        q_offset = cache_pos + (seq.start if own else 0)
         if kv is None and cfg.rotary_pct > 0:
             rd = int(hd * cfg.rotary_pct)
             if positions is None:  # absolute positions (decode: offset by the cache)
-                positions = (torch.arange(s, device=x.device) + cache_pos)[None, :].expand(b, s)
+                positions = (torch.arange(sk, device=x.device) + cache_pos)[None, :].expand(b, sk)
             sin, cos = L.rope_angles(positions, hd, cfg.rope_theta, rd)
-            q = L.apply_rope(q, sin, cos, rd)
             k = L.apply_rope(k, sin, cos, rd)
+            if own:
+                sin, cos = seq.take(sin), seq.take(cos)
+            q = L.apply_rope(q, sin, cos, rd)
 
         if cache is not None:
             ck, cv = cache
-            if cache_pos + s > ck.shape[1]:
-                raise ValueError(f"KV cache overflow: writing {s} position(s) at {cache_pos} "
+            if cache_pos + sk > ck.shape[1]:
+                raise ValueError(f"KV cache overflow: writing {sk} position(s) at {cache_pos} "
                                  f"into a cache of {ck.shape[1]} slots")
-            ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
-            cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
+            ck[:, cache_pos:cache_pos + sk] = k.to(ck.dtype)
+            cv[:, cache_pos:cache_pos + sk] = v.to(cv.dtype)
             if kv_valid is not None:
                 # ring buffer: slot order is arbitrary; rope carries positions
                 out = L.gqa_attention(q, ck, cv, causal=False, kv_len=kv_valid, q_chunk=q_chunk,
                                       kv_map=self.kv_map)
             else:
-                out = L.gqa_attention(q, ck, cv, causal=causal, q_offset=cache_pos,
-                                      window=window, kv_len=cache_pos + s, q_chunk=q_chunk,
+                out = L.gqa_attention(q, ck, cv, causal=causal, q_offset=q_offset,
+                                      window=window, kv_len=cache_pos + sk, q_chunk=q_chunk,
                                       kv_map=self.kv_map)
         else:
-            out = L.gqa_attention(q, k, v, causal=causal and kv is None, window=window,
-                                  q_chunk=q_chunk, kv_map=self.kv_map)
+            out = L.gqa_attention(q, k, v, causal=causal and kv is None, q_offset=q_offset,
+                                  window=window, q_chunk=q_chunk, kv_map=self.kv_map)
 
-        out = out.reshape(b, s, hq * hd).to(x.dtype)
-        return self.wo(out, qcfg, fold_in(key, 3), wire=1)
+        out = out.reshape(b, sq, hq * hd).to(x.dtype)
+        return self.wo(out, qcfg, fold_in(key, 3), wire=1, seq=seq)
+
+    def _kv(self, src, gathered, qcfg, key, src_seq, seq):
+        """K and V (B, Sk, ·) of this rank's kv heads over the whole source:
+        ``src`` the layer input (self-attention; ``gathered``: its whole
+        sequence where a split attention gathered it) or the cross-attention
+        source, ``src_seq`` its split (None: whole); ``seq`` the call's
+        sequence split (None: no sequence parallelism)."""
+        tp = self.tp
+        if seq is not None and (tp is None or self.kv_take is not None) and src_seq is not None:
+            # whole wk/wv on the rank's tokens; K/V gathered along the sequence
+            k = gather_seq(self.wk(src, qcfg, fold_in(key, 1), wire=0, seq=src_seq), src_seq)
+            v = gather_seq(self.wv(src, qcfg, fold_in(key, 2), wire=0, seq=src_seq), src_seq)
+        else:
+            if gathered is not None and self.kv_take is None:
+                xkv = gathered  # split kv heads: the column-parallel entry's input
+            elif tp is not None and self.kv_take is None:  # split kv heads over a cross source
+                xkv = copy_to_tp(src, tp) if src_seq is None else gather_seq(src, src_seq)
+            else:
+                xkv = src  # replicated wk/wv over a whole input
+            k = self.wk(xkv, qcfg, fold_in(key, 1), wire=0)
+            v = self.wv(xkv, qcfg, fold_in(key, 2), wire=0)
+            group = tp if tp is not None else (None if seq is None else seq.tp)
+            if group is not None and (self.kv_take is not None or tp is None):
+                # every rank's queries read these K/V: their gradients add over the group
+                k, v = copy_to_tp(k, group), copy_to_tp(v, group)
+        if self.kv_take is not None:
+            kv0, kv1 = self.kv_take
+            b, sk = k.shape[:2]
+            k = k.reshape(b, sk, -1, self.cfg.hd)[:, :, kv0:kv1]
+            v = v.reshape(b, sk, -1, self.cfg.hd)[:, :, kv0:kv1]
+        return k, v
 
     def cross_kv(self, memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The cross-attention K/V of the encoder's output ``memory`` (B,
@@ -204,15 +252,20 @@ class MLP(nn.Module):
             if lin is not None:
                 lin.init_(generator, std=0.02)
 
-    def forward(self, x, qcfg: QuantConfig | None, key: int | None) -> torch.Tensor:
+    def forward(self, x, qcfg: QuantConfig | None, key: int | None, seq=None) -> torch.Tensor:
+        """``seq``: ``x`` and the output are this rank's tokens (sequence
+        parallelism)."""
+        own = None  # the rank's tokens for a whole MLP under sequence parallelism
         if self.tp is not None:
-            x = copy_to_tp(x, self.tp)
-        up = self.w_up(x, qcfg, fold_in(key, 10), wire=0)
+            x = copy_to_tp(x, self.tp) if seq is None else gather_seq(x, seq)
+        else:
+            own = seq
+        up = self.w_up(x, qcfg, fold_in(key, 10), wire=0, seq=own)
         if self.gated:
-            h = F.silu(self.w_gate(x, qcfg, fold_in(key, 11), wire=0)) * up
+            h = F.silu(self.w_gate(x, qcfg, fold_in(key, 11), wire=0, seq=own)) * up
         else:
             h = F.gelu(up, approximate="tanh")
-        return self.w_down(h.to(x.dtype), qcfg, fold_in(key, 12), wire=1)
+        return self.w_down(h.to(x.dtype), qcfg, fold_in(key, 12), wire=1, seq=seq)
 
 
 class Block(nn.Module):
@@ -231,9 +284,11 @@ class Block(nn.Module):
         self.mlp.init_(generator)
 
     def forward(self, x, qcfg: QuantConfig | None, key: int | None, *, positions=None,
-                cache=None, cache_pos: int = 0, kv_valid=None, window=None, causal=True):
+                cache=None, cache_pos: int = 0, kv_valid=None, window=None, causal=True,
+                seq=None):
         h = self.attn(self.ln1(x), qcfg, key, positions=positions, cache=cache,
-                      cache_pos=cache_pos, kv_valid=kv_valid, window=window, causal=causal)
+                      cache_pos=cache_pos, kv_valid=kv_valid, window=window, causal=causal,
+                      seq=seq)
         x = x + h.to(x.dtype)
-        h = self.mlp(self.ln2(x), qcfg, key)
+        h = self.mlp(self.ln2(x), qcfg, key, seq=seq)
         return x + h.to(x.dtype)

@@ -96,8 +96,32 @@ Serving, a rank holds its part of the caches (``models.lm.cache_spec``
 with ``tp``: the kv heads its query heads read, its Mamba2 heads' states,
 its heads of the cross-attention K/V), and the logits are gathered whole
 on every rank by an all-reduce SUM of each rank's vocabulary slice placed
-in zeros (``models.lm.whole_logits``; exact).  The only collectives are
-``all_reduce`` (SUM, MAX), which gloo runs on CUDA tensors too.
+in zeros (``models.lm.whole_logits``; exact).
+
+Sequence parallelism (``tensor_parallel(..., seq_shard=True)``; JAX's
+``SP_RULES``, ``seq -> model``) splits the residual stream too: between
+the layers' linears a rank holds its tokens ``[r S/m, (r+1) S/m)`` of
+every row (:class:`SeqShard`), and the norms and residual adds run on
+them.  Where heads or hidden dims split (Megatron's layout) the
+column-parallel entries gather the sequence (:func:`gather_seq`:
+all-gather forward, reduce-scatter backward) and the row-parallel exits
+reduce-scatter it (:func:`scatter_seq`), so every quantized operand is the
+DEFAULT layout's, and at a model axis of 2 the step is the DEFAULT step's
+bit for bit (two partials add the same either way).  Where a dim does not
+split, JAX's own SP layout: an attention kept whole (and the replicated
+kv linears of an uneven split) runs ``wq``, ``wk``, ``wv`` and ``wo`` on
+the rank's own tokens, its operands quantized as token slices of the
+unsharded ones (``LinearSplit.tokens``), and gathers K and V along the
+sequence (the queries stay split, the causal mask offset by the rank's
+first position); a vocabulary kept whole runs its head and loss on the
+rank's tokens, the loss's token sum all-reduced.  A sequence the axis does
+not divide (or whose rank slice is not whole scaling groups where a token
+slice is quantized on K1/K3, and any decode step) stays whole: that call
+runs the DEFAULT layout.  Parameters replicated over ``model`` then take
+gradients from the rank's tokens only; the trainer sums them over the
+group (:func:`partial_grads`).  The collectives are ``all_reduce`` (SUM,
+MAX), ``all_gather_into_tensor`` and ``reduce_scatter_tensor``, which gloo
+runs on CUDA tensors as well as CPU ones.
 """
 from __future__ import annotations
 
@@ -113,9 +137,11 @@ from repro_torch.core.lowbit import LinearSplit
 from .sharding import DEFAULT_RULES
 from .specs import logical_axes_for
 
-__all__ = ["NOT_PORTED", "PORTED", "TAIL_RANK", "Split", "TPLinear", "TensorParallel",
-           "all_reduce_max", "attention_heads", "broadcast_from_tp", "copy_to_tp", "kv_map",
-           "mamba_heads", "rank_heads", "reduce_from_tp", "shard_state_dict", "sum_over_tp",
+__all__ = ["NOT_PORTED", "PORTED", "TAIL_RANK", "SeqShard", "Split", "TPLinear", "TensorParallel",
+           "all_reduce_max", "attention_heads", "broadcast_from_tp", "copy_to_tp", "gather_seq",
+           "gather_whole",
+           "kv_map", "mamba_heads", "partial_grads", "rank_heads", "reduce_from_tp",
+           "scatter_seq", "seq_unit", "shard_state_dict", "split_seq", "sum_over_tp", "take_seq",
            "tensor_parallel", "tp_layout", "vocab_parallel_ce"]
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "encdec")
@@ -228,6 +254,160 @@ def broadcast_from_tp(x: torch.Tensor | None, like: tuple, anchor: torch.Tensor,
 def all_reduce_max(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """The element-wise max over the model group (no gradient)."""
     return _all_reduce(x.detach(), tp.group, dist.ReduceOp.MAX)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the residual stream split along the sequence
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A sequence of ``full`` positions split evenly over the model group
+    ``tp``: rank ``r`` holds ``[r n, (r + 1) n)`` of every row, ``n = full /
+    size`` (dim 1 of a ``(B, S, ...)`` tensor)."""
+
+    tp: TensorParallel
+    full: int
+
+    @property
+    def n(self) -> int:
+        return self.full // self.tp.size
+
+    @property
+    def start(self) -> int:
+        return self.tp.rank * self.n
+
+    def take(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's positions of a whole sequence (a view)."""
+        return t.narrow(dim, self.start, self.n)
+
+    def split(self) -> LinearSplit:
+        """A replicated linear run on this rank's tokens: ``x`` and the
+        error token slices of the unsharded operands."""
+        return LinearSplit.tokens(((self.start, self.start + self.n),), self.full,
+                                  self.tp.group)
+
+
+def split_seq(tp: TensorParallel | None, full: int, unit: int = 1) -> SeqShard | None:
+    """The split of a sequence of ``full`` positions over ``tp``'s group, or
+    None where it stays whole: no model group, a size the group does not
+    divide, or a rank slice that is not whole ``unit``s (:func:`seq_unit`)."""
+    if tp is None or tp.size == 1 or full % tp.size or (full // tp.size) % unit:
+        return None
+    return SeqShard(tp, full)
+
+
+def seq_unit(cfg, size: int) -> int:
+    """The positions a rank's slice of the sequence must hold whole: the
+    scaling group of the quantized backend where some linear runs on a
+    token slice (an attention kept whole, or replicated kv linears), whose
+    weight gradient contracts the tokens in groups on K3; else 1."""
+    qcfg = cfg.qcfg()
+    if not cfg.n_heads or qcfg is None or not qcfg.enabled or qcfg.backend != "quantized":
+        return 1
+    heads = attention_heads(cfg, size)
+    if heads is not None and rank_heads(cfg, size, 0)[2] is None:
+        return 1  # every attention linear splits by heads: no token slice
+    return qcfg.k_block
+
+
+def _gather_seq(x: torch.Tensor, sp: SeqShard) -> torch.Tensor:
+    """(B, n, ...) of every rank -> (B, S, ...): one all_gather_into_tensor of
+    the ranks' slices, concatenated along the first dim (rank-major)."""
+    m, group = sp.tp.size, sp.tp.group
+    src = x.contiguous()
+    out = src.new_empty((m * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    out = out.reshape((m,) + tuple(x.shape)).movedim(0, 1)
+    return out.reshape((x.shape[0], m * x.shape[1]) + tuple(x.shape[2:]))
+
+
+def _scatter_seq(x: torch.Tensor, sp: SeqShard) -> torch.Tensor:
+    """(B, S, ...) partial sums of every rank -> this rank's (B, n, ...) of
+    their sum: one reduce_scatter_tensor of the ranks' slices, concatenated
+    along the first dim (rank-major)."""
+    m, group = sp.tp.size, sp.tp.group
+    b, s = x.shape[:2]
+    rest = tuple(x.shape[2:])
+    src = x.reshape((b, m, s // m) + rest).movedim(1, 0).reshape((m * b, s // m) + rest)
+    src = src.contiguous()
+    out = src.new_empty((b, s // m) + rest)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return _gather_seq(x, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_seq(g, ctx.sp), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return _scatter_seq(x, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.sp), None
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp, gathered):
+        ctx.sp = sp
+        return _gather_seq(x, sp) if gathered is None else gathered.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sp.take(g).contiguous(), None, None
+
+
+class _TakeSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return sp.take(x).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.sp), None
+
+
+def gather_seq(x: torch.Tensor, sp: SeqShard) -> torch.Tensor:
+    """The whole sequence from every rank's ``(B, n, ...)`` slice (a
+    column-parallel entry); the gradient reduce-scattered: each rank's
+    partial gradient of the whole sequence summed, this rank's slice
+    kept."""
+    return _GatherSeq.apply(x, sp)
+
+
+def scatter_seq(x: torch.Tensor, sp: SeqShard) -> torch.Tensor:
+    """This rank's slice of the sum over the group of every rank's partial
+    ``(B, S, ...)`` (a row-parallel exit); the gradient all-gathered."""
+    return _ScatterSeq.apply(x, sp)
+
+
+def gather_whole(x: torch.Tensor, sp: SeqShard, gathered: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """The whole sequence from every rank's slice, for a region that every
+    rank computes whole and whose gradient every rank then holds whole: the
+    gradient handed back as this rank's slice (no collective).  Its
+    conjugate is :func:`take_seq`.  ``gathered``: that whole sequence
+    again (no collective), for a second consumer whose gradient must reach
+    ``x`` on its own."""
+    return _GatherWhole.apply(x, sp, gathered)
+
+
+def take_seq(x: torch.Tensor, sp: SeqShard) -> torch.Tensor:
+    """This rank's slice of a sequence that every rank holds whole; the
+    gradient all-gathered, whole on every rank."""
+    return _TakeSeq.apply(x, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -494,10 +674,13 @@ class TPLinear:
         make = LinearSplit.column if self.kind == "column" else LinearSplit.row
         return make(self.pieces, self.full, self.tp.group)
 
-    def __call__(self, linear, x, w, b, qcfg, key, wire):
+    def __call__(self, linear, x, w, b, qcfg, key, wire, seq: SeqShard | None = None):
+        """``seq``: the sequence is split (a row-parallel output is
+        reduce-scattered to this rank's tokens, then the bias added)."""
         if self.kind == "column":
             return linear(x, w, b, qcfg, key, wire, split=self.split)
-        y = reduce_from_tp(linear(x, w, None, qcfg, key, wire, split=self.split), self.tp)
+        y = linear(x, w, None, qcfg, key, wire, split=self.split)
+        y = reduce_from_tp(y, self.tp) if seq is None else scatter_seq(y, seq)
         return y if b is None else y + b.float()
 
 
@@ -548,12 +731,14 @@ def _mark_block(block, prefix: str, layout: Mapping[str, Split], tp: TensorParal
         moe.tp, moe.experts = tp, sp.bounds[tp.rank]
 
 
-def tensor_parallel(model, tp: TensorParallel):
+def tensor_parallel(model, tp: TensorParallel, seq_shard: bool = False):
     """Make ``model`` (an unsharded :class:`repro_torch.models.lm.LM`) rank
     ``tp.rank``'s part of it, in place: each split parameter narrowed to
     its part, its linears marked column- or row-parallel, its attention
     told its heads, its Mamba2 layers theirs and its MoE layers their
-    experts, and ``model.tp`` / ``model.tp_layout`` set.  Returns the
+    experts, and ``model.tp`` / ``model.tp_layout`` set.  ``seq_shard``:
+    sequence parallelism too (``model.seq_shard``; the module docstring),
+    each call's sequence split where the axis divides it.  Returns the
     model."""
     cfg = model.cfg
     layout = tp_layout(cfg, {k: tuple(p.shape) for k, p in model.named_parameters()}, tp.size)
@@ -574,7 +759,39 @@ def tensor_parallel(model, tp: TensorParallel):
     if model.shared_attn is not None:
         _mark_block(model.shared_attn, "shared_attn.", layout, tp)
     model.tp, model.tp_layout = tp, layout
+    model.seq_shard = seq_shard and tp.size > 1
     return model
+
+
+_KV = (".xattn.wk.", ".xattn.wv.")
+
+
+def partial_grads(model) -> set[str]:
+    """The parameters whose gradients a sequence-parallel model's last
+    loss left partial on each rank (from its own tokens), to be summed over
+    the model group: those replicated over ``model`` that ran on a split
+    sequence (``model.seq_split``: the decoder's and the encoder's, of the
+    last call), except an MoE's router and replicated expert stacks (the
+    routed experts run whole on every rank, their gradient whole:
+    :mod:`repro_torch.models.moe`) and a cross attention's replicated
+    ``wk``/``wv`` over an encoder kept whole (their K/V's gradient summed
+    over the group).  Empty without sequence parallelism."""
+    split = getattr(model, "seq_split", None)
+    if not getattr(model, "seq_shard", False) or not split:
+        return set()
+    layout = model.tp_layout
+    encdec = model.cfg.family == "encdec"
+    out = set()
+    for name, _ in model.named_parameters():
+        if name in layout or ".moe.w_" in name or ".moe.router." in name:
+            continue
+        enc = name.startswith("enc_layers.") or (encdec and name.startswith("frontend_proj."))
+        if not split["enc" if enc else "dec"]:
+            continue
+        if any(k in name for k in _KV) and not split["enc"]:
+            continue
+        out.add(name)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,13 @@ shard them, and the gradients come already averaged over the
 data-parallel ranks.  Under tensor parallelism (``model.tp``) the
 squares of the model-sharded gradients are summed over the model group
 too, and those of the parameters every model rank holds whole count once;
-AdamW updates each rank's shards.  On a plain model it is the one-device
-step.  As in
-the JAX package, ``run.grad_compression`` only tags the run: the step
+AdamW updates each rank's shards.  Under sequence parallelism
+(``model.seq_shard``) a rank's gradients of those whole parameters come
+from its own tokens: the step sums them over the model group
+(``parallel.tensor.partial_grads``, one all-reduce of them all) before the
+norm, after which they are whole on every rank and count once.  On a
+plain model it is the one-device step.  As in the JAX package,
+``run.grad_compression`` only tags the run: the step
 exchanges no compressed gradients (the ring is
 :func:`repro_torch.parallel.compress.crosspod_allreduce_mean`).
 """
@@ -39,8 +43,10 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import fold_in
 from repro_torch.models import lm
 from repro_torch.optim import OptState, clip_by_global_norm, cosine_schedule, make_optimizer
+from repro_torch.parallel.tensor import partial_grads
 
-__all__ = ["local_params", "make_prefill_step", "make_serve_step", "make_train_step"]
+__all__ = ["local_params", "make_prefill_step", "make_serve_step", "make_train_step",
+           "sum_partial_grads"]
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -66,6 +72,25 @@ def _model_sharded(model) -> tuple[set, Callable] | None:
         return sq
 
     return set(model.tp_layout), reduce
+
+
+def sum_partial_grads(model, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``grads`` (this rank's, by name) with those a sequence-parallel model
+    left partial (:func:`~repro_torch.parallel.tensor.partial_grads`)
+    summed over the model group, in place, by one all-reduce of their
+    concatenation (names absent from ``grads``, a frozen parameter's, are
+    skipped)."""
+    names = sorted(partial_grads(model) & grads.keys())
+    if not names:
+        return grads
+    flat = torch.cat([grads[k].reshape(-1) for k in names])
+    dist.all_reduce(flat, group=model.tp.group)
+    at = 0
+    for k in names:
+        n = grads[k].numel()
+        grads[k].copy_(flat[at:at + n].view_as(grads[k]))
+        at += n
+    return grads
 
 
 def _norm_reducer(params: dict) -> Callable | None:
@@ -124,6 +149,7 @@ def make_train_step(run: RunConfig, lr_fn: Callable | None = None):
             aux = part_aux if aux is None else aux + part_aux
         grads = {k: _local(p.grad if p.grad is not None else torch.zeros_like(p)).float()
                  for k, p in params.items()}
+        grads = sum_partial_grads(model, grads)
         if n > 1:
             grads = {k: g.div_(n) for k, g in grads.items()}
             loss, aux = loss / n, aux / n

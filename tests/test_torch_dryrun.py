@@ -42,16 +42,24 @@ with rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
 - **Cells not run** are recorded: a family the lint does not admit
   ``"refused"`` with its message, at train_4k and at decode_32k; a serve
   cell ``"ran"``, and yi-34b's prefill on both meshes (refused before its
-  query heads split unevenly); ``seq_shard`` raises.
+  query heads split unevenly).
+- **Sequence parallelism** (``seq_shard=True``, ``SP_RULES``): chatglm3-6b's
+  train_4k cell at two layers takes JAX's ``choose_microbatch(...,
+  seq_shard=True)``, records ``"rules": "sp"`` and holds fewer activation
+  bytes on rank 0; without remat it moves the DEFAULT cell's model-axis
+  wire bytes within 1% (an all-reduce is a reduce-scatter and an
+  all-gather; seen: 0.013%, the replicated gradients' sum).
 
 ``tests/test_torch_dryrun_extension.py`` holds the depth and microbatch
 extension equal to whole traces.
 """
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -473,9 +481,32 @@ def test_refused_and_served_cells_are_recorded(tmp_path, capsys):
     assert r["status"] == "ran" and r["rows"] == 128 // 32 and "microbatch" not in r
     assert r["cache_bytes"] > r["cache_bytes_jax_layout"] > 0 and r["fits"]
     assert json.loads((tmp_path / "chatglm3-6b_decode_32k_2x16x16.json").read_text()) == r
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        dryrun.run_cell("chatglm3-6b", "train_4k", False, out_dir=str(tmp_path),
-                        seq_shard=True)
+    # sequence parallelism (SP_RULES): JAX's microbatch, the residual stream
+    # split over model; an all-reduce is a reduce-scatter plus an all-gather
+    from repro.configs import SHAPES as JSHAPES, get_config as jget_config
+    from repro.configs import shape_model_config as jshape_model_config
+    from repro.launch.specs import choose_microbatch as jchoose_microbatch
+
+    cut = {"n_layers": 2}
+    sp = dryrun.run_cell("chatglm3-6b", "train_4k", False, out_dir=str(tmp_path), verbose=False,
+                         seq_shard=True, cfg_updates=cut, tag="sp")
+    dflt = dryrun.run_cell("chatglm3-6b", "train_4k", False, out_dir=str(tmp_path),
+                           verbose=False, cfg_updates=cut)
+    jcfg = dataclasses.replace(jshape_model_config(jget_config("chatglm3-6b"),
+                                                   JSHAPES["train_4k"]), **cut)
+    jmesh = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty((16, 16)))
+    assert sp["microbatch"] == jchoose_microbatch(jcfg, JSHAPES["train_4k"], jmesh, True)
+    assert (sp["rules"], dflt["rules"]) == ("sp", "default") and sp["status"] == "ran"
+    assert sp["memory_by_kind"]["Activation"] < dflt["memory_by_kind"]["Activation"]
+    # each collective once (no remat: full remat runs SP's forward gathers
+    # again, where DEFAULT's entries move bytes in the backward alone)
+    once = {**cut, "remat": "none"}
+    sp, dflt = (dryrun.run_cell("chatglm3-6b", "train_4k", False, out_dir=str(tmp_path),
+                                verbose=False, seq_shard=on, cfg_updates=once, tag=tag)
+                for on, tag in ((True, "sp_once"), (False, "once")))
+    model_sp, model_dflt = sp["hlo"]["coll_by_dim"]["model"], dflt["hlo"]["coll_by_dim"]["model"]
+    assert abs(model_sp - model_dflt) <= 0.01 * model_dflt
+    assert sp["hlo"]["coll_counts"]["reduce-scatter"] > dflt["hlo"]["coll_counts"]["reduce-scatter"]
     assert dryrun.main(["--arch", "yi-34b", "--shape", "prefill_32k", "--mesh", "both",
                         "--out", str(tmp_path)]) == 0
     assert "2 ran, 0 refused, 0 failed, of 2 cells" in capsys.readouterr().out

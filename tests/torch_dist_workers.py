@@ -4,7 +4,9 @@
 and saves what it computed for the test process to check.
 
 :func:`run_world` spawns ``world`` ranks of ``fn(rank, world, port, *args)``
-on one torch thread each and returns every rank's saved result.
+on one torch thread each and returns every rank's saved result;
+:func:`start_world` and :func:`finish_world` do the same in two steps, so
+that worlds can run side by side.
 """
 from __future__ import annotations
 
@@ -38,9 +40,25 @@ def _main(rank: int, world: int, port: int, out: str, fn, args) -> None:
 
 
 def run_world(fn, world: int, *args) -> list:
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "rank")
-        mp.spawn(_main, args=(world, _free_port(), out, fn, args), nprocs=world, join=True)
+    return finish_world(start_world(fn, world, *args))
+
+
+def start_world(fn, world: int, *args):
+    """Spawn the world's ranks and return at once; :func:`finish_world`
+    waits for them."""
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "rank")
+    ctx = mp.start_processes(_main, args=(world, _free_port(), out, fn, args), nprocs=world,
+                             join=False, start_method="spawn")
+    return ctx, tmp, out, world
+
+
+def finish_world(started) -> list:
+    """Every rank's saved result of a world :func:`start_world` spawned."""
+    ctx, tmp, out, world = started
+    with tmp:
+        while not ctx.join():
+            pass
         return [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)]
 
 
@@ -249,18 +267,22 @@ def _tp_quantizers(tp):
     return out
 
 
-def _tp_step(cfg, state, tp, key, fed: bool = False):
+def _tp_step(cfg, state, tp, key, fed: bool = False, seq_shard: bool = False, batch=None):
     """This rank's tensor-parallel loss and gradients of ``state`` (an
     unsharded state dict) and the unsharded model's, on one batch; the
     launches recorded in the tensor-parallel step, by kernel.  ``fed``:
     each linear of the tensor-parallel step is fed the unsharded step's
     input and output gradient (this rank's part), so that every quantizer
-    sees the unsharded operand's values (:func:`_linear_feed`)."""
+    sees the unsharded operand's values (:func:`_linear_feed`).
+    ``seq_shard``: with sequence parallelism, the partial gradients summed
+    over the group as the trainer sums them (and ``seq_split``, which
+    sequences the loss split).  ``batch``: default ``tp_batch(cfg, 2)``."""
     from repro_torch.kernels import launch
     from repro_torch.models import lm
     from repro_torch.parallel.tensor import tensor_parallel
+    from repro_torch.train.trainer import sum_partial_grads
 
-    batch = tp_batch(cfg, 2)
+    batch = tp_batch(cfg, 2) if batch is None else batch
     full = lm.LM(cfg)
     full.load_state_dict(state)
     records = _linear_feed(full) if fed else None
@@ -268,7 +290,7 @@ def _tp_step(cfg, state, tp, key, fed: bool = False):
     loss0.backward()
     model = lm.LM(cfg)
     model.load_state_dict(state)
-    tensor_parallel(model, tp)
+    tensor_parallel(model, tp, seq_shard=seq_shard)
     if fed:
         _linear_feed(model, records)
     before = collections.Counter(launch.RECORDED)
@@ -277,9 +299,12 @@ def _tp_step(cfg, state, tp, key, fed: bool = False):
     recs = collections.Counter()
     for (kernel, *_), n in (collections.Counter(launch.RECORDED) - before).items():
         recs[kernel] += n
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    if seq_shard:
+        grads = sum_partial_grads(model, {k: g.clone() for k, g in grads.items()})
     return dict(loss=loss1.detach(), ref_loss=loss0.detach(), layout=model.tp_layout,
-                grads={k: p.grad for k, p in model.named_parameters()},
-                ref_grads={k: p.grad for k, p in full.named_parameters()}, launches=dict(recs))
+                grads=grads, ref_grads={k: p.grad for k, p in full.named_parameters()},
+                launches=dict(recs), seq_split=dict(model.seq_split))
 
 
 class _Feed(torch.autograd.Function):
@@ -300,8 +325,9 @@ def _linear_feed(model, records: dict | None = None) -> dict:
     call's input and output gradient by (name, call); with them (an
     unsharded model's), feed each call of this tensor-parallel model the
     recorded input and output gradient, its rank's part (column-parallel:
-    the output's pieces; row-parallel: the input's; an MoE's are whole).
-    Returns the records."""
+    the output's pieces; row-parallel: the input's; an MoE's are whole;
+    under sequence parallelism, a call given ``seq`` the tokens of it that
+    its input and output hold).  Returns the records."""
     from repro_torch.parallel.tensor import Split
 
     out = {} if records is None else records
@@ -321,8 +347,12 @@ def _linear_feed(model, records: dict | None = None) -> dict:
                 m._feed_key = key
                 return None
             x = records[key]["x"]
+            seq = kwargs.get("seq")
+            m._feed_seq = seq
             if linear and m.tp is not None and m.tp.kind == "row":
                 x = Split(x.ndim - 1, (m.tp.pieces,)).take(x, 0)
+            elif seq is not None:  # a whole linear or an MoE on the rank's tokens
+                x = seq.take(x)
             m._feed_key = key
             return (_Feed.apply(args[0], x),) + tuple(args[1:]), kwargs
 
@@ -337,6 +367,8 @@ def _linear_feed(model, records: dict | None = None) -> dict:
             g = rec["g"]
             if linear and m.tp is not None and m.tp.kind == "column":
                 g = Split(g.ndim - 1, (m.tp.pieces,)).take(g, 0)
+            elif m._feed_seq is not None:  # an output on the rank's tokens
+                g = m._feed_seq.take(g)
             y.register_hook(lambda _: g)
             return None
 
@@ -1013,4 +1045,254 @@ def uneven_tp4_worker(rank: int, world: int, jax_states):
         res["jax"][case] = _tp_step(uneven_config(case, "off"), jax_states[case], tp, None)
     cfg = uneven_config("uneven", "pallas")
     res["heads"] = (rank_heads(cfg, tp.size, tp.rank), kv_map(cfg, tp.size, tp.rank))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (tensor_parallel(..., seq_shard=True))
+# ---------------------------------------------------------------------------
+SP_ARCHS = ("chatglm3-6b", "moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "mamba2-370m",
+            "zamba2-7b", "seamless-m4t-medium")
+# the uneven cases' sequence on the quantized backend: 128 tokens a rank at
+# model 4, whole scaling groups for the token-sliced operands' weight
+# gradient (one row of them)
+SP_SEQ_QUANTIZED = 512
+SP_LINEAR = (2, 256, 256, 320)  # the token-split linear's batch, tokens, d_in, d_out
+
+
+def sp_jax_config():
+    """The JAX package's SP semantics test's config
+    (``tests/test_dryrun_smoke.py``): glm4-9b's smoke config unquantized,
+    4 query and 4 kv heads."""
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config("glm4-9b"), quant=False, n_heads=4,
+                               n_kv_heads=4)
+
+
+def sp_batch(cfg, seq: int = TP_SEQ, src: int = TP_SRC, batch: int = 2):
+    """``batch`` rows of ``seq`` tokens (the encoder-decoder's over ``src``
+    frames) from numpy's seeded generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seq + src)
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq)))}
+    if cfg.family == "encdec":
+        out["src_emb"] = torch.from_numpy(
+            rng.standard_normal((batch, src, cfg.frontend_dim)).astype(np.float32))
+    return out
+
+
+def _sp_raw_step(cfg, state, tp, seq_shard: bool, batch) -> dict:
+    """This rank's loss and gradients (the partial ones summed over the
+    group) of a tensor-parallel model of ``state``, unfed, and the
+    launches by kernel."""
+    from repro_torch.kernels import launch
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import tensor_parallel
+    from repro_torch.train.trainer import sum_partial_grads
+
+    model = lm.LM(cfg)
+    model.load_state_dict(state)
+    tensor_parallel(model, tp, seq_shard=seq_shard)
+    before = collections.Counter(launch.RECORDED)
+    loss, _ = model.loss(batch, TP_KEY)
+    loss.backward()
+    recs = collections.Counter()
+    for (kernel, *_), n in (collections.Counter(launch.RECORDED) - before).items():
+        recs[kernel] += n
+    grads = sum_partial_grads(model, {k: p.grad.clone() for k, p in model.named_parameters()})
+    return dict(loss=loss.detach(), grads=grads, layout=model.tp_layout, launches=dict(recs),
+                seq_split=dict(model.seq_split))
+
+
+def _sp_prefill(cfg, state, tp, seq_shard: bool) -> dict:
+    """A prefill of :func:`serve_inputs`' prompts on this rank's model:
+    the last position's logits and the rank's cache (every layer)."""
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import tensor_parallel
+
+    model = lm.LM(cfg)
+    model.load_state_dict(state)
+    tensor_parallel(model, tp, seq_shard=seq_shard)
+    logits, cache = lm.prefill(model, serve_inputs(cfg)[0], SERVE_MAX)
+    return dict(logits=logits, cache={k: v for k, v in cache.items() if k != "pos"})
+
+
+def _sp_collectives(tp) -> dict:
+    """gather_seq and scatter_seq of seeded rank tensors, forward and
+    backward, with the inputs the test rebuilds their closed forms from."""
+    from repro_torch.parallel.tensor import SeqShard, gather_seq, scatter_seq
+
+    sp = SeqShard(tp, 4 * tp.size)
+    g = torch.Generator().manual_seed(100 + tp.rank)
+    x = torch.randn(2, sp.n, 3, generator=g).requires_grad_()
+    gy = torch.randn(2, sp.full, 3, generator=g)
+    y = gather_seq(x, sp)
+    y.backward(gy)
+    p = torch.randn(2, sp.full, 3, generator=g).requires_grad_()
+    gz = torch.randn(2, sp.n, 3, generator=g)
+    z = scatter_seq(p, sp)
+    z.backward(gz)
+    return dict(x=x.detach(), gy=gy, y=y.detach(), dx=x.grad, p=p.detach(), gz=gz,
+                z=z.detach(), dp=p.grad)
+
+
+def _token_linear(cfg, tp) -> dict:
+    """A linear whose weight stays whole run unsharded and on this rank's
+    tokens (``LinearSplit.tokens``, ``SP_LINEAR``'s shapes), on the same
+    seeded inputs; and its operands quantized as token slices (K1's split
+    entries, the fake-quant quantizer) beside the unsharded ones."""
+    import numpy as np
+
+    from repro_torch.core.lowbit import LinearSplit, quantize_operand
+    from repro_torch.kernels import mls_quantize, quantize_ref
+    from repro_torch.models import nn as L
+    from repro_torch.parallel.tensor import SeqShard
+
+    b, s, d_in, d_out = SP_LINEAR
+    sp = SeqShard(tp, s)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((b, s, d_in)).astype(np.float32))
+    x[1, rng.integers(s), rng.integers(d_in)] = 9.0  # one rank's max
+    w = torch.from_numpy((rng.standard_normal((d_in, d_out)) * 0.05).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal((b, s, d_out)) * 1e-3).astype(np.float32))
+    qcfg = cfg.qcfg()
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = L.linear(xr, wr, None, qcfg, TP_KEY)
+    y.backward(g)
+    xt, wt = sp.take(x).clone().requires_grad_(), w.clone().requires_grad_()
+    yt = L.linear(xt, wt, None, qcfg, TP_KEY, split=sp.split())
+    yt.backward(sp.take(g))
+    out = dict(start=sp.start, n=sp.n, ref=(y.detach(), xr.grad, wr.grad),
+               got=(yt.detach(), xt.grad, wt.grad))
+    # the operands alone: rows of a flattened (b s, d) operand, one piece a row
+    x2 = x.reshape(b * s, d_in)
+    rows = torch.cat([x2[i * s + sp.start:i * s + sp.start + sp.n] for i in range(b)])
+    r = torch.from_numpy(rng.integers(0, 256, x2.shape).astype(np.uint8))
+    r_rows = torch.cat([r[i * s + sp.start:i * s + sp.start + sp.n] for i in range(b)])
+    out["k1"] = (mls_quantize(rows.contiguous(), qcfg.fmt, 128, qcfg.gs_fmt, r_rows.contiguous(),
+                              "nc", group=tp.group),
+                 quantize_ref(x2, qcfg.fmt, 128, qcfg.gs_fmt, r, "nc"))
+    fq = dataclasses.replace(qcfg, backend="fake_quant")
+    spec = fq.matmul_specs(x.shape, w.shape)[0]
+    out["fake_quant"] = (quantize_operand(sp.take(x), fq, spec, TP_KEY, 0,
+                                          shard=LinearSplit.tokens(
+                                              ((sp.start, sp.start + sp.n),), s, tp.group).x),
+                         quantize_operand(x, fq, spec, TP_KEY, 0))
+    return out
+
+
+def sp2_worker(rank: int, world: int):
+    """World 2, model 2: the collectives; for each SP_ARCHS arch and
+    backend the SP step against the DEFAULT step (unfed, both) and against
+    the unsharded port (quantized: fed; unquantized, the unfed SP step
+    itself), the prefill under SP and DEFAULT; and the token-split linear
+    on both quantized backends."""
+    from repro_torch.parallel.tensor import TensorParallel
+
+    tp = TensorParallel.of()
+    res = {"collectives": _sp_collectives(tp), "steps": {}, "prefill": {}, "linear": {}}
+    for arch in SP_ARCHS:
+        for backend in TP_BACKENDS:
+            cfg = serve_config(arch, backend)
+            state, batch = _state(cfg), sp_batch(cfg)
+            fed = _tp_step(cfg, state, tp, TP_KEY, fed=backend != "off", seq_shard=True,
+                           batch=batch)
+            res["steps"][(arch, backend)] = dict(
+                default=_sp_raw_step(cfg, state, tp, False, batch),
+                sp=fed if backend == "off" else _sp_raw_step(cfg, state, tp, True, batch),
+                fed=fed)
+            if backend != "fake_quant":
+                res["prefill"][(arch, backend)] = dict(
+                    default=_sp_prefill(cfg, state, tp, False),
+                    sp=_sp_prefill(cfg, state, tp, True))
+    for backend in TP_BACKENDS[1:]:
+        res["linear"][backend] = _token_linear(tp_config(backend), tp)
+    return res
+
+
+def _sp_attention_cases(cfg, tp, seq: int) -> dict:
+    """Each attention of layer 0 (and the encoder's, and the hybrid's shared
+    block's) unsharded and as this rank runs it under sequence parallelism
+    (its tokens of ``seq``, the cross-attention's source split too), on one
+    seeded input, source and output gradient, rounding to nearest (a
+    stochastic code can move with the order of K/V's gradient sum, which
+    the steps' fed runs cover): by name, the output, input and source
+    gradients (the rank's tokens) and the weight gradients (the rank's part
+    of their sum over the tokens)."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor import SeqShard, tensor_parallel
+
+    state = _state(cfg)
+    sp, msp = SeqShard(tp, seq), SeqShard(tp, seq)
+    rows = 1 if seq == SP_SEQ_QUANTIZED else 2
+    runs = []
+    for sharded in (False, True):
+        model = lm.LM(cfg)
+        model.load_state_dict(state)
+        if sharded:
+            tensor_parallel(model, tp, seq_shard=True)
+        out = {}
+        for name, attn in model.named_modules():
+            if (type(attn).__name__ != "Attention"
+                    or not name.startswith(("layers.0.", "enc_layers.0.", "shared_attn."))):
+                continue
+            rng = np.random.default_rng(len(name))
+            x = torch.from_numpy(rng.standard_normal((rows, seq, cfg.d_model))
+                                 .astype(np.float32))
+            mem = torch.from_numpy(rng.standard_normal((rows, seq, cfg.d_model))
+                                   .astype(np.float32))
+            g = torch.from_numpy((rng.standard_normal((rows, seq, cfg.d_model)) * 1e-2)
+                                 .astype(np.float32))
+            cross = name.endswith("xattn")
+            kw = dict(kv=mem if cross else None, causal=not name.startswith("enc_layers."))
+            if sharded:
+                x, mem, g = sp.take(x), msp.take(mem), sp.take(g)
+                kw.update(kv=mem if cross else None, seq=sp, mem_seq=msp if cross else None)
+            xr, mr = x.clone().requires_grad_(), mem.clone().requires_grad_()
+            if cross:
+                kw["kv"] = mr
+            y = attn(xr, cfg.qcfg(), None, **kw)  # nearest rounding: see the test
+            y.backward(g)
+            out[name] = dict(y=y.detach(), dx=xr.grad, dmem=mr.grad if cross else None,
+                             grads={k: p.grad for k, p in attn.named_parameters()},
+                             whole=attn.tp is None)
+        runs.append(out)
+    return dict(ref=runs[0], got=runs[1], start=sp.start, n=sp.n, rows=rows)
+
+
+def sp_uneven_seq(backend: str) -> int:
+    """The uneven cases' training sequence under sequence parallelism: on
+    the quantized backend, whose token slices (an attention kept whole,
+    replicated kv linears: every case but the tied vocabulary's) take whole
+    scaling groups, SP_SEQ_QUANTIZED; else TP_SEQ."""
+    return SP_SEQ_QUANTIZED if backend == "pallas" else TP_SEQ
+
+
+def sp4_worker(rank: int, world: int, jax_state):
+    """World 4, model 4: the unquantized SP step of :func:`sp_jax_config`
+    on the JAX package's parameters (``jax_state``); each UNEVEN_CASES case
+    and backend: the SP step against the unsharded port (quantized: fed)
+    and, of the replicated-attention cases, each attention of layer 0 under
+    sequence parallelism against the unsharded one
+    (:func:`_sp_attention_cases`)."""
+    from repro_torch.parallel.tensor import TensorParallel
+
+    tp = TensorParallel.of()
+    cfg = sp_jax_config()
+    res = {"steps": {}, "attention": {},
+           "jax": _tp_step(cfg, jax_state, tp, None, seq_shard=True, batch=sp_batch(cfg))}
+    for case in UNEVEN_CASES:
+        for backend in TP_BACKENDS:
+            cfg = uneven_config(case, backend)
+            seq = sp_uneven_seq(backend)
+            rows = 1 if seq == SP_SEQ_QUANTIZED else 2
+            res["steps"][(case, backend)] = _tp_step(
+                cfg, _state(cfg), tp, TP_KEY, fed=backend != "off", seq_shard=True,
+                batch=sp_batch(cfg, seq, seq, rows))
+            if case.startswith("attn_"):
+                res["attention"][(case, backend)] = _sp_attention_cases(cfg, tp, seq)
     return res
