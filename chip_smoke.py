@@ -247,6 +247,19 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 (emit_codes) at stage 1 "nc" bit for bit against im2col ->
                 K1 and its y against the default path, both timed; the
                 audit's wire section (analysis.wire.audit_wire_ring).
+                The wire path (its launches set to 0 in each rank just
+                before, read just after): the launcher's FSDP wire formats
+                (launch.train.shard_model, parallel.fsdp_wire) in two
+                processes on cuda:0 over gloo, mamba2-370m at full width
+                (12 of 48 layers), 2 x 1024 a rank, 2 steps: the 2-byte gather
+                (param_gather_dtype "bfloat16") on K1/K3 within 1e-6 of one
+                process taking the ranks' slices as two microbatches, K1/K3
+                launches the closed form; the 1-byte gather (packed_wire,
+                fake-quant) equal bit for bit to the unpacked step (loss,
+                every gradient, the parameters after 2 steps); one step's
+                all-gathers counted by trace_counts.StepCounter, 1 B an
+                element and 4 B a group of each pinned weight a use, the
+                fp32 gathers less the pinned masters', the closed form.
   15. tensor  - tensor parallelism over the model axis
                 (repro_torch.parallel.tensor).  K1's split entries
                 (mls_quantize_rows_amax, then mls_quantize_rows_codes over
@@ -382,7 +395,8 @@ overlap_write run; K1's split entries' on the tensor phase's main path),
 `lm_train_launches` per model of the lm_train phase's 4-step run,
 `sweep_launches` its launches per step in each "pallas" cell of the
 sweep's chip grid, `parallel_launches` its count on the parallel phase's
-main path and `tensor_launches` per path of the tensor phase (rank 0's:
+main path, `wire_launches` on its wire path (both ranks' 2-byte gather
+steps) and `tensor_launches` per path of the tensor phase (rank 0's:
 "<arch>" its training step, "<arch> serve" its quantized serving run,
 "<arch> model 16" / "<arch> serve model 16" those of the model axis of 16,
 "chatglm3-6b sp" / "<arch> sp model 16" the sequence-parallel steps),
@@ -3419,6 +3433,224 @@ def ring_on_one_card() -> dict:
                 ideal_wire=ideal, wire_exact=wire_ok, k1_launches=[r["k1"] for r in ranks])
 
 
+# the wire path: the launcher's FSDP wire formats in a world of two on cuda:0
+WIRE_ARCH = "mamba2-370m"
+WIRE_LAYERS = 12  # of 48: the whole depth took 104 s, where the path has 60
+WIRE_ROWS, WIRE_SEQ = 2, 1024  # a rank's rows x tokens
+WIRE_TOL = 1e-6  # the CPU test's (tests/test_torch_wire.py): losses and parameters
+WIRE_KEY = 7
+
+
+def _host_full(t):
+    """A parameter or gradient of the launcher's HSDP layout whole, on the
+    host: a DTensor's shards gathered with c10d's all-gather (DTensor's
+    ``full_tensor`` takes the functional collectives, whose gloo path on
+    CUDA tensors crashes in torch 2.11)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t.detach().cpu()
+    local = t.to_local().detach()
+    for mesh_dim, place in enumerate(t.placements):
+        if place.is_shard():
+            group = t.device_mesh.get_group(mesh_dim)
+            n = dist.get_world_size(group)
+            src = local.movedim(place.dim, 0).contiguous()
+            out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+            dist.all_gather_into_tensor(out, src, group=group)
+            local = out.movedim(0, place.dim)
+    if tuple(local.shape) != tuple(t.shape):
+        raise ValueError(f"uneven shards of {tuple(t.shape)}: gathered {tuple(local.shape)}")
+    return local.cpu()
+
+
+def _wire_run(cfg, mesh, batches, counted: bool = False) -> dict:
+    """The launcher's layout of ``cfg`` over ``mesh`` (shard_model): with
+    ``counted``, first one loss and backward on this rank's slice of
+    ``batches[0]`` under trace_counts.StepCounter (its all-gather and
+    reduce-scatter bytes by payload dtype, the full gradients on the host);
+    then two train steps from the same start: the losses and the full
+    parameters (host)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.trace_counts import StepCounter, mesh_dims
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import make_train_step
+
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=batches[0]["tokens"].shape[0],
+                                seq_len=WIRE_SEQ)
+    step_fn, opt_init = make_train_step(RunConfig(model=cfg, shape=shape))
+    model = launcher.shard_model(init_lm(cfg, seed=0, device="cuda"), mesh)
+    r: dict = {}
+    if counted:
+        counter = StepCounter(mesh_dims(mesh))
+        with counter:
+            loss, _ = model.loss(launcher.local_batch(batches[0], mesh), WIRE_KEY)
+            loss.backward()
+        r["wire"] = counter.hlo()["coll_breakdown"]
+        r["loss"] = loss.item()
+        r["grads"] = {k: _host_full(p.grad) for k, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+    opt = opt_init(model)
+    losses = []
+    for b in batches:
+        model, opt, m = step_fn(model, opt, launcher.local_batch(b, mesh))
+        loss = m["loss"].detach().clone()  # the global batch's: the mean of the ranks'
+        dist.all_reduce(loss)
+        losses.append(loss.item() / dist.get_world_size())
+    r["losses"] = losses
+    r["params"] = {k: _host_full(p) for k, p in model.named_parameters()}
+    del model, opt
+    torch.cuda.empty_cache()
+    return r
+
+
+def _wire_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of the wire path (:func:`wire_on_one_card`) on cuda:0 over gloo."""
+    import dataclasses
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import SHAPES, RunConfig, get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.lm import init_lm
+    from repro_torch.runtime import resolve_device
+    from repro_torch.train import make_train_step
+
+    faulthandler.enable()
+    resolve_device("cuda")  # TF32 off
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        base = dataclasses.replace(get_config(WIRE_ARCH), n_layers=WIRE_LAYERS)
+        mesh = launcher.hsdp_mesh(world, device_type="cuda")
+        data = lm_train_data(base, WIRE_ROWS * world, WIRE_SEQ)
+        batches = [next(data) for _ in range(2)]
+        res: dict = {"coord": tuple(mesh.get_coordinate())}
+        # the 2-byte gather on K1/K3 (the path's launches: set to 0 just before)
+        bf16 = dataclasses.replace(base, quant_backend="pallas", param_gather_dtype="bfloat16")
+        reset_launch_counts()
+        t = time.perf_counter()
+        run = _wire_run(bf16, mesh, batches)
+        torch.cuda.synchronize()
+        res["bf16_s"] = time.perf_counter() - t
+        res["launches"] = launch_counts()
+        # the 1-byte gather (fake-quant) against the same mesh's unpacked step
+        fq = dataclasses.replace(base, quant_backend="fake_quant")
+        t = time.perf_counter()
+        packed = _wire_run(dataclasses.replace(fq, packed_wire=True), mesh, batches, True)
+        plain = _wire_run(fq, mesh, batches, True)
+        res["packed_s"] = time.perf_counter() - t
+        res["wire"], res["wire_plain"] = packed["wire"], plain["wire"]
+        res["packed_equal"] = {
+            "loss": packed["loss"] == plain["loss"] and packed["losses"] == plain["losses"],
+            "grads": [k for k in plain["grads"]
+                      if not torch.equal(packed["grads"][k], plain["grads"][k])],
+            "params": [k for k in plain["params"]
+                       if not torch.equal(packed["params"][k], plain["params"][k])]}
+        del packed, plain
+        if rank == 0:  # one process: the ranks' slices as two microbatches
+            shape = dataclasses.replace(SHAPES["train_4k"], global_batch=WIRE_ROWS * world,
+                                        seq_len=WIRE_SEQ)
+            step_fn, opt_init = make_train_step(RunConfig(model=bf16, shape=shape,
+                                                          microbatch=world))
+            model = init_lm(bf16, seed=0, device="cuda")
+            opt, losses = opt_init(model), []
+            for b in batches:
+                model, opt, m = step_fn(model, opt, b)
+                losses.append(m["loss"].item())
+            res["bf16_losses"], res["one_process_losses"] = run["losses"], losses
+            res["bf16_param_err"] = max((run["params"][k] - p.detach().cpu()).abs().max().item()
+                                        for k, p in model.named_parameters())
+            del model, opt
+        torch.save(res, f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def wire_on_one_card(smi: str) -> dict:
+    """mamba2-370m at full width (WIRE_LAYERS of its 48 layers) under the
+    launcher's FSDP wire formats, in two processes on cuda:0 over gloo (2 x
+    1024 a rank, 2 steps): the 2-byte
+    gather on K1/K3 against one process taking the ranks' slices as two
+    microbatches (WIRE_TOL, the CPU test's), the 1-byte gather (fake-quant)
+    against the same mesh's unpacked step bit for bit (loss, gradients,
+    parameters), and one step's all-gather bytes against the closed form."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.parallel.fsdp_wire import wire_bytes, wire_plan
+
+    world = 2
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "wire")
+        mp.spawn(_wire_rank, args=(world, _free_port(), out), nprocs=world, join=True)
+        ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)]
+    base = dataclasses.replace(get_config(WIRE_ARCH), n_layers=WIRE_LAYERS)
+    cfg = dataclasses.replace(base, quant_backend="fake_quant", packed_wire=True)
+    shapes = {k: tuple(v.shape) for k, v in abstract_params(cfg).items()}
+    pinned = wire_plan(cfg, shapes, world)[0]
+    closed = wire_bytes(cfg, shapes, world)
+    uses = 2 if cfg.remat == "full" else 1  # the forward, and remat's recompute
+    master = sum(4 * shapes[k][0] * shapes[k][1] for k in pinned) * (world - 1) / world
+    # the masters' two FSDP2 gathers (forward, backward) leave; the scales come
+    want_u8, saved = uses * closed["codes"], 2 * master - uses * closed["scales"]
+    bf16 = dataclasses.replace(base, quant_backend="pallas", param_gather_dtype="bfloat16")
+    per_step = lm_train_launches(bf16)
+    r0 = ranks[0]
+    out = dict(arch=WIRE_ARCH, n_layers=WIRE_LAYERS, world=world, rows_per_rank=WIRE_ROWS,
+               seq=WIRE_SEQ,
+               nvidia_smi=smi, seconds=time.perf_counter() - t,
+               bf16_losses=r0["bf16_losses"], one_process_losses=r0["one_process_losses"],
+               bf16_param_err=r0["bf16_param_err"],
+               launches=[{k: r["launches"].get(k, 0) for k in per_step} for r in ranks],
+               expected_launches={k: 2 * n for k, n in per_step.items()},
+               packed_equal=[r["packed_equal"] for r in ranks],
+               all_gather_u8=[r["wire"].get("all-gather:u8", 0.0) for r in ranks],
+               all_gather_f32_saved=[r["wire_plain"]["all-gather:f32"]
+                                     - r["wire"]["all-gather:f32"] for r in ranks],
+               want_u8=want_u8, want_f32_saved=saved,
+               reduce_scatter=[(r["wire"]["reduce-scatter"], r["wire_plain"]["reduce-scatter"])
+                               for r in ranks],
+               pinned=len(pinned), rank_s=[(r["bf16_s"], r["packed_s"]) for r in ranks])
+    return out
+
+
+def wire_failures(w: dict) -> list[str]:
+    """What the wire path's checks found wrong (empty: all held)."""
+    bad = []
+    if not (max(abs(a - b) for a, b in zip(w["bf16_losses"], w["one_process_losses"]))
+            <= WIRE_TOL and w["bf16_param_err"] <= WIRE_TOL):
+        bad.append(f"the 2-byte gather's steps differ from one process: {w}")
+    if any(n != w["expected_launches"] for n in w["launches"]):
+        bad.append(f"wire path launches {w['launches']}, expected {w['expected_launches']}")
+    if not all(e["loss"] and not e["grads"] and not e["params"] for e in w["packed_equal"]):
+        bad.append(f"the 1-byte gather differs from the unpacked step: {w['packed_equal']}")
+    if not (all(b == w["want_u8"] for b in w["all_gather_u8"])
+            and all(b == w["want_f32_saved"] for b in w["all_gather_f32_saved"])
+            and all(a == b for a, b in w["reduce_scatter"]) and w["want_u8"] > 0):
+        bad.append(f"the step's all-gather bytes are not the closed form: {w}")
+    return bad
+
+
 def hsdp_world_one(smi: str) -> dict:
     """mamba2-370m at full width, 4 x 1024 on K1/K3: the launcher's HSDP
     wrapping on a world of one against the unwrapped step, bit for bit."""
@@ -3594,6 +3826,7 @@ def phase_parallel(results: dict) -> dict[str, int]:
     checks.append(dict(kernel="implicit_conv", shape="stage1_conv emit_codes nc", **emit))
     rows.append(emit_row)
     out["ring"] = ring_on_one_card()
+    out["wire"] = wire_on_one_card(smi)
     out["wire_audit"] = audit_wire_ring()
     out["checks"], out["rows"] = checks, rows
     results["parallel"] = out
@@ -3604,6 +3837,15 @@ def phase_parallel(results: dict) -> dict[str, int]:
           f"{[round(t, 1) for t in hsdp['plain_steps_ms']]} ms, losses {hsdp['losses']}; ring "
           f"{out['ring']['bit_identical']} wire {out['ring']['wire']}; wire audit ratio "
           f"{out['wire_audit']['compression_ratio']:.4f}")
+    wp = out["wire"]
+    print(f"wire ({smi}): {wp['arch']} ({wp['n_layers']} layers) world {wp['world']} x "
+          f"{wp['rows_per_rank']} x "
+          f"{wp['seq']}; bf16 gather on K1/K3 losses {wp['bf16_losses']} vs one process "
+          f"{wp['one_process_losses']} (params max err {wp['bf16_param_err']:.3g}), launches "
+          f"{wp['launches']}; packed vs unpacked {wp['packed_equal']}; all-gather u8 "
+          f"{wp['all_gather_u8']} B (closed form {wp['want_u8']}), f32 saved "
+          f"{wp['all_gather_f32_saved']} B (closed form {wp['want_f32_saved']}); "
+          f"{wp['seconds']:.1f} s")
     bad = [c for c in checks if not c["identical"]]
     w = out["wire_audit"]
     if bad:
@@ -3613,6 +3855,7 @@ def phase_parallel(results: dict) -> dict[str, int]:
     if any(p != hsdp["expected_per_step"] for p in hsdp["launches_per_step"]):
         bad.append(f"HSDP launches {hsdp['launches_per_step']}, expected "
                    f"{hsdp['expected_per_step']}")
+    bad += wire_failures(wp)
     if not (all(out["ring"]["bit_identical"]) and all(out["ring"]["wire_exact"])
             and all(n == 1 for n in out["ring"]["k1_launches"])):
         bad.append(f"the ring: {out['ring']}")
@@ -5454,6 +5697,8 @@ def main() -> int:
                             sweep_launches={c: n.get(r["name"], 0)
                                             for c, n in sweep_launches.items()},
                             parallel_launches=parallel_launches.get(r["name"], 0),
+                            wire_launches=sum(n.get(r["name"], 0) for n in results.get(
+                                "parallel", {}).get("wire", {}).get("launches", [])),
                             tensor_launches={a: n.get(r["name"], 0)
                                              for a, n in tensor_launches.items()},
                             max_abs_err=r["max_abs_err"],

@@ -36,6 +36,14 @@ arithmetic the kernels assume:
   own tokens: an attention kept whole, replicated kv linears, a
   vocabulary kept whole.
 
+* **FSDP wire formats** (:func:`lint_wire`): under ``packed_wire`` every
+  pinned linear's weight must move as packed codes over the data axis
+  (``parallel.fsdp_wire``): a data slice that is neither whole scaling
+  groups nor one part of a group spanning the dim is an error; a wire dim
+  the data axis does not divide (its master gathered, as JAX leaves it
+  unpinned) and ``packed_wire`` on the "pallas" backend (which ignores
+  it, as JAX's does) are warnings.
+
 Pure Python on dataclass fields: it runs on any host.
 """
 from __future__ import annotations
@@ -52,6 +60,7 @@ __all__ = [
     "lint_quant_config",
     "lint_shipped_presets",
     "lint_tensor_parallel",
+    "lint_wire",
 ]
 
 
@@ -220,6 +229,29 @@ def lint_tensor_parallel(cfg, model_axis: int, seq_shard: bool = False,
         warnings.append(f"split unevenly in whole scaling groups: {uneven}")
     if seq_shard and model_axis > 1:
         warnings += _seq_warnings(cfg, model_axis, layout, heads, seq_len)
+    return LintResult(errors, warnings)
+
+
+def lint_wire(cfg, data: int) -> LintResult:
+    """Whether FSDP over ``data`` ranks moves the LM config ``cfg``'s pinned
+    weights as packed codes under ``packed_wire`` (the module docstring);
+    empty without ``packed_wire``."""
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.parallel.fsdp_wire import wire_plan
+
+    if not cfg.packed_wire:
+        return LintResult([], [])
+    warnings: list[str] = []
+    qcfg = cfg.qcfg()
+    if qcfg is not None and qcfg.backend != "fake_quant":
+        warnings.append("packed_wire on the 'pallas' backend: its GEMMs code their operands "
+                        "themselves and FSDP2 gathers the master weights, as the JAX "
+                        "package's ignores wire there")
+    _, kept, errors = wire_plan(cfg, {k: tuple(t.shape) for k, t in abstract_params(cfg).items()},
+                                data)
+    if kept:
+        warnings.append(f"{len(kept)} pinned weights have a wire dim {data} data ranks do not "
+                        f"divide: FSDP2 gathers their masters (e.g. {kept[0]})")
     return LintResult(errors, warnings)
 
 

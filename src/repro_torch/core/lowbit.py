@@ -36,6 +36,14 @@ ragged dim is, shares each group's max over the ranks the same way) and
 its rounding offsets are the slice of the offsets the unsharded operand
 draws from the same stream.  A slice may be several pieces of the dim,
 concatenated (:class:`Sharded`'s ``pieces``).
+
+Under FSDP with ``packed_wire`` (:mod:`repro_torch.parallel.fsdp_wire`) a
+weight is also one data rank's slice along its wire dim (a second
+:class:`Sharded`, the ``wire_shard`` of :func:`quantize_operand`): it is
+quantized as the slice of the unsharded weight the same way, and its
+packed codes and compact group scales are gathered over the data group
+(:meth:`Sharded.gather`), unpacked and broadcast: the unit values of the
+unsharded weight, bit for bit, moved at 1 B an element.
 """
 from __future__ import annotations
 
@@ -98,8 +106,9 @@ class QuantConfig:
     # else im2col).  The choice never changes numerics.
     conv_impl: str = "auto"
     # Route the fake-quant WEIGHT through its packed uint8 codes and compact
-    # group scales, each pinned to the FSDP shard axis (parallel.wire_pin):
-    # an exact round trip, so the numbers do not move.
+    # group scales, each pinned to the FSDP shard axis (parallel.wire_pin;
+    # under FSDP2, parallel.fsdp_wire gathers them over the data axis): an
+    # exact round trip, so the numbers do not move.
     packed_wire: bool = False
     # Which weight dim is FSDP-sharded (0 for in-projections, 1 for
     # out-projections); None disables the pinning.  Set per call site by the
@@ -268,10 +277,18 @@ class Sharded:
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.group)
         return m
 
-    def tensor_max(self, x: torch.Tensor) -> torch.Tensor:
-        """max |x| over every slice: this slice's, all-reduced (MAX) over
-        ``group``; fp32, 0-dim."""
-        return self.reduce_max(x.detach().float().abs().amax().reshape(1))[0]
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The slices of ``t`` of every rank of ``group``, concatenated along
+        ``dim`` in rank order (one all-gather; the slices are the equal,
+        contiguous pieces of the ranks in that order), contiguous: the
+        GEMMs that read it then take the unsharded operand's path."""
+        import torch.distributed as dist
+
+        n = dist.get_world_size(self.group)
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+        dist.all_gather_into_tensor(out, src, group=self.group)
+        return out.movedim(0, dim).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,21 +327,29 @@ def _full_shape(shape, shard: Sharded | None) -> tuple[int, ...]:
     return tuple(shape) if shard is None else shard.full_shape(shape)
 
 
-def _check_split(spec: GroupSpec, shape, shard: Sharded) -> bool:
-    """A slice's groups must be the unsharded operand's: each piece falls
-    on group boundaries.  Returns True where one group spans the whole
-    split dim (its ranks then share each such group's max), False where
-    the slice holds whole groups of its own."""
-    full = shard.full_shape(shape)
-    b_full = spec.resolve(full)
-    ax = shard.axis(len(shape))
-    if b_full[ax] == full[ax] and shape[ax] < full[ax]:
-        return True
-    shard.check_groups(shape[ax], b_full[ax])
-    if spec.resolve(shape) != b_full:
-        raise ValueError(f"a slice of {shape[ax]} of dim {ax} of an operand {full} does not "
-                         f"hold whole {b_full[ax]}-wide scaling groups")
-    return False
+def _check_splits(spec: GroupSpec, shape, shards: tuple[Sharded, ...]) -> tuple[Sharded, ...]:
+    """A slice's groups must be the unsharded operand's: each piece of each
+    shard's dim falls on group boundaries.  Returns the shards along whose
+    dim one group spans the whole dim (their ranks then share each such
+    group's max); along the others the slice holds whole groups of its
+    own."""
+    full = tuple(shape)
+    for s in shards:
+        full = s.full_shape(full)
+    if len({s.axis(len(shape)) for s in shards}) < len(shards):
+        raise ValueError("two shards of one operand split the same dim")
+    b_full, b_local = spec.resolve(full), spec.resolve(shape)
+    spanning = []
+    for s in shards:
+        ax = s.axis(len(shape))
+        if b_full[ax] == full[ax] and shape[ax] < full[ax]:
+            spanning.append(s)
+            continue
+        s.check_groups(shape[ax], b_full[ax])
+        if b_local[ax] != b_full[ax]:
+            raise ValueError(f"a slice of {shape[ax]} of dim {ax} of an operand {full} does "
+                             f"not hold whole {b_full[ax]}-wide scaling groups")
+    return tuple(spanning)
 
 
 # ---------------------------------------------------------------------------
@@ -340,9 +365,43 @@ def _source(key: int | None, cfg: QuantConfig, idx: int, device, r) -> (
     return rounding_generator(key, cfg, idx, device)
 
 
+def _quantize_slice(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: int | None,
+                    idx: int, shards: tuple[Sharded, ...]):
+    """``x``, the slice ``shards`` name of an operand that ``spec`` groups,
+    quantized as that slice of the unsharded operand's quantization
+    (module docstring): ``(MLSTensor, the shards a group spans)``."""
+    spanning = _check_splits(spec, x.shape, shards)
+    gen = rounding_generator(key, cfg, idx, x.device)
+    offsets = None
+    if gen is not None:
+        full = tuple(x.shape)
+        for s in shards:
+            full = s.full_shape(full)
+        offsets = torch.rand(full, generator=gen, device=gen.device, dtype=torch.float32) - 0.5
+        for s in shards:
+            offsets = s.take(offsets, x.shape[s.axis(x.ndim)])
+    m = x.detach().float().abs().amax().reshape(1)
+    for s in shards:
+        m = s.reduce_max(m)
+    group_max = None
+    if spanning:  # the slice's part of each group; the group's max over the ranks
+        block = list(spec.block)
+        for s in spanning:
+            block[s.axis(x.ndim)] = None
+        spec = GroupSpec(tuple(block))
+
+        def group_max(g):
+            for s in spanning:
+                g = s.reduce_max(g)
+            return g
+    t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt, offsets, tensor_max=m[0],
+                     group_max=group_max)
+    return t, spanning
+
+
 def quantize_operand(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: int | None,
-                     idx: int, r=None, wire: bool = False,
-                     shard: Sharded | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                     idx: int, r=None, wire: bool = False, shard: Sharded | None = None,
+                     wire_shard: Sharded | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize -> ``(unit-scaled values, fp32 tensor scale)``: the tensor
     scale is factored out of the GEMM (paper Sec. V-B).  ``idx`` is the
     operand's rounding stream at the site (0: activation, 1: weight, 2:
@@ -351,30 +410,39 @@ def quantize_operand(x: torch.Tensor, cfg: QuantConfig, spec: GroupSpec, key: in
     unsharded one); it is quantized as the slice of the unsharded
     operand's quantization (module docstring).
 
+    ``wire_shard`` (a 2-D weight under FSDP with ``packed_wire``): ``x`` is
+    also this data rank's slice along that dim; it is quantized as a slice
+    too, and its packed uint8 codes and compact group scales are gathered
+    over ``wire_shard.group``, unpacked and broadcast: the unit values of
+    the weight whole along that dim (still ``shard``'s slice), moved at 1 B
+    an element.  A weight that cannot move as codes raises.
+
     With ``wire=True`` (a 2-D weight) and ``cfg.wire_fsdp_dim`` set, the
     values pass :func:`repro_torch.parallel.wire_pin` on that dim; with
     ``cfg.packed_wire`` too, as their packed uint8 codes and their compact
     group scales, each pinned, unpacked and broadcast after: the FSDP
     gather then moves 1 B an element.  The round trip is exact."""
+    if wire_shard is not None and not (cfg.enabled and cfg.packed_wire
+                                       and cfg.fmt.element_bits <= 8 and r is None):
+        raise ValueError(f"a weight gathered over the data axis moves as packed codes: it "
+                         f"needs quantization on, packed_wire, codes of at most 8 bits and "
+                         f"its stream's offsets ({cfg.fmt}, packed_wire={cfg.packed_wire})")
     if not cfg.enabled:
         return x.to(torch.float32), torch.ones((), dtype=torch.float32, device=x.device)
-    if shard is None:
+    shards = tuple(s for s in (shard, wire_shard) if s is not None)
+    spanning: tuple[Sharded, ...] = ()
+    if not shards:
         t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt, _source(key, cfg, idx, x.device, r))
     else:
         if r is not None:
             raise ValueError("a sharded operand draws its offsets from its stream, not r")
-        spanning = _check_split(spec, x.shape, shard)
-        gen = rounding_generator(key, cfg, idx, x.device)
-        offsets = None if gen is None else shard.take(torch.rand(
-            shard.full_shape(x.shape), generator=gen, device=gen.device,
-            dtype=torch.float32) - 0.5, x.shape[shard.axis(x.ndim)])
-        if spanning:  # the slice's part of each group; the group's max over the ranks
-            block = list(spec.block)
-            block[shard.axis(x.ndim)] = None
-            spec = GroupSpec(tuple(block))
-        t = mls_quantize(x, cfg.fmt, spec, cfg.gs_fmt, offsets,
-                         tensor_max=shard.tensor_max(x),
-                         group_max=shard.reduce_max if spanning else None)
+        t, spanning = _quantize_slice(x, cfg, spec, key, idx, shards)
+    if wire_shard is not None:
+        ax = wire_shard.axis(x.ndim)
+        sign, mag = unpack_elements(wire_shard.gather(pack_elements(t), ax), cfg.fmt)
+        # a group that spans the dim has its scale on every rank already
+        sgc = t.s_g if wire_shard in spanning else wire_shard.gather(t.s_g, ax)
+        return sign * mag * broadcast_groups(sgc, t.spec, wire_shard.full_shape(x.shape)), t.s_t
     pin = wire and cfg.wire_fsdp_dim is not None and x.ndim == 2
     if not pin:
         return t.unit_value(), t.s_t
@@ -404,11 +472,15 @@ class LowbitMatmul(torch.autograd.Function):
     linear (its outputs, or partial sums where the split contracts)."""
 
     @staticmethod
-    def forward(ctx, x, w, key, cfg, r, split):
+    def forward(ctx, x, w, key, cfg, r, split, wire):
         sp = split or LinearSplit(None, None, None)
         sx, sw = cfg.matmul_specs(_full_shape(x.shape, sp.x), _full_shape(w.shape, sp.w))
         qx, stx = quantize_operand(x, cfg, sx, key, 0, r, shard=sp.x)
-        qw, stw = quantize_operand(w, cfg, sw, key, 1, r, wire=True, shard=sp.w)
+        if wire is None:
+            qw, stw = quantize_operand(w, cfg, sw, key, 1, r, wire=True, shard=sp.w)
+        else:  # w stands for the gathered weight; its values are the data rank's slice
+            qw, stw = quantize_operand(wire.local(), cfg, sw, key, 1, r, shard=sp.w,
+                                       wire_shard=wire.shard)
         ctx.save_for_backward(qx, stx, qw, stw)
         ctx.conf = (key, cfg, r, sp, x.dtype, w.dtype)
         return torch.matmul(qx, qw) * (stx * stw)
@@ -423,17 +495,22 @@ class LowbitMatmul(torch.autograd.Function):
         dx = torch.matmul(ge, qw.t()) * (ste * stw)  # paper l.15: qE @ qW^T
         dw = torch.matmul(qx.reshape(-1, qx.shape[-1]).t(),
                           ge.reshape(-1, ge.shape[-1])) * (ste * stx)  # l.13: qX^T @ qE
-        return dx.to(x_dtype), dw.to(w_dtype), None, None, None, None
+        return dx.to(x_dtype), dw.to(w_dtype), None, None, None, None, None
 
 
 def lowbit_matmul(x: torch.Tensor, w: torch.Tensor, key: int | None,
-                  cfg: QuantConfig, r=None, split: LinearSplit | None = None) -> torch.Tensor:
+                  cfg: QuantConfig, r=None, split: LinearSplit | None = None,
+                  wire=None) -> torch.Tensor:
     """``x @ w`` with MLS-quantized operands; x: (..., K), w: (K, N).
     ``r``, where given, is ``(r_x, r_w, r_e)``: the rounding offsets of the
     activation, the weight and the error, each of its operand's shape, in
     place of the streams of ``key``.  ``split``: the operands are this
-    rank's shards of a tensor-parallel linear (:class:`LinearSplit`)."""
-    return LowbitMatmul.apply(x, w, key, cfg, r, split)
+    rank's shards of a tensor-parallel linear (:class:`LinearSplit`).
+    ``wire`` (a ``parallel.fsdp_wire.WireShard``): the weight is held
+    sharded over the data axis and gathered here as packed codes; ``w`` is
+    then its gather proxy (``WireShard.proxy``), whose gradient is the
+    whole weight's (``quantize_operand``'s ``wire_shard``)."""
+    return LowbitMatmul.apply(x, w, key, cfg, r, split, wire)
 
 
 # Elements one pass of quantize_stack codes at a time (whole experts): it

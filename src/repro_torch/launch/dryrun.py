@@ -84,6 +84,15 @@ port's ``SP_RULES`` as JAX's binds its own: the microbatch of
 stream split over ``model``), recorded with ``"rules": "sp"`` (else
 ``"default"``); the lint names a sequence that stays whole.
 
+**FSDP wire formats.**  ``run_cell(..., cfg_updates={"param_gather_dtype":
+"bfloat16"})`` lays the layers out with FSDP2's bf16 gathers, and
+``cfg_updates={"packed_wire": True}`` gathers each pinned fake-quant weight
+as packed codes and compact group scales (``launch.train.shard_model``,
+``parallel.fsdp_wire``), as JAX's dry run takes both as ``cfg_updates``;
+the counter records each gather at its payload dtype (``all-gather:bf16``,
+``all-gather:u8``).  ``analysis.lint.lint_wire`` refuses a pinned weight
+that cannot move as codes.
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-72b \\
@@ -423,7 +432,7 @@ def run_cell(
     (sequence parallelism).  ``seq_shard``: bind ``SP_RULES`` where no
     rules are given, and size the microbatch as JAX does under them
     (module docstring).  ``device``: the fake tensors' (:func:`trace_step`)."""
-    from repro_torch.analysis.lint import lint_tensor_parallel
+    from repro_torch.analysis.lint import lint_tensor_parallel, lint_wire
 
     if seq_shard and rules is None:
         rules = SP_RULES
@@ -442,10 +451,14 @@ def run_cell(
     record: dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": "x".join(map(str, sizes)),
         "n_devices": n_dev, "tag": tag, "rules": "sp" if sp else "default",
+        "param_gather_dtype": cfg.param_gather_dtype, "packed_wire": cfg.packed_wire,
     }
-    model_axis = dict(zip(axes, sizes))["model"]
+    model_axis, data = dict(zip(axes, sizes))["model"], dict(zip(axes, sizes))["data"]
     lint = lint_tensor_parallel(cfg, model_axis, seq_shard=sp,
                                 seq_len=shape.seq_len if shape.kind != "decode" else 1)
+    wire = lint_wire(cfg, data)
+    lint.errors += wire.errors
+    lint.warnings += wire.warnings
     if not lint.ok:
         record.update(status="refused", reason="; ".join(lint.errors))
     else:

@@ -29,7 +29,10 @@ rank trains on its slice of the global batch, chosen by its ("pod",
 "data") coordinate (all ranks of a model group take the same slice); the
 gradient reduction averages over ("pod", "data").  The JAX launcher's mesh
 is the fixed (2, 16, 16) of 512 TPU chips; the port sizes ``data`` from the
-world instead.  Checkpoints under torchrun hold each rank's shards, in
+world instead.  The config's ``param_gather_dtype="bfloat16"`` and
+``packed_wire`` choose FSDP's 2-byte and 1-byte weight gathers
+(:func:`shard_model`), as in the JAX package (no flag: neither has one).
+Checkpoints under torchrun hold each rank's shards, in
 ``rank<r>/`` of ``--ckpt-dir``.  ``--smoke`` with ``--model-axis``
 widens the smoke config (:func:`tp_smoke`: the heads and MLP, the MoE's
 expert width and the Mamba2 layers' din) so that the splits keep whole
@@ -50,6 +53,7 @@ from repro_torch.configs import SHAPES, RunConfig, get_config, get_smoke_config
 from repro_torch.configs import shape_model_config
 from repro_torch.data import make_lm_iterator
 from repro_torch.models import lm
+from repro_torch.parallel.fsdp_wire import pin_weights, wire_plan
 from repro_torch.parallel.sharding import MeshShape, axis_sizes
 from repro_torch.parallel.tensor import TensorParallel, tensor_parallel
 from repro_torch.runtime import resolve_device
@@ -115,21 +119,46 @@ def shard_model(model: lm.LM, mesh, seq_shard: bool = False) -> lm.LM:
     encoder-decoder's ``cross_kv`` of each decoder layer), so that the
     trainer's loss and serving run inside FSDP2's hooks.  The hybrid's
     shared block runs several times a step and stays in the root's group
-    (gathered for the whole step)."""
-    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+    (gathered for the whole step).
 
-    m = axis_sizes(mesh).get("model", 1)
-    if model.cfg.param_gather_dtype != "float32":
-        raise NotImplementedError("param_gather_dtype other than float32 under FSDP2: the "
-                                  "2-byte gather is not ported (ROADMAP queue 1)")
+    The JAX package's two FSDP wire formats: ``param_gather_dtype=
+    "bfloat16"`` gives each layer's group, and the shared block a group of
+    its own (gathered once a step: ``models.lm._shared_block``), FSDP2's
+    mixed-precision policy (bf16 gathers, fp32 reduce-scatters; the root
+    keeps the embeddings, head, final norm and frontend in fp32, as JAX's
+    ``gather_view`` does); ``packed_wire`` on the fake-quant backend holds
+    every pinned linear's weight out of FSDP2's groups, sharded on its wire
+    dim, and gathers it as packed codes at each call
+    (:mod:`repro_torch.parallel.fsdp_wire`; a weight that cannot move as
+    codes raises ``ValueError``)."""
+    from torch.distributed.fsdp import (
+        MixedPrecisionPolicy, fully_shard, register_fsdp_forward_method)
+
+    cfg = model.cfg
+    if cfg.param_gather_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"param_gather_dtype {cfg.param_gather_dtype!r}: float32 or bfloat16")
+    sizes = axis_sizes(mesh)
+    m = sizes.get("model", 1)
+    pinned, _, errors = wire_plan(cfg, {k: tuple(p.shape) for k, p in model.named_parameters()},
+                                  sizes.get("data", 1))
+    if errors:
+        raise ValueError("; ".join(errors))
     if m > 1:
         group = mesh.get_group("model")
         tensor_parallel(model, TensorParallel(mesh.get_local_rank("model"), m, group),
                         seq_shard=seq_shard)
     dp = _dp_mesh(mesh)
+    ignored = pin_weights(model, dp, pinned) or None
+    kw = dict(mesh=dp, ignored_params=ignored)
+    if cfg.param_gather_dtype == "bfloat16":
+        kw["mp_policy"] = MixedPrecisionPolicy(param_dtype=torch.bfloat16,
+                                               reduce_dtype=torch.float32,
+                                               cast_forward_inputs=False)
+        if model.shared_attn is not None:
+            fully_shard(model.shared_attn, reshard_after_forward=False, **kw)
     for layer in [*model.layers, *(model.enc_layers or ())]:
-        fully_shard(layer, mesh=dp)
-    fully_shard(model, mesh=dp)
+        fully_shard(layer, **kw)
+    fully_shard(model, mesh=dp, ignored_params=ignored)
     for name in ("loss", "prefill", "decode_step"):
         register_fsdp_forward_method(model, name)
     if model.cfg.family == "encdec":

@@ -108,6 +108,7 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import QuantConfig, fold_in
 from repro_torch.kernels.launch import in_plain_version
+from repro_torch.parallel.fsdp_wire import wire_scope
 from repro_torch.parallel.tensor import (
     TAIL_RANK, copy_to_tp, gather_seq, mamba_heads, rank_heads, reduce_from_tp, scatter_seq,
     seq_unit, split_seq, vocab_parallel_ce)
@@ -373,7 +374,7 @@ def _layer(layer: nn.Module, view: dict | None, remat: str, *args, **kwargs):
     activation checkpointing when ``remat`` is "full" (recompute all) or
     "dots" (save what :func:`dots_policy` saves)."""
     fn = layer
-    if view is not None:
+    if view:
         def fn(*a, **k):
             return torch.func.functional_call(layer, view, a, k)
     if remat == "full":
@@ -462,6 +463,7 @@ def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos
     cfg = model.cfg
     e, n = cfg.attn_every, cfg.n_layers
     conv, ssm = [], []
+    shared = _shared_block(model)
     for i, layer in enumerate(model.layers):
         st = (states[0][i], states[1][i]) if states is not None else None
         x, ns = _layer(layer, _sub(view, f"layers.{i}."), remat, x, qcfg, fold_in(key, i), st,
@@ -474,10 +476,28 @@ def _hybrid(model: LM, x, qcfg, key, *, states=None, attn_caches=None, cache_pos
             si -= 1
             cache = ((attn_caches[0][si], attn_caches[1][si])
                      if attn_caches is not None else None)
-            x = _layer(model.shared_attn, _sub(view, "shared_attn."), "none", x, qcfg,
+            x = _layer(shared, _sub(view, "shared_attn."), "none", x, qcfg,
                        fold_in(key, 10_000 + si), cache=cache, cache_pos=cache_pos,
                        kv_valid=kv_valid, positions=positions, window=window, seq=seq)
+    if shared is not model.shared_attn and not torch.is_grad_enabled():
+        model.shared_attn.reshard()  # no backward will
     return x, ((torch.stack(conv), torch.stack(ssm)) if states is not None else None)
+
+
+def _shared_block(model: LM):
+    """The hybrid's shared block as its uses call it.  In an FSDP2 group of
+    its own (``shard_model`` under the 2-byte gather) its parameters are
+    gathered here, once, and its forward runs without FSDP2's hooks: its
+    uses then add their bf16 gradients before the one reduce-scatter of
+    the root's post-backward, as the uses of its one bf16 cast do on one
+    device (FSDP2's hooks would reduce after each use's backward)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    block = model.shared_attn
+    if not isinstance(block, FSDPModule):
+        return block
+    block.unshard()
+    return block.forward
 
 
 # ===========================================================================
@@ -490,14 +510,22 @@ def gather_view(model: LM) -> dict[str, torch.Tensor] | None:
     float32.  The fp32 masters stay the parameters (and get the
     gradients, through the cast): in the JAX package the cast lets FSDP
     gather 2-byte weights; on one card it changes only the numbers the
-    layers see."""
+    layers see.  Under FSDP2 (``launch.train.shard_model``) a layer
+    parameter is a ``DTensor`` that FSDP2 gathers in that dtype already (its
+    mixed-precision policy) or that is gathered as codes after the same
+    rounding (``parallel.fsdp_wire``): it is not cast twice, and a view
+    left empty is None."""
+    from torch.distributed.tensor import DTensor
+
     cfg = model.cfg
     if cfg.param_gather_dtype == "float32":
         return None
     dt = torch_dtype(cfg.param_gather_dtype)
-    return {name: (p.to(dt) if p.dtype == torch.float32 else p)
+    view = {name: (p.to(dt) if p.dtype == torch.float32 else p)
             for name, p in model.named_parameters()
-            if name.startswith(("layers.", "enc_layers.", "shared_attn."))}
+            if name.startswith(("layers.", "enc_layers.", "shared_attn."))
+            and not isinstance(p, DTensor)}
+    return view or None
 
 
 def lm_loss(model: LM, batch: dict, key: int | None = None
@@ -510,6 +538,11 @@ def lm_loss(model: LM, batch: dict, key: int | None = None
     the MoE layers' mean load-balance loss (0 for the other families).
     ``cfg.qcfg()`` quantizes the linears, rounding stochastically from
     ``key`` (to nearest when it is None)."""
+    with wire_scope(model):  # under packed_wire: a weight's uses share one gather proxy
+        return _lm_loss(model, batch, key)
+
+
+def _lm_loss(model: LM, batch: dict, key: int | None):
     cfg = model.cfg
     if cfg.remat not in REMATS:
         raise ValueError(f"remat {cfg.remat!r}: expected one of {REMATS}")

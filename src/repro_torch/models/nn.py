@@ -40,6 +40,7 @@ from repro_torch.core.lowbit import (
     lowbit_matmul,
 )
 from repro_torch.kernels.lowbit_conv import lowbit_conv_fused, lowbit_matmul_qd
+from repro_torch.parallel.fsdp_wire import WireShard
 
 __all__ = [
     "Linear",
@@ -94,7 +95,8 @@ def ew_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def linear(x, w, b=None, qcfg: QuantConfig | None = None, key=None,
-           wire: int | None = None, split: LinearSplit | None = None) -> torch.Tensor:
+           wire: int | WireShard | None = None,
+           split: LinearSplit | None = None) -> torch.Tensor:
     """``x (..., d_in) @ w (d_in, d_out)`` -> fp32; the bias is added in
     fp32.  Unquantized, ``w`` is first rounded to ``x``'s dtype and the
     products summed in fp32, as the JAX package's ``dot_general`` with
@@ -106,12 +108,22 @@ def linear(x, w, b=None, qcfg: QuantConfig | None = None, key=None,
     already and ignores it, as the JAX package's does.  ``split``: ``x``,
     ``w`` (and the error) are this rank's shards of a tensor-parallel
     linear, quantized as slices of the unsharded operands (the result is
-    this rank's outputs or partial sums; ``parallel.tensor.TPLinear``)."""
+    this rank's outputs or partial sums; ``parallel.tensor.TPLinear``).
+    A :class:`~repro_torch.parallel.fsdp_wire.WireShard` as ``wire``: the
+    weight is held sharded over the data axis and ``w`` is its gather
+    proxy; the fake-quant backend gathers it as packed codes, and any
+    other path raises."""
     _trace("fc", d_in=w.shape[0], d_out=w.shape[1], rows=x.numel() // x.shape[-1],
            quantized=_quantized(qcfg))
+    packed = isinstance(wire, WireShard)
+    if packed and not (_quantized(qcfg) and qcfg.backend == "fake_quant"):
+        raise ValueError("a weight held sharded over the data axis is gathered as packed "
+                         "codes, on the fake-quant backend only")
     if _quantized(qcfg):
         tp = {} if split is None else {"split": split}
-        if qcfg.backend == "quantized":
+        if packed:
+            y = lowbit_matmul(x, w, key, qcfg, wire=wire, **tp)
+        elif qcfg.backend == "quantized":
             y = lowbit_matmul_qd(x, w.float(), key, qcfg, **tp)
         else:
             if wire is not None and qcfg.wire_fsdp_dim != wire:
@@ -139,13 +151,17 @@ class Linear(nn.Module):
     ``seq`` (a ``parallel.tensor.SeqShard``) says that its output lies on
     this rank's tokens: a row-parallel linear reduce-scatters its sums to
     them, and a whole one runs on them (its input the rank's tokens, its
-    quantized operands token slices, ``SeqShard.split``)."""
+    quantized operands token slices, ``SeqShard.split``).  Under FSDP with
+    ``packed_wire``, ``wire`` (a ``parallel.fsdp_wire.WireShard``) says that
+    ``w`` is held sharded over the data axis and gathered as packed codes
+    at each call; None: FSDP2 gathers it, or it is whole."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = False):
         super().__init__()
         self.w = nn.Parameter(torch.empty(d_in, d_out))
         self.b = nn.Parameter(torch.zeros(d_out)) if bias else None
         self.tp = None
+        self.wire = None
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator, std: float | None = None) -> None:
@@ -162,9 +178,12 @@ class Linear(nn.Module):
 
     def forward(self, x, qcfg: QuantConfig | None = None, key=None,
                 wire: int | None = None, seq=None) -> torch.Tensor:
+        w = self.w
+        if self.wire is not None:
+            wire, w = self.wire.at(wire), self.wire.proxy()
         if self.tp is not None:
-            return self.tp(linear, x, self.w, self.b, qcfg, key, wire, seq)
-        return linear(x, self.w, self.b, qcfg, key, wire, None if seq is None else seq.split())
+            return self.tp(linear, x, w, self.b, qcfg, key, wire, seq)
+        return linear(x, w, self.b, qcfg, key, wire, None if seq is None else seq.split())
 
 
 def conv2d(x, w, stride=1, padding="SAME", qcfg: QuantConfig | None = None,

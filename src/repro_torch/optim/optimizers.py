@@ -67,15 +67,19 @@ def clip_by_global_norm(grads: Params, max_norm: float,
     ``model_sharded``, ``(names, reduce_model)``: the gradients of ``names``
     are shards over a tensor-parallel group, whose squared norm
     ``reduce_model`` sums over it; the others are whole on every rank of
-    that group and count once."""
-    sq = {k: torch.sum(torch.square(g.float())) for k, g in grads.items()}
+    that group and count once.  The fp32 squares are summed in fp64 (good
+    to about 1e-16) and the norm rounded to fp32, so that it does not
+    depend on how the elements lie over the ranks (FSDP2 shards a weight's
+    dim 0, ``parallel.fsdp_wire`` its wire dim), which an fp32 sum's last
+    bit does."""
+    sq = {k: torch.sum(torch.square(g.float()), dtype=torch.float64) for k, g in grads.items()}
     if model_sharded is None:
         total = _sum(list(sq.values()))
     else:
         names, reduce_model = model_sharded
         total = (reduce_model(_sum([v for k, v in sq.items() if k in names]))
                  + _sum([v for k, v in sq.items() if k not in names]))
-    gn = torch.sqrt(reduce(total) if reduce is not None else total)
+    gn = torch.sqrt(reduce(total) if reduce is not None else total).float()
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return {k: g.mul_(scale) for k, g in grads.items()}, gn
 

@@ -1,8 +1,9 @@
 """Data and model parallelism of the port: logical-axis sharding rules on a
 ``DeviceMesh`` (:mod:`.sharding`), the parameter, batch and cache layouts
 (:mod:`.specs`), the MLS-compressed cross-pod gradient ring
-(:mod:`.compress`) and the dense family's tensor parallelism over the
-``model`` axis (:mod:`.tensor`), over ``torch.distributed``."""
+(:mod:`.compress`), tensor parallelism over the ``model`` axis
+(:mod:`.tensor`) and FSDP's 1-byte weight gather (:mod:`.fsdp_wire`),
+over ``torch.distributed``."""
 from .sharding import (
     DEFAULT_RULES,
     SP_RULES,

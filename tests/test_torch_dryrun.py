@@ -43,6 +43,11 @@ with rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
   ``"refused"`` with its message, at train_4k and at decode_32k; a serve
   cell ``"ran"``, and yi-34b's prefill on both meshes (refused before its
   query heads split unevenly).
+- **FSDP wire formats** (``cfg_updates`` of ``param_gather_dtype=
+  "bfloat16"``, ``packed_wire``, both): a small cell's all-gather bytes are
+  DEFAULT's less the closed-form saving (bf16 halves each layer group's
+  two gathers; a pinned weight moves once as 1-byte codes and 4-byte group
+  scales instead of twice as fp32), the reduce-scatters unchanged.
 - **Sequence parallelism** (``seq_shard=True``, ``SP_RULES``): chatglm3-6b's
   train_4k cell at two layers takes JAX's ``choose_microbatch(...,
   seq_shard=True)``, records ``"rules": "sp"`` and holds fewer activation
@@ -349,6 +354,49 @@ def test_wire_bytes_of_a_two_layer_toy_are_the_ring_formulas():
                                   "model": 2 * act + 60.0}
     assert hlo["coll_bytes"] == sum(want.values())
     assert hlo["dot_flops"] == 2 * 3 * 2 * rows * d * d  # 2 linears: forward, dx, dW
+
+
+WIRE_LEVERS = {"bf16": {"param_gather_dtype": "bfloat16"}, "packed": {"packed_wire": True},
+               "both": {"param_gather_dtype": "bfloat16", "packed_wire": True}}
+
+
+def test_wire_levers_cut_the_all_gathers_by_the_closed_form():
+    """chatglm3-6b's smoke config (fake-quant, remat "none") traced over 4
+    data ranks under each FSDP wire format: each layer's FSDP2 group is
+    gathered twice (forward, and again for the backward), at 2 B an element
+    under bf16; a pinned weight leaves it and moves once, 1 B an element and
+    4 B a gathered group (``fsdp_wire.wire_bytes``); the reduce-scatters
+    stay fp32, unchanged."""
+    from repro_torch.parallel.fsdp_wire import wire_bytes, wire_plan
+
+    data, base = 4, configs.get_smoke_config("chatglm3-6b")
+    shapes = {k: tuple(t.shape) for k, t in abstract_params(base).items()}
+    packed = dataclasses.replace(base, packed_wire=True)
+    pinned, wire = wire_plan(packed, shapes, data)[0], wire_bytes(packed, shapes, data)
+
+    def gathers(names):  # two fp32 gathers of FSDP2's dim-0-padded shards, (g-1)/g
+        return 2 * 4 * (data - 1) / data * sum(
+            -(-shapes[k][0] // data) * data * math.prod(shapes[k][1:]) for k in names)
+
+    layers = gathers([k for k in shapes if k.startswith("layers.")])
+    masters = gathers(pinned)
+    counted = {}
+    with dryrun.fake_world(data):
+        mesh = make_mesh((data, 1), ("data", "model"), "cpu")
+        for lever, upd in (("default", {}), *WIRE_LEVERS.items()):
+            cfg = dataclasses.replace(base, **upd)
+            counted[lever] = dryrun.trace_step(cfg, 8, 32, 0, mesh, "cpu")["hlo"]["coll_breakdown"]
+    dflt = counted["default"]["all-gather"]
+    codes = wire["codes"] + wire["scales"]
+    want = {"bf16": dflt - layers / 2, "packed": dflt - masters + codes,
+            "both": dflt - (layers - masters) / 2 - masters + codes}
+    for lever in WIRE_LEVERS:
+        got = counted[lever]
+        assert got["all-gather"] == pytest.approx(want[lever], rel=1e-12), lever
+        assert got["reduce-scatter"] == counted["default"]["reduce-scatter"], lever
+        assert got.get("all-gather:u8", 0) == (wire["codes"] if WIRE_LEVERS[lever].get(
+            "packed_wire") else 0)
+    assert counted["bf16"]["all-gather:bf16"] == layers / 2 and wire["codes"] > 0
 
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "mamba2-370m"])

@@ -212,7 +212,14 @@ def test_launcher_hsdp_steps_match_microbatch_steps_and_pods_agree(hsdp):
 def test_launcher_refuses_tensor_parallelism_and_multi_pod_without_a_world(monkeypatch):
     """A model axis or --multi-pod without a world raises, for every family
     (each trains tensor-parallel under torchrun); a 2-byte parameter gather
-    under FSDP2 is not ported and raises, naming ROADMAP."""
+    under FSDP2 is laid out (on a fake world of 2 pods x 2 data): every
+    layer's group gathers bf16, the root's (embeddings, head, final norm)
+    fp32."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     argv = ["--arch", "chatglm3-6b", "--smoke", "--device", "cpu", "--steps", "1"]
     other = ["--arch", "moonshot-v1-16b-a3b"] + argv[2:]
@@ -220,9 +227,19 @@ def test_launcher_refuses_tensor_parallelism_and_multi_pod_without_a_world(monke
         launcher.main(other + ["--multi-pod", "--model-axis", "2"])
     bf16 = dataclasses.replace(configs.get_smoke_config("moonshot-v1-16b-a3b"),
                                param_gather_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launcher.shard_model(lm.init_lm(bf16, device="cpu"),
-                             MeshShape(launcher.MESH_AXES, (2, 2, 2)))
+    with dryrun.fake_world(4):
+        model = launcher.shard_model(lm.init_lm(bf16, device="cpu"),
+                                     make_mesh((2, 2, 1), launcher.MESH_AXES, "cpu"))
+        assert all(isinstance(p, DTensor) and p.dtype == torch.float32
+                   for p in model.parameters())
+        for layer in model.layers:
+            layer.unshard()
+            assert {p.dtype for p in layer.parameters()} == {torch.bfloat16}
+            layer.reshard()
+        model.unshard()
+        assert {p.dtype for k, p in model.named_parameters()
+                if not k.startswith("layers.")} == {torch.float32}
+        model.reshard()
     with pytest.raises(ValueError, match="torchrun"):
         launcher.main(argv + ["--multi-pod"])
     with pytest.raises(ValueError, match="torchrun"):

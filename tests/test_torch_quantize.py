@@ -1,6 +1,9 @@
 """The port's MLS quantization (repro_torch.core / kernels.mls_quantize on
 the CPU, i.e. the plain versions of the CUDA kernels) against the JAX
-package: bit-exact on codes, group scales and tensor scales.
+package: bit-exact on codes, group scales and tensor scales; and
+``examples/torch_quickstart.py`` run with ``--device cpu``, its group-wise
+quantization bit for bit the JAX package's (``examples/quickstart.py``'s
+first step) on the same tensor.
 
 Inputs and uint8 rounding bytes are made with numpy from a seed and fed to
 both packages.  One documented difference: ``jnp.exp2`` on XLA's CPU
@@ -360,3 +363,19 @@ def test_k2_launch_specs_prove_at_full_width_shapes(shape):
     assert codes["blocks_written"] == codes["output_blocks"] and codes["max_writers"] == 1
     given = qmod.launch_spec_given_sg(M, K, kb, 0, args[3])
     assert verify_specs("given", [(given, 1)]).ok
+
+
+def test_quickstart_example_runs_on_the_cpu(capsys):
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out = example.main(["--device", "cpu"])
+    assert out["k1_identical"] and out["k3_identical"]
+    assert out["are"] < out["are_per_tensor"] and out["qd_rel_err"] < 0.1
+    want = jquantize.mls_quantize(jnp.asarray(out["x"].numpy()), jformats.FMT_IMAGENET,
+                                  jquantize.GroupSpec((1, 128))).dequant()
+    assert np.array_equal(np.asarray(want), out["unit"].numpy())
+    assert "bit-identical: True" in capsys.readouterr().out

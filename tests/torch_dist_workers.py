@@ -11,6 +11,7 @@ that worlds can run side by side.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 import socket
@@ -1296,3 +1297,112 @@ def sp4_worker(rank: int, world: int, jax_state):
             if case.startswith("attn_"):
                 res["attention"][(case, backend)] = _sp_attention_cases(cfg, tp, seq)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the FSDP wire formats: the 2-byte and the 1-byte weight gather
+# ---------------------------------------------------------------------------
+WIRE_KEY = 7
+# (arch, backend, levers): the 2-byte gather against one process
+WIRE_BF16_CASES = tuple((arch, backend, "bf16") for arch in ("chatglm3-6b", "zamba2-7b",
+                                                            "seamless-m4t-medium")
+                        for backend in ("fake_quant", "pallas"))
+# the 1-byte gather: packed against unpacked, each without and with bf16;
+# mamba2-370m widened (d_model 256) so that its in_proj's data slice holds
+# whole scaling groups (16-wide, 16 of them), the smoke configs' 64-wide
+# in-projections one group spanning the split
+WIRE_PACKED_CASES = (("chatglm3-6b", "fake_quant", "packed"), ("chatglm3-6b", "fake_quant", ""),
+                     ("mamba2-370m", "fake_quant", "packed"), ("mamba2-370m", "fake_quant", ""),
+                     ("zamba2-7b", "fake_quant", "packed"), ("zamba2-7b", "fake_quant", ""),
+                     ("chatglm3-6b", "fake_quant", "packed+bf16"))
+WIRE_LEVERS = {"": {}, "bf16": {"param_gather_dtype": "bfloat16"},
+               "packed": {"packed_wire": True},
+               "packed+bf16": {"packed_wire": True, "param_gather_dtype": "bfloat16"}}
+
+
+def wire_config(arch: str, backend: str, levers: str):
+    """The smoke config of ``arch`` on ``backend`` with ``levers`` on
+    (:data:`WIRE_LEVERS`); mamba2-370m widened to ``TP_SMOKE_SSM``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import TP_SMOKE_SSM
+
+    cfg = get_smoke_config(arch)
+    if arch == "mamba2-370m":
+        cfg = dataclasses.replace(cfg, **TP_SMOKE_SSM)
+    return dataclasses.replace(cfg, quant_backend=backend, **WIRE_LEVERS[levers])
+
+
+def _wire_case(cfg, mesh, counted: bool) -> dict:
+    """One loss's gradients (full tensors) on this rank's slice of the first
+    global batch, then two steps of the launcher's train step (no
+    accumulation) from the same start: the global losses, the parameters
+    after them (full and this rank's shards); ``counted``: the loss and its
+    backward under ``trace_counts.StepCounter`` (wire bytes by op and
+    payload dtype)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, RunConfig
+    from repro_torch.launch import train
+    from repro_torch.launch.trace_counts import StepCounter, mesh_dims
+    from repro_torch.models import lm
+    from repro_torch.train import make_train_step
+
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TP_BATCH, seq_len=TP_SEQ)
+    step, init = make_train_step(RunConfig(model=cfg, shape=shape, microbatch=0))
+    model = train.shard_model(lm.init_lm(cfg, seed=0, device="cpu"), mesh)
+    data = tp_batches(cfg)
+    first = next(tp_batches(cfg))
+    counter = StepCounter(mesh_dims(mesh))
+    with counter if counted else contextlib.nullcontext():
+        loss, _ = model.loss(train.local_batch(first, mesh), WIRE_KEY)
+        loss.backward()
+    res = {"coord": tuple(mesh.get_coordinate()), "loss": loss.detach(),
+           "grads": {k: p.grad.full_tensor() for k, p in model.named_parameters()},
+           "wire": counter.hlo()["coll_breakdown"] if counted else None,
+           "pinned": sorted(k for k, m in model.named_modules()
+                            if getattr(m, "wire", None) is not None)}
+    opt = init(model)
+    losses = []
+    for _ in range(2):
+        model, opt, m = step(model, opt, train.local_batch(next(data), mesh))
+        loss = m["loss"].detach().clone()
+        dist.all_reduce(loss)
+        losses.append(loss.item() / dist.get_world_size())
+    res.update(losses=losses,
+               params={k: p.full_tensor() for k, p in model.named_parameters()},
+               local={k: p.to_local().clone() for k, p in model.named_parameters()})
+    return res
+
+
+def _wire_gather_case(mesh) -> dict:
+    """A weight of chatglm3-6b's smoke config gathered as codes over the data
+    group, at nearest rounding: this rank's slice and the gathered unit
+    values and tensor scale, beside the slice's bounds."""
+    from repro_torch.core.lowbit import QuantConfig, Sharded, quantize_operand
+
+    cfg = QuantConfig(packed_wire=True, shard_ways=16, backend="fake_quant")
+    w = torch.randn(256, 96, generator=torch.Generator().manual_seed(5))
+    d, r = mesh.size(mesh.mesh_dim_names.index("data")), mesh.get_local_rank("data")
+    out = {}
+    for dim in (0, 1):
+        n = w.shape[dim] // d
+        sh = Sharded(dim, ((r * n, (r + 1) * n),), w.shape[dim], mesh.get_group("data"))
+        spec = cfg.matmul_specs((1, 256), tuple(w.shape))[1]
+        unit, s_t = quantize_operand(w.narrow(dim, r * n, n), cfg, spec, None, 1,
+                                     wire_shard=sh)
+        out[dim] = (unit, s_t)
+    return {"w": w, "gathered": out}
+
+
+def wire_worker(rank: int, world: int, cases):
+    """World 4, 2 pods x 2 data: :func:`_wire_case` of each ``(arch,
+    backend, levers)`` case (the packed chatglm3-6b one and its unpacked
+    twin counted), and the gather of one weight."""
+    from repro_torch.launch import train
+
+    mesh = train.hsdp_mesh(world, multi_pod=True, device_type="cpu")
+    out = {case: _wire_case(wire_config(*case), mesh, case[0] == "chatglm3-6b"
+                            and case[2] in ("", "packed"))
+           for case in cases}
+    out["gather"] = _wire_gather_case(mesh)
+    return out
