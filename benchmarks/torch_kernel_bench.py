@@ -50,7 +50,8 @@ DEVICE_KERNELS = {
     "mls_quantize_rows": ("quantize_amax", "quantize_groups_warp", "quantize_groups_block"),
     "mls_quantize_given_sg": ("quantize_cols_amax", "quantize_cols_reduce", "quantize_scales",
                               "quantize_codes", "quantize_amax"),
-    "mls_matmul": ("mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum"),
+    "mls_matmul": ("mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum", "mls_matmul_decode",
+                   "mls_matmul_wgmma"),
     "implicit_conv": ("conv_amax", "implicit_conv_kernel", "conv_win_amax", "conv_chan_amax",
                       "conv_group_reduce", "conv_chan_scales", "quantize_amax",
                       "quantize_groups_warp", "quantize_groups_block", "quantize_cols",

@@ -14,8 +14,9 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 K3 at the weight gradients of all three stages, the
                 stage-1 and stage-3 forwards, the stage-3 data gradient, a
                 ragged shape and k_block 144, four groupings, on the plan
-                matmul_plan picks and on the other variant (walk / ordered
-                split); <3,1> on the int32 body.  K2 ("c", "none") also at
+                matmul_plan picks and on every other variant it accepts
+                (k3_plans: walk, ordered split, wgmma where k_block is a
+                multiple of 128); <3,1> on the int32 body.  K2 ("c", "none") also at
                 the implicit "none" path's (N*C*Hp, Wp) = (69632, 34)
                 operand, its code pass alone there, and an all-zero
                 operand.  The implicit conv (K4) runs at its stage-1,
@@ -27,7 +28,7 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 is held to the im2col route too and timed beside it ("c"
                 and "n" also beside the PyTorch glue that made their
                 scales before).  K1 ("nc", "n") on both operands and K3
-                (both plans) of the three GEMMs of four zoo convs at the
+                (every plan) of the three GEMMs of four zoo convs at the
                 zoo phase's shapes (ZOO_CONVS: ResNet-18's stage-1 3x3,
                 ResNet-34's stage-4 3x3, GoogleNet's 4b 3x3, VGG-16's
                 last 3x3).  K1 ("nc", "n") and K4 (four groupings) with a
@@ -128,7 +129,7 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 168 / 336 per prefill on seamless); prefill ms, decode ms
                 per step (median) and tokens/s, one decode step traced
                 (device busy, idle share, K1 and K3 ms, the routed experts'
-                fake-quant ms), peak memory.  K1 and K3 (both plans) held
+                fake-quant ms), peak memory.  K1 and K3 (every plan) held
                 bit-identical to their plain versions at the serving GEMMs
                 (serve_gemms: SERVE_GEMMS and the new models' distinct
                 shapes at decode and prefill) and the decode ones timed;
@@ -168,12 +169,17 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 and peak memory of each);
                 mamba2-370m checkpointed after step 2 on the card, restored
                 on the card, its step 3 bit-identical to the uninterrupted
-                one.  K1 (stochastic, given bytes) and K3 (both plans)
-                bit-identical to their plain versions at every distinct
+                one.  K1 (stochastic, given bytes) and K3 (every plan it
+                accepts: walk, ordered split, wgmma) bit-identical to
+                their plain versions at every distinct
                 training GEMM of the five models (forward, data and weight
                 gradient of each quantized linear at the run's T:
-                lm_train_gemms), chatglm3-6b's nine timed, with
-                the weight gradient's transposed copies; each step's time
+                lm_train_gemms), chatglm3-6b's nine timed on every plan and
+                beside torch._int_mm on the decoded int8 operands (the
+                int8 dot alone, not K3's function), with the weight
+                gradient's transposed copies; K3's launches of each run by
+                plan variant, chatglm3-6b's and zamba2-7b's required to
+                include the wgmma variant; each step's time
                 is train_step alone, its batch drawn and timed before it;
                 the smoke configs' lm_loss and gradients
                 (key None) on the card against the CPU (LM_TRAIN_AGREE),
@@ -276,7 +282,7 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 moonshot-v1-16b-a3b's and seamless-m4t-medium's rank GEMMs
                 and at yi-34b's model-16 rank-0 and rank-15 wq and wo
                 (TP_K1_SHAPES, TP_K3_SHAPES) bit for bit mls_matmul_ref's
-                on both plans, timed beside its bound (int8 ops or bytes,
+                on every plan, timed beside its bound (int8 ops or bytes,
                 the larger).  Then the
                 main paths (TP_PATHS; counts set to 0 just before each
                 step, read just after, in each rank): chatglm3-6b at full
@@ -388,7 +394,10 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 sequences the step split.  K1's split entries and K3 also
                 at seamless's token slices (x (128, 1024), x^T (1024,
                 128); 128 x 1024 x 1024, 1024 x 128 x 1024).
-The line before the last is {"kernels": [...]}: each kernel's `launches`
+The line before the last is {"kernels": [...]}: K3's entry also carries
+`wgmma`, its wgmma variant at chatglm3-6b's w_up forward (8192 x 4096 x
+13696: ms, kernel ms, the walk's beside it, int_mm_ms, the bound) and its
+launches in each lm_train run.  Each kernel's `launches`
 are its count on the training path (phase train; K5's in the audit's
 overlap_write run; K1's split entries' on the tensor phase's main path),
 `serve_launches` its count per model of the serve phase,
@@ -441,7 +450,8 @@ DEVICE_KERNELS = {"mls_quantize_rows": ("quantize_amax", "quantize_groups_warp",
                   "mls_quantize_given_sg": ("quantize_cols_amax", "quantize_cols_reduce",
                                             "quantize_scales", "quantize_codes",
                                             "quantize_amax"),
-                  "mls_matmul": ("mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum"),
+                  "mls_matmul": ("mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum",
+                                 "mls_matmul_decode", "mls_matmul_wgmma"),
                   "implicit_conv": ("conv_amax", "implicit_conv_kernel", "conv_scale",
                                     "conv_win_amax", "conv_chan_amax", "conv_group_reduce",
                                     "conv_chan_scales")}
@@ -560,6 +570,58 @@ def quantize_operand(rows: int, cols: int, pad_to: int, gen):
     return x
 
 
+def k3_plans(M: int, N: int, K: int, kb: int, fmt) -> list:
+    """K3's plans at an (M, K) @ (K, N) GEMM: the one matmul_plan picks,
+    then every other variant _checked_plan accepts (the walk and the
+    ordered split at the narrowest tile width that holds N, the wgmma
+    variant at its 128)."""
+    from repro_torch.kernels.mls_matmul import WGMMA_BN, MatmulPlan, _checked_plan, matmul_plan
+
+    plan = matmul_plan(M, N, K, kb, fmt)
+    body = "int8" if fmt.max_fraction <= 127 else "int32"
+    bn = 16 if N <= 16 else 32 if N <= 32 else 64
+    plans = [plan]
+    for variant, width in (("walk", bn), ("split", bn), ("wgmma", WGMMA_BN)):
+        try:
+            p = _checked_plan(MatmulPlan(variant, body, width, 0), M, N, K, kb, fmt)
+        except ValueError:
+            continue
+        if p.variant != plan.variant:
+            plans.append(p)
+    return plans
+
+
+def k3_times(args, grouping: str, plans: list) -> dict:
+    """The walk and the wgmma variant, where they are among the plans after
+    the first, timed beside it (CUDA events, and the kernels alone; an
+    ordered split that is not the first is not timed: at the LM shapes it
+    takes up to 29 ms a call), and torch._int_mm on the decoded int8
+    operands as int_mm_ms: the int8 dot
+    alone over the whole of K, not K3's function (no group scales), a
+    yardstick that the port never calls (None where _int_mm refuses the
+    shape: M <= 16, or K or N not a multiple of 8)."""
+    import torch
+
+    from repro_torch.kernels import mls_matmul
+    from repro_torch.kernels.ref import decode_frac_int
+
+    run = lambda p: lambda: mls_matmul(*args, grouping, plan=p)  # noqa: E731
+    out = dict(plans_ms={}, plans_kernel_ms={})
+    for p in plans[1:]:
+        if p.variant == "split":
+            continue
+        out["plans_ms"][p.variant] = cuda_ms(run(p))
+        out["plans_kernel_ms"][p.variant] = kernel_ms(run(p), DEVICE_KERNELS["mls_matmul"])
+    xc, w_codes, fmt = args[0], args[3], args[6]
+    xd = decode_frac_int(xc, fmt).to(torch.int8)
+    wd = decode_frac_int(w_codes, fmt).to(torch.int8)
+    try:
+        out["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(xd, wd))
+    except RuntimeError:
+        out["int_mm_ms"] = None
+    return out
+
+
 def phase_kernels(results: dict) -> list[dict]:
     """Every kernel against its plain version at the main path's shapes."""
     import torch
@@ -617,8 +679,9 @@ def phase_kernels(results: dict) -> list[dict]:
                          bound_ms=max(bound_bytes, bound_ops),
                          bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                          max_abs_err=t["max_abs_err"]))
-        rows[-1].update({k: t[k] for k in ("im2col_ms", "kernel_ms", "plan", "other_plan",
-                                           "other_ms", "other_kernel_ms", "glue_ms") if k in t})
+        rows[-1].update({k: t[k] for k in ("im2col_ms", "kernel_ms", "plan", "plans_ms",
+                                           "plans_kernel_ms", "int_mm_ms", "glue_ms")
+                         if k in t})
         print(json.dumps({"timing": rows[-1]}))
     results["kernel_times"] = rows
     bad = [c for c in checks if not c["identical"] or not c.get("equals_im2col", True)]
@@ -716,17 +779,19 @@ FMT_INT32 = (3, 1)  # fractions up to 192: K3's int32 body
 
 def matmul_checks(gen, timed: dict) -> list[dict]:
     """K3 against mls_matmul_ref at GEMM_SHAPES: four groupings at <2,4>
-    on the plan matmul_plan picks and on the other variant; <3,1> (the
-    int32 body) with grouping "nc" on both variants where k_block 128
-    allows it.  The "nc" <2,4> call of each shape is timed on both plans,
-    <3,1> at the stage-1 weight gradient."""
+    on the plan matmul_plan picks and on every other variant
+    _checked_plan accepts (k3_plans: walk, ordered split, wgmma where
+    k_block allows it); <3,1> (the int32 body) with grouping "nc" on the
+    walk and the split where k_block 128 allows it.  The "nc" <2,4> call
+    of each shape is timed on every plan, <3,1> at the stage-1 weight
+    gradient."""
     import dataclasses
 
     import torch
 
     from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT, EMFormat
     from repro_torch.kernels import mls_matmul, rounding_bytes
-    from repro_torch.kernels.mls_matmul import matmul_plan, sg_shapes
+    from repro_torch.kernels.mls_matmul import sg_shapes
     from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
 
     checks = []
@@ -743,11 +808,8 @@ def matmul_checks(gen, timed: dict) -> list[dict]:
                                          rounding_bytes(wt.shape, gen, wt.device), grouping)
             args = (xc, xsg, xst, wc.t(), wsgT.t(), wst, fmt, kb)
             want = mls_matmul_ref(*args)
-            plan = matmul_plan(M, N, K, kb, fmt)
-            plans = [plan]
-            if K // kb > 1:
-                plans.append(dataclasses.replace(
-                    plan, variant="walk" if plan.variant == "split" else "split"))
+            plans = k3_plans(M, N, K, kb, fmt)
+            plan = plans[0]
             for p in plans:
                 got = mls_matmul(*args, grouping, plan=p)
                 torch.cuda.synchronize()
@@ -770,10 +832,7 @@ def matmul_checks(gen, timed: dict) -> list[dict]:
                 ops=2 * M * N * K, max_abs_err=err, plan=dataclasses.asdict(plan),
                 shape=f"{'int32_' if fmt.max_fraction > 127 else ''}{sname} "
                       f"({M}x{K}x{N}) kb{kb} {grouping} {fmt}")
-            if len(plans) > 1:
-                row.update(other_plan=plans[1].variant, other_ms=cuda_ms(run(plans[1])),
-                           other_kernel_ms=kernel_ms(run(plans[1]),
-                                                     DEVICE_KERNELS["mls_matmul"]))
+            row.update(k3_times(args, grouping, plans))
             timed[("mls_matmul", sname, str(fmt), grouping)] = row
         del x, wt
     return checks
@@ -877,15 +936,16 @@ def zoo_checks(gen, timed: dict) -> list[dict]:
     zoo phase's sizes): for each of a conv's three GEMMs, K1 ("nc" and
     "n", <2,4>, stochastic rounding bytes) on both operands against
     quantize_ref, and K3 on those codes against mls_matmul_ref, on the plan
-    matmul_plan picks and on the other variant.  The "nc" calls are timed
-    (the plain versions on 3 calls: they take up to seconds here)."""
+    matmul_plan picks and on every other variant it accepts (k3_plans).
+    The "nc" calls are timed (the plain versions on 3 calls: they take up
+    to seconds here)."""
     import dataclasses
 
     import torch
 
     from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
     from repro_torch.kernels import mls_matmul, mls_quantize, rounding_bytes
-    from repro_torch.kernels.mls_matmul import matmul_plan, sg_shapes
+    from repro_torch.kernels.mls_matmul import sg_shapes
     from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
 
     fmt, kb = FMT_IMAGENET, K_BLOCK
@@ -922,11 +982,8 @@ def zoo_checks(gen, timed: dict) -> list[dict]:
                         shape=f"{sname} ({M}, {K}) {grouping} {fmt}")
                 args = (*qx, qw[0].t(), qw[1].t(), qw[2], fmt, kb)
                 want = mls_matmul_ref(*args)
-                plan = matmul_plan(M, N, K, kb, fmt)
-                plans = [plan]
-                if K // kb > 1:
-                    plans.append(dataclasses.replace(
-                        plan, variant="walk" if plan.variant == "split" else "split"))
+                plans = k3_plans(M, N, K, kb, fmt)
+                plan = plans[0]
                 for p in plans:
                     got = mls_matmul(*args, grouping, plan=p)
                     torch.cuda.synchronize()
@@ -1802,16 +1859,17 @@ def serve_gemms() -> dict[str, tuple]:
 def serve_kernel_checks(timed: dict) -> list[dict]:
     """K1 ("nc", <2,4>, nearest rounding: the serving path's) on both
     operands of each serve_gemms GEMM against quantize_ref, and K3 on those
-    codes against mls_matmul_ref on the plan matmul_plan picks and on the
-    other variant; the rows serve_gemms marks timed (the plain versions on
-    3 calls)."""
+    codes against mls_matmul_ref on the plan matmul_plan picks and on every
+    other variant it accepts (k3_plans); the rows serve_gemms marks timed
+    (the plain versions on 3 calls), each beside the other plans and
+    torch._int_mm (k3_times)."""
     import dataclasses
 
     import torch
 
     from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
     from repro_torch.kernels import mls_matmul, mls_quantize, rounding_bytes
-    from repro_torch.kernels.mls_matmul import matmul_plan, sg_shapes
+    from repro_torch.kernels.mls_matmul import sg_shapes
     from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
 
     fmt, kb = FMT_IMAGENET, K_BLOCK
@@ -1847,12 +1905,13 @@ def serve_kernel_checks(timed: dict) -> list[dict]:
         (xc, xsg, xst), (wc, wsg, wst) = coded["x"], coded["w^T"]
         args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, kb)
         want = mls_matmul_ref(*args)
-        plan = matmul_plan(M, N, K, kb, fmt)
-        plans = [plan, dataclasses.replace(plan, variant="walk" if plan.variant == "split"
-                                           else "split")]
+        plans = k3_plans(M, N, K, kb, fmt)
+        plan = plans[0]
+        errs = []
         for p in plans:
             got = mls_matmul(*args, "nc", plan=p)
             torch.cuda.synchronize()
+            errs.append(max_abs_err(got, want))
             checks.append(dict(kernel="mls_matmul", shape=f"serve {sname}", mkn=(M, K, N),
                                plan=dataclasses.asdict(p), chosen=p == plan,
                                identical=torch.equal(got, want),
@@ -1864,11 +1923,10 @@ def serve_kernel_checks(timed: dict) -> list[dict]:
             timed[("mls_matmul", sname)] = dict(
                 ms=cuda_ms(run(plan)),
                 kernel_ms=kernel_ms(run(plan), DEVICE_KERNELS["mls_matmul"]),
-                other_plan=plans[1].variant, other_ms=cuda_ms(run(plans[1])),
-                other_kernel_ms=kernel_ms(run(plans[1]), DEVICE_KERNELS["mls_matmul"]),
+                **k3_times(args, "nc", plans),
                 plain_ms=cuda_ms(lambda: mls_matmul_ref(*args), iters=3, warmup=1),
                 bytes=M * K + K * N + 4 * (math.prod(xs_shape) + math.prod(ws_shape))
-                + 4 * M * N + 8, ops=2 * M * N * K, max_abs_err=checks[-2]["max_abs_err"],
+                + 4 * M * N + 8, ops=2 * M * N * K, max_abs_err=errs[0],
                 plan=dataclasses.asdict(plan),
                 shape=f"serve {sname} ({M}x{K}x{N}) {plan.variant}")
         del x, wt, coded, args, want, got
@@ -2251,6 +2309,7 @@ def lm_train_model(name: str, smi: str) -> dict:
             step3 = (losses[-1], {k: p.detach().clone() for k, p in params.items()})
     torch.cuda.synchronize()
     launched = launch_counts()
+    k3_variants = k3_launches_by_variant()
     # the steps' peak, and what the run holds beside them there: the watched
     # weights' copies and, from step 3 on, the checkpointed model's
     steps_peak = torch.cuda.max_memory_allocated()
@@ -2266,8 +2325,8 @@ def lm_train_model(name: str, smi: str) -> dict:
              grad_norms=gnorms, lrs=lrs, steps_ms=steps_ms, data_ms=data_ms,
              median_step_ms=statistics.median(steps_ms[1:]), launches_per_step=per_step,
              steps_peak_memory_bytes=steps_peak, held_beside_steps_bytes=held_bytes,
-             expected_per_step=want, launches=launched, weights_moved=moved, trace=trace,
-             nvidia_smi=smi)
+             expected_per_step=want, launches=launched, k3_variants=k3_variants,
+             weights_moved=moved, trace=trace, nvidia_smi=smi)
     if name == "chatglm3-6b":  # the same run, one step at microbatch 2
         mb_fn, _ = make_train_step(dataclasses.replace(run, microbatch=2))
         before = launch_counts()
@@ -2282,6 +2341,9 @@ def lm_train_model(name: str, smi: str) -> dict:
         r["remat_dots"] = remat_dots_vs_full(model, next(data))
         if not r["remat_dots"]["same_bits"]:
             bad.append(f"remat dots differs from full: {r['remat_dots']}")
+        model, opt, r["k3_walk_vs_wgmma"] = walk_vs_wgmma_steps(step_fn, model, opt, data, cfg)
+        print(f"lm_train {name}: train_step with K3 on the walk / its default plans (wgmma): "
+              f"{json.dumps(r['k3_walk_vs_wgmma'])}")
     r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     del model, opt, params, before_run, m
     torch.cuda.empty_cache()
@@ -2310,7 +2372,8 @@ def lm_train_model(name: str, smi: str) -> dict:
           f"{[round(t, 2) for t in data_ms]} ms before them), device busy "
           f"{trace['device_ms']:.1f} ms of {trace['host_ms_under_profiler']:.1f} (idle "
           f"{trace['device_idle_share']:.3f}), K1 {trace['k1_ms']:.1f} ms, K3 "
-          f"{trace['k3_ms']:.1f} ms, copies {trace['copy_ms']:.1f} ms, experts' fake-quant "
+          f"{trace['k3_ms']:.1f} ms (launches by variant {k3_variants}), copies "
+          f"{trace['copy_ms']:.1f} ms, experts' fake-quant "
           f"{trace['experts_ms']:.1f} ms, peak "
           f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches per step {per_step[0]}; "
           f"reduced: {r['cut']}")
@@ -2320,11 +2383,45 @@ def lm_train_model(name: str, smi: str) -> dict:
         bad.append(f"weights moved {moved}: expected none after step 1 (lr 0), all after 2")
     if any(p != want for p in per_step):
         bad.append(f"launches per step {per_step}, expected {want}")
+    if name in LM_TRAIN_WGMMA and not k3_variants.get("wgmma"):
+        bad.append(f"K3 never ran its wgmma variant: {k3_variants}")
     if {k: launched[k] for k in want} != {k: v * LM_TRAIN_STEPS for k, v in want.items()}:
         bad.append(f"the run launched {launched}, expected {want} x {LM_TRAIN_STEPS}")
     if bad:
         raise AssertionError(f"{name}: " + "; ".join(bad))
     return r
+
+
+def walk_vs_wgmma_steps(step_fn, model, opt, data, cfg) -> tuple:
+    """train_step (alone, its batch drawn first) with K3 on the walk at every
+    GEMM of the step (the seed tile cache with each of the step's gemm keys
+    set to the walk) and on the plans it resolves by default (the wgmma
+    variant), in turns walk, default, default, walk: K3's wgmma variant's
+    share of the step, measured in one call.  Returns the model, the
+    optimizer and {"walk_ms", "default_ms"}."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import autotune as at
+
+    qcfg = dataclasses.replace(cfg, quant_backend="pallas").qcfg()
+    walk = at.TuneCache(device=at.device_name("cuda"))
+    walk.entries = dict(at.get_cache().entries)
+    for label, (M, K, N, _) in lm_train_gemms().items():
+        if label.startswith(cfg.name + " "):
+            walk.put(at.TuneSpec("gemm", (M, K, N), qcfg.fmt, qcfg.k_block, qcfg.grouping),
+                     at.BlockConfig("walk", 16 if N <= 16 else 32 if N <= 32 else 64), 0.0)
+    out = {"walk_ms": [], "default_ms": []}
+    for which in ("walk", "default", "default", "walk"):
+        inputs = next(data)
+        with at.override_cache(walk) if which == "walk" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, _ = step_fn(model, opt, inputs)
+            torch.cuda.synchronize()
+        out[f"{which}_ms"].append((time.perf_counter() - t0) * 1e3)
+    return model, opt, out
 
 
 def remat_dots_vs_full(model, batch: dict) -> dict:
@@ -2370,6 +2467,21 @@ def remat_dots_vs_full(model, batch: dict) -> dict:
 # the tokens (T/128 scaling groups) with both operands transposed copies in
 # qd_gemm.  The rows of LM_TRAIN_TIMED are also timed.
 LM_TRAIN_TIMED = "chatglm3-6b"
+# the models whose training step must run K3's wgmma variant (the seed tile
+# cache and matmul_plan pick it at their large GEMMs)
+LM_TRAIN_WGMMA = ("chatglm3-6b", "zamba2-7b")
+
+
+def k3_launches_by_variant() -> dict[str, int]:
+    """K3's launches on the card since the last reset, by plan variant
+    (from the launch records: the plan is one of each record's arguments)."""
+    from repro_torch.kernels import launch
+
+    out: dict[str, int] = {}
+    for key, n in launch.RECORDED.items():
+        if key[0] == "mls_matmul" and key[1] == "cuda":
+            out[key[-1].variant] = out.get(key[-1].variant, 0) + n
+    return out
 
 
 def lm_train_gemms() -> dict[str, tuple]:
@@ -2407,10 +2519,11 @@ def lm_train_kernel_checks(timed: dict) -> list[dict]:
     """K1 ("nc", <2,4>, stochastic: given rounding bytes to both) on both
     operands of each lm_train_gemms GEMM against quantize_ref, and K3 on
     those codes against mls_matmul_ref on the plan matmul_plan picks and on
-    the other variant; each operand zero-padded along K to K_BLOCK as
-    qd_gemm pads it.  The LM_TRAIN_TIMED rows are timed (the plain versions
-    on 3 calls), with, for the weight gradient, the transposed copy qd_gemm
-    makes of each operand."""
+    every other variant it accepts (k3_plans: the wgmma variant wherever it
+    is legal); each operand zero-padded along K to K_BLOCK as qd_gemm pads
+    it.  The LM_TRAIN_TIMED rows are timed (the plain versions on 3 calls)
+    beside the other plans and torch._int_mm (k3_times), with, for the
+    weight gradient, the transposed copy qd_gemm makes of each operand."""
     import dataclasses
 
     import torch
@@ -2418,7 +2531,7 @@ def lm_train_kernel_checks(timed: dict) -> list[dict]:
 
     from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
     from repro_torch.kernels import mls_matmul, mls_quantize
-    from repro_torch.kernels.mls_matmul import matmul_plan, sg_shapes
+    from repro_torch.kernels.mls_matmul import sg_shapes
     from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
 
     fmt, kb = FMT_IMAGENET, K_BLOCK
@@ -2464,9 +2577,8 @@ def lm_train_kernel_checks(timed: dict) -> list[dict]:
         (xc, xsg, xst), (wc, wsg, wst) = coded["x"], coded["w^T"]
         args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, kb)
         want = mls_matmul_ref(*args)
-        plan = matmul_plan(M, N, K + pk, kb, fmt)
-        plans = [plan, dataclasses.replace(plan, variant="walk" if plan.variant == "split"
-                                           else "split")]
+        plans = k3_plans(M, N, K + pk, kb, fmt)
+        plan = plans[0]
         errs = []
         for p in plans:
             got = mls_matmul(*args, "nc", plan=p)
@@ -2483,13 +2595,15 @@ def lm_train_kernel_checks(timed: dict) -> list[dict]:
             timed[("mls_matmul", sname)] = dict(
                 ms=cuda_ms(run(plan)),
                 kernel_ms=kernel_ms(run(plan), DEVICE_KERNELS["mls_matmul"]),
-                other_plan=plans[1].variant, other_ms=cuda_ms(run(plans[1])),
-                other_kernel_ms=kernel_ms(run(plans[1]), DEVICE_KERNELS["mls_matmul"]),
+                **k3_times(args, "nc", plans),
                 plain_ms=cuda_ms(lambda: mls_matmul_ref(*args), iters=3, warmup=1),
                 bytes=(M + N) * (K + pk) + 4 * (math.prod(xs_shape) + math.prod(ws_shape))
                 + 4 * M * N + 8, ops=2 * M * N * (K + pk), max_abs_err=errs[0],
                 plan=dataclasses.asdict(plan),
                 shape=f"lm_train {sname} ({M}x{K}x{N}) {plan.variant}")
+            if plan.variant == "wgmma":  # its decode pass alone
+                timed[("mls_matmul", sname)]["decode_kernel_ms"] = kernel_ms(
+                    run(plan), "mls_matmul_decode")
         del coded, args, want
         torch.cuda.empty_cache()
     return checks
@@ -3215,8 +3329,9 @@ def expected_device_kernels(k_block: int) -> list[str]:
             quantize(n, kp)
             c = autotune.resolve_block_config("gemm", (m, k, n), FMT_IMAGENET, k_block=k_block,
                                               device="cuda")
-            names.update(("mls_matmul_walk",) if c.variant == "walk"
-                         else ("mls_matmul_terms", "mls_matmul_sum"))
+            names.update({"walk": ("mls_matmul_walk",),
+                          "split": ("mls_matmul_terms", "mls_matmul_sum"),
+                          "wgmma": ("mls_matmul_decode", "mls_matmul_wgmma")}[c.variant])
     return sorted(names)
 
 
@@ -4022,18 +4137,18 @@ TP_K3_SHAPES = {"zamba2 in_proj fwd rank 0": (4096, 3584, 7408),
 
 def tp_k3_checks(gen) -> tuple[list[dict], list[dict]]:
     """K3 at TP_K3_SHAPES on K1's codes of random operands (stochastic):
-    the plan matmul_plan picks and the other variant bit for bit
-    mls_matmul_ref's; the plan timed (CUDA events, and its kernels alone)
-    beside its bound (the larger of its int8 ops and its bytes: both
-    operands' codes and group scales read, the output written) and its
-    plain version."""
+    the plan matmul_plan picks and every other variant it accepts
+    (k3_plans) bit for bit mls_matmul_ref's; the plan timed (CUDA events,
+    and its kernels alone) beside its bound (the larger of its int8 ops and
+    its bytes: both operands' codes and group scales read, the output
+    written), its plain version, the other plans and torch._int_mm
+    (k3_times)."""
     import dataclasses
 
     import torch
 
     from repro_torch.core import FMT_IMAGENET, GS_FMT_DEFAULT
     from repro_torch.kernels import mls_matmul, mls_quantize, rounding_bytes
-    from repro_torch.kernels.mls_matmul import matmul_plan
     from repro_torch.kernels.ref import mls_matmul_ref
 
     fmt, kb = FMT_IMAGENET, K_BLOCK
@@ -4048,13 +4163,13 @@ def tp_k3_checks(gen) -> tuple[list[dict], list[dict]]:
         (xc, xsg, xst), (wc, wsg, wst) = coded
         args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, kb)
         want = mls_matmul_ref(*args)
-        plan = matmul_plan(M, N, K, kb, fmt)
-        other = dataclasses.replace(plan, variant="walk" if plan.variant == "split" else "split")
-        got = [mls_matmul(*args, "nc", plan=p) for p in (plan, other)]
+        plans = k3_plans(M, N, K, kb, fmt)
+        plan = plans[0]
+        got = [mls_matmul(*args, "nc", plan=p) for p in plans]
         torch.cuda.synchronize()
         err = max(max_abs_err(g, want) for g in got)
         checks.append(dict(kernel="mls_matmul", shape=sname, mkn=(M, K, N),
-                           plan=dataclasses.asdict(plan),
+                           plan=dataclasses.asdict(plan), plans=[p.variant for p in plans],
                            identical=all(torch.equal(g, want) for g in got), max_abs_err=err))
         run = lambda: mls_matmul(*args, "nc", plan=plan)  # noqa: E731
         ops = 2 * M * N * K
@@ -4066,7 +4181,7 @@ def tp_k3_checks(gen) -> tuple[list[dict], list[dict]]:
                          plain_ms=cuda_ms(lambda: mls_matmul_ref(*args), iters=3, warmup=1),
                          library_ms=None, bound_ms=max(bound_ops, bound_bytes),
                          bound_by="operations" if bound_ops >= bound_bytes else "bytes", ops=ops,
-                         bytes=nbytes, max_abs_err=err))
+                         bytes=nbytes, max_abs_err=err, **k3_times(args, "nc", plans)))
         del coded, args, want, got
         torch.cuda.empty_cache()
     return checks, rows
@@ -5602,6 +5717,29 @@ def _sp16_checks(arch: str, rs: list, smi: str, bad: list, launches: dict) -> di
     return path
 
 
+WGMMA_REPORTED = "lm_train chatglm3-6b w_up fwd "  # K3's wgmma row on the kernels line
+
+
+def wgmma_summary(results: dict) -> dict | None:
+    """K3's wgmma variant at chatglm3-6b's w_up forward (8192 x 4096 x
+    13696) from the lm_train phase's timed rows: ms and kernel ms beside
+    the walk's, the int8-op bound and torch._int_mm (the int8 dot alone,
+    not K3's function); and its launches in each model's lm_train run."""
+    lm = results.get("lm_train", {})
+    row = next((r for r in lm.get("kernel_times", []) if r["name"] == "mls_matmul"
+                and r["shape"].startswith(WGMMA_REPORTED)), None)
+    if row is None:
+        return None
+    return dict(shape=row["shape"], ms=row["ms"], kernel_ms=row["kernel_ms"],
+                walk_ms=row.get("plans_ms", {}).get("walk"),
+                walk_kernel_ms=row.get("plans_kernel_ms", {}).get("walk"),
+                int_mm_ms=row.get("int_mm_ms"), bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], plain_ms=row["plain_ms"],
+                max_abs_err=row["max_abs_err"],
+                lm_train_launches={m: r.get("k3_variants", {}).get("wgmma", 0)
+                                   for m, r in lm.get("models", {}).items()})
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -5629,9 +5767,13 @@ def main() -> int:
         results["build_s"] = time.perf_counter() - t0
         print(f"build: {results['build_s']:.1f} s ({build.library_path().name})")
         log = build.library_path().with_suffix(".log")
-        if log.exists():
-            results["ptxas"] = [ln for ln in log.read_text().splitlines()
-                                if "registers" in ln or "spill" in ln]
+        if log.exists():  # each kernel's registers and spills, under its (mangled) name
+            results["ptxas"], fn = [], ""
+            for ln in log.read_text().splitlines():
+                if "Function properties for " in ln:
+                    fn = ln.split("Function properties for ")[1].strip()
+                elif "registers" in ln or "spill" in ln:
+                    results["ptxas"].append(f"{fn}: {ln.strip()}")
     except Exception:
         traceback.print_exc()
         fail("kernel build failed")
@@ -5706,6 +5848,9 @@ def main() -> int:
                             bound_by=r["bound_by"], library_ms=r.get("library_ms"),
                             shape=r["shape"],
                             **{k: r[k] for k in ("im2col_ms", "kernel_ms") if k in r}))
+    for k in kernels:  # K3's wgmma variant, where the LM training path runs it
+        if k["name"] == "mls_matmul":
+            k["wgmma"] = wgmma_summary(results)
     missing = [k for k in KERNELS if not any(r["name"] == k for r in kernels)]
     if missing or any(launches.get(k, 0) == 0 for k in KERNELS):
         fail(f"kernels not timed or not launched by their path: {missing} {launches}")

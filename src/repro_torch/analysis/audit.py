@@ -19,9 +19,12 @@ kernels' plain versions run; use a small ``--width/--hw/--batch``).
 
 ``--kernels`` adds the static kernel verifier
 (:mod:`repro_torch.analysis.kernel_verify`): every launch the graphs
-recorded and every ``KERNEL_REGISTRY`` entry is proven for grid
+recorded, every ``KERNEL_REGISTRY`` entry, the tensor-parallel steps of
+``kernel_verify.TP_AUDITS`` and chatglm3-6b's training GEMMs
+(``kernel_verify.LM_AUDIT``, K3's wgmma variant) are proven for grid
 coverage and ``< 2^24`` integer accumulation, gated against
-``analysis/baselines/kernels.json``; and a ``tune_cache`` section,
+``analysis/baselines/kernels.json`` (every entry and every device kernel
+it names proven); and a ``tune_cache`` section,
 ``autotune.check_cache`` of the tile cache (the committed seed, or
 ``--tune-cache PATH``): every registry spec cached and every cached
 winner proven.  ``--gate`` fails on a stale cache.
@@ -132,6 +135,11 @@ def apply_kernel_gate(kernels: dict | None, baseline: dict) -> list[str]:
     for name in baseline.get("require_kernels", []):
         if name not in reports:
             failures.append(f"kernel {name}: missing from verifier report")
+    proven = {call["kernel"].split(" ")[1].split("[")[0] for rep in reports.values()
+              for call in rep.get("calls", []) if " " in call["kernel"]}
+    for name in baseline.get("require_device_kernels", []):
+        if name not in proven:
+            failures.append(f"device kernel {name}: no launch of it proven")
     max_bits = baseline.get("max_integer_accumulation_bits")
     for name, rep in reports.items():
         for call in rep.get("calls", []):

@@ -32,7 +32,8 @@ Entry points: :func:`verify_spec` (one launch), :func:`verify_entry` (a
 :func:`verify_candidate`, :func:`verify_quantize_candidate` and
 :func:`verify_implicit_conv_candidate` (legality oracles for an autotuner),
 :func:`tensor_parallel_specs` (K1's split entries at a tensor-parallel
-step's sharded operands), and :func:`run_kernel_audit` (the ``--kernels``
+step's sharded operands), :func:`lm_train_specs` (K1 and K3 at an LM's
+training GEMMs), and :func:`run_kernel_audit` (the ``--kernels``
 section of ``python -m repro_torch.analysis.audit``, with the
 ``--sabotage`` negative controls).
 """
@@ -59,6 +60,7 @@ __all__ = [
     "SABOTAGE_MODES",
     "CallReport",
     "KernelReport",
+    "LM_AUDIT",
     "Violation",
     "prove_matmul_accumulation_bits",
     "prove_window_grid",
@@ -70,6 +72,7 @@ __all__ = [
     "verify_quantize_candidate",
     "verify_spec",
     "verify_specs",
+    "lm_train_specs",
     "writers_per_block",
 ]
 
@@ -671,6 +674,37 @@ def tensor_parallel_specs(cfg, model_axis: int, tokens: int,
     return recorded_specs(specs)
 
 
+# the LM training step the audit proves K1 and K3 at: chatglm3-6b's
+# forward, data-gradient and weight-gradient GEMMs at 8192 tokens (the
+# seed tile cache's T), where K3 runs its wgmma variant
+LM_AUDIT = ("chatglm3-6b", 8192)
+
+
+def lm_train_specs(cfg, tokens: int, device: str = "cpu") -> list[tuple[LaunchSpec, int]]:
+    """The launches of one training step's quantized GEMMs of ``cfg``
+    (one of each distinct linear): K3 on the forward (tokens, K) @ (K, N),
+    the data gradient (tokens, N) @ (N, K) and the weight gradient (K,
+    tokens) @ (tokens, N), with the tile cache's choices (``qd_gemm``'s),
+    and K1 on both padded operands of each."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.lowbit_conv import _gemm_plan
+
+    qcfg = dataclasses.replace(cfg, quant_backend="pallas").qcfg()
+    kb, fmt = qcfg.k_block, qcfg.fmt
+    specs = collections.Counter()
+    quantized = []
+    for k_in, n_out in autotune._lm_linears(cfg.name):
+        for m, k, n in ((tokens, k_in, n_out), (tokens, n_out, k_in), (k_in, tokens, n_out)):
+            kp = -(-k // kb) * kb
+            specs[("mls_matmul", device, m, n, kp, kb, "nc", fmt,
+                   _gemm_plan(m, k, n, fmt, kb, "nc", device))] += 1
+            quantized += [(m, kp), (n, kp)]
+    out = recorded_specs(specs)
+    for rows, cols in dict.fromkeys(quantized):
+        out += _quantize_specs(rows, cols, kb, "nc", device)
+    return out
+
+
 def run_kernel_audit(sabotage: str | None = None, device: str = "cuda",
                      recorded: dict[str, list[tuple[LaunchSpec, int]]] | None = None) -> dict:
     """Verify every ``KERNEL_REGISTRY`` entry on ``device``, the launches
@@ -685,6 +719,9 @@ def run_kernel_audit(sabotage: str | None = None, device: str = "cuda",
         reports[f"tensor_parallel:{arch}@model{m}"] = verify_specs(
             f"tensor_parallel:{arch}@model{m}",
             tensor_parallel_specs(get_config(arch), m, tokens, device))
+    arch, tokens = LM_AUDIT
+    reports[f"lm_train:{arch}@{tokens}"] = verify_specs(
+        f"lm_train:{arch}@{tokens}", lm_train_specs(get_config(arch), tokens, device))
     for name, specs in (recorded or {}).items():
         reports[name] = verify_specs(name, specs)
     if sabotage is not None:

@@ -7,7 +7,8 @@ winner is a :class:`BlockConfig`, the port's own:
 
 * ``"gemm"`` (K3, shape (M, K, N), K the logical contraction before
   ``qd_gemm`` pads it): ``variant`` ``"walk"`` or ``"split"`` (the ordered
-  split) and ``bn``, the tile's N extent (16, 32, 64);
+  split) and ``bn``, the tile's N extent (16, 32, 64), or ``"wgmma"``
+  (Hopper's int8 ``wgmma`` on 128 x 128 tiles, ``bn`` 128);
 * ``"quantize"`` (shape (M, K), the operand ``mls_quantize`` receives):
   for groupings "nc"/"n" (K1) ``variant`` ``"warp"`` (a warp per group,
   widths up to ``kWarpGroupMax``) or ``"block"`` (a block per group) and
@@ -20,7 +21,8 @@ winner is a :class:`BlockConfig`, the port's own:
 **The tuner picks only between choices that give the same bits.**  Every
 candidate of a key computes the same codes, scales and outputs (max is
 exact in any order; K3's walk and ordered split add the group terms in k
-order alike; the conv's two lowerings share codes and GEMM).  ``k_block``,
+order alike, and so does the wgmma variant; the conv's two lowerings
+share codes and GEMM).  ``k_block``,
 the grouping, the format, the rounding bytes and K3's body (int8 iff
 ``fmt.max_fraction <= 127``) are never tuned.  This is where the port
 departs from JAX: its ``gemm_candidates`` also searches neighbouring
@@ -59,7 +61,7 @@ CLI::
 
     python -m repro_torch.kernels.autotune --check              # static proofs
     python -m repro_torch.kernels.autotune --tune [--force]     # on the card
-        [--cache PATH] [--specs registry|path|all]
+        [--cache PATH] [--specs registry|path|all] [--kind gemm|quantize|conv]
 """
 from __future__ import annotations
 
@@ -118,8 +120,9 @@ DEFAULT_CACHE_PATH = pathlib.Path(".cache") / "kernel_tune_torch.json"
 SEED_CACHE_PATH = pathlib.Path(__file__).parent / "tuned" / "kernel_tune.json"
 
 BNS = (16, 32, 64)  # K3's and K4's tile widths (their template instances)
+WGMMA_BN = 128  # K3's wgmma variant's one tile width (mls_matmul.WGMMA_BN)
 AMAX_BLOCKS = (66, 132, 264)  # K1 pass-A grids tried (1/2, 1, 2 blocks per SM)
-VARIANTS = {"gemm": ("walk", "split"), "quantize": ("warp", "block", "cols"),
+VARIANTS = {"gemm": ("walk", "split", "wgmma"), "quantize": ("warp", "block", "cols"),
             "conv": ("im2col", "implicit")}
 _SHAPE_RANK = {"gemm": 3, "quantize": 2, "conv": 14}
 
@@ -131,8 +134,9 @@ _SHAPE_RANK = {"gemm": 3, "quantize": 2, "conv": 14}
 class BlockConfig:
     """One launch choice of a kernel call (see the module docstring).
 
-    ``bn`` is 0 where no tile width applies (K1/K2, im2col) and
-    ``amax_blocks`` 0 where no pass-A grid does (K2, K3, the conv)."""
+    ``bn`` is 0 where no tile width applies (K1/K2, im2col), ``WGMMA_BN``
+    for K3's wgmma variant, and ``amax_blocks`` 0 where no pass-A grid
+    does (K2, K3, the conv)."""
 
     variant: str
     bn: int = 0
@@ -141,8 +145,8 @@ class BlockConfig:
     def __post_init__(self):
         if not any(self.variant in v for v in VARIANTS.values()):
             raise ValueError(f"unknown variant {self.variant!r}")
-        if self.bn not in (0, *BNS):
-            raise ValueError(f"bn={self.bn} is not 0 or one of {BNS}")
+        if self.bn not in (0, *BNS) and (self.variant, self.bn) != ("wgmma", WGMMA_BN):
+            raise ValueError(f"bn={self.bn} is not 0 or one of {BNS} ({WGMMA_BN} for wgmma)")
         if self.amax_blocks < 0:
             raise ValueError(f"amax_blocks={self.amax_blocks} < 0")
 
@@ -438,18 +442,25 @@ def _with_default(spec: TuneSpec, cands: list[BlockConfig]) -> list[BlockConfig]
 
 def gemm_candidates(spec: TuneSpec) -> list[BlockConfig]:
     """K3's walk at every tile width up to the default's (wider tiles only
-    mask more columns), and the ordered split at each where it has 1 to
-    65535 groups and its (G, M, N) workspace stays within
-    ``mls_matmul.WORKSPACE_LIMIT``."""
-    from .mls_matmul import _MAX_GRID_YZ, WORKSPACE_LIMIT
+    mask more columns), the ordered split at each where it has 1 to 65535
+    groups and its (G, M, N) workspace stays within
+    ``mls_matmul.WORKSPACE_LIMIT``, and the wgmma variant where
+    ``mls_matmul.tuned_plan`` accepts it."""
+    from .mls_matmul import _MAX_GRID_YZ, WORKSPACE_LIMIT, tuned_plan
 
     M, K, N = spec.shape
-    groups = _padded_k(K, spec.k_block) // spec.k_block
+    kp = _padded_k(K, spec.k_block)
+    groups = kp // spec.k_block
     widest = default_block_config(spec).bn
     bns = [b for b in BNS if b <= widest and -(-N // b) <= _MAX_GRID_YZ]
     split_ok = 1 <= groups <= _MAX_GRID_YZ and groups * M * N * 4 <= WORKSPACE_LIMIT
     cands = [BlockConfig("walk", b) for b in bns]
     cands += [BlockConfig("split", b) for b in bns if split_ok]
+    try:
+        tuned_plan("wgmma", WGMMA_BN, M, N, kp, spec.k_block, spec.fmt)
+        cands.append(BlockConfig("wgmma", WGMMA_BN))
+    except ValueError:
+        pass
     return _with_default(spec, cands)
 
 
@@ -891,6 +902,8 @@ def main(argv=None) -> int:
     ap.add_argument("--force", action="store_true", help="re-time even on a cache hit")
     ap.add_argument("--specs", default="all", choices=["registry", "path", "all"],
                     help="which specs to tune / require (default all)")
+    ap.add_argument("--kind", default=None, choices=sorted(_SHAPE_RANK),
+                    help="tune only the specs of this kind (the others keep their entries)")
     args = ap.parse_args(argv)
     if not (args.tune or args.check):
         ap.error("pick --tune and/or --check")
@@ -913,7 +926,8 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             cache.entries = {}
         cache.device = here
-        winners = tune_all(cache, specs, force=args.force, log=print, device="cuda")
+        tuned = [s for s in specs if args.kind in (None, s.kind)]
+        winners = tune_all(cache, tuned, force=args.force, log=print, device="cuda")
         out = cache.save(path)
         print(f"tuned {len(winners)} spec(s) on {here} -> {out}")
 

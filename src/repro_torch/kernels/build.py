@@ -56,6 +56,10 @@ _SIGNATURES = {
     # xst, wst, unit, out, terms, M, N, K, k_block, e, m, bn, body, split, stream
     "mls_matmul": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
                    _P, _P, ctypes.c_float, _P, _P, *[_I] * 9, _P],
+    # xc, sxm, sxk, xsg, sxsg_m, sxsg_g, wc, swk, swn, wsg, swsg_g, swsg_n,
+    # xst, wst, unit, out, scratch, M, N, K, k_block, e, m, stream
+    "mls_matmul_wgmma_call": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
+                              _P, _P, ctypes.c_float, _P, _P, *[_I] * 6, _P],
     # x, r_u8, scratch, n_scratch, wc, swk, swn, wsg, swsg_g, swsg_n, wst,
     # unit, out, codes_out, sg_out, st_out, n, c, h, w, o, kh, kw, sh, sw, ph,
     # pw, hp, wp, k_block, mode, bn, e, m, e_min, gs_m, gs_emin, stream

@@ -50,9 +50,35 @@
 //     multiple of 16, is staged with plain loads instead (any strides:
 //     the weight may arrive K-major or N-major).  The staging, the decode
 //     and both dot bodies live in mls_mma.cuh, shared with K4.
+//   - A third variant for the compute-bound LM shapes (M, N >= 128, many
+//     groups: chatglm3-6b's w_up is 8192 x 4096 x 13696, ~1700 int8
+//     operations a byte, above the card's ridge of ~590), where the walk
+//     above reaches 4% of the int8 rate:
+//       wgmma - mls_matmul_decode turns both operands' codes into int8
+//               fractions once, K-major and contiguous (x as (M, K), w as
+//               (N, K), from any strides), into a scratch the wrapper
+//               allocates; mls_matmul_wgmma then gives each block a 128 x
+//               128 output tile: one producer warp keeps a ring of
+//               kWgStages TMA loads in flight (128 bytes of k a stage, a
+//               whole group at k_block 128, and the stage's group scales),
+//               and two consumer warpgroups each run four
+//               wgmma.m64n128k32.s32.s8.s8 a stage on their 64 rows (the
+//               first of a group with scale-d 0), then fold the group's
+//               int32 dot into their fp32 sums in k order, as the walk
+//               does.  The warpgroups take the tensor cores in turns, so
+//               that one's fold runs while the other's wgmmas do.
+//               Blocks take their tiles in bands of row tiles, so that the
+//               blocks resident at once share operand strips in L2.
+//     What bounds it: the 128 x 128 tiles re-read the operands from L2
+//     (about 7 GB at chatglm3-6b's w_up GEMMs, against 0.09 GB of codes),
+//     and the fold is 5 fp32-pipe operations an output (exact int->float,
+//     two products, one add), more issue slots a group than its wgmmas
+//     take cycles; not the int8 rate.  Its building blocks are in
+//     mls_wgmma.cuh.
 // Group scales come in any compact layout (sg_shapes) through strides, 0
 // along a broadcast axis.  -fmad=false keeps each product and sum rounded
 // on its own (mls_common.cuh).
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -60,6 +86,7 @@
 
 #include "mls_common.cuh"
 #include "mls_mma.cuh"
+#include "mls_wgmma.cuh"
 
 namespace {
 
@@ -266,15 +293,307 @@ cudaError_t launch_bn(const Args& a, int bn, bool split, cudaStream_t s) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// ---------------------------------------------------------------------------
+// wgmma variant
+// ---------------------------------------------------------------------------
+constexpr int kWgBM = 128;     // output rows per block: 2 consumer warpgroups x 64
+constexpr int kWgBN = 128;     // output columns per block (wgmma n)
+constexpr int kWgBK = 128;     // k bytes per stage: one 128-byte swizzle row
+constexpr int kWgStages = 4;   // ring depth
+constexpr int kWgThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kWgGroupM = 8;   // row tiles that neighbouring blocks share (L2 reuse)
+constexpr int kWgTile = kWgBM * kWgBK;  // bytes of one operand tile (= kWgBN * kWgBK)
+constexpr int kDecRows = 128;  // decode: rows per block
+constexpr int kDecK = 128;     // decode: k per block
+constexpr int kDecThreads = 256;  // decode: 4 x 16 bytes a thread
+
+struct WgSmem {
+  uint8_t a[kWgStages][kWgTile];  // x fractions, rows x 128 k (1024-aligned)
+  uint8_t b[kWgStages][kWgTile];  // w fractions, columns x 128 k
+  float sx[kWgStages][kWgBM];     // the stage's group scales of the block's rows
+  float sw[kWgStages][kWgBN];     // ... and columns
+  uint64_t full[kWgStages];       // tiles and scales landed
+  uint64_t empty[kWgStages];      // consumers done with the stage
+};
+constexpr int kWgSmemBytes = sizeof(WgSmem) + 1024;  // + slack to align to 1024
+
+struct WgArgs {
+  const float* xsg;
+  long long sxsg_m, sxsg_g;
+  const float* wsg;
+  long long swsg_g, swsg_n;
+  const float* xst;
+  const float* wst;
+  float unit;
+  float* out;
+  int M, N, K, k_block;
+};
+
+// Decode pass: blockIdx.z 0 turns x (M, K) at strides (sr, sk) into x
+// fractions (M, K), 1 turns w (K, N) into (N, K); a block decodes kDecRows
+// rows x kDecK k, four 16-byte pieces a thread.  A k-contiguous, 16-byte
+// aligned operand takes 16-byte loads (all four in flight at once) and
+// stores; any other layout is read along its smaller stride into shared
+// memory and stored k-contiguous from there.
+struct DecArgs {
+  const uint8_t* src[2];
+  long long sr[2], sk[2];
+  int rows[2];
+  bool vec[2];
+  int8_t* dst[2];
+  int K, e, m;
+};
+
+__global__ void __launch_bounds__(kDecThreads) mls_matmul_decode(const DecArgs a) {
+  constexpr int kChunks = kDecK / 16;                        // 16-byte pieces of a row
+  constexpr int kPer = kDecRows * kChunks / kDecThreads;     // pieces a thread
+  constexpr int kRowStep = kDecThreads / kChunks;            // rows between a thread's pieces
+  const int op = blockIdx.z, R = a.rows[op];
+  const int row0 = blockIdx.y * kDecRows;
+  if (row0 >= R) return;  // the other operand's taller grid
+  __shared__ int lut[256];
+  __shared__ __align__(16) int8_t tile[kDecRows][kDecK + 16];
+  for (int i = threadIdx.x; i < 256; i += kDecThreads) lut[i] = mls::decode_frac(i, a.e, a.m);
+  const uint8_t* src = a.src[op];
+  const long long sr = a.sr[op], sk = a.sk[op], k0 = (long long)blockIdx.x * kDecK;
+  const int r = threadIdx.x / kChunks, kk = (threadIdx.x % kChunks) * 16;
+  int8_t* dst = a.dst[op] + k0 + kk;
+  if (a.vec[op]) {  // all loads in flight before the table is read
+    uint4 v[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int row = row0 + r + u * kRowStep;
+      v[u] = row < R ? *reinterpret_cast<const uint4*>(src + row * sr + k0 + kk) : uint4{};
+    }
+    __syncthreads();  // lut
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int row = row0 + r + u * kRowStep;
+      if (row < R)
+        *reinterpret_cast<uint4*>(dst + (long long)row * a.K) =
+            make_uint4(mls::decode4(lut, v[u].x), mls::decode4(lut, v[u].y),
+                       mls::decode4(lut, v[u].z), mls::decode4(lut, v[u].w));
+    }
+    return;
+  }
+  __syncthreads();  // lut
+  for (int t = threadIdx.x; t < kDecRows * kDecK; t += kDecThreads) {
+    int rr, k;
+    if (sk <= sr) {
+      rr = t / kDecK;
+      k = t % kDecK;
+    } else {
+      k = t / kDecRows;
+      rr = t % kDecRows;
+    }
+    tile[rr][k] = row0 + rr < R ? (int8_t)lut[src[(row0 + rr) * sr + (k0 + k) * sk]] : 0;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int rr = r + u * kRowStep;
+    if (row0 + rr < R)
+      *reinterpret_cast<uint4*>(dst + (long long)(row0 + rr) * a.K) =
+          *reinterpret_cast<const uint4*>(&tile[rr][kk]);
+  }
+}
+
+// Main pass: a kWgBM x kWgBN output tile per block over every group in
+// order.  Warp 0 produces, warpgroups 1 and 2 consume (rows 0-63, 64-127).
+// The grid is 1-D: block b takes its tile in kWgGroupM-row-tile bands, down
+// a band's rows first, so the blocks resident at once share few row and
+// column strips of the operands in L2.  The consumers take the tensor
+// cores in turns (named barriers 1 and 2): warpgroup 1 issues stage q,
+// then warpgroup 2 issues it, then warpgroup 1 stage q + 1, so that one
+// warpgroup's fold runs while the other's wgmmas do.
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    mls_matmul_wgmma(__grid_constant__ const CUtensorMap tmap_x,
+                     __grid_constant__ const CUtensorMap tmap_w, const WgArgs a) {
+  namespace wg = mls::wg;
+  extern __shared__ uint8_t smem_raw[];
+  WgSmem& s = *reinterpret_cast<WgSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int group = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int tm = (a.M + kWgBM - 1) / kWgBM, tn = (a.N + kWgBN - 1) / kWgBN;
+  const int band = blockIdx.x / (kWgGroupM * tn), in_band = blockIdx.x % (kWgGroupM * tn);
+  const int band_rows = min(tm - band * kWgGroupM, kWgGroupM);
+  const int row0 = (band * kWgGroupM + in_band % band_rows) * kWgBM;
+  const int col0 = (in_band / band_rows) * kWgBN;
+  const int stages = a.K / kWgBK, per_group = a.k_block / kWgBK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWgStages; ++i) {
+      wg::mbar_init(&s.full[i], 32);  // the producer warp's lanes
+      wg::mbar_init(&s.empty[i], 8);  // one lane of each consumer warp
+    }
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (group == 0) {  // producer warpgroup: warp 0 works, warps 1-3 leave
+    wg::setmaxnreg_dec<40>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    if (lane == 0) {
+      wg::prefetch_tensormap(&tmap_x);
+      wg::prefetch_tensormap(&tmap_w);
+    }
+    // the next stage's scales are loaded while this one waits for its slot
+    constexpr int kPer = kWgBM / 32;
+    float vx[kPer], vw[kPer];
+    auto load_scales = [&](int q) {
+      const int g = q / per_group;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int r = row0 + lane + 32 * u, c = col0 + lane + 32 * u;
+        vx[u] = r < a.M ? a.xsg[r * a.sxsg_m + g * a.sxsg_g] : 0.0f;
+        vw[u] = c < a.N ? a.wsg[g * a.swsg_g + c * a.swsg_n] : 0.0f;
+      }
+    };
+    load_scales(0);
+    for (int q = 0; q < stages; ++q) {
+      const int st = q % kWgStages;
+      wg::mbar_wait(&s.empty[st], ((q / kWgStages) & 1) ^ 1);  // the first round passes
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        s.sx[st][lane + 32 * u] = vx[u];
+        s.sw[st][lane + 32 * u] = vw[u];
+      }
+      if (lane == 0) {
+        wg::mbar_arrive_expect_tx(&s.full[st], 2 * kWgTile);
+        wg::tma_load_2d(s.a[st], &tmap_x, &s.full[st], q * kWgBK, row0);
+        wg::tma_load_2d(s.b[st], &tmap_w, &s.full[st], q * kWgBK, col0);
+      } else {
+        wg::mbar_arrive(&s.full[st]);
+      }
+      if (q + 1 < stages) load_scales(q + 1);
+    }
+    return;
+  }
+
+  wg::setmaxnreg_inc<232>();
+  const int c = group - 1;  // this warpgroup's 64 rows of the tile
+  const int warp = tid / 32, lane = tid % 32;
+  const int rl = c * 64 + warp * 16 + lane / 4;  // tile rows rl and rl + 8
+  const int cq = 2 * (lane % 4);                 // columns 8j + cq + {0, 1}
+  int p[64];
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    p[i] = 0;
+    acc[i] = 0.0f;
+  }
+  for (int q = 0; q < stages; ++q) {
+    const int st = q % kWgStages;
+    wg::mbar_wait(&s.full[st], (q / kWgStages) & 1);
+    const bool first = q % per_group == 0;
+    const uint64_t da = wg::sw128_desc(s.a[st] + c * 64 * kWgBK);
+    const uint64_t db = wg::sw128_desc(s.b[st]);
+    if (c == 0 ? q > 0 : true) bar_sync(c == 0 ? 2 : 1);  // my turn on the tensor cores
+    wg::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kWgBK / 32; ++k)  // 32 bytes of k: +2 in the descriptor's 16-byte units
+      wg::wgmma_m64n128k32_s8(p, da + 2 * k, db + 2 * k, first && k == 0 ? 0 : 1);
+    wg::wgmma_commit();
+    bar_arrive(c == 0 ? 1 : 2);  // the other warpgroup's turn
+    wg::wgmma_wait<0>();
+    wg::fence_operands(p);
+    if (q % per_group == per_group - 1) {  // the group's dot is complete: its term
+      const float sx_lo = s.sx[st][rl], sx_hi = s.sx[st][rl + 8];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 sw = *reinterpret_cast<const float2*>(&s.sw[st][8 * j + cq]);
+        // mls::group_combine's roundings, with float(p) taken exactly on the fp32 pipes
+        acc[4 * j] = __fadd_rn(acc[4 * j], __fmul_rn(wg::exact_float(p[4 * j]),
+                                                     __fmul_rn(sx_lo, sw.x)));
+        acc[4 * j + 1] = __fadd_rn(acc[4 * j + 1], __fmul_rn(wg::exact_float(p[4 * j + 1]),
+                                                             __fmul_rn(sx_lo, sw.y)));
+        acc[4 * j + 2] = __fadd_rn(acc[4 * j + 2], __fmul_rn(wg::exact_float(p[4 * j + 2]),
+                                                             __fmul_rn(sx_hi, sw.x)));
+        acc[4 * j + 3] = __fadd_rn(acc[4 * j + 3], __fmul_rn(wg::exact_float(p[4 * j + 3]),
+                                                             __fmul_rn(sx_hi, sw.y)));
+      }
+    }
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(&s.empty[st]);  // tiles and scales read: refill the slot
+  }
+  if (c == 0) bar_sync(2);  // warpgroup 2's last turn
+  const float scale = mls::tensor_scale(*a.xst, *a.wst, a.unit);
+  const bool pairs = (a.N & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rl + 8 * h;
+    if (r >= a.M) continue;
+    float* o = a.out + (long long)r * a.N;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j + cq;
+      const float v0 = __fmul_rn(acc[4 * j + 2 * h], scale);
+      const float v1 = __fmul_rn(acc[4 * j + 2 * h + 1], scale);
+      if (pairs && col + 1 < a.N) {
+        *reinterpret_cast<float2*>(o + col) = make_float2(v0, v1);
+      } else {
+        if (col < a.N) o[col] = v0;
+        if (col + 1 < a.N) o[col + 1] = v1;
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime so that
+// the library links against nothing new.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a K-contiguous (rows, K) int8 matrix in kWgBK x 128-row
+// boxes, 128-byte swizzle, zeros past the edge.
+bool tile_map(CUtensorMap* map, const int8_t* base, int rows, int K) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {(cuuint32_t)kWgBK, 128u};
+  const cuuint32_t elem[2] = {1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
-// The tile constants, in the order kBM, kKStep, kThreads, kSumThreads, for
-// the launch descriptors (kernels/mls_matmul.py launch_spec) to read from
-// the binary.
+// The tile constants, in the order kBM, kKStep, kThreads, kSumThreads,
+// kWgBM, kWgBN, kWgBK, kWgStages, kDecRows, kDecK, for the launch
+// descriptors (kernels/mls_matmul.py launch_spec) to read from the binary.
 extern "C" int mls_matmul_constants(int* out, int n) {
-  const int c[] = {kBM, kKStep, kThreads, kSumThreads};
-  for (int i = 0; i < n && i < 4; ++i) out[i] = c[i];
-  return 4;
+  const int c[] = {kBM, kKStep, kThreads, kSumThreads, kWgBM, kWgBN, kWgBK, kWgStages,
+                   kDecRows, kDecK};
+  constexpr int kCount = sizeof(c) / sizeof(c[0]);
+  for (int i = 0; i < n && i < kCount; ++i) out[i] = c[i];
+  return kCount;
 }
 
 // body: 0 = int8 tensor cores, 1 = int32 CUDA cores; split: 1 = terms into
@@ -306,4 +625,54 @@ extern "C" int mls_matmul(const uint8_t* xc, long long sxm, long long sxk,
   const cudaError_t err =
       body == 0 ? launch_bn<true>(a, bn, split != 0, s) : launch_bn<false>(a, bn, split != 0, s);
   return (int)err;
+}
+
+// The wgmma variant: the decode pass of both operands into `scratch`
+// ((M + N) * K bytes, allocated by the caller: x fractions (M, K), then w
+// fractions (N, K)), then the main pass.  k_block must be a multiple of
+// kWgBK, and |a group's dot| < 2^22 (the caller's plan checks both).
+extern "C" int mls_matmul_wgmma_call(const uint8_t* xc, long long sxm, long long sxk,
+                                     const float* xsg, long long sxsg_m, long long sxsg_g,
+                                     const uint8_t* wc, long long swk, long long swn,
+                                     const float* wsg, long long swsg_g, long long swsg_n,
+                                     const float* xst, const float* wst, float unit, float* out,
+                                     uint8_t* scratch, int M, int N, int K, int k_block, int e,
+                                     int m, void* stream) {
+  if (k_block <= 0 || k_block % kWgBK || K % k_block || !scratch)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  const long long tm = (M + kWgBM - 1) / kWgBM, tn = (N + kWgBN - 1) / kWgBN;
+  const unsigned dec_rows = ((M > N ? M : N) + kDecRows - 1) / kDecRows;
+  if (tm * tn > 0x7fffffffLL || dec_rows > kMaxGridYZ) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* xd = reinterpret_cast<int8_t*>(scratch);
+  int8_t* wd = xd + (long long)M * K;
+  DecArgs d;
+  d.src[0] = xc; d.sr[0] = sxm; d.sk[0] = sxk; d.rows[0] = M; d.dst[0] = xd;
+  d.src[1] = wc; d.sr[1] = swn; d.sk[1] = swk; d.rows[1] = N; d.dst[1] = wd;
+  d.vec[0] = sxk == 1 && sxm % 16 == 0 && aligned16(xc);
+  d.vec[1] = swk == 1 && swn % 16 == 0 && aligned16(wc);
+  d.K = K; d.e = e; d.m = m;
+  mls_matmul_decode<<<dim3(K / kDecK, dec_rows, 2), kDecThreads, 0, s>>>(d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tx, tw;
+  if (!tile_map(&tx, xd, M, K) || !tile_map(&tw, wd, N, K)) return (int)cudaErrorInvalidValue;
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  static bool smem_set[64] = {};  // the attribute, once per device
+  if (device >= 64 || !smem_set[device]) {
+    err = cudaFuncSetAttribute(mls_matmul_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWgSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) smem_set[device] = true;
+  }
+  WgArgs a;
+  a.xsg = xsg; a.sxsg_m = sxsg_m; a.sxsg_g = sxsg_g;
+  a.wsg = wsg; a.swsg_g = swsg_g; a.swsg_n = swsg_n;
+  a.xst = xst; a.wst = wst; a.unit = unit; a.out = out;
+  a.M = M; a.N = N; a.K = K; a.k_block = k_block;
+  mls_matmul_wgmma<<<(unsigned)(tm * tn), kWgThreads, kWgSmemBytes, s>>>(tx, tw, a);
+  return (int)cudaGetLastError();
 }

@@ -24,7 +24,7 @@ from . import launch
 from .autotune import TuneSpec
 from .implicit_conv import conv_geometry, conv_tune_dims
 from .lowbit_conv import lowbit_conv_fused, lowbit_matmul_qd, qd_gemm
-from .mls_matmul import mls_matmul
+from .mls_matmul import WGMMA_BN, MatmulPlan, mls_matmul
 from .mls_quantize import mls_quantize
 
 __all__ = ["KERNEL_REGISTRY", "KernelEntry"]
@@ -82,7 +82,11 @@ def _matmul(xc, wc):
     xsg = torch.ones((xc.shape[0], xc.shape[1] // kb), device=xc.device)
     wsg = torch.ones((wc.shape[0] // kb, wc.shape[1]), device=xc.device)
     st = torch.ones((), device=xc.device)
-    return mls_matmul(xc, xsg, st, wc, wsg, st, FMT_IMAGENET, kb)
+    args = (xc, xsg, st, wc, wsg, st, FMT_IMAGENET, kb)
+    # the default plan (the ordered split here: 16 tiles of 64 x 64), then the
+    # wgmma variant, which the LM shapes take, on the same operands
+    mls_matmul(*args, plan=MatmulPlan("wgmma", "int8", WGMMA_BN, 0))
+    return mls_matmul(*args)
 
 
 def _matmul_fused(x, w):

@@ -289,8 +289,12 @@ def test_registry_covers_every_kernel_of_the_training_path():
     assert kernels == {"quantize_amax", "quantize_groups_warp", "quantize_cols_amax",
                        "quantize_cols_reduce", "quantize_scales", "quantize_codes",
                        "mls_matmul_walk", "mls_matmul_terms", "mls_matmul_sum",
+                       "mls_matmul_decode", "mls_matmul_wgmma",
                        "conv_amax", "implicit_conv", "conv_win_amax", "conv_chan_amax",
                        "conv_group_reduce", "conv_chan_scales", "conv_scale"}
+    baseline = json.loads((ROOT / "src" / "repro_torch" / "analysis" / "baselines"
+                           / "kernels.json").read_text())
+    assert set(baseline["require_device_kernels"]) == kernels
 
 
 SMALL = ["--device", "cpu", "--width", "0.25", "--hw", "16", "--batch", "2"]

@@ -331,7 +331,8 @@ def test_illegal_choices_are_not_candidates_and_fail_the_proof():
     assert not at.verify_config(at.TuneSpec("quantize", (4, 256), F, 128, "nc"),
                                 at.BlockConfig("cols")).ok
     big = at.TuneSpec("gemm", (2048, 16384, 2048), F)
-    assert {c.variant for c in at.gemm_candidates(big)} == {"walk"}
+    # the split's 2 GiB workspace is illegal; the wgmma variant is legal here
+    assert {c.variant for c in at.gemm_candidates(big)} == {"walk", "wgmma"}
     rep = at.verify_config(big, at.BlockConfig("split", 64))
     assert not rep.ok and "workspace" in rep.first_violation()
     g = ic.conv_geometry((1, 16, 8, 4096), (16, 16, 3, 3), (1, 1), "SAME")

@@ -51,7 +51,12 @@ from repro_torch.kernels import (  # noqa: E402
     recorded_specs,
     reset_launch_counts,
 )
-from repro_torch.kernels.mls_matmul import MatmulPlan, matmul_plan  # noqa: E402
+from repro_torch.kernels.mls_matmul import (  # noqa: E402
+    WGMMA_BN,
+    MatmulPlan,
+    _checked_plan,
+    matmul_plan,
+)
 from repro_torch.kernels.ref import sabotage_overlap_tiles  # noqa: E402
 from repro_torch.kernels.sabotage import launch_spec as k5_spec  # noqa: E402
 from repro_torch.kernels.sabotage import sabotage_overlap_matmul  # noqa: E402
@@ -107,11 +112,15 @@ def test_matmul_kernel_matches_plain(cuda, grouping, mkn):
 
 
 # (M, K, N, k_block, layout): "kmajor" both operands K-contiguous (the
-# main path's), "nmajor" the weight N-contiguous, "xT" x M-contiguous
+# main path's: the weight the transposed view of a K-contiguous (N, K)
+# tensor), "nmajor" the weight N-contiguous, "xT" x M-contiguous; the
+# k_blocks of 128 and 256 also take the wgmma variant
 PLAN_CASES = [(37, 96, 29, 32, "kmajor"), (70, 480, 130, 48, "nmajor"),
-              (5, 108, 16, 36, "xT"), (20, 288, 64, 144, "kmajor")]
+              (5, 108, 16, 36, "xT"), (20, 288, 64, 144, "kmajor"),
+              (200, 1024, 136, 128, "kmajor"), (130, 768, 260, 256, "nmajor"),
+              (300, 512, 200, 128, "xT")]
 PLAN_PARAMS = [(fmt, case) for fmt in [(2, 4), (2, 1), (0, 4), (3, 1)] for case in PLAN_CASES
-               if not (fmt == (3, 1) and case[3] == 144)]  # <3,1> x 144: 24 bits, refused
+               if not (fmt == (3, 1) and case[3] in (144, 256))]  # <3,1>: 24 bits, refused
 
 
 def _codes_on(cuda, fmt, grouping, m, k, n, kb, layout):
@@ -128,13 +137,24 @@ def _codes_on(cuda, fmt, grouping, m, k, n, kb, layout):
     return cpu, card
 
 
-@pytest.mark.parametrize("variant", ["walk", "split"])
+def _plan_of(variant, m, n, fmt):
+    """``variant`` on the format's body: the walk and the split at the
+    narrowest tile width that holds n, the wgmma variant at its 128."""
+    body = "int32" if fmt.max_fraction > 127 else "int8"
+    bn = WGMMA_BN if variant == "wgmma" else 16 if n <= 16 else 32 if n <= 32 else 64
+    return MatmulPlan(variant, body, bn, 0)
+
+
+@pytest.mark.parametrize("variant", ["walk", "split", "wgmma"])
 @pytest.mark.parametrize("grouping", GROUPINGS)
 @pytest.mark.parametrize("fmt,case", PLAN_PARAMS, ids=str)
 def test_matmul_plans_match_plain(cuda, fmt, case, grouping, variant):
-    """Both K3 variants on the body the format takes, for ragged tiles,
-    k_blocks on and off the 16-wide k step (cp.async or plain staging) and
-    operands with either stride order."""
+    """Every K3 variant that _checked_plan accepts on the body the format
+    takes, for ragged tiles, k_blocks on and off the 16-wide k step
+    (cp.async or plain staging) and of 128 and 256 (the wgmma variant's),
+    and operands with either stride order; a variant it refuses (wgmma at a
+    k_block off 128 or on the int32 body) raises on the card as well:
+    nothing falls back."""
     m, k, n, kb, layout = case
     fmt = EMFormat(*fmt)
     cpu, card = _codes_on(cuda, fmt, grouping, m, k, n, kb, layout)
@@ -142,11 +162,63 @@ def test_matmul_plans_match_plain(cuda, fmt, case, grouping, variant):
     assert (card[3].stride(0) == 1) == (layout != "nmajor")
     auto = matmul_plan(m, n, k, kb, fmt)
     assert auto.body == ("int32" if fmt.max_fraction > 127 else "int8")
-    plan = MatmulPlan(variant, auto.body, auto.bn, 0)
+    plan = _plan_of(variant, m, n, fmt)
     want = mls_matmul(*cpu, fmt, kb, grouping)
+    try:
+        _checked_plan(plan, m, n, k, kb, fmt)
+    except ValueError:
+        assert variant == "wgmma" and (kb % 128 or fmt.max_fraction > 127)
+        with pytest.raises(ValueError):
+            mls_matmul(*card, fmt, kb, grouping, plan=plan)
+        return
     got = mls_matmul(*card, fmt, kb, grouping, plan=plan)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# the wgmma variant's own cases (M, K, N, k_block, layout): ragged M and N
+# (200 x 1024 x 136: two row tiles, the second of 72 rows, two column tiles,
+# the second of 8), the weight as the strided transposed view of a
+# K-contiguous tensor and as an N-contiguous one, x M-contiguous, k_block 256
+WGMMA_CASES = [(200, 1024, 136, 128, "kmajor"), (256, 768, 384, 256, "kmajor"),
+               (130, 512, 260, 128, "nmajor"), (384, 1024, 200, 256, "xT")]
+
+
+@pytest.mark.parametrize("grouping", GROUPINGS)
+@pytest.mark.parametrize("fmt", [(2, 4), (2, 1), (0, 4)])
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_wgmma_matches_plain(cuda, case, fmt, grouping):
+    """K3's wgmma variant against mls_matmul_ref bit for bit, one launch
+    counted and recorded with its plan, for all four groupings and the
+    three int8 formats."""
+    from repro_torch.kernels.ref import mls_matmul_ref
+
+    m, k, n, kb, layout = case
+    fmt = EMFormat(*fmt)
+    cpu, card = _codes_on(cuda, fmt, grouping, m, k, n, kb, layout)
+    plan = MatmulPlan("wgmma", "int8", WGMMA_BN, 0)
+    reset_launch_counts()
+    got = mls_matmul(*card, fmt, kb, grouping, plan=plan)
+    torch.cuda.synchronize()
+    assert launch_counts()["mls_matmul"] == 1
+    assert ("mls_matmul", "cuda", m, n, k, kb, grouping, fmt,
+            _checked_plan(plan, m, n, k, kb, fmt)) in launch.RECORDED
+    want = mls_matmul_ref(*cpu, fmt, kb)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu(), mls_matmul(*cpu, fmt, kb, grouping))
+
+
+@pytest.mark.parametrize("which", ["x", "w"])
+def test_wgmma_all_zero_operand(cuda, which):
+    fmt = EMFormat(2, 4)
+    cpu, card = _codes_on(cuda, fmt, "nc", 256, 512, 256, 128, "kmajor")
+    i = 0 if which == "x" else 3
+    cpu = tuple(torch.zeros_like(t) if j == i else t for j, t in enumerate(cpu))
+    card = tuple(torch.zeros_like(t) if j == i else t for j, t in enumerate(card))
+    got = mls_matmul(*card, fmt, 128, "nc", plan=MatmulPlan("wgmma", "int8", WGMMA_BN, 0))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), mls_matmul(*cpu, fmt, 128, "nc"))
+    assert not got.any() and not torch.signbit(got).any()
 
 
 @pytest.mark.parametrize("bn", [16, 32, 64])
@@ -338,7 +410,8 @@ _K1_K3 = {"quantize_amax", "quantize_groups_warp", "mls_matmul_walk", "mls_matmu
     (144, _K1_K3 | {"conv_amax", "implicit_conv"})])
 def test_full_width_step_launch_specs_verify_clean(cuda, k_block, kernels):
     """With no tile cache the step launches ``kernels``; with the seed
-    cache (on its card) it may take K1's block pass too; every launch
+    cache (on its card) it may take K1's block pass and K3's wgmma variant
+    too (the seed picks it at several ResNet-20 GEMMs); every launch
     verifies either way."""
     from repro_torch.kernels import autotune
 
@@ -350,7 +423,8 @@ def test_full_width_step_launch_specs_verify_clean(cuda, k_block, kernels):
         if cache.device is None:
             assert {s.kernel for s, _ in specs} == kernels
         else:
-            assert {s.kernel for s, _ in specs} <= kernels | {"quantize_groups_block"}
+            assert {s.kernel for s, _ in specs} <= kernels | {
+                "quantize_groups_block", "mls_matmul_decode", "mls_matmul_wgmma"}
         assert {key[1] for key in records} == {"cuda"}  # recorded on the card
         report = verify_specs(graph.name, specs)
         assert report.ok, report.violations
@@ -724,10 +798,9 @@ ZOO_GEMMS = [(3136, 4608, 4608, 512), (4608, 3136, 3200, 512), (3136, 512, 512, 
 @pytest.mark.parametrize("mkn", ZOO_GEMMS, ids=str)
 def test_k1_k3_match_plain_at_zoo_shapes(cuda, mkn, grouping):
     """K1 on both operands of a zoo GEMM and K3 on their codes, on the plan
-    matmul_plan picks and on the other variant, bit-identical to
-    quantize_ref and mls_matmul_ref (<2,4>, k_block 128)."""
-    import dataclasses
-
+    matmul_plan picks and on every other variant _checked_plan accepts,
+    bit-identical to quantize_ref and mls_matmul_ref (<2,4>, k_block
+    128)."""
     from repro_torch.kernels import rounding_bytes
     from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
 
@@ -745,9 +818,7 @@ def test_k1_k3_match_plain_at_zoo_shapes(cuda, mkn, grouping):
     (xc, xsg, xst), (wc, wsg, wst) = qs
     args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, 128)
     want = mls_matmul_ref(*args)
-    plan = matmul_plan(M, N, K, 128, fmt)
-    other = dataclasses.replace(plan, variant="walk" if plan.variant == "split" else "split")
-    for p in (plan, other):
+    for p in _chip_smoke().k3_plans(M, N, K, 128, fmt):
         assert torch.equal(mls_matmul(*args, grouping, plan=p), want), p
 
 
@@ -767,10 +838,9 @@ LM_GEMMS = [(4, 4096, 4096), (4, 4096, 256), (4, 4096, 13696), (4, 13696, 4096),
 def test_k1_k3_match_plain_at_lm_shapes(cuda, mkn):
     """The serving path's quantized linear: K1 ("nc", nearest rounding) on
     the input and on the transposed weight, K3 on their codes on the plan
-    matmul_plan picks and on the other variant, bit-identical to
-    quantize_ref and mls_matmul_ref (<2,4>, k_block 128)."""
-    import dataclasses
-
+    matmul_plan picks and on every other variant _checked_plan accepts,
+    bit-identical to quantize_ref and mls_matmul_ref (<2,4>, k_block
+    128)."""
     from repro_torch.kernels import rounding_bytes
     from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
 
@@ -787,9 +857,7 @@ def test_k1_k3_match_plain_at_lm_shapes(cuda, mkn):
     (xc, xsg, xst), (wc, wsg, wst) = qs
     args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, 128)
     want = mls_matmul_ref(*args)
-    plan = matmul_plan(M, N, K, 128, fmt)
-    other = dataclasses.replace(plan, variant="walk" if plan.variant == "split" else "split")
-    for p in (plan, other):
+    for p in _chip_smoke().k3_plans(M, N, K, 128, fmt):
         assert torch.equal(mls_matmul(*args, "nc", plan=p), want), p
 
 
@@ -872,10 +940,9 @@ LM_TRAIN_GEMMS = [(256, 4096, 13696, "fwd"), (256, 13696, 4096, "dgrad"),
 def test_k1_k3_match_plain_at_lm_training_shapes(cuda, gemm):
     """The training path's quantized linear: K1 ("nc", stochastic, the same
     rounding bytes to both) on both operands, K3 on their codes on the plan
-    matmul_plan picks and on the other variant, bit-identical to
+    matmul_plan picks and on every other variant _checked_plan accepts (the
+    walk, the ordered split, the wgmma variant), bit-identical to
     quantize_ref and mls_matmul_ref (<2,4>, k_block 128)."""
-    import dataclasses
-
     import torch.nn.functional as F
 
     from repro_torch.kernels.ref import mls_matmul_ref, quantize_ref
@@ -898,9 +965,9 @@ def test_k1_k3_match_plain_at_lm_training_shapes(cuda, gemm):
     (xc, xsg, xst), (wc, wsg, wst) = qs
     args = (xc, xsg, xst, wc.t(), wsg.t(), wst, fmt, 128)
     want = mls_matmul_ref(*args)
-    plan = matmul_plan(M, N, K + pk, 128, fmt)
-    other = dataclasses.replace(plan, variant="walk" if plan.variant == "split" else "split")
-    for p in (plan, other):
+    plans = _chip_smoke().k3_plans(M, N, K + pk, 128, fmt)
+    assert {p.variant for p in plans} == {"walk", "split", "wgmma"}
+    for p in plans:
         assert torch.equal(mls_matmul(*args, "nc", plan=p), want), p
 
 
