@@ -266,6 +266,18 @@ Phases (any failure makes the script exit non-zero, with no result line):
                 all-gathers counted by trace_counts.StepCounter, 1 B an
                 element and 4 B a group of each pinned weight a use, the
                 fp32 gathers less the pinned masters', the closed form.
+                Then, in the wire path's two processes, the placement
+                path: the launcher's FSDP2 placement
+                (launch.train.fsdp_shard_dim), moonshot-v1-16b-a3b at
+                full width cut to 2 layers and 1 routed expert (top 1: a
+                stack of dim 0 below the data axis, as a model-16 rank
+                holds), 1 x 512 a rank, 1 step: each stack on JAX's fsdp
+                dim (Shard(1) of w_gate and w_up, Shard(2) of w_down) with
+                half the stack's bytes a rank; the loss, the first AdamW
+                moment ((1 - b1) x the clipped gradient) and the
+                parameters after the step within 1e-6 of one process
+                taking the ranks' slices as two microbatches, shard by
+                shard on the card; each rank's max_memory_allocated.
   15. tensor  - tensor parallelism over the model axis
                 (repro_torch.parallel.tensor).  K1's split entries
                 (mls_quantize_rows_amax, then mls_quantize_rows_codes over
@@ -3690,6 +3702,8 @@ def _wire_rank(rank: int, world: int, port: int, out: str) -> None:
             res["bf16_param_err"] = max((run["params"][k] - p.detach().cpu()).abs().max().item()
                                         for k, p in model.named_parameters())
             del model, opt
+        torch.cuda.empty_cache()
+        res["placement"] = _placement_run(world)
         torch.save(res, f"{out}.{rank}")
     finally:
         dist.destroy_process_group()
@@ -3702,7 +3716,8 @@ def wire_on_one_card(smi: str) -> dict:
     gather on K1/K3 against one process taking the ranks' slices as two
     microbatches (WIRE_TOL, the CPU test's), the 1-byte gather (fake-quant)
     against the same mesh's unpacked step bit for bit (loss, gradients,
-    parameters), and one step's all-gather bytes against the closed form."""
+    parameters), and one step's all-gather bytes against the closed form;
+    then the placement path in the same ranks (:func:`_placement_run`)."""
     import dataclasses
     import tempfile
 
@@ -3745,7 +3760,8 @@ def wire_on_one_card(smi: str) -> dict:
                want_u8=want_u8, want_f32_saved=saved,
                reduce_scatter=[(r["wire"]["reduce-scatter"], r["wire_plain"]["reduce-scatter"])
                                for r in ranks],
-               pinned=len(pinned), rank_s=[(r["bf16_s"], r["packed_s"]) for r in ranks])
+               pinned=len(pinned), rank_s=[(r["bf16_s"], r["packed_s"]) for r in ranks],
+               placement=placement_summary([r["placement"] for r in ranks], smi))
     return out
 
 
@@ -3763,6 +3779,111 @@ def wire_failures(w: dict) -> list[str]:
             and all(b == w["want_f32_saved"] for b in w["all_gather_f32_saved"])
             and all(a == b for a, b in w["reduce_scatter"]) and w["want_u8"] > 0):
         bad.append(f"the step's all-gather bytes are not the closed form: {w}")
+    return bad
+
+
+# the placement path: a rank's stack of fewer experts than data ranks
+PLACE_ARCH = "moonshot-v1-16b-a3b"
+PLACE_CUTS = dict(n_layers=2, n_experts=1, top_k=1)  # of 48 layers, 64 experts, top 6
+PLACE_ROWS, PLACE_SEQ = 1, 512  # a rank's rows x tokens
+PLACE_STACKS = {"moe.w_gate": 1, "moe.w_up": 1, "moe.w_down": 2}  # JAX's fsdp dim
+
+
+def _local_part(full, placements, mesh):
+    """This rank's shard of ``full`` under a DTensor's ``placements`` on
+    ``mesh`` (torch.chunk's split, as FSDP2's)."""
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            full = full.chunk(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
+    return full
+
+
+def _placement_run(world: int) -> dict:
+    """The placement path in a rank of the wire path's world
+    (:func:`_wire_rank`): the expert stacks' placements and local bytes,
+    then one step on this rank's slice; its loss, its first AdamW moment
+    ((1 - b1) x the clipped gradient) and its parameters, each shard held
+    to the same shard of one process taking the ranks' slices as two
+    microbatches (run in every rank, so that no shard leaves the card)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SHAPES, RunConfig, get_config
+    from repro_torch.core import fold_in
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import make_train_step
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config(PLACE_ARCH), **PLACE_CUTS)
+    mesh = launcher.hsdp_mesh(world, device_type="cuda")
+    batch = next(lm_train_data(cfg, PLACE_ROWS * world, PLACE_SEQ))
+    run = RunConfig(model=cfg, shape=dataclasses.replace(
+        SHAPES["train_4k"], global_batch=PLACE_ROWS * world, seq_len=PLACE_SEQ))
+    torch.cuda.reset_peak_memory_stats()
+    model = launcher.shard_model(init_lm(cfg, seed=0, device="cuda"), mesh)
+    layout = {k: (p.placements, p.device_mesh) for k, p in model.named_parameters()}
+    res: dict = {"stacks": {
+        k: (tuple(p.placements), tuple(p.shape), p.to_local().numel() * p.element_size())
+        for k, p in model.named_parameters() if k.split(".", 2)[-1] in PLACE_STACKS}}
+    step_fn, opt_init = make_train_step(run)
+    model, opt, m = step_fn(model, opt_init(model), launcher.local_batch(batch, mesh))
+    res["loss"] = m["loss"].item()
+    mu = {k: v.clone() for k, v in opt.mu.items()}
+    params = {k: p.to_local().detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del model, opt
+    torch.cuda.empty_cache()
+    ref = init_lm(cfg, seed=0, device="cuda")
+    with torch.no_grad():  # each slice's loss under the step's key
+        res["one_process_losses"] = [ref.loss({"tokens": part}, fold_in(run.seed, 0))[0].item()
+                                     for part in batch["tokens"].chunk(world)]
+    step_fn, opt_init = make_train_step(dataclasses.replace(run, microbatch=world))
+    ref, opt, _ = step_fn(ref, opt_init(ref), batch)
+    res["grad_err"] = max((mu[k] - _local_part(v, *layout[k])).abs().max().item()
+                          for k, v in opt.mu.items())
+    res["param_err"] = max((params[k] - _local_part(p.detach(), *layout[k])).abs().max().item()
+                           for k, p in ref.named_parameters())
+    del ref, opt, mu, params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t
+    return res
+
+
+def placement_summary(ranks: list[dict], smi: str) -> dict:
+    """The placement path's ranks (:func:`_placement_run`) summed up."""
+    return dict(arch=PLACE_ARCH, world=len(ranks), rows_per_rank=PLACE_ROWS, seq=PLACE_SEQ,
+                reduced={"n_layers": "2 of 48", "n_experts": "1 of 64 routed",
+                         "top_k": "1 of 6", "tokens": f"{PLACE_ROWS} x {PLACE_SEQ} a rank",
+                         "steps": 1},
+                nvidia_smi=smi, seconds=max(r["seconds"] for r in ranks),
+                stacks=[{k: (str(pl), shape, b) for k, (pl, shape, b) in r["stacks"].items()}
+                        for r in ranks],
+                placements_ok=[all(pl[-1].is_shard(PLACE_STACKS[k.split(".", 2)[-1]])
+                                   for k, (pl, _, _) in r["stacks"].items())
+                               for r in ranks],
+                half_bytes=[all(2 * b == 4 * math.prod(shape)
+                                for _, shape, b in r["stacks"].values()) for r in ranks],
+                n_stacks=[len(r["stacks"]) for r in ranks],
+                losses=[r["loss"] for r in ranks],
+                one_process_losses=ranks[0]["one_process_losses"],
+                grad_err=[r["grad_err"] for r in ranks],
+                param_err=[r["param_err"] for r in ranks],
+                max_memory_allocated=[r["max_memory_allocated"] for r in ranks])
+
+
+def placement_failures(w: dict) -> list[str]:
+    """What the placement path's checks found wrong (empty: all held)."""
+    bad = []
+    if not (all(w["placements_ok"]) and all(w["half_bytes"])
+            and all(n == 3 * PLACE_CUTS["n_layers"] for n in w["n_stacks"])):
+        bad.append(f"the expert stacks' placements or local bytes: {w['stacks']}")
+    if not (max(abs(a - b) for a, b in zip(w["losses"], w["one_process_losses"])) <= WIRE_TOL
+            and max(w["grad_err"] + w["param_err"]) <= WIRE_TOL):
+        bad.append(f"the placement path's step differs from one process: {w}")
     return bad
 
 
@@ -3961,6 +4082,13 @@ def phase_parallel(results: dict) -> dict[str, int]:
           f"{wp['all_gather_u8']} B (closed form {wp['want_u8']}), f32 saved "
           f"{wp['all_gather_f32_saved']} B (closed form {wp['want_f32_saved']}); "
           f"{wp['seconds']:.1f} s")
+    pp = wp["placement"]
+    print(f"placement ({smi}): {pp['arch']} reduced {pp['reduced']}, world {pp['world']}: "
+          f"stacks {pp['stacks'][0]}; losses {pp['losses']} vs one process "
+          f"{pp['one_process_losses']}, first moments max err {pp['grad_err']}, params max err "
+          f"{pp['param_err']}; max_memory_allocated per rank "
+          f"{[round(b / 2 ** 30, 3) for b in pp['max_memory_allocated']]} GiB; "
+          f"{pp['seconds']:.1f} s")
     bad = [c for c in checks if not c["identical"]]
     w = out["wire_audit"]
     if bad:
@@ -3971,6 +4099,7 @@ def phase_parallel(results: dict) -> dict[str, int]:
         bad.append(f"HSDP launches {hsdp['launches_per_step']}, expected "
                    f"{hsdp['expected_per_step']}")
     bad += wire_failures(wp)
+    bad += placement_failures(pp)
     if not (all(out["ring"]["bit_identical"]) and all(out["ring"]["wire_exact"])
             and all(n == 1 for n in out["ring"]["k1_launches"])):
         bad.append(f"the ring: {out['ring']}")

@@ -24,7 +24,9 @@ embedding, head and loss).  Then every layer and
 the model are sharded with FSDP2 ``fully_shard`` over the 2-D ("pod",
 "data") mesh (HSDP), each rank's
 tensor-parallel parameters: sharded over ``data`` and replicated across
-pods, the JAX package's layout (:mod:`repro_torch.parallel.specs`).  Each
+pods, the JAX package's layout (:mod:`repro_torch.parallel.specs`), each
+on the dim :func:`fsdp_shard_dim` picks (dim 0, or JAX's ``fsdp`` dim where
+dim 0 would pad: a rank's stack of fewer experts than data ranks).  Each
 rank trains on its slice of the global batch, chosen by its ("pod",
 "data") coordinate (all ranks of a model group take the same slice); the
 gradient reduction averages over ("pod", "data").  The JAX launcher's mesh
@@ -55,6 +57,7 @@ from repro_torch.data import make_lm_iterator
 from repro_torch.models import lm
 from repro_torch.parallel.fsdp_wire import pin_weights, wire_plan
 from repro_torch.parallel.sharding import MeshShape, axis_sizes
+from repro_torch.parallel.specs import logical_axes_for
 from repro_torch.parallel.tensor import TensorParallel, tensor_parallel
 from repro_torch.runtime import resolve_device
 from repro_torch.train import CheckpointManager, StragglerMonitor, make_train_step
@@ -63,7 +66,7 @@ from repro_torch.train.trainer import local_params
 from .mesh import make_mesh
 from .specs import choose_microbatch
 
-__all__ = ["hsdp_mesh", "local_batch", "main", "shard_model", "tp_smoke"]
+__all__ = ["fsdp_shard_dim", "hsdp_mesh", "local_batch", "main", "shard_model", "tp_smoke"]
 
 MESH_AXES = ("pod", "data", "model")
 # The smoke configs' 16-wide heads and 96-wide d_ff keep no 128-wide scaling
@@ -108,13 +111,31 @@ def _dp_mesh(mesh):
     return mesh[tuple(n for n in ("pod", "data") if n in mesh.mesh_dim_names)]
 
 
+def fsdp_shard_dim(name: str, shape, data: int) -> int:
+    """The dim FSDP2 shards parameter ``name`` of (this rank's) ``shape`` on
+    over ``data`` ranks: 0 where ``data`` divides dim 0 or dim 0 is at
+    least ``data`` (another dim costs FSDP2 a copy of the parameter around
+    each gather and reduce-scatter); else JAX's ``fsdp`` dim
+    (:func:`~repro_torch.parallel.specs.logical_axes_for`) where ``data``
+    divides it, as a rank's stack of fewer experts than data ranks; else 0,
+    padded (JAX replicates such a parameter)."""
+    if not shape or shape[0] % data == 0 or shape[0] >= data:
+        return 0
+    axes = logical_axes_for(name, len(shape))
+    d = axes.index("fsdp") if "fsdp" in axes else 0
+    return d if shape[d] % data == 0 else 0
+
+
 def shard_model(model: lm.LM, mesh, seq_shard: bool = False) -> lm.LM:
     """Tensor parallelism over the mesh's ``model`` dim where it is above 1
     (:func:`repro_torch.parallel.tensor.tensor_parallel`, this rank's
     coordinate; ``seq_shard``: with sequence parallelism, JAX's
     ``SP_RULES``, which the launcher itself does not bind), then HSDP: FSDP2 ``fully_shard`` of
     every layer (and encoder layer), then of the model, over the mesh's
-    ("pod", "data") dims, and ``model.loss``, ``model.prefill`` and
+    ("pod", "data") dims, each parameter on the dim :func:`fsdp_shard_dim`
+    gives its local shape (a rank's stack of one expert over 16 data ranks:
+    its ``d_model`` dim, as JAX shards it, where dim 0 would pad 16-fold),
+    and ``model.loss``, ``model.prefill`` and
     ``model.decode_step`` registered as forwards of the root (and an
     encoder-decoder's ``cross_kv`` of each decoder layer), so that the
     trainer's loss and serving run inside FSDP2's hooks.  The hybrid's
@@ -133,6 +154,7 @@ def shard_model(model: lm.LM, mesh, seq_shard: bool = False) -> lm.LM:
     codes raises ``ValueError``)."""
     from torch.distributed.fsdp import (
         MixedPrecisionPolicy, fully_shard, register_fsdp_forward_method)
+    from torch.distributed.tensor import Shard
 
     cfg = model.cfg
     if cfg.param_gather_dtype not in ("float32", "bfloat16"):
@@ -149,7 +171,13 @@ def shard_model(model: lm.LM, mesh, seq_shard: bool = False) -> lm.LM:
                         seq_shard=seq_shard)
     dp = _dp_mesh(mesh)
     ignored = pin_weights(model, dp, pinned) or None
-    kw = dict(mesh=dp, ignored_params=ignored)
+    names = {id(p): k for k, p in model.named_parameters()}
+    data = sizes.get("data", 1)
+
+    def placement(p):
+        return Shard(fsdp_shard_dim(names[id(p)], tuple(p.shape), data))
+
+    kw = dict(mesh=dp, ignored_params=ignored, shard_placement_fn=placement)
     if cfg.param_gather_dtype == "bfloat16":
         kw["mp_policy"] = MixedPrecisionPolicy(param_dtype=torch.bfloat16,
                                                reduce_dtype=torch.float32,
@@ -158,7 +186,7 @@ def shard_model(model: lm.LM, mesh, seq_shard: bool = False) -> lm.LM:
             fully_shard(model.shared_attn, reshard_after_forward=False, **kw)
     for layer in [*model.layers, *(model.enc_layers or ())]:
         fully_shard(layer, **kw)
-    fully_shard(model, mesh=dp, ignored_params=ignored)
+    fully_shard(model, mesh=dp, ignored_params=ignored, shard_placement_fn=placement)
     for name in ("loss", "prefill", "decode_step"):
         register_fsdp_forward_method(model, name)
     if model.cfg.family == "encdec":

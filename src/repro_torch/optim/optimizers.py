@@ -69,9 +69,10 @@ def clip_by_global_norm(grads: Params, max_norm: float,
     ``reduce_model`` sums over it; the others are whole on every rank of
     that group and count once.  The fp32 squares are summed in fp64 (good
     to about 1e-16) and the norm rounded to fp32, so that it does not
-    depend on how the elements lie over the ranks (FSDP2 shards a weight's
-    dim 0, ``parallel.fsdp_wire`` its wire dim), which an fp32 sum's last
-    bit does."""
+    depend on how the elements lie over the ranks (FSDP2 shards a weight
+    on the dim ``launch.train.fsdp_shard_dim`` picks, dim 0 or JAX's
+    ``fsdp`` dim, ``parallel.fsdp_wire`` on its wire dim), which an fp32
+    sum's last bit does."""
     sq = {k: torch.sum(torch.square(g.float()), dtype=torch.float64) for k, g in grads.items()}
     if model_sharded is None:
         total = _sum(list(sq.values()))

@@ -17,6 +17,9 @@ Layout (one directory per step)::
   rebuilds the template's structure with the saved values and puts the
   tensors on ``device``: a state saved on the card restores on the CPU or
   on the card (the port's form of the JAX package's reshard on restore).
+* **Shapes checked** -- a saved tensor whose shape differs from the
+  template's at its path (for a DTensor, its local shard: a rank's shard
+  saved under another layout) raises ``ValueError``.
 * **Keep-k GC**; the state may hold the data iterator's step and the
   step's rounding key, so a resumed run repeats the uninterrupted one.
 
@@ -36,6 +39,7 @@ from collections.abc import Mapping
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["CheckpointManager"]
 
@@ -132,7 +136,9 @@ class CheckpointManager:
         """The state saved at ``step`` (default: the latest), in the
         structure of ``template``.  Tensors go to ``device``, or where the
         template's tensor at the same path lies (a non-tensor leaf there,
-        such as a momentum buffer not made yet: the CPU)."""
+        such as a momentum buffer not made yet: the CPU).  A saved tensor
+        whose shape is not that tensor's (a DTensor's local shard) raises
+        ``ValueError``."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -144,6 +150,11 @@ class CheckpointManager:
         leaves = dict(index["values"])
         for p, leaf in _flatten(template):
             if p in tensors:  # where the template has no tensor: the CPU
+                if isinstance(leaf, torch.Tensor):
+                    want = tuple((leaf.to_local() if isinstance(leaf, DTensor) else leaf).shape)
+                    if tuple(tensors[p].shape) != want:
+                        raise ValueError(f"checkpoint step {step}: the leaf at {p} has shape "
+                                         f"{tuple(tensors[p].shape)}, the template's {want}")
                 here = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
                 leaves[p] = tensors[p].to(device if device is not None else here)
         missing = [p for p, _ in _flatten(template) if p not in leaves]

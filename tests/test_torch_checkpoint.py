@@ -1,8 +1,10 @@
 """The port's checkpoint manager and straggler monitor
 (``repro_torch.train``), mirroring ``tests/test_checkpoint.py``: round
 trip, keep-k GC, async save, uncommitted steps ignored, the data stream
-resuming; and a training run restored from a checkpoint repeating the
-uninterrupted run bit for bit (model, momentum, data step, rounding key).
+resuming; a training run restored from a checkpoint repeating the
+uninterrupted run bit for bit (model, momentum, data step, rounding key);
+and a saved tensor whose shape is not the template's refused, a DTensor's
+local shard included (a rank's shard saved under another FSDP2 layout).
 On the CPU; the card's save-and-restore runs in ``chip_smoke.py``.
 """
 import os
@@ -138,6 +140,41 @@ def test_resumed_run_repeats_the_uninterrupted_run(tmp_path, backend):
     assert got == want
     for (n, p), q in zip(whole.model.named_parameters(), resumed.model.parameters()):
         assert torch.equal(p, q), n
+
+
+def test_restore_refuses_a_shard_of_another_layout(tmp_path):
+    """A one-expert stack sharded over 2 data ranks on its d_model dim
+    (``launch.train.shard_model``: local (1, 32, 64)) does not load the
+    (1, 64, 64) chunk that FSDP2's dim-0 layout saved for the same rank:
+    ``ValueError`` naming the leaf's path and both shapes; its own shard
+    loads.  A plain tensor of another shape is refused the same way."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+
+    mgr = CheckpointManager(tmp_path / "plain")
+    mgr.save(1, {"w": torch.zeros(3, 4)})
+    with pytest.raises(ValueError, match=r"\['w'\] has shape \(3, 4\), the template's \(4, 3\)"):
+        mgr.restore({"w": torch.zeros(4, 3)})
+    cfg = dataclasses.replace(get_smoke_config("llama4-scout-17b-a16e"), n_experts=1)
+    name = "layers.0.moe.w_gate"
+    with dryrun.fake_world(4):
+        model = launcher.shard_model(lm.init_lm(cfg, device="cpu"),
+                                     make_mesh((2, 2, 1), launcher.MESH_AXES, "cpu"))
+        stack = dict(model.named_parameters())[name]
+        assert tuple(stack.shape) == (1, 64, 64) and tuple(stack.to_local().shape) == (1, 32, 64)
+        mgr = CheckpointManager(tmp_path / "sharded")
+        mgr.save(1, {"params": {name: torch.zeros(1, 64, 64)}})
+        with pytest.raises(ValueError, match=rf"\['params'\]\['{name}'\] has shape "
+                                             r"\(1, 64, 64\), the template's \(1, 32, 64\)"):
+            mgr.restore({"params": {name: stack}})
+        mgr.save(2, {"params": {name: stack.to_local()}})
+        got = mgr.restore({"params": {name: stack.to_local()}})["params"][name]
+        assert torch.equal(got, stack.to_local())
 
 
 def test_straggler_monitor_flags_slow_steps(monkeypatch):

@@ -23,7 +23,8 @@ with rank 0's memory, dot FLOPs and wire bytes, against the JAX package's
   ``dot_flops`` is within 5% of JAX's and ``argument_bytes`` within 10%
   (seen: 0.0-1.3% and 0.1-5.5% train, 0.0% and 0.2-1.2% serving).
 - **Closed forms.**  ``argument_bytes`` is the sum of rank 0's shards
-  (``tp_layout``, then FSDP2's dim-0 split, in 512-byte blocks) for the
+  (``tp_layout``, then FSDP2's split of ``launch.train.fsdp_shard_dim``'s
+  dim, in 512-byte blocks) for the
   parameters and both AdamW moments, plus the batch, exactly; the wire
   bytes of a two-layer toy (FSDP2 over data, a Megatron all-reduce over
   model, a broadcast, a functional all-reduce) are the JAX parse's ring
@@ -88,7 +89,7 @@ from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.specs import abstract_params  # noqa: E402
 from repro_torch.launch.trace_counts import StepCounter, mesh_dims  # noqa: E402
-from repro_torch.launch.train import tp_smoke  # noqa: E402
+from repro_torch.launch.train import fsdp_shard_dim, tp_smoke  # noqa: E402
 from repro_torch.models.lm import cache_spec as lm_cache_spec  # noqa: E402
 from repro_torch.parallel import MeshShape  # noqa: E402
 from repro_torch.parallel.specs import param_shardings  # noqa: E402
@@ -275,7 +276,8 @@ def test_argument_bytes_are_rank_0_shards_in_closed_form(port_records):
         shape = list(shape)
         if name in layout:
             shape[layout[name].dim] = layout[name].size(0)  # tensor parallelism: rank 0
-        shape[0] = -(-shape[0] // 16)  # FSDP2: rank 0's chunk of dim 0 over data
+        d = fsdp_shard_dim(name, shape, 16)  # FSDP2: rank 0's chunk of the rule's dim
+        shape[d] = -(-shape[d] // 16)
         total += 3 * blocks(4 * math.prod(shape))  # fp32 weight, mu, nu
     total += ROWS * SEQ * 8  # int64 tokens
     assert rec["memory_analysis"]["argument_bytes"] == total
@@ -374,9 +376,12 @@ def test_wire_levers_cut_the_all_gathers_by_the_closed_form():
     packed = dataclasses.replace(base, packed_wire=True)
     pinned, wire = wire_plan(packed, shapes, data)[0], wire_bytes(packed, shapes, data)
 
-    def gathers(names):  # two fp32 gathers of FSDP2's dim-0-padded shards, (g-1)/g
-        return 2 * 4 * (data - 1) / data * sum(
-            -(-shapes[k][0] // data) * data * math.prod(shapes[k][1:]) for k in names)
+    def gathers(names):  # two fp32 gathers of FSDP2's padded shards, (g-1)/g
+        total = 0
+        for k in names:
+            d = fsdp_shard_dim(k, shapes[k], data)
+            total += -(-shapes[k][d] // data) * data * math.prod(shapes[k]) // shapes[k][d]
+        return 2 * 4 * (data - 1) / data * total
 
     layers = gathers([k for k in shapes if k.startswith("layers.")])
     masters = gathers(pinned)

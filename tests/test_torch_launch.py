@@ -180,7 +180,8 @@ def test_hsdp_gradients_match_one_process(hsdp, case):
             for k, g in grads.items():
                 tol = 1e-5 * g.abs().max().item() + 1e-12
                 assert (r["grads"][k] - g).abs().max().item() <= tol, (k, n_parts)
-        assert set(res[0]["placements"].values()) == {(Replicate(), Shard(0))}
+        for k, place in res[0]["placements"].items():  # the rule's dim over data 2
+            assert place == (Replicate(), Shard(launcher.fsdp_shard_dim(k, grads[k].shape, 2))), k
 
 
 def test_launcher_hsdp_steps_match_microbatch_steps_and_pods_agree(hsdp):

@@ -1406,3 +1406,43 @@ def wire_worker(rank: int, world: int, cases):
            for case in cases}
     out["gather"] = _wire_gather_case(mesh)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the FSDP2 placement: a rank's stack of fewer experts than data ranks
+# ---------------------------------------------------------------------------
+PLACEMENT_ARCH = "llama4-scout-17b-a16e"
+
+
+def placement_config():
+    """llama4-scout's smoke config widened for a model axis of 2
+    (``launch.train.tp_smoke``), fp32, with 2 experts: one a rank."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import tp_smoke
+
+    return dataclasses.replace(tp_smoke(get_smoke_config(PLACEMENT_ARCH)), n_experts=2,
+                               quant=False)
+
+
+def placement_worker(rank: int, world: int):
+    """World 4, data 2 x model 2 (``launch.train.shard_model``): each
+    parameter's placements, rank shape and local shard; one loss's
+    gradients on this rank's slice of the global batch (this rank's
+    tensor-parallel parts, full over data); one launcher step
+    (:func:`_hsdp_steps`)."""
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cfg = placement_config()
+    mesh = train.hsdp_mesh(world, device_type="cpu", model=2)
+    model = train.shard_model(lm.init_lm(cfg, seed=0, device="cpu"), mesh)
+    loss, _ = model.loss(train.local_batch(tp_batch(cfg), mesh), TP_KEY)
+    loss.backward()
+    params = dict(model.named_parameters())
+    return {"coord": tuple(mesh.get_coordinate()), "loss": loss.detach(),
+            "layout": model.tp_layout,
+            "placements": {k: p.placements for k, p in params.items()},
+            "shapes": {k: tuple(p.shape) for k, p in params.items()},
+            "local": {k: tuple(p.to_local().shape) for k, p in params.items()},
+            "grads": {k: p.grad.full_tensor() for k, p in params.items()},
+            "step": _hsdp_steps(cfg, mesh, steps=1)}
